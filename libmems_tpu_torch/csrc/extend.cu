@@ -1,0 +1,179 @@
+// K2: batched ungapped maximal extension, one thread block per candidate.
+//
+// Replaces libmems_tpu/ops/extend.py extend_matches (extend_core and
+// make_probe_round: XLA probe rounds over every candidate at once inside
+// a lax.while_loop, with a ROW_BLOCK lax.map and a 128-lane barrel-shift
+// span fetch laid out for the TPU's vector unit).
+//
+// Bound: latency of dependent probe rounds.  A round reads C contiguous
+// keys per genome (C = chunk, then 8*chunk) and reduces them with three
+// block scans; a row runs its rounds until its chain stops, so long
+// matches cost many rounds while short ones retire after one.  Design:
+// one block of 256 threads per row, each thread owning a contiguous run
+// of at most 32 probe offsets held as a bitmask, so a round is one pass
+// over the keys and three block scans (previous match, first bad gap,
+// reach).  Rows never wait for each other: a row's own loop of rounds
+// gives exactly the result of the global while_loop, because rows are
+// independent and a finished row's state no longer changes there.  The
+// TPU-specific ROW_BLOCK map and barrel-shift fetch are not needed.
+//
+// Match rule per probe offset d (ops/extend.py:241-268): every present
+// genome's window key, XORed with its strand flag, equals the reference
+// genome's (first present genome); no key is the sentinel; every probe
+// position lies in [0, gen_cnt).  Reach and the continue test copy
+// ops/extend.py:270-293, including `room + reach > C`.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kMaxG = 8;
+
+__global__ void __launch_bounds__(kThreads) extend_kernel(
+    const long long* __restrict__ keys, int64_t n_keys, long long fill,
+    int seed_len, int chunk, int big, int G,
+    const int* __restrict__ gen_off, const int* __restrict__ gen_cnt,
+    int* __restrict__ lefts, const uint8_t* __restrict__ present,
+    const uint8_t* __restrict__ is_fwd, int* __restrict__ lengths) {
+  __shared__ int s_left[kMaxG];
+  __shared__ int s_off[kMaxG];
+  __shared__ int s_cnt[kMaxG];
+  __shared__ int s_pres[kMaxG];
+  __shared__ int s_fwd[kMaxG];
+  __shared__ int s_len;
+  __shared__ int s_active;
+  __shared__ int s_ref;
+  __shared__ int s_tmp[32];
+
+  const int r = blockIdx.x;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    int ref = -1;
+    for (int g = 0; g < G; ++g) {
+      const int64_t k = (int64_t)r * G + g;
+      s_left[g] = lefts[k];
+      s_off[g] = gen_off[k];
+      s_cnt[g] = gen_cnt[k];
+      s_pres[g] = present[k] != 0;
+      s_fwd[g] = is_fwd[k] != 0;
+      if (s_pres[g] && ref < 0) ref = g;
+    }
+    s_ref = ref < 0 ? G : ref;
+    s_len = lengths[r];
+  }
+  __syncthreads();
+  const int ref = s_ref;
+  if (ref >= G) return;  // no genome present: the row never extends
+
+  for (int side = 0; side < 2; ++side) {
+    int C = chunk;
+    int active = 1;
+    while (active) {
+      const int per = (C + blockDim.x - 1) / blockDim.x;
+      const int d0 = tid * per + 1;
+      const int len = s_len;
+      unsigned mbits = 0u;
+      for (int k = 0; k < per; ++k) {
+        const int d = d0 + k;
+        if (d > C) break;
+        bool ok = true;
+        long long ref_key = 0;
+        // genomes before `ref` are absent by definition of ref
+        for (int g = ref; g < G && ok; ++g) {
+          if (!s_pres[g]) continue;
+          const int l = s_left[g];
+          const bool back = side == 0 ? s_fwd[g] != 0 : s_fwd[g] == 0;
+          const int q = back ? l - d : l + len - seed_len + d;
+          if (q < 0 || q >= s_cnt[g]) {
+            ok = false;
+            break;
+          }
+          const int64_t idx = (int64_t)s_off[g] + q;
+          long long kq = (idx >= 0 && idx < n_keys) ? keys[idx] : fill;
+          if ((kq | 1LL) == fill) {
+            ok = false;
+            break;
+          }
+          kq ^= (long long)s_fwd[g];
+          if (g == ref) {
+            ref_key = kq;
+          } else if (kq != ref_key) {
+            ok = false;
+          }
+        }
+        if (ok) mbits |= 1u << k;
+      }
+
+      // furthest offset reachable from 0 with gaps <= seed_len
+      const int last_local = mbits ? d0 + (31 - __clz(mbits)) : 0;
+      const int prev =
+          lm::block_scan(last_local, 0, lm::MaxOp(), s_tmp).excl;
+      int bad = INT_MAX;
+      {
+        int p = prev;
+        for (int k = 0; k < per; ++k) {
+          if (!((mbits >> k) & 1u)) continue;
+          const int d = d0 + k;
+          if (d - p > seed_len) {
+            bad = d;
+            break;
+          }
+          p = d;
+        }
+      }
+      const int first_bad =
+          lm::block_scan(bad, INT_MAX, lm::MinOp(), s_tmp).total;
+      int rloc = 0;
+      for (int k = 0; k < per; ++k) {
+        if (((mbits >> k) & 1u) && d0 + k < first_bad) rloc = d0 + k;
+      }
+      const int reach = lm::block_scan(rloc, 0, lm::MaxOp(), s_tmp).total;
+
+      if (tid == 0) {
+        const int newlen = len + reach;
+        int room = 1 << 30;
+        for (int g = 0; g < G; ++g) {
+          if (!s_pres[g]) continue;
+          const bool back = side == 0 ? s_fwd[g] != 0 : s_fwd[g] == 0;
+          if (back) s_left[g] -= reach;
+          const int back_room = s_left[g];
+          const int ahead_room =
+              (s_cnt[g] - 1) - (s_left[g] + newlen - seed_len);
+          const int rm = back ? back_room : ahead_room;
+          room = rm < room ? rm : room;
+        }
+        s_len = newlen;
+        s_active = (reach + seed_len > C) && (room + reach > C);
+      }
+      __syncthreads();
+      active = s_active;
+      C = big;
+    }
+  }
+  if (tid == 0) {
+    for (int g = 0; g < G; ++g) lefts[(int64_t)r * G + g] = s_left[g];
+    lengths[r] = s_len;
+  }
+}
+
+}  // namespace
+
+// keys: int64[n_keys]; gen_off, gen_cnt, lefts: int32[R, G];
+// present, is_fwd: uint8[R, G]; lengths: int32[R].  lefts and lengths
+// are updated in place.
+extern "C" int lm_extend(const void* keys, int64_t n_keys, int64_t fill,
+                         int seed_len, int chunk, int big, int G, int R,
+                         const void* gen_off, const void* gen_cnt,
+                         void* lefts, const void* present, const void* is_fwd,
+                         void* lengths, void* stream) {
+  if (G < 1 || G > kMaxG || big > 32 * kThreads || chunk > big)
+    return (int)cudaErrorInvalidValue;
+  if (R > 0) {
+    LM_LAUNCH(extend_kernel, (unsigned)R, kThreads, 0, (cudaStream_t)stream,
+              (const long long*)keys, n_keys, (long long)fill, seed_len,
+              chunk, big, G, (const int*)gen_off, (const int*)gen_cnt,
+              (int*)lefts, (const uint8_t*)present, (const uint8_t*)is_fwd,
+              (int*)lengths);
+  }
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,437 @@
+"""Pairwise unique-MUM discovery: packed-word sort + neighbour flags +
+diagonal clustering + batched extension.
+
+Port of the G=2 path of libmems_tpu/matchfind.py (MemHash::FindMatches
+with repeat_tolerance=0, libMems/MemHash.cpp:109-251).  For two genomes
+a seed run survives the unique-MUM enumeration iff it has EXACTLY two
+occurrences, one per genome, so every stage is a neighbour comparison on
+one sorted 64-bit word per window:
+
+  pack  (content | gid | pos | strand) -> one word per window
+  sort  the words
+  flags exact-pair runs via shifted compares
+  sort  cluster words (fwd | diagonal | posA): each maximal match's
+        seeds become contiguous (the MemHash offset buckets)
+  compact the cluster representatives with a cumsum + searchsorted
+  extend from the cluster extent (kernel K2), then dedup.
+
+Words are int64 tensors holding the JAX pipeline's unsigned 64-bit
+patterns: sorts flip bit 63 and right shifts mask the sign fill
+(``_usort``, ``_shr``), so every comparison sees the unsigned order.
+
+Other modes of the JAX module raise NotImplementedError naming their
+ROADMAP item (queue 2): G >= 3, repeat_tolerance > 0,
+enumeration_tolerance > 1, extend=False, a seq_mask other than 0 or 0b11,
+and pairs whose packed words do not fit 64 bits.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from libmems_tpu_torch import seeds as seedlib
+from libmems_tpu_torch.match import MatchArray
+from libmems_tpu_torch.ops.extend import extend_matches
+from libmems_tpu_torch.ops.mers import sentinel_content, key_sentinel
+from libmems_tpu_torch.sequence import Genome
+from libmems_tpu_torch.sml import SortedMerList
+
+MER_REPEAT_LIMIT = 1000  # MatchFinder.cpp:166
+
+_I64_MIN = -(1 << 63)
+_TODO_G3 = ("G >= 3 multi-MUM discovery is not ported yet "
+            "(ROADMAP queue 2: G>=3 pipeline)")
+_TODO_MODES = ("only the default unique-MUM pair mode is ported "
+               "(ROADMAP queue 2: G>=3 pipeline, which carries the "
+               "tolerance, enumeration, no-extend and mask modes)")
+
+
+def _shr(x: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of 64-bit patterns held in int64."""
+    if s == 0:
+        return x
+    return (x >> s) & ((1 << (64 - s)) - 1)
+
+
+def _usort(x: torch.Tensor) -> torch.Tensor:
+    """Sort 64-bit patterns held in int64 in unsigned order."""
+    return torch.sort(x ^ _I64_MIN).values ^ _I64_MIN
+
+
+def _nxt(x: torch.Tensor, k: int, fill: int) -> torch.Tensor:
+    return torch.cat([x[k:], torch.full((k,), fill, dtype=x.dtype,
+                                        device=x.device)])
+
+
+def _pair_pos_bits(total_windows: int) -> int:
+    return max(int(total_windows).bit_length(), 8)
+
+
+def pair_fast_path_ok(smls) -> bool:
+    """The pair path needs the packed seed word (2*weight + 3 + pos_bits
+    bits) and the cluster word (2*pos_bits + 3 bits) to fit 64 bits."""
+    if len(smls) != 2:
+        return False
+    pb = _pair_pos_bits(max(s.n_windows for s in smls))
+    return 2 * smls[0].seed_weight + 3 + pb <= 64 and pb <= 30
+
+
+def _lexsort_rows(cols: list[torch.Tensor]) -> torch.Tensor:
+    """Permutation ordering rows lexicographically by cols[0], cols[1],
+    ... (successive stable sorts from the last key)."""
+    order = torch.arange(cols[0].shape[0], device=cols[0].device)
+    for col in reversed(cols):
+        order = order[torch.sort(col[order], stable=True).indices]
+    return order
+
+
+def pair_candidates(seed_len: int, pos_bits: int, extend_capacity: int,
+                    keys_a, keys_b, seed: int):
+    """Stages before extension of the G=2 pipeline
+    (libmems_tpu/matchfind.py:495-594): the cluster representatives as
+    extension rows.  Returns (lefts int32[EC, 2], present, is_fwd
+    bool[EC, 2], lengths int32[EC], n_cands, n_reps); rows past n_reps
+    are absent."""
+    EC = extend_capacity
+    pb = pos_bits
+    dev = keys_a.device
+    pmask = (1 << pb) - 1
+
+    def pack(keys, gid):
+        content = _shr(keys, 1)
+        strand = keys & 1
+        pos = torch.arange(keys.shape[0], dtype=torch.int64, device=dev)
+        return (content << (pb + 2)) | (gid << (pb + 1)) | (pos << 1) \
+            | strand
+
+    w = _usort(torch.cat([pack(keys_a, 0), pack(keys_b, 1)]))
+    c = _shr(w, pb + 2)
+    gid = _shr(w, pb + 1) & 1
+    pos = _shr(w, 1) & pmask
+    strand = w & 1
+
+    cmax = (1 << (64 - pb - 2)) - 1        # ~0 >> (pb + 2)
+    c1 = _nxt(c, 1, cmax)
+    c2 = _nxt(c, 2, cmax)
+    cp = torch.cat([torch.full((1,), -1, dtype=c.dtype, device=dev),
+                    c[:-1]])
+    g1 = _nxt(gid, 1, 0)
+    # exact-pair run: length 2, one occurrence per genome (row = genome 0)
+    surv = (c == c1) & (c != cp) & (c1 != c2) & (gid == 0) & (g1 == 1)
+    # the masked-window sentinel content never survives
+    surv &= c != sentinel_content(seed)
+
+    posA = pos
+    posB = _nxt(pos, 1, 0)
+    fwd = strand == _nxt(strand, 1, 0)
+
+    # cluster word: (fwd | biased diagonal | posA); invalid rows sort last
+    delta_b = torch.where(fwd, posB - posA + (1 << pb), posB + posA)
+    cw = (fwd.to(torch.int64) << (2 * pb + 2)) | (delta_b << pb) | posA
+    cw = _usort(torch.where(surv, cw, -1))
+
+    valid_c = cw != -1
+    s_posA = cw & pmask
+    head = _shr(cw, pb)
+    prev_head = torch.cat([torch.full((1,), -1, dtype=cw.dtype, device=dev),
+                           head[:-1]])
+    prev_posA = torch.cat([torch.zeros(1, dtype=cw.dtype, device=dev),
+                           s_posA[:-1]])
+    rep = valid_c & ((head != prev_head) | (s_posA - prev_posA > seed_len))
+    n_cands = surv.sum()
+    n_reps = rep.sum()
+
+    # compact reps to EC slots: the row of the j-th rep is a binary
+    # search over the cumsum of the rep flags
+    rank = torch.cumsum(rep.to(torch.int64), 0)
+    src = torch.searchsorted(
+        rank, torch.arange(1, EC + 1, dtype=torch.int64, device=dev),
+        side="left")
+    e_valid = torch.arange(EC, device=dev) < n_reps
+    src = src.clamp(max=cw.shape[0] - 1)
+    rep_cw = cw[src]
+    r_posA = rep_cw & pmask
+    r_delta = _shr(rep_cw, pb) & ((1 << (pb + 2)) - 1)
+    r_fwd = (_shr(rep_cw, 2 * pb + 2) & 1) == 1
+
+    # cluster extent: the cluster's last member is the row before the
+    # next rep (or the last valid candidate row)
+    next_src = torch.cat([src[1:], torch.full((1,), cw.shape[0],
+                                              dtype=src.dtype, device=dev)])
+    end_row = torch.minimum(next_src, n_cands) - 1
+    end_row = end_row.clamp(0, cw.shape[0] - 1)
+    last_posA = torch.maximum(cw[end_row] & pmask, r_posA)
+    span = last_posA - r_posA
+
+    lengths0 = torch.where(e_valid, span + seed_len, seed_len)
+    # genome-B left end of the cluster-covering match
+    posB_rep = torch.where(r_fwd, r_delta - (1 << pb) + r_posA,
+                           r_delta - r_posA)
+    leftB = torch.where(r_fwd, posB_rep, r_delta - last_posA).clamp(min=0)
+
+    present = e_valid[:, None].expand(EC, 2).contiguous()
+    lefts = torch.stack([r_posA, leftB], dim=1)
+    lefts = torch.where(present, lefts, 0).to(torch.int32)
+    is_fwd = torch.stack([torch.ones_like(r_fwd), r_fwd], dim=1)
+    return (lefts, present, is_fwd, lengths0.to(torch.int32), n_cands,
+            n_reps)
+
+
+def _fused_pair_pipeline(seed_len: int, chunk: int, pos_bits: int,
+                         extend_capacity: int, keys_posorder, keys_a,
+                         keys_b, gen_off, gen_cnt, seed: int):
+    """G=2 unique-MUM pipeline (libmems_tpu/matchfind.py:482-615).
+    Returns (starts int32[EC, 2], lengths int32[EC], valid bool[EC],
+    n_cands, n_reps) on the keys' device."""
+    EC = extend_capacity
+    dev = keys_a.device
+    lefts, present, is_fwd, lengths0, n_cands, n_reps = pair_candidates(
+        seed_len, pos_bits, EC, keys_a, keys_b, seed)
+    e_valid = present[:, 0]
+    r_fwd = is_fwd[:, 1]
+    lefts, lengths = extend_matches(
+        keys_posorder, seed_len, chunk,
+        gen_off[None, :].expand(EC, 2).contiguous(),
+        gen_cnt[None, :].expand(EC, 2).contiguous(),
+        lefts, present, is_fwd, lengths0, key_sentinel(seed))
+    signB = torch.where(r_fwd, 1, -1).to(torch.int32)
+    out_starts = torch.stack([
+        torch.where(e_valid, lefts[:, 0] + 1, 0),
+        torch.where(e_valid, signB * (lefts[:, 1] + 1), 0)], dim=1)
+
+    # dedup: lexicographic sort of (starts, length), mark first of run
+    invalid = (~e_valid).to(torch.int32)
+    order = _lexsort_rows([out_starts[:, 0], out_starts[:, 1], lengths,
+                           invalid])
+    srows = torch.stack([out_starts[:, 0], out_starts[:, 1], lengths],
+                        dim=1)[order]
+    svalid = invalid[order] == 0
+    first = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                       (srows[1:] != srows[:-1]).any(dim=1)])
+    uniq = svalid & first
+    return srows[:, :2], srows[:, 2], uniq, n_cands, n_reps
+
+
+def find_mums_device(smls: list[SortedMerList],
+                     extend_capacity: int = 1 << 14,
+                     chunk: int | None = None,
+                     seq_mask: int = 0):
+    """Device MUM pipeline of a genome pair (the JAX module's pair fast
+    path).  Returns (starts, lengths, valid, n_cands, n_reps) tensors on
+    the SMLs' device; extend_capacity bounds the diagonal-cluster
+    representatives."""
+    if len(smls) != 2:
+        raise NotImplementedError(_TODO_G3)
+    if seq_mask not in (0, 0b11):
+        raise NotImplementedError(_TODO_MODES)
+    if not pair_fast_path_ok(smls):
+        raise NotImplementedError(
+            "the pair's packed seed words exceed 64 bits; the general "
+            "pipeline that handles it is not ported yet (ROADMAP queue 2: "
+            "G>=3 pipeline)")
+    seed_len = smls[0].seed_length
+    if chunk is None:
+        chunk = max(seed_len, 256)
+    total = sum(s.n_windows for s in smls)
+    extend_capacity = min(extend_capacity,
+                          1 << max((total - 1).bit_length() - 1, 1))
+    dev = smls[0].device
+    keys_posorder = torch.cat([s.keys for s in smls])
+    cnts = torch.tensor([s.n_windows for s in smls], dtype=torch.int32,
+                        device=dev)
+    offs = torch.tensor([0, smls[0].n_windows], dtype=torch.int32,
+                        device=dev)
+    pb = _pair_pos_bits(max(s.n_windows for s in smls))
+    return _fused_pair_pipeline(seed_len, chunk, pb, extend_capacity,
+                                keys_posorder, smls[0].keys, smls[1].keys,
+                                offs, cnts, smls[0].seed)
+
+
+def _as_smls(genomes_or_smls, seed: int | None, device):
+    if all(isinstance(x, SortedMerList) for x in genomes_or_smls):
+        smls = list(genomes_or_smls)
+        return smls, smls[0].seed
+    from libmems_tpu_torch.sml import create_smls
+    genomes = [g if isinstance(g, Genome) else Genome.from_string(g)
+               for g in genomes_or_smls]
+    return create_smls(genomes, seed, device=device)
+
+
+def find_mums(genomes_or_smls, seed: int | None = None,
+              repeat_tolerance: int = 0,
+              repeat_limit: int = MER_REPEAT_LIMIT,
+              min_multiplicity: int = 2,
+              extend: bool = True,
+              enumeration_tolerance: int = 1,
+              seq_mask: int = 0, device="cuda") -> MatchArray:
+    """Find the unique MUMs of a genome pair (MemHash::FindMatches with
+    repeat_tolerance=0 / enumeration_tolerance=1: only seeds unique in
+    both genomes generate matches).  Genomes are indexed on `device`;
+    SMLs are used where they lie.  repeat_limit never binds for two
+    genomes (a surviving seed run has exactly two rows).  seq_mask 0b11
+    (both genomes) equals the default pair semantics
+    (MaskedMemHash::HashMatch, libMems/MaskedMemHash.cpp:38-63)."""
+    if len(genomes_or_smls) != 2:
+        raise NotImplementedError(_TODO_G3)
+    if (repeat_tolerance != 0 or enumeration_tolerance > 1 or not extend
+            or seq_mask not in (0, 0b11)):
+        raise NotImplementedError(_TODO_MODES)
+    if seq_mask and bin(seq_mask).count("1") < max(2, min_multiplicity):
+        return MatchArray.empty(2)
+    smls, seed = _as_smls(genomes_or_smls, seed, device)
+    starts, lengths, valid, n_cands, n_reps = find_mums_device(
+        smls, seq_mask=seq_mask)
+    n_reps = int(n_reps)
+    if n_reps > valid.shape[0]:
+        # rare: more diagonal-cluster representatives than the default
+        # extension capacity — rerun with the exact requirement
+        starts, lengths, valid, n_cands, n_reps = find_mums_device(
+            smls, seq_mask=seq_mask,
+            extend_capacity=1 << (n_reps - 1).bit_length())
+    v = valid.cpu().numpy()
+    out = MatchArray(starts.cpu().numpy()[v].astype(np.int64),
+                     lengths.cpu().numpy()[v].astype(np.int64)).dedup()
+    if min_multiplicity > 2:
+        keep = out.multiplicity() >= min_multiplicity
+        out = MatchArray(out.starts[keep], out.lengths[keep])
+    return out.canonical_sort()
+
+
+# --------------------------------------------------------------------------
+# host (numpy) pair path — exact twin of the pair pipeline
+# --------------------------------------------------------------------------
+
+# below this many total seed windows a single-core numpy run beats a
+# device round trip (the gap-search workloads are thousands of small
+# fragment pairs)
+HOST_PAIR_CUTOFF = int(os.environ.get("LIBMEMS_TPU_HOST_PAIR_CUTOFF",
+                                      1 << 16))
+
+
+def find_pair_mums_np(codes_a: np.ndarray, codes_b: np.ndarray,
+                      seed: int, ambig_a: np.ndarray | None = None,
+                      ambig_b: np.ndarray | None = None) -> MatchArray:
+    """Single-core numpy twin of the pair pipeline (identical algorithm:
+    pack -> sort -> exact-pair neighbour flags -> diagonal cluster sort
+    -> representative compaction -> span-seeded extension -> dedup).
+    Numpy only: safe in a forked worker of a process that uses CUDA."""
+    from libmems_tpu_torch.ops.mers import canonical_seed_keys_np
+
+    seed_len = seedlib.seed_length(seed)
+    km_a = canonical_seed_keys_np(codes_a, seed, ambig_a)
+    km_b = canonical_seed_keys_np(codes_b, seed, ambig_b)
+    key_sent = np.uint64(~km_a.dtype.type(0))  # masked-window sentinel
+    ka = km_a.astype(np.uint64)
+    kb = km_b.astype(np.uint64)
+    na, nb = len(ka), len(kb)
+    if na == 0 or nb == 0:
+        return MatchArray.empty(2)
+    pb = max(int(max(na, nb)).bit_length(), 8)
+    if 2 * seedlib.seed_weight(seed) + 2 + pb > 64:
+        # the packed word would overflow; the JAX package then runs its
+        # general device pipeline, whose port is still to come
+        raise NotImplementedError(
+            "the pair's packed seed words exceed 64 bits (ROADMAP queue "
+            "2: G>=3 pipeline)")
+
+    def pack(keys, gid):
+        content = keys >> np.uint64(1)
+        strand = keys & np.uint64(1)
+        pos = np.arange(len(keys), dtype=np.uint64)
+        return (content << np.uint64(pb + 2)) \
+            | (np.uint64(gid) << np.uint64(pb + 1)) \
+            | (pos << np.uint64(1)) | strand
+
+    w = np.sort(np.concatenate([pack(ka, 0), pack(kb, 1)]))
+    c = w >> np.uint64(pb + 2)
+    gid = (w >> np.uint64(pb + 1)) & np.uint64(1)
+    pos = ((w >> np.uint64(1)) & np.uint64((1 << pb) - 1)).astype(np.int64)
+    strand = w & np.uint64(1)
+    c1 = np.concatenate([c[1:], [~np.uint64(0)]])
+    c2 = np.concatenate([c[2:], [~np.uint64(0)] * 2])
+    cp = np.concatenate([[~np.uint64(0)], c[:-1]])
+    g1 = np.concatenate([gid[1:], [np.uint64(0)]])
+    sent_c = key_sent >> np.uint64(1)
+    surv = (c == c1) & (c != cp) & (c1 != c2) & (gid == 0) & (g1 == 1) \
+        & (c != sent_c)
+    if not surv.any():
+        return MatchArray.empty(2)
+    posA = pos[surv]
+    posB = np.concatenate([pos[1:], [0]])[surv]
+    fwd = (strand == np.concatenate([strand[1:], [np.uint64(0)]]))[surv]
+
+    delta = np.where(fwd, posB - posA + (1 << pb), posB + posA)
+    order = np.lexsort((posA, delta, ~fwd))
+    pA, dl, fw, pB = posA[order], delta[order], fwd[order], posB[order]
+    same = np.concatenate([[False], (dl[1:] == dl[:-1])
+                           & (fw[1:] == fw[:-1])])
+    gap_ok = np.concatenate([[False], pA[1:] - pA[:-1] <= seed_len])
+    rep = ~(same & gap_ok)
+    rep_idx = np.flatnonzero(rep)
+    ends = np.concatenate([rep_idx[1:] - 1, [len(pA) - 1]])
+    r_pA, r_pB, r_fw = pA[rep_idx], pB[rep_idx], fw[rep_idx]
+    last_pA = pA[ends]
+    span = last_pA - r_pA
+    lengths = span + seed_len
+    leftB = np.where(r_fw, r_pB, dl[rep_idx] - last_pA)
+
+    keys_all = [ka, kb]
+    cnts = np.array([na, nb])
+
+    def extend_side(lefts, lengths, side):
+        active = np.ones(len(lengths), dtype=bool)
+        C0 = 4 * seed_len
+        C = C0
+        while active.any():
+            d = np.arange(1, C + 1)
+            ai = np.flatnonzero(active)
+            matchm = np.ones((len(ai), C), dtype=bool)
+            for g in range(2):
+                fwd_g = np.ones(len(ai), bool) if g == 0 else r_fw[ai]
+                l = lefts[ai, g]
+                back_q = l[:, None] - d[None, :]
+                ahead_q = l[:, None] + lengths[ai, None] - seed_len \
+                    + d[None, :]
+                q = np.where(fwd_g[:, None],
+                             back_q if side == 0 else ahead_q,
+                             ahead_q if side == 0 else back_q)
+                validq = (q >= 0) & (q < cnts[g])
+                kq = keys_all[g][np.clip(q, 0, cnts[g] - 1)]
+                # masked windows (sentinel ~0, low bit may be parity-
+                # flipped below) never match
+                validq &= (kq | np.uint64(1)) != (key_sent | np.uint64(1))
+                kq = kq ^ fwd_g[:, None].astype(kq.dtype)
+                if g == 0:
+                    refk = kq
+                    refv = validq
+                else:
+                    matchm &= validq & refv & (kq == refk)
+            dm = np.where(matchm, d[None, :], 0)
+            pm = np.maximum.accumulate(dm, axis=1)
+            pm_excl = np.concatenate(
+                [np.zeros((len(ai), 1), np.int64), pm[:, :-1]], axis=1)
+            bad = matchm & (d[None, :] - pm_excl > seed_len)
+            first_bad = np.where(bad.any(axis=1),
+                                 np.argmax(bad, axis=1) + 1, C + 1)
+            reach = np.max(np.where(matchm & (d[None, :]
+                                              < first_bad[:, None]),
+                                    d[None, :], 0), axis=1)
+            for g in range(2):
+                fwd_g = np.ones(len(ai), bool) if g == 0 else r_fw[ai]
+                mv = fwd_g if side == 0 else ~fwd_g
+                lefts[ai[mv], g] -= reach[mv]
+            lengths[ai] += reach
+            active[ai] = reach + seed_len > C
+            C = 8 * C0  # survivors are long: escalate the probe window
+        return lefts, lengths
+
+    lefts = np.stack([r_pA, leftB], axis=1).astype(np.int64)
+    lengths = lengths.astype(np.int64)
+    lefts, lengths = extend_side(lefts, lengths, 0)
+    lefts, lengths = extend_side(lefts, lengths, 1)
+    starts = np.stack([lefts[:, 0] + 1,
+                       np.where(r_fw, 1, -1) * (lefts[:, 1] + 1)], axis=1)
+    return MatchArray(starts, lengths).dedup().canonical_sort()

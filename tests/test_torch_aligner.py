@@ -1,0 +1,93 @@
+"""Port parity: the flat pairwise aligner end to end against the JAX
+package and the golden XMFA; import isolation and device handling."""
+
+import io
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from libmems_tpu.aligner import AlignerConfig as JaxConfig
+from libmems_tpu.aligner import align as jax_align
+from libmems_tpu.interval import write_xmfa as jax_write_xmfa
+from libmems_tpu.sequence import Genome as JaxGenome
+from libmems_tpu_torch import AlignerConfig, Genome, align, write_xmfa
+from tests.golden import generate
+
+
+def _golden_pair():
+    return [Genome(g.name, g.ascii, filename=g.filename)
+            for g in generate._genomes_pair()]
+
+
+def _xmfa(write, ivs):
+    buf = io.StringIO()
+    write(buf, ivs)
+    return buf.getvalue()
+
+
+def test_pair_xmfa_golden_bytes():
+    ivs, _ = align(_golden_pair(),
+                   AlignerConfig(gapped_alignment=True, device="cpu"))
+    with open(f"{generate.GOLDEN_DIR}/pair.xmfa", "rb") as fh:
+        assert _xmfa(write_xmfa, ivs).encode() == fh.read()
+
+
+def _random_pair(rng_seed, n=30_000):
+    rng = np.random.default_rng(rng_seed)
+    anc = rng.integers(0, 4, size=n).astype(np.uint8)
+    b = generate._mutant(rng, anc, mutate=0.02, indel=0.002,
+                         invert=(9_000, 15_000))
+    return generate._LUT[anc], generate._LUT[b]
+
+
+@pytest.mark.parametrize("rng_seed", [21, 22])
+def test_anchor_intervals_equal_jax(rng_seed):
+    a, b = _random_pair(rng_seed)
+    ivs, mums = align([Genome("a", a), Genome("b", b)],
+                      AlignerConfig(device="cpu"))
+    ref_ivs, ref_mums = jax_align([JaxGenome("a", a), JaxGenome("b", b)],
+                                  JaxConfig())
+    np.testing.assert_array_equal(mums.starts, ref_mums.starts)
+    assert len(ivs.intervals) == len(ref_ivs.intervals) > 1
+    assert _xmfa(write_xmfa, ivs) == _xmfa(jax_write_xmfa, ref_ivs)
+
+
+def test_gapped_recursive_equal_jax():
+    a, b = _random_pair(23)
+    cfg = dict(gapped_alignment=True, recursive=True)
+    ivs, _ = align([Genome("a", a), Genome("b", b)],
+                   AlignerConfig(device="cpu", **cfg))
+    ref_ivs, _ = jax_align([JaxGenome("a", a), JaxGenome("b", b)],
+                           JaxConfig(**cfg))
+    assert _xmfa(write_xmfa, ivs) == _xmfa(jax_write_xmfa, ref_ivs)
+
+
+def test_import_loads_no_jax():
+    code = ("import sys, libmems_tpu_torch; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'libmems_tpu')))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, check=True)
+    assert out.stdout.strip() == "[]"
+
+
+def test_cuda_device_without_gpu_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: device='cuda' runs instead")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        align(_golden_pair(), AlignerConfig(gapped_alignment=True,
+                                            device="cuda"))
+
+
+@pytest.mark.parametrize("case", ["three_genomes", "mesh"])
+def test_unported_configurations_raise(case):
+    gs = _golden_pair()
+    if case == "three_genomes":
+        gs, cfg = gs + [gs[0]], AlignerConfig(device="cpu")
+    else:
+        cfg = AlignerConfig(device="cpu", mesh=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        align(gs, cfg)

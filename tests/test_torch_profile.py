@@ -1,0 +1,149 @@
+"""Port parity: the profile DP (K3's plain version), the traceback walk
+(K4's plain version) and align_profile_batch against the JAX package."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from libmems_tpu.ops import gapped as jgapped
+from libmems_tpu.ops import profile as jprofile
+from libmems_tpu_torch import convert
+from libmems_tpu_torch.ops import gapped, profile
+
+
+def _mutate(rng, a, rate=0.03, indels=2):
+    b = a.copy()
+    sub = rng.random(len(b)) < rate
+    b[sub] = rng.integers(0, 4, size=int(sub.sum())).astype(np.uint8)
+    for _ in range(indels):
+        s = int(rng.integers(0, len(b)))
+        z = int(rng.integers(1, 4))
+        if rng.random() < 0.5:
+            b = np.concatenate([b[:s], rng.integers(0, 4, z).astype(np.uint8),
+                                b[s:]])
+        else:
+            b = np.concatenate([b[:s], b[s + z:]])
+    return b.astype(np.uint8)
+
+
+def _pair_windows(rng, sizes):
+    p_rows, q_rows = [], []
+    for n in sizes:
+        a = rng.integers(0, 4, size=n).astype(np.uint8)
+        b = _mutate(rng, a)
+        p_rows.append(a[None])
+        q_rows.append(b[None])
+    return p_rows, q_rows
+
+
+@pytest.mark.parametrize("bucket,sizes", [
+    (16, [1, 5, 12, 16]),
+    (64, [17, 30, 50, 64]),
+    (1024, [700, 1000]),
+])
+def test_align_profile_batch_pairs_equal_jax(bucket, sizes):
+    rng = np.random.default_rng(bucket)
+    p_rows, q_rows = _pair_windows(rng, sizes)
+    assert {profile._bucket_cols(p.shape[1]) for p in p_rows} == {bucket}
+    ref = jprofile.align_profile_batch(p_rows, q_rows, mesh=None)
+    got = profile.align_profile_batch(p_rows, q_rows, device="cpu")
+    for r, g in zip(ref, got):
+        np.testing.assert_array_equal(g, r)
+
+
+def _msa_rows(rng, n_rows, n):
+    """n_rows aligned rows with gap columns: a fractional profile."""
+    base = rng.integers(0, 4, size=n).astype(np.uint8)
+    rows = np.stack([base] * n_rows)
+    rows[rng.random(rows.shape) < 0.1] = 4
+    mut = rng.random(rows.shape) < 0.05
+    rows[mut] = rng.integers(0, 4, size=int(mut.sum()))
+    rows[:, (rows == 4).all(axis=0)] = 0
+    return rows
+
+
+def _profiles(rng, B, M, N, n_p, n_q):
+    p = np.zeros((B, M, 5), np.float32)
+    q = np.zeros((B, N, 5), np.float32)
+    pl = np.zeros(B, np.int32)
+    ql = np.zeros(B, np.int32)
+    for r in range(B):
+        cp = int(rng.integers(M // 2, M + 1))
+        cq = int(rng.integers(N // 2, N + 1))
+        p[r, :cp] = profile.rows_to_profile(_msa_rows(rng, n_p, cp))
+        q[r, :cq] = profile.rows_to_profile(_msa_rows(rng, n_q, cq))
+        pl[r], ql[r] = cp, cq
+    return p, q, pl, ql
+
+
+@pytest.mark.parametrize("n_q", [1, 2])
+def test_three_row_forward_scores_close_to_jax(n_q):
+    """Fractional profiles: the sum order differs, so scores agree to
+    rtol 1e-6 rather than bit for bit."""
+    rng = np.random.default_rng(3 + n_q)
+    M, N = 64, 64
+    p, q, pl, ql = _profiles(rng, 6, M, N, 3, n_q)
+    ref, _, _ = jprofile.profile_forward_ckpt(
+        jnp.asarray(p), jnp.asarray(q), jnp.asarray(pl), jnp.asarray(ql),
+        profile.GAP_OPEN, profile.GAP_EXTEND, M)
+    _, got = profile.profile_forward(*map(torch.from_numpy, (p, q, pl, ql)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6)
+
+
+@pytest.mark.parametrize("M,N", [(16, 16), (64, 16), (16, 64)])
+def test_pointer_tensor_and_walk_equal_jax(M, N):
+    """One-hot profiles: every DP value is a whole number, so the pointer
+    bytes in each window's rows 1..p_len, columns 0..q_len and the
+    traceback masks match the JAX functions exactly."""
+    rng = np.random.default_rng(M * 100 + N)
+    p, q, pl, ql = _profiles(rng, 5, M, N, 1, 1)
+    qw, ext_q, ext_cum, h0, f0 = jprofile._profile_q_setup(
+        jnp.asarray(q), profile.GAP_OPEN, profile.GAP_EXTEND)
+    ext_p = profile.GAP_EXTEND * (1.0 - jnp.asarray(p)[:, :, 4])
+    ref_ptrs = np.asarray(jprofile.profile_block_ptrs(
+        h0, f0, jnp.asarray(p), ext_p, jnp.asarray(q), jnp.asarray(ql),
+        profile.GAP_OPEN, profile.GAP_EXTEND))
+    ptrs, _ = profile.profile_forward(*map(torch.from_numpy,
+                                           (p, q, pl, ql)))
+    got = ptrs.numpy()
+    for r in range(len(pl)):
+        np.testing.assert_array_equal(got[r, :pl[r], :ql[r] + 1],
+                                      ref_ptrs[r, :pl[r], :ql[r] + 1])
+        assert not got[r, pl[r]:].any() and not got[r, :, ql[r] + 1:].any()
+
+    T = gapped._device_tb_T(M, N)
+    packed = jgapped._device_tb_scan(jnp.asarray(got), jnp.asarray(pl),
+                                     jnp.asarray(ql), T)
+    ref_tb = jgapped.tb_unpack(packed, len(pl), T)
+    masks = gapped.traceback_walk(ptrs, torch.from_numpy(pl),
+                                  torch.from_numpy(ql), T)
+    for (ra, rb), (ga, gb) in zip(ref_tb, gapped.tb_unpack(masks, len(pl))):
+        np.testing.assert_array_equal(ga, ra)
+        np.testing.assert_array_equal(gb, rb)
+
+
+def test_split_under_pointer_budget_changes_nothing(monkeypatch):
+    rng = np.random.default_rng(21)
+    p_rows, q_rows = _pair_windows(rng, [40, 50, 60, 64, 33])
+    whole = profile.align_profile_batch(p_rows, q_rows, device="cpu")
+    monkeypatch.setattr(profile, "PTR_BUDGET", 64 * 65 * 2)
+    assert all(len(sub) <= 2 for _, _, sub in
+               profile.plan_launches(p_rows, q_rows))
+    split = profile.align_profile_batch(p_rows, q_rows, device="cpu")
+    for a, b in zip(whole, split):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_scoring_constants_equal_jax():
+    ref = convert.scoring_from_reference(jgapped.HOXD70, jprofile.W5,
+                                         jgapped.GAP_OPEN,
+                                         jgapped.GAP_EXTEND)
+    got = convert.scoring_from_reference(gapped.HOXD70, profile.W5,
+                                         gapped.GAP_OPEN, gapped.GAP_EXTEND)
+    np.testing.assert_array_equal(got.w5, ref.w5)
+    assert (got.gap_open, got.gap_extend) == (ref.gap_open, ref.gap_extend)
+    for name in ("H_DIAG", "H_E", "H_F", "E_EXT_BIT", "F_EXT_BIT"):
+        assert getattr(gapped, name) == getattr(jgapped, name)
+    assert profile.NEG_BIG == jprofile.NEG_BIG
+    assert profile.GAP_CODE == jprofile.GAP_CODE
