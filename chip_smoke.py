@@ -11,13 +11,31 @@ non-zero and prints no result line):
 1. device  - CUDA present, capability (9, 0); card name and power limit;
 2. build   - compile the kernel library, report its build seconds;
 3. kernels - each hand kernel against its plain PyTorch version on the
-             card at the slice's shapes (exact equality), with timings;
-4. goldens - the port on the GPU reproduces tests/golden/pair.mums and
-             tests/golden/pair.xmfa byte for byte;
+             card at its path's shapes (K1-K4 the pair's, K5-K7 the 9 x
+             1 Mbp seeder's; exact equality), with timings;
+4. goldens - the port on the GPU reproduces tests/golden/pair.mums,
+             pair.xmfa and nine.{xmfa,bbseq,bbcols} byte for byte;
 5. main    - align() of a 2 x 4.6 Mbp pair with gapped alignment on the
-             GPU: every kernel launched, MUMs equal to the numpy twin,
-             intervals partition both genomes; then a second pair.
+             GPU: every kernel of the pair path launched, MUMs equal to
+             the numpy twin, intervals partition both genomes; then a
+             second pair;
+6. progressive - progressive_align(refine=False) + apply_backbone + the
+             three writers on two 9 x 1 Mbp families: every kernel K1-K8
+             launched, the pairwise MUMs equal the same call on CPU
+             tensors, intervals partition every genome, backbone
+             segments lie inside their intervals, stage seconds printed;
+7. node DP - K3 and K4 against their plain versions on the node-merge
+             windows of the first progressive run (fractional multi-row
+             profiles; exact equality);
+8. hmm     - K8 against its plain version on the card on the HMM batches
+             of the first progressive run, at their full lengths.
 
+The inputs of phases 7 and 8 are recorded one layer above the kernel
+wrappers (align_profile_batch, predict_homologous) and rebuilt into
+launches by the path's own planners.  Counts of kernel launches are set
+to 0 just before each main path and read just after; the kernel table
+reports the progressive path's counts, and K3, K4 and K8's times are
+taken on that path's inputs.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  Logs go to chiprun_out/chip_smoke/.
 Imports neither JAX nor libmems_tpu.
@@ -25,6 +43,8 @@ Imports neither JAX nor libmems_tpu.
 
 from __future__ import annotations
 
+import contextlib
+import inspect
 import io
 import json
 import os
@@ -38,6 +58,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out", "chip_smoke")
 PAIR_LEN = 4_600_000
+PROG_GENOMES, PROG_LEN = 9, 1_000_000
 SOURCES = {
     "canonical_seed_keys": ("libmems_tpu_torch/csrc/mers.cu",
                             "libmems_tpu/ops/mers.py:75"),
@@ -47,6 +68,14 @@ SOURCES = {
                         "libmems_tpu/ops/profile.py:215"),
     "traceback_walk": ("libmems_tpu_torch/csrc/gapped.cu",
                        "libmems_tpu/ops/gapped.py:213"),
+    "run_flags": ("libmems_tpu_torch/csrc/pairwise.cu",
+                  "libmems_tpu/matchfind.py:99"),
+    "cluster_words": ("libmems_tpu_torch/csrc/pairwise.cu",
+                      "libmems_tpu/matchfind.py:1096"),
+    "cluster_reps": ("libmems_tpu_torch/csrc/pairwise.cu",
+                     "libmems_tpu/matchfind.py:1096"),
+    "fb_posterior": ("libmems_tpu_torch/csrc/hmm.cu",
+                     "libmems_tpu/ops/hmm.py:139"),
 }
 
 
@@ -81,6 +110,42 @@ def timed_ms(fn, reps, torch, warmup=True):
     return statistics.median(times)
 
 
+def timed_once(fn, torch):
+    """(fn(), milliseconds of that one run), timed with CUDA events."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+@contextlib.contextmanager
+def recording(targets):
+    """Patch each (module, name) so that every call's arguments, bound to
+    their parameter names with defaults applied, are recorded and the
+    call goes on unchanged.  Yields {name: [arguments, ...]}."""
+    logs, saved = {}, []
+    for mod, name in targets:
+        fn = getattr(mod, name)
+        calls = logs.setdefault(name, [])
+
+        def rec(*args, _fn=fn, _calls=calls, **kw):
+            bound = inspect.signature(_fn).bind(*args, **kw)
+            bound.apply_defaults()
+            _calls.append(dict(bound.arguments))
+            return _fn(*args, **kw)
+        saved.append((mod, name, fn))
+        setattr(mod, name, rec)
+    try:
+        yield logs
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
 def max_abs_err(pairs):
     """Largest |kernel - plain| over the compared tensors."""
     err = 0.0
@@ -102,6 +167,30 @@ def genome_pair(lt, rng_seed):
     a, b = _synthetic_pair(PAIR_LEN, rng_seed=rng_seed)
     return [lt.Genome(name="A", ascii=lut[a], codes=a),
             lt.Genome(name="B", ascii=lut[b], codes=b)]
+
+
+def family_nine(lt, rng_seed):
+    """bench_e2e.py's 9 x 1 Mbp progressive family (1% substitutions,
+    indels, two rearrangements per genome)."""
+    from bench_e2e import _mutant_family
+    lut = np.frombuffer(b"ACGT", dtype=np.uint8)
+    fam = _mutant_family(PROG_GENOMES, PROG_LEN, rng_seed=rng_seed)
+    return [lt.Genome(name=f"g{i}", ascii=lut[g], codes=g)
+            for i, g in enumerate(fam)]
+
+
+def golden_nine(lt):
+    """tests/golden/generate.py's _genomes_nine with the port's Genome."""
+    sys.path.insert(0, os.path.join(ROOT, "tests", "golden"))
+    from generate import _LUT, _mutant
+    rng = np.random.default_rng(1004)
+    anc = rng.integers(0, 4, size=20_000).astype(np.uint8)
+    out = []
+    for gi in range(9):
+        inv = (6_000, 9_000) if gi % 3 == 1 else None
+        g = _mutant(rng, anc, mutate=0.012, invert=inv)
+        out.append(lt.Genome(f"e{gi}", _LUT[g], filename=f"e{gi}.fa"))
+    return out
 
 
 def golden_pair(lt):
@@ -323,6 +412,91 @@ def phase_kernels(torch, lt, dev):
     return res
 
 
+def phase_pairwise_kernels(torch, lt, dev):
+    """K5-K7 against their plain versions on the card, on the seed table
+    of the 9 x 1 Mbp family (rng 0); exact equality.  Returns {name:
+    (max_abs_err, ms, plain_ms)}."""
+    from libmems_tpu_torch.matchfind import _pair_pos_bits
+    from libmems_tpu_torch.ops import pairwise
+    from libmems_tpu_torch.ops.mers import sentinel_content
+    from libmems_tpu_torch.sml import create_smls
+
+    res = {}
+    smls, seed = create_smls(family_nine(lt, 0), device=dev)
+    G = len(smls)
+    cnts = [s.n_windows for s in smls]
+    keys = torch.cat([s.keys for s in smls])
+    seg_off = torch.from_numpy(np.concatenate([[0], np.cumsum(cnts)])
+                               ).to(dev)
+    c_sorted, src = torch.sort(pairwise.shr(keys, 1), stable=True)
+    args = (c_sorted, src, keys, seg_off, 1000, sentinel_content(seed))
+    got = pairwise.run_flags(*args)
+    ref = pairwise.run_flags_plain(*args)
+    require(all(torch.equal(g, r) for g, r in zip(got, ref)),
+            "K5 differs from its plain version")
+    res["run_flags"] = (
+        max_abs_err(list(zip(got, ref))),
+        timed_ms(lambda: pairwise.run_flags(*args), 10, torch),
+        timed_ms(lambda: pairwise.run_flags_plain(*args), 3, torch,
+                 warmup=False))
+    kept = int(got.unique_occ.sum())
+    log(f"# K5 run flags: rows={keys.numel()} kept={kept} equal")
+
+    pb = _pair_pos_bits(max(cnts))
+    got_w = pairwise.cluster_words(got, G, pb)
+    ref_w = pairwise.cluster_words_plain(ref, G, pb)
+    require(torch.equal(got_w, ref_w), "K6 differs from its plain version")
+    res["cluster_words"] = (
+        max_abs_err([(got_w, ref_w)]),
+        timed_ms(lambda: pairwise.cluster_words(got, G, pb), 10, torch),
+        timed_ms(lambda: pairwise.cluster_words_plain(ref, G, pb), 3, torch,
+                 warmup=False))
+    log(f"# K6 cluster words: {got_w.numel()} words equal")
+
+    cw = pairwise.usort(got_w)
+    total = keys.numel()
+    ec = min(1 << 14, 1 << (max(total, 2) - 1).bit_length())
+    off = seg_off[:-1].to(torch.int32)
+    cnt = torch.tensor(cnts, dtype=torch.int32, device=dev)
+    seed_len = smls[0].seed_length
+    rargs = (cw, ec, G, pb, seed_len, off, cnt)
+    got_r = pairwise.cluster_reps(*rargs)
+    if got_r.n_reps > ec:       # the main path's capacity retry
+        ec = 1 << (got_r.n_reps - 1).bit_length()
+        rargs = (cw, ec, G, pb, seed_len, off, cnt)
+        got_r = pairwise.cluster_reps(*rargs)
+    ref_r = pairwise.cluster_reps_plain(*rargs)
+    require(got_r.n_reps == ref_r.n_reps
+            and all(torch.equal(g, r) for g, r in zip(got_r[:-1],
+                                                      ref_r[:-1])),
+            "K7 differs from its plain version")
+    res["cluster_reps"] = (
+        max_abs_err(list(zip(got_r[:-1], ref_r[:-1]))),
+        timed_ms(lambda: pairwise.cluster_reps(*rargs), 10, torch),
+        timed_ms(lambda: pairwise.cluster_reps_plain(*rargs), 3, torch,
+                 warmup=False))
+    log(f"# K7 representatives: {got_r.n_reps} reps in EC={ec} equal")
+    for name in ("run_flags", "cluster_words", "cluster_reps"):
+        err, ms, pms = res[name]
+        log(f"# {name}: kernel {ms:.3f} ms, plain {pms:.3f} ms, "
+            f"max_abs_err {err}")
+    return res
+
+
+def write_outputs(lt, ivs, segs, n_genomes):
+    """The three progressive outputs as bytes: XMFA, bbseq, bbcols."""
+    outs = {}
+    for name, write, args in (
+            ("nine.xmfa", lt.write_xmfa, (ivs,)),
+            ("nine.bbseq", lt.write_backbone_seq_coordinates,
+             (segs, n_genomes)),
+            ("nine.bbcols", lt.write_backbone_columns, (segs,))):
+        buf = io.StringIO()
+        write(buf, *args)
+        outs[name] = buf.getvalue().encode()
+    return outs
+
+
 def phase_goldens(lt, dev):
     gs = golden_pair(lt)
     mums = lt.find_mums(gs, device=dev)
@@ -341,6 +515,15 @@ def phase_goldens(lt, dev):
                 "pair.xmfa differs from the golden")
     log(f"# goldens: pair.mums ({len(mums)} MUMs) and pair.xmfa "
         f"({len(ivs.intervals)} intervals) byte-equal")
+    gs = golden_nine(lt)
+    ivs, _ = lt.progressive_align(gs, lt.ProgressiveConfig(refine=False,
+                                                           device=dev))
+    new_ivs, segs = lt.apply_backbone(ivs, device=dev)
+    for name, data in write_outputs(lt, new_ivs, segs, len(gs)).items():
+        with open(os.path.join(ROOT, "tests", "golden", name), "rb") as fh:
+            require(data == fh.read(), f"{name} differs from the golden")
+    log(f"# goldens: nine.xmfa, nine.bbseq, nine.bbcols byte-equal "
+        f"({len(new_ivs.intervals)} intervals, {len(segs)} segments)")
 
 
 def check_partition(ivs, genomes):
@@ -412,6 +595,181 @@ def phase_main(torch, lt, dev):
     return launches, dt1, dt2
 
 
+def check_segments(ivs, segs):
+    """Every backbone segment lies inside its interval: its columns in
+    the interval's alignment, its member ranges in the interval's
+    per-genome range."""
+    for k, seg in enumerate(segs):
+        iv = ivs.intervals[seg.interval]
+        require(0 <= seg.left_col <= seg.right_col < iv.alignment_length,
+                f"segment {k}: columns outside interval {seg.interval}")
+        le, re = iv.left_ends(), iv.right_ends()
+        for g in seg.genomes:
+            lo, hi = sorted(abs(int(x)) for x in seg.seq_ranges[g])
+            require(le[g] <= lo <= hi <= re[g],
+                    f"segment {k}: genome {g} outside interval "
+                    f"{seg.interval}")
+
+
+def phase_progressive(torch, lt, dev):
+    """The progressiveMauve path on two 9 x 1 Mbp families.  Returns
+    (launches of the first run, the arguments of the first run's
+    align_profile_batch and predict_homologous calls, walls)."""
+    from libmems_tpu_torch import islands, msa, progressive, trace
+    from libmems_tpu_torch.ops import (extend, gapped, hmm, mers, pairwise,
+                                       profile)
+    wrappers = {"canonical_seed_keys": mers.canonical_seed_keys,
+                "extend_matches": extend.extend_matches,
+                "profile_forward": profile.profile_forward,
+                "traceback_walk": gapped.traceback_walk,
+                "run_flags": pairwise.run_flags,
+                "cluster_words": pairwise.cluster_words,
+                "cluster_reps": pairwise.cluster_reps,
+                "fb_posterior": hmm.fb_posterior}
+    cfg = lt.ProgressiveConfig(refine=False, device=dev)
+    # the callers' names of the node-DP and HMM entry points
+    targets = [(progressive, "align_profile_batch"),
+               (msa, "align_profile_batch"),
+               (islands, "predict_homologous")]
+
+    def run(rng_seed, capture):
+        genomes = family_nine(lt, rng_seed)
+        trace.reset()
+        for w in wrappers.values():
+            w.launches = 0
+        with recording(targets if capture else []) as calls:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ivs, _ = lt.progressive_align(genomes, cfg)
+            t1 = time.perf_counter()
+            new_ivs, segs = lt.apply_backbone(ivs, device=dev)
+            outs = write_outputs(lt, new_ivs, segs, len(genomes))
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        launches = {k: w.launches for k, w in wrappers.items()}
+        stages = trace.stage_seconds()
+        log(f"# progressive rng_seed={rng_seed}: {PROG_GENOMES} x "
+            f"{PROG_LEN} bp, align {t1 - t0:.3f} s, backbone + writers "
+            f"{t2 - t1:.3f} s, total {t2 - t0:.3f} s; "
+            f"{len(ivs.intervals)} intervals -> {len(new_ivs.intervals)}, "
+            f"{len(segs)} segments, bytes "
+            f"{ {k: len(v) for k, v in outs.items()} }")
+        log(f"# launches: {launches}")
+        log("# stages: " + json.dumps(stages))
+        for name, n in launches.items():
+            require(n > 0, f"{name}: no launch on the progressive path")
+        check_partition(ivs, genomes)
+        check_partition(new_ivs, genomes)
+        check_segments(new_ivs, segs)
+        return genomes, launches, calls, t2 - t0
+
+    trace.set_enabled(True, stream=sys.stdout)
+    genomes, launches, calls, dt1 = run(0, True)
+    got = lt.find_pairwise_mums(genomes, device=dev)
+    ref = lt.find_pairwise_mums(genomes, device="cpu")
+    require(np.array_equal(got.starts, ref.starts)
+            and np.array_equal(got.lengths, ref.lengths),
+            f"find_pairwise_mums on the GPU ({len(got)}) differs from CPU "
+            f"tensors ({len(ref)})")
+    log(f"# find_pairwise_mums GPU == CPU tensors: {len(got)} matches")
+    _, _, _, dt2 = run(1, False)
+    trace.set_enabled(False)
+    return launches, calls, (dt1, dt2)
+
+
+def phase_node_dp(torch, dev, calls, launches):
+    """K3 and K4 against their plain versions on the card, on the windows
+    of the first progressive run's align_profile_batch calls, rebuilt
+    into the path's launches by plan_launches and pack_profiles; exact
+    equality.  Returns {name: (max_abs_err, ms, plain_ms)}, the times
+    summed over those launches."""
+    from libmems_tpu_torch.ops import gapped, profile
+    batches = []
+    for a in calls:
+        for M, N, sub in profile.plan_launches(a["p_rows"], a["q_rows"]):
+            t = profile.pack_profiles(a["p_rows"], a["q_rows"], sub, M, N,
+                                      dev)
+            batches.append((M, N, t, a["gap_open"], a["gap_extend"]))
+    require(len(batches) == launches["profile_forward"],
+            f"{len(batches)} node-DP launches rebuilt, the path made "
+            f"{launches['profile_forward']}")
+
+    def fractional(x):
+        return ((x > 0) & (x < 1)).flatten(1).any(1)
+
+    frac = sum(int((fractional(t[0]) | fractional(t[1])).sum())
+               for _, _, t, _, _ in batches)
+    n_win = sum(t[0].shape[0] for _, _, t, _, _ in batches)
+    log(f"# node DP: {n_win} windows ({frac} with fractional profiles) in "
+        f"{len(batches)} launches, buckets "
+        f"{sorted({(M, N) for M, N, _, _, _ in batches})}")
+
+    def k3(fn):
+        return [fn(*t, go, ge) for _, _, t, go, ge in batches]
+
+    def k4(ptrs, fn):
+        return [fn(pt, t[2], t[3], gapped._device_tb_T(M, N))
+                for (M, N, t, _, _), (pt, _) in zip(batches, ptrs)]
+
+    got = k3(profile.profile_forward)
+    ref, p3 = timed_once(lambda: k3(profile.profile_forward_plain), torch)
+    for (M, N, _, _, _), (gp, gs), (rp, rs) in zip(batches, got, ref):
+        require(torch.equal(gp, rp) and torch.equal(gs, rs),
+                f"K3 differs from its plain version on a node-DP launch "
+                f"at ({M}, {N})")
+    got4 = k4(got, gapped.traceback_walk)
+    ref4, p4 = timed_once(lambda: k4(got, gapped.traceback_walk_plain),
+                          torch)
+    for (M, N, _, _, _), g, r in zip(batches, got4, ref4):
+        require(all(torch.equal(x, y) for x, y in zip(g, r)),
+                f"K4 differs from its plain version on a node-DP launch "
+                f"at ({M}, {N})")
+    err3 = max_abs_err([x for g, r in zip(got, ref) for x in zip(g, r)])
+    err4 = max_abs_err([x for g, r in zip(got4, ref4) for x in zip(g, r)])
+    ms3 = timed_ms(lambda: k3(profile.profile_forward), 5, torch)
+    ms4 = timed_ms(lambda: k4(got, gapped.traceback_walk), 5, torch)
+    log(f"# K3/K4 node DP: equal; K3 kernel {ms3:.3f} ms, plain {p3:.3f} "
+        f"ms; K4 kernel {ms4:.3f} ms, plain {p4:.3f} ms")
+    return {"profile_forward": (err3, ms3, p3),
+            "traceback_walk": (err4, ms4, p4)}
+
+
+def phase_hmm(torch, dev, calls, launches):
+    """K8 against its plain version on the card, on the batches of the
+    first progressive run's predict_homologous calls at their full
+    lengths, rebuilt into the path's launches by hmm.pack_batches:
+    posteriors within 1e-12, calls equal.  Returns (max_abs_err, ms,
+    plain_ms), the times summed over those launches."""
+    from libmems_tpu_torch.ops import hmm
+    batches = []
+    for a in calls:
+        mats = hmm.log_matrices(a["params"] or hmm.hoxd_params(), dev)
+        for _, obs, lens in hmm.pack_batches(a["sequences"]):
+            batches.append((torch.from_numpy(obs).to(dev),
+                            torch.from_numpy(lens).to(dev), mats,
+                            a["threshold"]))
+    require(len(batches) == launches["fb_posterior"],
+            f"{len(batches)} HMM launches rebuilt, the path made "
+            f"{launches['fb_posterior']}")
+    log(f"# K8 batches (B x T): "
+        f"{sorted(tuple(o.shape) for o, _, _, _ in batches)}, longest "
+        f"sequence {max(int(n.max()) for _, n, _, _ in batches)} columns")
+
+    def run(fn):
+        return [fn(o, n, m, t) for o, n, m, t in batches]
+
+    got = run(hmm.fb_posterior)
+    ref, pms = timed_once(lambda: run(hmm.fb_posterior_plain), torch)
+    for (o, _, _, _), (_, gc), (_, rc) in zip(batches, got, ref):
+        require(torch.equal(gc, rc), f"K8 calls differ at {tuple(o.shape)}")
+    err = max_abs_err([(g[0], r[0]) for g, r in zip(got, ref)])
+    require(err <= 1e-12, f"K8 posteriors differ by {err}")
+    ms = timed_ms(lambda: run(hmm.fb_posterior), 3, torch)
+    log(f"# K8 vs plain at full length: max_abs_err {err}, calls equal; "
+        f"kernel {ms:.3f} ms, plain {pms:.3f} ms")
+    return err, ms, pms
+
+
 def main() -> int:
     import torch
     import libmems_tpu_torch as lt
@@ -420,8 +778,15 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     phase_build()
     res = phase_kernels(torch, lt, dev)
+    res.update(phase_pairwise_kernels(torch, lt, dev))
     phase_goldens(lt, dev)
-    launches, dt1, dt2 = phase_main(torch, lt, dev)
+    _, dt1, dt2 = phase_main(torch, lt, dev)
+    launches, calls, pdt = phase_progressive(torch, lt, dev)
+    for name, (err, ms, pms) in phase_node_dp(
+            torch, dev, calls["align_profile_batch"], launches).items():
+        res[name] = (max(err, res[name][0]), ms, pms)
+    res["fb_posterior"] = phase_hmm(torch, dev, calls["predict_homologous"],
+                                    launches)
     forbidden = [m for m in sys.modules
                  if m == "jax" or m.startswith(("jax.", "libmems_tpu."))
                  or m == "libmems_tpu"]
@@ -432,7 +797,8 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": err, "ms": ms, "plain_ms": pms})
-    log(f"# card: {card}; main path {dt1:.3f} s then {dt2:.3f} s")
+    log(f"# card: {card}; pair path {dt1:.3f} s then {dt2:.3f} s; "
+        f"progressive path {pdt[0]:.3f} s then {pdt[1]:.3f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,19 +1,30 @@
 """libmems_tpu_torch — the PyTorch and CUDA port of libmems_tpu.
 
-Runs the flat pairwise aligner of libmems_tpu (the JAX package, which
-stays as the reference) on one NVIDIA GPU: SML construction, pair MUM
-discovery, LCBs with the extension loop, recursive anchoring, batched
-gapped alignment of the inter-anchor windows and XMFA output.  The
-device work is PyTorch plus four hand-written CUDA kernels (``csrc/``):
-canonical seed keys, ungapped extension, the profile DP forward with
-pointers, and the traceback walk.  Each has a plain PyTorch version that
-CPU tensors use.
+Runs two pipelines of libmems_tpu (the JAX package, which stays as the
+reference) on one NVIDIA GPU:
+
+* the flat pairwise aligner (``align`` on two genomes): SML
+  construction, pair MUM discovery, LCBs with the extension loop,
+  recursive anchoring, batched gapped alignment of the inter-anchor
+  windows and XMFA output;
+* progressive alignment (``progressive_align`` with ``refine=False``)
+  and backbone (``apply_backbone``), the progressiveMauve path: pairwise
+  seeding from per-genome-unique seeds, guide tree, node merges with
+  multi-row profile DP windows, the pairwise homology HMM and the
+  backbone files.
+
+The device work is PyTorch plus hand-written CUDA kernels (``csrc/``):
+canonical seed keys (K1), ungapped extension (K2), the profile DP
+forward with pointers (K3), the traceback walk (K4), the pairwise
+seeder's run flags, cluster words and representatives (K5-K7), and the
+homology HMM forward/backward (K8).  Each has a plain PyTorch version
+that CPU tensors use.
 
 Every tensor-building entry point takes an explicit ``device``
-(``AlignerConfig.device``); ``"cuda"`` without a GPU raises.  Modules
-keep the JAX package's names: ``libmems_tpu_torch/ops/extend.py`` ports
-``libmems_tpu/ops/extend.py``.  The package never imports JAX or
-libmems_tpu.
+(``AlignerConfig.device``, ``ProgressiveConfig.device``); ``"cuda"``
+without a GPU raises.  Modules keep the JAX package's names:
+``libmems_tpu_torch/ops/extend.py`` ports ``libmems_tpu/ops/extend.py``.
+The package never imports JAX or libmems_tpu.
 
 Coordinates follow libMems conventions: match starts are signed, 1-based
 left ends; a negative start means the match content is the reverse
@@ -24,9 +35,15 @@ from libmems_tpu_torch import seeds
 from libmems_tpu_torch.sequence import Genome, read_fasta
 from libmems_tpu_torch.sml import SortedMerList, create_smls
 from libmems_tpu_torch.match import MatchArray, write_match_list
-from libmems_tpu_torch.matchfind import find_mums
+from libmems_tpu_torch.matchfind import find_mums, find_pairwise_mums
 from libmems_tpu_torch.aligner import AlignerConfig, align
 from libmems_tpu_torch.interval import IntervalList, write_xmfa
+from libmems_tpu_torch.progressive import (ProgressiveConfig,
+                                           progressive_align)
+from libmems_tpu_torch.backbone import (BackboneSegment, apply_backbone,
+                                        detect_backbone,
+                                        write_backbone_columns,
+                                        write_backbone_seq_coordinates)
 
 __all__ = [
     "seeds",
@@ -37,10 +54,18 @@ __all__ = [
     "MatchArray",
     "write_match_list",
     "find_mums",
+    "find_pairwise_mums",
     "AlignerConfig",
     "align",
     "IntervalList",
     "write_xmfa",
+    "ProgressiveConfig",
+    "progressive_align",
+    "apply_backbone",
+    "detect_backbone",
+    "BackboneSegment",
+    "write_backbone_seq_coordinates",
+    "write_backbone_columns",
 ]
 
 __version__ = "0.1.0"

@@ -3,8 +3,8 @@
 The two packages share no code at run time: the port never imports the
 JAX package.  These functions take plain numpy arrays and numbers, as a
 JAX-package object hands them out, and return the port's equivalents,
-so an index built by either package can feed the other and the DP
-constants of both can be held equal.
+so an index built by either package can feed the other and the DP and
+HMM constants of both can be held equal.
 """
 
 from __future__ import annotations
@@ -51,6 +51,22 @@ class ProfileScoring(NamedTuple):
     w5: np.ndarray        # float32[5, 5]
     gap_open: float
     gap_extend: float
+
+
+def hmm_matrices_from_reference(ls, lt, lstop, le, device) -> tuple:
+    """The homology HMM's log matrices (log start [2], log transitions
+    [2, 2], log stop [2], log emissions [2, 8], state order (H, U)), as
+    a JAX-package ``ops.hmm._log_matrices`` returns them, as the float64
+    tensors on `device` that the port's kernel K8 takes."""
+    shapes = ((2,), (2, 2), (2,), (2, 8))
+    out = []
+    for x, shape in zip((ls, lt, lstop, le), shapes):
+        x = np.array(x, dtype=np.float64)
+        if x.shape != shape:
+            raise ValueError(f"expected HMM matrix shape {shape}, got "
+                             f"{x.shape}")
+        out.append(torch.from_numpy(x).to(cuda.resolve_device(device)))
+    return tuple(out)
 
 
 def scoring_from_reference(hoxd70, w5, gap_open, gap_extend

@@ -26,6 +26,16 @@
 // recurrence, so fractional profiles keep the same structure of float
 // operations.  Only rows 1..p_len and columns 0..q_len are written: the
 // traceback never reads past them (the wrapper zero-fills the rest).
+//
+// Rounding: multi-row profiles hold fractions (1/3, 1/7), so the order
+// of float operations decides ties in the pointer choice.  Every product
+// and sum below is an explicit round-to-nearest intrinsic, never
+// contracted by the compiler, in the order of the plain version
+// (ops/profile.py):
+//   qw[y][j] = ((q0 w_y0 + q1 w_y1) + (q2 w_y2 + q3 w_y3)) + q4 w_y4
+//   s        = fma(p4, qw4, fma(p3, qw3, fma(p2, qw2, fma(p1, qw1, p0 qw0))))
+//   ext_cum  = the JAX CPU cumsum order: sequential within blocks of 16,
+//              the block totals' prefix (the same, recursively) added on.
 #include "common.cuh"
 
 namespace {
@@ -34,6 +44,57 @@ constexpr float kNegBig = -1e30f;
 constexpr unsigned char kHDiag = 0, kHE = 1, kHF = 2, kEExt = 4, kFExt = 8;
 constexpr unsigned char kIsDiag = 1;  // flag: g came from the diagonal
 constexpr int kMaxDynSmem = 227 * 1024;
+constexpr int kCumBlock = 16;
+constexpr int kMaxLevels = 8;
+
+// Inclusive prefix sum of x[0..n) into out[0..n) in the blocked order
+// above, by the whole thread block; lv is global scratch for the block
+// totals of every level (lm_profile_cum_scratch floats).
+__device__ void blocked_cumsum(const float* x, float* out, int n, float* lv) {
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  int len[kMaxLevels + 1];
+  int off[kMaxLevels + 1];
+  int top = 0;
+  len[0] = n;
+  off[0] = 0;
+  int used = 0;
+  while (len[top] > kCumBlock && top < kMaxLevels) {
+    len[top + 1] = (len[top] + kCumBlock - 1) / kCumBlock;
+    off[top + 1] = used;
+    used += len[top + 1];
+    ++top;
+  }
+  // up: sequential prefix inside each block; block totals feed the level
+  // above
+  for (int l = 0; l <= top; ++l) {
+    const float* in = l == 0 ? x : lv + off[l];
+    float* o = l == 0 ? out : lv + off[l];
+    const int nbk = (len[l] + kCumBlock - 1) / kCumBlock;
+    for (int bk = tid; bk < nbk; bk += nt) {
+      const int lo = bk * kCumBlock;
+      const int hi = min(lo + kCumBlock, len[l]);
+      float acc = in[lo];
+      o[lo] = acc;
+      for (int k = lo + 1; k < hi; ++k) {
+        acc = __fadd_rn(acc, in[k]);
+        o[k] = acc;
+      }
+      if (l < top) lv[off[l + 1] + bk] = acc;
+    }
+    __syncthreads();
+  }
+  // down: every block of a level adds the prefix of the totals before it
+  for (int l = top - 1; l >= 0; --l) {
+    float* o = l == 0 ? out : lv + off[l];
+    const float* up = lv + off[l + 1];
+    for (int k = tid; k < len[l]; k += nt) {
+      const int bk = k / kCumBlock;
+      o[k] = __fadd_rn(o[k], bk > 0 ? up[bk - 1] : 0.0f);
+    }
+    __syncthreads();
+  }
+}
 
 struct W5 {
   float w[25];
@@ -43,7 +104,8 @@ __global__ void profile_fwd_kernel(
     const float* __restrict__ p, const float* __restrict__ q,
     const int* __restrict__ p_len, const int* __restrict__ q_len,
     float* __restrict__ qw, float* __restrict__ ext_q,
-    float* __restrict__ ext_cum, float* __restrict__ rows,
+    float* __restrict__ ext_cum, float* __restrict__ cum_lv,
+    int64_t cum_lv_stride, float* __restrict__ rows,
     unsigned char* __restrict__ flags, unsigned char* __restrict__ ptr,
     float* __restrict__ score, int M, int N, float gap_open,
     float gap_extend, W5 w5) {
@@ -77,21 +139,17 @@ __global__ void profile_fwd_kernel(
     float qv[5];
     for (int x = 0; x < 5; ++x) qv[x] = qb[j * 5 + x];
     for (int y = 0; y < 5; ++y) {
-      float s = 0.f;
-      for (int x = 0; x < 5; ++x) s += qv[x] * w5.w[y * 5 + x];
-      qwb[y * N + j] = s;
+      const float* wy = w5.w + y * 5;
+      const float t01 =
+          __fadd_rn(__fmul_rn(qv[0], wy[0]), __fmul_rn(qv[1], wy[1]));
+      const float t23 =
+          __fadd_rn(__fmul_rn(qv[2], wy[2]), __fmul_rn(qv[3], wy[3]));
+      qwb[y * N + j] = __fadd_rn(__fadd_rn(t01, t23), __fmul_rn(qv[4], wy[4]));
     }
-    eq[j] = gap_extend * (1.0f - qv[4]);
+    eq[j] = __fmul_rn(gap_extend, __fsub_rn(1.0f, qv[4]));
   }
   __syncthreads();
-  float carry = 0.f;
-  for (int j0 = 0; j0 < ql; j0 += nt) {
-    const int j = j0 + tid;
-    const float v = j < ql ? eq[j] : 0.f;
-    const lm::ScanResult<float> r = lm::block_scan(v, 0.f, lm::SumOp(), s_tmp);
-    if (j < ql) ec[j + 1] = carry + r.incl;
-    carry += r.total;
-  }
+  blocked_cumsum(eq, ec + 1, ql, cum_lv + (int64_t)b * cum_lv_stride);
   if (tid == 0) ec[0] = 0.f;
   __syncthreads();
   for (int c = tid; c <= ql; c += nt) {
@@ -110,7 +168,7 @@ __global__ void profile_fwd_kernel(
     __syncthreads();
     const float p0 = s_p[0], p1 = s_p[1], p2 = s_p[2], p3 = s_p[3],
                 p4 = s_p[4];
-    const float ext_pi = gap_extend * (1.0f - p4);
+    const float ext_pi = __fmul_rn(gap_extend, __fsub_rn(1.0f, p4));
 
     // pass 1: F, the non-E candidate g, and the scan input W
     for (int c = tid; c <= ql; c += nt) {
@@ -124,8 +182,11 @@ __global__ void profile_fwd_kernel(
       float g = f;
       if (c > 0) {
         const int j = c - 1;
-        const float s = p0 * qwb[j] + p1 * qwb[N + j] + p2 * qwb[2 * N + j] +
-                        p3 * qwb[3 * N + j] + p4 * qwb[4 * N + j];
+        float s = __fmul_rn(p0, qwb[j]);
+        s = __fmaf_rn(p1, qwb[N + j], s);
+        s = __fmaf_rn(p2, qwb[2 * N + j], s);
+        s = __fmaf_rn(p3, qwb[3 * N + j], s);
+        s = __fmaf_rn(p4, qwb[4 * N + j], s);
         const float diag = Hp[c - 1] + s;
         g = fmaxf(diag, f);
         if (g == diag) fc |= kIsDiag;
@@ -180,14 +241,27 @@ extern "C" int64_t lm_profile_row_bytes(int N) {
   return (int64_t)17 * (N + 1);
 }
 
+// Floats of cumsum scratch one window needs at N columns.
+extern "C" int64_t lm_profile_cum_scratch(int N) {
+  int64_t used = 0;
+  int64_t len = N;
+  for (int l = 0; l < kMaxLevels && len > kCumBlock; ++l) {
+    len = (len + kCumBlock - 1) / kCumBlock;
+    used += len;
+  }
+  return used > 0 ? used : 1;
+}
+
 // p: f32[B, M, 5]; q: f32[B, N, 5]; p_len, q_len: int32[B];
-// qw: f32[B, 5, N], ext_q: f32[B, N], ext_cum: f32[B, N+1] (scratch);
+// qw: f32[B, 5, N], ext_q: f32[B, N], ext_cum: f32[B, N+1], cum_lv:
+// f32[B, lm_profile_cum_scratch(N)] (scratch);
 // rows: f32[B, 4, N+1] and flags: uint8[B, N+1] global row scratch, or
 // both null to keep the rows in shared memory; ptr: uint8[B, M, N+1]
 // (zero-filled by the caller); score: f32[B]; w5: HOST float[25].
 extern "C" int lm_profile_fwd(const void* p, const void* q, const void* p_len,
                               const void* q_len, void* qw, void* ext_q,
-                              void* ext_cum, void* rows, void* flags,
+                              void* ext_cum, void* cum_lv, void* rows,
+                              void* flags,
                               void* ptr, void* score, int B, int M, int N,
                               float gap_open, float gap_extend,
                               const float* w5, void* stream) {
@@ -207,7 +281,8 @@ extern "C" int lm_profile_fwd(const void* p, const void* q, const void* p_len,
     LM_LAUNCH(profile_fwd_kernel, (unsigned)B, threads, (size_t)smem,
               (cudaStream_t)stream, (const float*)p, (const float*)q,
               (const int*)p_len, (const int*)q_len, (float*)qw,
-              (float*)ext_q, (float*)ext_cum, (float*)rows,
+              (float*)ext_q, (float*)ext_cum, (float*)cum_lv,
+              lm_profile_cum_scratch(N), (float*)rows,
               (unsigned char*)flags, (unsigned char*)ptr, (float*)score, M,
               N, gap_open, gap_extend, w);
   }

@@ -1,6 +1,6 @@
 """Device selection and the hand-written CUDA kernels' build and binding.
 
-The kernels of the pair path (``csrc/*.cu``) are compiled by ``nvcc``
+The kernels of the port (``csrc/*.cu``) are compiled by ``nvcc``
 into ONE shared library with a plain C interface and loaded with
 ``ctypes``: no PyTorch header is compiled, so a cold build takes
 seconds.  The library is built at first use, from the sources in this
@@ -45,8 +45,18 @@ _SIGNATURES = {
     "lm_extend": ([_P, _L, _L, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                    _P], _I),
     "lm_profile_row_bytes": ([_I], _L),
-    "lm_profile_fwd": ([_P] * 11 + [_I, _I, _I, _F, _F, _P, _P], _I),
+    "lm_profile_cum_scratch": ([_I], _L),
+    "lm_profile_fwd": ([_P] * 12 + [_I, _I, _I, _F, _F, _P, _P], _I),
     "lm_traceback": ([_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P], _I),
+    "lm_run_starts": ([_P, _P, _P, _P, _I, _L, _P, _P, _P, _P, _P], _I),
+    "lm_run_flags": ([_P, _P, _P, _P, _P, _L, _I, _L, _P, _P, _P], _I),
+    "lm_cluster_words": ([_P, _P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _L,
+                          _I, _I, _I, _P, _P], _I),
+    "lm_rep_flags": ([_P, _L, _I, _I, _P, _P, _P], _I),
+    "lm_reps": ([_P, _P, _P, _L, _L, _L, _P, _I, _I, _I, _I, _P, _P, _P, _P,
+                 _P, _P, _P, _P, _P, _P, _P, _P], _I),
+    "lm_hmm_fb": ([_P, _P, _I, _I, _P, ctypes.c_double, _P, _P, _P, _P],
+                  _I),
     "lm_error_string": ([_I], ctypes.c_char_p),
 }
 

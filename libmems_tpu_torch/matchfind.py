@@ -15,14 +15,18 @@ one sorted 64-bit word per window:
   compact the cluster representatives with a cumsum + searchsorted
   extend from the cluster extent (kernel K2), then dedup.
 
+The progressive aligner's seeder, ``find_pairwise_mums`` (any G), runs
+the same stages on per-genome-unique seeds with kernels K5-K7
+(libmems_tpu_torch.ops.pairwise).
+
 Words are int64 tensors holding the JAX pipeline's unsigned 64-bit
 patterns: sorts flip bit 63 and right shifts mask the sign fill
 (``_usort``, ``_shr``), so every comparison sees the unsigned order.
 
 Other modes of the JAX module raise NotImplementedError naming their
-ROADMAP item (queue 2): G >= 3, repeat_tolerance > 0,
+ROADMAP item (queue 2): G >= 3 in find_mums, repeat_tolerance > 0,
 enumeration_tolerance > 1, extend=False, a seq_mask other than 0 or 0b11,
-and pairs whose packed words do not fit 64 bits.
+and layouts whose packed words do not fit 64 bits.
 """
 
 from __future__ import annotations
@@ -34,31 +38,20 @@ import torch
 
 from libmems_tpu_torch import seeds as seedlib
 from libmems_tpu_torch.match import MatchArray
+from libmems_tpu_torch.ops import pairwise as ops_pairwise
 from libmems_tpu_torch.ops.extend import extend_matches
 from libmems_tpu_torch.ops.mers import sentinel_content, key_sentinel
+from libmems_tpu_torch.ops.pairwise import shr as _shr, usort as _usort
 from libmems_tpu_torch.sequence import Genome
 from libmems_tpu_torch.sml import SortedMerList
 
 MER_REPEAT_LIMIT = 1000  # MatchFinder.cpp:166
 
-_I64_MIN = -(1 << 63)
 _TODO_G3 = ("G >= 3 multi-MUM discovery is not ported yet "
             "(ROADMAP queue 2: G>=3 pipeline)")
 _TODO_MODES = ("only the default unique-MUM pair mode is ported "
                "(ROADMAP queue 2: G>=3 pipeline, which carries the "
                "tolerance, enumeration, no-extend and mask modes)")
-
-
-def _shr(x: torch.Tensor, s: int) -> torch.Tensor:
-    """Logical right shift of 64-bit patterns held in int64."""
-    if s == 0:
-        return x
-    return (x >> s) & ((1 << (64 - s)) - 1)
-
-
-def _usort(x: torch.Tensor) -> torch.Tensor:
-    """Sort 64-bit patterns held in int64 in unsigned order."""
-    return torch.sort(x ^ _I64_MIN).values ^ _I64_MIN
 
 
 def _nxt(x: torch.Tensor, k: int, fill: int) -> torch.Tensor:
@@ -298,6 +291,100 @@ def find_mums(genomes_or_smls, seed: int | None = None,
         keep = out.multiplicity() >= min_multiplicity
         out = MatchArray(out.starts[keep], out.lengths[keep])
     return out.canonical_sort()
+
+
+# --------------------------------------------------------------------------
+# pairwise seeder (progressive alignment)
+# --------------------------------------------------------------------------
+
+# expansion-table budget of the pairwise seeder: (G-1) * n rows
+_PAIRWISE_FUSED_MAX_ROWS = 1 << 28
+_TODO_PAIRWISE_HOST = (
+    "this pairwise seeding layout runs the host-orchestrated "
+    "PairwiseMatchFinder in the JAX package, which is not ported yet "
+    "(ROADMAP queue 1 item 11: host-orchestrated seeding modes)")
+
+
+def pairwise_fused_fits(G: int, pos_bits: int) -> bool:
+    """Word-budget test of the pairwise seeder: the cluster word
+    fwd(1) | pair_id(2*ceil(log2(G-1))) | delta(pos_bits+2) |
+    posA(pos_bits) must fit 64 bits (libmems_tpu/matchfind.py:1245; the
+    port derives gid and pos per row, so it packs no kept-row word)."""
+    return 1 + ops_pairwise.pair_bits_for(G) + 2 * pos_bits + 2 <= 64 \
+        and G <= 62
+
+
+def find_pairwise_mums(genomes_or_smls, seed: int | None = None,
+                       repeat_limit: int = MER_REPEAT_LIMIT,
+                       extend: bool = True,
+                       extend_capacity: int = 1 << 14,
+                       device="cuda") -> MatchArray:
+    """Find all pairwise MUMs from per-genome-unique seeds
+    (PairwiseMatchFinder::EnumerateMatches equivalent,
+    libMems/PairwiseMatchFinder.cpp:37-71) — the progressiveMauve seeder.
+
+    Port of the fused device pipeline of libmems_tpu/matchfind.py
+    (find_pairwise_mums -> _fused_pairwise_pipeline -> _pairwise_core):
+    stable sort of the concatenated contents (the (content, gid, pos)
+    order) -> run flags (K5) -> shifted-compare cluster words (K6) ->
+    unsigned sort -> representatives (K7) -> span-seeded extension (K2).
+    Genomes are indexed on `device`; SMLs are used where they lie.  The
+    JAX package's bucket padding only added sentinel rows to the masked
+    run, so the port works on the exact windows.  Layouts the JAX
+    package sends to its host-orchestrated path raise
+    NotImplementedError."""
+    smls, seed = _as_smls(genomes_or_smls, seed, device)
+    G = len(smls)
+    cnts = [s.n_windows for s in smls]
+    total = sum(cnts)
+    if total == 0:
+        return MatchArray.empty(G)
+    pos_bits = _pair_pos_bits(max(cnts))
+    if not (extend and pairwise_fused_fits(G, pos_bits)
+            and (G - 1) * total <= _PAIRWISE_FUSED_MAX_ROWS):
+        raise NotImplementedError(_TODO_PAIRWISE_HOST)
+    seed_len = smls[0].seed_length
+    chunk = max(seed_len, 256)
+    dev = smls[0].device
+    keys = torch.cat([s.keys for s in smls])
+    offs = np.concatenate([[0], np.cumsum(cnts)]).astype(np.int64)
+    seg_off = torch.from_numpy(offs).to(dev)
+    gen_off = torch.from_numpy(offs[:-1].astype(np.int32)).to(dev)
+    gen_cnt = torch.tensor(cnts, dtype=torch.int32, device=dev)
+
+    content = _shr(keys, 1)
+    content_sorted, src = torch.sort(content, stable=True)
+    flags = ops_pairwise.run_flags(content_sorted, src, keys, seg_off,
+                                   repeat_limit, sentinel_content(seed))
+    del content, content_sorted, src
+    cw = _usort(ops_pairwise.cluster_words(flags, G, pos_bits))
+    del flags
+
+    ec = min(extend_capacity, 1 << (max(total, 2) - 1).bit_length())
+    while True:
+        reps = ops_pairwise.cluster_reps(cw, ec, G, pos_bits, seed_len,
+                                         gen_off, gen_cnt)
+        if reps.n_reps <= ec:
+            break
+        ec = 1 << (reps.n_reps - 1).bit_length()
+    del cw
+    n = reps.n_reps
+    if n == 0:
+        return MatchArray.empty(G)
+    lefts, lengths = extend_matches(
+        keys, seed_len, chunk, reps.gen_off, reps.gen_cnt, reps.lefts,
+        reps.present, reps.is_fwd, reps.lengths0, key_sentinel(seed))
+    # rows in the [n, G] layout (matchfind.py:1219-1225); the exact-row
+    # dedup of the JAX pipeline is MatchArray.dedup below
+    sign_b = torch.where(reps.is_fwd[:n, 1], 1, -1).to(torch.int32)
+    starts = torch.zeros((n, G), dtype=torch.int32, device=dev)
+    starts.scatter_(1, reps.r_a[:n, None].to(torch.int64),
+                    lefts[:n, :1] + 1)
+    starts.scatter_(1, reps.r_b[:n, None].to(torch.int64),
+                    (sign_b * (lefts[:n, 1] + 1))[:, None])
+    out = MatchArray(starts.cpu().numpy().astype(np.int64),
+                     lengths[:n].cpu().numpy().astype(np.int64))
+    return out.dedup().canonical_sort()
 
 
 # --------------------------------------------------------------------------

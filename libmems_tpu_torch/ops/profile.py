@@ -72,22 +72,79 @@ def _bucket_cols(n, minimum=16):
     return b
 
 
+def fma32(a, b, c):
+    """float32 a*b + c rounded once, as a fused multiply-add: the product
+    is exact in float64, and a float64 sum that lands exactly halfway
+    between two float32 values is resolved by its TwoSum error."""
+    prod = a.double() * b.double()
+    cd = c.double()
+    d = prod + cd
+    bv = d - prod
+    err = (prod - (d - bv)) + (cd - bv)
+    r = d.float()
+    rd = r.double()
+    inf = torch.full_like(r, float("inf"))
+    nb = torch.nextafter(r, torch.where(d > rd, inf, -inf))
+    tie = (d != rd) & ((rd + nb.double()) * 0.5 == d)
+    up = tie & (err != 0) & ((err > 0) == (d > rd))
+    return torch.where(up, nb, r)
+
+
+def profile_qw(q, w):
+    """qw[.., y] = sum_x q[.., x] * W5[y, x] in the fixed order
+    ((t0 + t1) + (t2 + t3)) + t4 of rounded products (csrc/profile.cu)."""
+    t = [q[..., None, x] * w[:, x] for x in range(5)]
+    return ((t[0] + t[1]) + (t[2] + t[3])) + t[4]
+
+
+def profile_row_score(p_i, qw):
+    """p_i . qw[j] as a chain of fused multiply-adds over x = 0..4,
+    starting from the rounded product of x = 0 (csrc/profile.cu)."""
+    s = p_i[:, None, 0] * qw[..., 0]
+    for x in range(1, 5):
+        s = fma32(p_i[:, None, x].expand_as(s), qw[..., x], s)
+    return s
+
+
+def blocked_cumsum(x):
+    """Inclusive cumsum along dim 1 in the order of the JAX package's
+    jnp.cumsum on the CPU: sequential within blocks of 16, the block
+    totals' prefix (recursively the same) added to every later block
+    (csrc/profile.cu)."""
+    B, n = x.shape
+    if n <= 16:
+        out = x.clone()
+        for k in range(1, n):
+            out[:, k] = out[:, k - 1] + x[:, k]
+        return out
+    nb = -(-n // 16)
+    xp = torch.zeros((B, nb * 16), dtype=x.dtype, device=x.device)
+    xp[:, :n] = x
+    inner = blocked_cumsum(xp.reshape(B * nb, 16)).reshape(B, nb, 16)
+    tot = blocked_cumsum(inner[:, :, -1].contiguous())
+    carry = torch.cat([torch.zeros((B, 1), dtype=x.dtype, device=x.device),
+                       tot[:, :-1]], 1)
+    return (inner + carry[:, :, None]).reshape(B, nb * 16)[:, :n]
+
+
 def profile_forward_plain(p, q, p_len, q_len, gap_open: int = GAP_OPEN,
                           gap_extend: int = GAP_EXTEND):
     """Plain PyTorch version of K3: the row scan of ops/profile.py:49-93
-    (emit_ptr=True) over rows 1..max(p_len).  qw and the row scores are
-    formed with elementwise products, so no TF32 matmul can round them.
-    Returns (ptrs uint8[B, M, N+1], zero outside each window's rows
-    1..p_len and columns 0..q_len; score float32[B] = H[p_len][q_len])."""
+    (emit_ptr=True) over rows 1..max(p_len).  qw, the row scores and
+    ext_cum are formed in one fixed order of float32 operations
+    (profile_qw, profile_row_score, blocked_cumsum), which K3 repeats, so
+    fractional profiles give K3 the same bytes.  Returns (ptrs uint8[B,
+    M, N+1], zero outside each window's rows 1..p_len and columns
+    0..q_len; score float32[B] = H[p_len][q_len])."""
     B, M, _ = p.shape
     N = q.shape[1]
     dev = p.device
     w = torch.from_numpy(W5).to(dev)
     ext_q = gap_extend * (1.0 - q[:, :, GAP_CODE])             # [B, N]
-    qw = (q[:, :, None, :] * w[None, None, :, :]).sum(-1)       # [B, N, 5]
+    qw = profile_qw(q, w)                                       # [B, N, 5]
     ext_cum = torch.cat([torch.zeros((B, 1), dtype=torch.float32,
                                      device=dev),
-                         torch.cumsum(ext_q, dim=1)], dim=1)
+                         blocked_cumsum(ext_q)], dim=1)
     j_idx = torch.arange(N + 1, device=dev)
     h = torch.where(j_idx[None, :] == 0, 0.0, gap_open + ext_cum)
     f = torch.full_like(h, float(NEG_BIG))
@@ -103,7 +160,7 @@ def profile_forward_plain(p, q, p_len, q_len, gap_open: int = GAP_OPEN,
         f_open = h + gap_open + ext_pi
         f_ext = f + ext_pi
         f_row = torch.maximum(f_open, f_ext)
-        s = (p[:, i][:, None, :] * qw).sum(-1)                  # [B, N]
+        s = profile_row_score(p[:, i], qw)                      # [B, N]
         diag = h[:, :-1] + s
         g = torch.maximum(diag, f_row[:, 1:])
         g0 = f_row[:, :1]
@@ -153,6 +210,7 @@ def profile_forward(p, q, p_len, q_len, gap_open: int = GAP_OPEN,
     qw = torch.empty((B, 5, N), **f32)
     ext_q = torch.empty((B, N), **f32)
     ext_cum = torch.empty((B, N + 1), **f32)
+    cum_lv = torch.empty((B, lib.lm_profile_cum_scratch(N)), **f32)
     rows = flags = None
     if lib.lm_profile_row_bytes(N) > PROFILE_SMEM_LIMIT:
         rows = torch.empty((B, 4, N + 1), **f32)
@@ -163,7 +221,7 @@ def profile_forward(p, q, p_len, q_len, gap_open: int = GAP_OPEN,
     cuda.check(lib.lm_profile_fwd(
         p.data_ptr(), q.data_ptr(), p_len.data_ptr(), q_len.data_ptr(),
         qw.data_ptr(), ext_q.data_ptr(), ext_cum.data_ptr(),
-        rows.data_ptr() if rows is not None else None,
+        cum_lv.data_ptr(), rows.data_ptr() if rows is not None else None,
         flags.data_ptr() if flags is not None else None,
         ptrs.data_ptr(), score.data_ptr(), B, M, N, float(gap_open),
         float(gap_extend), w5, cuda.stream(p)), "lm_profile_fwd")

@@ -1,0 +1,124 @@
+"""Where the time goes in the 9 x 1 Mbp progressive path on one GPU.
+
+    python -m libmems_tpu_torch.profile_progressive
+
+Run from the repository root (the genomes come from bench_e2e.py's
+``_mutant_family``).  Method: one untimed run on input rng 0 loads every
+kernel and shape; then inputs rng 1 and 2, each timed by wall clock with
+the stage tracer on (``trace.stage``, device-synchronised), print one JSON
+line each: ``progressive_align``, ``apply_backbone`` and ``writers``
+seconds and the stage seconds.  Last, input rng 3 runs under
+``torch.profiler`` (CPU and CUDA activities); its device time is the sum
+of the kernel, memcpy and memset events of the exported Chrome trace
+(``key_averages()`` would count an op and its kernels twice), and the
+busy share is that sum over the run's wall.  Prints the card's name and
+power limit first.  The trace is written under build/ in the checkout.
+"""
+
+from __future__ import annotations
+
+import collections
+import io
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+import libmems_tpu_torch as lt
+from libmems_tpu_torch import cuda, trace
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def family(rng_seed: int, n: int = 9, length: int = 1_000_000):
+    from bench_e2e import _mutant_family
+    lut = np.frombuffer(b"ACGT", dtype=np.uint8)
+    return [lt.Genome(name=f"g{i}", ascii=lut[g], codes=g)
+            for i, g in enumerate(_mutant_family(n, length,
+                                                 rng_seed=rng_seed))]
+
+
+def run(rng_seed: int, dev) -> dict:
+    """One input through progressive_align(refine=False), apply_backbone
+    and the three writers; returns the walls in seconds."""
+    gs = family(rng_seed)
+    cfg = lt.ProgressiveConfig(refine=False, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ivs, _ = lt.progressive_align(gs, cfg)
+    t1 = time.perf_counter()
+    new_ivs, segs = lt.apply_backbone(ivs, device=dev)
+    t2 = time.perf_counter()
+    lt.write_xmfa(io.StringIO(), new_ivs)
+    lt.write_backbone_seq_coordinates(io.StringIO(), segs, len(gs))
+    lt.write_backbone_columns(io.StringIO(), segs)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    return {"progressive_align": t1 - t0, "apply_backbone": t2 - t1,
+            "writers": t3 - t2, "total": t3 - t0}
+
+
+def device_time(trace_path: str) -> tuple[float, list]:
+    """(device milliseconds, [(item, ms, events)] largest first) of the
+    kernel, memcpy and memset events of a Chrome trace."""
+    with open(trace_path) as fh:
+        events = json.load(fh)["traceEvents"]
+    ms = collections.Counter()
+    count = collections.Counter()
+    for e in events:
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        name = e["name"]
+        if e["cat"] != "kernel":
+            name = e["cat"] + ":" + name.split(" ")[0]
+        elif "radix" in name.lower() or "sort" in name.lower():
+            name = "torch.sort (cub)"
+        name = name[:90]
+        ms[name] += e["dur"] / 1e3
+        count[name] += 1
+    return sum(ms.values()), [(k, round(v, 3), count[k])
+                              for k, v in ms.most_common(25)]
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0
+          else "nvidia-smi failed")
+    dev = torch.device("cuda", 0)
+    cuda.library()
+    run(0, dev)
+    for seed in (1, 2):
+        trace.reset()
+        with open(os.devnull, "w") as null:
+            trace.set_enabled(True, stream=null)
+            walls = run(seed, dev)
+            trace.set_enabled(False)
+        print(json.dumps({"rng_seed": seed, **walls,
+                          "stages": trace.stage_seconds()}), flush=True)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        walls = run(3, dev)
+    out_dir = os.path.join(ROOT, "build", "profile_progressive")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    busy, top = device_time(path)
+    wall_ms = walls["total"] * 1e3
+    print(json.dumps({"rng_seed": 3, "profiled_wall_ms": wall_ms,
+                      "device_busy_ms": busy, "busy_share": busy / wall_ms,
+                      "top": top}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

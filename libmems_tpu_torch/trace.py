@@ -5,6 +5,7 @@
   flattens.  When tracing is on, a stage synchronises
   the CUDA device at both ends (if CUDA is in use), so its time includes
   the device work it enqueued; when tracing is off it does nothing.
+* ``progress(name, done, total)`` — throttled percent progress lines.
 
 Disabled by default: enable with ``set_enabled(True)`` or the
 LIBMEMS_TPU_TRACE=1 environment variable.
@@ -34,6 +35,7 @@ class StageRecord:
 
 _root = StageRecord("root")
 _stack: list[StageRecord] = [_root]
+_last_progress: dict[str, float] = {}
 
 
 def set_enabled(on: bool, stream=None):
@@ -47,6 +49,7 @@ def reset():
     global _root, _stack
     _root = StageRecord("root")
     _stack = [_root]
+    _last_progress.clear()
 
 
 def _sync():
@@ -75,6 +78,19 @@ def stage(name: str):
         _stack.pop()
         print(f"[libmems_tpu_torch] {name}: {dt:.3f}s", file=_stream,
               flush=True)
+
+
+def progress(name: str, done: int, total: int, min_interval: float = 1.0):
+    """Throttled percent progress (MatchFinder::LogProgress analog)."""
+    if not _enabled or total <= 0:
+        return
+    now = time.monotonic()
+    last = _last_progress.get(name, 0.0)
+    if now - last < min_interval and done < total:
+        return
+    _last_progress[name] = now
+    print(f"[libmems_tpu_torch] {name}: {100.0 * done / total:.0f}%",
+          file=_stream, flush=True)
 
 
 def stage_seconds(rec: StageRecord | None = None, prefix: str = ""

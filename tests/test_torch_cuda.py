@@ -109,6 +109,132 @@ def test_profile_and_traceback_kernels_equal_plain(dev, monkeypatch, M, N,
         assert torch.equal(g.cpu(), r)
 
 
+def test_profile_kernel_equals_plain_on_fractional_profiles(dev):
+    """Multi-row profiles (thirds, fifths): K3's fixed rounding order
+    gives the plain version's bytes and scores exactly."""
+    rng = np.random.default_rng(35)
+    B, M, N = 6, 256, 256
+    p = np.zeros((B, M, 5), np.float32)
+    q = np.zeros((B, N, 5), np.float32)
+    pl = rng.integers(M // 2, M + 1, B).astype(np.int32)
+    ql = rng.integers(N // 2, N + 1, B).astype(np.int32)
+    for r in range(B):
+        for arr, n, k in ((p, pl[r], 3 + r % 2), (q, ql[r], 5 - r % 3)):
+            rows = rng.integers(0, 4, (k, n)).astype(np.uint8)
+            rows[rng.random((k, n)) < 0.15] = 4
+            rows[:, (rows == 4).all(axis=0)] = 0
+            arr[r, :n] = profile.rows_to_profile(rows)
+    cpu = [torch.from_numpy(x) for x in (p, q, pl, ql)]
+    ref_p, ref_s = profile.profile_forward_plain(*cpu)
+    got_p, got_s = profile.profile_forward(*[x.to(dev) for x in cpu])
+    assert torch.equal(got_p.cpu(), ref_p)
+    assert torch.equal(got_s.cpu(), ref_s)
+
+
+def _family(G, n, rng_seed):
+    rng = np.random.default_rng(rng_seed)
+    anc = rng.integers(0, 4, size=n).astype(np.uint8)
+    out = [anc] + [generate._mutant(rng, anc, invert=(n // 4, n // 3)
+                                    if g % 2 else None)
+                   for g in range(1, G)]
+    ascii_ = [generate._LUT[g].copy() for g in out]
+    ascii_[1][100:160] = ord("N")
+    return [Genome(f"g{i}", a) for i, a in enumerate(ascii_)]
+
+
+def test_pairwise_kernels_equal_plain(dev):
+    """K5, K6 and K7 against their plain versions on one table: exact."""
+    from libmems_tpu_torch.matchfind import _pair_pos_bits
+    from libmems_tpu_torch.ops import pairwise
+    from libmems_tpu_torch.ops.mers import sentinel_content
+    from libmems_tpu_torch.sml import create_smls
+    G = 6
+    smls, seed = create_smls(_family(G, 60_000, 36), device="cpu")
+    keys = torch.cat([s.keys for s in smls])
+    cnts = [s.n_windows for s in smls]
+    offs = torch.from_numpy(np.concatenate([[0], np.cumsum(cnts)]))
+    c_sorted, src = torch.sort(pairwise.shr(keys, 1), stable=True)
+    args = (c_sorted, src, keys, offs, 1000, sentinel_content(seed))
+    ref = pairwise.run_flags_plain(*args)
+    got = pairwise.run_flags(*[a.to(dev) if isinstance(a, torch.Tensor)
+                               else a for a in args])
+    for r, g in zip(ref, got):
+        assert torch.equal(g.cpu(), r)
+    pb = _pair_pos_bits(max(cnts))
+    ref_w = pairwise.cluster_words_plain(ref, G, pb)
+    got_w = pairwise.cluster_words(got, G, pb)
+    assert torch.equal(got_w.cpu(), ref_w)
+    cw = pairwise.usort(ref_w)
+    off32 = offs[:-1].to(torch.int32)
+    cnt32 = torch.tensor(cnts, dtype=torch.int32)
+    seed_len = smls[0].seed_length
+    for ec in (64, 1 << 14):
+        ref_r = pairwise.cluster_reps_plain(cw, ec, G, pb, seed_len, off32,
+                                            cnt32)
+        got_r = pairwise.cluster_reps(cw.to(dev), ec, G, pb, seed_len,
+                                      off32.to(dev), cnt32.to(dev))
+        assert got_r.n_reps == ref_r.n_reps > 64
+        for r, g in zip(ref_r[:-1], got_r[:-1]):
+            assert torch.equal(g.cpu(), r)
+
+
+def test_pairwise_mums_cuda_equal_cpu(dev):
+    from libmems_tpu_torch import find_pairwise_mums
+    gs = _family(5, 50_000, 37)
+    ref = find_pairwise_mums(gs, device="cpu")
+    got = find_pairwise_mums(gs, device=dev)
+    np.testing.assert_array_equal(got.starts, ref.starts)
+    np.testing.assert_array_equal(got.lengths, ref.lengths)
+
+
+@pytest.mark.parametrize("T", [64, 4096, (1 << 14) + 3])
+def test_hmm_kernel_equals_plain(dev, T):
+    from libmems_tpu_torch.ops import hmm
+    rng = np.random.default_rng(T)
+    B = 5
+    obs = rng.integers(0, 8, (B, T)).astype(np.uint8)
+    blocks = np.repeat(rng.random((B, T // 64 + 1)) < 0.5, 64, 1)[:, :T]
+    obs = np.where(blocks, rng.integers(0, 2, (B, T)), obs).astype(np.uint8)
+    lens = np.array([T, max(T - 7, 1), max(T // 3, 1), 1, T], np.int32)
+    mats = hmm.log_matrices(hmm.adapted_hoxd_params(0.45), "cpu")
+    ref_p, ref_c = hmm.fb_posterior_plain(torch.from_numpy(obs),
+                                          torch.from_numpy(lens), mats, 0.9)
+    got_p, got_c = hmm.fb_posterior(torch.from_numpy(obs).to(dev),
+                                    torch.from_numpy(lens).to(dev),
+                                    tuple(m.to(dev) for m in mats), 0.9)
+    assert float((got_p.cpu() - ref_p).abs().max()) <= 1e-12
+    assert torch.equal(got_c.cpu(), ref_c)
+
+
+def test_nine_goldens_on_cuda(dev):
+    from libmems_tpu_torch import (ProgressiveConfig, apply_backbone,
+                                   progressive_align,
+                                   write_backbone_columns,
+                                   write_backbone_seq_coordinates)
+    rng = np.random.default_rng(1004)      # generate._genomes_nine
+    anc = rng.integers(0, 4, size=20_000).astype(np.uint8)
+    gs = []
+    for gi in range(9):
+        inv = (6_000, 9_000) if gi % 3 == 1 else None
+        g = generate._mutant(rng, anc, mutate=0.012, invert=inv)
+        gs.append(Genome(f"e{gi}", generate._LUT[g], filename=f"e{gi}.fa"))
+    ivs, _ = progressive_align(gs, ProgressiveConfig(refine=False,
+                                                     device=dev))
+    new_ivs, segs = apply_backbone(ivs, device=dev)
+    outs = {}
+    for name, write, args in (
+            ("nine.xmfa", write_xmfa, (new_ivs,)),
+            ("nine.bbseq", write_backbone_seq_coordinates,
+             (segs, len(gs))),
+            ("nine.bbcols", write_backbone_columns, (segs,))):
+        buf = io.StringIO()
+        write(buf, *args)
+        outs[name] = buf.getvalue().encode()
+    for name, data in outs.items():
+        with open(f"{generate.GOLDEN_DIR}/{name}", "rb") as fh:
+            assert data == fh.read(), name
+
+
 def test_pair_xmfa_golden_on_cuda(dev):
     rng = np.random.default_rng(1001)      # generate._genomes_pair
     anc = rng.integers(0, 4, size=60_000).astype(np.uint8)

@@ -123,6 +123,70 @@ def test_pointer_tensor_and_walk_equal_jax(M, N):
         np.testing.assert_array_equal(gb, rb)
 
 
+@pytest.mark.parametrize("n_p,n_q,seed", [(3, 2, 0), (3, 2, 1), (4, 5, 0),
+                                          (4, 5, 1)])
+def test_fractional_pointers_scores_and_walk_equal_jax(n_p, n_q, seed):
+    """Multi-row profiles hold fractions, so pointers depend on the
+    rounding order of qw, the row score and ext_cum.  The plain version
+    (K3's order) gives the JAX package's pointer bytes, scores and
+    traceback masks exactly."""
+    rng = np.random.default_rng(100 * n_p + 10 * n_q + seed)
+    B, M, N = 4, 64, 64
+    p, q, pl, ql = _profiles(rng, B, M, N, n_p, n_q)
+    vals = np.unique(np.concatenate([p.ravel(), q.ravel()]))
+    assert (np.abs(vals * 64 - np.round(vals * 64)) > 1e-3).any()  # 1/3, 1/5
+    jp, jq, jpl, jql = map(jnp.asarray, (p, q, pl, ql))
+    qw, ext_q, ext_cum, h0, f0 = jprofile._profile_q_setup(
+        jq, profile.GAP_OPEN, profile.GAP_EXTEND)
+    ext_p = profile.GAP_EXTEND * (1.0 - jp[:, :, 4])
+    ref_ptrs = np.asarray(jprofile.profile_block_ptrs(
+        h0, f0, jp, ext_p, jq, jql, profile.GAP_OPEN, profile.GAP_EXTEND))
+    ref_score, _, _ = jprofile.profile_forward_ckpt(
+        jp, jq, jpl, jql, profile.GAP_OPEN, profile.GAP_EXTEND, M)
+    T = gapped._device_tb_T(M, N)
+    ref_tb = jgapped.tb_unpack(jprofile._full_ptr_tb_jit(
+        jp, ext_p, jq, jql, jpl, profile.GAP_OPEN, profile.GAP_EXTEND, T),
+        B, T)
+
+    ptrs, score = profile.profile_forward_plain(
+        *map(torch.from_numpy, (p, q, pl, ql)))
+    got = ptrs.numpy()
+    for r in range(B):
+        np.testing.assert_array_equal(got[r, :pl[r], :ql[r] + 1],
+                                      ref_ptrs[r, :pl[r], :ql[r] + 1])
+    np.testing.assert_array_equal(score.numpy(), np.asarray(ref_score))
+    masks = gapped.traceback_walk_plain(ptrs, torch.from_numpy(pl),
+                                        torch.from_numpy(ql), T)
+    for (ra, rb), (ga, gb) in zip(ref_tb, gapped.tb_unpack(masks, B)):
+        np.testing.assert_array_equal(ga, ra)
+        np.testing.assert_array_equal(gb, rb)
+
+
+def test_fma32_rounds_once():
+    """fma32 equals a*b + c computed exactly (as fractions) and rounded
+    once to float32, including sums that fall near a float32 tie."""
+    from fractions import Fraction
+    rng = np.random.default_rng(9)
+    a = rng.standard_normal(2000).astype(np.float32)
+    b = rng.standard_normal(2000).astype(np.float32)
+    c = (rng.standard_normal(2000) * 1e-4).astype(np.float32)
+    # c chosen so a*b + c sits within a few float64 ulps of a float32 tie
+    ab = a.astype(np.float64) * b.astype(np.float64)
+    r = ab.astype(np.float32).astype(np.float64)
+    half = np.abs(np.spacing(ab.astype(np.float32)).astype(np.float64)) / 2
+    c[:1000] = (r + half - ab)[:1000].astype(np.float32)
+    got = profile.fma32(*map(torch.from_numpy, (a, b, c))).numpy()
+    for k in range(len(a)):
+        exact = Fraction(float(a[k])) * Fraction(float(b[k])) \
+            + Fraction(float(c[k]))
+        lo = np.float32(float(exact))
+        cands = [lo, np.nextafter(lo, np.float32(np.inf)),
+                 np.nextafter(lo, np.float32(-np.inf))]
+        best = min(cands, key=lambda v: (abs(Fraction(float(v)) - exact),
+                                         int(v.view(np.int32)) & 1))
+        assert got[k] == best, k
+
+
 def test_split_under_pointer_budget_changes_nothing(monkeypatch):
     rng = np.random.default_rng(21)
     p_rows, q_rows = _pair_windows(rng, [40, 50, 60, 64, 33])
