@@ -14,28 +14,42 @@ non-zero and prints no result line):
              card at its path's shapes (K1-K4 the pair's, K5-K7 the 9 x
              1 Mbp seeder's; exact equality), with timings;
 4. goldens - the port on the GPU reproduces tests/golden/pair.mums,
-             pair.xmfa and nine.{xmfa,bbseq,bbcols} byte for byte;
+             pair.xmfa and nine.{xmfa,bbseq,bbcols} byte for byte; the
+             nine-genome family with refine=True gives the same XMFA
+             bytes on the GPU as on CPU tensors (which the CPU tests hold
+             to the JAX package);
 5. main    - align() of a 2 x 4.6 Mbp pair with gapped alignment on the
              GPU: every kernel of the pair path launched, MUMs equal to
              the numpy twin, intervals partition both genomes; then a
              second pair;
-6. progressive - progressive_align(refine=False) + apply_backbone + the
-             three writers on two 9 x 1 Mbp families: every kernel K1-K8
-             launched, the pairwise MUMs equal the same call on CPU
-             tensors, intervals partition every genome, backbone
-             segments lie inside their intervals, stage seconds printed;
-7. node DP - K3 and K4 against their plain versions on the node-merge
-             windows of the first progressive run (fractional multi-row
-             profiles; exact equality);
+6. progressive - progressive_align with the default config (refine=True)
+             + apply_backbone + the three writers on two 9 x 1 Mbp
+             families: every kernel K1-K12 launched, the pairwise MUMs
+             equal the same call on CPU tensors, intervals partition
+             every genome, backbone segments lie inside their intervals,
+             stage seconds (refine/* among them) and banding outcomes
+             printed;
+7. profile DP - K3, K4 and K9-K12 against their plain versions on the
+             profile-DP launches of the first progressive run: the node
+             merges' and the refinement's align_profile_batch calls
+             (banded K11 + K12 first in 1024+ buckets, uncertified windows
+             through K3 + K4) and the refine gate's profile_scores_batch
+             calls (banded K10, uncertified and small-bucket windows
+             through K9); exact equality (scores bit for bit,
+             certificates, pointer bytes, masks).  Where that run left K9
+             no launch or no uncertified window, tests/test_banded.py's
+             adversarial windows run the same routes as well;
 8. hmm     - K8 against its plain version on the card on the HMM batches
              of the first progressive run, at their full lengths.
 
 The inputs of phases 7 and 8 are recorded one layer above the kernel
-wrappers (align_profile_batch, predict_homologous) and rebuilt into
-launches by the path's own planners.  Counts of kernel launches are set
-to 0 just before each main path and read just after; the kernel table
-reports the progressive path's counts, and K3, K4 and K8's times are
-taken on that path's inputs.
+wrappers (align_profile_batch, profile_scores_batch, predict_homologous)
+and rebuilt into launches by the path's own planners.  Counts of kernel
+launches are set to 0 just before each main path and read just after;
+the kernel table reports the progressive path's counts, and the times of
+K3, K4 and K8-K12 are taken on that path's inputs.  Each kernel's
+bound_ms is max(bytes / 3.35 TB/s, operations / peak rate) for the work
+of those inputs (the counts are in work_* below).
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  Logs go to chiprun_out/chip_smoke/.
 Imports neither JAX nor libmems_tpu.
@@ -76,7 +90,25 @@ SOURCES = {
                      "libmems_tpu/matchfind.py:1096"),
     "fb_posterior": ("libmems_tpu_torch/csrc/hmm.cu",
                      "libmems_tpu/ops/hmm.py:139"),
+    "profile_forward_scores": ("libmems_tpu_torch/csrc/profile.cu",
+                               "libmems_tpu/ops/profile.py:116"),
+    "banded_forward_scores": ("libmems_tpu_torch/csrc/banded.cu",
+                              "libmems_tpu/ops/profile.py:411"),
+    "banded_forward_ptrs": ("libmems_tpu_torch/csrc/banded.cu",
+                            "libmems_tpu/ops/profile.py:306"),
+    "banded_traceback_walk": ("libmems_tpu_torch/csrc/banded.cu",
+                              "libmems_tpu/ops/profile.py:422"),
 }
+# peak rates of one H100 SXM (NVIDIA's H100 SXM data sheet; f64 outside
+# the tensor cores).  Integer
+# kernels count their 32/64-bit integer operations at the f32 rate.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+F64_OPS_PER_S = 34e12
+DP_CELL_OPS = 20      # per profile-DP cell: 9 for the row score (a
+                      # product and four FMAs), 11 adds and maxes
+WALK_STEP_BYTES = 4   # per traceback step: one pointer byte, three masks
+HMM_COLUMN_OPS = 60   # per HMM column: two passes of 2-state log-sum-exps
 
 
 class SmokeFailure(RuntimeError):
@@ -144,6 +176,85 @@ def recording(targets):
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
+
+
+def nbytes(*xs):
+    """Bytes of every tensor in xs (tensors, tuples, named tuples)."""
+    total = 0
+    for x in xs:
+        if isinstance(x, (tuple, list)):
+            total += nbytes(*x)
+        elif hasattr(x, "element_size"):
+            total += x.numel() * x.element_size()
+    return total
+
+
+def work(bytes_, ops, rate=F32_OPS_PER_S):
+    return {"bytes": int(bytes_), "ops": int(ops), "rate": rate}
+
+
+def bound(w):
+    """(bound_ms, bound_by) of a work count: the larger of its bytes over
+    the memory rate and its operations over the peak rate."""
+    t_b = w["bytes"] / HBM_BYTES_PER_S
+    t_o = w["ops"] / w["rate"]
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def entry(err, ms, plain_ms, w):
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "work": w}
+
+
+def sum_work(ws):
+    ws = list(ws)
+    return work(sum(w["bytes"] for w in ws), sum(w["ops"] for w in ws))
+
+
+def _lens(t):
+    return (t[2].cpu().numpy().astype(np.int64),
+            t[3].cpu().numpy().astype(np.int64))
+
+
+def band_cells(t, H_W):
+    """DP cells the banded forward computes for a packed batch t: rows
+    1..p_len, local columns 0..clip(q_len - lo, 0, WB) of each block."""
+    from libmems_tpu_torch.ops import profile
+    N = t[1].shape[1]
+    WB = profile.band_width(H_W)
+    pl, ql = _lens(t)
+    plc = np.maximum(pl, 1)
+    total = 0
+    for bi in range(-(-int(pl.max(initial=0)) // profile.BAND_K)):
+        rows = np.clip(pl - bi * profile.BAND_K, 0, profile.BAND_K)
+        lo = np.clip((bi * profile.BAND_K * ql) // plc - (H_W + 1), 0,
+                     max(N - WB, 0))
+        total += int((rows * (np.clip(ql - lo, 0, WB) + 1)).sum())
+    return total
+
+
+def dp_work(name, t, H_W=None):
+    """Work of one profile-DP launch on the packed batch t: the profile
+    rows it reads (20 bytes a row and column), the lengths, its outputs
+    (pointer bytes of the computed cells, scores, certificates; the
+    banded forward also reads the sorted gap costs) and DP_CELL_OPS a
+    cell."""
+    pl, ql = _lens(t)
+    B = len(pl)
+    io = int(((pl + ql) * 20).sum()) + 8 * B
+    if name in ("profile_forward", "profile_forward_scores"):
+        cells = int((pl * (ql + 1)).sum())
+        out = 4 * B + (cells if name == "profile_forward" else 0)
+    else:
+        cells = band_cells(t, H_W)
+        io += 4 * B * (t[0].shape[1] + t[1].shape[1])
+        out = 5 * B + (cells if name == "banded_forward_ptrs" else 0)
+    return work(io + out, DP_CELL_OPS * cells)
+
+
+def walk_work(masks):
+    """Work of one traceback walk: the steps it took (masks[0])."""
+    steps = int(masks[0].sum())
+    return work(WALK_STEP_BYTES * steps + 8 * masks[0].shape[1], 10 * steps)
 
 
 def max_abs_err(pairs):
@@ -276,7 +387,8 @@ def phase_build():
 
 def phase_kernels(torch, lt, dev):
     """Each kernel against its plain version on the card; exact
-    equality.  Returns {name: (max_abs_err, ms, plain_ms)}."""
+    equality.  Returns {name: entry}, entry = {err, ms, plain_ms,
+    work}."""
     from libmems_tpu_torch import aligner, gapalign, matchfind, seeds
     from libmems_tpu_torch.lcb import eliminate_overlaps
     from libmems_tpu_torch.ops import extend, gapped, mers, profile
@@ -299,12 +411,16 @@ def phase_kernels(torch, lt, dev):
     ref0 = mers.canonical_seed_keys_plain(codes, seed)
     require(torch.equal(k, ref) and torch.equal(k0, ref0),
             "K1 differs from its plain version")
-    res["canonical_seed_keys"] = (
+    n = codes.numel()
+    res["canonical_seed_keys"] = entry(
         max_abs_err([(k, ref), (k0, ref0)]),
         timed_ms(lambda: mers.canonical_seed_keys(codes, seed, ambt), 20,
                  torch),
         timed_ms(lambda: mers.canonical_seed_keys_plain(codes, seed, ambt),
-                 5, torch, warmup=False))
+                 5, torch, warmup=False),
+        # codes and flags in, int64 keys out; ~4 integer operations per
+        # seed position and strand
+        work(n + n + 8 * n, 4 * seeds.seed_weight(seed) * n))
     log(f"# K1 seed keys: n={k.numel()} equal")
 
     # K2: the candidates of the 4.6 Mbp pair's pipeline
@@ -329,11 +445,19 @@ def phase_kernels(torch, lt, dev):
     rl, rn = extend.extend_matches_plain(*args)
     require(torch.equal(kl, rl) and torch.equal(kn, rn),
             "K2 differs from its plain version")
-    res["extend_matches"] = (
+    # the keys of both genomes each probe reads (at least one chunk per
+    # side and live row, plus the extension beyond it), the rows' inputs
+    # and outputs
+    live = int(present.any(dim=1).sum())
+    ext = 2 * chunk * live + int((kn.long() - lengths0.long()).clamp(
+        min=0).sum())
+    res["extend_matches"] = entry(
         max_abs_err([(kl, rl), (kn, rn)]),
         timed_ms(lambda: extend.extend_matches(*args), 10, torch),
         timed_ms(lambda: extend.extend_matches_plain(*args), 3, torch,
-                 warmup=False))
+                 warmup=False),
+        work(16 * ext + nbytes(off, cnt, lefts, present, is_fwd, lengths0,
+                               kl, kn), 4 * ext))
     log(f"# K2 extension: rows={EC} live={int(n_reps)} "
         f"max_len={int(kn.max())} equal")
 
@@ -383,17 +507,20 @@ def phase_kernels(torch, lt, dev):
             errs4 += list(zip(g, r))
         log(f"# K3/K4 {name}: equal")
     ptrs = run3(packed, profile.profile_forward)
-    res["profile_forward"] = (
+    res["profile_forward"] = entry(
         max_abs_err(errs3),
         timed_ms(lambda: run3(packed, profile.profile_forward), 5, torch),
         timed_ms(lambda: run3(packed, profile.profile_forward_plain), 1,
-                 torch, warmup=False))
-    res["traceback_walk"] = (
+                 torch, warmup=False),
+        sum_work(dp_work("profile_forward", t) for _, _, t in packed))
+    masks = run4(packed, ptrs, gapped.traceback_walk)
+    res["traceback_walk"] = entry(
         max_abs_err(errs4),
         timed_ms(lambda: run4(packed, ptrs, gapped.traceback_walk), 5,
                  torch),
         timed_ms(lambda: run4(packed, ptrs, gapped.traceback_walk_plain),
-                 1, torch, warmup=False))
+                 1, torch, warmup=False),
+        sum_work(walk_work(m) for m in masks))
     for M, N, t in extra:
         ptr = profile.profile_forward(*t)[0]
         T = gapped._device_tb_T(M, N)
@@ -406,16 +533,16 @@ def phase_kernels(torch, lt, dev):
                       1, torch, warmup=False)
         log(f"# K3 at {M}x{N} B={t[0].shape[0]}: kernel {k3:.3f} ms, plain "
             f"{p3:.3f} ms; K4: kernel {k4:.3f} ms, plain {p4:.3f} ms")
-    for name, (err, ms, pms) in res.items():
-        log(f"# {name}: kernel {ms:.3f} ms, plain {pms:.3f} ms, "
-            f"max_abs_err {err}")
+    for name, e in res.items():
+        log(f"# {name}: kernel {e['ms']:.3f} ms, plain {e['plain_ms']:.3f} "
+            f"ms, max_abs_err {e['err']}")
     return res
 
 
 def phase_pairwise_kernels(torch, lt, dev):
     """K5-K7 against their plain versions on the card, on the seed table
     of the 9 x 1 Mbp family (rng 0); exact equality.  Returns {name:
-    (max_abs_err, ms, plain_ms)}."""
+    entry}."""
     from libmems_tpu_torch.matchfind import _pair_pos_bits
     from libmems_tpu_torch.ops import pairwise
     from libmems_tpu_torch.ops.mers import sentinel_content
@@ -434,11 +561,13 @@ def phase_pairwise_kernels(torch, lt, dev):
     ref = pairwise.run_flags_plain(*args)
     require(all(torch.equal(g, r) for g, r in zip(got, ref)),
             "K5 differs from its plain version")
-    res["run_flags"] = (
+    res["run_flags"] = entry(
         max_abs_err(list(zip(got, ref))),
         timed_ms(lambda: pairwise.run_flags(*args), 10, torch),
         timed_ms(lambda: pairwise.run_flags_plain(*args), 3, torch,
-                 warmup=False))
+                 warmup=False),
+        # ~10 integer operations a row: neighbour compares, run bounds
+        work(nbytes(args, got), 10 * keys.numel()))
     kept = int(got.unique_occ.sum())
     log(f"# K5 run flags: rows={keys.numel()} kept={kept} equal")
 
@@ -446,11 +575,12 @@ def phase_pairwise_kernels(torch, lt, dev):
     got_w = pairwise.cluster_words(got, G, pb)
     ref_w = pairwise.cluster_words_plain(ref, G, pb)
     require(torch.equal(got_w, ref_w), "K6 differs from its plain version")
-    res["cluster_words"] = (
+    res["cluster_words"] = entry(
         max_abs_err([(got_w, ref_w)]),
         timed_ms(lambda: pairwise.cluster_words(got, G, pb), 10, torch),
         timed_ms(lambda: pairwise.cluster_words_plain(ref, G, pb), 3, torch,
-                 warmup=False))
+                 warmup=False),
+        work(nbytes(got, got_w), 5 * got_w.numel()))
     log(f"# K6 cluster words: {got_w.numel()} words equal")
 
     cw = pairwise.usort(got_w)
@@ -470,16 +600,17 @@ def phase_pairwise_kernels(torch, lt, dev):
             and all(torch.equal(g, r) for g, r in zip(got_r[:-1],
                                                       ref_r[:-1])),
             "K7 differs from its plain version")
-    res["cluster_reps"] = (
+    res["cluster_reps"] = entry(
         max_abs_err(list(zip(got_r[:-1], ref_r[:-1]))),
         timed_ms(lambda: pairwise.cluster_reps(*rargs), 10, torch),
         timed_ms(lambda: pairwise.cluster_reps_plain(*rargs), 3, torch,
-                 warmup=False))
+                 warmup=False),
+        work(nbytes(cw, off, cnt, got_r[:-1]), 10 * cw.numel()))
     log(f"# K7 representatives: {got_r.n_reps} reps in EC={ec} equal")
     for name in ("run_flags", "cluster_words", "cluster_reps"):
-        err, ms, pms = res[name]
-        log(f"# {name}: kernel {ms:.3f} ms, plain {pms:.3f} ms, "
-            f"max_abs_err {err}")
+        e = res[name]
+        log(f"# {name}: kernel {e['ms']:.3f} ms, plain {e['plain_ms']:.3f} "
+            f"ms, max_abs_err {e['err']}")
     return res
 
 
@@ -524,6 +655,22 @@ def phase_goldens(lt, dev):
             require(data == fh.read(), f"{name} differs from the golden")
     log(f"# goldens: nine.xmfa, nine.bbseq, nine.bbcols byte-equal "
         f"({len(new_ivs.intervals)} intervals, {len(segs)} segments)")
+    # refine=True (the default): the GPU's bytes equal the CPU tensors',
+    # which tests/test_torch_refine.py holds to the JAX package
+    xmfa = {}
+    for d in (dev, "cpu"):
+        t0 = time.perf_counter()
+        ivs, _ = lt.progressive_align(golden_nine(lt),
+                                      lt.ProgressiveConfig(device=d))
+        buf = io.StringIO()
+        lt.write_xmfa(buf, ivs)
+        xmfa[str(d)] = buf.getvalue().encode()
+        log(f"# nine family refine=True on {d}: "
+            f"{time.perf_counter() - t0:.3f} s")
+    require(xmfa[str(dev)] == xmfa["cpu"],
+            "nine family refine=True: GPU XMFA differs from CPU tensors")
+    log(f"# goldens: nine family refine=True XMFA GPU == CPU tensors "
+        f"({len(xmfa['cpu'])} bytes)")
 
 
 def check_partition(ivs, genomes):
@@ -612,9 +759,10 @@ def check_segments(ivs, segs):
 
 
 def phase_progressive(torch, lt, dev):
-    """The progressiveMauve path on two 9 x 1 Mbp families.  Returns
-    (launches of the first run, the arguments of the first run's
-    align_profile_batch and predict_homologous calls, walls)."""
+    """The progressiveMauve path, default config (refine=True), on two
+    9 x 1 Mbp families.  Returns (launches of the first run, the
+    arguments of the first run's align_profile_batch,
+    profile_scores_batch and predict_homologous calls, walls)."""
     from libmems_tpu_torch import islands, msa, progressive, trace
     from libmems_tpu_torch.ops import (extend, gapped, hmm, mers, pairwise,
                                        profile)
@@ -625,16 +773,23 @@ def phase_progressive(torch, lt, dev):
                 "run_flags": pairwise.run_flags,
                 "cluster_words": pairwise.cluster_words,
                 "cluster_reps": pairwise.cluster_reps,
-                "fb_posterior": hmm.fb_posterior}
-    cfg = lt.ProgressiveConfig(refine=False, device=dev)
-    # the callers' names of the node-DP and HMM entry points
+                "fb_posterior": hmm.fb_posterior,
+                "profile_forward_scores": profile.profile_forward_scores,
+                "banded_forward_scores": profile.banded_forward_scores,
+                "banded_forward_ptrs": profile.banded_forward_ptrs,
+                "banded_traceback_walk": profile.banded_traceback_walk}
+    cfg = lt.ProgressiveConfig(device=dev)
+    require(cfg.refine, "the default ProgressiveConfig must refine")
+    # the callers' names of the node-DP, refinement and HMM entry points
     targets = [(progressive, "align_profile_batch"),
                (msa, "align_profile_batch"),
+               (msa, "profile_scores_batch"),
                (islands, "predict_homologous")]
 
     def run(rng_seed, capture):
         genomes = family_nine(lt, rng_seed)
         trace.reset()
+        profile.BAND_STATS.update(dict.fromkeys(profile.BAND_STATS, 0))
         for w in wrappers.values():
             w.launches = 0
         with recording(targets if capture else []) as calls:
@@ -656,6 +811,10 @@ def phase_progressive(torch, lt, dev):
             f"{ {k: len(v) for k, v in outs.items()} }")
         log(f"# launches: {launches}")
         log("# stages: " + json.dumps(stages))
+        log("# refine stages: " + json.dumps(
+            {k: round(v, 3) for k, v in stages.items()
+             if k.startswith("refine")}))
+        log(f"# BAND_STATS: {json.dumps(profile.BAND_STATS)}")
         for name, n in launches.items():
             require(n > 0, f"{name}: no launch on the progressive path")
         check_partition(ivs, genomes)
@@ -677,69 +836,183 @@ def phase_progressive(torch, lt, dev):
     return launches, calls, (dt1, dt2)
 
 
-def phase_node_dp(torch, dev, calls, launches):
-    """K3 and K4 against their plain versions on the card, on the windows
-    of the first progressive run's align_profile_batch calls, rebuilt
-    into the path's launches by plan_launches and pack_profiles; exact
-    equality.  Returns {name: (max_abs_err, ms, plain_ms)}, the times
-    summed over those launches."""
+DP_KERNELS = ("banded_forward_scores", "profile_forward_scores",
+              "banded_forward_ptrs", "banded_traceback_walk",
+              "profile_forward", "traceback_walk")
+
+
+def adversarial_windows():
+    """tests/test_banded.py's windows in the 1024 bucket: a near-diagonal
+    pair, a 300-column insertion (fails the certificate), a two-row
+    profile with gap columns against a mutant, and a 200-column window
+    against a 1000-column one (not band-eligible)."""
+    rng = np.random.default_rng(7)
+
+    def pair(n, mutate=0.01, ins=0):
+        a = rng.integers(0, 4, n).astype(np.uint8)
+        b = a.copy()
+        m = rng.random(n) < mutate
+        b[m] = (b[m] + rng.integers(1, 4, int(m.sum()))) % 4
+        if ins:
+            b = np.concatenate([b[:n // 2], rng.integers(0, 4, ins),
+                                b[n // 2:]]).astype(np.uint8)
+        return a, b
+
+    p_rows, q_rows = [], []
+    for n, ins in ((950, 0), (800, 300)):
+        a, b = pair(n, ins=ins)
+        p_rows.append(a[None])
+        q_rows.append(b[None])
+    a, b = pair(900, mutate=0.02)
+    p_rows.append(np.stack([a, np.where(rng.random(900) < 0.02, 4, b)]
+                           ).astype(np.uint8))
+    q_rows.append(pair(905, mutate=0.02)[1][None])
+    p_rows.append(pair(200)[0][None])
+    q_rows.append(pair(1000)[1][None])
+    return p_rows, q_rows
+
+
+def plan_profile_dp(score_calls, align_calls, dev):
+    """The profile-DP launches of recorded profile_scores_batch and
+    align_profile_batch calls, rebuilt with the path's own planners
+    (ops.profile.plan_buckets, plan_launches, band_route, split_launch)
+    and routed by the kernels' own certificates, as the path routes them.
+    Returns ({kernel name: [arguments, ...]}, uncertified eligible
+    windows)."""
     from libmems_tpu_torch.ops import gapped, profile
-    batches = []
-    for a in calls:
-        for M, N, sub in profile.plan_launches(a["p_rows"], a["q_rows"]):
-            t = profile.pack_profiles(a["p_rows"], a["q_rows"], sub, M, N,
-                                      dev)
-            batches.append((M, N, t, a["gap_open"], a["gap_extend"]))
-    require(len(batches) == launches["profile_forward"],
-            f"{len(batches)} node-DP launches rebuilt, the path made "
-            f"{launches['profile_forward']}")
+    launches = {name: [] for name in DP_KERNELS}
+    uncert = 0
+    for a in score_calls:
+        pr, qr, go, ge = a["p_rows"], a["q_rows"], a["gap_open"], \
+            a["gap_extend"]
+        for M, N, idxs in profile.plan_buckets(pr, qr):
+            Mp = -(-M // profile.BAND_K) * profile.BAND_K
+            todo = list(idxs)
+            t = profile.pack_profiles(pr, qr, todo, Mp, N, dev)
+            elig = profile.band_route(pr, qr, todo, Mp, N)
+            if elig.any():
+                args = (*t, go, ge, profile._band_half(N))
+                launches["banded_forward_scores"].append(args)
+                _, cert = profile.banded_forward_scores(*args)
+                okm = elig & cert.cpu().numpy()
+                uncert += int((elig & ~okm).sum())
+                todo = [k for r, k in enumerate(todo) if not okm[r]]
+                if not todo:
+                    continue
+                t = profile.pack_profiles(pr, qr, todo, Mp, N, dev)
+            launches["profile_forward_scores"].append((*t, go, ge))
+    for a in align_calls:
+        pr, qr, go, ge = a["p_rows"], a["q_rows"], a["gap_open"], \
+            a["gap_extend"]
+        for Mp, N, sub in profile.plan_launches(pr, qr):
+            t = profile.pack_profiles(pr, qr, sub, Mp, N, dev)
+            T = gapped._device_tb_T(Mp, N)
+            todo = sub
+            elig = profile.band_route(pr, qr, sub, Mp, N)
+            if elig.any():
+                H_W = profile._band_half(N)
+                args = (*t, go, ge, H_W)
+                launches["banded_forward_ptrs"].append(args)
+                ptrs, _, cert = profile.banded_forward_ptrs(*args)
+                launches["banded_traceback_walk"].append(
+                    (ptrs, t[2], t[3], N, H_W, T))
+                okm = elig & cert.cpu().numpy()
+                uncert += int((elig & ~okm).sum())
+                todo = [k for r, k in enumerate(sub) if not okm[r]]
+            for chunk in profile.split_launch(todo, Mp * (N + 1)):
+                if chunk != sub:
+                    t = profile.pack_profiles(pr, qr, chunk, Mp, N, dev)
+                launches["profile_forward"].append((*t, go, ge))
+                ptrs, _ = profile.profile_forward(*t, go, ge)
+                launches["traceback_walk"].append((ptrs, t[2], t[3], T))
+    return launches, uncert
 
-    def fractional(x):
-        return ((x > 0) & (x < 1)).flatten(1).any(1)
 
-    frac = sum(int((fractional(t[0]) | fractional(t[1])).sum())
-               for _, _, t, _, _ in batches)
-    n_win = sum(t[0].shape[0] for _, _, t, _, _ in batches)
-    log(f"# node DP: {n_win} windows ({frac} with fractional profiles) in "
-        f"{len(batches)} launches, buckets "
-        f"{sorted({(M, N) for M, N, _, _, _ in batches})}")
+def phase_profile_dp(torch, dev, calls, launches):
+    """K3, K4 and K9-K12 against their plain versions on the card, on
+    the profile-DP launches of the first progressive run (node merges,
+    refine gate, refine tracebacks), rebuilt by plan_profile_dp; exact
+    equality.  Where that run gave K9 no launch or left no uncertified
+    window, the adversarial windows run the same routes too.  Returns
+    {name: entry}, the times and work summed over the path's launches."""
+    from libmems_tpu_torch.ops import gapped, profile
+    fns = {"profile_forward": (profile.profile_forward,
+                               profile.profile_forward_plain),
+           "traceback_walk": (gapped.traceback_walk,
+                              gapped.traceback_walk_plain),
+           "profile_forward_scores": (profile.profile_forward_scores,
+                                      profile.profile_forward_scores_plain),
+           "banded_forward_scores": (profile.banded_forward_scores,
+                                     profile.banded_forward_scores_plain),
+           "banded_forward_ptrs": (profile.banded_forward_ptrs,
+                                   profile.banded_forward_ptrs_plain),
+           "banded_traceback_walk": (profile.banded_traceback_walk,
+                                     profile.banded_traceback_walk_plain)}
+    align_calls = calls.get("align_profile_batch", [])
+    score_calls = calls.get("profile_scores_batch", [])
+    path, uncert = plan_profile_dp(score_calls, align_calls, dev)
+    for name in DP_KERNELS:
+        require(len(path[name]) == launches[name],
+                f"{name}: {len(path[name])} launches rebuilt, the path "
+                f"made {launches[name]}")
+    n_win = {name: sum(int(a[0].shape[0]) for a in path[name])
+             for name in DP_KERNELS}
+    log(f"# profile DP of the first input: {len(align_calls)} "
+        f"align_profile_batch and {len(score_calls)} profile_scores_batch "
+        f"calls; launches {json.dumps({k: len(v) for k, v in path.items()})}"
+        f", windows {json.dumps(n_win)}, {uncert} uncertified eligible")
+    runs = [("path", path)]
+    if not path["profile_forward_scores"] or not uncert:
+        pr, qr = adversarial_windows()
+        arg = {"p_rows": pr, "q_rows": qr, "gap_open": profile.GAP_OPEN,
+               "gap_extend": profile.GAP_EXTEND}
+        extra, x_uncert = plan_profile_dp([arg], [arg], dev)
+        require(x_uncert >= 2 and all(extra[n] for n in DP_KERNELS),
+                "the adversarial windows missed a route")
+        runs.append(("adversarial", extra))
+        log(f"# adversarial windows: launches "
+            f"{json.dumps({k: len(v) for k, v in extra.items()})}, "
+            f"{x_uncert} uncertified")
 
-    def k3(fn):
-        return [fn(*t, go, ge) for _, _, t, go, ge in batches]
-
-    def k4(ptrs, fn):
-        return [fn(pt, t[2], t[3], gapped._device_tb_T(M, N))
-                for (M, N, t, _, _), (pt, _) in zip(batches, ptrs)]
-
-    got = k3(profile.profile_forward)
-    ref, p3 = timed_once(lambda: k3(profile.profile_forward_plain), torch)
-    for (M, N, _, _, _), (gp, gs), (rp, rs) in zip(batches, got, ref):
-        require(torch.equal(gp, rp) and torch.equal(gs, rs),
-                f"K3 differs from its plain version on a node-DP launch "
-                f"at ({M}, {N})")
-    got4 = k4(got, gapped.traceback_walk)
-    ref4, p4 = timed_once(lambda: k4(got, gapped.traceback_walk_plain),
-                          torch)
-    for (M, N, _, _, _), g, r in zip(batches, got4, ref4):
-        require(all(torch.equal(x, y) for x, y in zip(g, r)),
-                f"K4 differs from its plain version on a node-DP launch "
-                f"at ({M}, {N})")
-    err3 = max_abs_err([x for g, r in zip(got, ref) for x in zip(g, r)])
-    err4 = max_abs_err([x for g, r in zip(got4, ref4) for x in zip(g, r)])
-    ms3 = timed_ms(lambda: k3(profile.profile_forward), 5, torch)
-    ms4 = timed_ms(lambda: k4(got, gapped.traceback_walk), 5, torch)
-    log(f"# K3/K4 node DP: equal; K3 kernel {ms3:.3f} ms, plain {p3:.3f} "
-        f"ms; K4 kernel {ms4:.3f} ms, plain {p4:.3f} ms")
-    return {"profile_forward": (err3, ms3, p3),
-            "traceback_walk": (err4, ms4, p4)}
+    res = {}
+    for name in DP_KERNELS:
+        fn, plain = fns[name]
+        errs, timed = [], None
+        for label, lst in runs:
+            if not lst[name]:
+                continue
+            got = [fn(*a) for a in lst[name]]
+            ref, pms = timed_once(lambda: [plain(*a) for a in lst[name]],
+                                  torch)
+            for a, g, r in zip(lst[name], got, ref):
+                g = g if isinstance(g, tuple) else (g,)
+                r = r if isinstance(r, tuple) else (r,)
+                require(all(torch.equal(x, y) for x, y in zip(g, r)),
+                        f"{name} differs from its plain version on a "
+                        f"{label} launch at {tuple(a[0].shape)}")
+                errs += list(zip(g, r))
+            if timed is None:
+                ms = timed_ms(lambda: [fn(*a) for a in lst[name]], 3, torch)
+                if name in ("traceback_walk", "banded_traceback_walk"):
+                    w = sum_work(walk_work(g) for g in got)
+                else:
+                    w = sum_work(dp_work(name, a[:4], a[6] if len(a) > 6
+                                         else None) for a in lst[name])
+                timed = (label, ms, pms, w)
+        label, ms, pms, w = timed
+        res[name] = entry(max_abs_err(errs), ms, pms, w)
+        log(f"# {name}: equal on {', '.join(lb for lb, l in runs if l[name])}"
+            f"; kernel {ms:.3f} ms, plain {pms:.3f} ms over the {label} "
+            f"launches")
+    return res
 
 
 def phase_hmm(torch, dev, calls, launches):
     """K8 against its plain version on the card, on the batches of the
     first progressive run's predict_homologous calls at their full
     lengths, rebuilt into the path's launches by hmm.pack_batches:
-    posteriors within 1e-12, calls equal.  Returns (max_abs_err, ms,
-    plain_ms), the times summed over those launches."""
+    posteriors within 1e-12, calls equal.  Returns the entry, the times
+    summed over those launches."""
     from libmems_tpu_torch.ops import hmm
     batches = []
     for a in calls:
@@ -767,7 +1040,11 @@ def phase_hmm(torch, dev, calls, launches):
     ms = timed_ms(lambda: run(hmm.fb_posterior), 3, torch)
     log(f"# K8 vs plain at full length: max_abs_err {err}, calls equal; "
         f"kernel {ms:.3f} ms, plain {pms:.3f} ms")
-    return err, ms, pms
+    # observations in, f64 posteriors and calls out, over each sequence's
+    # columns
+    cols = sum(int(n.sum()) for _, n, _, _ in batches)
+    return entry(err, ms, pms, work(10 * cols, HMM_COLUMN_OPS * cols,
+                                    F64_OPS_PER_S))
 
 
 def main() -> int:
@@ -782,9 +1059,10 @@ def main() -> int:
     phase_goldens(lt, dev)
     _, dt1, dt2 = phase_main(torch, lt, dev)
     launches, calls, pdt = phase_progressive(torch, lt, dev)
-    for name, (err, ms, pms) in phase_node_dp(
-            torch, dev, calls["align_profile_batch"], launches).items():
-        res[name] = (max(err, res[name][0]), ms, pms)
+    for name, e in phase_profile_dp(torch, dev, calls, launches).items():
+        if name in res:
+            e["err"] = max(e["err"], res[name]["err"])
+        res[name] = e
     res["fb_posterior"] = phase_hmm(torch, dev, calls["predict_homologous"],
                                     launches)
     forbidden = [m for m in sys.modules
@@ -792,11 +1070,16 @@ def main() -> int:
                  or m == "libmems_tpu"]
     require(not forbidden, f"imported {forbidden[:5]}")
     kernels = []
-    for name, (err, ms, pms) in res.items():
+    for name, e in res.items():
         src, replaces = SOURCES[name]
+        bound_ms, bound_by = bound(e["work"])
+        log(f"# work {name}: {e['work']['bytes']} bytes, "
+            f"{e['work']['ops']} operations")
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": err, "ms": ms, "plain_ms": pms})
+                        "max_abs_err": e["err"], "ms": e["ms"],
+                        "plain_ms": e["plain_ms"], "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": None})
     log(f"# card: {card}; pair path {dt1:.3f} s then {dt2:.3f} s; "
         f"progressive path {pdt[0]:.3f} s then {pdt[1]:.3f} s")
     log(json.dumps({"kernels": kernels}))

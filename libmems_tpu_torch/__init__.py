@@ -7,17 +7,21 @@ reference) on one NVIDIA GPU:
   construction, pair MUM discovery, LCBs with the extension loop,
   recursive anchoring, batched gapped alignment of the inter-anchor
   windows and XMFA output;
-* progressive alignment (``progressive_align`` with ``refine=False``)
-  and backbone (``apply_backbone``), the progressiveMauve path: pairwise
-  seeding from per-genome-unique seeds, guide tree, node merges with
-  multi-row profile DP windows, the pairwise homology HMM and the
-  backbone files.
+* progressive alignment (``progressive_align``, with the windowed
+  refinement of its default ``refine=True``) and backbone
+  (``apply_backbone``), the progressiveMauve path: pairwise seeding from
+  per-genome-unique seeds, guide tree, node merges with multi-row
+  profile DP windows, score-gated refinement, the pairwise homology HMM
+  and the backbone files;
+* one-window alignment and refinement (``align_codes``, ``refine``).
 
 The device work is PyTorch plus hand-written CUDA kernels (``csrc/``):
 canonical seed keys (K1), ungapped extension (K2), the profile DP
 forward with pointers (K3), the traceback walk (K4), the pairwise
-seeder's run flags, cluster words and representatives (K5-K7), and the
-homology HMM forward/backward (K8).  Each has a plain PyTorch version
+seeder's run flags, cluster words and representatives (K5-K7), the
+homology HMM forward/backward (K8), the score-only profile forward (K9),
+the banded profile forward with its certificate (K10) and with pointers
+(K11), and the banded traceback walk (K12).  Each has a plain PyTorch version
 that CPU tensors use.
 
 Every tensor-building entry point takes an explicit ``device``
@@ -38,6 +42,7 @@ from libmems_tpu_torch.match import MatchArray, write_match_list
 from libmems_tpu_torch.matchfind import find_mums, find_pairwise_mums
 from libmems_tpu_torch.aligner import AlignerConfig, align
 from libmems_tpu_torch.interval import IntervalList, write_xmfa
+from libmems_tpu_torch.msa import align_codes, refine
 from libmems_tpu_torch.progressive import (ProgressiveConfig,
                                            progressive_align)
 from libmems_tpu_torch.backbone import (BackboneSegment, apply_backbone,
@@ -59,6 +64,8 @@ __all__ = [
     "align",
     "IntervalList",
     "write_xmfa",
+    "align_codes",
+    "refine",
     "ProgressiveConfig",
     "progressive_align",
     "apply_backbone",

@@ -85,4 +85,106 @@ __device__ ScanResult<T> block_scan(T v, T identity, Op op, T* tmp) {
   return r;
 }
 
+constexpr int kCumBlock = 16;
+constexpr int kMaxLevels = 8;
+
+// Floats of level scratch blocked_cumsum needs for n elements.
+__host__ __device__ inline int64_t cum_scratch(int64_t n) {
+  int64_t used = 0;
+  for (int l = 0; l < kMaxLevels && n > kCumBlock; ++l) {
+    n = (n + kCumBlock - 1) / kCumBlock;
+    used += n;
+  }
+  return used > 0 ? used : 1;
+}
+
+// Inclusive prefix sum of x[0..n) into out[0..n) (out may be x) by the
+// whole thread block, in the JAX package's CPU cumsum order: sequential
+// within blocks of 16, the block totals' prefix (the same, recursively)
+// added to every later block.  lv is global scratch for the block totals
+// of every level (cum_scratch(n) floats).
+__device__ inline void blocked_cumsum(const float* x, float* out, int n,
+                                      float* lv) {
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  int len[kMaxLevels + 1];
+  int off[kMaxLevels + 1];
+  int top = 0;
+  len[0] = n;
+  off[0] = 0;
+  int used = 0;
+  while (len[top] > kCumBlock && top < kMaxLevels) {
+    len[top + 1] = (len[top] + kCumBlock - 1) / kCumBlock;
+    off[top + 1] = used;
+    used += len[top + 1];
+    ++top;
+  }
+  // up: sequential prefix inside each block; block totals feed the level
+  // above
+  for (int l = 0; l <= top; ++l) {
+    const float* in = l == 0 ? x : lv + off[l];
+    float* o = l == 0 ? out : lv + off[l];
+    const int nbk = (len[l] + kCumBlock - 1) / kCumBlock;
+    for (int bk = tid; bk < nbk; bk += nt) {
+      const int lo = bk * kCumBlock;
+      const int hi = min(lo + kCumBlock, len[l]);
+      float acc = in[lo];
+      o[lo] = acc;
+      for (int k = lo + 1; k < hi; ++k) {
+        acc = __fadd_rn(acc, in[k]);
+        o[k] = acc;
+      }
+      if (l < top) lv[off[l + 1] + bk] = acc;
+    }
+    __syncthreads();
+  }
+  // down: every block of a level adds the prefix of the totals before it
+  for (int l = top - 1; l >= 0; --l) {
+    float* o = l == 0 ? out : lv + off[l];
+    const float* up = lv + off[l + 1];
+    for (int k = tid; k < len[l]; k += nt) {
+      const int bk = k / kCumBlock;
+      o[k] = __fadd_rn(o[k], bk > 0 ? up[bk - 1] : 0.0f);
+    }
+    __syncthreads();
+  }
+}
+
+// The 5x5 expected-score matrix W5, passed by value.
+struct W5 {
+  float w[25];
+};
+
+// qw[y][j] = ((q0 w_y0 + q1 w_y1) + (q2 w_y2 + q3 w_y3)) + q4 w_y4 and
+// ext_q[j] = gap_extend * (1 - q4) for the columns j < ql of one window,
+// by the whole thread block (qwb: [5][N], eq: [N]).
+__device__ inline void profile_q_setup(const float* qb, float* qwb, float* eq,
+                                       int ql, int N, float gap_extend,
+                                       const W5& w5) {
+  for (int j = threadIdx.x; j < ql; j += blockDim.x) {
+    float qv[5];
+    for (int x = 0; x < 5; ++x) qv[x] = qb[j * 5 + x];
+    for (int y = 0; y < 5; ++y) {
+      const float* wy = w5.w + y * 5;
+      const float t01 =
+          __fadd_rn(__fmul_rn(qv[0], wy[0]), __fmul_rn(qv[1], wy[1]));
+      const float t23 =
+          __fadd_rn(__fmul_rn(qv[2], wy[2]), __fmul_rn(qv[3], wy[3]));
+      qwb[y * N + j] = __fadd_rn(__fadd_rn(t01, t23), __fmul_rn(qv[4], wy[4]));
+    }
+    eq[j] = __fmul_rn(gap_extend, __fsub_rn(1.0f, qv[4]));
+  }
+}
+
+// The row score p_i . qw[j] as an FMA chain over x = 0..4.
+__device__ __forceinline__ float profile_row_score(const float* p,
+                                                   const float* qwb, int N,
+                                                   int j) {
+  float s = __fmul_rn(p[0], qwb[j]);
+  s = __fmaf_rn(p[1], qwb[N + j], s);
+  s = __fmaf_rn(p[2], qwb[2 * N + j], s);
+  s = __fmaf_rn(p[3], qwb[3 * N + j], s);
+  return __fmaf_rn(p[4], qwb[4 * N + j], s);
+}
+
 }  // namespace lm

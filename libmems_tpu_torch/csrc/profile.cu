@@ -1,14 +1,19 @@
-// K3: profile-profile Gotoh forward DP with pointer bytes, one thread
-// block per window.
+// K3: profile-profile Gotoh forward DP with pointer bytes, and K9: the
+// same forward without pointers (the score only), one thread block per
+// window.
 //
-// Replaces libmems_tpu/ops/profile.py _full_ptr_tb / _full_ptr_tb_jit
+// K3 replaces libmems_tpu/ops/profile.py _full_ptr_tb / _full_ptr_tb_jit
 // (the lax.scan over rows of _profile_row_fn with emit_ptr=True, which
-// materialises uint8[B, M, N+1] pointers on the TPU).
+// materialises uint8[B, M, N+1] pointers on the TPU).  K9 replaces
+// profile_forward_ckpt in the form profile_scores_batch calls it (K = Mp:
+// the checkpoints are discarded, only the score float32[B] is fetched).
+// Both are one template: K9 compiles the pointer and flag writes out, so
+// its score equals K3's bit for bit.
 //
 // Bound: the row recurrence.  Each of a window's p_len rows depends on
 // the previous one, and within a row E needs a prefix maximum over the
 // columns, so a row costs three barriers and one block scan whatever its
-// width; per cell it reads 5 qw floats and writes one pointer byte.
+// width; per cell it reads 5 qw floats and K3 writes one pointer byte.
 // Design: threads across columns j, a loop over rows i.  The window's
 // H (double-buffered), F, scan and flag rows live in shared memory when
 // 17*(N+1) bytes fit (every window up to the 10,000-column cap does),
@@ -44,62 +49,8 @@ constexpr float kNegBig = -1e30f;
 constexpr unsigned char kHDiag = 0, kHE = 1, kHF = 2, kEExt = 4, kFExt = 8;
 constexpr unsigned char kIsDiag = 1;  // flag: g came from the diagonal
 constexpr int kMaxDynSmem = 227 * 1024;
-constexpr int kCumBlock = 16;
-constexpr int kMaxLevels = 8;
 
-// Inclusive prefix sum of x[0..n) into out[0..n) in the blocked order
-// above, by the whole thread block; lv is global scratch for the block
-// totals of every level (lm_profile_cum_scratch floats).
-__device__ void blocked_cumsum(const float* x, float* out, int n, float* lv) {
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  int len[kMaxLevels + 1];
-  int off[kMaxLevels + 1];
-  int top = 0;
-  len[0] = n;
-  off[0] = 0;
-  int used = 0;
-  while (len[top] > kCumBlock && top < kMaxLevels) {
-    len[top + 1] = (len[top] + kCumBlock - 1) / kCumBlock;
-    off[top + 1] = used;
-    used += len[top + 1];
-    ++top;
-  }
-  // up: sequential prefix inside each block; block totals feed the level
-  // above
-  for (int l = 0; l <= top; ++l) {
-    const float* in = l == 0 ? x : lv + off[l];
-    float* o = l == 0 ? out : lv + off[l];
-    const int nbk = (len[l] + kCumBlock - 1) / kCumBlock;
-    for (int bk = tid; bk < nbk; bk += nt) {
-      const int lo = bk * kCumBlock;
-      const int hi = min(lo + kCumBlock, len[l]);
-      float acc = in[lo];
-      o[lo] = acc;
-      for (int k = lo + 1; k < hi; ++k) {
-        acc = __fadd_rn(acc, in[k]);
-        o[k] = acc;
-      }
-      if (l < top) lv[off[l + 1] + bk] = acc;
-    }
-    __syncthreads();
-  }
-  // down: every block of a level adds the prefix of the totals before it
-  for (int l = top - 1; l >= 0; --l) {
-    float* o = l == 0 ? out : lv + off[l];
-    const float* up = lv + off[l + 1];
-    for (int k = tid; k < len[l]; k += nt) {
-      const int bk = k / kCumBlock;
-      o[k] = __fadd_rn(o[k], bk > 0 ? up[bk - 1] : 0.0f);
-    }
-    __syncthreads();
-  }
-}
-
-struct W5 {
-  float w[25];
-};
-
+template <bool kPtr>
 __global__ void profile_fwd_kernel(
     const float* __restrict__ p, const float* __restrict__ q,
     const int* __restrict__ p_len, const int* __restrict__ q_len,
@@ -108,7 +59,7 @@ __global__ void profile_fwd_kernel(
     int64_t cum_lv_stride, float* __restrict__ rows,
     unsigned char* __restrict__ flags, unsigned char* __restrict__ ptr,
     float* __restrict__ score, int M, int N, float gap_open,
-    float gap_extend, W5 w5) {
+    float gap_extend, lm::W5 w5) {
   extern __shared__ float lm_smem[];
   __shared__ float s_tmp[32];
   __shared__ float s_p[5];
@@ -135,21 +86,9 @@ __global__ void profile_fwd_kernel(
   float* ec = ext_cum + (int64_t)b * n1;
 
   // per-window setup: qw[y][j] = sum_x q[j][x] * W5[y][x], ext_q, ext_cum
-  for (int j = tid; j < ql; j += nt) {
-    float qv[5];
-    for (int x = 0; x < 5; ++x) qv[x] = qb[j * 5 + x];
-    for (int y = 0; y < 5; ++y) {
-      const float* wy = w5.w + y * 5;
-      const float t01 =
-          __fadd_rn(__fmul_rn(qv[0], wy[0]), __fmul_rn(qv[1], wy[1]));
-      const float t23 =
-          __fadd_rn(__fmul_rn(qv[2], wy[2]), __fmul_rn(qv[3], wy[3]));
-      qwb[y * N + j] = __fadd_rn(__fadd_rn(t01, t23), __fmul_rn(qv[4], wy[4]));
-    }
-    eq[j] = __fmul_rn(gap_extend, __fsub_rn(1.0f, qv[4]));
-  }
+  lm::profile_q_setup(qb, qwb, eq, ql, N, gap_extend, w5);
   __syncthreads();
-  blocked_cumsum(eq, ec + 1, ql, cum_lv + (int64_t)b * cum_lv_stride);
+  lm::blocked_cumsum(eq, ec + 1, ql, cum_lv + (int64_t)b * cum_lv_stride);
   if (tid == 0) ec[0] = 0.f;
   __syncthreads();
   for (int c = tid; c <= ql; c += nt) {
@@ -166,9 +105,7 @@ __global__ void profile_fwd_kernel(
   for (int i = 1; i <= pl; ++i) {
     if (tid < 5) s_p[tid] = p[((int64_t)b * M + (i - 1)) * 5 + tid];
     __syncthreads();
-    const float p0 = s_p[0], p1 = s_p[1], p2 = s_p[2], p3 = s_p[3],
-                p4 = s_p[4];
-    const float ext_pi = __fmul_rn(gap_extend, __fsub_rn(1.0f, p4));
+    const float ext_pi = __fmul_rn(gap_extend, __fsub_rn(1.0f, s_p[4]));
 
     // pass 1: F, the non-E candidate g, and the scan input W
     for (int c = tid; c <= ql; c += nt) {
@@ -181,19 +118,14 @@ __global__ void profile_fwd_kernel(
       F[c] = f;
       float g = f;
       if (c > 0) {
-        const int j = c - 1;
-        float s = __fmul_rn(p0, qwb[j]);
-        s = __fmaf_rn(p1, qwb[N + j], s);
-        s = __fmaf_rn(p2, qwb[2 * N + j], s);
-        s = __fmaf_rn(p3, qwb[3 * N + j], s);
-        s = __fmaf_rn(p4, qwb[4 * N + j], s);
-        const float diag = Hp[c - 1] + s;
+        const float diag = Hp[c - 1] + lm::profile_row_score(s_p, qwb, N,
+                                                             c - 1);
         g = fmaxf(diag, f);
         if (g == diag) fc |= kIsDiag;
       }
       Hc[c] = g;
       Wv[c] = (g + gap_open) - ec[c];
-      fl[c] = fc;
+      if (kPtr) fl[c] = fc;
     }
     __syncthreads();
 
@@ -208,23 +140,27 @@ __global__ void profile_fwd_kernel(
     }
     __syncthreads();
 
-    // pass 2: E, H and the pointer byte
-    unsigned char* prow = ptr + ((int64_t)b * M + (i - 1)) * n1;
+    // pass 2: E, H and (K3) the pointer byte
+    unsigned char* prow = kPtr ? ptr + ((int64_t)b * M + (i - 1)) * n1
+                               : nullptr;
     for (int c = tid; c <= ql; c += nt) {
-      const unsigned char fc = fl[c];
       if (c == 0) {
-        prow[0] = kHF | (fc & kFExt);  // H[i][0] = F[i][0], already in Hc
+        // H[i][0] = F[i][0], already in Hc
+        if (kPtr) prow[0] = kHF | (fl[0] & kFExt);
         continue;
       }
       const float e = ec[c] + Wv[c];
       const float g = Hc[c];
       const float h = fmaxf(g, e);
-      const unsigned char src =
-          ((fc & kIsDiag) && h == g) ? kHDiag : (h == e ? kHE : kHF);
-      unsigned char out = src | (fc & kFExt);
-      if (c >= 2 && e == (ec[c - 1] + Wv[c - 1]) + eq[c - 1]) out |= kEExt;
+      if (kPtr) {
+        const unsigned char fc = fl[c];
+        const unsigned char src =
+            ((fc & kIsDiag) && h == g) ? kHDiag : (h == e ? kHE : kHF);
+        unsigned char out = src | (fc & kFExt);
+        if (c >= 2 && e == (ec[c - 1] + Wv[c - 1]) + eq[c - 1]) out |= kEExt;
+        prow[c] = out;
+      }
       Hc[c] = h;
-      prow[c] = out;
     }
     __syncthreads();
     float* t = Hp;
@@ -234,6 +170,36 @@ __global__ void profile_fwd_kernel(
   if (tid == 0) score[b] = Hp[ql];
 }
 
+template <bool kPtr>
+int launch_profile(const void* p, const void* q, const void* p_len,
+                   const void* q_len, void* qw, void* ext_q, void* ext_cum,
+                   void* cum_lv, void* rows, void* flags, void* ptr,
+                   void* score, int B, int M, int N, float gap_open,
+                   float gap_extend, const float* w5, void* stream) {
+  lm::W5 w;
+  for (int k = 0; k < 25; ++k) w.w[k] = w5[k];
+  int threads = ((N + 1 + 31) / 32) * 32;
+  threads = threads < 32 ? 32 : (threads > 1024 ? 1024 : threads);
+  const int64_t smem = rows != nullptr ? 0 : (int64_t)17 * (N + 1);
+  if (smem > kMaxDynSmem) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        profile_fwd_kernel<kPtr>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (B > 0) {
+    LM_LAUNCH(profile_fwd_kernel<kPtr>, (unsigned)B, threads, (size_t)smem,
+              (cudaStream_t)stream, (const float*)p, (const float*)q,
+              (const int*)p_len, (const int*)q_len, (float*)qw,
+              (float*)ext_q, (float*)ext_cum, (float*)cum_lv,
+              lm::cum_scratch(N), (float*)rows, (unsigned char*)flags,
+              (unsigned char*)ptr, (float*)score, M, N, gap_open, gap_extend,
+              w);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Bytes of shared memory one window's rows need at N columns.
@@ -241,18 +207,10 @@ extern "C" int64_t lm_profile_row_bytes(int N) {
   return (int64_t)17 * (N + 1);
 }
 
-// Floats of cumsum scratch one window needs at N columns.
-extern "C" int64_t lm_profile_cum_scratch(int N) {
-  int64_t used = 0;
-  int64_t len = N;
-  for (int l = 0; l < kMaxLevels && len > kCumBlock; ++l) {
-    len = (len + kCumBlock - 1) / kCumBlock;
-    used += len;
-  }
-  return used > 0 ? used : 1;
-}
+// Floats of cumsum scratch one window needs for n elements.
+extern "C" int64_t lm_profile_cum_scratch(int n) { return lm::cum_scratch(n); }
 
-// p: f32[B, M, 5]; q: f32[B, N, 5]; p_len, q_len: int32[B];
+// K3.  p: f32[B, M, 5]; q: f32[B, N, 5]; p_len, q_len: int32[B];
 // qw: f32[B, 5, N], ext_q: f32[B, N], ext_cum: f32[B, N+1], cum_lv:
 // f32[B, lm_profile_cum_scratch(N)] (scratch);
 // rows: f32[B, 4, N+1] and flags: uint8[B, N+1] global row scratch, or
@@ -261,30 +219,24 @@ extern "C" int64_t lm_profile_cum_scratch(int N) {
 extern "C" int lm_profile_fwd(const void* p, const void* q, const void* p_len,
                               const void* q_len, void* qw, void* ext_q,
                               void* ext_cum, void* cum_lv, void* rows,
-                              void* flags,
-                              void* ptr, void* score, int B, int M, int N,
-                              float gap_open, float gap_extend,
+                              void* flags, void* ptr, void* score, int B,
+                              int M, int N, float gap_open, float gap_extend,
                               const float* w5, void* stream) {
-  W5 w;
-  for (int k = 0; k < 25; ++k) w.w[k] = w5[k];
-  int threads = ((N + 1 + 31) / 32) * 32;
-  threads = threads < 32 ? 32 : (threads > 1024 ? 1024 : threads);
-  const int64_t smem = rows != nullptr ? 0 : lm_profile_row_bytes(N);
-  if (smem > kMaxDynSmem) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        profile_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (B > 0) {
-    LM_LAUNCH(profile_fwd_kernel, (unsigned)B, threads, (size_t)smem,
-              (cudaStream_t)stream, (const float*)p, (const float*)q,
-              (const int*)p_len, (const int*)q_len, (float*)qw,
-              (float*)ext_q, (float*)ext_cum, (float*)cum_lv,
-              lm_profile_cum_scratch(N), (float*)rows,
-              (unsigned char*)flags, (unsigned char*)ptr, (float*)score, M,
-              N, gap_open, gap_extend, w);
-  }
-  return (int)cudaGetLastError();
+  return launch_profile<true>(p, q, p_len, q_len, qw, ext_q, ext_cum, cum_lv,
+                              rows, flags, ptr, score, B, M, N, gap_open,
+                              gap_extend, w5, stream);
+}
+
+// K9: the arguments of lm_profile_fwd without flags and ptr; rows:
+// f32[B, 4, N+1] or null.
+extern "C" int lm_profile_score(const void* p, const void* q,
+                                const void* p_len, const void* q_len,
+                                void* qw, void* ext_q, void* ext_cum,
+                                void* cum_lv, void* rows, void* score, int B,
+                                int M, int N, float gap_open,
+                                float gap_extend, const float* w5,
+                                void* stream) {
+  return launch_profile<false>(p, q, p_len, q_len, qw, ext_q, ext_cum,
+                               cum_lv, rows, nullptr, nullptr, score, B, M, N,
+                               gap_open, gap_extend, w5, stream);
 }

@@ -45,6 +45,16 @@ def traceback_walk_plain(ptrs: torch.Tensor, p_len: torch.Tensor,
     """Plain PyTorch version of K4: the state machine of
     ops/gapped.py:230-254, all windows in lockstep for T steps.
     Returns bool (steps, a_gaps, b_gaps), each [T, B]."""
+    N1 = ptrs.shape[2]
+    return walk_plain(ptrs, p_len, q_len, T, lambda i, j: (i - 1) * N1 + j)
+
+
+def walk_plain(ptrs: torch.Tensor, p_len: torch.Tensor, q_len: torch.Tensor,
+               T: int, addr):
+    """The lockstep affine traceback over pointer bytes ptrs[B, R, W]:
+    addr(i, j) gives each window's byte offset of DP cell (i, j) within
+    its R*W bytes (clamped here).  Returns bool (steps, a_gaps, b_gaps),
+    each [T, B]."""
     B, M, N1 = ptrs.shape
     dev = ptrs.device
     flat = ptrs.reshape(B, M * N1)
@@ -61,7 +71,7 @@ def traceback_walk_plain(ptrs: torch.Tensor, p_len: torch.Tensor,
         c0 = active & (i == 0)
         c1 = active & (i > 0) & (j == 0)
         c2 = active & (i > 0) & (j > 0)
-        lin = ((i - 1) * N1 + j).clamp(0, max(M * N1 - 1, 0))
+        lin = addr(i, j).clamp(0, max(M * N1 - 1, 0))
         byte = flat.gather(1, lin[:, None])[:, 0].to(torch.int64) \
             if M * N1 else torch.zeros_like(i)
         was_h = c2 & (st == 0)
@@ -116,10 +126,12 @@ traceback_walk.launches = 0
 def tb_unpack(masks, n_pairs: int):
     """Host tail of the walk: compact each window's step masks to its
     (a_gaps, b_gaps) bool arrays in column order (the contract of the
-    JAX package's tb_unpack / traceback_blocks)."""
+    JAX package's tb_unpack / traceback_blocks).  `n_pairs` is a count
+    of leading windows or a list of window indices."""
     steps, agaps, bgaps = (m.cpu().numpy() for m in masks)
     out = []
-    for k in range(n_pairs):
+    ks = range(n_pairs) if isinstance(n_pairs, int) else n_pairs
+    for k in ks:
         sel = steps[:, k]
         out.append((agaps[sel, k][::-1].copy(),
                     bgaps[sel, k][::-1].copy()))

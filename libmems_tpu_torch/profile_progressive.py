@@ -11,7 +11,10 @@ seconds and the stage seconds.  Last, input rng 3 runs under
 ``torch.profiler`` (CPU and CUDA activities); its device time is the sum
 of the kernel, memcpy and memset events of the exported Chrome trace
 (``key_averages()`` would count an op and its kernels twice), and the
-busy share is that sum over the run's wall.  Prints the card's name and
+busy share is that sum over the run's wall.  The configuration is the
+default ``ProgressiveConfig()``, which refines, so the stage table has
+the ``refine/*`` stages; each timed input also prints its banding
+outcomes (``ops.profile.BAND_STATS``).  Prints the card's name and
 power limit first.  The trace is written under build/ in the checkout.
 """
 
@@ -30,6 +33,7 @@ import torch
 
 import libmems_tpu_torch as lt
 from libmems_tpu_torch import cuda, trace
+from libmems_tpu_torch.ops import profile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -43,10 +47,10 @@ def family(rng_seed: int, n: int = 9, length: int = 1_000_000):
 
 
 def run(rng_seed: int, dev) -> dict:
-    """One input through progressive_align(refine=False), apply_backbone
-    and the three writers; returns the walls in seconds."""
+    """One input through progressive_align (default config, refine=True),
+    apply_backbone and the three writers; returns the walls in seconds."""
     gs = family(rng_seed)
-    cfg = lt.ProgressiveConfig(refine=False, device=dev)
+    cfg = lt.ProgressiveConfig(device=dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ivs, _ = lt.progressive_align(gs, cfg)
@@ -98,11 +102,13 @@ def main() -> int:
     run(0, dev)
     for seed in (1, 2):
         trace.reset()
+        profile.BAND_STATS.update(dict.fromkeys(profile.BAND_STATS, 0))
         with open(os.devnull, "w") as null:
             trace.set_enabled(True, stream=null)
             walls = run(seed, dev)
             trace.set_enabled(False)
         print(json.dumps({"rng_seed": seed, **walls,
+                          "band_stats": dict(profile.BAND_STATS),
                           "stages": trace.stage_seconds()}), flush=True)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]

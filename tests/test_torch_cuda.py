@@ -131,6 +131,96 @@ def test_profile_kernel_equals_plain_on_fractional_profiles(dev):
     assert torch.equal(got_s.cpu(), ref_s)
 
 
+def _band_batch(rng, B, M, N):
+    """B near-diagonal windows with fractional multi-row profiles, one
+    with a 300-column insertion (fails the certificate) and one too short
+    to band (q longer than twice p)."""
+    p = np.zeros((B, M, 5), np.float32)
+    q = np.zeros((B, N, 5), np.float32)
+    pl = np.zeros(B, np.int32)
+    ql = np.zeros(B, np.int32)
+    for r in range(B):
+        n = int(rng.integers(M // 2, M - 40))
+        a = rng.integers(0, 4, n).astype(np.uint8)
+        b = a.copy()
+        sub = rng.random(n) < 0.02
+        b[sub] = rng.integers(0, 4, int(sub.sum()))
+        if r == 1:
+            b = np.concatenate([b[:n // 2], rng.integers(0, 4, 300),
+                                b[n // 2:]]).astype(np.uint8)
+        if r == 2:
+            a = a[:N // 4]
+        b = b[:N]
+        for arr, s, k in ((p, a, 1 + r % 3), (q, b, 1 + r % 2)):
+            rows = np.stack([s] * k)
+            rows[rng.random(rows.shape) < 0.005] = 4
+            rows[:, (rows == 4).all(axis=0)] = 0
+            arr[r, :len(s)] = profile.rows_to_profile(rows)
+        pl[r], ql[r] = len(a), len(b)
+    return [torch.from_numpy(x) for x in (p, q, pl, ql)]
+
+
+@pytest.mark.parametrize("N,smem", [(1024, True), (1536, False)])
+def test_score_forward_kernel_equals_plain(dev, monkeypatch, N, smem):
+    """K9 against its plain version, and bit for bit K3's score."""
+    if not smem:   # rows in global scratch instead of shared memory
+        monkeypatch.setattr(profile, "PROFILE_SMEM_LIMIT", 0)
+    cpu = _band_batch(np.random.default_rng(N), 6, N, N)
+    ref = profile.profile_forward_scores_plain(*cpu)
+    got = profile.profile_forward_scores(*[x.to(dev) for x in cpu])
+    assert torch.equal(got.cpu(), ref)
+    _, k3 = profile.profile_forward(*[x.to(dev) for x in cpu])
+    assert torch.equal(k3, got)
+
+
+@pytest.mark.parametrize("M,N", [(1024, 1024), (1536, 2304)])
+def test_banded_kernels_equal_plain(dev, M, N):
+    """K10, K11 and K12 against their plain versions: scores bit for bit,
+    certificates, pointer bytes and walk masks equal."""
+    cpu = _band_batch(np.random.default_rng(M + N), 7, M, N)
+    cuda_t = [x.to(dev) for x in cpu]
+    H_W = profile._band_half(N)
+    ref_s, ref_c = profile.banded_forward_scores_plain(
+        *cpu, profile.GAP_OPEN, profile.GAP_EXTEND, H_W)
+    got_s, got_c = profile.banded_forward_scores(
+        *cuda_t, profile.GAP_OPEN, profile.GAP_EXTEND, H_W)
+    assert torch.equal(got_s.cpu(), ref_s)
+    assert torch.equal(got_c.cpu(), ref_c)
+    assert bool(ref_c[0]) and not bool(ref_c[1])
+    ref_p, ref_s2, ref_c2 = profile.banded_forward_ptrs_plain(
+        *cpu, profile.GAP_OPEN, profile.GAP_EXTEND, H_W)
+    got_p, got_s2, got_c2 = profile.banded_forward_ptrs(
+        *cuda_t, profile.GAP_OPEN, profile.GAP_EXTEND, H_W)
+    assert torch.equal(got_p.cpu(), ref_p)
+    assert torch.equal(got_s2.cpu(), ref_s) and torch.equal(got_c2.cpu(),
+                                                            ref_c)
+    T = gapped._device_tb_T(M, N)
+    ref_m = profile.banded_traceback_walk_plain(ref_p, cpu[2], cpu[3], N,
+                                                H_W, T)
+    got_m = profile.banded_traceback_walk(got_p, cuda_t[2], cuda_t[3], N,
+                                          H_W, T)
+    for g, r in zip(got_m, ref_m):
+        assert torch.equal(g.cpu(), r)
+
+
+def test_refine_on_cuda_equals_cpu(dev):
+    """align_codes with refinement: GPU kernels give the CPU tensors'
+    rows."""
+    from libmems_tpu_torch import align_codes
+    rng = np.random.default_rng(41)
+    anc = rng.integers(0, 4, 1100).astype(np.uint8)
+    seqs = []
+    for _ in range(4):
+        s = anc.copy()
+        sub = rng.random(len(s)) < 0.03
+        s[sub] = rng.integers(0, 4, int(sub.sum()))
+        at = int(rng.integers(100, 1000))
+        seqs.append(np.concatenate([s[:at], s[at + 3:]]).astype(np.uint8))
+    ref = align_codes(seqs, refine_iters=2, device="cpu")
+    got = align_codes(seqs, refine_iters=2, device=dev)
+    np.testing.assert_array_equal(got, ref)
+
+
 def _family(G, n, rng_seed):
     rng = np.random.default_rng(rng_seed)
     anc = rng.integers(0, 4, size=n).astype(np.uint8)

@@ -79,13 +79,11 @@ def test_detect_backbone_segments_have_two_or_more_genomes():
         assert len(s.genomes) >= 2
 
 
-@pytest.mark.parametrize("case", ["refine", "mesh", "sol_device"])
+@pytest.mark.parametrize("case", ["mesh", "sol_device"])
 def test_unported_options_raise(case, monkeypatch):
     gs = [lt.Genome(f"g{i}", a) for i, a in enumerate(_four(62, 4_000))]
     cfg = lt.ProgressiveConfig(refine=False, device="cpu")
-    if case == "refine":
-        cfg = lt.ProgressiveConfig(device="cpu")          # refine=True
-    elif case == "mesh":
+    if case == "mesh":
         cfg = lt.ProgressiveConfig(refine=False, device="cpu", mesh=2)
     else:
         # a genome above SOL_HOST_MAX windows needs the device seed
@@ -113,7 +111,9 @@ def test_new_modules_import_no_jax():
             "libmems_tpu_torch.cga", "libmems_tpu_torch.gbe_sp",
             "libmems_tpu_torch.scoring", "libmems_tpu_torch.validate",
             "libmems_tpu_torch.ops.hmm", "libmems_tpu_torch.ops.pairwise",
-            "libmems_tpu_torch.convert"]
+            "libmems_tpu_torch.convert", "libmems_tpu_torch.msa",
+            "libmems_tpu_torch.ops.profile", "libmems_tpu_torch.ops.gapped",
+            "libmems_tpu_torch.profile_progressive"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
