@@ -12,16 +12,23 @@ non-zero and prints no result line):
 2. build   - compile the kernel library, report its build seconds;
 3. kernels - each hand kernel against its plain PyTorch version on the
              card at its path's shapes (K1-K4 the pair's, K5-K7 the 9 x
-             1 Mbp seeder's; exact equality), with timings;
+             1 Mbp seeder's, K13-K15 and K2 the first trio's; exact
+             equality), with timings;
 4. goldens - the port on the GPU reproduces tests/golden/pair.mums,
-             pair.xmfa and nine.{xmfa,bbseq,bbcols} byte for byte; the
-             nine-genome family with refine=True gives the same XMFA
-             bytes on the GPU as on CPU tensors (which the CPU tests hold
-             to the JAX package);
+             three.mums, pair.xmfa and nine.{xmfa,bbseq,bbcols} byte for
+             byte; find_mums on the nine-genome family (G = 9) and that
+             family with refine=True give the same MUMs and XMFA bytes on
+             the GPU as on CPU tensors (which the CPU tests hold to the
+             JAX package);
 5. main    - align() of a 2 x 4.6 Mbp pair with gapped alignment on the
              GPU: every kernel of the pair path launched, MUMs equal to
              the numpy twin, intervals partition both genomes; then a
              second pair;
+5b. trio   - align() + write_xmfa of two 3 x 1.5 Mbp families (rng 0,
+             then 1; gapped, no recursion), the flat N-way path: K1, K2,
+             K13-K15, K3 and K4 launched (K11/K12 printed), find_mums on
+             the GPU equal to the same call on CPU tensors, intervals
+             partition every genome, stage seconds printed;
 6. progressive - progressive_align with the default config (refine=True)
              + apply_backbone + the three writers on two 9 x 1 Mbp
              families: every kernel K1-K12 launched, the pairwise MUMs
@@ -46,7 +53,8 @@ The inputs of phases 7 and 8 are recorded one layer above the kernel
 wrappers (align_profile_batch, profile_scores_batch, predict_homologous)
 and rebuilt into launches by the path's own planners.  Counts of kernel
 launches are set to 0 just before each main path and read just after;
-the kernel table reports the progressive path's counts, and the times of
+the kernel table reports the trio path's counts for K13-K15 and the
+progressive path's for the rest, and the times of
 K3, K4 and K8-K12 are taken on that path's inputs.  Each kernel's
 bound_ms is max(bytes / 3.35 TB/s, operations / peak rate) for the work
 of those inputs (the counts are in work_* below).
@@ -73,6 +81,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out", "chip_smoke")
 PAIR_LEN = 4_600_000
 PROG_GENOMES, PROG_LEN = 9, 1_000_000
+TRIO_LEN = 1_500_000
+MUM_KERNELS = ("mum_seed_flags", "mum_candidates", "mum_reps")
 SOURCES = {
     "canonical_seed_keys": ("libmems_tpu_torch/csrc/mers.cu",
                             "libmems_tpu/ops/mers.py:75"),
@@ -98,6 +108,12 @@ SOURCES = {
                             "libmems_tpu/ops/profile.py:306"),
     "banded_traceback_walk": ("libmems_tpu_torch/csrc/banded.cu",
                               "libmems_tpu/ops/profile.py:422"),
+    "mum_seed_flags": ("libmems_tpu_torch/csrc/mums.cu",
+                       "libmems_tpu/matchfind.py:68"),
+    "mum_candidates": ("libmems_tpu_torch/csrc/mums.cu",
+                       "libmems_tpu/matchfind.py:336"),
+    "mum_reps": ("libmems_tpu_torch/csrc/mums.cu",
+                 "libmems_tpu/matchfind.py:336"),
 }
 # peak rates of one H100 SXM (NVIDIA's H100 SXM data sheet; f64 outside
 # the tensor cores).  Integer
@@ -288,6 +304,27 @@ def family_nine(lt, rng_seed):
     fam = _mutant_family(PROG_GENOMES, PROG_LEN, rng_seed=rng_seed)
     return [lt.Genome(name=f"g{i}", ascii=lut[g], codes=g)
             for i, g in enumerate(fam)]
+
+
+def family_trio(lt, rng_seed):
+    """bench_e2e.py's trio: a 3 x 1.5 Mbp mutant family (1%
+    substitutions, indels, two rearrangements per genome)."""
+    from bench_e2e import _mutant_family
+    lut = np.frombuffer(b"ACGT", dtype=np.uint8)
+    fam = _mutant_family(3, TRIO_LEN, rng_seed=rng_seed)
+    return [lt.Genome(name=f"g{i}", ascii=lut[g], codes=g)
+            for i, g in enumerate(fam)]
+
+
+def golden_three(lt):
+    """tests/golden/generate.py's _genomes_three with the port's Genome."""
+    sys.path.insert(0, os.path.join(ROOT, "tests", "golden"))
+    from generate import _LUT, _mutant
+    rng = np.random.default_rng(1002)
+    anc = rng.integers(0, 4, size=40_000).astype(np.uint8)
+    out = [anc] + [_mutant(rng, anc) for _ in range(2)]
+    return [lt.Genome(f"g{i}", _LUT[g], filename=f"g{i}.fa")
+            for i, g in enumerate(out)]
 
 
 def golden_nine(lt):
@@ -614,6 +651,104 @@ def phase_pairwise_kernels(torch, lt, dev):
     return res
 
 
+def phase_mum_kernels(torch, lt, dev):
+    """K13-K15 against their plain versions on the card, on the seed
+    table of the first trio input (rng 0), and K2 on that input's
+    extension rows; exact equality.  Returns ({name: entry}, K2's
+    max_abs_err)."""
+    from libmems_tpu_torch.matchfind import _lexsort_rows, _seed_table
+    from libmems_tpu_torch.ops import extend, mums
+    from libmems_tpu_torch.ops.mers import key_sentinel, sentinel_content
+    from libmems_tpu_torch.sml import create_smls
+
+    def tensors(t):
+        return [x for x in t if hasattr(x, "element_size")]
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(tensors(a),
+                                                      tensors(b)))
+
+    res = {}
+    smls, seed = create_smls(family_trio(lt, 0), device=dev)
+    G = len(smls)
+    seed_len = smls[0].seed_length
+    keys, seg_off, content, src = _seed_table(smls)
+    n = keys.numel()
+    args = (content, src, keys, seg_off, 0, 1000, sentinel_content(seed))
+    got = mums.mum_seed_flags(*args)
+    ref = mums.mum_seed_flags_plain(*args)
+    require(got.n_rows == ref.n_rows and same(got, ref),
+            "K13 differs from its plain version")
+    res["mum_seed_flags"] = entry(
+        max_abs_err(zip(tensors(got), tensors(ref))),
+        timed_ms(lambda: mums.mum_seed_flags(*args), 10, torch),
+        timed_ms(lambda: mums.mum_seed_flags_plain(*args), 3, torch,
+                 warmup=False),
+        # the sorted table and keys in, seven per-row columns out; ~12
+        # integer operations a row (compares, run bounds, flags)
+        work(nbytes(args, tensors(got)), 12 * n))
+    log(f"# K13 seed flags: rows={n} candidate rows={got.n_rows} equal")
+
+    pos_bits = n.bit_length()
+    got_c = mums.mum_candidates(got, G, 0, pos_bits)
+    ref_c = mums.mum_candidates_plain(ref, G, 0, pos_bits)
+    require(same(got_c, ref_c), "K14 differs from its plain version")
+    n_rows = got.n_rows
+    res["mum_candidates"] = entry(
+        max_abs_err(zip(got_c, ref_c)),
+        timed_ms(lambda: mums.mum_candidates(got, G, 0, pos_bits), 10,
+                 torch),
+        timed_ms(lambda: mums.mum_candidates_plain(ref, G, 0, pos_bits), 3,
+                 torch, warmup=False),
+        # six per-row flag columns in, starts + words + posref out; per
+        # candidate row ~6 operations per field bit-placement and genome
+        work(nbytes(tensors(got), got_c),
+             4 * n + 6 * (G + 3) * got_c.words.shape[0] * n_rows))
+    log(f"# K14 candidates: {n_rows} rows, {got_c.words.shape[0]} words "
+        f"each, equal")
+
+    order = _lexsort_rows(list(got_c.words) + [got_c.posref])
+    words = torch.index_select(got_c.words, 1, order)
+    posref = got_c.posref[order]
+    ec = min(1 << 14, 1 << (n_rows - 1).bit_length())
+    got_r = mums.mum_reps(words, posref, ec, G, pos_bits, seed_len)
+    if got_r.n_reps > ec:       # the main path's capacity growth
+        ec = 1 << (got_r.n_reps - 1).bit_length()
+        got_r = mums.mum_reps(words, posref, ec, G, pos_bits, seed_len)
+    rargs = (words, posref, ec, G, pos_bits, seed_len)
+    ref_r = mums.mum_reps_plain(*rargs)
+    require(got_r.n_reps == ref_r.n_reps and same(got_r, ref_r),
+            "K15 differs from its plain version")
+    res["mum_reps"] = entry(
+        max_abs_err(zip(tensors(got_r), tensors(ref_r))),
+        timed_ms(lambda: mums.mum_reps(*rargs), 10, torch),
+        timed_ms(lambda: mums.mum_reps_plain(*rargs), 3, torch,
+                 warmup=False),
+        # sorted words and posref in, [EC, G] rows out; ~10 operations a
+        # row and field (unpack, compares)
+        work(nbytes(words, posref, tensors(got_r)),
+             10 * (G + 3) * posref.numel()))
+    log(f"# K15 representatives: {got_r.n_reps} reps in EC={ec} equal")
+
+    off = seg_off[:-1].to(torch.int32)[None].expand(ec, G).contiguous()
+    cnt = (seg_off[1:] - seg_off[:-1]).to(torch.int32)[None].expand(
+        ec, G).contiguous()
+    kargs = (keys, seed_len, max(seed_len, 256), off, cnt, got_r.lefts,
+             got_r.present, got_r.is_fwd,
+             torch.full((ec,), seed_len, dtype=torch.int32, device=dev),
+             key_sentinel(seed))
+    kl, kn = extend.extend_matches(*kargs)
+    rl, rn = extend.extend_matches_plain(*kargs)
+    require(torch.equal(kl, rl) and torch.equal(kn, rn),
+            "K2 differs from its plain version on the trio's rows")
+    log(f"# K2 on the trio's {got_r.n_reps} rows at G = {G}: equal")
+    for name in MUM_KERNELS:
+        e = res[name]
+        log(f"# {name}: kernel {e['ms']:.3f} ms, plain {e['plain_ms']:.3f} "
+            f"ms, max_abs_err {e['err']}")
+    return res, max_abs_err([(kl, rl), (kn, rn)])
+
+
 def write_outputs(lt, ivs, segs, n_genomes):
     """The three progressive outputs as bytes: XMFA, bbseq, bbcols."""
     outs = {}
@@ -646,7 +781,25 @@ def phase_goldens(lt, dev):
                 "pair.xmfa differs from the golden")
     log(f"# goldens: pair.mums ({len(mums)} MUMs) and pair.xmfa "
         f"({len(ivs.intervals)} intervals) byte-equal")
+    gs = golden_three(lt)
+    mums = lt.find_mums(gs, device=dev)
+    buf = io.StringIO()
+    lt.write_match_list(buf, mums, [g.filename for g in gs],
+                        [len(g) for g in gs])
+    with open(os.path.join(ROOT, "tests", "golden", "three.mums"),
+              "rb") as fh:
+        require(buf.getvalue().encode() == fh.read(),
+                "three.mums differs from the golden")
+    log(f"# goldens: three.mums ({len(mums)} MUMs) byte-equal")
     gs = golden_nine(lt)
+    got = lt.find_mums(gs, device=dev)
+    ref = lt.find_mums(gs, device="cpu")
+    require(len(ref) > 0 and np.array_equal(got.starts, ref.starts)
+            and np.array_equal(got.lengths, ref.lengths),
+            f"find_mums at G = 9: GPU ({len(got)}) differs from CPU "
+            f"tensors ({len(ref)})")
+    log(f"# goldens: find_mums on the nine family (G = 9) GPU == CPU "
+        f"tensors ({len(ref)} MUMs)")
     ivs, _ = lt.progressive_align(gs, lt.ProgressiveConfig(refine=False,
                                                            device=dev))
     new_ivs, segs = lt.apply_backbone(ivs, device=dev)
@@ -740,6 +893,70 @@ def phase_main(torch, lt, dev):
     log(f"# main path second input (rng_seed=1): {dt2:.3f} s")
     log("# stages (second run): " + json.dumps(stages2))
     return launches, dt1, dt2
+
+
+def phase_trio(torch, lt, dev):
+    """The flat N-way path on two 3 x 1.5 Mbp families (bench_e2e.py's
+    trio: gapped, no recursion).  Returns (launches of the first run,
+    walls)."""
+    from libmems_tpu_torch import trace
+    from libmems_tpu_torch.ops import extend, gapped, mers, mums, profile
+    wrappers = {"canonical_seed_keys": mers.canonical_seed_keys,
+                "extend_matches": extend.extend_matches,
+                "mum_seed_flags": mums.mum_seed_flags,
+                "mum_candidates": mums.mum_candidates,
+                "mum_reps": mums.mum_reps,
+                "profile_forward": profile.profile_forward,
+                "traceback_walk": gapped.traceback_walk,
+                "banded_forward_ptrs": profile.banded_forward_ptrs,
+                "banded_traceback_walk": profile.banded_traceback_walk}
+    printed_only = ("banded_forward_ptrs", "banded_traceback_walk")
+    cfg = lt.AlignerConfig(gapped_alignment=True, recursive=False,
+                           device=dev)
+
+    def run(rng_seed):
+        genomes = family_trio(lt, rng_seed)
+        trace.reset()
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ivs, mums_ = lt.align(genomes, cfg)
+        buf = io.StringIO()
+        lt.write_xmfa(buf, ivs)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {k: w.launches for k, w in wrappers.items()}
+        log(f"# trio rng_seed={rng_seed}: 3 x {TRIO_LEN} bp, align + "
+            f"write_xmfa {dt:.3f} s, {len(mums_)} anchors, "
+            f"{len(ivs.intervals)} intervals, {len(buf.getvalue())} XMFA "
+            f"bytes")
+        log(f"# launches: {launches}")
+        log("# stages: " + json.dumps(trace.stage_seconds()))
+        for name, n in launches.items():
+            require(n > 0 or name in printed_only,
+                    f"{name}: no launch on the trio path")
+        check_partition(ivs, genomes)
+        return genomes, launches, dt
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "trio_trace.log"), "w") as fh:
+        trace.set_enabled(True, stream=fh)
+        genomes, launches, dt1 = run(0)
+        t0 = time.perf_counter()
+        got = lt.find_mums(genomes, device=dev)
+        t1 = time.perf_counter()
+        ref = lt.find_mums(genomes, device="cpu")
+        t2 = time.perf_counter()
+        require(np.array_equal(got.starts, ref.starts)
+                and np.array_equal(got.lengths, ref.lengths),
+                f"trio find_mums on the GPU ({len(got)}) differs from CPU "
+                f"tensors ({len(ref)})")
+        log(f"# trio find_mums GPU == CPU tensors: {len(got)} MUMs "
+            f"({t1 - t0:.3f} s on the GPU, {t2 - t1:.3f} s on CPU tensors)")
+        _, _, dt2 = run(1)
+        trace.set_enabled(False)
+    return launches, (dt1, dt2)
 
 
 def check_segments(ivs, segs):
@@ -1056,8 +1273,13 @@ def main() -> int:
     phase_build()
     res = phase_kernels(torch, lt, dev)
     res.update(phase_pairwise_kernels(torch, lt, dev))
+    mum_res, k2_trio_err = phase_mum_kernels(torch, lt, dev)
+    res.update(mum_res)
+    res["extend_matches"]["err"] = max(res["extend_matches"]["err"],
+                                       k2_trio_err)
     phase_goldens(lt, dev)
     _, dt1, dt2 = phase_main(torch, lt, dev)
+    trio_launches, tdt = phase_trio(torch, lt, dev)
     launches, calls, pdt = phase_progressive(torch, lt, dev)
     for name, e in phase_profile_dp(torch, dev, calls, launches).items():
         if name in res:
@@ -1075,12 +1297,14 @@ def main() -> int:
         bound_ms, bound_by = bound(e["work"])
         log(f"# work {name}: {e['work']['bytes']} bytes, "
             f"{e['work']['ops']} operations")
+        n = trio_launches[name] if name in MUM_KERNELS else launches[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": launches[name],
+                        "replaces": replaces, "launches": n,
                         "max_abs_err": e["err"], "ms": e["ms"],
                         "plain_ms": e["plain_ms"], "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": None})
     log(f"# card: {card}; pair path {dt1:.3f} s then {dt2:.3f} s; "
+        f"trio path {tdt[0]:.3f} s then {tdt[1]:.3f} s; "
         f"progressive path {pdt[0]:.3f} s then {pdt[1]:.3f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,12 +1,12 @@
 """libmems_tpu_torch — the PyTorch and CUDA port of libmems_tpu.
 
-Runs two pipelines of libmems_tpu (the JAX package, which stays as the
+Runs the pipelines of libmems_tpu (the JAX package, which stays as the
 reference) on one NVIDIA GPU:
 
-* the flat pairwise aligner (``align`` on two genomes): SML
-  construction, pair MUM discovery, LCBs with the extension loop,
-  recursive anchoring, batched gapped alignment of the inter-anchor
-  windows and XMFA output;
+* the flat aligner (``align`` on any number of genomes): SML
+  construction, multi-MUM discovery (``find_mums``, every mode), LCBs
+  with the extension loop, recursive anchoring, batched gapped alignment
+  of the inter-anchor windows and XMFA output;
 * progressive alignment (``progressive_align``, with the windowed
   refinement of its default ``refine=True``) and backbone
   (``apply_backbone``), the progressiveMauve path: pairwise seeding from
@@ -21,8 +21,9 @@ forward with pointers (K3), the traceback walk (K4), the pairwise
 seeder's run flags, cluster words and representatives (K5-K7), the
 homology HMM forward/backward (K8), the score-only profile forward (K9),
 the banded profile forward with its certificate (K10) and with pointers
-(K11), and the banded traceback walk (K12).  Each has a plain PyTorch version
-that CPU tensors use.
+(K11), the banded traceback walk (K12), and the multi-MUM pipeline's
+seed-enumeration flags, candidate signatures and cluster representatives
+(K13-K15).  Each has a plain PyTorch version that CPU tensors use.
 
 Every tensor-building entry point takes an explicit ``device``
 (``AlignerConfig.device``, ``ProgressiveConfig.device``); ``"cuda"``

@@ -22,12 +22,17 @@
 // genome's (first present genome); no key is the sentinel; every probe
 // position lies in [0, gen_cnt).  Reach and the continue test copy
 // ops/extend.py:270-293, including `room + reach > C`.
+//
+// A row's per-genome state (left end, offset, count, presence, strand)
+// lives in dynamic shared memory sized 5 * G ints at launch, so a row
+// takes any number of genomes up to kMaxG, the most the multi-MUM
+// pipeline's signature words carry.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxG = 8;
+constexpr int kMaxG = 62;
 
 __global__ void __launch_bounds__(kThreads) extend_kernel(
     const long long* __restrict__ keys, int64_t n_keys, long long fill,
@@ -35,11 +40,12 @@ __global__ void __launch_bounds__(kThreads) extend_kernel(
     const int* __restrict__ gen_off, const int* __restrict__ gen_cnt,
     int* __restrict__ lefts, const uint8_t* __restrict__ present,
     const uint8_t* __restrict__ is_fwd, int* __restrict__ lengths) {
-  __shared__ int s_left[kMaxG];
-  __shared__ int s_off[kMaxG];
-  __shared__ int s_cnt[kMaxG];
-  __shared__ int s_pres[kMaxG];
-  __shared__ int s_fwd[kMaxG];
+  extern __shared__ int s_rows[];
+  int* s_left = s_rows;
+  int* s_off = s_rows + G;
+  int* s_cnt = s_rows + 2 * G;
+  int* s_pres = s_rows + 3 * G;
+  int* s_fwd = s_rows + 4 * G;
   __shared__ int s_len;
   __shared__ int s_active;
   __shared__ int s_ref;
@@ -169,7 +175,8 @@ extern "C" int lm_extend(const void* keys, int64_t n_keys, int64_t fill,
   if (G < 1 || G > kMaxG || big > 32 * kThreads || chunk > big)
     return (int)cudaErrorInvalidValue;
   if (R > 0) {
-    LM_LAUNCH(extend_kernel, (unsigned)R, kThreads, 0, (cudaStream_t)stream,
+    LM_LAUNCH(extend_kernel, (unsigned)R, kThreads, 5 * G * sizeof(int),
+              (cudaStream_t)stream,
               (const long long*)keys, n_keys, (long long)fill, seed_len,
               chunk, big, G, (const int*)gen_off, (const int*)gen_cnt,
               (int*)lefts, (const uint8_t*)present, (const uint8_t*)is_fwd,

@@ -59,6 +59,13 @@ _SIGNATURES = {
     "lm_rep_flags": ([_P, _L, _I, _I, _P, _P, _P], _I),
     "lm_reps": ([_P, _P, _P, _L, _L, _L, _P, _I, _I, _I, _I, _P, _P, _P, _P,
                  _P, _P, _P, _P, _P, _P, _P, _P], _I),
+    "lm_mum_bounds": ([_P, _P, _P, _P, _L, _I, _P, _P, _P], _I),
+    "lm_mum_keep": ([_P] * 6 + [_L, _I, _L] + [_P] * 4, _I),
+    "lm_mum_row_ids": ([_P, _P, _P, _L, _P, _P], _I),
+    "lm_mum_candidates": ([_P] * 6 + [_L, _I, _L, _L, _I, _I] + [_P] * 4,
+                          _I),
+    "lm_mum_rep_flags": ([_P, _P, _L, _I, _I, _I, _I, _P, _P], _I),
+    "lm_mum_reps": ([_P] * 4 + [_L, _L, _I, _I] + [_P] * 4, _I),
     "lm_hmm_fb": ([_P, _P, _I, _I, _P, ctypes.c_double, _P, _P, _P, _P],
                   _I),
     "lm_error_string": ([_I], ctypes.c_char_p),

@@ -22,6 +22,7 @@ import torch
 from libmems_tpu_torch import cuda
 
 ESCALATE = 8       # long-match probe window = ESCALATE * chunk
+MAX_GENOMES = 62   # K2's row width limit (csrc/extend.cu kMaxG)
 
 
 def _probe_round(keys, fill, seed_len, C, side, gen_off, gen_cnt, lefts,
@@ -120,6 +121,9 @@ def extend_matches(keys_concat, seed_len: int, chunk: int, gen_off,
         raise ValueError("chunk must be >= seed_len")
     dev = keys_concat.device
     R, G = lefts.shape
+    if not 1 <= G <= MAX_GENOMES:
+        raise ValueError(f"K2 takes 1 to {MAX_GENOMES} genomes a row, "
+                         f"got {G}")
     cuda.require(keys_concat, "keys_concat", torch.int64, dev,
                  (keys_concat.shape[0],))
     for name, t in (("gen_off", gen_off), ("gen_cnt", gen_cnt),

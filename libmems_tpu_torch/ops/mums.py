@@ -1,0 +1,388 @@
+"""The multi-MUM pipeline's table passes (kernels K13-K15, csrc/mums.cu).
+
+Port of the device stages of libmems_tpu/matchfind.py's
+_fused_mum_pipeline and of the helpers it uses (MemHash::FindMatches,
+libMems/MemHash.cpp:109-251):
+
+* ``mum_seed_flags`` (K13): ``_mum_seed_flags`` with the ops/segments.py
+  run helpers: per row of the (content, gid, pos)-sorted seed table its
+  genome, position and strand, ``kept_occ`` (the first occurrence of each
+  (content, genome) in a surviving run), ``row_id`` (surviving runs
+  numbered densely), ``ref_strand`` (the strand of the run's first row)
+  and ``n_rows``;
+* ``mum_candidates`` (K14): the candidate scatter, the ``seq_mask``
+  filter and ``_packed_diagonal_words``: starts int32[n_rows, G], the
+  packed signature words int64[n_words, n_rows] and posref int64[n_rows];
+* ``mum_reps`` (K15): ``_recover_starts`` and the representative
+  compaction on the sorted signature rows, as K2's [EC, G] extension
+  rows.
+
+Words are int64 tensors below 2^63 (63 payload bits a word), so their
+signed order is the JAX package's unsigned one.  Each wrapper takes its
+plain PyTorch version for CPU tensors and launches its kernel for CUDA
+tensors.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from libmems_tpu_torch import cuda
+from libmems_tpu_torch.ops.pairwise import cumsum32, seed_table_meta, shr
+
+WORD_BITS = 63      # payload bits of a signature word (matchfind._WORD_BITS)
+MAX_GENOMES = 62    # the mask and sign fields must fit one int64 field
+
+
+def n_words_for(G: int, pos_bits: int) -> int:
+    """Signature words of a row: invalid(1) | mask(G) | signs(G) | G
+    diagonals of pos_bits + 2 bits."""
+    return max(1, -(-(1 + G * (pos_bits + 4)) // WORD_BITS))
+
+
+class MumFlags(NamedTuple):
+    kept_occ: torch.Tensor     # bool[n]
+    row_id: torch.Tensor       # int32[n]
+    ref_strand: torch.Tensor   # uint8[n]
+    n_rows: int
+    gid: torch.Tensor          # int32[n]
+    pos: torch.Tensor          # int32[n]
+    strand: torch.Tensor       # uint8[n]
+
+
+# ops/segments.py, in torch ----------------------------------------------
+
+def _run_starts(*cols: torch.Tensor) -> torch.Tensor:
+    n = cols[0].shape[0]
+    flag = torch.zeros(n, dtype=torch.bool, device=cols[0].device)
+    flag[:1] = True
+    for c in cols:
+        flag[1:] |= c[1:] != c[:-1]
+    return flag
+
+
+def _start_index(starts: torch.Tensor) -> torch.Tensor:
+    idx = torch.arange(starts.shape[0], device=starts.device)
+    return torch.cummax(torch.where(starts, idx, 0), 0).values
+
+
+def _end_index(starts: torch.Tensor) -> torch.Tensor:
+    n = starts.shape[0]
+    idx = torch.arange(n, device=starts.device)
+    ends = torch.cat([starts[1:], torch.ones(1, dtype=torch.bool,
+                                             device=starts.device)])
+    rev = torch.cummin(torch.where(ends, idx, n).flip(0), 0).values.flip(0)
+    return rev + 1
+
+
+def _run_lengths(starts: torch.Tensor) -> torch.Tensor:
+    return _end_index(starts) - _start_index(starts)
+
+
+def _segment_max_broadcast(values, seg_starts):
+    seg_id = torch.cumsum(seg_starts.to(torch.int64), 0) - 1
+    packed = (seg_id << 32) | values.to(torch.int64)
+    cm = torch.cummax(packed, 0).values & 0xFFFFFFFF
+    return cm[_end_index(seg_starts) - 1]
+
+
+def _segment_sum_broadcast(values, seg_starts):
+    cs = torch.cumsum(values, 0)
+    cs = cs - (cs - values)[_start_index(seg_starts)]
+    return cs[_end_index(seg_starts) - 1]
+
+
+def mum_seed_flags_plain(content, src, keys, seg_off, repeat_tolerance: int,
+                         repeat_limit: int, sent_content: int) -> MumFlags:
+    """Plain PyTorch version of K13: _mum_seed_flags as the JAX module
+    computes it."""
+    gid, pos, strand = seed_table_meta(src, keys, seg_off)
+    n = content.shape[0]
+    if n == 0:
+        e = torch.zeros(0, dtype=torch.int32, device=content.device)
+        return MumFlags(e.bool(), e, e.to(torch.uint8), 0, gid, pos, strand)
+    sc = _run_starts(content)
+    scg = _run_starts(content, gid)
+    max_subrun = _segment_max_broadcast(_run_lengths(scg), sc)
+    ngids = _segment_sum_broadcast(scg.to(torch.int64), sc)
+    runlen = _run_lengths(sc)
+    keep_run = (ngids >= 2) & (max_subrun <= repeat_tolerance + 1) \
+        & (runlen <= repeat_limit) & (content != sent_content)
+    kept_occ = scg & keep_run
+    rid_at_start = cumsum32(sc & keep_run) - 1
+    first = _start_index(sc)
+    row_id = rid_at_start[first]
+    ref_strand = strand[first]
+    n_rows = int(rid_at_start[-1]) + 1 if bool(keep_run.any()) else 0
+    return MumFlags(kept_occ, row_id, ref_strand, n_rows, gid, pos, strand)
+
+
+def mum_seed_flags(content, src, keys, seg_off, repeat_tolerance: int,
+                   repeat_limit: int, sent_content: int) -> MumFlags:
+    """MemHash seed-enumeration flags of the sorted seed table.
+
+    content: int64[n] sorted contents (key >> 1, logical); src: int64[n]
+    each row's index into keys, the int64 position-order concatenation of
+    the genomes' keys; seg_off: int64[G+1] genome bounds in keys.  CPU
+    tensors take the plain version; CUDA tensors launch K13 (with K5's
+    lm_run_starts for gid, pos and strand)."""
+    if content.device.type == "cpu":
+        return mum_seed_flags_plain(content, src, keys, seg_off,
+                                    repeat_tolerance, repeat_limit,
+                                    sent_content)
+    dev = content.device
+    n = content.shape[0]
+    G = seg_off.shape[0] - 1
+    cuda.require(content, "content", torch.int64, dev, (n,))
+    cuda.require(src, "src", torch.int64, dev, (n,))
+    cuda.require(keys, "keys", torch.int64, dev, (keys.shape[0],))
+    cuda.require(seg_off, "seg_off", torch.int64, dev, (G + 1,))
+    i32 = dict(dtype=torch.int32, device=dev)
+    u8 = dict(dtype=torch.uint8, device=dev)
+    sc = torch.empty(n, **i32)
+    gid = torch.empty(n, **i32)
+    pos = torch.empty(n, **i32)
+    strand = torch.empty(n, **u8)
+    lib = cuda.library()
+    stream = cuda.stream(content)
+    cuda.check(lib.lm_run_starts(
+        content.data_ptr(), src.data_ptr(), keys.data_ptr(),
+        seg_off.data_ptr(), G, n, sc.data_ptr(), gid.data_ptr(),
+        pos.data_ptr(), strand.data_ptr(), stream), "lm_run_starts")
+    rid1 = torch.cumsum(sc, 0, dtype=torch.int32)
+    run_start = torch.empty(n + 1, dtype=torch.int64, device=dev)
+    big = torch.empty(n, **i32)
+    cuda.check(lib.lm_mum_bounds(
+        content.data_ptr(), gid.data_ptr(), sc.data_ptr(), rid1.data_ptr(),
+        n, repeat_tolerance + 1, run_start.data_ptr(), big.data_ptr(),
+        stream), "lm_mum_bounds")
+    big_cum = torch.cumsum(big, 0, dtype=torch.int32)
+    kept_occ = torch.empty(n, dtype=torch.bool, device=dev)
+    ref_strand = torch.empty(n, **u8)
+    keep_start = torch.empty(n, **i32)
+    cuda.check(lib.lm_mum_keep(
+        content.data_ptr(), gid.data_ptr(), strand.data_ptr(),
+        rid1.data_ptr(), run_start.data_ptr(), big_cum.data_ptr(), n,
+        repeat_limit, sent_content, kept_occ.data_ptr(),
+        ref_strand.data_ptr(), keep_start.data_ptr(), stream), "lm_mum_keep")
+    keep_cum = torch.cumsum(keep_start, 0, dtype=torch.int32)
+    row_id = torch.empty(n, **i32)
+    cuda.check(lib.lm_mum_row_ids(
+        rid1.data_ptr(), run_start.data_ptr(), keep_cum.data_ptr(), n,
+        row_id.data_ptr(), stream), "lm_mum_row_ids")
+    n_rows = int(keep_cum[-1]) if n else 0
+    mum_seed_flags.launches += 1
+    return MumFlags(kept_occ, row_id, ref_strand, n_rows, gid, pos, strand)
+
+
+mum_seed_flags.launches = 0
+
+
+class Candidates(NamedTuple):
+    starts: torch.Tensor   # int32[n_rows, G], rows seq_mask rejected zeroed
+    words: torch.Tensor    # int64[n_words, n_rows] signature words
+    posref: torch.Tensor   # int64[n_rows]; 1 << 62 where invalid
+
+
+def _pack_words(fields, n_words: int, n: int, dev) -> torch.Tensor:
+    """matchfind._pack_sort_words on int64: fields (value >= 0, nbits),
+    MSB-first, into n_words words of 63 payload bits."""
+    words = torch.zeros((n_words, n), dtype=torch.int64, device=dev)
+    off = 0
+    for arr, nb in fields:
+        start, end = off, off + nb
+        for w in range(n_words):
+            ws, we = w * WORD_BITS, (w + 1) * WORD_BITS
+            lo, hi = max(start, ws), min(end, we)
+            if lo >= hi:
+                continue
+            seg = shr(arr, end - hi) & ((1 << (hi - lo)) - 1)
+            words[w] |= seg << (we - hi)
+        off = end
+    return words
+
+
+def _unpack_words(words: torch.Tensor, fields_bits) -> list[torch.Tensor]:
+    """matchfind._unpack_sort_words on int64."""
+    out = []
+    off = 0
+    for nb in fields_bits:
+        start, end = off, off + nb
+        val = torch.zeros_like(words[0])
+        for w in range(words.shape[0]):
+            ws, we = w * WORD_BITS, (w + 1) * WORD_BITS
+            lo, hi = max(start, ws), min(end, we)
+            if lo >= hi:
+                continue
+            seg = shr(words[w], we - hi) & ((1 << (hi - lo)) - 1)
+            val = val | (seg << (end - hi))
+        out.append(val)
+        off = end
+    return out
+
+
+def mum_candidates_plain(flags: MumFlags, G: int, seq_mask: int,
+                         pos_bits: int) -> Candidates:
+    """Plain PyTorch version of K14."""
+    dev = flags.kept_occ.device
+    n_rows = flags.n_rows
+    keep = flags.kept_occ
+    starts = torch.zeros((n_rows, G), dtype=torch.int32, device=dev)
+    sign = torch.where(flags.strand[keep] == flags.ref_strand[keep], 1, -1)
+    starts[flags.row_id[keep].long(), flags.gid[keep].long()] = \
+        (sign * (flags.pos[keep] + 1)).to(torch.int32)
+    valid = torch.ones(n_rows, dtype=torch.bool, device=dev)
+    if seq_mask:
+        want = torch.tensor([(seq_mask >> (G - 1 - g)) & 1 for g in range(G)],
+                            dtype=torch.bool, device=dev)
+        row_ok = ((starts != 0) == want[None, :]).all(dim=1)
+        starts = torch.where(row_ok[:, None], starts, 0)
+        valid &= row_ok
+    # _packed_diagonal_words
+    present = starts != 0
+    pos = starts.abs().to(torch.int64) - 1
+    ref_idx = torch.argmax(present.to(torch.int8), dim=1)
+    pos_ref = torch.gather(pos, 1, ref_idx[:, None])[:, 0]
+    neg = starts < 0
+    delta = torch.where(neg, pos + pos_ref[:, None], pos - pos_ref[:, None])
+    delta_b = torch.where(present, delta + (1 << (pos_bits + 1)), 0)
+    wb = torch.ones(1, dtype=torch.int64, device=dev) << torch.arange(
+        G, dtype=torch.int64, device=dev)
+    maskbits = (present.to(torch.int64) * wb).sum(dim=1)
+    signbits = (neg.to(torch.int64) * wb).sum(dim=1)
+    fields = [((~valid).to(torch.int64), 1), (maskbits, G), (signbits, G)]
+    fields += [(delta_b[:, g], pos_bits + 2) for g in range(G)]
+    words = _pack_words(fields, n_words_for(G, pos_bits), n_rows, dev)
+    posref = torch.where(valid, pos_ref, 1 << 62)
+    return Candidates(starts, words, posref)
+
+
+def mum_candidates(flags: MumFlags, G: int, seq_mask: int,
+                   pos_bits: int) -> Candidates:
+    """Candidate rows of the surviving runs, filtered by seq_mask (bit
+    G-1-g is genome g; 0 keeps every row), with their packed diagonal
+    signatures.  CPU tensors take the plain version; CUDA tensors launch
+    K14."""
+    if not 1 <= G <= MAX_GENOMES:
+        raise ValueError(f"G = {G}: the signature words take 1 to "
+                         f"{MAX_GENOMES} genomes")
+    keep = flags.kept_occ
+    if keep.device.type == "cpu":
+        return mum_candidates_plain(flags, G, seq_mask, pos_bits)
+    dev = keep.device
+    n = keep.shape[0]
+    for name, t, dt in (("kept_occ", keep, torch.bool),
+                        ("row_id", flags.row_id, torch.int32),
+                        ("ref_strand", flags.ref_strand, torch.uint8),
+                        ("gid", flags.gid, torch.int32),
+                        ("pos", flags.pos, torch.int32),
+                        ("strand", flags.strand, torch.uint8)):
+        cuda.require(t, name, dt, dev, (n,))
+    n_rows = flags.n_rows
+    n_words = n_words_for(G, pos_bits)
+    starts = torch.zeros((n_rows, G), dtype=torch.int32, device=dev)
+    words = torch.empty((n_words, n_rows), dtype=torch.int64, device=dev)
+    posref = torch.empty(n_rows, dtype=torch.int64, device=dev)
+    lib = cuda.library()
+    cuda.check(lib.lm_mum_candidates(
+        keep.data_ptr(), flags.row_id.data_ptr(), flags.gid.data_ptr(),
+        flags.pos.data_ptr(), flags.strand.data_ptr(),
+        flags.ref_strand.data_ptr(), n, G, n_rows, seq_mask, pos_bits,
+        n_words, starts.data_ptr(), words.data_ptr(), posref.data_ptr(),
+        cuda.stream(keep)), "lm_mum_candidates")
+    mum_candidates.launches += 1
+    return Candidates(starts, words, posref)
+
+
+mum_candidates.launches = 0
+
+
+class MumReps(NamedTuple):
+    lefts: torch.Tensor     # int32[EC, G]
+    present: torch.Tensor   # bool[EC, G]
+    is_fwd: torch.Tensor    # bool[EC, G]
+    n_reps: int
+
+
+def recover_starts(words, posref, G: int, pos_bits: int) -> torch.Tensor:
+    """matchfind._recover_starts: signed int32 starts [m, G] of signature
+    rows."""
+    vals = _unpack_words(words, [1, G, G] + [pos_bits + 2] * G)
+    invalid = vals[0] != 0
+    mask, sign = vals[1], vals[2]
+    cols = []
+    for g in range(G):
+        present = (shr(mask, g) & 1) == 1
+        neg = (shr(sign, g) & 1) == 1
+        delta = vals[3 + g] - (1 << (pos_bits + 1))
+        posg = torch.where(neg, delta - posref, delta + posref)
+        col = torch.where(present & ~invalid,
+                          torch.where(neg, -1, 1) * (posg + 1), 0)
+        cols.append(col.to(torch.int32))
+    return torch.stack(cols, dim=1)
+
+
+def _rep_flags(words, posref, s_starts, seed_len: int) -> torch.Tensor:
+    m = posref.shape[0]
+    change = torch.zeros(m, dtype=torch.bool, device=posref.device)
+    change[:1] = True
+    for w in words:
+        change[1:] |= w[1:] != w[:-1]
+    change[1:] |= posref[1:] - posref[:-1] > seed_len
+    return change & (s_starts != 0).any(dim=1)
+
+
+def mum_reps_plain(words, posref, ec: int, G: int, pos_bits: int,
+                   seed_len: int) -> MumReps:
+    """Plain PyTorch version of K15."""
+    dev = posref.device
+    s_starts = recover_starts(words, posref, G, pos_bits)
+    rep = _rep_flags(words, posref, s_starts, seed_len)
+    n_reps = int(rep.sum())
+    e = s_starts[torch.nonzero(rep).flatten()[:ec]]
+    lefts = torch.zeros((ec, G), dtype=torch.int32, device=dev)
+    present = torch.zeros((ec, G), dtype=torch.bool, device=dev)
+    is_fwd = torch.zeros((ec, G), dtype=torch.bool, device=dev)
+    k = e.shape[0]
+    present[:k] = e != 0
+    lefts[:k] = torch.where(e != 0, e.abs() - 1, 0)
+    is_fwd[:k] = e > 0
+    return MumReps(lefts, present, is_fwd, n_reps)
+
+
+def mum_reps(words, posref, ec: int, G: int, pos_bits: int,
+             seed_len: int) -> MumReps:
+    """Diagonal-cluster representatives of the sorted signature rows as
+    EC compact [EC, G] extension rows (rows past min(n_reps, EC) are
+    absent).  words: int64[n_words, m], posref: int64[m], both in the
+    rows' sorted order.  CPU tensors take the plain version; CUDA tensors
+    launch K15."""
+    if posref.device.type == "cpu":
+        return mum_reps_plain(words, posref, ec, G, pos_bits, seed_len)
+    dev = posref.device
+    m = posref.shape[0]
+    n_words = n_words_for(G, pos_bits)
+    cuda.require(words, "words", torch.int64, dev, (n_words, m))
+    cuda.require(posref, "posref", torch.int64, dev, (m,))
+    lib = cuda.library()
+    stream = cuda.stream(posref)
+    rep = torch.empty(m, dtype=torch.int32, device=dev)
+    cuda.check(lib.lm_mum_rep_flags(
+        words.data_ptr(), posref.data_ptr(), m, G, pos_bits, n_words,
+        seed_len, rep.data_ptr(), stream), "lm_mum_rep_flags")
+    rank = torch.cumsum(rep, 0, dtype=torch.int32)
+    n_reps = int(rank[-1]) if m else 0
+    lefts = torch.zeros((ec, G), dtype=torch.int32, device=dev)
+    present = torch.zeros((ec, G), dtype=torch.bool, device=dev)
+    is_fwd = torch.zeros((ec, G), dtype=torch.bool, device=dev)
+    cuda.check(lib.lm_mum_reps(
+        words.data_ptr(), posref.data_ptr(), rep.data_ptr(), rank.data_ptr(),
+        m, ec, G, pos_bits, lefts.data_ptr(), present.data_ptr(),
+        is_fwd.data_ptr(), stream), "lm_mum_reps")
+    mum_reps.launches += 1
+    return MumReps(lefts, present, is_fwd, n_reps)
+
+
+mum_reps.launches = 0

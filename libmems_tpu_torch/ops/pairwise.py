@@ -43,7 +43,7 @@ def usort(x: torch.Tensor) -> torch.Tensor:
     return torch.sort(x ^ _I64_MIN).values ^ _I64_MIN
 
 
-def _cumsum32(x: torch.Tensor) -> torch.Tensor:
+def cumsum32(x: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(x.to(torch.int32), 0, dtype=torch.int32)
 
 
@@ -55,18 +55,26 @@ class RunFlags(NamedTuple):
     strand: torch.Tensor       # uint8[n]
 
 
+def seed_table_meta(src, keys, seg_off):
+    """Genome, position and strand of each sorted row from its source
+    index into keys (the position-order concatenation; seg_off int64[G+1]
+    the genome bounds)."""
+    gid = torch.searchsorted(seg_off, src, right=True) - 1
+    pos = (src - seg_off[gid]).to(torch.int32)
+    strand = (keys[src] & 1).to(torch.uint8)
+    return gid.to(torch.int32), pos, strand
+
+
 def run_flags_plain(content, src, keys, seg_off, repeat_limit: int,
                     sent_content: int) -> RunFlags:
     """Plain PyTorch version of K5."""
     n = content.shape[0]
     dev = content.device
-    gid = (torch.searchsorted(seg_off, src, right=True) - 1).to(torch.int32)
-    pos = (src - seg_off[gid.to(torch.int64)]).to(torch.int32)
-    strand = (keys[src] & 1).to(torch.uint8)
+    gid, pos, strand = seed_table_meta(src, keys, seg_off)
     one = torch.ones(1, dtype=torch.bool, device=dev)
     sc = torch.cat([one, content[1:] != content[:-1]])
     scg = sc | torch.cat([one, gid[1:] != gid[:-1]])
-    rid1 = _cumsum32(sc)
+    rid1 = cumsum32(sc)
     starts = torch.nonzero(sc).flatten()
     bounds = torch.cat([starts, torch.full((1,), n, dtype=starts.dtype,
                                            device=dev)])
@@ -170,7 +178,7 @@ def cluster_words(flags: RunFlags, G: int, pos_bits: int) -> torch.Tensor:
                         ("pos", flags.pos, torch.int32),
                         ("strand", flags.strand, torch.uint8)):
         cuda.require(t, name, dt, dev, (n,))
-    rank = _cumsum32(keep)
+    rank = cumsum32(keep)
     kept = int(rank[-1]) if n else 0
     i32 = dict(dtype=torch.int32, device=dev)
     k_rid = torch.empty(kept, **i32)

@@ -1,6 +1,8 @@
-"""Where the time goes in the 9 x 1 Mbp progressive path on one GPU.
+"""Where the time goes in the 9 x 1 Mbp progressive path, or in the
+3 x 1.5 Mbp flat trio, on one GPU.
 
-    python -m libmems_tpu_torch.profile_progressive
+    python -m libmems_tpu_torch.profile_progressive          # progressive
+    python -m libmems_tpu_torch.profile_progressive --trio   # flat trio
 
 Run from the repository root (the genomes come from bench_e2e.py's
 ``_mutant_family``).  Method: one untimed run on input rng 0 loads every
@@ -14,7 +16,9 @@ of the kernel, memcpy and memset events of the exported Chrome trace
 busy share is that sum over the run's wall.  The configuration is the
 default ``ProgressiveConfig()``, which refines, so the stage table has
 the ``refine/*`` stages; each timed input also prints its banding
-outcomes (``ops.profile.BAND_STATS``).  Prints the card's name and
+outcomes (``ops.profile.BAND_STATS``).  With ``--trio`` each input is
+instead ``align`` (gapped, no recursion: bench_e2e.py's trio phase) +
+``write_xmfa`` of a 3 x 1.5 Mbp family.  Prints the card's name and
 power limit first.  The trace is written under build/ in the checkout.
 """
 
@@ -66,6 +70,22 @@ def run(rng_seed: int, dev) -> dict:
             "writers": t3 - t2, "total": t3 - t0}
 
 
+def run_trio(rng_seed: int, dev) -> dict:
+    """One 3 x 1.5 Mbp input through align (gapped, no recursion) and
+    write_xmfa; returns the walls in seconds."""
+    gs = family(rng_seed, 3, 1_500_000)
+    cfg = lt.AlignerConfig(gapped_alignment=True, recursive=False,
+                           device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ivs, _ = lt.align(gs, cfg)
+    t1 = time.perf_counter()
+    lt.write_xmfa(io.StringIO(), ivs)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return {"align": t1 - t0, "writers": t2 - t1, "total": t2 - t0}
+
+
 def device_time(trace_path: str) -> tuple[float, list]:
     """(device milliseconds, [(item, ms, events)] largest first) of the
     kernel, memcpy and memset events of a Chrome trace."""
@@ -99,13 +119,15 @@ def main() -> int:
           else "nvidia-smi failed")
     dev = torch.device("cuda", 0)
     cuda.library()
-    run(0, dev)
+    trio = "--trio" in sys.argv[1:]
+    run_one = run_trio if trio else run
+    run_one(0, dev)
     for seed in (1, 2):
         trace.reset()
         profile.BAND_STATS.update(dict.fromkeys(profile.BAND_STATS, 0))
         with open(os.devnull, "w") as null:
             trace.set_enabled(True, stream=null)
-            walls = run(seed, dev)
+            walls = run_one(seed, dev)
             trace.set_enabled(False)
         print(json.dumps({"rng_seed": seed, **walls,
                           "band_stats": dict(profile.BAND_STATS),
@@ -113,10 +135,11 @@ def main() -> int:
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        walls = run(3, dev)
+        walls = run_one(3, dev)
     out_dir = os.path.join(ROOT, "build", "profile_progressive")
     os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, "trace.json")
+    path = os.path.join(out_dir,
+                        "trace_trio.json" if trio else "trace.json")
     prof.export_chrome_trace(path)
     busy, top = device_time(path)
     wall_ms = walls["total"] * 1e3

@@ -1,5 +1,6 @@
-"""Port parity: the flat pairwise aligner end to end against the JAX
-package and the golden XMFA; import isolation and device handling."""
+"""Port parity: the flat aligner end to end against the JAX package and
+the golden XMFA, on pairs, trios and quads; import isolation and device
+handling."""
 
 import io
 import subprocess
@@ -13,6 +14,7 @@ from libmems_tpu.aligner import AlignerConfig as JaxConfig
 from libmems_tpu.aligner import align as jax_align
 from libmems_tpu.interval import write_xmfa as jax_write_xmfa
 from libmems_tpu.sequence import Genome as JaxGenome
+from bench_e2e import _mutant_family
 from libmems_tpu_torch import AlignerConfig, Genome, align, write_xmfa
 from tests.golden import generate
 
@@ -82,12 +84,43 @@ def test_cuda_device_without_gpu_raises():
                                             device="cuda"))
 
 
+def _family(G, n=80_000, **kw):
+    lut = np.frombuffer(b"ACGT", dtype=np.uint8)
+    return [lut[g] for g in _mutant_family(G, n, rng_seed=5, **kw)]
+
+
+@pytest.mark.parametrize("G", [3, 4])
+@pytest.mark.parametrize("cfg", [
+    dict(),
+    dict(gapped_alignment=True, recursive=False),
+    dict(gapped_alignment=True, recursive=True),
+], ids=["anchors", "gapped", "gapped_recursive"])
+def test_multi_genome_xmfa_equal_jax(G, cfg):
+    asc = _family(G)
+    ivs, mums = align([Genome(f"g{i}", a) for i, a in enumerate(asc)],
+                      AlignerConfig(device="cpu", **cfg))
+    ref_ivs, ref_mums = jax_align(
+        [JaxGenome(f"g{i}", a) for i, a in enumerate(asc)], JaxConfig(**cfg))
+    np.testing.assert_array_equal(mums.starts, ref_mums.starts)
+    np.testing.assert_array_equal(mums.lengths, ref_mums.lengths)
+    assert len(ivs.intervals) == len(ref_ivs.intervals) > G
+    assert _xmfa(write_xmfa, ivs) == _xmfa(jax_write_xmfa, ref_ivs)
+
+
 @pytest.mark.parametrize("case", ["three_genomes", "mesh"])
 def test_unported_configurations_raise(case):
-    gs = _golden_pair()
-    if case == "three_genomes":
-        gs, cfg = gs + [gs[0]], AlignerConfig(device="cpu")
-    else:
-        cfg = AlignerConfig(device="cpu", mesh=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        align(gs, cfg)
+    """A mesh raises NotImplementedError naming its ROADMAP item; three
+    genomes run: a divergent trio, whose LCB-extension loop searches its
+    collinear gaps with three-genome masked searches (seq_mask 0b111),
+    gives the JAX package's anchors and intervals."""
+    if case == "mesh":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            align(_golden_pair(), AlignerConfig(device="cpu", mesh=2))
+        return
+    asc = _family(3, n=25_000, mutate=0.03, indel=0.002)
+    ivs, mums = align([Genome(f"g{i}", a) for i, a in enumerate(asc)],
+                      AlignerConfig(device="cpu"))
+    ref_ivs, ref_mums = jax_align(
+        [JaxGenome(f"g{i}", a) for i, a in enumerate(asc)], JaxConfig())
+    np.testing.assert_array_equal(mums.starts, ref_mums.starts)
+    assert _xmfa(write_xmfa, ivs) == _xmfa(jax_write_xmfa, ref_ivs)

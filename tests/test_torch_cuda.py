@@ -336,3 +336,104 @@ def test_pair_xmfa_golden_on_cuda(dev):
     write_xmfa(buf, ivs)
     with open(f"{generate.GOLDEN_DIR}/pair.xmfa", "rb") as fh:
         assert buf.getvalue().encode() == fh.read()
+
+
+@pytest.mark.parametrize("tol,seq_mask", [(0, 0), (0, 0b101), (2, 0)])
+def test_mum_kernels_equal_plain(dev, tol, seq_mask):
+    """K13, K14 and K15 against their plain versions on one G = 3 table:
+    exact."""
+    from libmems_tpu_torch.matchfind import _lexsort_rows, _seed_table
+    from libmems_tpu_torch.ops import mums
+    from libmems_tpu_torch.ops.mers import sentinel_content
+    from libmems_tpu_torch.sml import create_smls
+    G = 3
+    smls, seed = create_smls(_family(G, 60_000, 38), device="cpu")
+    keys, seg_off, content, src = _seed_table(smls)
+    args = (content, src, keys, seg_off, tol, 1000, sentinel_content(seed))
+    ref = mums.mum_seed_flags_plain(*args)
+    got = mums.mum_seed_flags(*[a.to(dev) if isinstance(a, torch.Tensor)
+                                else a for a in args])
+    assert got.n_rows == ref.n_rows > 1000
+    for r, g in zip(ref, got):
+        if isinstance(r, torch.Tensor):
+            assert torch.equal(g.cpu(), r)
+    pos_bits = keys.shape[0].bit_length()
+    ref_c = mums.mum_candidates_plain(ref, G, seq_mask, pos_bits)
+    got_c = mums.mum_candidates(got, G, seq_mask, pos_bits)
+    for r, g in zip(ref_c, got_c):
+        assert torch.equal(g.cpu(), r)
+    order = _lexsort_rows(list(ref_c.words) + [ref_c.posref])
+    words = torch.index_select(ref_c.words, 1, order)
+    posref = ref_c.posref[order]
+    seed_len = smls[0].seed_length
+    for ec in (64, 1 << 14):
+        ref_r = mums.mum_reps_plain(words, posref, ec, G, pos_bits, seed_len)
+        got_r = mums.mum_reps(words.to(dev), posref.to(dev), ec, G, pos_bits,
+                              seed_len)
+        assert got_r.n_reps == ref_r.n_reps > 64
+        for r, g in zip(ref_r[:-1], got_r[:-1]):
+            assert torch.equal(g.cpu(), r)
+
+
+@pytest.mark.parametrize("G", [3, 9])
+def test_extend_kernel_many_genomes_equals_plain(dev, G):
+    """K2 on rows of G genomes (dynamic shared memory per row)."""
+    from libmems_tpu_torch.matchfind import find_mums_device
+    from libmems_tpu_torch.sml import create_smls
+    smls, seed = create_smls(_family(G, 40_000, 39), device="cpu")
+    keys = torch.cat([s.keys for s in smls])
+    seed_len = smls[0].seed_length
+    rng = np.random.default_rng(G)
+    # candidate rows: every genome at the ancestor's positions, some
+    # genomes absent
+    R = 400
+    cnts = np.array([s.n_windows for s in smls])
+    pos = rng.integers(0, cnts.min() - 1, R)
+    lefts = torch.from_numpy(np.repeat(pos[:, None], G, 1).astype(np.int32))
+    present = torch.from_numpy(rng.random((R, G)) < 0.8)
+    present[:, 0] = True
+    is_fwd = torch.ones((R, G), dtype=torch.bool)
+    off = torch.from_numpy(np.concatenate([[0], np.cumsum(cnts)[:-1]])
+                           .astype(np.int32))[None].expand(R, G).contiguous()
+    cnt = torch.from_numpy(cnts.astype(np.int32))[None].expand(R, G)
+    args = [keys, seed_len, 256, off, cnt.contiguous(), lefts, present,
+            is_fwd, torch.full((R,), seed_len, dtype=torch.int32),
+            mers.key_sentinel(seed)]
+    ref = extend.extend_matches_plain(*args)
+    got = extend.extend_matches(*[x.to(dev) if isinstance(x, torch.Tensor)
+                                  else x for x in args])
+    assert torch.equal(got[0].cpu(), ref[0])
+    assert torch.equal(got[1].cpu(), ref[1])
+    assert int(ref[1].max()) > seed_len
+    # and the whole pipeline: GPU equals CPU tensors
+    gpu = create_smls(_family(G, 40_000, 39), seed, device=dev)[0]
+    for a, b in zip(find_mums_device(gpu)[:3], find_mums_device(smls)[:3]):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_three_genome_align_on_cuda_equals_cpu(dev):
+    """A divergent trio with an unrelated block in each genome: the
+    recursion's three-genome gap searches, 2+1-row node windows at full
+    width and, for the block's 1536-column window, the banded kernels;
+    GPU XMFA and anchors equal CPU tensors'."""
+    from libmems_tpu_torch.ops import profile
+    rng = np.random.default_rng(42)
+    anc = rng.integers(0, 4, 40_000).astype(np.uint8)
+    gs = []
+    for i in range(3):
+        g = generate._mutant(rng, anc, mutate=0.03, indel=0.002)
+        block = rng.integers(0, 4, 1_100 + 150 * i).astype(np.uint8)
+        g = np.concatenate([g[:20_000], block, g[20_000:]])
+        gs.append(Genome(f"g{i}", generate._LUT[g]))
+    cfg = dict(gapped_alignment=True, recursive=True)
+    out = {}
+    profile.banded_forward_ptrs.launches = 0
+    for d in ("cpu", dev):
+        ivs, mums_ = align(gs, AlignerConfig(device=d, **cfg))
+        buf = io.StringIO()
+        write_xmfa(buf, ivs)
+        out[str(d)] = (buf.getvalue(), mums_)
+    assert profile.banded_forward_ptrs.launches > 0
+    (xmfa_cpu, mums_cpu), (xmfa_gpu, mums_gpu) = out["cpu"], out[str(dev)]
+    assert xmfa_gpu == xmfa_cpu
+    np.testing.assert_array_equal(mums_gpu.starts, mums_cpu.starts)

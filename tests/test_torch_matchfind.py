@@ -1,5 +1,5 @@
-"""Port parity: pair MUM discovery against the JAX package, exact, plus
-the modes the port does not take yet."""
+"""Port parity: pair MUM discovery against the JAX package, exact, in
+the default mode and the others."""
 
 import io
 
@@ -95,12 +95,19 @@ def test_jax_smls_through_convert_give_same_mums(circular):
     dict(seq_mask=0b01),
 ])
 def test_unported_modes_raise(kwargs):
-    port, _ = _both(*_pair_ascii(16, n=2_000))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        find_mums(port, device="cpu", **kwargs)
+    """The modes beyond the default pair mode run and equal the JAX
+    package (a one-genome seq_mask gives no match on either side)."""
+    port, ref = _both(*_pair_ascii(16, n=2_000))
+    got = find_mums(port, device="cpu", **kwargs)
+    want = jax_find_mums(ref, **kwargs)
+    assert len(want) > 0 or kwargs == dict(seq_mask=0b01)
+    _assert_same(got, want)
 
 
 def test_three_genomes_raise():
-    port, _ = _both(*_pair_ascii(16, n=2_000))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        find_mums(port + [port[0]], device="cpu")
+    """Three genomes (the pair plus a copy of its first genome) run and
+    equal the JAX package."""
+    port, ref = _both(*_pair_ascii(16, n=2_000))
+    got = find_mums(port + [port[0]], device="cpu")
+    want = jax_find_mums(ref + [ref[0]])
+    _assert_same(got, want)

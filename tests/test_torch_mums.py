@@ -1,0 +1,230 @@
+"""Port parity: multi-MUM discovery for any G and every mode (kernels
+K13-K15 through their plain versions) against the JAX package, exact."""
+
+import io
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bench_e2e import _mutant_family
+from libmems_tpu import seeds as jseeds
+from libmems_tpu import matchfind as jmf
+from libmems_tpu.sequence import Genome as JaxGenome
+from libmems_tpu.sml import SortedMerList as JaxSML
+from libmems_tpu_torch import convert
+from libmems_tpu_torch.match import write_match_list
+from libmems_tpu_torch.matchfind import (_seed_table, find_mums,
+                                         find_pair_mums_np)
+from libmems_tpu_torch.ops import mums
+from libmems_tpu_torch.ops.mers import sentinel_content
+from libmems_tpu_torch.sequence import Genome
+from libmems_tpu_torch.sml import create_smls
+from tests.golden import generate
+from tests.oracle.refimpl import find_mums_oracle, match_set
+
+LUT = np.frombuffer(b"ACGT", dtype=np.uint8)
+
+
+def _family_ascii(G, n=80_000, rng_seed=5):
+    """bench_e2e's mutant family with N runs and an IUPAC base, as
+    test_torch_matchfind._pair_ascii adds them."""
+    asc = [LUT[g].copy() for g in _mutant_family(G, n, rng_seed=rng_seed)]
+    asc[0][n // 8:n // 8 + 60] = ord("N")
+    asc[1][3 * n // 4:3 * n // 4 + 10] = ord("N")
+    asc[-1][5 * n // 8] = ord("R")
+    return asc
+
+
+def _both(asc):
+    port = [Genome(f"g{i}", a.copy()) for i, a in enumerate(asc)]
+    ref = [JaxGenome(f"g{i}", a.copy()) for i, a in enumerate(asc)]
+    return port, ref
+
+
+def _assert_same(got, ref):
+    np.testing.assert_array_equal(got.starts, ref.starts)
+    np.testing.assert_array_equal(got.lengths, ref.lengths)
+
+
+@pytest.mark.parametrize("G,kwargs", [
+    (3, {}),
+    (3, dict(seq_mask=0b111)),
+    (3, dict(seq_mask=0b101)),
+    (3, dict(seq_mask=0b011)),
+    (3, dict(seq_mask=0b100)),            # one genome: never satisfiable
+    (3, dict(repeat_tolerance=1)),
+    (3, dict(repeat_tolerance=2)),
+    (3, dict(extend=False)),
+    (3, dict(min_multiplicity=3)),
+    (4, {}),
+    (4, dict(repeat_tolerance=1)),
+])
+def test_find_mums_equal_jax(G, kwargs):
+    port, ref = _both(_family_ascii(G))
+    got = find_mums(port, device="cpu", **kwargs)
+    want = jmf.find_mums(ref, **kwargs)
+    if kwargs.get("seq_mask") == 0b100:
+        assert len(want) == 0
+    else:
+        assert len(want) > 30
+    _assert_same(got, want)
+    if not kwargs:
+        assert (want.starts < 0).any()               # inverted segments
+        assert (want.multiplicity() == G).any()
+        assert (want.multiplicity() < G).any()
+
+
+def _repeat_rich(rng_seed, G):
+    """Short genomes sharing a core that genome 0 carries twice, so runs
+    hold several occurrences per genome (test_matchfind's
+    enumeration-tolerance inputs)."""
+    rng = np.random.default_rng(rng_seed)
+
+    def rand(n):
+        return "".join(rng.choice(list("ACGT"), size=n))
+
+    def mutate(s, rate):
+        c = np.array(list(s))
+        m = rng.random(len(c)) < rate
+        c[m] = rng.choice(list("ACGT"), size=int(m.sum()))
+        return "".join(c)
+
+    core = rand(70)
+    seqs = [core + rand(30) + core, mutate(core, 0.02) + rand(25),
+            rand(20) + mutate(core, 0.02)]
+    for _ in range(G - 3):
+        seqs.append(mutate(core, 0.03) + rand(15) + mutate(core, 0.03))
+    return seqs
+
+
+@pytest.mark.parametrize("G,rt,et", [(3, 2, 2), (3, 2, 3), (4, 1, 2),
+                                     (4, 2, 3)])
+def test_enumeration_tolerance_equal_jax_and_oracle(G, rt, et):
+    seqs = _repeat_rich(11 + G, G)
+    seed = jseeds.get_seed(5, 0)
+    kw = dict(repeat_tolerance=rt, enumeration_tolerance=et)
+    got = find_mums(seqs, seed, device="cpu", **kw)
+    want = jmf.find_mums(seqs, seed, **kw)
+    assert len(want) > 5
+    _assert_same(got, want)
+    assert got.key_set() == match_set(find_mums_oracle(seqs, seed, **kw))
+
+
+def test_overflowing_pair_equal_jax():
+    """Seed weight 31: the packed pair word needs more than 64 bits, so
+    find_mums and the numpy twin take the general pipeline."""
+    rng = np.random.default_rng(41)
+    anc = rng.integers(0, 4, 30_000).astype(np.uint8)
+    b = generate._mutant(rng, anc, mutate=0.005, invert=(9_000, 15_000))
+    a_asc, b_asc = generate._LUT[anc].copy(), generate._LUT[b].copy()
+    a_asc[100:130] = ord("N")
+    seed = jseeds.get_seed(31)
+    port, ref = _both([a_asc, b_asc])
+    want = jmf.find_mums(ref, seed=seed)
+    assert len(want) > 10 and (want.starts[:, 1] < 0).any()
+    _assert_same(find_mums(port, seed=seed, device="cpu"), want)
+    twin = find_pair_mums_np(port[0].codes, port[1].codes, seed,
+                             port[0].ambig, port[1].ambig)
+    ref_twin = jmf.find_pair_mums_np(ref[0].codes, ref[1].codes, seed,
+                                     ref[0].ambig, ref[1].ambig)
+    _assert_same(twin, ref_twin)
+    _assert_same(twin, want)
+
+
+def test_three_mums_golden_bytes():
+    gs = [Genome(g.name, g.ascii, filename=g.filename)
+          for g in generate._genomes_three()]
+    mums_ = find_mums(gs, device="cpu")
+    buf = io.StringIO()
+    write_match_list(buf, mums_, [g.filename for g in gs],
+                     [len(g) for g in gs])
+    with open(f"{generate.GOLDEN_DIR}/three.mums", "rb") as fh:
+        assert buf.getvalue().encode() == fh.read()
+
+
+def test_jax_smls_through_convert_give_same_mums():
+    _, ref = _both(_family_ascii(3))
+    jsmls = [JaxSML.create(g, jseeds.get_seed(11)) for g in ref]
+    smls = [convert.sml_from_reference(
+        np.asarray(s.keys), np.asarray(s.sorted_keys),
+        np.asarray(s.sorted_positions), s.seed, s.length, s.circular,
+        "cpu") for s in jsmls]
+    want = jmf.find_mums(jsmls)
+    assert len(want) > 30
+    _assert_same(find_mums(smls), want)
+
+
+def _np(x):
+    return np.asarray(x).view(np.int64) if np.asarray(x).dtype == np.uint64 \
+        else np.asarray(x)
+
+
+@pytest.mark.parametrize("tol,seq_mask", [(0, 0), (0, 0b110), (2, 0)])
+def test_plain_kernels_equal_jax_functions(tol, seq_mask):
+    """K13, K14 and K15's plain versions against _mum_seed_flags,
+    _packed_diagonal_words and _recover_starts (with the JAX pipeline's
+    scatter, seq_mask and representative glue) on one table."""
+    G = 3
+    port, ref = _both(_family_ascii(G, n=30_000, rng_seed=9))
+    smls, seed = create_smls(port, device="cpu")
+    keys, seg_off, content, src = _seed_table(smls)
+    flags = mums.mum_seed_flags_plain(content, src, keys, seg_off, tol,
+                                      1000, sentinel_content(seed))
+    jsmls = [JaxSML.create(g, seed) for g in ref]
+    jc, jg, jp, js = jmf._seed_table(jsmls)
+    np.testing.assert_array_equal(content.numpy(), _np(jc))
+    for got, want in ((flags.gid, jg), (flags.pos, jp), (flags.strand, js)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    jk, jrid, jref, jn = jmf._mum_seed_flags(jc, jg, jp, js, tol, 1000)
+    assert flags.n_rows == int(jn) > 100
+    for got, want in ((flags.kept_occ, jk), (flags.row_id, jrid),
+                      (flags.ref_strand, jref)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+    # K14: the JAX scatter and seq_mask glue (matchfind.py:355-375)
+    pos_bits = keys.shape[0].bit_length()
+    cand = mums.mum_candidates_plain(flags, G, seq_mask, pos_bits)
+    n_rows = flags.n_rows
+    rid = jnp.where(jk, jnp.minimum(jrid, n_rows), n_rows)
+    sign = jnp.where(js == jref, 1, -1).astype(jnp.int32)
+    jst = jnp.zeros((n_rows + 1, G), jnp.int32).at[rid, jg].set(
+        sign * (jp + 1), mode="drop")[:n_rows]
+    valid = jnp.ones((n_rows,), bool)
+    if seq_mask:
+        want = jnp.asarray([(seq_mask >> (G - 1 - g)) & 1 for g in range(G)],
+                           dtype=bool)
+        ok = jnp.all((jst != 0) == want[None, :], axis=1)
+        jst = jnp.where(ok[:, None], jst, 0)
+        valid = valid & ok
+    np.testing.assert_array_equal(cand.starts.numpy(), np.asarray(jst))
+    jw, jpr = jmf._packed_diagonal_words(jst, valid, pos_bits)
+    assert cand.words.shape[0] == len(jw) == 2
+    for w in range(len(jw)):
+        np.testing.assert_array_equal(cand.words[w].numpy(), _np(jw[w]))
+    np.testing.assert_array_equal(cand.posref.numpy(), _np(jpr))
+
+    # K15 on the rows in signature order
+    s = jax.lax.sort(tuple(jw) + (jpr,), num_keys=len(jw) + 1)
+    s_words = np.stack([_np(x) for x in s[:-1]])
+    s_posref = _np(s[-1]).copy()
+    j_starts = np.asarray(jmf._recover_starts(s[:-1], s[-1], G, pos_bits))
+    tw, tp = torch.from_numpy(s_words), torch.from_numpy(s_posref)
+    np.testing.assert_array_equal(
+        mums.recover_starts(tw, tp, G, pos_bits).numpy(), j_starts)
+    seed_len = smls[0].seed_length
+    change = np.concatenate([[True], (s_words[:, 1:] != s_words[:, :-1]).any(0)
+                             | (s_posref[1:] - s_posref[:-1] > seed_len)])
+    rep = change & (j_starts != 0).any(axis=1)
+    for ec in (64, 1 << 14):
+        reps = mums.mum_reps_plain(tw, tp, ec, G, pos_bits, seed_len)
+        assert reps.n_reps == int(rep.sum()) > 64
+        e = j_starts[rep][:ec]
+        k = len(e)
+        np.testing.assert_array_equal(reps.present.numpy()[:k], e != 0)
+        np.testing.assert_array_equal(reps.lefts.numpy()[:k],
+                                      np.where(e != 0, np.abs(e) - 1, 0))
+        np.testing.assert_array_equal(reps.is_fwd.numpy()[:k], e > 0)
+        assert not reps.present.numpy()[k:].any()
