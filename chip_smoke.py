@@ -11,17 +11,22 @@ non-zero and prints no result line):
 1. device  - CUDA present, capability (9, 0); card name and power limit;
 2. build   - compile the kernel library, report its build seconds;
 3. kernels - each hand kernel against its plain PyTorch version on the
-             card at its path's shapes (K1-K4 the pair's, K5-K7 the 9 x
-             1 Mbp seeder's, K13-K15 and K2 the first trio's; exact
-             equality), with timings;
+             card at its path's shapes (K1-K4, K18 and K19 the pair's,
+             K5-K7 the 9 x 1 Mbp seeder's, K13-K15 and K2 the first
+             trio's, K16 and K17 one 8.7 Mbp genome's; exact equality),
+             with timings; K1, K2, K18 and K19 once more at the 8.7 Mbp
+             family's weight-17 seed, K16 and K17 once more on a 1 Mbp
+             genome beside the host twin's seconds;
 4. goldens - the port on the GPU reproduces tests/golden/pair.mums,
              three.mums, pair.xmfa and nine.{xmfa,bbseq,bbcols} byte for
              byte; find_mums on the nine-genome family (G = 9) and that
              family with refine=True give the same MUMs and XMFA bytes on
              the GPU as on CPU tensors (which the CPU tests hold to the
-             JAX package);
+             JAX package); the host-orchestrated pairwise seeder on the
+             nine family equals the fused one, both on the GPU;
 5. main    - align() of a 2 x 4.6 Mbp pair with gapped alignment on the
-             GPU: every kernel of the pair path launched, MUMs equal to
+             GPU: every kernel of the pair path (K1-K4, K18, K19)
+             launched, MUMs equal to
              the numpy twin, intervals partition both genomes; then a
              second pair;
 5b. trio   - align() + write_xmfa of two 3 x 1.5 Mbp families (rng 0,
@@ -36,6 +41,13 @@ non-zero and prints no result line):
              every genome, backbone segments lie inside their intervals,
              stage seconds (refine/* among them) and banding outcomes
              printed;
+6b. large  - the same path on one 3 x 8.7 Mbp family (weight-17 seed,
+             26.1 M seed windows, every genome above the host twin's
+             8 M-window limit): K16 and K17 launched three times each,
+             K1, K2 and K5-K7 launched, each genome's seed occurrence
+             list bit-equal to the host twin, intervals partition every
+             genome, backbone segments inside their intervals, stage
+             seconds printed;
 7. profile DP - K3, K4 and K9-K12 against their plain versions on the
              profile-DP launches of the first progressive run: the node
              merges' and the refinement's align_profile_batch calls
@@ -53,8 +65,9 @@ The inputs of phases 7 and 8 are recorded one layer above the kernel
 wrappers (align_profile_batch, profile_scores_batch, predict_homologous)
 and rebuilt into launches by the path's own planners.  Counts of kernel
 launches are set to 0 just before each main path and read just after;
-the kernel table reports the trio path's counts for K13-K15 and the
-progressive path's for the rest, and the times of
+the kernel table reports the trio path's counts for K13-K15, the pair
+path's for K18 and K19, the 3 x 8.7 Mbp path's for K16 and K17 and the
+9 x 1 Mbp progressive path's for the rest, and the times of
 K3, K4 and K8-K12 are taken on that path's inputs.  Each kernel's
 bound_ms is max(bytes / 3.35 TB/s, operations / peak rate) for the work
 of those inputs (the counts are in work_* below).
@@ -82,7 +95,10 @@ OUT_DIR = os.path.join(ROOT, "chiprun_out", "chip_smoke")
 PAIR_LEN = 4_600_000
 PROG_GENOMES, PROG_LEN = 9, 1_000_000
 TRIO_LEN = 1_500_000
+LARGE_GENOMES, LARGE_LEN = 3, 8_700_000
 MUM_KERNELS = ("mum_seed_flags", "mum_candidates", "mum_reps")
+PAIR_KERNELS = ("pair_cluster_words", "pair_reps")
+SEEDOCC_KERNELS = ("seed_run_counts", "seed_smooth")
 SOURCES = {
     "canonical_seed_keys": ("libmems_tpu_torch/csrc/mers.cu",
                             "libmems_tpu/ops/mers.py:75"),
@@ -114,6 +130,14 @@ SOURCES = {
                        "libmems_tpu/matchfind.py:336"),
     "mum_reps": ("libmems_tpu_torch/csrc/mums.cu",
                  "libmems_tpu/matchfind.py:336"),
+    "seed_run_counts": ("libmems_tpu_torch/csrc/seedocc.cu",
+                        "libmems_tpu/anchorscore.py:37"),
+    "seed_smooth": ("libmems_tpu_torch/csrc/seedocc.cu",
+                    "libmems_tpu/anchorscore.py:37"),
+    "pair_cluster_words": ("libmems_tpu_torch/csrc/pair.cu",
+                           "libmems_tpu/matchfind.py:482"),
+    "pair_reps": ("libmems_tpu_torch/csrc/pair.cu",
+                  "libmems_tpu/matchfind.py:482"),
 }
 # peak rates of one H100 SXM (NVIDIA's H100 SXM data sheet; f64 outside
 # the tensor cores).  Integer
@@ -296,24 +320,30 @@ def genome_pair(lt, rng_seed):
             lt.Genome(name="B", ascii=lut[b], codes=b)]
 
 
-def family_nine(lt, rng_seed):
-    """bench_e2e.py's 9 x 1 Mbp progressive family (1% substitutions,
-    indels, two rearrangements per genome)."""
+def _family(lt, n_genomes, length, rng_seed):
+    """A bench_e2e.py mutant family (star phylogeny, 1% substitutions,
+    indels, two rearrangements per genome) as the port's Genomes."""
     from bench_e2e import _mutant_family
     lut = np.frombuffer(b"ACGT", dtype=np.uint8)
-    fam = _mutant_family(PROG_GENOMES, PROG_LEN, rng_seed=rng_seed)
+    fam = _mutant_family(n_genomes, length, rng_seed=rng_seed)
     return [lt.Genome(name=f"g{i}", ascii=lut[g], codes=g)
             for i, g in enumerate(fam)]
+
+
+def family_nine(lt, rng_seed):
+    """bench_e2e.py's 9 x 1 Mbp progressive family."""
+    return _family(lt, PROG_GENOMES, PROG_LEN, rng_seed)
 
 
 def family_trio(lt, rng_seed):
-    """bench_e2e.py's trio: a 3 x 1.5 Mbp mutant family (1%
-    substitutions, indels, two rearrangements per genome)."""
-    from bench_e2e import _mutant_family
-    lut = np.frombuffer(b"ACGT", dtype=np.uint8)
-    fam = _mutant_family(3, TRIO_LEN, rng_seed=rng_seed)
-    return [lt.Genome(name=f"g{i}", ascii=lut[g], codes=g)
-            for i, g in enumerate(fam)]
+    """bench_e2e.py's trio: a 3 x 1.5 Mbp mutant family."""
+    return _family(lt, 3, TRIO_LEN, rng_seed)
+
+
+def family_large(lt):
+    """A 3 x 8.7 Mbp mutant family (rng 0; Streptomyces scale: every
+    genome above 8 M seed windows, a weight-17 default seed)."""
+    return _family(lt, LARGE_GENOMES, LARGE_LEN, 0)
 
 
 def golden_three(lt):
@@ -422,6 +452,54 @@ def phase_build():
     return dt
 
 
+def pair_kernels_vs_plain(torch, smls, seed, pb, EC, timed):
+    """K18 and K19 against their plain versions on the card on one pair
+    of SMLs; exact equality.  Returns ({name: entry} when timed, K19's
+    rows)."""
+    from libmems_tpu_torch.ops import pair, pairwise
+    from libmems_tpu_torch.ops.mers import sentinel_content
+    res = {}
+    seed_len = smls[0].seed_length
+    n = sum(s.n_windows for s in smls)
+    wargs = (smls[0].keys, smls[1].keys, pb, sentinel_content(seed))
+    got_w, got_n = pair.pair_cluster_words(*wargs)
+    ref_w, ref_n = pair.pair_cluster_words_plain(*wargs)
+    require(got_n == ref_n and torch.equal(got_w, ref_w),
+            "K18 differs from its plain version")
+    cw = pairwise.usort(got_w)
+    rargs = (cw, EC, pb, seed_len)
+    got_r = pair.pair_reps(*rargs)
+    ref_r = pair.pair_reps_plain(*rargs)
+    require(got_r.n_reps == ref_r.n_reps
+            and all(torch.equal(g, r) for g, r in zip(got_r[:-1],
+                                                      ref_r[:-1])),
+            "K19 differs from its plain version")
+    log(f"# K18 cluster words: rows={n} candidates={got_n} equal; K19 "
+        f"representatives: {got_r.n_reps} reps in EC={EC} equal "
+        f"(weight {smls[0].seed_weight}, pos_bits {pb})")
+    if timed:
+        res["pair_cluster_words"] = entry(
+            max_abs_err([(got_w, ref_w)]),
+            timed_ms(lambda: pair.pair_cluster_words(*wargs), 10, torch),
+            timed_ms(lambda: pair.pair_cluster_words_plain(*wargs), 3,
+                     torch, warmup=False),
+            # both genomes' keys in, one cluster word a row out (the
+            # sort of the seed words between the two passes is a library
+            # call inside the wrapper and moves more than this); ~25
+            # integer operations a row: pack, four unpacks, compares
+            work(nbytes(wargs[:2], got_w), 25 * n))
+        res["pair_reps"] = entry(
+            max_abs_err(list(zip(got_r[:-1], ref_r[:-1]))),
+            timed_ms(lambda: pair.pair_reps(*rargs), 10, torch),
+            timed_ms(lambda: pair.pair_reps_plain(*rargs), 3, torch,
+                     warmup=False),
+            work(nbytes(cw, got_r[:-1]), 10 * n))
+        sort_ms = timed_ms(lambda: pairwise.usort(got_w), 10, torch)
+        log(f"# torch.sort of the {n} seed words (inside K18's wrapper): "
+            f"{sort_ms:.3f} ms")
+    return res, got_r
+
+
 def phase_kernels(torch, lt, dev):
     """Each kernel against its plain version on the card; exact
     equality.  Returns {name: entry}, entry = {err, ms, plain_ms,
@@ -460,16 +538,19 @@ def phase_kernels(torch, lt, dev):
         work(n + n + 8 * n, 4 * seeds.seed_weight(seed) * n))
     log(f"# K1 seed keys: n={k.numel()} equal")
 
-    # K2: the candidates of the 4.6 Mbp pair's pipeline
+    # K18/K19: the 4.6 Mbp pair's seed words and cluster words
     smls, seed = create_smls(genomes, device=dev)
     seed_len = smls[0].seed_length
     chunk = max(seed_len, 256)
     total = sum(s.n_windows for s in smls)
     EC = min(1 << 14, 1 << max((total - 1).bit_length() - 1, 1))
     pb = matchfind._pair_pos_bits(max(s.n_windows for s in smls))
-    lefts, present, is_fwd, lengths0, _, n_reps = \
-        matchfind.pair_candidates(seed_len, pb, EC, smls[0].keys,
-                                  smls[1].keys, seed)
+    pair_res, reps = pair_kernels_vs_plain(torch, smls, seed, pb, EC,
+                                           timed=True)
+    res.update(pair_res)
+    lefts, present, is_fwd, lengths0, n_reps = reps
+
+    # K2: the candidates of the 4.6 Mbp pair's pipeline
     keys = torch.cat([s.keys for s in smls])
     off = torch.tensor([0, smls[0].n_windows], dtype=torch.int32,
                        device=dev)[None].expand(EC, 2).contiguous()
@@ -651,6 +732,110 @@ def phase_pairwise_kernels(torch, lt, dev):
     return res
 
 
+def phase_seedocc_kernels(torch, lt, dev, genomes):
+    """K16 and K17 against their plain versions on the card on one
+    8.7 Mbp genome of the large family `genomes` (timed), K1, K18, K19
+    and K2 on that family's weight-17 tables (35-bit keys, 24 position
+    bits), and K16 + K17 on one 1 Mbp genome beside the host twin; exact
+    equality.  Returns ({name: entry}, K2's max_abs_err)."""
+    from libmems_tpu_torch import anchorscore, matchfind, seeds
+    from libmems_tpu_torch.ops import extend, mers, seedocc
+    from libmems_tpu_torch.sml import create_smls, default_seed
+
+    res = {}
+    seed = default_seed(genomes)
+    require(seeds.seed_weight(seed) == 17,
+            f"the large family's seed weight is {seeds.seed_weight(seed)}")
+    codes = torch.from_numpy(genomes[0].codes.copy()).to(dev)
+    require(torch.equal(mers.canonical_seed_keys(codes, seed),
+                        mers.canonical_seed_keys_plain(codes, seed)),
+            "K1 differs from its plain version at weight 17")
+    del codes
+    smls, _ = create_smls(genomes[:2], seed, device=dev)
+    log(f"# K1 at weight 17: n={smls[0].n_windows} equal")
+
+    def occ_vs_plain(sml, reps):
+        n, L = sml.n_windows, sml.length
+        cargs = (sml.sorted_keys, sml.sorted_positions, L,
+                 mers.key_sentinel(sml.seed))
+        got_c = seedocc.seed_run_counts(*cargs)
+        ref_c = seedocc.seed_run_counts_plain(*cargs)
+        require(torch.equal(got_c, ref_c),
+                "K16 differs from its plain version")
+        got_s = seedocc.seed_smooth(got_c, sml.seed_length)
+        ref_s = seedocc.seed_smooth_plain(got_c, sml.seed_length)
+        require(torch.equal(got_s, ref_s),
+                "K17 differs from its plain version")
+        return {
+            # sorted keys and positions in, one count a position out; ~8
+            # integer operations a row (compare, run bounds, scatter)
+            "seed_run_counts": entry(
+                max_abs_err([(got_c, ref_c)]),
+                timed_ms(lambda: seedocc.seed_run_counts(*cargs), reps,
+                         torch),
+                timed_ms(lambda: seedocc.seed_run_counts_plain(*cargs), 3,
+                         torch, warmup=False),
+                work(nbytes(cargs[:2], got_c), 8 * n)),
+            # counts in, floats out; seed_len adds and one division a
+            # position
+            "seed_smooth": entry(
+                max_abs_err([(got_s, ref_s)]),
+                timed_ms(lambda: seedocc.seed_smooth(got_c, sml.seed_length),
+                         reps, torch),
+                timed_ms(lambda: seedocc.seed_smooth_plain(
+                    got_c, sml.seed_length), 3, torch, warmup=False),
+                work(nbytes(got_c, got_s), (sml.seed_length + 2) * L))}
+
+    res.update(occ_vs_plain(smls[0], 10))
+    log(f"# K16/K17 on one {LARGE_LEN} bp genome ({smls[0].n_windows} "
+        f"windows, seed length {smls[0].seed_length}): equal")
+
+    # K18, K19 and K2 on the weight-17 tables of the first two genomes
+    pb = matchfind._pair_pos_bits(max(s.n_windows for s in smls))
+    EC = 1 << 14
+    _, reps = pair_kernels_vs_plain(torch, smls, seed, pb, EC, timed=False)
+    seed_len = smls[0].seed_length
+    keys = torch.cat([s.keys for s in smls])
+    off = torch.tensor([0, smls[0].n_windows], dtype=torch.int32,
+                       device=dev)[None].expand(EC, 2).contiguous()
+    cnt = torch.tensor([s.n_windows for s in smls], dtype=torch.int32,
+                       device=dev)[None].expand(EC, 2).contiguous()
+    args = (keys, seed_len, max(seed_len, 256), off, cnt, reps.lefts,
+            reps.present, reps.is_fwd, reps.lengths0,
+            mers.key_sentinel(seed))
+    kl, kn = extend.extend_matches(*args)
+    rl, rn = extend.extend_matches_plain(*args)
+    require(torch.equal(kl, rl) and torch.equal(kn, rn),
+            "K2 differs from its plain version at weight 17")
+    log(f"# K2 at weight 17: rows={EC} live={min(reps.n_reps, EC)} "
+        f"max_len={int(kn.max())} equal")
+    del smls, keys
+
+    # one 1 Mbp genome: the device route beside the host twin it would
+    # replace below anchorscore.SOL_HOST_MAX
+    g = family_nine(lt, 0)[0]
+    sml = create_smls([g], device=dev)[0][0]
+    small = occ_vs_plain(sml, 20)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dev_list = anchorscore.seed_occurrence_list(sml)
+    t1 = time.perf_counter()
+    twin = anchorscore.seed_occurrence_list_np(g, sml.seed)
+    t2 = time.perf_counter()
+    require(np.array_equal(dev_list, twin),
+            "1 Mbp seed occurrence list differs from the host twin")
+    log(f"# 1 Mbp genome ({sml.n_windows} windows): K16 "
+        f"{small['seed_run_counts']['ms']:.3f} ms + K17 "
+        f"{small['seed_smooth']['ms']:.3f} ms; seed_occurrence_list with "
+        f"the fetch {(t1 - t0) * 1e3:.3f} ms; host twin {t2 - t1:.3f} s; "
+        f"bit-equal")
+    for name in SEEDOCC_KERNELS:
+        e = res[name]
+        log(f"# {name}: kernel {e['ms']:.3f} ms, plain {e['plain_ms']:.3f} "
+            f"ms, max_abs_err {e['err']}")
+    return res, max_abs_err([(kl, rl), (kn, rn)])
+
+
 def phase_mum_kernels(torch, lt, dev):
     """K13-K15 against their plain versions on the card, on the seed
     table of the first trio input (rng 0), and K2 on that input's
@@ -800,6 +985,16 @@ def phase_goldens(lt, dev):
             f"tensors ({len(ref)})")
     log(f"# goldens: find_mums on the nine family (G = 9) GPU == CPU "
         f"tensors ({len(ref)} MUMs)")
+    from libmems_tpu_torch.matchfind import _find_pairwise_mums_host
+    smls, _ = lt.create_smls(gs, device=dev)
+    host = _find_pairwise_mums_host(smls)
+    fused = lt.find_pairwise_mums(smls)
+    require(len(fused) > 0 and np.array_equal(host.starts, fused.starts)
+            and np.array_equal(host.lengths, fused.lengths),
+            f"nine family: the host-orchestrated pairwise seeder "
+            f"({len(host)}) differs from the fused one ({len(fused)})")
+    log(f"# goldens: _find_pairwise_mums_host == find_pairwise_mums on the "
+        f"nine family on the GPU ({len(fused)} matches)")
     ivs, _ = lt.progressive_align(gs, lt.ProgressiveConfig(refine=False,
                                                            device=dev))
     new_ivs, segs = lt.apply_backbone(ivs, device=dev)
@@ -842,10 +1037,12 @@ def check_partition(ivs, genomes):
 def phase_main(torch, lt, dev):
     from libmems_tpu_torch import trace
     from libmems_tpu_torch.matchfind import find_pair_mums_np
-    from libmems_tpu_torch.ops import extend, gapped, mers, profile
+    from libmems_tpu_torch.ops import extend, gapped, mers, pair, profile
     from libmems_tpu_torch.sml import default_seed
     wrappers = {"canonical_seed_keys": mers.canonical_seed_keys,
                 "extend_matches": extend.extend_matches,
+                "pair_cluster_words": pair.pair_cluster_words,
+                "pair_reps": pair.pair_reps,
                 "profile_forward": profile.profile_forward,
                 "traceback_walk": gapped.traceback_walk}
     cfg = lt.AlignerConfig(gapped_alignment=True, recursive=False,
@@ -963,11 +1160,15 @@ def check_segments(ivs, segs):
     """Every backbone segment lies inside its interval: its columns in
     the interval's alignment, its member ranges in the interval's
     per-genome range."""
+    bounds = {}     # an interval's ends cost a pass over its columns
     for k, seg in enumerate(segs):
-        iv = ivs.intervals[seg.interval]
-        require(0 <= seg.left_col <= seg.right_col < iv.alignment_length,
+        if seg.interval not in bounds:
+            iv = ivs.intervals[seg.interval]
+            bounds[seg.interval] = (iv.alignment_length, iv.left_ends(),
+                                    iv.right_ends())
+        n_cols, le, re = bounds[seg.interval]
+        require(0 <= seg.left_col <= seg.right_col < n_cols,
                 f"segment {k}: columns outside interval {seg.interval}")
-        le, re = iv.left_ends(), iv.right_ends()
         for g in seg.genomes:
             lo, hi = sorted(abs(int(x)) for x in seg.seq_ranges[g])
             require(le[g] <= lo <= hi <= re[g],
@@ -1051,6 +1252,82 @@ def phase_progressive(torch, lt, dev):
     _, _, _, dt2 = run(1, False)
     trace.set_enabled(False)
     return launches, calls, (dt1, dt2)
+
+
+def phase_large(torch, lt, dev, genomes):
+    """The progressiveMauve path, default config, on the 3 x 8.7 Mbp
+    family `genomes`: every genome is above anchorscore.SOL_HOST_MAX seed windows,
+    so the seed occurrence lists come from K16 and K17.  Returns
+    (launches, wall)."""
+    from libmems_tpu_torch import anchorscore, progressive, trace
+    from libmems_tpu_torch.ops import (extend, mers, pairwise, profile,
+                                       seedocc)
+    from libmems_tpu_torch.sml import default_seed
+    wrappers = {"canonical_seed_keys": mers.canonical_seed_keys,
+                "extend_matches": extend.extend_matches,
+                "run_flags": pairwise.run_flags,
+                "cluster_words": pairwise.cluster_words,
+                "cluster_reps": pairwise.cluster_reps,
+                "seed_run_counts": seedocc.seed_run_counts,
+                "seed_smooth": seedocc.seed_smooth}
+    require(all(len(g) - 1 > anchorscore.SOL_HOST_MAX for g in genomes),
+            "a genome of the large family is below SOL_HOST_MAX windows")
+    cfg = lt.ProgressiveConfig(device=dev)
+    sols = []
+    real = progressive.seed_occurrence_lists
+
+    def keep_lists(*args):
+        sols.extend(real(*args))
+        return list(sols)
+
+    trace.set_enabled(True, stream=sys.stdout)
+    trace.reset()
+    profile.BAND_STATS.update(dict.fromkeys(profile.BAND_STATS, 0))
+    progressive.seed_occurrence_lists = keep_lists
+    for w in wrappers.values():
+        w.launches = 0
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ivs, _ = lt.progressive_align(genomes, cfg)
+        t1 = time.perf_counter()
+        new_ivs, segs = lt.apply_backbone(ivs, device=dev)
+        outs = write_outputs(lt, new_ivs, segs, len(genomes))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    finally:
+        progressive.seed_occurrence_lists = real
+    launches = {k: w.launches for k, w in wrappers.items()}
+    trace.set_enabled(False)
+    log(f"# large rng_seed=0: {LARGE_GENOMES} x {LARGE_LEN} bp, align "
+        f"{t1 - t0:.3f} s, backbone + writers {t2 - t1:.3f} s, total "
+        f"{t2 - t0:.3f} s; {len(ivs.intervals)} intervals -> "
+        f"{len(new_ivs.intervals)}, {len(segs)} segments, bytes "
+        f"{ {k: len(v) for k, v in outs.items()} }")
+    log(f"# launches: {launches}")
+    log("# stages: " + json.dumps(trace.stage_seconds()))
+    log(f"# BAND_STATS: {json.dumps(profile.BAND_STATS)}")
+    for name, n in launches.items():
+        require(n > 0, f"{name}: no launch on the large-family path")
+    for name in SEEDOCC_KERNELS:
+        require(launches[name] == len(genomes),
+                f"{name}: {launches[name]} launches for {len(genomes)} "
+                f"genomes")
+    require(len(sols) == len(genomes), "seed occurrence lists not recorded")
+    seed = default_seed(genomes)
+    t3 = time.perf_counter()
+    for g, (genome, sol) in enumerate(zip(genomes, sols)):
+        twin = anchorscore.seed_occurrence_list_np(genome, seed)
+        require(sol.dtype == np.float32 and np.array_equal(sol, twin),
+                f"genome {g}: seed occurrence list differs from the host "
+                f"twin")
+    log(f"# seed occurrence lists of the path == host twin, bit for bit "
+        f"(max {max(float(x.max()) for x in sols)}; the twin took "
+        f"{(time.perf_counter() - t3) / len(genomes):.3f} s a genome)")
+    check_partition(ivs, genomes)
+    check_partition(new_ivs, genomes)
+    check_segments(new_ivs, segs)
+    return launches, t2 - t0
 
 
 DP_KERNELS = ("banded_forward_scores", "profile_forward_scores",
@@ -1270,23 +1547,44 @@ def main() -> int:
 
     card = phase_device(torch)
     dev = torch.device("cuda", 0)
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        clock.append(time.perf_counter())
+        log(f"# phase {name}: {clock[-1] - clock[-2]:.1f} s")
+
     phase_build()
+    lap("build")
     res = phase_kernels(torch, lt, dev)
     res.update(phase_pairwise_kernels(torch, lt, dev))
+    large = family_large(lt)
+    occ_res, k2_large_err = phase_seedocc_kernels(torch, lt, dev, large)
+    res.update(occ_res)
     mum_res, k2_trio_err = phase_mum_kernels(torch, lt, dev)
     res.update(mum_res)
     res["extend_matches"]["err"] = max(res["extend_matches"]["err"],
-                                       k2_trio_err)
+                                       k2_trio_err, k2_large_err)
+    lap("kernels")
     phase_goldens(lt, dev)
-    _, dt1, dt2 = phase_main(torch, lt, dev)
+    lap("goldens")
+    pair_launches, dt1, dt2 = phase_main(torch, lt, dev)
+    lap("main (pair)")
     trio_launches, tdt = phase_trio(torch, lt, dev)
+    lap("trio")
     launches, calls, pdt = phase_progressive(torch, lt, dev)
+    lap("progressive")
+    large_launches, ldt = phase_large(torch, lt, dev, large)
+    lap("large")
     for name, e in phase_profile_dp(torch, dev, calls, launches).items():
         if name in res:
             e["err"] = max(e["err"], res[name]["err"])
         res[name] = e
     res["fb_posterior"] = phase_hmm(torch, dev, calls["predict_homologous"],
                                     launches)
+    lap("profile DP and hmm")
+    launches.update({k: trio_launches[k] for k in MUM_KERNELS})
+    launches.update({k: pair_launches[k] for k in PAIR_KERNELS})
+    launches.update({k: large_launches[k] for k in SEEDOCC_KERNELS})
     forbidden = [m for m in sys.modules
                  if m == "jax" or m.startswith(("jax.", "libmems_tpu."))
                  or m == "libmems_tpu"]
@@ -1297,15 +1595,15 @@ def main() -> int:
         bound_ms, bound_by = bound(e["work"])
         log(f"# work {name}: {e['work']['bytes']} bytes, "
             f"{e['work']['ops']} operations")
-        n = trio_launches[name] if name in MUM_KERNELS else launches[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": n,
+                        "replaces": replaces, "launches": launches[name],
                         "max_abs_err": e["err"], "ms": e["ms"],
                         "plain_ms": e["plain_ms"], "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": None})
     log(f"# card: {card}; pair path {dt1:.3f} s then {dt2:.3f} s; "
         f"trio path {tdt[0]:.3f} s then {tdt[1]:.3f} s; "
-        f"progressive path {pdt[0]:.3f} s then {pdt[1]:.3f} s")
+        f"progressive path {pdt[0]:.3f} s then {pdt[1]:.3f} s; "
+        f"3 x {LARGE_LEN} bp path {ldt:.3f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

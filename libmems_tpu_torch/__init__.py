@@ -21,9 +21,11 @@ forward with pointers (K3), the traceback walk (K4), the pairwise
 seeder's run flags, cluster words and representatives (K5-K7), the
 homology HMM forward/backward (K8), the score-only profile forward (K9),
 the banded profile forward with its certificate (K10) and with pointers
-(K11), the banded traceback walk (K12), and the multi-MUM pipeline's
+(K11), the banded traceback walk (K12), the multi-MUM pipeline's
 seed-enumeration flags, candidate signatures and cluster representatives
-(K13-K15).  Each has a plain PyTorch version that CPU tensors use.
+(K13-K15), the seed occurrence list's run counts and smoothing (K16,
+K17) and the pair fast path's cluster words and representatives (K18,
+K19).  Each has a plain PyTorch version that CPU tensors use.
 
 Every tensor-building entry point takes an explicit ``device``
 (``AlignerConfig.device``, ``ProgressiveConfig.device``); ``"cuda"``

@@ -20,8 +20,10 @@ win comes from vectorization, not the MXU.
 
 Port of libmems_tpu/anchorscore.py: the host twin and the scorer are
 copied with imports renamed.  The JAX package's device construction
-(_seed_occurrence_device) only runs for genomes above SOL_HOST_MAX seed
-windows; there the port raises NotImplementedError.
+(_seed_occurrence_device), which runs for genomes above SOL_HOST_MAX seed
+windows, is kernels K16 and K17 (libmems_tpu_torch.ops.seedocc) on the
+SML's device, one pair of launches a genome (the JAX bucket grouping and
+vmap only served compile reuse).
 """
 
 from __future__ import annotations
@@ -30,13 +32,10 @@ import numpy as np
 
 from libmems_tpu_torch import seeds as seedlib
 from libmems_tpu_torch.match import MatchArray, NO_MATCH
+from libmems_tpu_torch.ops import seedocc
 from libmems_tpu_torch.ops.gapped import HOXD70
+from libmems_tpu_torch.ops.mers import key_sentinel
 from libmems_tpu_torch.sml import SortedMerList
-
-_TODO_SOL_DEVICE = (
-    "seed occurrence lists of genomes above SOL_HOST_MAX seed windows "
-    "need the device construction, which is not ported yet (ROADMAP "
-    "queue 2: seed occurrence device construction)")
 
 
 def _smooth_counts_np(count: np.ndarray, seed_len: int) -> np.ndarray:
@@ -109,32 +108,37 @@ def seed_occurrence_list_np(genome, seed: int) -> np.ndarray:
 
 
 # device-path threshold of the JAX package: up to this many seed windows
-# per genome the host twin runs (one argsort)
+# per genome the host twin runs (one argsort) when the genome is at hand;
+# the two routes are bit-equal
 SOL_HOST_MAX = 8_000_000
 
 
 def seed_occurrence_list(sml: SortedMerList) -> np.ndarray:
-    """The device construction of one genome's seed occurrence list
-    (libmems_tpu/anchorscore.py:106); not ported yet."""
-    raise NotImplementedError(_TODO_SOL_DEVICE)
+    """float32[genome_length] smoothed per-position seed frequency
+    (SeedOccurrenceList::construct + smoothFrequencies,
+    libMems/SeedOccurrenceList.h:22-92), built on the SML's device (K16,
+    K17); only the float32 list leaves the device."""
+    if sml.n_windows == 0:
+        return np.ones(sml.length, dtype=np.float32)
+    count = seedocc.seed_run_counts(sml.sorted_keys, sml.sorted_positions,
+                                    sml.length, key_sentinel(sml.seed))
+    return seedocc.seed_smooth(count, sml.seed_length).cpu().numpy()
 
 
 def seed_occurrence_lists(smls: list[SortedMerList],
                           genomes: list | None = None
                           ) -> list[np.ndarray]:
-    """Seed occurrence lists of many genomes: genomes with at most
-    SOL_HOST_MAX seed windows run the host twin
-    (seed_occurrence_list_np), as the JAX package does; a larger genome,
-    or a call without `genomes`, would need the unported device
-    construction and raises NotImplementedError."""
-    out: list = [None] * len(smls)
+    """Seed occurrence lists of many genomes.  When `genomes` is given,
+    genomes with at most SOL_HOST_MAX seed windows run the bit-equal host
+    twin (seed_occurrence_list_np), as the JAX package does; larger
+    genomes, and every genome of a call without `genomes`, run the device
+    construction (seed_occurrence_list)."""
+    out = []
     for i, s in enumerate(smls):
-        if s.n_windows == 0:
-            out[i] = np.ones(s.length, dtype=np.float32)
-        elif genomes is not None and s.n_windows <= SOL_HOST_MAX:
-            out[i] = seed_occurrence_list_np(genomes[i], s.seed)
+        if genomes is not None and 0 < s.n_windows <= SOL_HOST_MAX:
+            out.append(seed_occurrence_list_np(genomes[i], s.seed))
         else:
-            raise NotImplementedError(_TODO_SOL_DEVICE)
+            out.append(seed_occurrence_list(s))
     return out
 
 

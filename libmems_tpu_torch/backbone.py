@@ -137,6 +137,7 @@ def detect_backbone(ivs: IntervalList,
         iv = ivs.intervals[ivI]
         rows = rendered[ivI]
         nongap = rows != GAP
+        cum = _chars_before(nongap)
         part = part & nongap
         # maximal runs of identical participation sets with >=2 members
         C = part.shape[1]
@@ -152,7 +153,7 @@ def detect_backbone(ivs: IntervalList,
             members = np.flatnonzero(part[:, lo])
             if hi - lo + 1 < min_bb_length:
                 continue
-            seq_ranges = _segment_seq_ranges(iv, rows, int(lo), int(hi),
+            seq_ranges = _segment_seq_ranges(iv, cum, int(lo), int(hi),
                                              members)
             segments.append(BackboneSegment(
                 interval=ivI, left_col=int(lo), right_col=int(hi),
@@ -161,21 +162,29 @@ def detect_backbone(ivs: IntervalList,
     return segments
 
 
-def _segment_seq_ranges(iv, rows, lo: int, hi: int,
+def _chars_before(nongap: np.ndarray) -> np.ndarray:
+    """int64[G, C + 1]: per row, the characters left of each column (one
+    prefix sum an interval, so a column range's coordinates cost O(1):
+    an interval of a large genome holds thousands of ranges)."""
+    cum = np.zeros((nongap.shape[0], nongap.shape[1] + 1), dtype=np.int64)
+    np.cumsum(nongap, axis=1, out=cum[:, 1:])
+    return cum
+
+
+def _segment_seq_ranges(iv, cum, lo: int, hi: int,
                         members: np.ndarray) -> np.ndarray:
-    """Signed per-genome sequence coordinates of a column range."""
-    G = rows.shape[0]
+    """Signed per-genome sequence coordinates of a column range; cum is
+    _chars_before of the interval's rows."""
+    G = cum.shape[0]
     out = np.zeros((G, 2), dtype=np.int64)
     starts = iv.starts()
-    nongap = rows != GAP
     for g in members:
-        bits = nongap[g]
-        chars_before = int(bits[:lo].sum())
-        chars_in = int(bits[lo:hi + 1].sum())
+        chars_before = int(cum[g, lo])
+        chars_in = int(cum[g, hi + 1]) - chars_before
         if chars_in == 0:
             continue
         s = int(starts[g])
-        L = int(bits.sum())
+        L = int(cum[g, -1])
         if s > 0:
             left = s + chars_before
             right = left + chars_in - 1
@@ -187,13 +196,13 @@ def _segment_seq_ranges(iv, rows, lo: int, hi: int,
     return out
 
 
-def _row_block_coords(iv, rows, lo: int, hi: int,
+def _row_block_coords(iv, cum, lo: int, hi: int,
                       members: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     """(starts, lengths) of a column range's member rows (signed)."""
-    G = rows.shape[0]
+    G = cum.shape[0]
     starts = np.zeros(G, dtype=np.int64)
     lengths = np.zeros(G, dtype=np.int64)
-    ranges = _segment_seq_ranges(iv, rows, lo, hi, members)
+    ranges = _segment_seq_ranges(iv, cum, lo, hi, members)
     for g in members:
         l, r = int(ranges[g, 0]), int(ranges[g, 1])
         if l == 0 and r == 0:
@@ -252,6 +261,7 @@ def apply_backbone(ivs: IntervalList,
         blocks: list[tuple[Block, list[int]]] = []  # (block, members)
         seg_plans: list[tuple[int, list[int], np.ndarray]] = []
         nongap = rows != GAP
+        cum = _chars_before(nongap)
         for lo, hi in zip(run_starts, run_ends):
             lo, hi = int(lo), int(hi)
             members = np.flatnonzero(part[:, lo])
@@ -264,7 +274,7 @@ def apply_backbone(ivs: IntervalList,
                 keep_cols = (sub != GAP).any(axis=0)
                 sub = sub[:, keep_cols]
                 if sub.shape[1]:
-                    starts, lens = _row_block_coords(iv, rows, lo, hi,
+                    starts, lens = _row_block_coords(iv, cum, lo, hi,
                                                      members)
                     blocks.append((Block(starts=starts, lengths=lens,
                                          rows=sub),
@@ -272,11 +282,11 @@ def apply_backbone(ivs: IntervalList,
                     if hi - lo + 1 >= min_bb_length:
                         seg_plans.append(
                             (len(blocks) - 1, [int(g) for g in members],
-                             _segment_seq_ranges(iv, rows, lo, hi,
+                             _segment_seq_ranges(iv, cum, lo, hi,
                                                  members)))
             # island rows: one single-genome staircase block each
             for g in islanders:
-                starts, lens = _row_block_coords(iv, rows, lo, hi,
+                starts, lens = _row_block_coords(iv, cum, lo, hi,
                                                  np.array([g]))
                 if lens[g] == 0:
                     continue

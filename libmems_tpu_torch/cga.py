@@ -142,22 +142,28 @@ class CompactAlignment:
         """Columns [lo, hi) as a new alignment with recomputed starts
         (CompactGappedAlignment::copyRange, h:96)."""
         sub = self.bits[:, lo:hi]
-        consumed_before = self.bits[:, :lo].sum(axis=1)
-        consumed_in = sub.sum(axis=1)
+        lo, hi, _ = slice(lo, hi).indices(self.n_columns)
         L = self.lengths()
         new_starts = np.zeros_like(self.starts)
         for g in range(self.seq_count):
-            if self.starts[g] == NO_MATCH or consumed_in[g] == 0:
+            if self.starts[g] == NO_MATCH or hi <= lo:
+                continue
+            # characters before and inside the slice from the row's cached
+            # prefix sum: a node merge slices one block once per anchor
+            cum = self._cum(g)
+            consumed_before = int(cum[lo - 1]) if lo else 0
+            consumed_in = int(cum[hi - 1]) - consumed_before
+            if consumed_in == 0:
                 continue
             s = int(self.starts[g])
             if s > 0:
-                new_starts[g] = s + consumed_before[g]
+                new_starts[g] = s + consumed_before
             else:
                 # reverse row: reading order is right-to-left on the
                 # forward strand; the slice's forward left end comes from
                 # the characters after it in reading order
-                right = (-s + L[g] - 1) - consumed_before[g]
-                new_starts[g] = -(right - consumed_in[g] + 1)
+                right = (-s + L[g] - 1) - consumed_before
+                new_starts[g] = -(right - consumed_in + 1)
         return CompactAlignment(starts=new_starts, bits=sub.copy())
 
     def condense_gap_columns(self) -> "CompactAlignment":

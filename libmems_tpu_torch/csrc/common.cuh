@@ -18,6 +18,26 @@
 
 namespace lm {
 
+// Index helpers of the one-pass table kernels (pairwise.cu, mums.cu,
+// seedocc.cu, pair.cu): 256 threads a block, grid-stride loops over int64
+// row counts.
+constexpr int kTableThreads = 256;
+
+__device__ __forceinline__ int64_t grid_stride() {
+  return (int64_t)blockDim.x * gridDim.x;
+}
+
+__device__ __forceinline__ int64_t first_index() {
+  return (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+}
+
+inline unsigned blocks_for(int64_t n) {
+  int64_t b = (n + kTableThreads - 1) / kTableThreads;
+  if (b < 1) b = 1;
+  if (b > 65535 * 8) b = 65535 * 8;
+  return (unsigned)b;
+}
+
 struct MaxOp {
   template <typename T>
   __device__ __forceinline__ T operator()(T a, T b) const {

@@ -41,23 +41,11 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = lm::kTableThreads;
+using lm::blocks_for;
+using lm::first_index;
+using lm::grid_stride;
 constexpr int kWordBits = 63;
-
-__device__ __forceinline__ int64_t grid_stride() {
-  return (int64_t)blockDim.x * gridDim.x;
-}
-
-__device__ __forceinline__ int64_t first_index() {
-  return (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-}
-
-unsigned blocks_for(int64_t n) {
-  int64_t b = (n + kThreads - 1) / kThreads;
-  if (b < 1) b = 1;
-  if (b > 65535 * 8) b = 65535 * 8;
-  return (unsigned)b;
-}
 
 // The bits of field [start, start + nb) that fall into word w, placed
 // where _pack_sort_words puts them.

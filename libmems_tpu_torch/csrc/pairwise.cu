@@ -33,18 +33,16 @@
 // 64-bit words are int64 holding unsigned patterns: right shifts go
 // through uint64, and the -1 sentinel is all ones.
 #include "common.cuh"
+#include "reps.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-
-__device__ __forceinline__ int64_t grid_stride() {
-  return (int64_t)blockDim.x * gridDim.x;
-}
-
-__device__ __forceinline__ int64_t first_index() {
-  return (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-}
+constexpr int kThreads = lm::kTableThreads;
+using lm::blocks_for;
+using lm::first_index;
+using lm::grid_stride;
+using lm::rep_flags_kernel;
+using lm::rep_scatter_kernel;
 
 // genome of a position-order row: the largest g with seg_off[g] <= src
 __device__ __forceinline__ int gid_of(int64_t src, const int64_t* seg_off,
@@ -55,13 +53,6 @@ __device__ __forceinline__ int gid_of(int64_t src, const int64_t* seg_off,
     if (seg_off[mid] <= src) lo = mid; else hi = mid;
   }
   return lo;
-}
-
-unsigned blocks_for(int64_t n) {
-  int64_t b = (n + kThreads - 1) / kThreads;
-  if (b < 1) b = 1;
-  if (b > 65535 * 8) b = 65535 * 8;
-  return (unsigned)b;
 }
 
 // K5 pass 1: per sorted row its genome, position, strand and run-start
@@ -168,40 +159,8 @@ __global__ void cluster_words_kernel(const int* __restrict__ k_rid,
   }
 }
 
-// K7 pass 1: a sorted word starts a representative when its (fwd, pair,
-// delta) head differs from the previous word's or its posA is more than
-// seed_len past the previous posA.  The -1 words sort last; the last
-// valid row writes the candidate count.
-__global__ void rep_flags_kernel(const int64_t* __restrict__ cw, int64_t m,
-                                 int pos_bits, int seed_len,
-                                 int* __restrict__ rep,
-                                 int64_t* __restrict__ n_cands) {
-  const int64_t pmask = ((int64_t)1 << pos_bits) - 1;
-  for (int64_t i = first_index(); i < m; i += grid_stride()) {
-    const int64_t w = cw[i];
-    const bool valid = w != -1;
-    int r = 0;
-    if (valid) {
-      const uint64_t head = (uint64_t)w >> pos_bits;
-      const uint64_t prev_head =
-          i == 0 ? ~(uint64_t)0 : (uint64_t)cw[i - 1] >> pos_bits;
-      const int pos_a = (int)(w & pmask);
-      const int prev_pos = i == 0 ? 0 : (int)(cw[i - 1] & pmask);
-      r = (head != prev_head || pos_a - prev_pos > seed_len) ? 1 : 0;
-      if (i == m - 1 || cw[i + 1] == -1) *n_cands = i + 1;
-    }
-    rep[i] = r;
-  }
-}
-
-// K7 pass 2: rep of rank r (1-based) goes to slot r-1.
-__global__ void rep_scatter_kernel(const int* __restrict__ rep,
-                                   const int* __restrict__ rank, int64_t m,
-                                   int64_t ec, int64_t* __restrict__ src) {
-  for (int64_t i = first_index(); i < m; i += grid_stride()) {
-    if (rep[i] && rank[i] <= ec) src[rank[i] - 1] = i;
-  }
-}
+// K7 passes 1 and 2 (rep_flags_kernel, rep_scatter_kernel) are shared with
+// the pair pipeline: reps.cuh.
 
 // K7 pass 3: per slot j < EC the rep's extension row in the compact pair
 // layout (matchfind.py:1180-1215).  Rows past n_reps are absent.

@@ -15,16 +15,19 @@ takes any number of genomes and every mode of the JAX module:
   host;
 * the pair fast path (G = 2, default mode, words within 64 bits): one
   word per window (content | gid | pos | strand), sorted; exact-pair runs
-  by shifted compares; cluster words (fwd | diagonal | posA) sorted;
-  representatives by a cumsum and a binary search; extension from the
-  cluster extent (K2);
+  by neighbour compares and their cluster words (fwd | diagonal | posA;
+  K18), sorted; representatives compacted to extension rows (K19);
+  extension from the cluster extent (K2);
 * the host orchestrations of ``repeat_tolerance > 0`` and
   ``extend=False`` (K13 with the tolerance, then numpy clustering and K2)
   and of ``enumeration_tolerance > 1`` (the vectorised odometer).
 
 The progressive aligner's seeder, ``find_pairwise_mums`` (any G), runs
 its own stages on per-genome-unique seeds with kernels K5-K7
-(libmems_tpu_torch.ops.pairwise).  The JAX package pads tables to length
+(libmems_tpu_torch.ops.pairwise); layouts beyond the fused pipeline's
+word or row budget, and ``extend=False``, take the host orchestration
+(``_find_pairwise_mums_host``: K5, numpy pair expansion and clustering,
+K2).  The JAX package pads tables to length
 buckets for compile-cache reuse; the port works on the exact windows
 (the padding only added rows to the never-kept sentinel run).
 
@@ -43,6 +46,7 @@ import torch
 from libmems_tpu_torch import seeds as seedlib
 from libmems_tpu_torch.match import MatchArray
 from libmems_tpu_torch.ops import mums as ops_mums
+from libmems_tpu_torch.ops import pair as ops_pair
 from libmems_tpu_torch.ops import pairwise as ops_pairwise
 from libmems_tpu_torch.ops.extend import extend_matches
 from libmems_tpu_torch.ops.mers import sentinel_content, key_sentinel
@@ -51,11 +55,6 @@ from libmems_tpu_torch.sequence import Genome
 from libmems_tpu_torch.sml import SortedMerList
 
 MER_REPEAT_LIMIT = 1000  # MatchFinder.cpp:166
-
-def _nxt(x: torch.Tensor, k: int, fill: int) -> torch.Tensor:
-    return torch.cat([x[k:], torch.full((k,), fill, dtype=x.dtype,
-                                        device=x.device)])
-
 
 def _pair_pos_bits(total_windows: int) -> int:
     return max(int(total_windows).bit_length(), 8)
@@ -82,93 +81,16 @@ def _lexsort_rows(cols: list[torch.Tensor]) -> torch.Tensor:
 def pair_candidates(seed_len: int, pos_bits: int, extend_capacity: int,
                     keys_a, keys_b, seed: int):
     """Stages before extension of the G=2 pipeline
-    (libmems_tpu/matchfind.py:495-594): the cluster representatives as
-    extension rows.  Returns (lefts int32[EC, 2], present, is_fwd
-    bool[EC, 2], lengths int32[EC], n_cands, n_reps); rows past n_reps
-    are absent."""
-    EC = extend_capacity
-    pb = pos_bits
-    dev = keys_a.device
-    pmask = (1 << pb) - 1
-
-    def pack(keys, gid):
-        content = _shr(keys, 1)
-        strand = keys & 1
-        pos = torch.arange(keys.shape[0], dtype=torch.int64, device=dev)
-        return (content << (pb + 2)) | (gid << (pb + 1)) | (pos << 1) \
-            | strand
-
-    w = _usort(torch.cat([pack(keys_a, 0), pack(keys_b, 1)]))
-    c = _shr(w, pb + 2)
-    gid = _shr(w, pb + 1) & 1
-    pos = _shr(w, 1) & pmask
-    strand = w & 1
-
-    cmax = (1 << (64 - pb - 2)) - 1        # ~0 >> (pb + 2)
-    c1 = _nxt(c, 1, cmax)
-    c2 = _nxt(c, 2, cmax)
-    cp = torch.cat([torch.full((1,), -1, dtype=c.dtype, device=dev),
-                    c[:-1]])
-    g1 = _nxt(gid, 1, 0)
-    # exact-pair run: length 2, one occurrence per genome (row = genome 0)
-    surv = (c == c1) & (c != cp) & (c1 != c2) & (gid == 0) & (g1 == 1)
-    # the masked-window sentinel content never survives
-    surv &= c != sentinel_content(seed)
-
-    posA = pos
-    posB = _nxt(pos, 1, 0)
-    fwd = strand == _nxt(strand, 1, 0)
-
-    # cluster word: (fwd | biased diagonal | posA); invalid rows sort last
-    delta_b = torch.where(fwd, posB - posA + (1 << pb), posB + posA)
-    cw = (fwd.to(torch.int64) << (2 * pb + 2)) | (delta_b << pb) | posA
-    cw = _usort(torch.where(surv, cw, -1))
-
-    valid_c = cw != -1
-    s_posA = cw & pmask
-    head = _shr(cw, pb)
-    prev_head = torch.cat([torch.full((1,), -1, dtype=cw.dtype, device=dev),
-                           head[:-1]])
-    prev_posA = torch.cat([torch.zeros(1, dtype=cw.dtype, device=dev),
-                           s_posA[:-1]])
-    rep = valid_c & ((head != prev_head) | (s_posA - prev_posA > seed_len))
-    n_cands = surv.sum()
-    n_reps = rep.sum()
-
-    # compact reps to EC slots: the row of the j-th rep is a binary
-    # search over the cumsum of the rep flags
-    rank = torch.cumsum(rep.to(torch.int64), 0)
-    src = torch.searchsorted(
-        rank, torch.arange(1, EC + 1, dtype=torch.int64, device=dev),
-        side="left")
-    e_valid = torch.arange(EC, device=dev) < n_reps
-    src = src.clamp(max=cw.shape[0] - 1)
-    rep_cw = cw[src]
-    r_posA = rep_cw & pmask
-    r_delta = _shr(rep_cw, pb) & ((1 << (pb + 2)) - 1)
-    r_fwd = (_shr(rep_cw, 2 * pb + 2) & 1) == 1
-
-    # cluster extent: the cluster's last member is the row before the
-    # next rep (or the last valid candidate row)
-    next_src = torch.cat([src[1:], torch.full((1,), cw.shape[0],
-                                              dtype=src.dtype, device=dev)])
-    end_row = torch.minimum(next_src, n_cands) - 1
-    end_row = end_row.clamp(0, cw.shape[0] - 1)
-    last_posA = torch.maximum(cw[end_row] & pmask, r_posA)
-    span = last_posA - r_posA
-
-    lengths0 = torch.where(e_valid, span + seed_len, seed_len)
-    # genome-B left end of the cluster-covering match
-    posB_rep = torch.where(r_fwd, r_delta - (1 << pb) + r_posA,
-                           r_delta - r_posA)
-    leftB = torch.where(r_fwd, posB_rep, r_delta - last_posA).clamp(min=0)
-
-    present = e_valid[:, None].expand(EC, 2).contiguous()
-    lefts = torch.stack([r_posA, leftB], dim=1)
-    lefts = torch.where(present, lefts, 0).to(torch.int32)
-    is_fwd = torch.stack([torch.ones_like(r_fwd), r_fwd], dim=1)
-    return (lefts, present, is_fwd, lengths0.to(torch.int32), n_cands,
-            n_reps)
+    (libmems_tpu/matchfind.py:495-594): seed words, sort, exact-pair
+    cluster words (K18), sort, cluster representatives as extension rows
+    (K19).  Returns (lefts int32[EC, 2], present, is_fwd bool[EC, 2],
+    lengths int32[EC], n_cands, n_reps); rows past n_reps are absent."""
+    cw, n_cands = ops_pair.pair_cluster_words(keys_a, keys_b, pos_bits,
+                                              sentinel_content(seed))
+    reps = ops_pair.pair_reps(_usort(cw), extend_capacity, pos_bits,
+                              seed_len)
+    return (reps.lefts, reps.present, reps.is_fwd, reps.lengths0, n_cands,
+            reps.n_reps)
 
 
 def _fused_pair_pipeline(seed_len: int, chunk: int, pos_bits: int,
@@ -621,10 +543,6 @@ def _find_mums_enumerated(smls, repeat_tolerance: int,
 
 # expansion-table budget of the pairwise seeder: (G-1) * n rows
 _PAIRWISE_FUSED_MAX_ROWS = 1 << 28
-_TODO_PAIRWISE_HOST = (
-    "this pairwise seeding layout runs the host-orchestrated "
-    "PairwiseMatchFinder (_find_pairwise_mums_host) in the JAX package, "
-    "which is not ported yet (ROADMAP queue 1 item 11)")
 
 
 def pairwise_fused_fits(G: int, pos_bits: int) -> bool:
@@ -652,9 +570,10 @@ def find_pairwise_mums(genomes_or_smls, seed: int | None = None,
     unsigned sort -> representatives (K7) -> span-seeded extension (K2).
     Genomes are indexed on `device`; SMLs are used where they lie.  The
     JAX package's bucket padding only added sentinel rows to the masked
-    run, so the port works on the exact windows.  Layouts the JAX
-    package sends to its host-orchestrated path raise
-    NotImplementedError."""
+    run, so the port works on the exact windows.  ``extend=False``, a
+    cluster word beyond 64 bits and an expansion table beyond
+    _PAIRWISE_FUSED_MAX_ROWS take the host orchestration
+    (_find_pairwise_mums_host), as in the JAX package."""
     smls, seed = _as_smls(genomes_or_smls, seed, device)
     G = len(smls)
     cnts = [s.n_windows for s in smls]
@@ -664,7 +583,7 @@ def find_pairwise_mums(genomes_or_smls, seed: int | None = None,
     pos_bits = _pair_pos_bits(max(cnts))
     if not (extend and pairwise_fused_fits(G, pos_bits)
             and (G - 1) * total <= _PAIRWISE_FUSED_MAX_ROWS):
-        raise NotImplementedError(_TODO_PAIRWISE_HOST)
+        return _find_pairwise_mums_host(smls, repeat_limit, extend)
     seed_len = smls[0].seed_length
     chunk = max(seed_len, 256)
     keys, seg_off, content_sorted, src = _seed_table(smls)
@@ -701,6 +620,66 @@ def find_pairwise_mums(genomes_or_smls, seed: int | None = None,
     out = MatchArray(starts.cpu().numpy().astype(np.int64),
                      lengths[:n].cpu().numpy().astype(np.int64))
     return out.dedup().canonical_sort()
+
+
+def _find_pairwise_mums_host(smls, repeat_limit: int = MER_REPEAT_LIMIT,
+                             extend: bool = True) -> MatchArray:
+    """Host-orchestrated PairwiseMatchFinder
+    (libmems_tpu/matchfind.py:1344-1394): run flags on the SMLs' device
+    (K5), the per-genome-unique rows fetched to the host, every genome
+    pair of each run expanded in numpy, clustered, and extended on the
+    device (K2).  The fused path's fallback and its parity oracle."""
+    G = len(smls)
+    keys, seg_off, content, src = _seed_table(smls)
+    if keys.shape[0] == 0:
+        return MatchArray.empty(G)
+    flags = ops_pairwise.run_flags(content, src, keys, seg_off, repeat_limit,
+                                   sentinel_content(smls[0].seed))
+    del content, src
+    uo = flags.unique_occ
+    if not bool(uo.any()):
+        return MatchArray.empty(G)
+    # only the kept rows leave the device
+    runs = flags.run_id[uo].cpu().numpy()
+    g = flags.gid[uo].cpu().numpy()
+    p = flags.pos[uo].cpu().numpy().astype(np.int64)
+    st = flags.strand[uo].cpu().numpy()
+    del flags, uo
+
+    # expand each run's unique occurrences into all genome pairs
+    run_change = np.concatenate([[True], runs[1:] != runs[:-1]])
+    run_first = np.flatnonzero(run_change)
+    run_count = np.diff(np.concatenate([run_first, [len(runs)]]))
+    # pair index construction: for each run with k>=2 occurrences, emit
+    # all (i, j) with i<j, as global indices into the kept-occurrence list
+    ks = run_count
+    total = int(((ks * (ks - 1)) // 2).sum())
+    if total == 0:
+        return MatchArray.empty(G)
+    # expand per distinct occurrence-count k (k <= G, so few iterations)
+    ai_parts, bi_parts = [], []
+    for k in np.unique(ks):
+        if k < 2:
+            continue
+        base = run_first[ks == k]
+        ii, jj = np.triu_indices(int(k), 1)
+        ai_parts.append((base[:, None] + ii[None, :]).ravel())
+        bi_parts.append((base[:, None] + jj[None, :]).ravel())
+    a_idx = np.concatenate(ai_parts)
+    b_idx = np.concatenate(bi_parts)
+    total = len(a_idx)
+
+    starts = np.zeros((total, G), dtype=np.int64)
+    sign_b = np.where(st[b_idx] == st[a_idx], 1, -1).astype(np.int64)
+    starts[np.arange(total), g[a_idx]] = p[a_idx] + 1
+    starts[np.arange(total), g[b_idx]] = sign_b * (p[b_idx] + 1)
+
+    seed_len = smls[0].seed_length
+    lengths = np.full((total,), seed_len, dtype=np.int64)
+    if extend:
+        starts, lengths = _cluster_reduce_np(starts, lengths, seed_len)
+        starts, lengths = _extend_rows(smls, starts, lengths)
+    return MatchArray(starts, lengths).dedup().canonical_sort()
 
 
 # --------------------------------------------------------------------------

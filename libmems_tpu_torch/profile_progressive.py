@@ -1,8 +1,9 @@
-"""Where the time goes in the 9 x 1 Mbp progressive path, or in the
-3 x 1.5 Mbp flat trio, on one GPU.
+"""Where the time goes in the 9 x 1 Mbp progressive path, in the
+3 x 1.5 Mbp flat trio, or in the 3 x 8.7 Mbp progressive path, on one GPU.
 
     python -m libmems_tpu_torch.profile_progressive          # progressive
     python -m libmems_tpu_torch.profile_progressive --trio   # flat trio
+    python -m libmems_tpu_torch.profile_progressive --large  # 3 x 8.7 Mbp
 
 Run from the repository root (the genomes come from bench_e2e.py's
 ``_mutant_family``).  Method: one untimed run on input rng 0 loads every
@@ -18,8 +19,13 @@ default ``ProgressiveConfig()``, which refines, so the stage table has
 the ``refine/*`` stages; each timed input also prints its banding
 outcomes (``ops.profile.BAND_STATS``).  With ``--trio`` each input is
 instead ``align`` (gapped, no recursion: bench_e2e.py's trio phase) +
-``write_xmfa`` of a 3 x 1.5 Mbp family.  Prints the card's name and
-power limit first.  The trace is written under build/ in the checkout.
+``write_xmfa`` of a 3 x 1.5 Mbp family.  With ``--large`` each input is
+the progressive path on a 3 x 8.7 Mbp family (every genome above the host
+twin's 8 M-window limit, so the seed occurrence lists come from K16 and
+K17); a run being long, the warm-up is one 3 x 1 Mbp family, one input
+(rng 0) is timed and the same input is profiled (CUDA activities only).
+Prints the card's name
+and power limit first.  The trace is written under build/ in the checkout.
 """
 
 from __future__ import annotations
@@ -50,10 +56,10 @@ def family(rng_seed: int, n: int = 9, length: int = 1_000_000):
                                                  rng_seed=rng_seed))]
 
 
-def run(rng_seed: int, dev) -> dict:
+def run(rng_seed: int, dev, n: int = 9, length: int = 1_000_000) -> dict:
     """One input through progressive_align (default config, refine=True),
     apply_backbone and the three writers; returns the walls in seconds."""
-    gs = family(rng_seed)
+    gs = family(rng_seed, n, length)
     cfg = lt.ProgressiveConfig(device=dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -120,9 +126,18 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     cuda.library()
     trio = "--trio" in sys.argv[1:]
+    large = "--large" in sys.argv[1:]
     run_one = run_trio if trio else run
-    run_one(0, dev)
-    for seed in (1, 2):
+    timed, profiled = (1, 2), 3
+    if large:
+        run(0, dev, 3)
+        timed, profiled = (0,), 0
+
+        def run_one(seed, dev):
+            return run(seed, dev, 3, 8_700_000)
+    else:
+        run_one(0, dev)
+    for seed in timed:
         trace.reset()
         profile.BAND_STATS.update(dict.fromkeys(profile.BAND_STATS, 0))
         with open(os.devnull, "w") as null:
@@ -134,16 +149,19 @@ def main() -> int:
                           "stages": trace.stage_seconds()}), flush=True)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    if large:
+        acts = acts[1:]     # minutes of host events would swamp the trace
     with torch.profiler.profile(activities=acts) as prof:
-        walls = run_one(3, dev)
+        walls = run_one(profiled, dev)
     out_dir = os.path.join(ROOT, "build", "profile_progressive")
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir,
-                        "trace_trio.json" if trio else "trace.json")
+                        "trace_trio.json" if trio else
+                        "trace_large.json" if large else "trace.json")
     prof.export_chrome_trace(path)
     busy, top = device_time(path)
     wall_ms = walls["total"] * 1e3
-    print(json.dumps({"rng_seed": 3, "profiled_wall_ms": wall_ms,
+    print(json.dumps({"rng_seed": profiled, "profiled_wall_ms": wall_ms,
                       "device_busy_ms": busy, "busy_share": busy / wall_ms,
                       "top": top}))
     return 0

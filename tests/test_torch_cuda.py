@@ -437,3 +437,103 @@ def test_three_genome_align_on_cuda_equals_cpu(dev):
     (xmfa_cpu, mums_cpu), (xmfa_gpu, mums_gpu) = out["cpu"], out[str(dev)]
     assert xmfa_gpu == xmfa_cpu
     np.testing.assert_array_equal(mums_gpu.starts, mums_cpu.starts)
+
+
+def _repeat_genome(n, rng_seed):
+    """A genome with an N run, a poly-A run and a duplicated segment."""
+    rng = np.random.default_rng(rng_seed)
+    codes = rng.integers(0, 4, size=n).astype(np.uint8)
+    codes[n // 2:n // 2 + 2_000] = codes[1_000:3_000]
+    asc = generate._LUT[codes].copy()
+    asc[5_000:5_300] = ord("N")
+    asc[7_000:9_000] = ord("A")
+    return Genome("r", asc)
+
+
+@pytest.mark.parametrize("weight,circular", [(11, False), (17, False),
+                                             (15, True)])
+def test_seed_run_counts_kernel_equals_plain(dev, weight, circular):
+    """K16 against its plain version: u32 and u64 key sentinels, a linear
+    genome's tail positions, a circular genome."""
+    from libmems_tpu_torch.ops import seedocc
+    from libmems_tpu_torch.sml import SortedMerList
+    g = _repeat_genome(60_000, weight)
+    seed = seeds.get_seed(weight)
+    sml = SortedMerList.create(g, seed, circular=circular, device="cpu")
+    sent = mers.key_sentinel(seed)
+    ref = seedocc.seed_run_counts_plain(sml.sorted_keys,
+                                        sml.sorted_positions, sml.length,
+                                        sent)
+    got = seedocc.seed_run_counts(sml.sorted_keys.to(dev),
+                                  sml.sorted_positions.to(dev), sml.length,
+                                  sent)
+    assert torch.equal(got.cpu(), ref)
+    assert int(ref.max()) > 1_000 and int((ref == 1).sum()) > 1_000
+
+
+@pytest.mark.parametrize("seed_len,n", [(21, 50_000), (21, 1), (0, 100),
+                                        (37, 30)])
+def test_seed_smooth_kernel_equals_plain(dev, seed_len, n):
+    """K17 against its plain version, bit for bit: window sums above
+    2^24, a window longer than the genome, the pass-through cases."""
+    from libmems_tpu_torch.ops import seedocc
+    rng = np.random.default_rng(n)
+    count = rng.integers(1, 1 << 22, n).astype(np.int32)
+    count[rng.random(n) < 0.5] = 1
+    ref = seedocc.seed_smooth_plain(torch.from_numpy(count), seed_len)
+    got = seedocc.seed_smooth(torch.from_numpy(count).to(dev), seed_len)
+    assert torch.equal(got.cpu(), ref)
+
+
+def _pair_keys(weight, n, rng_seed):
+    from libmems_tpu_torch.sml import create_smls
+    gs = _family(2, n, rng_seed)
+    smls, seed = create_smls(gs, seeds.get_seed(weight), device="cpu")
+    pb = max(max(s.n_windows for s in smls).bit_length(), 8)
+    return smls, seed, pb
+
+
+@pytest.mark.parametrize("weight,n", [(15, 60_000), (25, 1_500)])
+def test_pair_cluster_words_kernel_equals_plain(dev, weight, n):
+    """K18 against its plain version; at weight 25 and 1.5 kbp the seed
+    words use bit 63."""
+    from libmems_tpu_torch.ops import pair
+    smls, seed, pb = _pair_keys(weight, n, 43)
+    sent = mers.sentinel_content(seed)
+    ref, ref_n = pair.pair_cluster_words_plain(smls[0].keys, smls[1].keys,
+                                               pb, sent)
+    got, got_n = pair.pair_cluster_words(smls[0].keys.to(dev),
+                                         smls[1].keys.to(dev), pb, sent)
+    assert got_n == ref_n > 2
+    assert torch.equal(got.cpu(), ref)
+
+
+def test_pair_reps_kernel_equals_plain(dev):
+    """K19 against its plain version, with fewer and with more extension
+    rows than representatives."""
+    from libmems_tpu_torch.ops import pair, pairwise
+    smls, seed, pb = _pair_keys(15, 60_000, 44)
+    cw, _ = pair.pair_cluster_words_plain(smls[0].keys, smls[1].keys, pb,
+                                          mers.sentinel_content(seed))
+    cw = pairwise.usort(cw)
+    seed_len = smls[0].seed_length
+    for ec in (16, 1 << 14):
+        ref = pair.pair_reps_plain(cw, ec, pb, seed_len)
+        got = pair.pair_reps(cw.to(dev), ec, pb, seed_len)
+        assert got.n_reps == ref.n_reps > 16
+        for r, g in zip(ref[:-1], got[:-1]):
+            assert torch.equal(g.cpu(), r)
+
+
+def test_pairwise_host_path_on_cuda_equals_fused(dev):
+    """_find_pairwise_mums_host with K5 and K2 on the card gives the
+    fused seeder's matches."""
+    from libmems_tpu_torch import find_pairwise_mums
+    from libmems_tpu_torch.matchfind import _find_pairwise_mums_host
+    from libmems_tpu_torch.sml import create_smls
+    smls, _ = create_smls(_family(5, 50_000, 45), device=dev)
+    host = _find_pairwise_mums_host(smls)
+    fused = find_pairwise_mums(smls)
+    assert len(fused) > 50
+    np.testing.assert_array_equal(host.starts, fused.starts)
+    np.testing.assert_array_equal(host.lengths, fused.lengths)

@@ -8,11 +8,15 @@ import pytest
 
 from libmems_tpu import seeds as jseeds
 from libmems_tpu.matchfind import find_mums as jax_find_mums
+from libmems_tpu.matchfind import find_mums_device as jax_find_mums_device
 from libmems_tpu.sequence import Genome as JaxGenome
 from libmems_tpu.sml import SortedMerList as JaxSML
 from libmems_tpu_torch import convert
 from libmems_tpu_torch.match import write_match_list
+from libmems_tpu_torch import matchfind
 from libmems_tpu_torch.matchfind import find_mums, find_pair_mums_np
+from libmems_tpu_torch.ops import pair as ops_pair
+from libmems_tpu_torch.ops.mers import sentinel_content
 from libmems_tpu_torch.sequence import Genome
 from libmems_tpu_torch.sml import create_smls
 from tests.golden import generate
@@ -111,3 +115,89 @@ def test_three_genomes_raise():
     got = find_mums(port + [port[0]], device="cpu")
     want = jax_find_mums(ref + [ref[0]])
     _assert_same(got, want)
+
+
+def _device_outputs(a_asc, b_asc, seed=None, **kw):
+    """find_mums_device of both packages on one pair: each runs its
+    _fused_pair_pipeline (the port's through the plain versions of K18
+    and K19)."""
+    port, ref = _both(a_asc, b_asc)
+    smls, seed = create_smls(port, seed, device="cpu")
+    assert matchfind.pair_fast_path_ok(smls)
+    jsmls = [JaxSML.create(g, seed) for g in ref]
+    got = matchfind.find_mums_device(smls, **kw)
+    want = jax_find_mums_device(jsmls, **kw)
+    return smls, got, want
+
+
+def _assert_device_outputs_equal(got, want):
+    starts, lengths, valid, n_cands, n_reps = got
+    np.testing.assert_array_equal(starts.numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(lengths.numpy(), np.asarray(want[1]))
+    np.testing.assert_array_equal(valid.numpy(), np.asarray(want[2]))
+    assert int(n_cands) == int(want[3])
+    assert int(n_reps) == int(want[4])
+
+
+@pytest.mark.parametrize("rng_seed", [21, 22])
+def test_fused_pair_pipeline_outputs_equal_jax(rng_seed):
+    _, got, want = _device_outputs(*_pair_ascii(rng_seed, n=20_000))
+    assert int(want[4]) > 5 and bool(np.asarray(want[2]).any())
+    _assert_device_outputs_equal(got, want)
+
+
+def test_fused_pair_pipeline_last_table_rows_survive():
+    """The largest seed content of the table is an exact pair, so the
+    last two rows of the sorted word table survive: the fills past the
+    table's end decide the flag."""
+    rng = np.random.default_rng(23)
+    n = 3_000
+    a = rng.integers(0, 4, size=n).astype(np.uint8)
+    a_asc = generate._LUT[a]
+    smls, seed = create_smls([Genome("a", a_asc)], device="cpu")
+    top = int(smls[0].keys.argmax())
+    b = a.copy()
+    far = np.flatnonzero(np.abs(np.arange(n) - top) > 100)
+    sub = rng.choice(far, size=12, replace=False)
+    b[sub] = (b[sub] + 1) % 4
+    smls, got, want = _device_outputs(a_asc, generate._LUT[b], seed)
+    pb = matchfind._pair_pos_bits(max(s.n_windows for s in smls))
+    cw, n_cands = ops_pair.pair_cluster_words_plain(
+        smls[0].keys, smls[1].keys, pb, sentinel_content(seed))
+    assert int(cw[-2]) != -1 and int(cw[-1]) == -1 and n_cands > 5
+    _assert_device_outputs_equal(got, want)
+
+
+def test_fused_pair_pipeline_capacity_retry():
+    """More representatives than extension rows: both packages report
+    the same n_reps > EC and the same truncated rows, and find_mums'
+    retry at the next power of two gives the full result."""
+    a_asc, b_asc = _pair_ascii(24, n=20_000)
+    smls, got, want = _device_outputs(a_asc, b_asc, extend_capacity=4)
+    n_reps = int(got[4])
+    assert n_reps > 4 == got[2].shape[0]
+    _assert_device_outputs_equal(got, want)
+    again = matchfind.find_mums_device(
+        smls, extend_capacity=1 << (n_reps - 1).bit_length())
+    full = matchfind.find_mums_device(smls)
+    assert int(again[4]) == n_reps <= again[2].shape[0]
+    rows = [(t[0][t[2]].numpy(), t[1][t[2]].numpy()) for t in (again, full)]
+    np.testing.assert_array_equal(rows[0][0], rows[1][0])
+    np.testing.assert_array_equal(rows[0][1], rows[1][1])
+
+
+def test_pair_words_with_bit_63_equal_jax():
+    """A weight-25 seed on 1.5 kbp genomes packs 2 * 25 + 3 + 11 = 64
+    bits: the seed words use bit 63 and the pair path still runs."""
+    seed = jseeds.get_seed(25)
+    rng = np.random.default_rng(25)
+    a = rng.integers(0, 4, size=1_500).astype(np.uint8)
+    b = a.copy()
+    b[[300, 900]] = (b[[300, 900]] + 1) % 4
+    b[1_000:1_200] = 3 - b[1_000:1_200][::-1]
+    smls, got, want = _device_outputs(generate._LUT[a], generate._LUT[b],
+                                      seed)
+    pb = matchfind._pair_pos_bits(max(s.n_windows for s in smls))
+    assert 2 * smls[0].seed_weight + 3 + pb == 64
+    assert int(want[4]) >= 3
+    _assert_device_outputs_equal(got, want)

@@ -9,6 +9,7 @@ from libmems_tpu import matchfind as jmatchfind
 from libmems_tpu.sequence import Genome as JaxGenome
 from libmems_tpu.sml import create_smls as jax_create_smls
 from libmems_tpu_torch import Genome, find_pairwise_mums
+from libmems_tpu_torch import matchfind
 from libmems_tpu_torch.matchfind import _pair_pos_bits
 from libmems_tpu_torch.ops import pairwise
 from libmems_tpu_torch.ops.mers import sentinel_content
@@ -151,7 +152,48 @@ def test_cluster_reps_capacity_retry_equal_results():
     np.testing.assert_array_equal(small.lengths, full.lengths)
 
 
-def test_unported_pairwise_layouts_raise():
-    gs = [Genome(f"g{i}", a) for i, a in enumerate(_family(3, 52, 2_000))]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        find_pairwise_mums(gs, extend=False, device="cpu")
+def _assert_same(got, ref):
+    np.testing.assert_array_equal(got.starts, ref.starts)
+    np.testing.assert_array_equal(got.lengths, ref.lengths)
+
+
+def test_pairwise_host_path_equals_fused_and_jax_on_nine_goldens():
+    """_find_pairwise_mums_host (K5's plain version, numpy expansion and
+    clustering, K2's plain version) gives the fused seeder's matches and
+    the JAX host path's, on the nine-genome golden family."""
+    nine = generate._genomes_nine()
+    smls, _ = create_smls([Genome(g.name, g.ascii) for g in nine],
+                          device="cpu")
+    jsmls, _ = jax_create_smls(nine)
+    host = matchfind._find_pairwise_mums_host(smls)
+    assert len(host) > 500
+    _assert_same(host, find_pairwise_mums(smls))
+    _assert_same(host, jmatchfind._find_pairwise_mums_host(jsmls))
+
+
+@pytest.mark.parametrize("case", ["extend_false", "max_rows",
+                                  "extend_false_host_jax"])
+def test_unported_pairwise_layouts_raise(case, monkeypatch):
+    """The layouts beyond the fused pipeline (extend=False, an expansion
+    table above _PAIRWISE_FUSED_MAX_ROWS) take the host path and equal
+    the JAX package."""
+    fam = _family(3, 52, 2_000)
+    gs = [Genome(f"g{i}", a) for i, a in enumerate(fam)]
+    jgs = [JaxGenome(f"g{i}", a) for i, a in enumerate(fam)]
+    calls = []
+    real = matchfind._find_pairwise_mums_host
+    monkeypatch.setattr(matchfind, "_find_pairwise_mums_host",
+                        lambda *a: calls.append(1) or real(*a))
+    if case == "max_rows":
+        monkeypatch.setattr(matchfind, "_PAIRWISE_FUSED_MAX_ROWS", 1)
+        got = find_pairwise_mums(gs, device="cpu")
+        ref = jmatchfind.find_pairwise_mums(jgs)
+    elif case == "extend_false":
+        got = find_pairwise_mums(gs, extend=False, device="cpu")
+        ref = jmatchfind.find_pairwise_mums(jgs, extend=False)
+    else:
+        got = find_pairwise_mums(gs, extend=False, device="cpu")
+        ref = jmatchfind._find_pairwise_mums_host(
+            jax_create_smls(jgs)[0], extend=False)
+    assert calls == [1] and len(ref) >= 10
+    _assert_same(got, ref)

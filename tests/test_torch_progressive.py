@@ -16,6 +16,7 @@ from libmems_tpu.progressive import progressive_align as jax_progressive
 from libmems_tpu.sequence import Genome as JaxGenome
 import libmems_tpu_torch as lt
 from libmems_tpu_torch import anchorscore
+from libmems_tpu_torch.ops import seedocc
 from tests.golden import generate
 
 
@@ -79,18 +80,33 @@ def test_detect_backbone_segments_have_two_or_more_genomes():
         assert len(s.genomes) >= 2
 
 
-@pytest.mark.parametrize("case", ["mesh", "sol_device"])
-def test_unported_options_raise(case, monkeypatch):
+@pytest.mark.parametrize("case", ["mesh"])
+def test_unported_options_raise(case):
     gs = [lt.Genome(f"g{i}", a) for i, a in enumerate(_four(62, 4_000))]
-    cfg = lt.ProgressiveConfig(refine=False, device="cpu")
-    if case == "mesh":
-        cfg = lt.ProgressiveConfig(refine=False, device="cpu", mesh=2)
-    else:
-        # a genome above SOL_HOST_MAX windows needs the device seed
-        # occurrence construction
-        monkeypatch.setattr(anchorscore, "SOL_HOST_MAX", 1_000)
+    cfg = lt.ProgressiveConfig(refine=False, device="cpu", mesh=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         lt.progressive_align(gs, cfg)
+
+
+def test_seed_occurrence_device_route_writes_jax_xmfa(monkeypatch):
+    """Genomes above SOL_HOST_MAX seed windows take the device seed
+    occurrence construction (here the plain versions of K16 and K17):
+    the four-genome family still aligns to the JAX package's XMFA
+    bytes."""
+    fam = _four(62, 4_000)
+    ref, _ = jax_progressive([JaxGenome(f"g{i}", a)
+                              for i, a in enumerate(fam)],
+                             JaxProgressiveConfig(refine=False))
+    calls = []
+    real = seedocc.seed_run_counts
+    monkeypatch.setattr(seedocc, "seed_run_counts",
+                        lambda *a: calls.append(1) or real(*a))
+    monkeypatch.setattr(anchorscore, "SOL_HOST_MAX", 1_000)
+    ivs, _ = lt.progressive_align(
+        [lt.Genome(f"g{i}", a) for i, a in enumerate(fam)],
+        lt.ProgressiveConfig(refine=False, device="cpu"))
+    assert len(calls) == 4
+    assert _text(lt.write_xmfa, ivs) == _text(jax_write_xmfa, ref)
 
 
 def test_cuda_device_without_gpu_raises():
@@ -111,6 +127,7 @@ def test_new_modules_import_no_jax():
             "libmems_tpu_torch.cga", "libmems_tpu_torch.gbe_sp",
             "libmems_tpu_torch.scoring", "libmems_tpu_torch.validate",
             "libmems_tpu_torch.ops.hmm", "libmems_tpu_torch.ops.pairwise",
+            "libmems_tpu_torch.ops.seedocc", "libmems_tpu_torch.ops.pair",
             "libmems_tpu_torch.convert", "libmems_tpu_torch.msa",
             "libmems_tpu_torch.ops.profile", "libmems_tpu_torch.ops.gapped",
             "libmems_tpu_torch.profile_progressive"]
