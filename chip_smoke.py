@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (libmems_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [phase ...]
 
-Needs one NVIDIA Hopper GPU (compute capability 9.0) and the CUDA
+With no argument every phase runs; naming phases (kernels, goldens, main,
+trio, progressive, large, profile_dp, decode) runs only those, plus the
+progressive run whose recorded inputs profile_dp and decode read.  Needs
+one NVIDIA Hopper GPU (compute capability 9.0) and the CUDA
 toolkit's nvcc; builds the port's kernels from libmems_tpu_torch/csrc at
 first use.  Phases, each raising on failure (the script then exits
 non-zero and prints no result line):
@@ -59,20 +62,35 @@ non-zero and prints no result line):
              no launch or no uncertified window, tests/test_banded.py's
              adversarial windows run the same routes as well;
 8. hmm     - K8 against its plain version on the card on the HMM batches
-             of the first progressive run, at their full lengths.
+             of the first progressive run, at their full lengths (7 and 8
+             are the phase "profile_dp");
+9. decode  - decode and pairwise DP, the API no path calls: align_pairs
+             on the pair path's inter-anchor windows (K23 + K4 on the
+             card) and on 8 mutant pairs of 10 kbp (over the pointer
+             budget: K22, packed K23 blocks, the host walk),
+             viterbi_homologous (K20) on the first progressive run's HMM
+             sequences and 2 iterations of baum_welch (K21) on them; K22,
+             K23 and K20 exact against their plain versions, K21 within
+             1e-12, the walked masks scoring to the DP score; K2 at 64 and
+             1,000 slots a row, in shared memory and global scratch
+             (find_mums on 64 genomes GPU == CPU tensors, find_repeats on a
+             1,000-copy element family).
 
-The inputs of phases 7 and 8 are recorded one layer above the kernel
-wrappers (align_profile_batch, profile_scores_batch, predict_homologous)
-and rebuilt into launches by the path's own planners.  Counts of kernel
-launches are set to 0 just before each main path and read just after;
-the kernel table reports the trio path's counts for K13-K15, the pair
-path's for K18 and K19, the 3 x 8.7 Mbp path's for K16 and K17 and the
-9 x 1 Mbp progressive path's for the rest, and the times of
-K3, K4 and K8-K12 are taken on that path's inputs.  Each kernel's
+The inputs of phases 7-9 are recorded one layer above the kernel
+wrappers (align_profile_batch, profile_scores_batch, predict_homologous,
+the callers' extend_matches) and rebuilt into launches by the path's own
+planners.  Counts of kernel launches are set to 0 just before each main
+path and read just after; the kernel table reports the trio path's
+counts for K13-K15, the pair path's for K18 and K19, the 3 x 8.7 Mbp
+path's for K16 and K17, the decode run's for K20-K23 and the 9 x 1 Mbp
+progressive path's for the rest, and the times of K3, K4 and K8-K12 are
+taken on that path's inputs.  Each kernel's
 bound_ms is max(bytes / 3.35 TB/s, operations / peak rate) for the work
 of those inputs (the counts are in work_* below).
 The line before the last is the kernel table as JSON; the last line is
-{"ok": true, "device": {...}}.  Logs go to chiprun_out/chip_smoke/.
+{"ok": true, "device": {...}} when every phase ran, and {"ok": true,
+"phases": [...]} when only the named ones did.  Logs go to
+chiprun_out/chip_smoke/.
 Imports neither JAX nor libmems_tpu.
 """
 
@@ -138,6 +156,14 @@ SOURCES = {
                            "libmems_tpu/matchfind.py:482"),
     "pair_reps": ("libmems_tpu_torch/csrc/pair.cu",
                   "libmems_tpu/matchfind.py:482"),
+    "gotoh_forward": ("libmems_tpu_torch/csrc/gotoh.cu",
+                      "libmems_tpu/ops/gapped.py:151"),
+    "gotoh_block_ptrs": ("libmems_tpu_torch/csrc/gotoh.cu",
+                         "libmems_tpu/ops/gapped.py:178"),
+    "viterbi_path": ("libmems_tpu_torch/csrc/hmm.cu",
+                     "libmems_tpu/ops/hmm.py:531"),
+    "bw_counts": ("libmems_tpu_torch/csrc/hmm.cu",
+                  "libmems_tpu/ops/hmm.py:603"),
 }
 # peak rates of one H100 SXM (NVIDIA's H100 SXM data sheet; f64 outside
 # the tensor cores).  Integer
@@ -149,6 +175,20 @@ DP_CELL_OPS = 20      # per profile-DP cell: 9 for the row score (a
                       # product and four FMAs), 11 adds and maxes
 WALK_STEP_BYTES = 4   # per traceback step: one pointer byte, three masks
 HMM_COLUMN_OPS = 60   # per HMM column: two passes of 2-state log-sum-exps
+GOTOH_CELL_OPS = 3    # per pairwise DP cell (K22): F, the diagonal, g
+GOTOH_PTR_CELL_OPS = 5  # K23: the same and the pointer byte's compares
+VITERBI_COLUMN_OPS = 10  # per column (K20): 4 adds, 2 compares, 2 selects,
+                         # a step of the walk
+BW_COLUMN_OPS = 100   # per column (K21): K8's two passes, 6 exps and the
+                      # count sums
+DECODE_KERNELS = ("gotoh_forward", "gotoh_block_ptrs", "viterbi_path",
+                  "bw_counts")
+MUTANT_PAIRS, MUTANT_PAIR_LEN = 8, 10_000
+REPEAT_LEN, REPEAT_COPIES, REPEAT_ELEM = 2_000_000, 1_000, 500
+WIDE_GENOMES, WIDE_LEN = 64, 20_000
+HMM_CHECK_MAX_T = 1 << 14   # K20/K21 vs plain: these batches + the longest
+PHASES = ("kernels", "goldens", "main", "trio", "progressive", "large",
+          "profile_dp", "decode")
 
 
 class SmokeFailure(RuntimeError):
@@ -383,6 +423,90 @@ def golden_pair(lt):
             lt.Genome("gB", _LUT[b], filename="gB.fa")]
 
 
+def mutant_pairs(rng_seed=0):
+    """MUTANT_PAIRS code pairs of MUTANT_PAIR_LEN bp: b is a with 1%
+    substitutions and three indels of 1-20 bases (the gap-window size for
+    which the JAX gapped module sizes its memory budget, ops/gapped.py
+    design note)."""
+    rng = np.random.default_rng(rng_seed)
+    pairs = []
+    for _ in range(MUTANT_PAIRS):
+        a = rng.integers(0, 4, MUTANT_PAIR_LEN).astype(np.uint8)
+        b = a.copy()
+        sub = rng.random(len(b)) < 0.01
+        b[sub] = (b[sub] + rng.integers(1, 4, int(sub.sum()))) % 4
+        for _ in range(3):
+            at = int(rng.integers(0, len(b) - 40))
+            n = int(rng.integers(1, 21))
+            if rng.random() < 0.5:
+                b = np.concatenate([b[:at], rng.integers(0, 4, n), b[at:]])
+            else:
+                b = np.concatenate([b[:at], b[at + n:]])
+        pairs.append((a, b.astype(np.uint8)))
+    return pairs
+
+
+def affine_score(a, b, a_gaps, b_gaps, go, ge, sub):
+    """tests/test_gapped.py:alignment_score: the affine score of an
+    alignment given by its per-row gap masks."""
+    score = 0
+    ai = bi = 0
+    prev_a = prev_b = False
+    for ag, bg in zip(a_gaps.tolist(), b_gaps.tolist()):
+        require(not (ag and bg), "a column gapped in both rows")
+        if ag:
+            score += ge + (0 if prev_a else go)
+            bi += 1
+        elif bg:
+            score += ge + (0 if prev_b else go)
+            ai += 1
+        else:
+            score += int(sub[a[ai], b[bi]])
+            ai += 1
+            bi += 1
+        prev_a, prev_b = ag, bg
+    require(ai == len(a) and bi == len(b), "a walk left residues out")
+    return score
+
+
+def repeat_genome(lt):
+    """A REPEAT_LEN bp random genome (rng 23) carrying REPEAT_COPIES copies
+    of one REPEAT_ELEM bp element, half of them inverted, each with 0-2
+    substitutions in the element's second half: a transposon family.
+    Seeds of the first half occur in every copy, so find_repeats' rows
+    reach max_multiplicity's full width of 1,000 slots."""
+    rng = np.random.default_rng(23)
+    g = rng.integers(0, 4, REPEAT_LEN).astype(np.uint8)
+    elem = rng.integers(0, 4, REPEAT_ELEM).astype(np.uint8)
+    slot = REPEAT_LEN // REPEAT_COPIES
+    for k in range(REPEAT_COPIES):
+        e = elem.copy()
+        for _ in range(int(rng.integers(0, 3))):
+            at = int(rng.integers(REPEAT_ELEM // 2, REPEAT_ELEM))
+            e[at] = (e[at] + int(rng.integers(1, 4))) % 4
+        if rng.random() < 0.5:
+            e = 3 - e[::-1]
+        at = k * slot + int(rng.integers(0, slot - REPEAT_ELEM))
+        g[at:at + REPEAT_ELEM] = e
+    lut = np.frombuffer(b"ACGT", dtype=np.uint8)
+    return lt.Genome(name="rep", ascii=lut[g], codes=g)
+
+
+def wide_family(lt):
+    """WIDE_GENOMES genomes of WIDE_LEN bp (rng 29): one ancestor, 0.05%
+    substitutions each, so most multi-MUMs span all 64 genomes."""
+    rng = np.random.default_rng(29)
+    anc = rng.integers(0, 4, WIDE_LEN).astype(np.uint8)
+    lut = np.frombuffer(b"ACGT", dtype=np.uint8)
+    out = []
+    for i in range(WIDE_GENOMES):
+        g = anc.copy()
+        m = rng.random(WIDE_LEN) < 0.0005
+        g[m] = (g[m] + rng.integers(1, 4, int(m.sum()))) % 4
+        out.append(lt.Genome(name=f"w{i}", ascii=lut[g], codes=g))
+    return out
+
+
 def mutant_profiles(rng, B, n, M, N):
     """B one-hot window pairs of about n columns: q is p with 2%
     substitutions and a few short indels (near-diagonal, like the
@@ -500,12 +624,27 @@ def pair_kernels_vs_plain(torch, smls, seed, pb, EC, timed):
     return res, got_r
 
 
+def pair_windows(lt, genomes, smls, seed, dev):
+    """The inter-anchor gap windows of the pair path (the LCB anchors of
+    find_mums, extended as align() extends them): a list of
+    gapalign windows, window[2] its (a, b) code rows."""
+    from libmems_tpu_torch import aligner, gapalign, seeds
+    from libmems_tpu_torch.lcb import eliminate_overlaps
+    mums = lt.find_mums(smls)
+    mums = eliminate_overlaps(mums).multiplicity_filter(2)
+    min_w = 3 * seeds.seed_weight(seed) * 2
+    mums, members = aligner._extend_lcb_anchors(mums, genomes, seed,
+                                                float(min_w), device=dev)
+    return [w for idx in members for w in
+            gapalign.gapped_interval_from_matches(mums, idx, genomes,
+                                                  None)[1]]
+
+
 def phase_kernels(torch, lt, dev):
     """Each kernel against its plain version on the card; exact
     equality.  Returns {name: entry}, entry = {err, ms, plain_ms,
     work}."""
-    from libmems_tpu_torch import aligner, gapalign, matchfind, seeds
-    from libmems_tpu_torch.lcb import eliminate_overlaps
+    from libmems_tpu_torch import matchfind, seeds
     from libmems_tpu_torch.ops import extend, gapped, mers, profile
     from libmems_tpu_torch.sml import create_smls, default_seed
 
@@ -580,14 +719,7 @@ def phase_kernels(torch, lt, dev):
         f"max_len={int(kn.max())} equal")
 
     # K3/K4: the pair's inter-anchor window batch, launch by launch
-    mums = lt.find_mums(smls)
-    mums = eliminate_overlaps(mums).multiplicity_filter(2)
-    min_w = 3 * seeds.seed_weight(seed) * 2
-    mums, members = aligner._extend_lcb_anchors(mums, genomes, seed,
-                                                float(min_w), device=dev)
-    windows = [w for idx in members for w in
-               gapalign.gapped_interval_from_matches(
-                   mums, idx, genomes, None)[1]]
+    windows = pair_windows(lt, genomes, smls, seed, dev)
     p_rows = [w[2][0][None] for w in windows]
     q_rows = [w[2][1][None] for w in windows]
     launches = profile.plan_launches(p_rows, q_rows)
@@ -1541,10 +1673,283 @@ def phase_hmm(torch, dev, calls, launches):
                                     F64_OPS_PER_S))
 
 
-def main() -> int:
+def phase_decode(torch, lt, dev, hmm_calls):
+    """Decode and pairwise DP: the API that libMems ships but no path of
+    it calls.  Counted run: align_pairs on the pair path's inter-anchor
+    windows (every bucket walked on the card: K23 + K4) and on the mutant
+    pairs (over DEVICE_TB_BUDGET: K22, packed K23 blocks, the host walk),
+    viterbi_homologous on the sequences of the first progressive run's
+    predict_homologous calls and 2 iterations of baum_welch on all of
+    them.  Then K22 and K23 against their plain versions (exact: scores,
+    carries, pointer bytes, the walked masks, which score to the DP
+    score), K20 (exact) and K21 (1e-12 relative) on the HMM batches of
+    T <= HMM_CHECK_MAX_T and the longest one, and K2 at 64 and 1,000
+    slots a row (find_mums on 64 genomes, GPU == CPU tensors; find_repeats
+    on a 1,000-copy family), in shared memory and in global scratch.
+    Returns ({name: entry}, the counted run's launches, K2's
+    max_abs_err)."""
+    from libmems_tpu_torch import matchfind, repeats
+    from libmems_tpu_torch.ops import extend, gapped, hmm
+    from libmems_tpu_torch.sml import create_smls
+    wrappers = {"gotoh_forward": gapped.gotoh_forward,
+                "gotoh_block_ptrs": gapped.gotoh_block_ptrs,
+                "traceback_walk": gapped.traceback_walk,
+                "viterbi_path": hmm.viterbi_path,
+                "bw_counts": hmm.bw_counts}
+    go, ge = gapped.GAP_OPEN, gapped.GAP_EXTEND
+
+    def put(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    genomes = genome_pair(lt, 0)
+    smls, seed = create_smls(genomes, device=dev)
+    win_pairs = [(w[2][0], w[2][1])
+                 for w in pair_windows(lt, genomes, smls, seed, dev)]
+    del smls, genomes
+    mut_pairs = mutant_pairs()
+    by_call = [(a["sequences"], a["params"] or hmm.hoxd_params())
+               for a in hmm_calls]
+    corpus = [q for seqs, _ in by_call for q in seqs]
+    require(len(corpus) > 0, "no recorded HMM sequences")
+
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    win_masks = gapped.align_pairs(win_pairs, device=dev)
+    t1 = time.perf_counter()
+    mut_masks = gapped.align_pairs(mut_pairs, device=dev)
+    t2 = time.perf_counter()
+    for seqs, params in by_call:
+        hmm.viterbi_homologous(seqs, params, device=dev)
+    t3 = time.perf_counter()
+    _, lls = hmm.baum_welch(corpus, by_call[0][1], iterations=2, device=dev)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    log(f"# decode run: align_pairs on {len(win_pairs)} pair windows "
+        f"{t1 - t0:.3f} s, on {len(mut_pairs)} x {MUTANT_PAIR_LEN} bp mutant "
+        f"pairs {t2 - t1:.3f} s; viterbi_homologous on {len(corpus)} "
+        f"sequences {t3 - t2:.3f} s; baum_welch (2 iterations) "
+        f"{t4 - t3:.3f} s, log-likelihoods {lls}; launches {launches}")
+    for name, n in launches.items():
+        require(n > 0, f"{name}: no launch on the decode run")
+    require(len(lls) == 2 and all(np.isfinite(lls)),
+            "baum_welch log-likelihoods")
+    win_plan = list(gapped.plan_pairs(win_pairs))
+    mut_plan = list(gapped.plan_pairs(mut_pairs))
+    require(all(p[6] for p in win_plan),
+            "a pair-window bucket missed the device walk")
+    require(len(mut_plan) == 1 and not mut_plan[0][6],
+            "the mutant pairs missed the checkpointed route")
+    log(f"# routes: pair windows in buckets "
+        f"{sorted((p[1].shape, p[2].shape[1]) for p in win_plan)} walked "
+        f"on the card; mutant pairs {mut_plan[0][1].shape} x "
+        f"{mut_plan[0][2].shape[1]} checkpointed")
+    res = {}
+
+    # the full route: K23 from the first row, the walked masks score to
+    # the DP score, and equal the CPU tensors' masks
+    k23, errs23 = [], []
+    for idxs, a, b, al, bl, K, _ in win_plan:
+        aj, bj = put(a), put(b)
+        k23.append((None, None, aj, bj, False))
+        score = gapped.gotoh_forward(aj, bj, put(al), put(bl), go, ge, K,
+                                     carries=False)[0].cpu().numpy()
+        for row, idx in enumerate(idxs):
+            (x, y), (ga, gb) = win_pairs[idx], win_masks[idx]
+            require(affine_score(x, y, ga, gb, go, ge, gapped.HOXD70)
+                    == score[row], f"pair window {idx}: the walk's score "
+                    f"differs from the DP score")
+    cpu_masks = gapped.align_pairs(win_pairs, device="cpu")
+    for (ga, gb), (ca, cb) in zip(win_masks, cpu_masks):
+        require(np.array_equal(ga, ca) and np.array_equal(gb, cb),
+                "pair windows: GPU masks differ from CPU tensors")
+    log(f"# full route: {len(win_pairs)} windows score to the DP score; "
+        f"masks GPU == CPU tensors")
+
+    # the checkpointed route: K22 and the packed K23 blocks
+    idxs, a, b, al, bl, K, _ = mut_plan[0]
+    aj, bj, alj, blj = put(a), put(b), put(al), put(bl)
+    B, Mp = a.shape
+    N = b.shape[1]
+    got22 = gapped.gotoh_forward(aj, bj, alj, blj, go, ge, K)
+    ref22, p22 = timed_once(lambda: gapped.gotoh_forward_plain(
+        aj, bj, alj, blj, go, ge, K), torch)
+    for g, r, what in zip(got22, ref22, ("scores", "ck_h", "ck_f")):
+        require(torch.equal(g, r), f"K22 {what} differ from the plain "
+                f"version at {tuple(a.shape)} x {N}")
+    ms22 = timed_ms(lambda: gapped.gotoh_forward(aj, bj, alj, blj, go, ge,
+                                                 K), 3, torch)
+    res["gotoh_forward"] = entry(
+        max_abs_err(zip(got22, ref22)), ms22, p22,
+        work(nbytes(aj, bj, alj, blj, *got22),
+             GOTOH_CELL_OPS * B * Mp * (N + 1)))
+    nb = Mp // K
+    k23 += [(got22[1][bi], got22[2][bi],
+             aj[:, bi * K:(bi + 1) * K].contiguous(), bj, True)
+            for bi in range(nb)]
+    got23 = [gapped.gotoh_block_ptrs(h, f, x, y, go, ge, packed=pk)
+             for h, f, x, y, pk in k23]
+    ref23 = [gapped.gotoh_block_ptrs_plain(h, f, x, y, go, ge, pk)
+             for h, f, x, y, pk in k23]
+    for (_, _, x, _, pk), g, r in zip(k23, got23, ref23):
+        require(torch.equal(g, r), f"K23 differs from its plain version "
+                f"at {tuple(x.shape)} (packed {pk})")
+        errs23.append((g, r))
+    fetched = []   # the blocks the walk reads: the counted run's launches
+
+    def fetch(bi):
+        fetched.append(bi)
+        return gapped.unpack_ptrs(ref23[len(win_plan) + bi].cpu().numpy(),
+                                  N + 1)
+    walked = gapped.traceback_blocks(fetch, nb, K, al, bl)
+    dp = ref22[0].cpu().numpy()
+    for row, idx in enumerate(idxs):
+        (x, y), (ga, gb) = mut_pairs[idx], mut_masks[idx]
+        require(np.array_equal(walked[row][0], ga)
+                and np.array_equal(walked[row][1], gb),
+                f"mutant pair {idx}: masks differ from the plain blocks'")
+        require(affine_score(x, y, ga, gb, go, ge, gapped.HOXD70)
+                == dp[row], f"mutant pair {idx}: the walk's score differs "
+                f"from the DP score")
+    # time and bound the launches the counted run made: every window
+    # bucket and the blocks the walk fetched (the comparison covers all)
+    run23 = list(range(len(win_plan))) + [len(win_plan) + bi
+                                          for bi in fetched]
+    require(len(run23) == launches["gotoh_block_ptrs"],
+            f"K23: {len(run23)} launches rebuilt, the decode run made "
+            f"{launches['gotoh_block_ptrs']}")
+    p23 = timed_once(lambda: [gapped.gotoh_block_ptrs_plain(
+        *k23[i][:4], go, ge, k23[i][4]) for i in run23], torch)[1]
+    ms23 = timed_ms(lambda: [gapped.gotoh_block_ptrs(
+        *k23[i][:4], go, ge, packed=k23[i][4]) for i in run23], 3, torch)
+    cells = sum(k23[i][2].shape[0] * k23[i][2].shape[1]
+                * (k23[i][3].shape[1] + 1) for i in run23)
+    res["gotoh_block_ptrs"] = entry(
+        max_abs_err(errs23), ms23, p23,
+        work(sum(nbytes(*k23[i][:4], got23[i]) for i in run23),
+             GOTOH_PTR_CELL_OPS * cells))
+    del got23, ref23, got22, ref22
+    log(f"# checkpointed route: K22 and {nb} packed K23 blocks equal the "
+        f"plain versions; masks equal, scores {dp[:len(idxs)].tolist()}; "
+        f"K23 timed on the {len(run23)} launches of the decode run "
+        f"({len(fetched)} blocks fetched)")
+
+    # K20 and K21 on the HMM batches up to HMM_CHECK_MAX_T and the longest
+    batches = []
+    for seqs, params in by_call:
+        mats = hmm.log_matrices(params, dev)
+        for _, obs, lens in hmm.pack_batches(seqs):
+            batches.append((put(obs), put(lens), mats))
+    longest = max(range(len(batches)),
+                  key=lambda i: int(batches[i][1].max()))
+    chosen = [t for i, t in enumerate(batches)
+              if t[0].shape[1] <= HMM_CHECK_MAX_T or i == longest]
+    cols = sum(int(n.sum()) for _, n, _ in chosen)
+    rows = sum(int(n.numel()) for _, n, _ in chosen)
+    log(f"# K20/K21 batches (B x T) compared: "
+        f"{sorted(tuple(o.shape) for o, _, _ in chosen)} of "
+        f"{len(batches)}, {cols} columns")
+    got20 = [hmm.viterbi_path(*t) for t in chosen]
+    ref20, p20 = timed_once(lambda: [hmm.viterbi_path_plain(*t)
+                                     for t in chosen], torch)
+    for (o, _, _), g, r in zip(chosen, got20, ref20):
+        require(torch.equal(g, r), f"K20 differs from its plain version "
+                f"at {tuple(o.shape)}")
+    res["viterbi_path"] = entry(
+        max_abs_err(zip(got20, ref20)),
+        timed_ms(lambda: [hmm.viterbi_path(*t) for t in chosen], 3, torch),
+        p20, work(2 * cols + 4 * rows, VITERBI_COLUMN_OPS * cols,
+                  F64_OPS_PER_S))
+    got21 = [hmm.bw_counts(*t) for t in chosen]
+    ref21, p21 = timed_once(lambda: [hmm.bw_counts_plain(*t)
+                                     for t in chosen], torch)
+    rel = 0.0
+    for g, r in zip(got21, ref21):
+        d = (g - r).abs() / r.abs().clamp(min=1e-300)
+        rel = max(rel, float(torch.where(g == r, 0.0, d).max()))
+    require(rel <= 1e-12, f"K21 counts differ by {rel} relative")
+    res["bw_counts"] = entry(
+        max_abs_err(zip(got21, ref21)),
+        timed_ms(lambda: [hmm.bw_counts(*t) for t in chosen], 3, torch),
+        p21, work(cols + (4 + 8 * hmm.BW_COUNTS) * rows,
+                  BW_COLUMN_OPS * cols, F64_OPS_PER_S))
+    log(f"# K20 equal; K21 within {rel} relative")
+
+    # K2 at 64 slots a row (find_mums' device pipeline, whose K14/K15
+    # signature words then hold 64 mask and sign bits) and at 1,000
+    # (find_repeats); the recorded names are the callers', so the
+    # wrapper and its counter are untouched
+    fam = wide_family(lt)
+    with recording([(matchfind, "extend_matches")]) as c64:
+        t_gpu = time.perf_counter()
+        got = lt.find_mums(fam, device=dev)
+        t_gpu = time.perf_counter() - t_gpu
+    t5 = time.perf_counter()
+    ref = lt.find_mums(fam, device="cpu")
+    require(len(ref) > 0 and np.array_equal(got.starts, ref.starts)
+            and np.array_equal(got.lengths, ref.lengths),
+            f"find_mums on {WIDE_GENOMES} genomes: GPU ({len(got)}) differs "
+            f"from CPU tensors ({len(ref)})")
+    log(f"# find_mums on {WIDE_GENOMES} x {WIDE_LEN} bp: GPU == CPU tensors "
+        f"({len(ref)} MUMs, {t_gpu:.3f} s on the GPU, "
+        f"{time.perf_counter() - t5:.3f} s on CPU tensors)")
+    with recording([(repeats, "extend_matches")]) as crep:
+        t6 = time.perf_counter()
+        reps = repeats.find_repeats(repeat_genome(lt), device=dev)
+        t7 = time.perf_counter()
+    widths = sorted({c["lefts"].shape[1] for c in crep["extend_matches"]})
+    log(f"# find_repeats on {REPEAT_LEN} bp with {REPEAT_COPIES} copies: "
+        f"{len(reps)} families in {t7 - t6:.3f} s, {len(widths)} K2 "
+        f"launches, widths {widths[:3]} ... {widths[-3:]}")
+    require(widths[-1] == REPEAT_COPIES,
+            f"the widest K2 row has {widths[-1]} slots")
+    wide = [c for c in c64["extend_matches"]
+            if c["lefts"].shape[1] == WIDE_GENOMES]
+    wide.append(max(crep["extend_matches"],
+                    key=lambda c: c["lefts"].shape[1]))
+    require(len(wide) == 2, "no K2 launch at 64 slots a row")
+    errs2 = []
+    names = list(inspect.signature(extend.extend_matches_plain).parameters)
+    for c in wide:
+        args = {k: c[k] for k in names}
+        ref = extend.extend_matches_plain(**args)
+        for scratch in (False, True):
+            got = extend.extend_matches(**args, scratch=scratch)
+            require(torch.equal(got[0], ref[0]) and torch.equal(got[1],
+                                                                ref[1]),
+                    f"K2 differs from its plain version at "
+                    f"{tuple(args['lefts'].shape)} (global scratch "
+                    f"{scratch})")
+            errs2 += list(zip(got, ref))
+        log(f"# K2 at {tuple(args['lefts'].shape)}: equal in shared memory "
+            f"and in global scratch")
+    for name in DECODE_KERNELS:
+        e = res[name]
+        log(f"# {name}: kernel {e['ms']:.3f} ms, plain {e['plain_ms']:.3f} "
+            f"ms, max_abs_err {e['err']}")
+    return res, launches, max_abs_err(errs2)
+
+
+def select_phases(argv):
+    """The phases to run: those named on the command line (PHASES), all
+    when none is, plus the progressive run that profile_dp and decode
+    read their inputs from."""
+    bad = [a for a in argv if a not in PHASES]
+    if bad:
+        raise SystemExit(f"unknown phase {bad}; phases: {' '.join(PHASES)}")
+    want = set(argv or PHASES)
+    if want & {"profile_dp", "decode"}:
+        want.add("progressive")
+    return [p for p in PHASES if p in want]
+
+
+def main(argv=None) -> int:
     import torch
     import libmems_tpu_torch as lt
 
+    phases = select_phases(sys.argv[1:] if argv is None else argv)
     card = phase_device(torch)
     dev = torch.device("cuda", 0)
     clock = [time.perf_counter()]
@@ -1553,38 +1958,70 @@ def main() -> int:
         clock.append(time.perf_counter())
         log(f"# phase {name}: {clock[-1] - clock[-2]:.1f} s")
 
+    log(f"# phases: {' '.join(phases)}")
     phase_build()
     lap("build")
-    res = phase_kernels(torch, lt, dev)
-    res.update(phase_pairwise_kernels(torch, lt, dev))
-    large = family_large(lt)
-    occ_res, k2_large_err = phase_seedocc_kernels(torch, lt, dev, large)
-    res.update(occ_res)
-    mum_res, k2_trio_err = phase_mum_kernels(torch, lt, dev)
-    res.update(mum_res)
-    res["extend_matches"]["err"] = max(res["extend_matches"]["err"],
-                                       k2_trio_err, k2_large_err)
-    lap("kernels")
-    phase_goldens(lt, dev)
-    lap("goldens")
-    pair_launches, dt1, dt2 = phase_main(torch, lt, dev)
-    lap("main (pair)")
-    trio_launches, tdt = phase_trio(torch, lt, dev)
-    lap("trio")
-    launches, calls, pdt = phase_progressive(torch, lt, dev)
-    lap("progressive")
-    large_launches, ldt = phase_large(torch, lt, dev, large)
-    lap("large")
-    for name, e in phase_profile_dp(torch, dev, calls, launches).items():
-        if name in res:
-            e["err"] = max(e["err"], res[name]["err"])
-        res[name] = e
-    res["fb_posterior"] = phase_hmm(torch, dev, calls["predict_homologous"],
-                                    launches)
-    lap("profile DP and hmm")
-    launches.update({k: trio_launches[k] for k in MUM_KERNELS})
-    launches.update({k: pair_launches[k] for k in PAIR_KERNELS})
-    launches.update({k: large_launches[k] for k in SEEDOCC_KERNELS})
+    res, paths, walls, k2_errs = {}, {}, [], []
+    large = None
+    if "kernels" in phases:
+        res = phase_kernels(torch, lt, dev)
+        res.update(phase_pairwise_kernels(torch, lt, dev))
+        large = family_large(lt)
+        occ_res, err = phase_seedocc_kernels(torch, lt, dev, large)
+        res.update(occ_res)
+        k2_errs.append(err)
+        mum_res, err = phase_mum_kernels(torch, lt, dev)
+        res.update(mum_res)
+        k2_errs.append(err)
+        lap("kernels")
+    if "goldens" in phases:
+        phase_goldens(lt, dev)
+        lap("goldens")
+    if "main" in phases:
+        paths["pair"], dt1, dt2 = phase_main(torch, lt, dev)
+        walls.append(f"pair path {dt1:.3f} s then {dt2:.3f} s")
+        lap("main (pair)")
+    if "trio" in phases:
+        paths["trio"], tdt = phase_trio(torch, lt, dev)
+        walls.append(f"trio path {tdt[0]:.3f} s then {tdt[1]:.3f} s")
+        lap("trio")
+    if "progressive" in phases:
+        paths["progressive"], calls, pdt = phase_progressive(torch, lt, dev)
+        walls.append(f"progressive path {pdt[0]:.3f} s then {pdt[1]:.3f} s")
+        lap("progressive")
+    if "large" in phases:
+        paths["large"], ldt = phase_large(torch, lt, dev,
+                                          large or family_large(lt))
+        walls.append(f"3 x {LARGE_LEN} bp path {ldt:.3f} s")
+        lap("large")
+    if "profile_dp" in phases:
+        for name, e in phase_profile_dp(torch, dev, calls,
+                                        paths["progressive"]).items():
+            if name in res:
+                e["err"] = max(e["err"], res[name]["err"])
+            res[name] = e
+        res["fb_posterior"] = phase_hmm(torch, dev,
+                                        calls["predict_homologous"],
+                                        paths["progressive"])
+        lap("profile DP and hmm")
+    if "decode" in phases:
+        dec_res, paths["decode"], err = phase_decode(
+            torch, lt, dev, calls["predict_homologous"])
+        res.update(dec_res)
+        k2_errs.append(err)
+        lap("decode")
+    if "extend_matches" in res:
+        res["extend_matches"]["err"] = max([res["extend_matches"]["err"]]
+                                           + k2_errs)
+    # launches: the 9 x 1 Mbp progressive path's, K13-K15 the trio's,
+    # K18/K19 the pair's, K16/K17 the 3 x 8.7 Mbp path's, K20-K23 the
+    # decode run's
+    launches = dict(paths.get("progressive", {}))
+    for path, names in (("trio", MUM_KERNELS), ("pair", PAIR_KERNELS),
+                        ("large", SEEDOCC_KERNELS),
+                        ("decode", DECODE_KERNELS)):
+        if path in paths:
+            launches.update({k: paths[path][k] for k in names})
     forbidden = [m for m in sys.modules
                  if m == "jax" or m.startswith(("jax.", "libmems_tpu."))
                  or m == "libmems_tpu"]
@@ -1596,15 +2033,17 @@ def main() -> int:
         log(f"# work {name}: {e['work']['bytes']} bytes, "
             f"{e['work']['ops']} operations")
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": launches[name],
+                        "replaces": replaces,
+                        "launches": launches.get(name),
                         "max_abs_err": e["err"], "ms": e["ms"],
                         "plain_ms": e["plain_ms"], "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": None})
-    log(f"# card: {card}; pair path {dt1:.3f} s then {dt2:.3f} s; "
-        f"trio path {tdt[0]:.3f} s then {tdt[1]:.3f} s; "
-        f"progressive path {pdt[0]:.3f} s then {pdt[1]:.3f} s; "
-        f"3 x {LARGE_LEN} bp path {ldt:.3f} s")
+    log(f"# card: {card}; " + "; ".join(walls))
     log(json.dumps({"kernels": kernels}))
+    if phases != list(PHASES):
+        # a partial run: its own result line, never the contract's
+        log(json.dumps({"ok": True, "phases": phases}))
+        return 0
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

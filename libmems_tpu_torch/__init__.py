@@ -39,17 +39,28 @@ complement of the forward strand at |start|.
 """
 
 from libmems_tpu_torch import seeds
-from libmems_tpu_torch.sequence import Genome, read_fasta
+from libmems_tpu_torch.sequence import (Genome, read_fasta, read_mfa,
+                                        revcomp_codes, translate_dna)
 from libmems_tpu_torch.sml import SortedMerList, create_smls
 from libmems_tpu_torch.match import MatchArray, write_match_list
-from libmems_tpu_torch.matchfind import find_mums, find_pairwise_mums
+from libmems_tpu_torch.matchfind import (find_mums, find_mums_device,
+                                         find_pairwise_mums)
 from libmems_tpu_torch.aligner import AlignerConfig, align
-from libmems_tpu_torch.interval import IntervalList, write_xmfa
+from libmems_tpu_torch.interval import (Interval, IntervalList, marble,
+                                        read_xmfa, read_xmfa_intervals,
+                                        write_xmfa)
+from libmems_tpu_torch.tree import (TreeNode, midpoint_root,
+                                    neighbor_joining, parse_newick,
+                                    write_newick)
+from libmems_tpu_torch.distance import (breakpoint_distance_matrix,
+                                        distance_matrix, identity_matrix,
+                                        single_copy_distance)
 from libmems_tpu_torch.msa import align_codes, refine
 from libmems_tpu_torch.progressive import (ProgressiveConfig,
+                                           align_profiles,
                                            progressive_align)
 from libmems_tpu_torch.backbone import (BackboneSegment, apply_backbone,
-                                        detect_backbone,
+                                        compute_gc, detect_backbone,
                                         write_backbone_columns,
                                         write_backbone_seq_coordinates)
 
@@ -57,25 +68,44 @@ __all__ = [
     "seeds",
     "Genome",
     "read_fasta",
+    "read_mfa",
+    "translate_dna",
+    "revcomp_codes",
     "SortedMerList",
     "create_smls",
     "MatchArray",
     "write_match_list",
     "find_mums",
     "find_pairwise_mums",
+    "find_mums_device",
     "AlignerConfig",
     "align",
+    "Interval",
     "IntervalList",
     "write_xmfa",
+    "read_xmfa",
+    "read_xmfa_intervals",
+    "TreeNode",
+    "neighbor_joining",
+    "midpoint_root",
+    "parse_newick",
+    "write_newick",
+    "distance_matrix",
+    "identity_matrix",
+    "single_copy_distance",
+    "breakpoint_distance_matrix",
+    "marble",
     "align_codes",
     "refine",
     "ProgressiveConfig",
     "progressive_align",
-    "apply_backbone",
+    "align_profiles",
     "detect_backbone",
+    "apply_backbone",
     "BackboneSegment",
     "write_backbone_seq_coordinates",
     "write_backbone_columns",
+    "compute_gc",
 ]
 
 __version__ = "0.1.0"

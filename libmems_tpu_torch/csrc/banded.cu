@@ -45,7 +45,6 @@ constexpr float kNegBig = -1e30f;
 constexpr unsigned char kHDiag = 0, kHE = 1, kHF = 2, kEExt = 4, kFExt = 8;
 constexpr unsigned char kIsDiag = 1;
 constexpr int kBandK = 128;
-constexpr int kMaxDynSmem = 227 * 1024;
 
 __device__ __forceinline__ int band_lo(int bi, int ql, int plc, int H_W,
                                        int lo_cap) {
@@ -65,7 +64,7 @@ __global__ void banded_kernel(
     float* __restrict__ score, unsigned char* __restrict__ cert, int Mp,
     int N, int H_W, float gap_open, float gap_extend, lm::W5 w5) {
   extern __shared__ float lm_smem[];
-  __shared__ float s_tmp[32];
+  __shared__ float s_tmp[lm::kScanTmp];
   __shared__ float s_p[5];
 
   const int b = blockIdx.x;
@@ -297,13 +296,8 @@ int launch_banded(const void* p, const void* q, const void* p_len,
   int threads = ((w1 + 31) / 32) * 32;
   threads = threads > 1024 ? 1024 : threads;
   const int64_t smem = (int64_t)17 * w1;
-  if (smem > kMaxDynSmem) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        banded_kernel<kPtr>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const cudaError_t err = lm::allow_dyn_smem(banded_kernel<kPtr>, smem);
+  if (err != cudaSuccess) return (int)err;
   if (B > 0) {
     LM_LAUNCH(banded_kernel<kPtr>, (unsigned)B, threads, (size_t)smem,
               (cudaStream_t)stream, (const float*)p, (const float*)q,

@@ -59,16 +59,21 @@ struct SumOp {
   }
 };
 
+// Shared scratch block_scan takes: two slots per warp.
+constexpr int kScanTmp = 64;
+
 template <typename T>
 struct ScanResult {
-  T incl;   // op over this thread's value and every earlier thread's
-  T excl;   // op over every earlier thread's value (identity for thread 0)
-  T total;  // op over the whole block
+  T incl;       // op over this thread's value and every earlier thread's
+  T excl;       // op over every earlier thread's value (identity for thread 0)
+  T prev_excl;  // the previous thread's excl (identity for thread 0)
+  T last_excl;  // the block's last thread's excl
+  T total;      // op over the whole block
 };
 
 // Block-wide scan of one value per thread, in thread order.  Every
 // thread of the block must call it; blockDim.x is a multiple of 32 and at
-// most 1024.  `tmp` is shared scratch of 32 elements.  Ends with a
+// most 1024.  `tmp` is shared scratch of kScanTmp elements.  Ends with a
 // barrier, so `tmp` may be reused by the next call.
 template <typename T, typename Op>
 __device__ ScanResult<T> block_scan(T v, T identity, Op op, T* tmp) {
@@ -84,7 +89,12 @@ __device__ ScanResult<T> block_scan(T v, T identity, Op op, T* tmp) {
   }
   T ex = __shfl_up_sync(full, x, 1);
   if (lane == 0) ex = identity;
-  if (lane == 31) tmp[warp] = x;
+  T ex_prev = __shfl_up_sync(full, ex, 1);
+  if (lane == 0) ex_prev = identity;
+  if (lane == 31) {
+    tmp[warp] = x;        // the warp's total
+    tmp[32 + warp] = ex;  // its last lane's exclusive prefix
+  }
   __syncthreads();
   if (warp == 0) {
     T w = lane < nwarps ? tmp[lane] : identity;
@@ -93,16 +103,51 @@ __device__ ScanResult<T> block_scan(T v, T identity, Op op, T* tmp) {
       const T n = __shfl_up_sync(full, w, o);
       if (lane >= o) w = op(n, w);
     }
-    tmp[lane] = w;
+    tmp[lane] = w;  // op over warps 0..lane
   }
   __syncthreads();
   const T pre = warp > 0 ? tmp[warp - 1] : identity;
   ScanResult<T> r;
   r.incl = op(pre, x);
   r.excl = op(pre, ex);
+  if (lane > 0) {
+    r.prev_excl = op(pre, ex_prev);
+  } else if (warp > 0) {
+    r.prev_excl = op(warp > 1 ? tmp[warp - 2] : identity, tmp[32 + warp - 1]);
+  } else {
+    r.prev_excl = identity;
+  }
+  r.last_excl = op(nwarps > 1 ? tmp[nwarps - 2] : identity,
+                   tmp[32 + nwarps - 1]);
   r.total = tmp[nwarps - 1];
   __syncthreads();
   return r;
+}
+
+// Dynamic shared memory a block of `kernel` may opt into on the current
+// device: the card's per-block opt-in limit less the kernel's static
+// shared memory, or -1 when the runtime cannot say.
+template <typename Kernel>
+inline int64_t max_dyn_smem(Kernel kernel) {
+  int dev = 0, optin = 0;
+  cudaFuncAttributes attr;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess ||
+      cudaFuncGetAttributes(&attr, kernel) != cudaSuccess) {
+    return -1;
+  }
+  return (int64_t)optin - (int64_t)attr.sharedSizeBytes;
+}
+
+// Lets `kernel` launch with `smem` bytes of dynamic shared memory: an
+// error when that exceeds max_dyn_smem, else the opt-in.
+template <typename Kernel>
+inline cudaError_t allow_dyn_smem(Kernel kernel, int64_t smem) {
+  if (smem == 0) return cudaSuccess;
+  if (smem > max_dyn_smem(kernel)) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 constexpr int kCumBlock = 16;

@@ -26,6 +26,9 @@
 // diagonals of pos_bits + 2 bits, 63 payload bits a word (MSB-first, so
 // the word tuple orders like the fields), and posref (1 << 62 when
 // invalid).  Every word is below 2^63: a signed int64 sort orders it.
+// The mask and sign fields are streamed a bit at a time (genome G-1
+// first, as the JAX package's G-bit integers place them), so a row takes
+// any number of genomes: the words simply grow.
 //
 // K15, representatives, replaces :381-423 and _recover_starts (:314-332)
 // on the sorted signature rows: the starts are rebuilt from the words, a
@@ -47,22 +50,44 @@ using lm::first_index;
 using lm::grid_stride;
 constexpr int kWordBits = 63;
 
-// The bits of field [start, start + nb) that fall into word w, placed
-// where _pack_sort_words puts them.
-__device__ __forceinline__ uint64_t pack_field(uint64_t val, int start, int nb,
-                                               int w) {
-  const int ws = w * kWordBits, we = ws + kWordBits;
-  const int end = start + nb;
-  const int lo = start > ws ? start : ws;
-  const int hi = end < we ? end : we;
-  if (lo >= hi) return 0;
-  uint64_t seg = val >> (end - hi);
-  if (hi - lo < 64) seg &= ((uint64_t)1 << (hi - lo)) - 1;
-  return seg << (we - hi);
-}
+// Appends MSB-first fields to the 63-bit payload words of one row, as
+// _pack_sort_words lays them out: words[w * stride] is word w.
+struct WordWriter {
+  int64_t* out;
+  int64_t stride;
+  int w = 0;
+  int used = 0;  // payload bits already in `cur`
+  uint64_t cur = 0;
+
+  __device__ WordWriter(int64_t* o, int64_t s) : out(o), stride(s) {}
+
+  // the low nb bits of val, nb <= 63
+  __device__ void put(uint64_t val, int nb) {
+    while (nb > 0) {
+      const int take = nb < kWordBits - used ? nb : kWordBits - used;
+      const uint64_t seg = (val >> (nb - take)) & (((uint64_t)1 << take) - 1);
+      cur |= seg << (kWordBits - used - take);
+      used += take;
+      nb -= take;
+      if (used == kWordBits) {
+        out[(int64_t)w++ * stride] = (int64_t)cur;
+        cur = 0;
+        used = 0;
+      }
+    }
+  }
+
+  // writes the partial word and zero words up to n_words
+  __device__ void finish(int n_words) {
+    while (w < n_words) {
+      out[(int64_t)w++ * stride] = (int64_t)cur;
+      cur = 0;
+    }
+  }
+};
 
 // Field [start, start + nb) of row i of the word columns words[w * m + i]
-// (_unpack_sort_words).
+// (_unpack_sort_words), nb <= 64.
 __device__ uint64_t unpack_field(const int64_t* __restrict__ words, int64_t m,
                                  int64_t i, int start, int nb) {
   const int end = start + nb;
@@ -79,15 +104,15 @@ __device__ uint64_t unpack_field(const int64_t* __restrict__ words, int64_t m,
   return val;
 }
 
-// Signed start of genome g of sorted row i (_recover_starts).
+// Signed start of genome g of sorted row i (_recover_starts): genome g's
+// mask bit is field bit 1 + (G-1-g), its sign bit G places later.
 __device__ __forceinline__ int recover_start(const int64_t* __restrict__ words,
                                              const int64_t* __restrict__ posref,
                                              int64_t m, int64_t i, int G,
                                              int pos_bits, int g) {
   const bool invalid = unpack_field(words, m, i, 0, 1) != 0;
-  const uint64_t mask = unpack_field(words, m, i, 1, G);
-  if (invalid || !((mask >> g) & 1)) return 0;
-  const bool neg = (unpack_field(words, m, i, 1 + G, G) >> g) & 1;
+  if (invalid || !unpack_field(words, m, i, G - g, 1)) return 0;
+  const bool neg = unpack_field(words, m, i, 2 * G - g, 1) != 0;
   const int64_t db = (int64_t)unpack_field(words, m, i,
                                            1 + 2 * G + g * (pos_bits + 2),
                                            pos_bits + 2);
@@ -187,29 +212,24 @@ __global__ void mum_words_kernel(int* __restrict__ starts, int64_t n_rows,
         for (int g = 0; g < G; ++g) row[g] = 0;
       }
     }
-    uint64_t maskbits = 0, signbits = 0;
-    int64_t pos_ref = -1;
+    int64_t pos_ref = -1;  // the first present genome's position
     for (int g = G - 1; g >= 0; --g) {
-      if (row[g] == 0) continue;
-      maskbits |= (uint64_t)1 << g;
-      if (row[g] < 0) signbits |= (uint64_t)1 << g;
-      pos_ref = (int64_t)(row[g] < 0 ? -row[g] : row[g]) - 1;
+      if (row[g] != 0) pos_ref = (int64_t)(row[g] < 0 ? -row[g] : row[g]) - 1;
     }
-    for (int w = 0; w < n_words; ++w) {
-      uint64_t word = pack_field(valid ? 0 : 1, 0, 1, w);
-      word |= pack_field(maskbits, 1, G, w);
-      word |= pack_field(signbits, 1 + G, G, w);
-      for (int g = 0; g < G; ++g) {
-        const int v = row[g];
-        uint64_t db = 0;
-        if (v != 0) {
-          const int64_t p = (int64_t)(v < 0 ? -v : v) - 1;
-          db = (uint64_t)((v < 0 ? p + pos_ref : p - pos_ref) + bias);
-        }
-        word |= pack_field(db, 1 + 2 * G + g * dbits, dbits, w);
+    WordWriter out(words + j, n_rows);
+    out.put(valid ? 0 : 1, 1);
+    for (int g = G - 1; g >= 0; --g) out.put(row[g] != 0, 1);
+    for (int g = G - 1; g >= 0; --g) out.put(row[g] < 0, 1);
+    for (int g = 0; g < G; ++g) {
+      const int v = row[g];
+      uint64_t db = 0;
+      if (v != 0) {
+        const int64_t p = (int64_t)(v < 0 ? -v : v) - 1;
+        db = (uint64_t)((v < 0 ? p + pos_ref : p - pos_ref) + bias);
       }
-      words[w * n_rows + j] = (int64_t)word;
+      out.put(db, dbits);
     }
+    out.finish(n_words);
     posref[j] = valid ? pos_ref : ((int64_t)1 << 62);
   }
 }
@@ -319,7 +339,8 @@ extern "C" int lm_mum_candidates(const void* kept_occ, const void* row_id,
                                  int64_t seq_mask, int pos_bits, int n_words,
                                  void* starts, void* words, void* posref,
                                  void* stream) {
-  if (G < 1 || G > 62 || n_words * kWordBits < 1 + G * (pos_bits + 4))
+  if (G < 1 || pos_bits + 2 > kWordBits ||
+      n_words * kWordBits < 1 + G * (pos_bits + 4))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (n > 0) {

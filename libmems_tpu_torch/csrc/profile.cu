@@ -48,7 +48,6 @@ namespace {
 constexpr float kNegBig = -1e30f;
 constexpr unsigned char kHDiag = 0, kHE = 1, kHF = 2, kEExt = 4, kFExt = 8;
 constexpr unsigned char kIsDiag = 1;  // flag: g came from the diagonal
-constexpr int kMaxDynSmem = 227 * 1024;
 
 template <bool kPtr>
 __global__ void profile_fwd_kernel(
@@ -61,7 +60,7 @@ __global__ void profile_fwd_kernel(
     float* __restrict__ score, int M, int N, float gap_open,
     float gap_extend, lm::W5 w5) {
   extern __shared__ float lm_smem[];
-  __shared__ float s_tmp[32];
+  __shared__ float s_tmp[lm::kScanTmp];
   __shared__ float s_p[5];
 
   const int b = blockIdx.x;
@@ -181,13 +180,8 @@ int launch_profile(const void* p, const void* q, const void* p_len,
   int threads = ((N + 1 + 31) / 32) * 32;
   threads = threads < 32 ? 32 : (threads > 1024 ? 1024 : threads);
   const int64_t smem = rows != nullptr ? 0 : (int64_t)17 * (N + 1);
-  if (smem > kMaxDynSmem) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        profile_fwd_kernel<kPtr>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const cudaError_t err = lm::allow_dyn_smem(profile_fwd_kernel<kPtr>, smem);
+  if (err != cudaSuccess) return (int)err;
   if (B > 0) {
     LM_LAUNCH(profile_fwd_kernel<kPtr>, (unsigned)B, threads, (size_t)smem,
               (cudaStream_t)stream, (const float*)p, (const float*)q,

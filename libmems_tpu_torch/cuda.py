@@ -42,8 +42,10 @@ _F = ctypes.c_float
 # C signatures of csrc/*.cu (extern "C"); the launchers return cudaError_t
 _SIGNATURES = {
     "lm_seed_keys": ([_P, _P, _L, _P, _I, _I, _L, _P, _P], _I),
+    "lm_extend_row_bytes": ([_I], _L),
+    "lm_extend_smem_limit": ([], _L),
     "lm_extend": ([_P, _L, _L, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                   _P], _I),
+                   _P, _P], _I),
     "lm_profile_row_bytes": ([_I], _L),
     "lm_profile_cum_scratch": ([_I], _L),
     "lm_profile_fwd": ([_P] * 12 + [_I, _I, _I, _F, _F, _P, _P], _I),
@@ -75,6 +77,12 @@ _SIGNATURES = {
     "lm_pair_reps": ([_P, _P, _P, _L, _L, _L, _P, _I, _I] + [_P] * 6, _I),
     "lm_hmm_fb": ([_P, _P, _I, _I, _P, ctypes.c_double, _P, _P, _P, _P],
                   _I),
+    "lm_hmm_viterbi": ([_P, _P, _I, _I, _P, _P, _P, _P], _I),
+    "lm_hmm_bw": ([_P, _P, _I, _I, _P, _P, _P, _P, _P], _I),
+    "lm_gotoh_row_bytes": ([_I], _L),
+    "lm_gotoh_smem_limit": ([], _L),
+    "lm_gotoh_fwd": ([_P, _P, _P, _P] + [_I] * 6 + [_P] * 6, _I),
+    "lm_gotoh_ptrs": ([_P] * 4 + [_I] * 5 + [_P, _I, _P, _P, _P], _I),
     "lm_error_string": ([_I], ctypes.c_char_p),
 }
 

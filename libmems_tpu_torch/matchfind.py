@@ -190,7 +190,7 @@ def _fused_mum_pipeline(smls: list[SortedMerList], chunk: int,
     return starts, lengths, valid, n_rows, reps.n_reps
 
 
-def find_mums_device(smls: list[SortedMerList],
+def find_mums_device(smls: list[SortedMerList], capacity: int | None = None,
                      extend_capacity: int = 1 << 14,
                      chunk: int | None = None,
                      repeat_limit: int = MER_REPEAT_LIMIT,
@@ -200,7 +200,10 @@ def find_mums_device(smls: list[SortedMerList],
     0b11, the only pair masks a match can satisfy), else the general
     pipeline.  Returns (starts, lengths, valid, n_rows, n_reps) tensors
     on the SMLs' device; extend_capacity bounds the diagonal-cluster
-    representatives (the general pipeline grows it itself)."""
+    representatives (the general pipeline grows it itself).  `capacity`
+    keeps the JAX package's signature and is ignored: that package
+    bounded candidate seed runs with it, while the port's pipelines size
+    their own tables from the data."""
     seed_len = smls[0].seed_length
     if chunk is None:
         chunk = max(seed_len, 256)
@@ -357,8 +360,9 @@ def find_mums(genomes_or_smls, seed: int | None = None,
     Default semantics match MemHash with repeat_tolerance=0 /
     enumeration_tolerance=1: only seeds unique within every participating
     genome generate matches (unique multi-MUMs); that mode runs the device
-    pipeline (find_mums_device).  repeat_tolerance > 0 and extend=False
-    take K13 with the tolerance, then the host clustering and K2.
+    pipeline (find_mums_device) at any G.  repeat_tolerance > 0 and
+    extend=False take K13 with the tolerance, then the host clustering and
+    K2.
     enumeration_tolerance > 1 emits every cross-genome combination of each
     surviving seed's first `enumeration_tolerance` occurrences per genome
     (the odometer loop of MatchFinder::EnumerateMatches,

@@ -12,7 +12,10 @@ active.  Parity: with key = (content << 1 | strand), windows match iff
 ``key ^ is_fwd`` is equal across member genomes.
 
 Rows address genomes through per-row (offset, window-count) tables, so a
-row may be a dense G-genome match or a compact pair.
+row may be a dense G-genome match or a compact pair, of any width G: K2
+keeps a row's state (5 * G ints) in shared memory while the card lets a
+block opt into that much (lm_extend_smem_limit), and in a global scratch
+tensor above it or when the caller asks for it.
 """
 
 from __future__ import annotations
@@ -22,7 +25,6 @@ import torch
 from libmems_tpu_torch import cuda
 
 ESCALATE = 8       # long-match probe window = ESCALATE * chunk
-MAX_GENOMES = 62   # K2's row width limit (csrc/extend.cu kMaxG)
 
 
 def _probe_round(keys, fill, seed_len, C, side, gen_off, gen_cnt, lefts,
@@ -106,13 +108,16 @@ def extend_matches_plain(keys_concat, seed_len: int, chunk: int, gen_off,
 
 
 def extend_matches(keys_concat, seed_len: int, chunk: int, gen_off,
-                   gen_cnt, lefts, present, is_fwd, lengths, fill: int):
+                   gen_cnt, lefts, present, is_fwd, lengths, fill: int,
+                   scratch: bool = False):
     """Extend candidates to maximal matches. Returns (lefts, lengths).
 
     keys_concat: int64[Ntot] keys of all genomes; gen_off, gen_cnt,
     lefts: int32[R, G] (genome offset, window count, 0-based left end);
     present, is_fwd: bool[R, G]; lengths: int32[R]; fill: the sentinel
-    key.  CPU tensors take the plain version; CUDA tensors launch K2."""
+    key.  CPU tensors take the plain version; CUDA tensors launch K2,
+    with the row state in global scratch when it exceeds the shared
+    memory a block may take or when `scratch` asks for it."""
     if keys_concat.device.type == "cpu":
         return extend_matches_plain(keys_concat, seed_len, chunk, gen_off,
                                     gen_cnt, lefts, present, is_fwd,
@@ -121,9 +126,8 @@ def extend_matches(keys_concat, seed_len: int, chunk: int, gen_off,
         raise ValueError("chunk must be >= seed_len")
     dev = keys_concat.device
     R, G = lefts.shape
-    if not 1 <= G <= MAX_GENOMES:
-        raise ValueError(f"K2 takes 1 to {MAX_GENOMES} genomes a row, "
-                         f"got {G}")
+    if G < 1:
+        raise ValueError("K2 needs at least one genome a row")
     cuda.require(keys_concat, "keys_concat", torch.int64, dev,
                  (keys_concat.shape[0],))
     for name, t in (("gen_off", gen_off), ("gen_cnt", gen_cnt),
@@ -135,11 +139,16 @@ def extend_matches(keys_concat, seed_len: int, chunk: int, gen_off,
     lefts = lefts.clone()
     lengths = lengths.clone()
     lib = cuda.library()
+    # held by name until the launch is queued (ground rule of cuda.py)
+    rows = None
+    if scratch or lib.lm_extend_row_bytes(G) > lib.lm_extend_smem_limit():
+        rows = torch.empty((max(R, 1), 5, G), dtype=torch.int32, device=dev)
     cuda.check(lib.lm_extend(
         keys_concat.data_ptr(), keys_concat.shape[0], fill, seed_len, chunk,
         ESCALATE * chunk, G, R, gen_off.data_ptr(), gen_cnt.data_ptr(),
         lefts.data_ptr(), present.data_ptr(), is_fwd.data_ptr(),
-        lengths.data_ptr(), cuda.stream(keys_concat)), "lm_extend")
+        lengths.data_ptr(), rows.data_ptr() if rows is not None else None,
+        cuda.stream(keys_concat)), "lm_extend")
     extend_matches.launches += 1
     return lefts, lengths
 

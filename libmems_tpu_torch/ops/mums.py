@@ -18,7 +18,9 @@ libMems/MemHash.cpp:109-251):
   rows.
 
 Words are int64 tensors below 2^63 (63 payload bits a word), so their
-signed order is the JAX package's unsigned one.  Each wrapper takes its
+signed order is the JAX package's unsigned one.  The G-bit mask and sign
+fields are packed a bit at a time, genome G-1 first, where the JAX
+package packs G-bit integers: the same words, at any G.  Each wrapper takes its
 plain PyTorch version for CPU tensors and launches its kernel for CUDA
 tensors.
 """
@@ -33,7 +35,6 @@ from libmems_tpu_torch import cuda
 from libmems_tpu_torch.ops.pairwise import cumsum32, seed_table_meta, shr
 
 WORD_BITS = 63      # payload bits of a signature word (matchfind._WORD_BITS)
-MAX_GENOMES = 62    # the mask and sign fields must fit one int64 field
 
 
 def n_words_for(G: int, pos_bits: int) -> int:
@@ -186,6 +187,13 @@ class Candidates(NamedTuple):
     posref: torch.Tensor   # int64[n_rows]; 1 << 62 where invalid
 
 
+def _field_words(start: int, end: int):
+    """(w, lo, hi) for each word w that field bits [start, end) touch."""
+    for w in range(start // WORD_BITS, -(-end // WORD_BITS)):
+        ws, we = w * WORD_BITS, (w + 1) * WORD_BITS
+        yield w, max(start, ws), min(end, we)
+
+
 def _pack_words(fields, n_words: int, n: int, dev) -> torch.Tensor:
     """matchfind._pack_sort_words on int64: fields (value >= 0, nbits),
     MSB-first, into n_words words of 63 payload bits."""
@@ -193,13 +201,9 @@ def _pack_words(fields, n_words: int, n: int, dev) -> torch.Tensor:
     off = 0
     for arr, nb in fields:
         start, end = off, off + nb
-        for w in range(n_words):
-            ws, we = w * WORD_BITS, (w + 1) * WORD_BITS
-            lo, hi = max(start, ws), min(end, we)
-            if lo >= hi:
-                continue
+        for w, lo, hi in _field_words(start, end):
             seg = shr(arr, end - hi) & ((1 << (hi - lo)) - 1)
-            words[w] |= seg << (we - hi)
+            words[w] |= seg << ((w + 1) * WORD_BITS - hi)
         off = end
     return words
 
@@ -211,16 +215,19 @@ def _unpack_words(words: torch.Tensor, fields_bits) -> list[torch.Tensor]:
     for nb in fields_bits:
         start, end = off, off + nb
         val = torch.zeros_like(words[0])
-        for w in range(words.shape[0]):
-            ws, we = w * WORD_BITS, (w + 1) * WORD_BITS
-            lo, hi = max(start, ws), min(end, we)
-            if lo >= hi:
-                continue
-            seg = shr(words[w], we - hi) & ((1 << (hi - lo)) - 1)
+        for w, lo, hi in _field_words(start, end):
+            seg = shr(words[w], (w + 1) * WORD_BITS - hi) \
+                & ((1 << (hi - lo)) - 1)
             val = val | (seg << (end - hi))
         out.append(val)
         off = end
     return out
+
+
+def _sig_fields_bits(G: int, pos_bits: int) -> list[int]:
+    """Field widths of a signature row: invalid, the mask and sign bits
+    (genome G-1 first), the G biased diagonals."""
+    return [1] + [1] * (2 * G) + [pos_bits + 2] * G
 
 
 def mum_candidates_plain(flags: MumFlags, G: int, seq_mask: int,
@@ -248,13 +255,12 @@ def mum_candidates_plain(flags: MumFlags, G: int, seq_mask: int,
     neg = starts < 0
     delta = torch.where(neg, pos + pos_ref[:, None], pos - pos_ref[:, None])
     delta_b = torch.where(present, delta + (1 << (pos_bits + 1)), 0)
-    wb = torch.ones(1, dtype=torch.int64, device=dev) << torch.arange(
-        G, dtype=torch.int64, device=dev)
-    maskbits = (present.to(torch.int64) * wb).sum(dim=1)
-    signbits = (neg.to(torch.int64) * wb).sum(dim=1)
-    fields = [((~valid).to(torch.int64), 1), (maskbits, G), (signbits, G)]
-    fields += [(delta_b[:, g], pos_bits + 2) for g in range(G)]
-    words = _pack_words(fields, n_words_for(G, pos_bits), n_rows, dev)
+    bits = [(~valid).to(torch.int64)] \
+        + [present[:, g].to(torch.int64) for g in range(G - 1, -1, -1)] \
+        + [neg[:, g].to(torch.int64) for g in range(G - 1, -1, -1)] \
+        + [delta_b[:, g] for g in range(G)]
+    words = _pack_words(zip(bits, _sig_fields_bits(G, pos_bits)),
+                        n_words_for(G, pos_bits), n_rows, dev)
     posref = torch.where(valid, pos_ref, 1 << 62)
     return Candidates(starts, words, posref)
 
@@ -265,9 +271,8 @@ def mum_candidates(flags: MumFlags, G: int, seq_mask: int,
     G-1-g is genome g; 0 keeps every row), with their packed diagonal
     signatures.  CPU tensors take the plain version; CUDA tensors launch
     K14."""
-    if not 1 <= G <= MAX_GENOMES:
-        raise ValueError(f"G = {G}: the signature words take 1 to "
-                         f"{MAX_GENOMES} genomes")
+    if G < 1:
+        raise ValueError("the signature words need at least one genome")
     keep = flags.kept_occ
     if keep.device.type == "cpu":
         return mum_candidates_plain(flags, G, seq_mask, pos_bits)
@@ -309,14 +314,13 @@ class MumReps(NamedTuple):
 def recover_starts(words, posref, G: int, pos_bits: int) -> torch.Tensor:
     """matchfind._recover_starts: signed int32 starts [m, G] of signature
     rows."""
-    vals = _unpack_words(words, [1, G, G] + [pos_bits + 2] * G)
+    vals = _unpack_words(words, _sig_fields_bits(G, pos_bits))
     invalid = vals[0] != 0
-    mask, sign = vals[1], vals[2]
     cols = []
     for g in range(G):
-        present = (shr(mask, g) & 1) == 1
-        neg = (shr(sign, g) & 1) == 1
-        delta = vals[3 + g] - (1 << (pos_bits + 1))
+        present = vals[G - g] == 1
+        neg = vals[2 * G - g] == 1
+        delta = vals[1 + 2 * G + g] - (1 << (pos_bits + 1))
         posg = torch.where(neg, delta - posref, delta + posref)
         col = torch.where(present & ~invalid,
                           torch.where(neg, -1, 1) * (posg + 1), 0)

@@ -375,6 +375,45 @@ def test_mum_kernels_equal_plain(dev, tol, seq_mask):
             assert torch.equal(g.cpu(), r)
 
 
+@pytest.mark.parametrize("G", [64, 100])
+def test_mum_kernels_wide_rows_equal_plain(dev, G):
+    """K14 and K15 above 62 genomes, where the signature's mask and sign
+    fields span several words: exact against their plain versions, and
+    the device pipeline on the GPU equals it on CPU tensors."""
+    from libmems_tpu_torch.matchfind import (_lexsort_rows, _seed_table,
+                                             find_mums_device)
+    from libmems_tpu_torch.ops import mums
+    from libmems_tpu_torch.ops.mers import sentinel_content
+    from libmems_tpu_torch.sml import create_smls
+    smls, seed = create_smls(_family(G, 3_000, 41), device="cpu")
+    keys, seg_off, content, src = _seed_table(smls)
+    flags = mums.mum_seed_flags_plain(content, src, keys, seg_off, 0, 1000,
+                                      sentinel_content(seed))
+    assert flags.n_rows > 100
+    pos_bits = keys.shape[0].bit_length()
+    ref_c = mums.mum_candidates_plain(flags, G, 0, pos_bits)
+    got_c = mums.mum_candidates(
+        mums.MumFlags(*[x.to(dev) if isinstance(x, torch.Tensor) else x
+                        for x in flags]), G, 0, pos_bits)
+    for r, g in zip(ref_c, got_c):
+        assert torch.equal(g.cpu(), r)
+    assert (ref_c.starts != 0).sum(dim=1).max() > 62
+    order = _lexsort_rows(list(ref_c.words) + [ref_c.posref])
+    words = torch.index_select(ref_c.words, 1, order)
+    posref = ref_c.posref[order]
+    seed_len = smls[0].seed_length
+    ref_r = mums.mum_reps_plain(words, posref, 1 << 13, G, pos_bits,
+                                seed_len)
+    got_r = mums.mum_reps(words.to(dev), posref.to(dev), 1 << 13, G,
+                          pos_bits, seed_len)
+    assert got_r.n_reps == ref_r.n_reps > 0
+    for r, g in zip(ref_r[:-1], got_r[:-1]):
+        assert torch.equal(g.cpu(), r)
+    gpu = create_smls(_family(G, 3_000, 41), seed, device=dev)[0]
+    for a, b in zip(find_mums_device(gpu)[:3], find_mums_device(smls)[:3]):
+        assert torch.equal(a.cpu(), b)
+
+
 @pytest.mark.parametrize("G", [3, 9])
 def test_extend_kernel_many_genomes_equals_plain(dev, G):
     """K2 on rows of G genomes (dynamic shared memory per row)."""
@@ -537,3 +576,212 @@ def test_pairwise_host_path_on_cuda_equals_fused(dev):
     assert len(fused) > 50
     np.testing.assert_array_equal(host.starts, fused.starts)
     np.testing.assert_array_equal(host.lengths, fused.lengths)
+
+
+def _copies_rows(G, R=6, unit_len=200, spacer=30, rng_seed=0):
+    """K2's arguments for R rows of G slots: one genome holding G copies
+    of an element (every seventh inverted, every fifth with a
+    substitution near its end) between random spacers; row r places
+    every slot at offset 20 + 17 r of its copy; some slots absent and the
+    last row empty."""
+    rng = np.random.default_rng(rng_seed)
+    seed = seeds.get_seed(11)
+    seed_len = seeds.seed_length(seed)
+    unit = rng.integers(0, 4, unit_len).astype(np.uint8)
+    parts, starts, pos = [], [], 0
+    for g in range(G):
+        u = unit.copy()
+        if g % 5 == 0:
+            k = unit_len - 40 + g % 30
+            u[k] = (u[k] + 1) % 4
+        fwd = g % 7 != 0
+        parts += [rng.integers(0, 4, spacer).astype(np.uint8),
+                  u if fwd else 3 - u[::-1]]
+        starts.append((pos + spacer, fwd))
+        pos += spacer + unit_len
+    keys = mers.canonical_seed_keys_plain(
+        torch.from_numpy(np.concatenate(parts)), seed)
+    lefts = np.zeros((R, G), np.int32)
+    is_fwd = np.ones((R, G), bool)
+    for r in range(R):
+        off = 20 + 17 * r
+        for g, (p0, fwd) in enumerate(starts):
+            lefts[r, g] = p0 + off if fwd else p0 + unit_len - off - seed_len
+            is_fwd[r, g] = fwd
+    present = np.ones((R, G), bool)
+    present[2, :3] = False
+    present[R - 1] = False
+    return [keys, seed_len, 128, torch.zeros((R, G), dtype=torch.int32),
+            torch.full((R, G), keys.shape[0], dtype=torch.int32),
+            torch.from_numpy(lefts), torch.from_numpy(present),
+            torch.from_numpy(is_fwd),
+            torch.full((R,), seed_len, dtype=torch.int32),
+            mers.key_sentinel(seed)]
+
+
+@pytest.mark.parametrize("G,scratch", [(63, False), (64, False),
+                                       (64, True), (1000, False),
+                                       (1000, True), (3000, False)])
+def test_extend_kernel_wide_rows_equal_plain(dev, G, scratch):
+    """K2 above 62 slots a row: the row state in shared memory (above
+    48 KB at G = 3000) or, when `scratch` asks for it, in global
+    scratch."""
+    args = _copies_rows(G)
+    ref = extend.extend_matches_plain(*args)
+    got = extend.extend_matches(*[x.to(dev) if isinstance(x, torch.Tensor)
+                                  else x for x in args], scratch=scratch)
+    assert torch.equal(got[0].cpu(), ref[0])
+    assert torch.equal(got[1].cpu(), ref[1])
+    assert int(ref[1][0]) > args[1]
+
+
+def test_find_repeats_and_find_mums_wide_on_cuda_equal_cpu(dev):
+    """find_repeats on a genome with 1,000 copies of an element (rows of
+    1,000 slots) and find_mums on 64 genomes (the device pipeline, K2 rows
+    of 64 slots): the GPU gives the CPU tensors' result."""
+    from libmems_tpu_torch import find_mums
+    from libmems_tpu_torch.repeats import find_repeats
+    rng = np.random.default_rng(47)
+    elem = rng.integers(0, 4, 120).astype(np.uint8)
+    parts = []
+    for k in range(1000):
+        e = elem.copy()
+        if k % 3 == 0:
+            e[80 + k % 30] = (e[80 + k % 30] + 1) % 4
+        parts += [rng.integers(0, 4, 40).astype(np.uint8),
+                  e if k % 5 else 3 - e[::-1]]
+    text = "".join("ACGT"[x] for x in np.concatenate(parts))
+    seed = seeds.get_seed(13)
+    got = find_repeats(text, seed=seed, device=dev)
+    ref = find_repeats(text, seed=seed, device="cpu")
+    assert got.starts.shape[1] == 1000
+    np.testing.assert_array_equal(got.starts, ref.starts)
+    np.testing.assert_array_equal(got.lengths, ref.lengths)
+    base = rng.integers(0, 4, 3_000).astype(np.uint8)
+    gs = []
+    for g in range(64):
+        s = base.copy()
+        m = rng.random(len(s)) < 0.01
+        s[m] = rng.integers(0, 4, int(m.sum()))
+        gs.append(Genome(f"m{g}", generate._LUT[s].copy()))
+    got = find_mums(gs, device=dev)
+    ref = find_mums(gs, device="cpu")
+    assert len(ref) > 0 and (ref.multiplicity() == 64).any()
+    np.testing.assert_array_equal(got.starts, ref.starts)
+    np.testing.assert_array_equal(got.lengths, ref.lengths)
+
+
+def _gotoh_batch(B, M, N, rng_seed):
+    """A padded batch of related pairs (full, partial and empty rows)."""
+    rng = np.random.default_rng(rng_seed)
+    a = np.zeros((B, M), np.uint8)
+    b = np.zeros((B, N), np.uint8)
+    a_len = np.zeros(B, np.int32)
+    b_len = np.zeros(B, np.int32)
+    for r in range(B):
+        la = M if r == 0 else int(rng.integers(0, M + 1))
+        lb = N if r == 0 else int(rng.integers(0, N + 1))
+        x = rng.integers(0, 4, max(la, lb)).astype(np.uint8)
+        y = x.copy()
+        sub = rng.random(len(y)) < 0.03
+        y[sub] = rng.integers(0, 4, int(sub.sum()))
+        if len(y) > 40:
+            y = np.concatenate([y[:20], y[27:]])
+        a[r, :la] = x[:la]
+        b[r, :lb] = np.resize(y, lb) if lb else y[:0]
+        a_len[r], b_len[r] = la, lb
+    return [torch.from_numpy(x) for x in (a, b, a_len, b_len)]
+
+
+@pytest.mark.parametrize("B,M,N,scratch", [(3, 128, 130, False),
+                                           (2, 256, 2047, False),
+                                           (2, 128, 1500, True)])
+def test_gotoh_kernels_equal_plain(dev, B, M, N, scratch):
+    """K22 (score, carries; score only) and K23 (from the first row and
+    from a carry, unpacked and packed) against their plain versions:
+    exact.  N = 2047 runs two tiles a row; `scratch` keeps the rows in
+    global memory."""
+    from libmems_tpu_torch.ops import gapped as gp
+    K = 128
+    t = _gotoh_batch(B, M, N, M + N)
+    td = [x.to(dev) for x in t]
+    ref = gp.gotoh_forward_plain(*t, gp.GAP_OPEN, gp.GAP_EXTEND, K)
+    got = gp.gotoh_forward(*td, gp.GAP_OPEN, gp.GAP_EXTEND, K,
+                           scratch=scratch)
+    for g, r in zip(got, ref):
+        assert torch.equal(g.cpu(), r)
+    s_only = gp.gotoh_forward(*td, gp.GAP_OPEN, gp.GAP_EXTEND, K,
+                              carries=False, scratch=scratch)[0]
+    assert torch.equal(s_only.cpu(), ref[0])
+    for packed in (False, True):
+        r0 = gp.gotoh_block_ptrs_plain(None, None, t[0], t[1], gp.GAP_OPEN,
+                                       gp.GAP_EXTEND, packed)
+        g0 = gp.gotoh_block_ptrs(None, None, td[0], td[1], packed=packed,
+                                 scratch=scratch)
+        assert torch.equal(g0.cpu(), r0)
+        bi = M // K - 1
+        blk = t[0][:, bi * K:(bi + 1) * K].contiguous()
+        r1 = gp.gotoh_block_ptrs_plain(ref[1][bi], ref[2][bi], blk, t[1],
+                                       gp.GAP_OPEN, gp.GAP_EXTEND, packed)
+        g1 = gp.gotoh_block_ptrs(got[1][bi], got[2][bi], blk.to(dev), td[1],
+                                 packed=packed, scratch=scratch)
+        assert torch.equal(g1.cpu(), r1)
+
+
+def test_align_pairs_on_cuda_equals_cpu(dev, monkeypatch):
+    """align_pairs and align_score on the card equal the CPU tensors on
+    both routes (K23 + K4; K22 + packed K23 + the host walk)."""
+    from libmems_tpu_torch.ops import gapped as gp
+    rng = np.random.default_rng(48)
+    pairs = []
+    for n in (5, 30, 60, 200, 700):
+        a = rng.integers(0, 4, n).astype(np.uint8)
+        b = a.copy()
+        sub = rng.random(n) < 0.05
+        b[sub] = rng.integers(0, 4, int(sub.sum()))
+        pairs += [(a, np.concatenate([b[:n // 3], b[n // 3 + 4:]])),
+                  (a, rng.integers(0, 4, n // 2 + 1).astype(np.uint8))]
+    for budget in (gp.DEVICE_TB_BUDGET, 0):
+        monkeypatch.setattr(gp, "DEVICE_TB_BUDGET", budget)
+        got = gp.align_pairs(pairs, device=dev)
+        ref = gp.align_pairs(pairs, device="cpu")
+        for (ga, gb), (ra, rb) in zip(got, ref):
+            np.testing.assert_array_equal(ga, ra)
+            np.testing.assert_array_equal(gb, rb)
+    for a, b in pairs[:4]:
+        assert gp.align_score(a, b, device=dev) == \
+            gp.align_score(a, b, device="cpu")
+
+
+@pytest.mark.parametrize("T", [64, 4096, (1 << 14) + 3])
+def test_hmm_decode_kernels_equal_plain(dev, T):
+    """K20 (exact) and K21 (1e-12 relative) against their plain versions
+    on ragged batches; viterbi_homologous and baum_welch on the card
+    against CPU tensors."""
+    from libmems_tpu_torch.ops import hmm
+    rng = np.random.default_rng(T + 1)
+    B = 5
+    obs = rng.integers(0, 8, (B, T)).astype(np.uint8)
+    blocks = np.repeat(rng.random((B, T // 64 + 1)) < 0.5, 64, 1)[:, :T]
+    obs = np.where(blocks, rng.integers(0, 2, (B, T)), obs).astype(np.uint8)
+    lens = np.array([T, max(T - 7, 1), max(T // 3, 1), 1, 0], np.int32)
+    mats = hmm.log_matrices(hmm.adapted_hoxd_params(0.45), "cpu")
+    o, n = torch.from_numpy(obs), torch.from_numpy(lens)
+    md = tuple(m.to(dev) for m in mats)
+    ref = hmm.viterbi_path_plain(o, n, mats)
+    got = hmm.viterbi_path(o.to(dev), n.to(dev), md)
+    assert torch.equal(got.cpu(), ref)
+    ref = hmm.bw_counts_plain(o, n, mats)
+    got = hmm.bw_counts(o.to(dev), n.to(dev), md).cpu()
+    rel = (got - ref).abs() / ref.abs().clamp(min=1e-300)
+    assert float(rel.max()) <= 1e-12
+    assert torch.equal(got[4], torch.zeros(hmm.BW_COUNTS, dtype=torch.float64))
+    seqs = [obs[r, :lens[r]] for r in range(B)]
+    for g, r in zip(hmm.viterbi_homologous(seqs, device=dev),
+                    hmm.viterbi_homologous(seqs, device="cpu")):
+        np.testing.assert_array_equal(g, r)
+    gp_, gl = hmm.baum_welch(seqs, iterations=2, device=dev)
+    rp, rl = hmm.baum_welch(seqs, iterations=2, device="cpu")
+    np.testing.assert_allclose(gl, rl, rtol=1e-12, atol=0)
+    np.testing.assert_allclose(gp_.emit_homologous, rp.emit_homologous,
+                               rtol=1e-12, atol=0)

@@ -228,3 +228,71 @@ def test_plain_kernels_equal_jax_functions(tol, seq_mask):
                                       np.where(e != 0, np.abs(e) - 1, 0))
         np.testing.assert_array_equal(reps.is_fwd.numpy()[:k], e > 0)
         assert not reps.present.numpy()[k:].any()
+
+
+def _flags_of(starts: np.ndarray) -> mums.MumFlags:
+    """K13 flags whose candidate scatter rebuilds `starts` [R, G] (every
+    kept occurrence is a nonzero entry; the strand reference is 0)."""
+    r, g = np.nonzero(starts)
+    s = starts[r, g]
+    t = torch.from_numpy
+    return mums.MumFlags(
+        torch.ones(len(s), dtype=torch.bool), t(r.astype(np.int32)),
+        torch.zeros(len(s), dtype=torch.uint8), starts.shape[0],
+        t(g.astype(np.int32)), t((np.abs(s) - 1).astype(np.int32)),
+        t((s < 0).astype(np.uint8)))
+
+
+@pytest.mark.parametrize("G", [63, 64, 100])
+def test_signature_words_at_wide_rows(G):
+    """K14's plain version above 62 genomes: the mask and sign bits of
+    every genome land in the JAX package's words (compared where its G-bit
+    integers hold them, G <= 64), and K15's recovery gives the rows
+    back."""
+    rng = np.random.default_rng(G)
+    R, pos_bits = 40, 16
+    present = rng.random((R, G)) < 0.7
+    present[:, 0] |= ~present.any(axis=1)
+    sign = np.where(rng.random((R, G)) < 0.3, -1, 1)
+    starts = np.where(present, sign * rng.integers(1, 1 << 14, (R, G)),
+                      0).astype(np.int32)
+    cand = mums.mum_candidates_plain(_flags_of(starts), G, 0, pos_bits)
+    np.testing.assert_array_equal(cand.starts.numpy(), starts)
+    assert cand.words.shape[0] == mums.n_words_for(G, pos_bits)
+    if G <= 64:
+        jw, jpr = jmf._packed_diagonal_words(
+            jnp.asarray(starts), jnp.ones((R,), bool), pos_bits)
+        assert len(jw) == cand.words.shape[0]
+        for w in range(len(jw)):
+            np.testing.assert_array_equal(cand.words[w].numpy(), _np(jw[w]))
+        np.testing.assert_array_equal(cand.posref.numpy(), _np(jpr))
+    np.testing.assert_array_equal(
+        mums.recover_starts(cand.words, cand.posref, G, pos_bits).numpy(),
+        starts)
+
+
+def test_find_mums_device_above_64_genomes_equals_oracle():
+    """66 genomes, where the mask and sign fields pass 64 bits: the
+    device pipeline's matches (plain versions; chunk = seed length keeps
+    the plain extension small) are the oracle's, and reach all 66."""
+    from libmems_tpu_torch.match import MatchArray
+    from libmems_tpu_torch.matchfind import find_mums_device
+    rng = np.random.default_rng(66)
+    core = rng.integers(0, 4, 150)
+    seqs = []
+    for _ in range(66):
+        s = core.copy()
+        m = rng.random(len(s)) < 0.01
+        s[m] = rng.integers(0, 4, int(m.sum()))
+        seqs.append("".join("ACGT"[x] for x in s))
+    seed = jseeds.get_seed(9, 0)
+    smls, _ = create_smls([Genome.from_string(s) for s in seqs], seed,
+                          device="cpu")
+    starts, lengths, valid, _, n_reps = find_mums_device(
+        smls, chunk=smls[0].seed_length)
+    assert n_reps <= valid.shape[0]
+    v = valid.numpy()
+    got = MatchArray(starts.numpy()[v].astype(np.int64),
+                     lengths.numpy()[v].astype(np.int64)).dedup()
+    assert got.multiplicity().max() == 66
+    assert got.key_set() == match_set(find_mums_oracle(seqs, seed))
