@@ -4,9 +4,9 @@
     python3 chip_smoke.py [phase ...]
 
 With no argument every phase runs; naming phases (kernels, goldens, main,
-trio, progressive, large, profile_dp, decode) runs only those, plus the
-progressive run whose recorded inputs profile_dp and decode read.  Needs
-one NVIDIA Hopper GPU (compute capability 9.0) and the CUDA
+trio, progressive, large, profile_dp, decode, bounded) runs only those,
+plus the progressive run whose recorded inputs profile_dp and decode
+read.  Needs one NVIDIA Hopper GPU (compute capability 9.0) and the CUDA
 toolkit's nvcc; builds the port's kernels from libmems_tpu_torch/csrc at
 first use.  Phases, each raising on failure (the script then exits
 non-zero and prints no result line):
@@ -74,7 +74,19 @@ non-zero and prints no result line):
              1e-12, the walked masks scoring to the DP score; K2 at 64 and
              1,000 slots a row, in shared memory and global scratch
              (find_mums on 64 genomes GPU == CPU tensors, find_repeats on a
-             1,000-copy element family).
+             1,000-copy element family);
+10. bounded - the memory-bounded routes: K24 and K25 exact against their
+             plain versions on 2 windows of about 2,300 columns (one-hot,
+             3+2 rows); align + write_xmfa of the 2 x 4.6 Mbp pair with a
+             34 kbp swapped locus at max_gapped_window 40,000: its
+             34,003 x 34,000 window takes the checkpointed route (K24,
+             K25, the host walk), and the XMFA equals the same input's
+             with PTR_BUDGET raised here (K3 + K4, 1.44 GiB of pointers);
+             genome a's SML saved, loaded memory-mapped and built by
+             create_big (native, 64 MB) byte-equal; find_mums_checkpointed
+             (8 ranges) stopped after range 3 and resumed == find_mums,
+             with an uninterrupted run's file bytes; all within 90 s; then
+             K24 and K25, kernel and plain, on the counted launches.
 
 The inputs of phases 7-9 are recorded one layer above the kernel
 wrappers (align_profile_batch, profile_scores_batch, predict_homologous,
@@ -82,9 +94,10 @@ the callers' extend_matches) and rebuilt into launches by the path's own
 planners.  Counts of kernel launches are set to 0 just before each main
 path and read just after; the kernel table reports the trio path's
 counts for K13-K15, the pair path's for K18 and K19, the 3 x 8.7 Mbp
-path's for K16 and K17, the decode run's for K20-K23 and the 9 x 1 Mbp
-progressive path's for the rest, and the times of K3, K4 and K8-K12 are
-taken on that path's inputs.  Each kernel's
+path's for K16 and K17, the decode run's for K20-K23, the bounded
+path's for K24 and K25 and the 9 x 1 Mbp progressive path's for the
+rest, and the times of K3, K4 and K8-K12 are taken on that path's
+inputs.  Each kernel's
 bound_ms is max(bytes / 3.35 TB/s, operations / peak rate) for the work
 of those inputs (the counts are in work_* below).
 The line before the last is the kernel table as JSON; the last line is
@@ -164,6 +177,10 @@ SOURCES = {
                      "libmems_tpu/ops/hmm.py:531"),
     "bw_counts": ("libmems_tpu_torch/csrc/hmm.cu",
                   "libmems_tpu/ops/hmm.py:603"),
+    "profile_forward_ckpt": ("libmems_tpu_torch/csrc/profile.cu",
+                             "libmems_tpu/ops/profile.py:116"),
+    "profile_block_ptrs": ("libmems_tpu_torch/csrc/profile.cu",
+                           "libmems_tpu/ops/profile.py:142"),
 }
 # peak rates of one H100 SXM (NVIDIA's H100 SXM data sheet; f64 outside
 # the tensor cores).  Integer
@@ -187,8 +204,15 @@ MUTANT_PAIRS, MUTANT_PAIR_LEN = 8, 10_000
 REPEAT_LEN, REPEAT_COPIES, REPEAT_ELEM = 2_000_000, 1_000, 500
 WIDE_GENOMES, WIDE_LEN = 64, 20_000
 HMM_CHECK_MAX_T = 1 << 14   # K20/K21 vs plain: these batches + the longest
+# the bounded phase: genome b of the pair with a swapped locus, one window
+# over the pointer budget, K24/K25 vs plain on windows of about 2,300
+SWAP_AT, SWAP_LEN, SWAP_WINDOW = 2_000_000, 34_000, 40_000
+CKPT_CHECK_N, CKPT_CHECK_MP = 2_300, 2_304
+CKPT_CHUNKS, CKPT_STOP = 8, 3     # the resumable search's ranges, its stop
+BOUNDED_CAP_S = 90.0
+BOUNDED_KERNELS = ("profile_forward_ckpt", "profile_block_ptrs")
 PHASES = ("kernels", "goldens", "main", "trio", "progressive", "large",
-          "profile_dp", "decode")
+          "profile_dp", "decode", "bounded")
 
 
 class SmokeFailure(RuntimeError):
@@ -1545,6 +1569,8 @@ def plan_profile_dp(score_calls, align_calls, dev):
                 okm = elig & cert.cpu().numpy()
                 uncert += int((elig & ~okm).sum())
                 todo = [k for r, k in enumerate(sub) if not okm[r]]
+            if profile.ckpt_route(Mp, N):
+                continue    # K24 + K25 + the host walk: phase "bounded"
             for chunk in profile.split_launch(todo, Mp * (N + 1)):
                 if chunk != sub:
                     t = profile.pack_profiles(pr, qr, chunk, Mp, N, dev)
@@ -1932,6 +1958,363 @@ def phase_decode(torch, lt, dev, hmm_calls):
     return res, launches, max_abs_err(errs2)
 
 
+def swapped_pair(lt):
+    """The 2 x 4.6 Mbp pair of bench.py with SWAP_LEN bases of genome b
+    from SWAP_AT replaced by unrelated sequence (numpy rng 7): a swapped
+    locus, such as another prophage or capsule cluster at the same site.
+    Its inter-anchor window (34,003 x 34,000 columns) pads to the 39,366
+    bucket, whose full pointer tensor is 1.44 GiB."""
+    from bench import _synthetic_pair
+    lut = np.frombuffer(b"ACGT", dtype=np.uint8)
+    a, b = _synthetic_pair(PAIR_LEN, rng_seed=0)
+    b = b.copy()
+    b[SWAP_AT:SWAP_AT + SWAP_LEN] = np.random.default_rng(7).integers(
+        0, 4, SWAP_LEN).astype(np.uint8)
+    return [lt.Genome(name="A", ascii=lut[a], codes=a),
+            lt.Genome(name="B", ascii=lut[b], codes=b)]
+
+
+def fractional_profiles(rng, B, n, M, N, n_p, n_q):
+    """B window pairs of about n columns as n_p- and n_q-row profiles:
+    aligned rows with 10% gaps and 5% substitutions, so the profiles
+    hold fractions (1/3, 1/2) and the float order decides ties."""
+    from libmems_tpu_torch.ops.profile import rows_to_profile
+
+    def rows(n_rows, cols):
+        base = rng.integers(0, 4, size=cols).astype(np.uint8)
+        r = np.stack([base] * n_rows)
+        r[rng.random(r.shape) < 0.1] = 4
+        m = rng.random(r.shape) < 0.05
+        r[m] = rng.integers(0, 4, size=int(m.sum()))
+        r[:, (r == 4).all(axis=0)] = 0
+        return r
+    p = np.zeros((B, M, 5), np.float32)
+    q = np.zeros((B, N, 5), np.float32)
+    pl = np.zeros(B, np.int32)
+    ql = np.zeros(B, np.int32)
+    for r in range(B):
+        cp = n - int(rng.integers(0, n // 20))
+        cq = n - int(rng.integers(0, n // 20))
+        p[r, :cp] = rows_to_profile(rows(n_p, cp))
+        q[r, :cq] = rows_to_profile(rows(n_q, cq))
+        pl[r], ql[r] = cp, cq
+    return p, q, pl, ql
+
+
+def ckpt_work(t, K):
+    """Work of one K24 launch on the packed batch t: every cell of the
+    padded [Mp, N+1] matrix (the carries span every column), the
+    profiles and lengths read, the score and the carries written."""
+    B, Mp, _ = t[0].shape
+    N = t[1].shape[1]
+    return work(nbytes(*t) + 4 * B + 8 * (Mp // K) * B * (N + 1),
+                DP_CELL_OPS * B * Mp * (N + 1))
+
+
+def block_work(a):
+    """Work of one K25 launch (ck_h, ck_f, p_blk, q, q_len, ...): every
+    cell of its rows, the carry and profiles read, the nibble-packed
+    pointers written."""
+    B, R, _ = a[2].shape
+    N = a[3].shape[1]
+    return work(nbytes(*a[:5]) + B * R * ((N + 2) // 2),
+                DP_CELL_OPS * B * R * (N + 1))
+
+
+def ckpt_vs_plain(torch, t, go, ge):
+    """K24 and every K25 block against their plain versions on the launch
+    t.  Returns the compared pairs."""
+    from libmems_tpu_torch.ops import profile
+    K = profile.CKPT_ROWS
+    got = profile.profile_forward_ckpt(*t, go, ge, K)
+    ref = profile.profile_forward_ckpt_plain(*t, go, ge, K)
+    for g, r, what in zip(got, ref, ("score", "ck_h", "ck_f")):
+        require(torch.equal(g, r), f"K24 {what} differs from its plain "
+                f"version at {tuple(t[0].shape)} x {t[1].shape[1]}")
+    pairs = list(zip(got, ref))
+    for bi in range(t[0].shape[1] // K):
+        pb = t[0][:, bi * K:(bi + 1) * K].contiguous()
+        r = profile.profile_block_ptrs_plain(ref[1][bi], ref[2][bi], pb,
+                                             t[1], t[3], go, ge)
+        g = profile.profile_block_ptrs(got[1][bi], got[2][bi], pb, t[1],
+                                       t[3], go, ge)
+        require(torch.equal(g, r), f"K25 block {bi} differs from its plain "
+                f"version at {tuple(pb.shape)} x {t[1].shape[1]}")
+        pairs.append((g, r))
+    return pairs
+
+
+def phase_bounded(torch, lt, dev):
+    """The memory-bounded routes.  (1) K24 and every K25 block against
+    their plain versions on 2 windows of about 2,300 columns, one-hot and
+    3+2-row profiles (exact).  (2) align + write_xmfa of the swapped-locus
+    pair with max_gapped_window 40,000 (counted run): the 34,003 x 34,000
+    window takes the checkpointed route (CKPT_STATS, K24 and K25
+    launched); the same input with PTR_BUDGET raised here (K3 + K4 in one
+    launch) writes the same XMFA bytes; both walls and device memory
+    peaks printed.  (3) genome a's SML saved and loaded back memory-mapped
+    equals the in-memory one; create_big through the native bridge
+    (mem_limit 64 MB) writes save()'s bytes; find_mums_checkpointed over
+    CKPT_CHUNKS ranges, stopped after range CKPT_STOP and resumed, equals
+    find_mums and leaves an uninterrupted run's file bytes.  The phase
+    (its plain versions on the counted launches aside) must end within
+    BOUNDED_CAP_S.  (4) K24 and K25 timed, kernel and plain, over the
+    counted run's launches, and compared there too.  Returns ({name:
+    entry}, the counted run's launches, walls)."""
+    import functools
+    import shutil
+    from libmems_tpu_torch import matchfind, native, trace
+    from libmems_tpu_torch.ops import profile
+    from libmems_tpu_torch.sml import SortedMerList, create_smls
+    t_phase = time.perf_counter()
+    go, ge = profile.GAP_OPEN, profile.GAP_EXTEND
+    K = profile.CKPT_ROWS
+
+    # 1. the kernels against their plain versions on small windows
+    rng = np.random.default_rng(11)
+    checks = {"one-hot": mutant_profiles(rng, 2, CKPT_CHECK_N,
+                                         CKPT_CHECK_MP, CKPT_CHECK_MP),
+              "3+2 rows": fractional_profiles(rng, 2, CKPT_CHECK_N,
+                                              CKPT_CHECK_MP, CKPT_CHECK_MP,
+                                              3, 2)}
+    errs = {name: [] for name in BOUNDED_KERNELS}
+    for label, arrays in checks.items():
+        t = tuple(torch.from_numpy(x).to(dev) for x in arrays)
+        pairs = ckpt_vs_plain(torch, t, go, ge)
+        errs["profile_forward_ckpt"] += pairs[:3]
+        errs["profile_block_ptrs"] += pairs[3:]
+        log(f"# K24 and {len(pairs) - 3} K25 blocks equal their plain "
+            f"versions on 2 {label} windows, {tuple(t[0].shape)} x "
+            f"{t[1].shape[1]}")
+
+    # 2. the full-width path: the checkpointed route, then one launch
+    genomes = swapped_pair(lt)
+    cfg = lt.AlignerConfig(gapped_alignment=True, recursive=False,
+                           max_gapped_window=SWAP_WINDOW, device=dev)
+    wrappers = {"profile_forward_ckpt": profile.profile_forward_ckpt,
+                "profile_block_ptrs": profile.profile_block_ptrs,
+                "profile_forward": profile.profile_forward}
+
+    def run():
+        for w in wrappers.values():
+            w.launches = 0
+        profile.CKPT_STATS.update(dict.fromkeys(profile.CKPT_STATS, 0))
+        trace.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ivs, _ = lt.align(genomes, cfg)
+        buf = io.StringIO()
+        lt.write_xmfa(buf, ivs)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        check_partition(ivs, genomes)
+        return (buf.getvalue().encode(), dt,
+                torch.cuda.max_memory_allocated(),
+                {k: w.launches for k, w in wrappers.items()},
+                dict(profile.CKPT_STATS), trace.stage_seconds())
+
+    # the checkpointed route's wall inside the path (K24, K25, the walk)
+    ckpt_walls = []
+    real_ckpt = profile.ckpt_tracebacks
+
+    @functools.wraps(real_ckpt)
+    def timed_ckpt(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_ckpt(*args, **kw)
+        ckpt_walls.append(time.perf_counter() - t0)
+        return out
+
+    profile.ckpt_tracebacks = timed_ckpt
+    trace.set_enabled(True, stream=sys.stdout)
+    try:
+        with recording([(profile, "ckpt_tracebacks")]) as rec:
+            xmfa_ck, dt_ck, peak_ck, launches, stats, stages = run()
+    finally:
+        trace.set_enabled(False)
+        profile.ckpt_tracebacks = real_ckpt
+    calls = rec["ckpt_tracebacks"]
+    log(f"# bounded path: 2 x {PAIR_LEN} bp, locus {SWAP_AT}+{SWAP_LEN} "
+        f"swapped, max_gapped_window {SWAP_WINDOW}: {dt_ck:.3f} s, peak "
+        f"{peak_ck} bytes allocated, {len(xmfa_ck)} XMFA bytes; CKPT_STATS "
+        f"{json.dumps(stats)}; launches {json.dumps(launches)}; "
+        f"checkpointed launches "
+        f"{[(tuple(c['p'].shape), c['q'].shape[1]) for c in calls]}, "
+        f"their route {sum(ckpt_walls):.3f} s (K24, K25, fetches, host "
+        f"walk)")
+    log("# stages (bounded path): " + json.dumps(stages))
+    require(stats["windows"] >= 1 and calls,
+            "no window took the checkpointed route")
+    for name in BOUNDED_KERNELS:
+        require(launches[name] > 0, f"{name}: no launch on the bounded "
+                f"path")
+    for c in calls:
+        Mp, N = c["p"].shape[1], c["q"].shape[1]
+        require(profile.ckpt_route(Mp, N), f"the {Mp} x {N} launch fits "
+                f"the pointer budget")
+    saved = profile.PTR_BUDGET
+    big = max(c["p"].shape[1] * (c["q"].shape[1] + 1) for c in calls)
+    profile.PTR_BUDGET = big
+    try:
+        xmfa_full, dt_full, peak_full, l_full, s_full, _ = run()
+    finally:
+        profile.PTR_BUDGET = saved
+    log(f"# the same input with PTR_BUDGET {big} (K3 + K4 in one launch): "
+        f"{dt_full:.3f} s, peak {peak_full} bytes allocated; CKPT_STATS "
+        f"{json.dumps(s_full)}; launches {json.dumps(l_full)}")
+    require(s_full["windows"] == 0 and l_full["profile_forward"] > 0,
+            "the raised budget did not take the one-launch route")
+    require(xmfa_ck == xmfa_full, "the checkpointed route's XMFA differs "
+            "from the one-launch route's")
+    log(f"# XMFA byte-equal across the two routes ({len(xmfa_ck)} bytes)")
+
+    # 3. SML persistence, the out-of-core build, the resumable search
+    tmp = os.path.join(ROOT, "build", "chip_smoke_bounded")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    try:
+        smls, seed = create_smls(genomes, device=dev)
+        mem = smls[0]
+        saved_path = os.path.join(tmp, "a.sml")
+        t0 = time.perf_counter()
+        mem.save(saved_path)
+        t1 = time.perf_counter()
+        disk = SortedMerList.load(saved_path, device=dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        for name in ("keys", "sorted_keys", "sorted_positions"):
+            require(torch.equal(getattr(disk, name), getattr(mem, name)),
+                    f"loaded SML {name} differs from the in-memory SML")
+        require(native.available(), "the native SML builder did not build")
+        big_path = os.path.join(tmp, "a_big.sml")
+        t3 = time.perf_counter()
+        built = SortedMerList.create_big(genomes[0], seed, big_path,
+                                         scratch_dir=tmp,
+                                         mem_limit=64 << 20, device=dev)
+        t4 = time.perf_counter()
+        with open(saved_path, "rb") as fh, open(big_path, "rb") as fb:
+            require(fh.read() == fb.read(), "create_big's file differs from "
+                    "save()'s")
+        require(torch.equal(built.sorted_positions, mem.sorted_positions),
+                "create_big's SML differs from the in-memory SML")
+        log(f"# SML of genome a ({mem.n_windows} windows): save {t1 - t0:.3f}"
+            f" s, memory-mapped load {t2 - t1:.3f} s, equal; create_big "
+            f"(native, mem_limit 64 MB) {t4 - t3:.3f} s, file byte-equal to "
+            f"save()'s ({os.path.getsize(big_path)} bytes)")
+
+        class Stop(Exception):
+            pass
+
+        ref = lt.find_mums(smls, device=dev)
+        whole = os.path.join(tmp, "whole")
+        t5 = time.perf_counter()
+        got = matchfind.find_mums_checkpointed(smls, whole,
+                                               n_chunks=CKPT_CHUNKS,
+                                               device=dev)
+        t6 = time.perf_counter()
+        real_replace = os.replace
+        n_replaced = [0]
+
+        def stop_after(src, dst):
+            real_replace(src, dst)
+            n_replaced[0] += 1
+            if n_replaced[0] == 2 * CKPT_STOP:   # .matches, .json a range
+                raise Stop
+        part = os.path.join(tmp, "part")
+        os.replace = stop_after
+        try:
+            matchfind.find_mums_checkpointed(smls, part,
+                                             n_chunks=CKPT_CHUNKS,
+                                             device=dev)
+            require(False, "the search was not stopped")
+        except Stop:
+            pass
+        finally:
+            os.replace = real_replace
+        with open(part + ".json") as fh:
+            require(json.load(fh)["next_chunk"] == CKPT_STOP,
+                    "the stopped state's cursor")
+        t7 = time.perf_counter()
+        resumed = matchfind.find_mums_checkpointed(smls, part,
+                                                   n_chunks=CKPT_CHUNKS,
+                                                   device=dev)
+        t8 = time.perf_counter()
+        for label, m in (("uninterrupted", got), ("resumed", resumed)):
+            require(len(ref) > 0 and np.array_equal(m.starts, ref.starts)
+                    and np.array_equal(m.lengths, ref.lengths),
+                    f"find_mums_checkpointed ({label}, {len(m)}) differs "
+                    f"from find_mums ({len(ref)})")
+        for ext in (".matches", ".json"):
+            with open(whole + ext, "rb") as fh, open(part + ext, "rb") as fb:
+                require(fh.read() == fb.read(), f"the resumed run's {ext} "
+                        f"differs from the uninterrupted run's")
+        log(f"# find_mums_checkpointed, {CKPT_CHUNKS} ranges: uninterrupted"
+            f" {t6 - t5:.3f} s, stopped after range {CKPT_STOP} then "
+            f"resumed ({t8 - t7:.3f} s for the rest); both == find_mums "
+            f"({len(ref)} MUMs), state files byte-equal")
+        del smls, mem, disk, built
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+    log(f"# bounded phase without the plain timings: {wall:.1f} s (cap "
+        f"{BOUNDED_CAP_S} s)")
+    require(wall <= BOUNDED_CAP_S, f"phase bounded took {wall:.1f} s, over "
+            f"its {BOUNDED_CAP_S} s cap")
+
+    # 4. K24 and K25 over the counted run's launches: kernel, plain, work
+    t_plain = time.perf_counter()
+    res = {}
+    k24 = [(c["p"], c["q"], c["p_len"], c["q_len"]) for c in calls]
+    got24 = [profile.profile_forward_ckpt(*t, go, ge, K) for t in k24]
+    ref24, p24 = timed_once(lambda: [profile.profile_forward_ckpt_plain(
+        *t, go, ge, K) for t in k24], torch)
+    for t, g, r in zip(k24, got24, ref24):
+        for x, y in zip(g, r):
+            require(torch.equal(x, y), f"K24 differs from its plain version "
+                    f"on the counted launch {tuple(t[0].shape)}")
+            errs["profile_forward_ckpt"].append((x, y))
+    ms24 = timed_ms(lambda: [profile.profile_forward_ckpt(*t, go, ge, K)
+                             for t in k24], 1, torch, warmup=False)
+    res["profile_forward_ckpt"] = entry(
+        max_abs_err(errs["profile_forward_ckpt"]), ms24, p24,
+        sum_work(ckpt_work(t, K) for t in k24))
+    # the blocks the walk fetched: every block that holds a window row
+    k25 = []
+    for t, (_, ck_h, ck_f) in zip(k24, got24):
+        pl = t[2].cpu().numpy()
+        for bi in range(t[0].shape[1] // K):
+            if bi == 0 or (pl > bi * K).any():
+                k25.append((ck_h[bi], ck_f[bi],
+                            t[0][:, bi * K:(bi + 1) * K].contiguous(), t[1],
+                            t[3]))
+    require(len(k25) == launches["profile_block_ptrs"],
+            f"K25: {len(k25)} launches rebuilt, the counted run made "
+            f"{launches['profile_block_ptrs']}")
+    del ref24
+    ref25, p25 = timed_once(lambda: [profile.profile_block_ptrs_plain(
+        *a, go, ge) for a in k25], torch)
+    for a, r in zip(k25, ref25):
+        g = profile.profile_block_ptrs(*a, go, ge)
+        require(torch.equal(g, r), f"K25 differs from its plain version on "
+                f"a counted launch {tuple(a[2].shape)}")
+        errs["profile_block_ptrs"].append((g, r))
+    ms25 = timed_ms(lambda: [profile.profile_block_ptrs(*a, go, ge)
+                             for a in k25], 1, torch, warmup=False)
+    res["profile_block_ptrs"] = entry(
+        max_abs_err(errs["profile_block_ptrs"]), ms25, p25,
+        sum_work(block_work(a) for a in k25))
+    for name in BOUNDED_KERNELS:
+        e = res[name]
+        log(f"# {name}: {launches[name]} launches, kernel {e['ms']:.3f} ms,"
+            f" plain {e['plain_ms']:.3f} ms, max_abs_err {e['err']}")
+    log(f"# K24/K25 plain versions on the counted launches: "
+        f"{time.perf_counter() - t_plain:.1f} s")
+    walls = (f"bounded path {dt_ck:.3f} s (peak {peak_ck} B), one-launch "
+             f"route {dt_full:.3f} s (peak {peak_full} B)")
+    return res, launches, walls
+
+
 def select_phases(argv):
     """The phases to run: those named on the command line (PHASES), all
     when none is, plus the progressive run that profile_dp and decode
@@ -2010,16 +2393,22 @@ def main(argv=None) -> int:
         res.update(dec_res)
         k2_errs.append(err)
         lap("decode")
+    if "bounded" in phases:
+        b_res, paths["bounded"], b_walls = phase_bounded(torch, lt, dev)
+        res.update(b_res)
+        walls.append(b_walls)
+        lap("bounded")
     if "extend_matches" in res:
         res["extend_matches"]["err"] = max([res["extend_matches"]["err"]]
                                            + k2_errs)
     # launches: the 9 x 1 Mbp progressive path's, K13-K15 the trio's,
     # K18/K19 the pair's, K16/K17 the 3 x 8.7 Mbp path's, K20-K23 the
-    # decode run's
+    # decode run's, K24/K25 the bounded path's
     launches = dict(paths.get("progressive", {}))
     for path, names in (("trio", MUM_KERNELS), ("pair", PAIR_KERNELS),
                         ("large", SEEDOCC_KERNELS),
-                        ("decode", DECODE_KERNELS)):
+                        ("decode", DECODE_KERNELS),
+                        ("bounded", BOUNDED_KERNELS)):
         if path in paths:
             launches.update({k: paths[path][k] for k in names})
     forbidden = [m for m in sys.modules

@@ -50,6 +50,8 @@ _SIGNATURES = {
     "lm_profile_cum_scratch": ([_I], _L),
     "lm_profile_fwd": ([_P] * 12 + [_I, _I, _I, _F, _F, _P, _P], _I),
     "lm_profile_score": ([_P] * 10 + [_I, _I, _I, _F, _F, _P, _P], _I),
+    "lm_profile_ckpt": ([_P] * 12 + [_I] * 4 + [_F, _F, _P, _P], _I),
+    "lm_profile_block_ptrs": ([_P] * 12 + [_I] * 3 + [_F, _F, _P, _P], _I),
     "lm_traceback": ([_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P], _I),
     "lm_banded_fwd": ([_P] * 8 + [_L] + [_P] * 5 + [_I] * 4
                       + [_F, _F, _P, _P], _I),

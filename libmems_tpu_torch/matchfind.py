@@ -20,7 +20,10 @@ takes any number of genomes and every mode of the JAX module:
   extension from the cluster extent (K2);
 * the host orchestrations of ``repeat_tolerance > 0`` and
   ``extend=False`` (K13 with the tolerance, then numpy clustering and K2)
-  and of ``enumeration_tolerance > 1`` (the vectorised odometer).
+  and of ``enumeration_tolerance > 1`` (the vectorised odometer);
+* the resumable search ``find_mums_checkpointed``: the device seed table
+  cut into content ranges, each through K13, numpy clustering and K2,
+  with the match list and a cursor written after each range.
 
 The progressive aligner's seeder, ``find_pairwise_mums`` (any G), runs
 its own stages on per-genome-unique seeds with kernels K5-K7
@@ -38,13 +41,15 @@ patterns: sorts flip bit 63 and right shifts mask the sign fill
 
 from __future__ import annotations
 
+import json
 import os
 
 import numpy as np
 import torch
 
 from libmems_tpu_torch import seeds as seedlib
-from libmems_tpu_torch.match import MatchArray
+from libmems_tpu_torch.match import (MatchArray, read_match_list,
+                                     write_match_list)
 from libmems_tpu_torch.ops import mums as ops_mums
 from libmems_tpu_torch.ops import pair as ops_pair
 from libmems_tpu_torch.ops import pairwise as ops_pairwise
@@ -438,6 +443,117 @@ def find_mums(genomes_or_smls, seed: int | None = None,
         out = MatchArray(out.starts[out.multiplicity() >= min_multiplicity],
                          out.lengths[out.multiplicity() >= min_multiplicity])
     return out.canonical_sort()
+
+
+def _chunk_rows_to_matches(smls, keys, seg_off, content, src,
+                           repeat_limit: int) -> MatchArray:
+    """Seed enumeration (K13), host clustering and extension (K2) of one
+    content-range slice (content, src) of the device seed table
+    (libmems_tpu/matchfind.py:956-984)."""
+    G = len(smls)
+    flags = ops_mums.mum_seed_flags(content, src, keys, seg_off, 0,
+                                    repeat_limit,
+                                    sentinel_content(smls[0].seed))
+    n_rows = flags.n_rows
+    kept = flags.kept_occ.cpu().numpy()
+    if n_rows == 0 or not kept.any():
+        return MatchArray.empty(G)
+    rid = flags.row_id.cpu().numpy()[kept]
+    g = flags.gid.cpu().numpy()[kept]
+    p = flags.pos.cpu().numpy()[kept].astype(np.int64)
+    st = flags.strand.cpu().numpy()[kept]
+    ref_st = flags.ref_strand.cpu().numpy()[kept]
+    starts = np.zeros((n_rows, G), dtype=np.int64)
+    starts[rid, g] = np.where(st == ref_st, 1, -1).astype(np.int64) * (p + 1)
+    seed_len = smls[0].seed_length
+    lengths = np.full((n_rows,), seed_len, dtype=np.int64)
+    starts, lengths = _cluster_reduce_np(starts, lengths, seed_len)
+    starts, lengths = _extend_rows(smls, starts, lengths)
+    return MatchArray(starts, lengths)
+
+
+def find_mums_checkpointed(genomes_or_smls, state_path: str,
+                           seed: int | None = None, n_chunks: int = 8,
+                           repeat_limit: int = MER_REPEAT_LIMIT,
+                           min_multiplicity: int = 2,
+                           device="cuda") -> MatchArray:
+    """Resumable multi-MUM search (libmems_tpu/matchfind.py:987-1065):
+    the analog of the reference's match-search checkpointing
+    (MemHash::FindMatchesFromPosition + the SML offset log,
+    libMems/MemHash.cpp:109-127, MatchFinder.h:75-81, and
+    MemHash::WriteFile/LoadFile, cpp:266-327).
+
+    The sorted seed table stays on `device` (the SMLs' device when SMLs
+    are given).  Its canonical-content order is cut at run starts into
+    n_chunks ranges, exactly where the JAX package cuts it, and the
+    ranges run in order, each through K13, the host clustering and K2.
+    After each range the partial match list (match-list v3) is written to
+    state_path + ".matches" and the cursor {seed, n_chunks, next_chunk,
+    total_windows} to state_path + ".json", each replaced atomically and
+    byte for byte as the JAX package writes them, so a state written by
+    either package resumes in the other.  A state for another seed,
+    window total or n_chunks restarts; a completed one returns its list
+    without searching.  The result equals find_mums (no equal-content
+    run straddles a cut, and extension probes the whole genomes)."""
+    smls, seed_pat = _as_smls(genomes_or_smls, seed, device)
+    G = len(smls)
+    meta_path = state_path + ".json"
+    matches_path = state_path + ".matches"
+    total = sum(s.n_windows for s in smls)
+
+    meta = None
+    if os.path.exists(meta_path):
+        with open(meta_path) as fh:
+            meta = json.load(fh)
+        if meta.get("seed") != int(seed_pat) or \
+                meta.get("total_windows") != total or \
+                meta.get("n_chunks") != n_chunks:
+            meta = None  # stale state for other inputs: restart
+    acc = MatchArray.empty(G)
+    next_chunk = 0
+    if meta is not None:
+        next_chunk = int(meta["next_chunk"])
+        if os.path.exists(matches_path):
+            acc, _, _ = read_match_list(matches_path)
+
+    def finalize(m: MatchArray) -> MatchArray:
+        m = m.dedup()
+        if min_multiplicity > 2:
+            keep = m.multiplicity() >= min_multiplicity
+            m = MatchArray(m.starts[keep], m.lengths[keep])
+        return m.canonical_sort()
+
+    if meta is not None and next_chunk >= n_chunks:
+        return finalize(acc)
+
+    keys, seg_off, content, src = _seed_table(smls)
+    # cuts at run starts, so no equal-content run straddles two ranges
+    cuts = [0]
+    for c in range(1, n_chunks):
+        b = 0
+        if total:
+            at = min(c * total // n_chunks, total - 1)
+            b = int(torch.searchsorted(content, content[at:at + 1]))
+        cuts.append(max(b, cuts[-1]))
+    cuts.append(total)
+
+    filenames = [getattr(s, "filename", "") or "null" for s in smls]
+    seq_lengths = [int(s.length) for s in smls]
+    for c in range(next_chunk, n_chunks):
+        lo, hi = cuts[c], cuts[c + 1]
+        if hi > lo:
+            part = _chunk_rows_to_matches(smls, keys, seg_off,
+                                          content[lo:hi], src[lo:hi],
+                                          repeat_limit)
+            if part.n_matches:
+                acc = MatchArray.concat([acc, part])
+        write_match_list(matches_path + ".tmp", acc, filenames, seq_lengths)
+        os.replace(matches_path + ".tmp", matches_path)
+        with open(meta_path + ".tmp", "w") as fh:
+            json.dump({"seed": int(seed_pat), "n_chunks": n_chunks,
+                       "next_chunk": c + 1, "total_windows": total}, fh)
+        os.replace(meta_path + ".tmp", meta_path)
+    return finalize(acc)
 
 
 def _find_mums_enumerated(smls, repeat_tolerance: int,

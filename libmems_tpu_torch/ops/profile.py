@@ -1,8 +1,9 @@
 """Batched profile-profile global alignment with affine gaps: the
 full-width forward with pointers (K3) and without (K9, csrc/profile.cu),
 the banded forward with its certificate (K10) and with pointers (K11),
-the banded traceback walk (K12, csrc/banded.cu), plus the full-width
-walk K4 of ops.gapped.
+the banded traceback walk (K12, csrc/banded.cu), the checkpointed
+forward (K24) and the block pointers (K25, csrc/profile.cu), plus the
+full-width walk K4 of ops.gapped.
 
 Port of libmems_tpu/ops/profile.py, the compute core of the MSA engine
 that replaces the reference's in-process MUSCLE profile alignment
@@ -17,13 +18,18 @@ launches.  Buckets of 1024+ columns run the banded DP first: a window
 whose banded optimum passes the certificate has exactly the full-width
 score and traceback (the proof is at ``BAND_K`` below), the rest re-run
 at full width.  A launch's pointer tensor (B*Mp*(WB+1) banded,
-B*Mp*(N+1) full) stays under PTR_BUDGET bytes (one window at the
-10,000-column cap buckets to 11,664 columns, 136 MB, so one window
-always fits).  Windows are independent and padding never reaches a
-window's result, so neither the grouping nor the split changes an
-output.  The JAX module's checkpointed path (``profile_forward_ckpt`` at
-K = 128 + ``profile_block_ptrs``, used above its 1 GiB budget) is exact
-by construction, so the split replaces it (ROADMAP queue 2).
+B*Mp*(N+1) full) stays under PTR_BUDGET bytes: launches are split
+(``split_launch``) down to one window.  A bucket whose ONE window's full
+pointer tensor Mp*(N+1) exceeds PTR_BUDGET (at the 1 GiB default, a
+window whose two sides both pad to the 39,366-column bucket: 1.44 GiB)
+never builds it: its uncertified and ineligible windows take the JAX
+module's checkpointed route (``profile_forward_ckpt`` at K = 128 +
+``profile_block_ptrs``).  K24 keeps the (H, F) carry every 128 rows,
+launches split so the carries stay under PTR_BUDGET too, and the host
+walk ``ops.gapped.traceback_blocks`` fetches each 128-row block's
+pointers, nibble-packed, from K25 (``CKPT_STATS`` counts the windows).
+Windows are independent and padding never reaches a window's result, so
+neither the grouping, the split nor the route changes an output.
 """
 
 from __future__ import annotations
@@ -34,10 +40,12 @@ import numpy as np
 import torch
 
 from libmems_tpu_torch import cuda
-from libmems_tpu_torch.ops.gapped import (E_EXT_BIT, F_EXT_BIT, GAP_EXTEND,
-                                          GAP_OPEN, H_DIAG, H_E, H_F,
-                                          HOXD70, _device_tb_T, tb_unpack,
-                                          traceback_walk, walk_plain)
+from libmems_tpu_torch.ops.gapped import (CKPT_ROWS, E_EXT_BIT, F_EXT_BIT,
+                                          GAP_EXTEND, GAP_OPEN, H_DIAG, H_E,
+                                          H_F, HOXD70, _device_tb_T,
+                                          pack_ptrs_plain, tb_unpack,
+                                          traceback_blocks, traceback_walk,
+                                          unpack_ptrs, walk_plain)
 
 GAP_CODE = 4
 
@@ -191,12 +199,10 @@ def profile_forward_plain(p, q, p_len, q_len, gap_open: int = GAP_OPEN,
     N = q.shape[1]
     dev = p.device
     qw, ext_q, ext_cum = _q_setup(q, gap_extend)
-    j_idx = torch.arange(N + 1, device=dev)
-    h = torch.where(j_idx[None, :] == 0, 0.0, gap_open + ext_cum)
-    f = torch.full_like(h, float(NEG_BIG))
+    h, f = _h0f0(ext_cum, gap_open)
     ql = q_len.to(torch.int64)[:, None]
     pl = p_len.to(torch.int64)
-    col_ok = j_idx[None, :] <= ql
+    col_ok = torch.arange(N + 1, device=dev)[None, :] <= ql
     score = h.gather(1, ql)[:, 0]
     ptrs = torch.zeros((B, M, N + 1), dtype=torch.uint8, device=dev) \
         if emit_ptr else None
@@ -302,6 +308,143 @@ def profile_forward_scores(p, q, p_len, q_len, gap_open: int = GAP_OPEN,
 
 
 profile_forward_scores.launches = 0
+
+
+def _h0f0(ext_cum, gap_open: int):
+    """The DP's first row: H[0][j] = open + ext_cum[j] (0 at j = 0),
+    F = NEG_BIG (ops/profile.py:107-112)."""
+    j_idx = torch.arange(ext_cum.shape[1], device=ext_cum.device)
+    h = torch.where(j_idx[None, :] == 0, 0.0, gap_open + ext_cum)
+    return h, torch.full_like(h, float(NEG_BIG))
+
+
+def profile_forward_ckpt_plain(p, q, p_len, q_len, gap_open: int = GAP_OPEN,
+                               gap_extend: int = GAP_EXTEND,
+                               K: int = CKPT_ROWS):
+    """Plain PyTorch version of K24: profile_forward_ckpt
+    (ops/profile.py:115-138) over every row and column of the padded
+    matrix, in K3's order of float operations.  M must be a multiple of
+    K.  Returns (score float32[B] = H[p_len][q_len], ck_h, ck_f
+    float32[M/K, B, N+1]: the (H, F) carry at the top of every K-row
+    block, block 0 the DP's first row)."""
+    B, M, _ = p.shape
+    N = q.shape[1]
+    if K < 1 or M % K:
+        raise ValueError(f"M = {M} is not a multiple of K = {K}")
+    qw, ext_q, ext_cum = _q_setup(q, gap_extend)
+    h, f = _h0f0(ext_cum, gap_open)
+    ck_h = torch.empty((M // K, B, N + 1), dtype=torch.float32,
+                       device=p.device)
+    ck_f = torch.empty_like(ck_h)
+    ql = q_len.to(torch.int64)[:, None]
+    pl = p_len.to(torch.int64)
+    score = h.gather(1, ql)[:, 0]
+    for i in range(M):
+        if i % K == 0:
+            ck_h[i // K] = h
+            ck_f[i // K] = f
+        h, f, _ = _row_plain(h, f, p[:, i], qw, ext_cum, ext_q, gap_open,
+                             gap_extend, False)
+        score = torch.where(pl == i + 1, h.gather(1, ql)[:, 0], score)
+    return score, ck_h, ck_f
+
+
+def profile_forward_ckpt(p, q, p_len, q_len, gap_open: int = GAP_OPEN,
+                         gap_extend: int = GAP_EXTEND, K: int = CKPT_ROWS):
+    """Checkpointed forward profile DP of a batch of windows: the score
+    and the (H, F) carry every K rows, for the host walk over re-derived
+    blocks when the full pointer tensor exceeds PTR_BUDGET.
+
+    p: float32[B, M, 5] (M a multiple of K), q: float32[B, N, 5];
+    p_len, q_len: int32[B].  Returns (score float32[B], equal bit for bit
+    to profile_forward's; ck_h, ck_f float32[M/K, B, N+1]), as
+    profile_forward_ckpt_plain.  CPU tensors take the plain version;
+    CUDA tensors launch K24."""
+    if p.device.type == "cpu":
+        return profile_forward_ckpt_plain(p, q, p_len, q_len, gap_open,
+                                          gap_extend, K)
+    dev, B, M, N = _require_batch(p, q, p_len, q_len)
+    if K < 1 or M % K:
+        raise ValueError(f"M = {M} is not a multiple of K = {K}")
+    lib = cuda.library()
+    qw, ext_q, ext_cum, cum_lv, rows = _profile_scratch(lib, B, N, dev)
+    score = torch.empty((B,), dtype=torch.float32, device=dev)
+    ck_h = torch.empty((M // K, B, N + 1), dtype=torch.float32, device=dev)
+    ck_f = torch.empty_like(ck_h)
+    cuda.check(lib.lm_profile_ckpt(
+        p.data_ptr(), q.data_ptr(), p_len.data_ptr(), q_len.data_ptr(),
+        qw.data_ptr(), ext_q.data_ptr(), ext_cum.data_ptr(),
+        cum_lv.data_ptr(), rows.data_ptr() if rows is not None else None,
+        score.data_ptr(), ck_h.data_ptr(), ck_f.data_ptr(), B, M, N, K,
+        float(gap_open), float(gap_extend), _w5(), cuda.stream(p)),
+        "lm_profile_ckpt")
+    profile_forward_ckpt.launches += 1
+    return score, ck_h, ck_f
+
+
+profile_forward_ckpt.launches = 0
+
+
+def profile_block_ptrs_plain(ck_h, ck_f, p_blk, q, q_len,
+                             gap_open: int = GAP_OPEN,
+                             gap_extend: int = GAP_EXTEND):
+    """Plain PyTorch version of K25: profile_block_ptrs
+    (ops/profile.py:141-151, ext_p_blk derived from p_blk as every caller
+    derives it) over every column, then pack_ptrs."""
+    B, R, _ = p_blk.shape
+    N = q.shape[1]
+    qw, ext_q, ext_cum = _q_setup(q, gap_extend)
+    h, f = ck_h, ck_f
+    ptrs = torch.empty((B, R, N + 1), dtype=torch.uint8, device=q.device)
+    for i in range(R):
+        h, f, ptrs[:, i] = _row_plain(h, f, p_blk[:, i], qw, ext_cum, ext_q,
+                                      gap_open, gap_extend, True)
+    return pack_ptrs_plain(ptrs)
+
+
+def profile_block_ptrs(ck_h, ck_f, p_blk, q, q_len,
+                       gap_open: int = GAP_OPEN,
+                       gap_extend: int = GAP_EXTEND):
+    """Pointer bytes of a block of profile-DP rows, re-derived from their
+    carry, two cells a byte.
+
+    ck_h, ck_f: float32[B, N+1], the (H, F) carry at the block's top (a
+    row of profile_forward_ckpt's checkpoints); p_blk: float32[B, R, 5]
+    the block's profile rows; q: float32[B, N, 5]; q_len: int32[B].
+    Returns uint8[B, R, ceil((N+1)/2)], cell 2k in the low nibble, every
+    column written; ops.gapped.unpack_ptrs restores uint8[B, R, N+1] in
+    K3's layout.  CPU tensors take the plain version; CUDA tensors launch
+    K25."""
+    if q.device.type == "cpu":
+        return profile_block_ptrs_plain(ck_h, ck_f, p_blk, q, q_len,
+                                        gap_open, gap_extend)
+    dev = q.device
+    B, R, _ = p_blk.shape
+    N = q.shape[1]
+    cuda.require(p_blk, "p_blk", torch.float32, dev, (B, R, 5))
+    cuda.require(q, "q", torch.float32, dev, (B, N, 5))
+    cuda.require(q_len, "q_len", torch.int32, dev, (B,))
+    cuda.require(ck_h, "ck_h", torch.float32, dev, (B, N + 1))
+    cuda.require(ck_f, "ck_f", torch.float32, dev, (B, N + 1))
+    lib = cuda.library()
+    qw, ext_q, ext_cum, cum_lv, rows = _profile_scratch(lib, B, N, dev)
+    flags = None
+    if rows is not None:
+        flags = torch.empty((B, N + 1), dtype=torch.uint8, device=dev)
+    ptr = torch.empty((B, R, (N + 2) // 2), dtype=torch.uint8, device=dev)
+    cuda.check(lib.lm_profile_block_ptrs(
+        p_blk.data_ptr(), q.data_ptr(), q_len.data_ptr(), ck_h.data_ptr(),
+        ck_f.data_ptr(), qw.data_ptr(), ext_q.data_ptr(),
+        ext_cum.data_ptr(), cum_lv.data_ptr(),
+        rows.data_ptr() if rows is not None else None,
+        flags.data_ptr() if flags is not None else None, ptr.data_ptr(), B,
+        R, N, float(gap_open), float(gap_extend), _w5(), cuda.stream(q)),
+        "lm_profile_block_ptrs")
+    profile_block_ptrs.launches += 1
+    return ptr
+
+
+profile_block_ptrs.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -626,18 +769,60 @@ def split_launch(idxs: list[int], cell_bytes: int) -> list[list[int]]:
     return [idxs[s:s + per] for s in range(0, len(idxs), per)]
 
 
+# windows sent through the checkpointed route (K24 + K25 + the host walk)
+CKPT_STATS = {"windows": 0}
+
+
+def ckpt_route(Mp: int, N: int) -> bool:
+    """Whether an (Mp, N) bucket's full-width windows take the
+    checkpointed route: one window's pointer tensor exceeds PTR_BUDGET."""
+    return Mp * (N + 1) > PTR_BUDGET
+
+
+def full_window_bytes(Mp: int, N: int) -> int:
+    """Bytes one window adds to a full-width launch: its pointer tensor,
+    or on the checkpointed route its (H, F) carries."""
+    if ckpt_route(Mp, N):
+        return 8 * (Mp // min(CKPT_ROWS, Mp)) * (N + 1)
+    return Mp * (N + 1)
+
+
+def ckpt_tracebacks(p, q, p_len, q_len, gap_open: int = GAP_OPEN,
+                    gap_extend: int = GAP_EXTEND):
+    """The checkpointed route of a launch (ops/profile.py:814-831): K24's
+    carries every K = min(128, Mp) rows, then the host walk
+    traceback_blocks over each block's pointers from K25, nibble-packed.
+    Returns the (p_gaps, q_gaps) masks of every window, as tb_unpack does
+    for the full-width walk."""
+    Mp, N = p.shape[1], q.shape[1]
+    K = min(CKPT_ROWS, Mp)
+    _, ck_h, ck_f = profile_forward_ckpt(p, q, p_len, q_len, gap_open,
+                                         gap_extend, K)
+
+    def fetch(bi):
+        return unpack_ptrs(profile_block_ptrs(
+            ck_h[bi], ck_f[bi], p[:, bi * K:(bi + 1) * K].contiguous(), q,
+            q_len, gap_open, gap_extend).cpu().numpy(), N + 1)
+
+    CKPT_STATS["windows"] += p.shape[0]
+    return traceback_blocks(fetch, Mp // K, K, p_len.cpu().numpy(),
+                            q_len.cpu().numpy())
+
+
 def plan_launches(p_rows: list[np.ndarray], q_rows: list[np.ndarray]
                   ) -> list[tuple[int, int, list[int]]]:
     """The launches of align_profile_batch: each bucket's pairs at
     Mp = padded_rows(M) rows, split so a launch's pointer tensor stays
     under PTR_BUDGET bytes (banded pointers where the bucket bands, full
-    width otherwise; a banded launch's uncertified windows are split
-    again at full width).  Returns (Mp, N, pair indices) per launch."""
+    width otherwise, the carries on the checkpointed route; a banded
+    launch's uncertified windows are split again at full width).
+    Returns (Mp, N, pair indices) per launch."""
     launches = []
     for M, N, idxs in plan_buckets(p_rows, q_rows):
         Mp = padded_rows(M)
-        width = _band_wb(N) + 1 if band_bucket(Mp, N) else N + 1
-        for sub in split_launch(idxs, Mp * width):
+        cell = Mp * (_band_wb(N) + 1) if band_bucket(Mp, N) \
+            else full_window_bytes(Mp, N)
+        for sub in split_launch(idxs, cell):
             launches.append((Mp, N, sub))
     return launches
 
@@ -797,7 +982,10 @@ def align_profile_batch(p_rows: list[np.ndarray], q_rows: list[np.ndarray],
     per pair merged rows uint8[Gp_k + Gq_k, C'_k].  In a launch with an
     eligible window the banded forward (K11) and walk (K12) run first;
     certified windows take their traceback (byte-identical to full
-    width), the others re-run through K3 and K4 (ops/profile.py:768-843)."""
+    width), the others re-run through K3 and K4 (ops/profile.py:768-843),
+    or, where one window's full pointer tensor exceeds PTR_BUDGET, through
+    the checkpointed route (ckpt_tracebacks: K24, K25 and the host
+    walk)."""
     if not p_rows:
         return []
     dev = cuda.resolve_device(device)
@@ -820,14 +1008,17 @@ def align_profile_batch(p_rows: list[np.ndarray], q_rows: list[np.ndarray],
                 k = sub[r]
                 results[k] = merge_rows(p_rows[k], q_rows[k], p_gaps, q_gaps)
             todo = [k for r, k in enumerate(sub) if not okm[r]]
-        for chunk in split_launch(todo, Mp * (N + 1)):
+        for chunk in split_launch(todo, full_window_bytes(Mp, N)):
             if chunk != sub:
                 t = pack_profiles(p_rows, q_rows, chunk, Mp, N, dev)
-            ptrs, _ = profile_forward(*t, gap_open, gap_extend)
-            masks = traceback_walk(ptrs, t[2], t[3], T)
-            del ptrs
-            for k, (p_gaps, q_gaps) in zip(chunk, tb_unpack(masks,
-                                                            len(chunk))):
+            if ckpt_route(Mp, N):
+                tb = ckpt_tracebacks(*t, gap_open, gap_extend)
+            else:
+                ptrs, _ = profile_forward(*t, gap_open, gap_extend)
+                masks = traceback_walk(ptrs, t[2], t[3], T)
+                del ptrs
+                tb = tb_unpack(masks, len(chunk))
+            for k, (p_gaps, q_gaps) in zip(chunk, tb):
                 results[k] = merge_rows(p_rows[k], q_rows[k], p_gaps, q_gaps)
     return results
 

@@ -84,7 +84,7 @@ def default_breakpoint_penalty(seq_lengths: list[int]) -> float:
 MIN_BREAKPOINT_PENALTY = 4000.0  # ProgressiveAligner.cpp:138
 
 _TODO_MESH = ("a mesh needs the sharded seeder, which is not ported yet "
-              "(ROADMAP queue 1 item 6: multi-GPU)")
+              "(ROADMAP queue 1 item 4: multi-GPU)")
 
 
 @dataclass

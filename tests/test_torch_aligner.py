@@ -69,7 +69,8 @@ def test_gapped_recursive_equal_jax():
 
 def test_import_loads_no_jax():
     code = ("import sys, libmems_tpu_torch, libmems_tpu_torch.repeats, "
-            "libmems_tpu_torch.ops.gapped, libmems_tpu_torch.ops.hmm; "
+            "libmems_tpu_torch.ops.gapped, libmems_tpu_torch.ops.hmm, "
+            "libmems_tpu_torch.native, libmems_tpu_torch.ops.profile; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'libmems_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

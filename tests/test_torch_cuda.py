@@ -785,3 +785,76 @@ def test_hmm_decode_kernels_equal_plain(dev, T):
     np.testing.assert_allclose(gl, rl, rtol=1e-12, atol=0)
     np.testing.assert_allclose(gp_.emit_homologous, rp.emit_homologous,
                                rtol=1e-12, atol=0)
+
+
+def _fractional(rng, B, M, N, n_p, n_q):
+    """Profiles of n_p and n_q aligned rows with gaps (one row: one-hot)
+    whose lengths leave padded rows and columns."""
+    p = np.zeros((B, M, 5), np.float32)
+    q = np.zeros((B, N, 5), np.float32)
+    pl = rng.integers(M * 3 // 4, M - 7, B).astype(np.int32)
+    ql = rng.integers(N * 3 // 4, N - 3, B).astype(np.int32)
+    for r in range(B):
+        for arr, n, k in ((p, pl[r], n_p), (q, ql[r], n_q)):
+            rows = np.repeat(rng.integers(0, 4, (1, n)), k, 0).astype(
+                np.uint8)
+            if k > 1:
+                rows[rng.random((k, n)) < 0.1] = 4
+                mut = rng.random((k, n)) < 0.05
+                rows[mut] = rng.integers(0, 4, int(mut.sum()))
+                rows[:, (rows == 4).all(axis=0)] = 0
+            arr[r, :n] = profile.rows_to_profile(rows)
+    return [torch.from_numpy(x) for x in (p, q, pl, ql)]
+
+
+@pytest.mark.parametrize("n_p,n_q,M,N,smem", [
+    (1, 1, 256, 700, True), (3, 2, 384, 1000, True),
+    (3, 2, 256, 700, False), (4, 5, 256, 12_160, True)])
+def test_ckpt_kernels_equal_plain(dev, monkeypatch, n_p, n_q, M, N, smem):
+    """K24 (score, ck_h, ck_f) and K25 (every block's packed pointer
+    bytes) equal their plain versions exactly, with the rows in shared memory
+    and in global scratch (the limit forced to 0, or N = 12,160 columns,
+    17 bytes each, above PROFILE_SMEM_LIMIT)."""
+    if not smem:
+        monkeypatch.setattr(profile, "PROFILE_SMEM_LIMIT", 0)
+    cpu = _fractional(np.random.default_rng(M + N + n_p), 2, M, N, n_p, n_q)
+    gpu = [x.to(dev) for x in cpu]
+    K = profile.CKPT_ROWS
+    ref = profile.profile_forward_ckpt_plain(*cpu, K=K)
+    got = profile.profile_forward_ckpt(*gpu, K=K)
+    for g, r in zip(got, ref):
+        assert torch.equal(g.cpu(), r)
+    assert torch.equal(got[0], profile.profile_forward_scores(*gpu))
+    for bi in range(M // K):
+        pb = cpu[0][:, bi * K:(bi + 1) * K].contiguous()
+        want = profile.profile_block_ptrs_plain(ref[1][bi], ref[2][bi], pb,
+                                                cpu[1], cpu[3])
+        g = profile.profile_block_ptrs(got[1][bi], got[2][bi], pb.to(dev),
+                                       gpu[1], gpu[3])
+        assert torch.equal(g.cpu(), want), bi
+
+
+def test_ckpt_route_equals_one_launch_on_cuda(dev, monkeypatch):
+    """Phase "bounded"'s route equality at about 8,000 columns: with
+    PTR_BUDGET lowered below one window's pointers, the uncertified
+    window (unrelated sequences) takes K24 + K25 + the host walk, the
+    near-diagonal one still certifies banded, and the merged rows equal
+    the one-launch route's (K3 + K4)."""
+    rng = np.random.default_rng(8)
+    a = rng.integers(0, 4, 8_000).astype(np.uint8)
+    b = a.copy()
+    m = rng.random(8_000) < 0.01
+    b[m] = (b[m] + 1) % 4
+    p_rows = [rng.integers(0, 4, (1, 8_000)).astype(np.uint8), a[None]]
+    q_rows = [rng.integers(0, 4, (1, 7_900)).astype(np.uint8), b[None]]
+    whole = profile.align_profile_batch(p_rows, q_rows, device=dev)
+    Mp, N = profile.padded_rows(profile._bucket_cols(8_000)), \
+        profile._bucket_cols(8_000)
+    monkeypatch.setattr(profile, "PTR_BUDGET", Mp * (N + 1) - 1)
+    before = profile.CKPT_STATS["windows"]
+    n24 = profile.profile_forward_ckpt.launches
+    got = profile.align_profile_batch(p_rows, q_rows, device=dev)
+    assert profile.CKPT_STATS["windows"] - before == 1
+    assert profile.profile_forward_ckpt.launches - n24 == 1
+    for g, w in zip(got, whole):
+        np.testing.assert_array_equal(g, w)
