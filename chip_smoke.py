@@ -4,9 +4,10 @@
     python3 chip_smoke.py [phase ...]
 
 With no argument every phase runs; naming phases (kernels, goldens, main,
-trio, progressive, large, profile_dp, decode, bounded) runs only those,
-plus the progressive run whose recorded inputs profile_dp and decode
-read.  Needs one NVIDIA Hopper GPU (compute capability 9.0) and the CUDA
+trio, progressive, large, profile_dp, decode, bounded, mesh, cards) runs only
+those, plus the progressive run whose recorded inputs profile_dp and
+decode read (and the main, trio and progressive runs whose outputs mesh
+is held to).  Needs one NVIDIA Hopper GPU (compute capability 9.0) and the CUDA
 toolkit's nvcc; builds the port's kernels from libmems_tpu_torch/csrc at
 first use.  Phases, each raising on failure (the script then exits
 non-zero and prints no result line):
@@ -86,7 +87,25 @@ non-zero and prints no result line):
              create_big (native, 64 MB) byte-equal; find_mums_checkpointed
              (8 ranges) stopped after range 3 and resumed == find_mums,
              with an uninterrupted run's file bytes; all within 90 s; then
-             K24 and K25, kernel and plain, on the counted launches.
+             K24 and K25, kernel and plain, on the counted launches;
+11. mesh   - the seed-prefix-sharded path with 4 shards on the card:
+             K26-K28 exact against their plain versions at the pair's
+             shapes (every shard's slice routed with route_cap slots a
+             destination, shard 0's candidate rows and dedup), timed;
+             align of the rng-0 pair (gapped, no recursion) and trio with
+             AlignerConfig(mesh=...) and progressive_align(mesh=...) of the
+             rng-0 9 x 1 Mbp family (refine=True) + apply_backbone + the
+             writers: seeding matches, MUMs and output bytes equal phases
+             5, 5b and 6, shard loads and retries printed; phase 6's
+             align_profile_batch calls split over 2 shards equal whole;
+             K26's launches equal the non-empty slices of each pass;
+             all within 150 s;
+12. cards  - with two or more cards (skipped with one): the pair's
+             sharded_find_mums over every card (make_mesh) against as many
+             shards on one card, in turns, equal matches; the exchange's
+             bytes and walls on both; align over the cards == unsharded;
+             with phase 6 run too, its align_profile_batch calls whole on
+             one card against the default split over the cards, in turns.
 
 The inputs of phases 7-9 are recorded one layer above the kernel
 wrappers (align_profile_batch, profile_scores_batch, predict_homologous,
@@ -95,11 +114,11 @@ planners.  Counts of kernel launches are set to 0 just before each main
 path and read just after; the kernel table reports the trio path's
 counts for K13-K15, the pair path's for K18 and K19, the 3 x 8.7 Mbp
 path's for K16 and K17, the decode run's for K20-K23, the bounded
-path's for K24 and K25 and the 9 x 1 Mbp progressive path's for the
-rest, and the times of K3, K4 and K8-K12 are taken on that path's
-inputs.  Each kernel's
-bound_ms is max(bytes / 3.35 TB/s, operations / peak rate) for the work
-of those inputs (the counts are in work_* below).
+path's for K24 and K25, the meshed pair's for K26-K28 and the 9 x 1 Mbp
+progressive path's for the rest, and the times of K3, K4 and K8-K12 are
+taken on that path's inputs.  Each kernel's bound_ms is max(bytes /
+3.35 TB/s, operations / peak rate) for the work of those inputs (the
+counts are in work_* below).
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}} when every phase ran, and {"ok": true,
 "phases": [...]} when only the named ones did.  Logs go to
@@ -181,6 +200,12 @@ SOURCES = {
                              "libmems_tpu/ops/profile.py:116"),
     "profile_block_ptrs": ("libmems_tpu_torch/csrc/profile.cu",
                            "libmems_tpu/ops/profile.py:142"),
+    "route_fill": ("libmems_tpu_torch/csrc/shard.cu",
+                   "libmems_tpu/parallel/shard.py:208"),
+    "shard_candidates": ("libmems_tpu_torch/csrc/shard.cu",
+                         "libmems_tpu/parallel/shard.py:310"),
+    "dedup_flags": ("libmems_tpu_torch/csrc/shard.cu",
+                    "libmems_tpu/parallel/shard.py:310"),
 }
 # peak rates of one H100 SXM (NVIDIA's H100 SXM data sheet; f64 outside
 # the tensor cores).  Integer
@@ -211,8 +236,11 @@ CKPT_CHECK_N, CKPT_CHECK_MP = 2_300, 2_304
 CKPT_CHUNKS, CKPT_STOP = 8, 3     # the resumable search's ranges, its stop
 BOUNDED_CAP_S = 90.0
 BOUNDED_KERNELS = ("profile_forward_ckpt", "profile_block_ptrs")
+# the mesh phase: shards on one card, its time cap
+MESH_SHARDS, MESH_CAP_S = 4, 150.0
+MESH_KERNELS = ("route_fill", "shard_candidates", "dedup_flags")
 PHASES = ("kernels", "goldens", "main", "trio", "progressive", "large",
-          "profile_dp", "decode", "bounded")
+          "profile_dp", "decode", "bounded", "mesh", "cards")
 
 
 class SmokeFailure(RuntimeError):
@@ -1214,12 +1242,13 @@ def phase_main(torch, lt, dev):
         lt.write_xmfa(buf, ivs)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        return dt, genomes, ivs, mums, len(buf.getvalue())
+        return dt, genomes, ivs, mums, buf.getvalue()
 
     trace.set_enabled(True, stream=sys.stdout)
     for w in wrappers.values():
         w.launches = 0
-    dt1, genomes, ivs, mums, nbytes = run(0)
+    dt1, genomes, ivs, mums, xmfa = run(0)
+    nbytes = len(xmfa)
     launches = {k: w.launches for k, w in wrappers.items()}
     stages1 = trace.stage_seconds()
     log(f"# main path: 2 x {PAIR_LEN} bp, first run {dt1:.3f} s, "
@@ -1245,13 +1274,14 @@ def phase_main(torch, lt, dev):
     check_partition(ivs2, genomes2)
     log(f"# main path second input (rng_seed=1): {dt2:.3f} s")
     log("# stages (second run): " + json.dumps(stages2))
-    return launches, dt1, dt2
+    return launches, dt1, dt2, {"mums": mums, "found": found, "xmfa": xmfa,
+                                "stages": (stages1, stages2)}
 
 
 def phase_trio(torch, lt, dev):
     """The flat N-way path on two 3 x 1.5 Mbp families (bench_e2e.py's
     trio: gapped, no recursion).  Returns (launches of the first run,
-    walls)."""
+    walls, {"xmfa": the first run's XMFA})."""
     from libmems_tpu_torch import trace
     from libmems_tpu_torch.ops import extend, gapped, mers, mums, profile
     wrappers = {"canonical_seed_keys": mers.canonical_seed_keys,
@@ -1284,6 +1314,7 @@ def phase_trio(torch, lt, dev):
             f"write_xmfa {dt:.3f} s, {len(mums_)} anchors, "
             f"{len(ivs.intervals)} intervals, {len(buf.getvalue())} XMFA "
             f"bytes")
+        xmfa[rng_seed] = buf.getvalue()
         log(f"# launches: {launches}")
         log("# stages: " + json.dumps(trace.stage_seconds()))
         for name, n in launches.items():
@@ -1292,6 +1323,7 @@ def phase_trio(torch, lt, dev):
         check_partition(ivs, genomes)
         return genomes, launches, dt
 
+    xmfa = {}
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "trio_trace.log"), "w") as fh:
         trace.set_enabled(True, stream=fh)
@@ -1309,7 +1341,7 @@ def phase_trio(torch, lt, dev):
             f"({t1 - t0:.3f} s on the GPU, {t2 - t1:.3f} s on CPU tensors)")
         _, _, dt2 = run(1)
         trace.set_enabled(False)
-    return launches, (dt1, dt2)
+    return launches, (dt1, dt2), {"xmfa": xmfa[0]}
 
 
 def check_segments(ivs, segs):
@@ -1336,7 +1368,9 @@ def phase_progressive(torch, lt, dev):
     """The progressiveMauve path, default config (refine=True), on two
     9 x 1 Mbp families.  Returns (launches of the first run, the
     arguments of the first run's align_profile_batch,
-    profile_scores_batch and predict_homologous calls, walls)."""
+    profile_scores_batch and predict_homologous calls, walls, {"outs":
+    the first run's output bytes, "pairwise": find_pairwise_mums of the
+    first family on the GPU})."""
     from libmems_tpu_torch import islands, msa, progressive, trace
     from libmems_tpu_torch.ops import (extend, gapped, hmm, mers, pairwise,
                                        profile)
@@ -1394,8 +1428,10 @@ def phase_progressive(torch, lt, dev):
         check_partition(ivs, genomes)
         check_partition(new_ivs, genomes)
         check_segments(new_ivs, segs)
+        first_outs.setdefault("outs", outs)
         return genomes, launches, calls, t2 - t0
 
+    first_outs = {}
     trace.set_enabled(True, stream=sys.stdout)
     genomes, launches, calls, dt1 = run(0, True)
     got = lt.find_pairwise_mums(genomes, device=dev)
@@ -1407,7 +1443,8 @@ def phase_progressive(torch, lt, dev):
     log(f"# find_pairwise_mums GPU == CPU tensors: {len(got)} matches")
     _, _, _, dt2 = run(1, False)
     trace.set_enabled(False)
-    return launches, calls, (dt1, dt2)
+    return launches, calls, (dt1, dt2), {"outs": first_outs["outs"],
+                                         "pairwise": got}
 
 
 def phase_large(torch, lt, dev, genomes):
@@ -2315,6 +2352,399 @@ def phase_bounded(torch, lt, dev):
     return res, launches, walls
 
 
+def shard_kernels_vs_plain(torch, lt, dev, genomes):
+    """K26, K27 and K28 against their plain versions on the card at the
+    pair path's shapes (4 shards on one card): K26 on every shard's slice
+    of the 2 x 4.6 Mbp pair's table with route_cap slots a destination,
+    K27 on shard 0's routed table (K13's flags), K28 on shard 0's extended
+    rows.  Exact; each timed, kernel and plain, with CUDA events.
+    Returns ({name: entry}, the shapes)."""
+    from libmems_tpu_torch.ops import extend, mums, shard
+    from libmems_tpu_torch.ops.mers import key_sentinel, sentinel_content
+    from libmems_tpu_torch.parallel import shard as psh
+    from libmems_tpu_torch.sml import create_smls
+    smls, seed = create_smls(genomes, device=dev)
+    mesh = psh.Mesh([dev] * MESH_SHARDS)
+    lay = psh._Layout(smls, mesh)
+    capacity, route_cap = psh._default_caps(lay.total, mesh.size, None,
+                                            None)
+    sent = key_sentinel(seed)
+    res = {}
+
+    # K26 on every shard's slice; timed on shard 0's
+    for keys, base in lay.slices:
+        args = (keys, base, sent, mesh.size, route_cap)
+        got, ref = shard.route_fill(*args), shard.route_fill_plain(*args)
+        for g, r in zip(got, ref):
+            require(torch.equal(g, r), f"K26 differs from its plain version "
+                    f"on the slice at row {base}")
+    keys, base = lay.slices[0]
+    args = (keys, base, sent, mesh.size, route_cap)
+    ms = timed_ms(lambda: shard.route_fill(*args), 5, torch)
+    plain_ms = timed_ms(lambda: shard.route_fill_plain(*args), 3, torch)
+    T = keys.shape[0]
+    res["route_fill"] = entry(0.0, ms, plain_ms, work(
+        nbytes(keys) + 2 * 8 * mesh.size * route_cap, 12 * T))
+
+    # K27 on shard 0's routed table
+    tables, dropped = psh._route(mesh, lay.slices, sent, route_cap)
+    require(dropped == 0, f"{dropped} rows dropped at route_cap {route_cap}")
+    content, src, _ = tables[0]
+    del tables
+    flags = mums.mum_seed_flags(content, src, lay.keys[dev],
+                                lay.seg_off[dev], 0, 1000,
+                                sentinel_content(seed))
+    G, seed_len = lay.G, lay.seed_len
+    got = shard.shard_candidates(flags, G, capacity, seed_len)
+    ref = shard.shard_candidates_plain(flags, G, capacity, seed_len)
+    require(got.over == ref.over == 0, "K27: candidate rows over capacity")
+    for g, r in zip(got[:-1], ref[:-1]):
+        require(torch.equal(g, r), "K27 differs from its plain version")
+    ms = timed_ms(lambda: shard.shard_candidates(flags, G, capacity,
+                                                 seed_len), 5, torch)
+    plain_ms = timed_ms(lambda: shard.shard_candidates_plain(
+        flags, G, capacity, seed_len), 3, torch)
+    n, R = content.shape[0], got.lengths.shape[0]
+    res["shard_candidates"] = entry(0.0, ms, plain_ms, work(
+        15 * n + 6 * R * G + 4 * R, n + 3 * R * G))
+
+    # K28 on shard 0's extended rows
+    lefts, lens = extend.extend_matches(
+        lay.keys[dev], seed_len, max(seed_len, 128), *lay.gen_rows(dev, R),
+        got.lefts, got.present, got.is_fwd, got.lengths, sent)
+    valid = torch.ones(R, dtype=torch.bool, device=dev)
+    dargs = (lefts, got.present, got.is_fwd, lens, valid)
+    d_got, d_ref = shard.dedup_flags(*dargs), shard.dedup_flags_plain(*dargs)
+    for g, r in zip(d_got, d_ref):
+        require(torch.equal(g, r), "K28 differs from its plain version")
+    ms = timed_ms(lambda: shard.dedup_flags(*dargs), 5, torch)
+    plain_ms = timed_ms(lambda: shard.dedup_flags_plain(*dargs), 3, torch)
+    # inputs read once, srows, slens and uniq written once
+    res["dedup_flags"] = entry(0.0, ms, plain_ms, work(
+        nbytes(*dargs) + 4 * R * G + 5 * R, 2 * R * G * (G + 2)))
+    shapes = (f"{mesh.size} shards, slices of {T} rows, route_cap "
+              f"{route_cap}, capacity {capacity}; shard 0: {n} routed rows, "
+              f"{R} candidate rows, {int(d_got.uniq.sum())} unique")
+    log(f"# K26-K28 equal their plain versions: {shapes}")
+    return res, shapes
+
+
+def phase_mesh(torch, lt, dev, refs, calls):
+    """The single-process multi-device path with MESH_SHARDS shards on
+    one card.  (1) K26-K28 against their plain versions at the pair's
+    shapes.  (2) align of the 2 x 4.6 Mbp pair (rng 0, gapped, no
+    recursion) with AlignerConfig(mesh=...): the sharded seeding's MUMs
+    equal phase main's find_mums, align's MUMs and XMFA bytes equal phase
+    main's; shard loads and retries printed.  (3) the 3 x 1.5 Mbp trio
+    (rng 0): XMFA equal to phase trio's.  (4) the 9 x 1 Mbp family (rng
+    0) through progressive_align(mesh=...) with refine=True, apply_backbone
+    and the writers: the sharded pairwise matches equal phase
+    progressive's find_pairwise_mums, XMFA, bbseq and bbcols bytes equal
+    its first run's.  (5) phase progressive's recorded align_profile_batch
+    calls split over a 2-shard mesh: merged rows equal mesh=None.  Launch
+    counts of K26-K28 zeroed before each of (2)-(4), read after.  Within
+    MESH_CAP_S.  Returns ({name: entry}, the pair run's launches,
+    walls)."""
+    from libmems_tpu_torch import trace
+    from libmems_tpu_torch.ops import (extend, gapped, mers, mums, pairwise,
+                                       profile, shard)
+    from libmems_tpu_torch.ops.mers import key_sentinel
+    from libmems_tpu_torch.parallel import shard as psh
+    t_phase = time.perf_counter()
+    mesh = psh.Mesh([dev] * MESH_SHARDS)
+    genomes = genome_pair(lt, 0)
+    res, _ = shard_kernels_vs_plain(torch, lt, dev, genomes)
+    t_kernels = time.perf_counter() - t_phase
+
+    wrappers = {"canonical_seed_keys": mers.canonical_seed_keys,
+                "route_fill": shard.route_fill,
+                "mum_seed_flags": mums.mum_seed_flags,
+                "shard_candidates": shard.shard_candidates,
+                "extend_matches": extend.extend_matches,
+                "dedup_flags": shard.dedup_flags}
+    pw_wrappers = {"canonical_seed_keys": mers.canonical_seed_keys,
+                   "route_fill": shard.route_fill,
+                   "run_flags": pairwise.run_flags,
+                   "cluster_words": pairwise.cluster_words,
+                   "cluster_reps": pairwise.cluster_reps,
+                   "extend_matches": extend.extend_matches}
+    seeded = []
+    targets = [(psh, "_sharded_find_mums_once"),
+               (psh, "_sharded_pairwise_once")]
+
+    def counted(label, ws, fn):
+        """fn() with the launch counts zeroed before and read after; the
+        sharded seeders' passes and results recorded."""
+        for w in ws.values():
+            w.launches = 0
+        seeded.clear()
+        with recording(targets) as passes, keep_results(
+                psh, ("sharded_find_mums", "sharded_find_pairwise_mums"),
+                seeded):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        launches = {k: w.launches for k, w in ws.items()}
+        n_pass = sum(len(v) for v in passes.values())
+        # K26 launches once for each non-empty slice of each pass
+        slices = sum(sum(k.shape[0] > 0 for k, _ in c["lay"].slices)
+                     for v in passes.values() for c in v)
+        log(f"# mesh {label}: {dt:.3f} s, {n_pass} seeding pass(es) "
+            f"({n_pass - 1} retries), {slices} non-empty slices, launches "
+            f"{launches}")
+        for name, n in launches.items():
+            require(n > 0, f"{name}: no launch on the meshed {label} path")
+        require(launches["route_fill"] == slices,
+                f"K26: {launches['route_fill']} launches on the meshed "
+                f"{label} path, {slices} non-empty slices")
+        require(len(seeded) == 1, f"{label}: {len(seeded)} sharded seedings")
+        return out, launches, dt
+
+    # (2) the pair
+    cfg = lt.AlignerConfig(gapped_alignment=True, recursive=False,
+                           mesh=mesh, device=dev)
+
+    def pair():
+        trace.reset()
+        ivs, mums_ = lt.align(genomes, cfg)
+        buf = io.StringIO()
+        lt.write_xmfa(buf, ivs)
+        return mums_, buf.getvalue()
+
+    trace.set_enabled(True, stream=io.StringIO())
+    (mums_, xmfa), launches, dt_pair = counted("pair", wrappers, pair)
+    stages = trace.stage_seconds()
+    trace.set_enabled(False)
+    ref = refs["pair"]
+    for label, a, b in (("seeding", seeded[0], ref["found"]),
+                        ("align", mums_, ref["mums"])):
+        require(np.array_equal(a.starts, b.starts)
+                and np.array_equal(a.lengths, b.lengths),
+                f"meshed pair {label} MUMs ({len(a)}) differ from phase "
+                f"main's ({len(b)})")
+    require(xmfa == ref["xmfa"], "meshed pair XMFA differs from phase main's")
+    smls = [s for s in lt.create_smls(genomes, device=dev)[0]]
+    seed = smls[0].seed
+    keys = torch.cat([s.keys for s in smls]).cpu().numpy()
+    gid = np.repeat(np.arange(2, dtype=np.int32), [s.n_windows for s in smls])
+    pos = np.concatenate([np.arange(s.n_windows, dtype=np.int32)
+                          for s in smls])
+    loads = psh.shard_loads(*psh.pad_table_for_mesh(
+        keys, gid, pos, mesh.size, key_sentinel(seed)), mesh,
+        smls[0].seed_weight)
+    unsharded = " and ".join(f"{st.get('mum_find', 0.0):.4f}"
+                             for st in ref["stages"])
+    log(f"# meshed pair: {len(seeded[0])} seeding MUMs and {len(mums_)} "
+        f"anchors equal phase main's, XMFA equal ({len(xmfa)} bytes); "
+        f"shard loads {loads.tolist()}; mum_find "
+        f"{stages.get('mum_find', 0.0):.4f} s meshed vs {unsharded} s "
+        f"unsharded (phase main's two inputs); wall {dt_pair:.3f} s")
+
+    # (3) the trio
+    trio = family_trio(lt, 0)
+    cfg3 = lt.AlignerConfig(gapped_alignment=True, recursive=False,
+                            mesh=mesh, device=dev)
+
+    def run_trio():
+        ivs, _ = lt.align(trio, cfg3)
+        buf = io.StringIO()
+        lt.write_xmfa(buf, ivs)
+        return buf.getvalue()
+
+    xmfa3, _, dt_trio = counted("trio", wrappers, run_trio)
+    require(xmfa3 == refs["trio"]["xmfa"],
+            "meshed trio XMFA differs from phase trio's")
+
+    # (4) the 9 x 1 Mbp family, refine=True
+    nine = family_nine(lt, 0)
+    pcfg = lt.ProgressiveConfig(mesh=mesh, device=dev)
+    require(pcfg.refine, "the default ProgressiveConfig must refine")
+
+    def run_nine():
+        ivs, _ = lt.progressive_align(nine, pcfg)
+        new_ivs, segs = lt.apply_backbone(ivs, device=dev)
+        return write_outputs(lt, new_ivs, segs, len(nine))
+
+    outs, _, dt_nine = counted("progressive", pw_wrappers, run_nine)
+    want = refs["progressive"]
+    got_pw, ref_pw = seeded[0], want["pairwise"]
+    require(np.array_equal(got_pw.starts, ref_pw.starts)
+            and np.array_equal(got_pw.lengths, ref_pw.lengths),
+            f"meshed pairwise matches ({len(got_pw)}) differ from phase "
+            f"progressive's ({len(ref_pw)})")
+    for name, data in want["outs"].items():
+        require(outs[name] == data, f"meshed progressive {name} differs")
+    log(f"# meshed progressive: {len(got_pw)} pairwise matches, XMFA, "
+        f"bbseq and bbcols equal phase progressive's first run")
+
+    # (5) the window DP split over 2 shards
+    dp = {"profile_forward": profile.profile_forward,
+          "traceback_walk": gapped.traceback_walk,
+          "banded_forward_ptrs": profile.banded_forward_ptrs,
+          "banded_traceback_walk": profile.banded_traceback_walk,
+          "profile_forward_ckpt": profile.profile_forward_ckpt,
+          "profile_block_ptrs": profile.profile_block_ptrs}
+    mesh2 = psh.Mesh([dev] * 2)
+    n_win, t_whole, t_split = 0, 0.0, 0.0
+    split_launches = dict.fromkeys(dp, 0)
+    for c in calls:
+        args = (c["p_rows"], c["q_rows"], c["gap_open"], c["gap_extend"])
+        t0 = time.perf_counter()
+        whole = profile.align_profile_batch(*args, device=dev, mesh=None)
+        t1 = time.perf_counter()
+        before = {k: w.launches for k, w in dp.items()}
+        split = profile.align_profile_batch(*args, device=dev, mesh=mesh2)
+        t_whole += t1 - t0
+        t_split += time.perf_counter() - t1
+        for k, w in dp.items():
+            split_launches[k] += w.launches - before[k]
+        for a, b in zip(whole, split):
+            require(np.array_equal(a, b), "align_profile_batch split over "
+                    "2 shards differs from the whole batch")
+        n_win += len(whole)
+    log(f"# align_profile_batch split over 2 shards == whole on "
+        f"{len(calls)} recorded calls ({n_win} windows): whole "
+        f"{t_whole:.3f} s, split {t_split:.3f} s, split launches "
+        f"{split_launches}")
+    wall = time.perf_counter() - t_phase
+    log(f"# phase mesh: {wall:.1f} s (cap {MESH_CAP_S} s; K26-K28 checks "
+        f"{t_kernels:.1f} s)")
+    require(wall <= MESH_CAP_S, f"phase mesh took {wall:.1f} s, over its "
+            f"{MESH_CAP_S} s cap")
+    walls = (f"meshed pair {dt_pair:.3f} s, trio {dt_trio:.3f} s, "
+             f"9 x {PROG_LEN} bp progressive {dt_nine:.3f} s "
+             f"({MESH_SHARDS} shards on one card)")
+    return res, launches, walls
+
+
+@contextlib.contextmanager
+def keep_results(mod, names, out):
+    """Patch each name of mod so that every call's result is appended to
+    out and returned unchanged."""
+    saved = []
+    for name in names:
+        fn = getattr(mod, name)
+
+        def rec(*args, _fn=fn, **kw):
+            r = _fn(*args, **kw)
+            out.append(r)
+            return r
+        saved.append((name, fn))
+        setattr(mod, name, rec)
+    try:
+        yield out
+    finally:
+        for name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def phase_cards(torch, lt, dev, dp_calls):
+    """The meshed pair over every visible card (make_mesh) against as many
+    shards on one card, timed in turns (one card, cards, cards, one
+    card): sharded_find_mums equal on both and its walls; the exchange
+    alone (_all_to_all of the route's send buffers), its bytes and
+    walls; align of the pair with the cards' mesh, XMFA equal to the
+    unsharded run's.  With phase progressive's recorded
+    align_profile_batch calls (dp_calls), those calls whole on one card
+    (mesh=None) against the default split over the cards (mesh="auto"),
+    in turns, merged rows equal.  Skipped with one card.  Returns the
+    walls text or None."""
+    from libmems_tpu_torch import cuda
+    from libmems_tpu_torch.ops import profile, shard
+    from libmems_tpu_torch.ops.mers import key_sentinel
+    from libmems_tpu_torch.parallel import shard as psh
+    n = torch.cuda.device_count()
+    if n < 2:
+        log("# phase cards: skipped, one card visible")
+        return None
+    many = psh.make_mesh()
+    one = psh.Mesh([dev] * many.size)
+    genomes = genome_pair(lt, 0)
+    smls, seed = lt.create_smls(genomes, device=dev)
+
+    def sync():
+        for i in range(n):
+            torch.cuda.synchronize(i)
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t0
+
+    labels = {id(one): "one card", id(many): f"{n} cards"}
+    seeding, exchange = {}, {}
+    lays = {id(m): psh._Layout(smls, m) for m in (one, many)}
+    caps = psh._default_caps(lays[id(one)].total, one.size, None, None)
+    for mesh in (one, many, many, one):
+        ma, dt = timed(lambda: psh.sharded_find_mums(smls, mesh))
+        seeding.setdefault(labels[id(mesh)], []).append(dt)
+        seeding.setdefault("mums " + labels[id(mesh)], ma)
+        lay = lays[id(mesh)]
+        sends = []
+        for (k, base), d in zip(lay.slices, mesh.devices):
+            with cuda.on(d):
+                sends.append(shard.route_fill(k, base, key_sentinel(seed),
+                                              mesh.size, caps[1]))
+        _, dt = timed(lambda: (psh._all_to_all([x.keys for x in sends],
+                                               mesh),
+                               psh._all_to_all([x.src for x in sends],
+                                               mesh)))
+        exchange.setdefault(labels[id(mesh)], []).append(dt)
+    a, b = seeding["mums one card"], seeding[f"mums {n} cards"]
+    require(np.array_equal(a.starts, b.starts)
+            and np.array_equal(a.lengths, b.lengths),
+            f"sharded_find_mums over {n} cards differs from one card")
+    moved = 2 * 8 * many.size * many.size * caps[1]
+    cfg = lt.AlignerConfig(gapped_alignment=True, recursive=False,
+                           device=dev)
+    ref, dt_plain = timed(lambda: lt.align(genomes, cfg))
+    got, dt_many = timed(lambda: lt.align(genomes, lt.AlignerConfig(
+        gapped_alignment=True, recursive=False, device=dev, mesh=many)))
+    bufs = []
+    for ivs in (ref[0], got[0]):
+        buf = io.StringIO()
+        lt.write_xmfa(buf, ivs)
+        bufs.append(buf.getvalue())
+    require(bufs[0] == bufs[1], f"align over {n} cards differs from the "
+            "unsharded XMFA")
+    fmt = lambda xs: " / ".join(f"{x:.4f}" for x in xs)
+    log(f"# cards: {len(a)} MUMs equal; sharded_find_mums one card "
+        f"{fmt(seeding['one card'])} s, {n} cards "
+        f"{fmt(seeding[f'{n} cards'])} s; exchange of {moved} bytes: "
+        f"one card {fmt(exchange['one card'])} s, {n} cards "
+        f"{fmt(exchange[f'{n} cards'])} s; align over {n} cards "
+        f"{dt_many:.3f} s (unsharded {dt_plain:.3f} s), XMFA equal")
+    walls = (f"pair seeding over {n} cards {fmt(seeding[f'{n} cards'])} s, "
+             f"on one card {fmt(seeding['one card'])} s")
+    if not dp_calls:
+        log("# cards: no recorded align_profile_batch calls (phase "
+            "progressive did not run), DP split not timed")
+        return walls
+    dp, rows = {}, {}
+    for label, m in (("whole", None), ("split", "auto"), ("split", "auto"),
+                     ("whole", None)):
+        out, dt = timed(lambda: [profile.align_profile_batch(
+            c["p_rows"], c["q_rows"], c["gap_open"], c["gap_extend"],
+            device=dev, mesh=m) for c in dp_calls])
+        dp.setdefault(label, []).append(dt)
+        rows.setdefault(label, out)
+    for wa, wb in zip(rows["whole"], rows["split"]):
+        require(all(np.array_equal(x, y) for x, y in zip(wa, wb)),
+                f"align_profile_batch split over {n} cards differs from "
+                "the whole batch")
+    n_win = sum(len(c["p_rows"]) for c in dp_calls)
+    log(f"# cards: {len(dp_calls)} recorded align_profile_batch calls "
+        f"({n_win} windows) whole on one card {fmt(dp['whole'])} s, split "
+        f"over {n} cards (the default) {fmt(dp['split'])} s, merged rows "
+        f"equal")
+    return (walls + f"; DP calls whole {fmt(dp['whole'])} s, split over "
+            f"{n} cards {fmt(dp['split'])} s")
+
+
 def select_phases(argv):
     """The phases to run: those named on the command line (PHASES), all
     when none is, plus the progressive run that profile_dp and decode
@@ -2325,6 +2755,8 @@ def select_phases(argv):
     want = set(argv or PHASES)
     if want & {"profile_dp", "decode"}:
         want.add("progressive")
+    if "mesh" in want:
+        want |= {"main", "trio", "progressive"}
     return [p for p in PHASES if p in want]
 
 
@@ -2344,7 +2776,7 @@ def main(argv=None) -> int:
     log(f"# phases: {' '.join(phases)}")
     phase_build()
     lap("build")
-    res, paths, walls, k2_errs = {}, {}, [], []
+    res, paths, walls, k2_errs, refs, calls = {}, {}, [], [], {}, {}
     large = None
     if "kernels" in phases:
         res = phase_kernels(torch, lt, dev)
@@ -2361,15 +2793,16 @@ def main(argv=None) -> int:
         phase_goldens(lt, dev)
         lap("goldens")
     if "main" in phases:
-        paths["pair"], dt1, dt2 = phase_main(torch, lt, dev)
+        paths["pair"], dt1, dt2, refs["pair"] = phase_main(torch, lt, dev)
         walls.append(f"pair path {dt1:.3f} s then {dt2:.3f} s")
         lap("main (pair)")
     if "trio" in phases:
-        paths["trio"], tdt = phase_trio(torch, lt, dev)
+        paths["trio"], tdt, refs["trio"] = phase_trio(torch, lt, dev)
         walls.append(f"trio path {tdt[0]:.3f} s then {tdt[1]:.3f} s")
         lap("trio")
     if "progressive" in phases:
-        paths["progressive"], calls, pdt = phase_progressive(torch, lt, dev)
+        paths["progressive"], calls, pdt, refs["progressive"] = \
+            phase_progressive(torch, lt, dev)
         walls.append(f"progressive path {pdt[0]:.3f} s then {pdt[1]:.3f} s")
         lap("progressive")
     if "large" in phases:
@@ -2398,17 +2831,30 @@ def main(argv=None) -> int:
         res.update(b_res)
         walls.append(b_walls)
         lap("bounded")
+    if "mesh" in phases:
+        m_res, paths["mesh"], m_walls = phase_mesh(
+            torch, lt, dev, refs, calls["align_profile_batch"])
+        res.update(m_res)
+        walls.append(m_walls)
+        lap("mesh")
+    if "cards" in phases:
+        c_walls = phase_cards(torch, lt, dev,
+                              calls.get("align_profile_batch"))
+        if c_walls:
+            walls.append(c_walls)
+        lap("cards")
     if "extend_matches" in res:
         res["extend_matches"]["err"] = max([res["extend_matches"]["err"]]
                                            + k2_errs)
     # launches: the 9 x 1 Mbp progressive path's, K13-K15 the trio's,
     # K18/K19 the pair's, K16/K17 the 3 x 8.7 Mbp path's, K20-K23 the
-    # decode run's, K24/K25 the bounded path's
+    # decode run's, K24/K25 the bounded path's, K26-K28 the meshed pair's
     launches = dict(paths.get("progressive", {}))
     for path, names in (("trio", MUM_KERNELS), ("pair", PAIR_KERNELS),
                         ("large", SEEDOCC_KERNELS),
                         ("decode", DECODE_KERNELS),
-                        ("bounded", BOUNDED_KERNELS)):
+                        ("bounded", BOUNDED_KERNELS),
+                        ("mesh", MESH_KERNELS)):
         if path in paths:
             launches.update({k: paths[path][k] for k in names})
     forbidden = [m for m in sys.modules

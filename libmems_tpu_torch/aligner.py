@@ -8,8 +8,10 @@ libMems/Aligner.cpp:2193-2286), for any number of genomes:
   tree -> recursive anchor fill -> batched gapped alignment of the
   inter-anchor windows -> unaligned intervals (-> XMFA).
 
-Every tensor lives on ``AlignerConfig.device``.  A mesh raises
-NotImplementedError naming its ROADMAP item.
+Every tensor lives on ``AlignerConfig.device``; with
+``AlignerConfig.mesh`` set, seeding runs through the seed-prefix-sharded
+pipeline over the mesh's devices (parallel.shard.sharded_find_mums),
+which finds the same MUMs.
 """
 
 from __future__ import annotations
@@ -57,7 +59,8 @@ class AlignerConfig:
                                       # many same-weight seed patterns
                                       # (pairwiseAnchorSearch seed_count=3,
                                       # ProgressiveAligner.cpp:619-651)
-    mesh: object | None = None        # multi-GPU seeding: not ported yet
+    mesh: object | None = None        # parallel.Mesh or a shard count:
+                                      # seed-prefix-sharded seeding
     device: str = "cuda"              # every tensor of the run lives here
 
 
@@ -185,6 +188,33 @@ def _extend_lcb_anchors(mums: MatchArray, genomes: list[Genome],
     return mums, members
 
 
+def resolve_mesh(mesh, device="cuda"):
+    """A Mesh as given; a shard count as that many devices of the run's
+    device type (make_mesh's first n cards, or n CPU shards where the run
+    asked for the CPU); None passes through."""
+    if mesh is None:
+        return None
+    from libmems_tpu_torch.parallel.shard import Mesh, make_mesh
+    if isinstance(mesh, Mesh):
+        return mesh
+    if cuda.resolve_device(device).type == "cpu":
+        return Mesh([device] * int(mesh))
+    return make_mesh(int(mesh))
+
+
+def _find_mums_maybe_sharded(smls, cfg: AlignerConfig) -> MatchArray:
+    """Seed discovery through the single-device pipeline or, when
+    cfg.mesh is set, the seed-prefix-sharded one: both find the same
+    unique MUMs, as ParallelMemHash::FindMatches fed the aligner what
+    MemHash::FindMatches did (Aligner.cpp:2193)."""
+    mesh = resolve_mesh(cfg.mesh, cfg.device)
+    if mesh is None:
+        return find_mums(smls, repeat_tolerance=cfg.repeat_tolerance)
+    from libmems_tpu_torch.parallel.shard import sharded_find_mums
+    return sharded_find_mums(smls, mesh,
+                             repeat_tolerance=cfg.repeat_tolerance)
+
+
 def align(genomes: list[Genome], config: AlignerConfig | None = None
           ) -> tuple[IntervalList, MatchArray]:
     """Run the flat aligner (Aligner::align,
@@ -194,16 +224,13 @@ def align(genomes: list[Genome], config: AlignerConfig | None = None
     seq_count = len(genomes)
     if seq_count < 2:
         raise ValueError("need at least two genomes")
-    if cfg.mesh is not None:
-        raise NotImplementedError("mesh-sharded seeding is not ported yet "
-                                  "(ROADMAP queue 2: multi-GPU)")
     device = cuda.resolve_device(cfg.device)
 
     with trace.stage("sml_build"):
         smls, seed = create_smls(genomes, cfg.seed, cfg.seed_rank,
                                  device=device)
     with trace.stage("mum_find"):
-        mums = find_mums(smls, repeat_tolerance=cfg.repeat_tolerance)
+        mums = _find_mums_maybe_sharded(smls, cfg)
 
     # Step 2-3 (Aligner.cpp:2217-2247): overlap trim, then keep only
     # full n-way multi-MUMs

@@ -16,6 +16,7 @@ it is not 0.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -85,6 +86,11 @@ _SIGNATURES = {
     "lm_gotoh_smem_limit": ([], _L),
     "lm_gotoh_fwd": ([_P, _P, _P, _P] + [_I] * 6 + [_P] * 6, _I),
     "lm_gotoh_ptrs": ([_P] * 4 + [_I] * 5 + [_P, _I, _P, _P, _P], _I),
+    "lm_route_buckets": ([_P, _L, _L, _I, _I, _P, _P, _P], _I),
+    "lm_route_fill": ([_P] * 4 + [_L, _L, _I, _L] + [_P] * 4, _I),
+    "lm_shard_candidates": ([_P] * 6 + [_L, _L, _I] + [_P] * 5, _I),
+    "lm_dedup_starts": ([_P] * 3 + [_L, _I, _P, _P], _I),
+    "lm_dedup_flags": ([_P] * 4 + [_L, _I] + [_P] * 4, _I),
     "lm_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -205,6 +211,15 @@ def check(status: int, name: str) -> None:
 def stream(t: torch.Tensor) -> int:
     """PyTorch's current stream on t's device, as a pointer value."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def on(device: torch.device):
+    """Make `device` the current CUDA device for a block of launches: a
+    launcher runs on the current device, and a stream of another card is
+    refused there.  A no-op for the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype,

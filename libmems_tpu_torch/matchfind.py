@@ -723,23 +723,30 @@ def find_pairwise_mums(genomes_or_smls, seed: int | None = None,
             break
         ec = 1 << (reps.n_reps - 1).bit_length()
     del cw
-    n = reps.n_reps
-    if n == 0:
+    if reps.n_reps == 0:
         return MatchArray.empty(G)
+    # the exact-row dedup of the JAX pipeline is MatchArray.dedup here
+    return pairwise_rows(keys, seed_len, chunk, reps, G,
+                         seed).dedup().canonical_sort()
+
+
+def pairwise_rows(keys, seed_len: int, chunk: int, reps, G: int,
+                  seed: int) -> MatchArray:
+    """K7's first n_reps representatives extended (K2) against keys, the
+    position-order concatenation of the genomes' keys, as [n, G] rows
+    (matchfind.py:1219-1225), not deduplicated."""
+    n = reps.n_reps
     lefts, lengths = extend_matches(
-        keys, seed_len, chunk, reps.gen_off, reps.gen_cnt, reps.lefts,
-        reps.present, reps.is_fwd, reps.lengths0, key_sentinel(seed))
-    # rows in the [n, G] layout (matchfind.py:1219-1225); the exact-row
-    # dedup of the JAX pipeline is MatchArray.dedup below
+        keys, seed_len, chunk, reps.gen_off[:n], reps.gen_cnt[:n],
+        reps.lefts[:n], reps.present[:n], reps.is_fwd[:n],
+        reps.lengths0[:n], key_sentinel(seed))
     sign_b = torch.where(reps.is_fwd[:n, 1], 1, -1).to(torch.int32)
     starts = torch.zeros((n, G), dtype=torch.int32, device=keys.device)
-    starts.scatter_(1, reps.r_a[:n, None].to(torch.int64),
-                    lefts[:n, :1] + 1)
+    starts.scatter_(1, reps.r_a[:n, None].to(torch.int64), lefts[:, :1] + 1)
     starts.scatter_(1, reps.r_b[:n, None].to(torch.int64),
-                    (sign_b * (lefts[:n, 1] + 1))[:, None])
-    out = MatchArray(starts.cpu().numpy().astype(np.int64),
-                     lengths[:n].cpu().numpy().astype(np.int64))
-    return out.dedup().canonical_sort()
+                    (sign_b * (lefts[:, 1] + 1))[:, None])
+    return MatchArray(starts.cpu().numpy().astype(np.int64),
+                      lengths.cpu().numpy().astype(np.int64))
 
 
 def _find_pairwise_mums_host(smls, repeat_limit: int = MER_REPEAT_LIMIT,

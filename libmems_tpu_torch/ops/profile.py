@@ -28,8 +28,11 @@ module's checkpointed route (``profile_forward_ckpt`` at K = 128 +
 launches split so the carries stay under PTR_BUDGET too, and the host
 walk ``ops.gapped.traceback_blocks`` fetches each 128-row block's
 pointers, nibble-packed, from K25 (``CKPT_STATS`` counts the windows).
-Windows are independent and padding never reaches a window's result, so
-neither the grouping, the split nor the route changes an output.
+With two or more cards (``dp_mesh``) or a mesh passed in, each launch's
+windows are cut into one contiguous slice a device (the ``_shard_*``
+wrappers of the JAX module).  Windows are independent and padding never
+reaches a window's result, so neither the grouping, the splits nor the
+route changes an output.
 """
 
 from __future__ import annotations
@@ -972,10 +975,93 @@ def profile_path_scores_single(rows: np.ndarray,
     return out
 
 
+def dp_mesh():
+    """The mesh that splits the window DP's batches (ops/profile.py:167):
+    every visible CUDA device when there are two or more, else None, so
+    on one card the batches run whole as before.  The AlignLCBInParallel
+    parallelism (Aligner.cpp:1293-1367) over devices instead of
+    threads."""
+    count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if count < 2:
+        return None
+    from libmems_tpu_torch.parallel.shard import Mesh
+    return Mesh([torch.device("cuda", i) for i in range(count)])
+
+
+def mesh_slices(B: int, n_dev: int) -> list[slice]:
+    """A batch of B windows cut into n_dev contiguous slices of
+    ceil(B / n_dev) windows, the last ones shorter or empty, as the JAX
+    module's shard_map cuts its batch padded to at least n_dev windows
+    (ops/profile.py:752); the port's kernels take any batch, so no
+    padding window is added."""
+    per = max(1, -(-B // n_dev))
+    return [slice(min(d * per, B), min((d + 1) * per, B))
+            for d in range(n_dev)]
+
+
+def banded_scores_split(p, q, p_len, q_len, gap_open: int, gap_extend: int,
+                        H_W: int, mesh):
+    """banded_forward_scores with the batch split over the mesh's devices
+    (_shard_banded_scores, ops/profile.py:492): each device scores its
+    contiguous slice of the windows (K10), and the scores and
+    certificates come back in window order on p's device."""
+    scores, certs = [], []
+    for sl, dev in zip(mesh_slices(p.shape[0], mesh.size), mesh.devices):
+        if sl.start == sl.stop:
+            continue
+        with cuda.on(dev):
+            score, cert = banded_forward_scores(
+                *(t[sl].to(dev) for t in (p, q, p_len, q_len)), gap_open,
+                gap_extend, H_W)
+        scores.append(score.to(p.device))
+        certs.append(cert.to(p.device))
+    return torch.cat(scores), torch.cat(certs)
+
+
+def _align_launch(p_rows, q_rows, sub: list[int], Mp: int, N: int, dev,
+                  gap_open: int, gap_extend: int, results: list):
+    """One launch of align_profile_batch on `dev`: the banded forward
+    (K11) and walk (K12) where a window is eligible, then K3 and K4, or
+    the checkpointed route, for the rest; merged rows into results.  A
+    generator: it yields after queueing each device pass and before
+    reading it back, so that a caller can queue every device's first pass
+    before it waits on any; run it to its end."""
+    t = pack_profiles(p_rows, q_rows, sub, Mp, N, dev)
+    T = _device_tb_T(Mp, N)
+    todo = sub
+    elig = band_route(p_rows, q_rows, sub, Mp, N)
+    if elig.any():
+        H_W = _band_half(N)
+        ptrs, _, cert = banded_forward_ptrs(*t, gap_open, gap_extend, H_W)
+        masks = banded_traceback_walk(ptrs, t[2], t[3], N, H_W, T)
+        del ptrs
+        yield
+        okm = elig & cert.cpu().numpy()
+        _band_note(elig, okm, len(sub))
+        rs = np.flatnonzero(okm).tolist()
+        for r, (p_gaps, q_gaps) in zip(rs, tb_unpack(masks, rs)):
+            k = sub[r]
+            results[k] = merge_rows(p_rows[k], q_rows[k], p_gaps, q_gaps)
+        todo = [k for r, k in enumerate(sub) if not okm[r]]
+    for chunk in split_launch(todo, full_window_bytes(Mp, N)):
+        if chunk != sub:
+            t = pack_profiles(p_rows, q_rows, chunk, Mp, N, dev)
+        if ckpt_route(Mp, N):
+            tb = ckpt_tracebacks(*t, gap_open, gap_extend)
+        else:
+            ptrs, _ = profile_forward(*t, gap_open, gap_extend)
+            masks = traceback_walk(ptrs, t[2], t[3], T)
+            del ptrs
+            yield
+            tb = tb_unpack(masks, len(chunk))
+        for k, (p_gaps, q_gaps) in zip(chunk, tb):
+            results[k] = merge_rows(p_rows[k], q_rows[k], p_gaps, q_gaps)
+
+
 def align_profile_batch(p_rows: list[np.ndarray], q_rows: list[np.ndarray],
                         gap_open: int = GAP_OPEN,
                         gap_extend: int = GAP_EXTEND,
-                        device="cuda") -> list[np.ndarray]:
+                        device="cuda", mesh="auto") -> list[np.ndarray]:
     """Align many (p, q) alignment-row groups on `device`.
 
     p_rows[k] / q_rows[k]: uint8[G_k, C_k] code rows (4 = gap).  Returns
@@ -984,42 +1070,34 @@ def align_profile_batch(p_rows: list[np.ndarray], q_rows: list[np.ndarray],
     certified windows take their traceback (byte-identical to full
     width), the others re-run through K3 and K4 (ops/profile.py:768-843),
     or, where one window's full pointer tensor exceeds PTR_BUDGET, through
-    the checkpointed route (ckpt_tracebacks: K24, K25 and the host
-    walk)."""
+    the checkpointed route (ckpt_tracebacks: K24, K25 and the host walk).
+
+    With a mesh (a parallel.Mesh; "auto", the default, is dp_mesh() on a
+    CUDA device, else None) each launch's windows are cut into
+    mesh.size contiguous slices (mesh_slices), each run as above on its
+    own device (the _shard_* wrappers of ops/profile.py), every slice's
+    first device pass queued before any is read back; windows are
+    independent, so the merged rows do not change."""
     if not p_rows:
         return []
     dev = cuda.resolve_device(device)
+    if isinstance(mesh, str) and mesh == "auto":
+        mesh = dp_mesh() if dev.type == "cuda" else None
+    devices = [dev] if mesh is None else mesh.devices
     results: list = [None] * len(p_rows)
     for Mp, N, sub in plan_launches(p_rows, q_rows):
-        t = pack_profiles(p_rows, q_rows, sub, Mp, N, dev)
-        T = _device_tb_T(Mp, N)
-        todo = sub
-        elig = band_route(p_rows, q_rows, sub, Mp, N)
-        if elig.any():
-            H_W = _band_half(N)
-            ptrs, _, cert = banded_forward_ptrs(*t, gap_open, gap_extend,
-                                                H_W)
-            masks = banded_traceback_walk(ptrs, t[2], t[3], N, H_W, T)
-            del ptrs
-            okm = elig & cert.cpu().numpy()
-            _band_note(elig, okm, len(sub))
-            rs = np.flatnonzero(okm).tolist()
-            for r, (p_gaps, q_gaps) in zip(rs, tb_unpack(masks, rs)):
-                k = sub[r]
-                results[k] = merge_rows(p_rows[k], q_rows[k], p_gaps, q_gaps)
-            todo = [k for r, k in enumerate(sub) if not okm[r]]
-        for chunk in split_launch(todo, full_window_bytes(Mp, N)):
-            if chunk != sub:
-                t = pack_profiles(p_rows, q_rows, chunk, Mp, N, dev)
-            if ckpt_route(Mp, N):
-                tb = ckpt_tracebacks(*t, gap_open, gap_extend)
-            else:
-                ptrs, _ = profile_forward(*t, gap_open, gap_extend)
-                masks = traceback_walk(ptrs, t[2], t[3], T)
-                del ptrs
-                tb = tb_unpack(masks, len(chunk))
-            for k, (p_gaps, q_gaps) in zip(chunk, tb):
-                results[k] = merge_rows(p_rows[k], q_rows[k], p_gaps, q_gaps)
+        runs = []
+        for sl, d in zip(mesh_slices(len(sub), len(devices)), devices):
+            if sl.start < sl.stop:
+                run = _align_launch(p_rows, q_rows, sub[sl], Mp, N, d,
+                                    gap_open, gap_extend, results)
+                with cuda.on(d):
+                    next(run, None)
+                runs.append((d, run))
+        for d, run in runs:
+            with cuda.on(d):
+                for _ in run:
+                    pass
     return results
 
 

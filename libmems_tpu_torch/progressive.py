@@ -37,9 +37,10 @@ greedy search itself is identical in objective shape).
 
 Port of libmems_tpu/progressive.py, copied with imports renamed.  The
 device work (SML build, pairwise seeding, node DP windows, gap searches)
-runs on ``ProgressiveConfig.device``.  Left out: the JAX package's
-prewarm and multi-host branches; ``mesh`` raises NotImplementedError
-naming its ROADMAP item.
+runs on ``ProgressiveConfig.device``; with ``ProgressiveConfig.mesh``
+set, the pairwise seeding runs through the seed-prefix-sharded seeder
+(parallel.shard.sharded_find_pairwise_mums), which finds the same
+matches.  Left out: the JAX package's prewarm and multi-host branches.
 """
 
 from __future__ import annotations
@@ -83,10 +84,6 @@ def default_breakpoint_penalty(seq_lengths: list[int]) -> float:
 
 MIN_BREAKPOINT_PENALTY = 4000.0  # ProgressiveAligner.cpp:138
 
-_TODO_MESH = ("a mesh needs the sharded seeder, which is not ported yet "
-              "(ROADMAP queue 1 item 4: multi-GPU)")
-
-
 @dataclass
 class ProgressiveConfig:
     seed: int | None = None
@@ -123,8 +120,9 @@ class ProgressiveConfig:
                                      # completed node merge; a rerun
                                      # with the same inputs resumes
                                      # after the last finished node
-    mesh: object | None = None       # multi-device seeding: not ported
-                                     # (raises NotImplementedError)
+    mesh: object | None = None       # parallel.Mesh or a shard count:
+                                     # seed-prefix-sharded pairwise
+                                     # seeding
     device: str = "cuda"             # every tensor of the run lives here
 
 
@@ -1141,8 +1139,6 @@ def progressive_align(genomes: list[Genome],
         raise ValueError("need at least two genomes")
     seq_lengths = [len(g) for g in genomes]
 
-    if cfg.mesh is not None:
-        raise NotImplementedError(_TODO_MESH)
     from libmems_tpu_torch import cuda
     from libmems_tpu_torch.sml import default_seed
     device = cuda.resolve_device(cfg.device)
@@ -1165,7 +1161,14 @@ def progressive_align(genomes: list[Genome],
             sols = _sols()
     else:
         with trace.stage("pairwise_mums"):
-            matches = find_pairwise_mums(smls)
+            from libmems_tpu_torch.aligner import resolve_mesh
+            mesh = resolve_mesh(cfg.mesh, device)
+            if mesh is None:
+                matches = find_pairwise_mums(smls)
+            else:
+                from libmems_tpu_torch.parallel.shard import \
+                    sharded_find_pairwise_mums
+                matches = sharded_find_pairwise_mums(smls, mesh)
         with trace.stage("seed_occurrence"):
             sols = _sols()
 
@@ -1304,8 +1307,6 @@ def align_profiles(ivs1: IntervalList, genomes1: list[Genome],
     IntervalList over genomes1 + genomes2 whose within-profile columns
     are preserved."""
     cfg = config or ProgressiveConfig()
-    if cfg.mesh is not None:
-        raise NotImplementedError(_TODO_MESH)
     from libmems_tpu_torch import cuda
     device = cuda.resolve_device(cfg.device)
     genomes = list(genomes1) + list(genomes2)

@@ -70,7 +70,8 @@ def test_gapped_recursive_equal_jax():
 def test_import_loads_no_jax():
     code = ("import sys, libmems_tpu_torch, libmems_tpu_torch.repeats, "
             "libmems_tpu_torch.ops.gapped, libmems_tpu_torch.ops.hmm, "
-            "libmems_tpu_torch.native, libmems_tpu_torch.ops.profile; "
+            "libmems_tpu_torch.native, libmems_tpu_torch.ops.profile, "
+            "libmems_tpu_torch.parallel, libmems_tpu_torch.ops.shard; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'libmems_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -111,13 +112,24 @@ def test_multi_genome_xmfa_equal_jax(G, cfg):
 
 @pytest.mark.parametrize("case", ["three_genomes", "mesh"])
 def test_unported_configurations_raise(case):
-    """A mesh raises NotImplementedError naming its ROADMAP item; three
-    genomes run: a divergent trio, whose LCB-extension loop searches its
-    collinear gaps with three-genome masked searches (seq_mask 0b111),
-    gives the JAX package's anchors and intervals."""
+    """Configurations that once raised now run.  A mesh: the golden pair
+    seeded through the sharded pipeline on two CPU shards (a shard count
+    on a CPU run) writes pair.xmfa byte for byte.  Three genomes: a
+    divergent trio, whose LCB-extension loop searches its collinear gaps
+    with three-genome masked searches (seq_mask 0b111), gives the JAX
+    package's anchors and intervals."""
     if case == "mesh":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            align(_golden_pair(), AlignerConfig(device="cpu", mesh=2))
+        # one intra-op thread: the sharded plain versions run many small
+        # tensor operations, which contend with the other test workers
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            ivs, _ = align(_golden_pair(), AlignerConfig(
+                gapped_alignment=True, device="cpu", mesh=2))
+        finally:
+            torch.set_num_threads(threads)
+        with open(f"{generate.GOLDEN_DIR}/pair.xmfa", "rb") as fh:
+            assert _xmfa(write_xmfa, ivs).encode() == fh.read()
         return
     asc = _family(3, n=25_000, mutate=0.03, indel=0.002)
     ivs, mums = align([Genome(f"g{i}", a) for i, a in enumerate(asc)],

@@ -858,3 +858,190 @@ def test_ckpt_route_equals_one_launch_on_cuda(dev, monkeypatch):
     assert profile.profile_forward_ckpt.launches - n24 == 1
     for g, w in zip(got, whole):
         np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("weight,cap", [(11, 1 << 20), (17, 1 << 20),
+                                        (17, 3_000)])
+def test_route_fill_kernel_equals_plain(dev, weight, cap):
+    """K26 against its plain version on one shard's slice of a pair's
+    table, u32 and u64 keys with masked windows, with and without rows
+    past the capacity: exact (send buffers and the drop count)."""
+    from libmems_tpu_torch.ops import shard
+    seed = seeds.get_seed(weight)
+    rng = np.random.default_rng(weight)
+    codes = torch.from_numpy(rng.integers(0, 4, 100_000).astype(np.uint8))
+    ambig = torch.from_numpy(rng.random(100_000) < 0.001)
+    keys = mers.canonical_seed_keys_plain(codes, seed, ambig)
+    for n_dev in (3, 4):
+        args = (keys, 777, mers.key_sentinel(seed), n_dev, cap)
+        ref = shard.route_fill_plain(*args)
+        got = shard.route_fill(keys.to(dev), *args[1:])
+        assert torch.equal(got.keys.cpu(), ref.keys)
+        assert torch.equal(got.src.cpu(), ref.src)
+        assert int(got.dropped) == int(ref.dropped)
+        assert (int(ref.dropped) > 0) == (cap < 10_000)
+
+
+def _routed_flags(dev, G=3, n=40_000):
+    """K13's flags of shard 0's routed table of a G-genome family, on
+    CPU tensors and on dev."""
+    from libmems_tpu_torch.ops import mums
+    from libmems_tpu_torch.ops.mers import key_sentinel, sentinel_content
+    from libmems_tpu_torch.parallel import shard as psh
+    from libmems_tpu_torch.sml import create_smls
+    smls, seed = create_smls(_family(G, n, 38), device="cpu")
+    lay = psh._Layout(smls, psh.Mesh(["cpu"] * 2))
+    tables, dropped = psh._route(psh.Mesh(["cpu"] * 2), lay.slices,
+                                 key_sentinel(seed), 1 << 20)
+    assert dropped == 0
+    content, src, _ = tables[0]
+    keys, seg_off = lay.keys[torch.device("cpu")], \
+        lay.seg_off[torch.device("cpu")]
+    args = (content, src, keys, seg_off, 0, 1000, sentinel_content(seed))
+    return (mums.mum_seed_flags(*args),
+            mums.mum_seed_flags(*[a.to(dev) if isinstance(a, torch.Tensor)
+                                  else a for a in args]),
+            smls[0].seed_length)
+
+
+def test_shard_candidates_kernel_equals_plain(dev):
+    """K27 against its plain version on a shard's routed table, with a
+    capacity above and below the surviving runs (the dump row): exact."""
+    from libmems_tpu_torch.ops import shard
+    ref_f, got_f, seed_len = _routed_flags(dev)
+    assert got_f.n_rows == ref_f.n_rows > 1000
+    for capacity in (1 << 20, ref_f.n_rows // 3):
+        ref = shard.shard_candidates_plain(ref_f, 3, capacity, seed_len)
+        got = shard.shard_candidates(got_f, 3, capacity, seed_len)
+        assert got.over == ref.over == max(ref_f.n_rows - capacity, 0)
+        for r, g in zip(ref[:-1], got[:-1]):
+            assert torch.equal(g.cpu(), r)
+
+
+def test_dedup_flags_kernel_equals_plain(dev):
+    """K28 against its plain version on rows with many exact repeats and
+    invalid rows: exact (sorted rows, lengths, flags)."""
+    from libmems_tpu_torch.ops import shard
+    rng = np.random.default_rng(28)
+    m, G = 200_000, 3
+    cpu = (torch.from_numpy(rng.integers(0, 50, (m, G)).astype(np.int32)),
+           torch.from_numpy(rng.random((m, G)) < 0.8),
+           torch.from_numpy(rng.random((m, G)) < 0.5),
+           torch.from_numpy(rng.integers(20, 23, m).astype(np.int32)),
+           torch.from_numpy(rng.random(m) < 0.9))
+    ref = shard.dedup_flags_plain(*cpu)
+    got = shard.dedup_flags(*[x.to(dev) for x in cpu])
+    for r, g in zip(ref, got):
+        assert torch.equal(g.cpu(), r)
+    assert 0 < int(ref.uniq.sum()) < m
+
+
+def test_shard_kernels_count_only_launches(dev):
+    """K26-K28 count a launch only where their kernel runs: empty inputs
+    return the plain version's empty results and leave the counts as
+    they were; a meshed seeding whose last slice is empty (3 x 38 kbp
+    over 4 shards) counts K26 once per non-empty slice."""
+    from libmems_tpu_torch.ops import shard
+    from libmems_tpu_torch.parallel import shard as psh
+    from libmems_tpu_torch.sml import create_smls
+    wrappers = (shard.route_fill, shard.shard_candidates, shard.dedup_flags)
+    before = [w.launches for w in wrappers]
+    empty = torch.zeros(0, dtype=torch.int64)
+    args = (empty, 0, -1, 4, 256)
+    ref = shard.route_fill_plain(*args)
+    got = shard.route_fill(empty.to(dev), *args[1:])
+    assert torch.equal(got.keys.cpu(), ref.keys)
+    assert torch.equal(got.src.cpu(), ref.src)
+    assert int(got.dropped) == 0
+    cols = (torch.zeros((0, 3), dtype=torch.int32),
+            torch.zeros((0, 3), dtype=torch.bool),
+            torch.zeros((0, 3), dtype=torch.bool),
+            torch.zeros(0, dtype=torch.int32), torch.zeros(0, dtype=torch.bool))
+    got = shard.dedup_flags(*[x.to(dev) for x in cols])
+    assert [tuple(x.shape) for x in got] == [(0, 3), (0,), (0,)]
+    assert [w.launches for w in wrappers] == before
+    mesh = psh.Mesh([dev] * 4)
+    smls, _ = create_smls(_family(3, 38_000, 38), device=dev)
+    nonempty = sum(k.shape[0] > 0 for k, _ in psh._Layout(smls, mesh).slices)
+    assert nonempty == 3
+    n26 = shard.route_fill.launches
+    psh.sharded_find_mums(smls, mesh)
+    assert shard.route_fill.launches - n26 == nonempty
+
+
+def _sharded_cuda_vs_cpu(mesh):
+    """sharded_find_mums and sharded_find_pairwise_mums on `mesh` equal
+    the same calls on CPU shards; the kernels K26-K28 launched."""
+    from libmems_tpu_torch.ops import shard
+    from libmems_tpu_torch.parallel import shard as psh
+    from libmems_tpu_torch.sml import create_smls
+    fam = _family(3, 40_000, 38)
+    dev = mesh.devices[0]
+    smls_g, _ = create_smls(fam, device=dev)
+    smls_c, _ = create_smls(fam, device="cpu")
+    cpu_mesh = psh.Mesh(["cpu"] * mesh.size)
+    wrappers = (shard.route_fill, shard.shard_candidates, shard.dedup_flags)
+    before = [w.launches for w in wrappers]
+    got = psh.sharded_find_mums(smls_g, mesh)
+    assert all(w.launches > b for w, b in zip(wrappers, before))
+    ref = psh.sharded_find_mums(smls_c, cpu_mesh)
+    assert len(ref) > 100
+    np.testing.assert_array_equal(got.starts, ref.starts)
+    np.testing.assert_array_equal(got.lengths, ref.lengths)
+    got = psh.sharded_find_pairwise_mums(smls_g, mesh)
+    ref = psh.sharded_find_pairwise_mums(smls_c, cpu_mesh)
+    np.testing.assert_array_equal(got.starts, ref.starts)
+    np.testing.assert_array_equal(got.lengths, ref.lengths)
+
+
+def test_sharded_find_mums_on_cuda_equals_cpu(dev):
+    from libmems_tpu_torch.parallel import shard as psh
+    _sharded_cuda_vs_cpu(psh.Mesh([dev] * 4))
+
+
+def test_sharded_find_mums_on_every_card_equals_cpu(dev):
+    """make_mesh() over every visible card: real peer copies."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA GPUs")
+    from libmems_tpu_torch.parallel import shard as psh
+    _sharded_cuda_vs_cpu(psh.make_mesh())
+
+
+def test_align_profile_batch_mesh_split_on_cuda_equals_whole(dev,
+                                                             monkeypatch):
+    """The window split of align_profile_batch over 3 shards on the card
+    (the _shard_* wrappers): merged rows equal the whole batch's, on the
+    banded bucket and with PTR_BUDGET lowered so the 256-column bucket
+    takes the checkpointed route (K24 + K25 on each slice); the split
+    banded scores equal the whole batch's (K10)."""
+    from libmems_tpu_torch.parallel import shard as psh
+    rng = np.random.default_rng(9)
+    p_rows, q_rows = [], []
+    for n in (900, 950, 700, 880, 200, 150, 180):
+        a = rng.integers(0, 4, n).astype(np.uint8)
+        b = a.copy()
+        m = rng.random(n) < 0.01
+        b[m] = (b[m] + 1) % 4
+        p_rows.append(np.stack([a, a]))
+        q_rows.append(b[None])
+    mesh = psh.Mesh([dev] * 3)
+    whole = profile.align_profile_batch(p_rows, q_rows, device=dev,
+                                        mesh=None)
+    for g, w in zip(profile.align_profile_batch(p_rows, q_rows, device=dev,
+                                                mesh=mesh), whole):
+        np.testing.assert_array_equal(g, w)
+    monkeypatch.setattr(profile, "PTR_BUDGET", 64 * 65 + 1)
+    n24 = profile.profile_forward_ckpt.launches
+    ckpt = profile.CKPT_STATS["windows"]
+    for g, w in zip(profile.align_profile_batch(p_rows, q_rows, device=dev,
+                                                mesh=mesh), whole):
+        np.testing.assert_array_equal(g, w)
+    assert profile.CKPT_STATS["windows"] - ckpt >= 3
+    assert profile.profile_forward_ckpt.launches - n24 >= 3   # a slice each
+    t = profile.pack_profiles(p_rows, q_rows, [0, 1, 2, 3], 1024, 1024, dev)
+    H_W = profile._band_half(1024)
+    want = profile.banded_forward_scores(*t, profile.GAP_OPEN,
+                                         profile.GAP_EXTEND, H_W)
+    got = profile.banded_scores_split(*t, profile.GAP_OPEN,
+                                      profile.GAP_EXTEND, H_W, mesh)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

@@ -82,10 +82,16 @@ def test_detect_backbone_segments_have_two_or_more_genomes():
 
 @pytest.mark.parametrize("case", ["mesh"])
 def test_unported_options_raise(case):
+    """Options that once raised now run: a mesh (here a shard count on a
+    CPU run) seeds through the sharded pairwise seeder and writes the
+    XMFA of the run without one."""
     gs = [lt.Genome(f"g{i}", a) for i, a in enumerate(_four(62, 4_000))]
     cfg = lt.ProgressiveConfig(refine=False, device="cpu", mesh=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lt.progressive_align(gs, cfg)
+    ivs, _ = lt.progressive_align(gs, cfg)
+    ref, _ = lt.progressive_align(gs, lt.ProgressiveConfig(refine=False,
+                                                           device="cpu"))
+    assert len(ref.intervals) > 0
+    assert _text(lt.write_xmfa, ivs) == _text(lt.write_xmfa, ref)
 
 
 def test_seed_occurrence_device_route_writes_jax_xmfa(monkeypatch):
