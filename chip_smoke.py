@@ -4,10 +4,11 @@
     python3 chip_smoke.py [phase ...]
 
 With no argument every phase runs; naming phases (kernels, goldens, main,
-trio, progressive, large, profile_dp, decode, bounded, mesh, cards) runs only
-those, plus the progressive run whose recorded inputs profile_dp and
-decode read (and the main, trio and progressive runs whose outputs mesh
-is held to).  Needs one NVIDIA Hopper GPU (compute capability 9.0) and the CUDA
+trio, progressive, large, profile_dp, decode, bounded, mesh, tiled,
+multihost, cards) runs only those, plus the progressive run whose
+recorded inputs profile_dp and decode read (and the main, trio and
+progressive runs whose outputs mesh and cards are held to, the main run
+for tiled and multihost).  Needs one NVIDIA Hopper GPU (compute capability 9.0) and the CUDA
 toolkit's nvcc; builds the port's kernels from libmems_tpu_torch/csrc at
 first use.  Phases, each raising on failure (the script then exits
 non-zero and prints no result line):
@@ -100,12 +101,28 @@ non-zero and prints no result line):
              align_profile_batch calls split over 2 shards equal whole;
              K26's launches equal the non-empty slices of each pass;
              all within 150 s;
-12. cards  - with two or more cards (skipped with one): the pair's
+12. tiled  - the position-tiled extension with 4 shards on the card:
+             K29-K31 exact against their plain versions at the pair's
+             first fetch, timed; sharded_find_mums_tiled of the rng-0
+             pair equals phase main's find_mums (K26-K31 launched; probe
+             rounds, fetches, each shard's S + halo resident keys against
+             the replicated table, the memory peak printed); within 90 s;
+13. multihost - one NCCL rank a card, spawned after the build (one card:
+             one process, a 4-shard mesh of its card), runs
+             multihost_find_mums (default, pairwise, tiled) and
+             multihost_align on the rng-0 pair; every rank's MUMs and XMFA
+             equal the single-process runs; within 90 s;
+14. cards  - with two or more cards (skipped with one): the pair's
              sharded_find_mums over every card (make_mesh) against as many
              shards on one card, in turns, equal matches; the exchange's
              bytes and walls on both; align over the cards == unsharded;
              with phase 6 run too, its align_profile_batch calls whole on
-             one card against the default split over the cards, in turns.
+             one card against the default split over the cards, in turns;
+             align with device="cuda:1" while card 0 is current equals
+             phase main's XMFA; one NCCL rank a card on the pair (three
+             seeding modes, align, the route exchange timed), the trio
+             (align) and the 9 x 1 Mbp family (progressive_align,
+             backbone, writers), byte-equal to phases 5, 5b and 6.
 
 The inputs of phases 7-9 are recorded one layer above the kernel
 wrappers (align_profile_batch, profile_scores_batch, predict_homologous,
@@ -114,7 +131,8 @@ planners.  Counts of kernel launches are set to 0 just before each main
 path and read just after; the kernel table reports the trio path's
 counts for K13-K15, the pair path's for K18 and K19, the 3 x 8.7 Mbp
 path's for K16 and K17, the decode run's for K20-K23, the bounded
-path's for K24 and K25, the meshed pair's for K26-K28 and the 9 x 1 Mbp
+path's for K24 and K25, the meshed pair's for K26-K28, the tiled pair's
+for K29-K31 and the 9 x 1 Mbp
 progressive path's for the rest, and the times of K3, K4 and K8-K12 are
 taken on that path's inputs.  Each kernel's bound_ms is max(bytes /
 3.35 TB/s, operations / peak rate) for the work of those inputs (the
@@ -206,6 +224,12 @@ SOURCES = {
                          "libmems_tpu/parallel/shard.py:310"),
     "dedup_flags": ("libmems_tpu_torch/csrc/shard.cu",
                     "libmems_tpu/parallel/shard.py:310"),
+    "tiled_requests": ("libmems_tpu_torch/csrc/tiled.cu",
+                       "libmems_tpu/parallel/shard.py:538"),
+    "tiled_serve": ("libmems_tpu_torch/csrc/tiled.cu",
+                    "libmems_tpu/ops/extend.py:66"),
+    "tiled_probe": ("libmems_tpu_torch/csrc/tiled.cu",
+                    "libmems_tpu/ops/extend.py:210"),
 }
 # peak rates of one H100 SXM (NVIDIA's H100 SXM data sheet; f64 outside
 # the tensor cores).  Integer
@@ -239,8 +263,13 @@ BOUNDED_KERNELS = ("profile_forward_ckpt", "profile_block_ptrs")
 # the mesh phase: shards on one card, its time cap
 MESH_SHARDS, MESH_CAP_S = 4, 150.0
 MESH_KERNELS = ("route_fill", "shard_candidates", "dedup_flags")
+# the tiled phase (4 shards on one card) and the multi-process phase (one
+# NCCL rank a card), their time caps; the cards phase's ranks' cap
+TILED_CAP_S, MULTIHOST_CAP_S, CARDS_RANKS_CAP_S = 90.0, 90.0, 300.0
+TILED_KERNELS = ("tiled_requests", "tiled_serve", "tiled_probe")
 PHASES = ("kernels", "goldens", "main", "trio", "progressive", "large",
-          "profile_dp", "decode", "bounded", "mesh", "cards")
+          "profile_dp", "decode", "bounded", "mesh", "tiled", "multihost",
+          "cards")
 
 
 class SmokeFailure(RuntimeError):
@@ -589,6 +618,29 @@ def mutant_profiles(rng, B, n, M, N):
 # --------------------------------------------------------------------------
 # phases
 # --------------------------------------------------------------------------
+
+def sort_rows(torch, lt, dev):
+    """Rows 2 and 11a of PERF.md's kernel table, library sorts, at their
+    paths' shapes: sort_keys (a stable torch.sort) of one 4.6 Mbp
+    genome's keys, as SortedMerList.create sorts them, and the stable
+    torch.sort of the 3 x 1.5 Mbp trio's contents (matchfind._seed_table),
+    median CUDA-event ms beside a bytes bound (the keys read, the sorted
+    values and int64 positions written)."""
+    from libmems_tpu_torch.ops.mers import sort_keys
+    from libmems_tpu_torch.ops.pairwise import shr
+    keys = lt.create_smls(genome_pair(lt, 0), device=dev)[0][0].keys
+    content = shr(torch.cat([s.keys for s in lt.create_smls(
+        family_trio(lt, 0), device=dev)[0]]), 1)
+    parts = []
+    for row, x, fn in (("2", keys, lambda: sort_keys(keys)),
+                       ("11a", content,
+                        lambda: torch.sort(content, stable=True))):
+        ms = timed_ms(fn, 5, torch)
+        b_ms, _ = bound(work(3 * 8 * x.shape[0], 0))
+        parts.append(f"row {row}: {x.shape[0]} keys {ms:.4f} ms (bound "
+                     f"{b_ms:.5f} ms, bytes)")
+    log("# sorts (torch.sort, stable): " + "; ".join(parts))
+
 
 def phase_device(torch):
     require(torch.cuda.is_available(), "torch.cuda.is_available() is false")
@@ -2619,6 +2671,424 @@ def phase_mesh(torch, lt, dev, refs, calls):
     return res, launches, walls
 
 
+def _pair_rows(tiles, mesh, route_cap, capacity):
+    """The tiled path's init step on every shard: K26, then K13 at
+    repeat tolerance 0 and K27 on each routed table."""
+    from libmems_tpu_torch.ops import mums, shard
+    from libmems_tpu_torch.ops.mers import sentinel_content
+    from libmems_tpu_torch.parallel import shard as psh
+    tables, dropped = psh._route(mesh, tiles.slices, tiles.sentinel,
+                                 route_cap)
+    require(dropped == 0, f"{dropped} rows dropped at route_cap {route_cap}")
+    rows = []
+    for (content, src, rk), dev in zip(tables, mesh.local_devices()):
+        f = mums.mum_seed_flags(content, src, rk, tiles.seg_off[dev], 0, 1000,
+                                sentinel_content(tiles.seed), row_keys=True)
+        rows.append(shard.shard_candidates(f, tiles.G, capacity,
+                                           tiles.seed_len))
+    return rows
+
+
+def span_union(offs, S, C):
+    """Keys of a tile that spans of C keys from the starts offs (inside
+    [0, S)) cover: what K30 must read."""
+    s = np.sort(offs[(offs >= 0) & (offs < S)])
+    if len(s) == 0:
+        return 0
+    gaps = np.minimum(np.diff(s), C)
+    return int(gaps.sum()) + C
+
+
+def tiled_kernels_vs_plain(torch, dev, smls):
+    """K29, K30 and K31 against their plain versions on the card at the
+    pair path's shapes (4 shards on one card): the first fetch of side 0
+    (every shard's first block of active rows), K29 on each shard's
+    block, K30 on shard 0's received starts, K31 on shard 0's answered
+    spans.  Exact; each timed, kernel and plain, with CUDA events.
+    Returns ({name: entry}, the shapes)."""
+    from libmems_tpu_torch.ops import tiled
+    from libmems_tpu_torch.parallel import shard as psh
+    mesh = psh.Mesh([dev] * MESH_SHARDS)
+    n_dev, G = mesh.size, len(smls)
+    seed_len = smls[0].seed_length
+    C = max(seed_len, 512)
+    tiles = psh._Tiles(smls, mesh, C)
+    total0 = sum(s.n_windows for s in smls)
+    capacity, route_cap = psh._default_caps(total0 + (-total0) % n_dev,
+                                            n_dev, None, None)
+    req_cap = max(128, 4 * (-(-capacity // n_dev)))
+    rows = _pair_rows(tiles, mesh, route_cap, capacity)
+    block = max(1, psh.FETCH_BYTES // (G * C * 8))
+    blk = [torch.nonzero(r.present.any(dim=1)).flatten()[:block]
+           for r in rows]
+    res = {}
+
+    # K29 on every shard's block; timed on shard 0's
+    reqs = []
+    for i, r in enumerate(rows):
+        args = (blk[i], r.lefts, r.lengths, r.present, r.is_fwd,
+                tiles.gen_off[dev], 0, C, seed_len, tiles.big, tiles.S, n_dev,
+                req_cap)
+        got, ref = tiled.tiled_requests(*args), tiled.tiled_requests_plain(
+            *args)
+        require(torch.equal(got.send, ref.send) and got.counts == ref.counts
+                and torch.equal(got.where, ref.where)
+                and got.dropped == ref.dropped == 0,
+                f"K29 differs from its plain version on shard {i}")
+        reqs.append(got)
+        if i == 0:
+            args0 = args
+    ms = timed_ms(lambda: tiled.tiled_requests(*args0), 5, torch)
+    plain_ms = timed_ms(lambda: tiled.tiled_requests_plain(*args0), 3, torch)
+    Rb, n_sent = blk[0].shape[0], reqs[0].send.shape[0]
+    res["tiled_requests"] = entry(0.0, ms, plain_ms, work(
+        Rb * 8 + Rb * G * 6 + Rb * 4 + G * 4 + n_sent * 8 + Rb * G * 8,
+        16 * Rb * G))
+
+    # the exchange; K30 on shard 0's received starts
+    recv = psh._exchange([list(torch.split(q.send, q.counts)) for q in reqs],
+                         mesh)
+    offs = torch.cat(recv[0])
+    targs = (tiles.tiles[0], tiles.S, offs, C, tiles.sentinel)
+    got, ref = tiled.tiled_serve(*targs), tiled.tiled_serve_plain(*targs)
+    require(torch.equal(got, ref), "K30 differs from its plain version")
+    del ref
+    ms = timed_ms(lambda: tiled.tiled_serve(*targs), 5, torch)
+    plain_ms = timed_ms(lambda: tiled.tiled_serve_plain(*targs), 3, torch)
+    n_recv = offs.shape[0]
+    res["tiled_serve"] = entry(0.0, ms, plain_ms, work(
+        n_recv * 8 + 8 * span_union(offs.cpu().numpy(), tiles.S, C)
+        + n_recv * C * 8, 2 * n_recv * C))
+
+    # the answers' return; K31 on shard 0's block
+    answers = []
+    for tile, rv in zip(tiles.tiles, recv):
+        spans = tiled.tiled_serve(tile, tiles.S, torch.cat(rv), C,
+                                  tiles.sentinel)
+        answers.append(list(torch.split(spans, [g.shape[0] for g in rv])))
+    resp = torch.cat(psh._exchange(answers, mesh)[0])
+    del answers, spans
+    r = rows[0]
+
+    def state():
+        return (r.lefts.clone(), r.lengths.clone(),
+                r.present.any(dim=1).clone())
+
+    def k31_args(st):
+        return (resp, reqs[0].where, blk[0], st[0], st[1], r.present,
+                r.is_fwd, tiles.gen_cnt[dev], st[2], 0, C, seed_len,
+                tiles.sentinel)
+    st_k, st_p = state(), state()
+    tiled.tiled_probe(*k31_args(st_k))
+    tiled.tiled_probe_plain(*k31_args(st_p))
+    for a, b in zip(st_k, st_p):
+        require(torch.equal(a, b), "K31 differs from its plain version")
+    fresh = [state() for _ in range(6)]
+    ms = timed_ms(lambda: tiled.tiled_probe(*k31_args(fresh.pop())), 5,
+                  torch)
+    fresh = [state() for _ in range(4)]
+    plain_ms = timed_ms(lambda: tiled.tiled_probe_plain(
+        *k31_args(fresh.pop())), 3, torch)
+    n_ans = int((reqs[0].where >= 0).sum())
+    res["tiled_probe"] = entry(0.0, ms, plain_ms, work(
+        Rb * 8 + Rb * G * 8 + Rb * G * 6 + Rb * 4 + G * 4 + n_ans * C * 8
+        + Rb * G * 4 + Rb * 5, 10 * Rb * G * C))
+    shapes = (f"{n_dev} shards, tiles of S = {tiles.S} + halo {tiles.halo} "
+              f"keys, C = {C}, req_cap {req_cap}, blocks of {block} rows; "
+              f"shard 0: {r.lengths.shape[0]} candidate rows, a block of "
+              f"{Rb} rows, {n_sent} requests, {n_recv} received, "
+              f"{n_ans} answered")
+    log(f"# K29-K31 equal their plain versions: {shapes}")
+    return res, shapes
+
+
+def phase_tiled(torch, lt, dev, refs):
+    """The position-tiled extension with MESH_SHARDS shards on one card.
+    (1) K29-K31 against their plain versions at the pair's first fetch.
+    (2) sharded_find_mums_tiled of the 2 x 4.6 Mbp pair (rng 0): its MUMs
+    equal phase main's find_mums; launch counts of K26-K31 zeroed before
+    and read after, probe rounds and fetches printed.  (3) Each shard's
+    resident keys (S + halo) against the replicated table of
+    sharded_find_mums, and the run's device memory peak.  Within
+    TILED_CAP_S.  Returns ({name: entry}, the path's launches, walls)."""
+    from libmems_tpu_torch.ops import mums, shard, tiled
+    from libmems_tpu_torch.parallel import shard as psh
+    t_phase = time.perf_counter()
+    genomes = genome_pair(lt, 0)
+    smls, _ = lt.create_smls(genomes, device=dev)
+    res, _ = tiled_kernels_vs_plain(torch, dev, smls)
+    t_kernels = time.perf_counter() - t_phase
+    wrappers = {"route_fill": shard.route_fill,
+                "mum_seed_flags": mums.mum_seed_flags,
+                "shard_candidates": shard.shard_candidates,
+                "tiled_requests": tiled.tiled_requests,
+                "tiled_serve": tiled.tiled_serve,
+                "tiled_probe": tiled.tiled_probe,
+                "dedup_flags": shard.dedup_flags}
+    mesh = psh.Mesh([dev] * MESH_SHARDS)
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    ma = psh.sharded_find_mums_tiled(smls, mesh)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    stats = dict(psh.TILED_STATS)
+    for name, n in launches.items():
+        require(n > 0, f"{name}: no launch on the tiled path")
+    want = refs["pair"]["found"]
+    require(np.array_equal(ma.starts, want.starts)
+            and np.array_equal(ma.lengths, want.lengths),
+            f"tiled MUMs ({len(ma)}) differ from phase main's find_mums "
+            f"({len(want)})")
+    tiles = psh._Tiles(smls, mesh, max(smls[0].seed_length, 512))
+    n_keys = sum(s.n_windows for s in smls)
+    for t in tiles.tiles:
+        require(t.shape[0] == tiles.S + tiles.halo < n_keys,
+                f"a shard holds {t.shape[0]} keys, S + halo = "
+                f"{tiles.S + tiles.halo}, the table {n_keys}")
+    log(f"# tiled pair: {len(ma)} MUMs equal phase main's find_mums; "
+        f"{dt:.3f} s, {stats['rounds']} probe rounds, {stats['fetches']} "
+        f"fetches; launches {launches}; resident keys a shard "
+        f"{(tiles.S + tiles.halo) * 8} bytes (S {tiles.S} + halo "
+        f"{tiles.halo}) against the replicated table's {n_keys * 8} bytes "
+        f"on each device of sharded_find_mums; device memory peak {peak} B")
+    wall = time.perf_counter() - t_phase
+    log(f"# phase tiled: {wall:.1f} s (cap {TILED_CAP_S} s; K29-K31 checks "
+        f"{t_kernels:.1f} s)")
+    require(wall <= TILED_CAP_S, f"phase tiled took {wall:.1f} s, over its "
+            f"{TILED_CAP_S} s cap")
+    return res, launches, (f"tiled pair seeding {dt:.3f} s ({MESH_SHARDS} "
+                           f"shards on one card, peak {peak} B)")
+
+
+def spawn_ranks(world, jobs, cap_s):
+    """Run `jobs` in `world` processes of this script (rank_main), one
+    NCCL rank a card (one process without a group where world is 1),
+    each loading the kernels the parent built.  A rank that fails or
+    outlives cap_s fails the run; every rank is ended.  Returns each
+    rank's results."""
+    import pickle
+    import socket
+    out = os.path.join(OUT_DIR, "ranks")
+    os.makedirs(out, exist_ok=True)
+    for f in os.listdir(out):
+        os.remove(os.path.join(out, f))
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    logs = [open(os.path.join(out, f"rank{r}.log"), "w")
+            for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank", str(r),
+         str(world), str(port), out, ",".join(jobs)], cwd=ROOT, env=env,
+        stdout=logs[r], stderr=subprocess.STDOUT) for r in range(world)]
+    deadline = time.perf_counter() + cap_s
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        late = [p for p in procs if p.poll() is None]
+        for p in late:
+            p.kill()
+        for p in procs:
+            p.wait()
+        for fh in logs:
+            fh.close()
+    tails = []
+    for r, p in enumerate(procs):
+        with open(os.path.join(out, f"rank{r}.log")) as fh:
+            tails.append(fh.read()[-3000:])
+    require(not late, f"{len(late)} rank(s) still running after {cap_s} s:"
+            f"\n{tails[0]}")
+    for r, p in enumerate(procs):
+        require(p.returncode == 0, f"rank {r} exited {p.returncode}:\n"
+                f"{tails[r]}")
+    res = []
+    for r in range(world):
+        path = os.path.join(out, f"rank{r}.pkl")
+        with open(path, "rb") as fh:
+            res.append(pickle.load(fh))
+        os.remove(path)
+    return res
+
+
+def digest(data) -> str:
+    """sha256 of output text or bytes: what a rank reports of its
+    outputs, and what the parent's are held to."""
+    import hashlib
+    return hashlib.sha256(data.encode() if isinstance(data, str)
+                          else data).hexdigest()
+
+
+def rank_main(argv) -> int:
+    """One rank of spawn_ranks: RANK WORLD PORT OUT_DIR JOBS.  Jobs (comma
+    separated): pair (multihost_find_mums in its three modes and
+    multihost_align of the rng-0 pair), exchange (the pair's route
+    exchange over the mesh, timed), trio (multihost_align of the rng-0
+    trio), nine (multihost_progressive_align + apply_backbone + the
+    writers of the rng-0 9 x 1 Mbp family).  Writes OUT_DIR/rank<RANK>.pkl:
+    the MUM arrays, the output files' sha256 digests, the walls."""
+    import pickle
+    import torch
+    import libmems_tpu_torch as lt
+    from libmems_tpu_torch.parallel import multihost as mh
+    rank, world, port = (int(x) for x in argv[:3])
+    out, jobs = argv[3], argv[4].split(",")
+    mh.initialize(f"localhost:{port}", world, rank)
+    dev = rank_device(torch, rank)
+    mesh = mh.global_mesh(MESH_SHARDS if world == 1 else None, device=dev)
+    res = {"mesh": repr(mesh)}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    def xmfa(ivs):
+        buf = io.StringIO()
+        lt.write_xmfa(buf, ivs)
+        return digest(buf.getvalue())
+
+    if "pair" in jobs or "exchange" in jobs:
+        genomes = genome_pair(lt, 0)
+    if "pair" in jobs:
+        for mode, kw in (("default", {}), ("pairwise", {"pairwise": True}),
+                         ("tiled", {"tiled": True})):
+            ma, dt = timed(lambda: mh.multihost_find_mums(genomes, mesh=mesh,
+                                                          **kw))
+            res[mode] = (ma.starts, ma.lengths, dt)
+        (ivs, _), dt = timed(lambda: mh.multihost_align(
+            genomes, lt.AlignerConfig(gapped_alignment=True, recursive=False,
+                                      device=dev, mesh=mesh)))
+        res["pair"] = (xmfa(ivs), dt)
+    if "exchange" in jobs and mesh.spans_processes:
+        res["exchange"] = time_exchange(torch, lt, genomes, mesh, dev)
+    if "trio" in jobs:
+        (ivs, _), dt = timed(lambda: mh.multihost_align(
+            family_trio(lt, 0), lt.AlignerConfig(
+                gapped_alignment=True, recursive=False, device=dev,
+                mesh=mesh)))
+        res["trio"] = (xmfa(ivs), dt)
+    if "nine" in jobs:
+        nine = family_nine(lt, 0)
+
+        def run_nine():
+            ivs, _ = mh.multihost_progressive_align(
+                nine, lt.ProgressiveConfig(device=dev, mesh=mesh))
+            new_ivs, segs = lt.apply_backbone(ivs, device=dev)
+            return {k: digest(v) for k, v in
+                    write_outputs(lt, new_ivs, segs, len(nine)).items()}
+        res["nine"] = timed(run_nine)
+    if world > 1:
+        torch.distributed.destroy_process_group()
+    with open(os.path.join(out, f"rank{rank}.pkl"), "wb") as fh:
+        pickle.dump(res, fh)
+    return 0
+
+
+def rank_device(torch, rank):
+    """A rank's card, made current (multihost.initialize already did
+    under NCCL)."""
+    from libmems_tpu_torch.parallel import multihost as mh
+    dev = torch.device("cuda", mh.local_rank(rank))
+    torch.cuda.set_device(dev)
+    return dev
+
+
+def time_exchange(torch, lt, genomes, mesh, dev):
+    """The pair's route exchange (key and source buffers, _all_to_all)
+    over a mesh that spans processes, after this rank's K26: (bytes all
+    ranks move, median ms of 5 after a warm-up, each between barriers)."""
+    from libmems_tpu_torch.ops import shard
+    from libmems_tpu_torch.ops.mers import key_sentinel
+    from libmems_tpu_torch.parallel import shard as psh
+    smls, seed = lt.create_smls(genomes, device=dev)
+    lay = psh._Layout(smls, mesh)
+    _, route_cap = psh._default_caps(lay.total, mesh.size, None, None)
+    sends = [shard.route_fill(k, base, key_sentinel(seed), mesh.size,
+                              route_cap) for k, base in lay.slices]
+    times = []
+    for _ in range(6):
+        torch.distributed.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        psh._all_to_all([x.keys for x in sends], mesh)
+        psh._all_to_all([x.src for x in sends], mesh)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return 2 * 8 * mesh.size * mesh.size * route_cap, \
+        statistics.median(times[1:])
+
+
+def check_ranks(res, refs, jobs, pairwise):
+    """Every rank's outputs equal the single-process runs': the pair's
+    MUMs (find_mums for the default and tiled modes, find_pairwise_mums
+    for pairwise) and XMFA (phase main), the trio's XMFA (phase trio),
+    the 9 x 1 Mbp family's XMFA, bbseq and bbcols (phase progressive).
+    Returns a line of walls."""
+    walls = []
+    for r, got in enumerate(res):
+        if "pair" in jobs:
+            for mode, want in (("default", refs["pair"]["found"]),
+                               ("pairwise", pairwise),
+                               ("tiled", refs["pair"]["found"])):
+                st, ln, dt = got[mode]
+                require(np.array_equal(st, want.starts)
+                        and np.array_equal(ln, want.lengths),
+                        f"rank {r}: multihost_find_mums {mode} ({len(ln)}) "
+                        f"differs from the single-process run "
+                        f"({len(want)})")
+                if r == 0:
+                    walls.append(f"{mode} {dt:.3f} s")
+            require(got["pair"][0] == digest(refs["pair"]["xmfa"]),
+                    f"rank {r}: multihost_align pair XMFA differs")
+        if "trio" in jobs:
+            require(got["trio"][0] == digest(refs["trio"]["xmfa"]),
+                    f"rank {r}: multihost_align trio XMFA differs")
+        if "nine" in jobs:
+            for name, data in refs["progressive"]["outs"].items():
+                require(got["nine"][0][name] == digest(data),
+                        f"rank {r}: multihost 9 x {PROG_LEN} bp {name} "
+                        f"differs")
+    first = res[0]
+    for job in ("pair", "trio", "nine"):
+        if job in jobs:
+            walls.append(f"{job} {first[job][1]:.3f} s")
+    return ", ".join(walls)
+
+
+def phase_multihost(torch, lt, dev, refs):
+    """multihost_find_mums (default, pairwise, tiled) and multihost_align
+    of the rng-0 pair in one NCCL rank a visible card, spawned after the
+    parent built the kernels (one card: one process with a 4-shard mesh
+    of its card): every rank's MUMs and XMFA equal phase main's (the
+    pairwise MUMs find_pairwise_mums of the pair here).  Within
+    MULTIHOST_CAP_S.  Returns (the pairwise reference, walls)."""
+    t0 = time.perf_counter()
+    pairwise = lt.find_pairwise_mums(genome_pair(lt, 0), device=dev)
+    world = torch.cuda.device_count()
+    res = spawn_ranks(world, ["pair"], MULTIHOST_CAP_S)
+    walls = check_ranks(res, refs, ["pair"], pairwise)
+    wall = time.perf_counter() - t0
+    log(f"# multihost: {world} rank(s) ({res[0]['mesh']}): pair MUMs in "
+        f"three modes and XMFA equal the single-process runs; rank 0 "
+        f"{walls}; phase {wall:.1f} s (cap {MULTIHOST_CAP_S} s)")
+    require(wall <= MULTIHOST_CAP_S, f"phase multihost took {wall:.1f} s, "
+            f"over its {MULTIHOST_CAP_S} s cap")
+    return pairwise, f"multihost pair ({world} rank(s)): {walls}"
+
+
 @contextlib.contextmanager
 def keep_results(mod, names, out):
     """Patch each name of mod so that every call's result is appended to
@@ -2745,6 +3215,40 @@ def phase_cards(torch, lt, dev, dp_calls):
             f"{n} cards {fmt(dp['split'])} s")
 
 
+def cards_processes(torch, lt, refs, pairwise):
+    """With two or more cards: the second-card repair (align of the rng-0
+    pair with device="cuda:1" while card 0 is current gives phase main's
+    XMFA), then one NCCL rank a card on the pair (multihost_find_mums in
+    three modes, multihost_align, the route exchange timed), the trio
+    (multihost_align) and the 9 x 1 Mbp family
+    (multihost_progressive_align, apply_backbone, the writers): every
+    rank's outputs equal phases main, trio and progressive.  Returns the
+    walls text."""
+    n = torch.cuda.device_count()
+    require(torch.cuda.current_device() == 0, "card 0 must be current")
+    ivs, _ = lt.align(genome_pair(lt, 0), lt.AlignerConfig(
+        gapped_alignment=True, recursive=False, device="cuda:1"))
+    buf = io.StringIO()
+    lt.write_xmfa(buf, ivs)
+    require(buf.getvalue() == refs["pair"]["xmfa"],
+            "align on cuda:1 (card 0 current) differs from phase main's "
+            "XMFA on cuda:0")
+    log("# cards: align with device=cuda:1 while card 0 is current gives "
+        "phase main's XMFA")
+    jobs = ["pair", "exchange", "trio", "nine"]
+    res = spawn_ranks(n, jobs, CARDS_RANKS_CAP_S)
+    walls = check_ranks(res, refs, jobs, pairwise)
+    moved, ms = res[0]["exchange"]
+    per_rank = " / ".join(f"{r['exchange'][1]:.3f}" for r in res)
+    log(f"# cards: {n} NCCL ranks ({res[0]['mesh']}): the pair's MUMs in "
+        f"three modes and XMFA, the trio's XMFA and the 9 x {PROG_LEN} bp "
+        f"family's XMFA, bbseq and bbcols equal the single-process runs; "
+        f"rank 0 {walls}; NCCL route exchange of {moved} bytes "
+        f"{per_rank} ms (ranks 0-{n - 1}, median of 5)")
+    return (f"{n} NCCL ranks: {walls}; route exchange {moved} bytes "
+            f"{ms:.3f} ms")
+
+
 def select_phases(argv):
     """The phases to run: those named on the command line (PHASES), all
     when none is, plus the progressive run that profile_dp and decode
@@ -2755,16 +3259,21 @@ def select_phases(argv):
     want = set(argv or PHASES)
     if want & {"profile_dp", "decode"}:
         want.add("progressive")
-    if "mesh" in want:
+    if want & {"mesh", "cards"}:
         want |= {"main", "trio", "progressive"}
+    if want & {"tiled", "multihost"}:
+        want.add("main")
     return [p for p in PHASES if p in want]
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--rank"]:
+        return rank_main(argv[1:])
     import torch
     import libmems_tpu_torch as lt
 
-    phases = select_phases(sys.argv[1:] if argv is None else argv)
+    phases = select_phases(argv)
     card = phase_device(torch)
     dev = torch.device("cuda", 0)
     clock = [time.perf_counter()]
@@ -2788,6 +3297,7 @@ def main(argv=None) -> int:
         mum_res, err = phase_mum_kernels(torch, lt, dev)
         res.update(mum_res)
         k2_errs.append(err)
+        sort_rows(torch, lt, dev)
         lap("kernels")
     if "goldens" in phases:
         phase_goldens(lt, dev)
@@ -2837,24 +3347,40 @@ def main(argv=None) -> int:
         res.update(m_res)
         walls.append(m_walls)
         lap("mesh")
+    if "tiled" in phases:
+        t_res, paths["tiled"], t_walls = phase_tiled(torch, lt, dev, refs)
+        res.update(t_res)
+        walls.append(t_walls)
+        lap("tiled")
+    pairwise = None
+    if "multihost" in phases:
+        pairwise, mh_walls = phase_multihost(torch, lt, dev, refs)
+        walls.append(mh_walls)
+        lap("multihost")
     if "cards" in phases:
         c_walls = phase_cards(torch, lt, dev,
                               calls.get("align_profile_batch"))
         if c_walls:
             walls.append(c_walls)
+            if pairwise is None:
+                pairwise = lt.find_pairwise_mums(genome_pair(lt, 0),
+                                                 device=dev)
+            walls.append(cards_processes(torch, lt, refs, pairwise))
         lap("cards")
     if "extend_matches" in res:
         res["extend_matches"]["err"] = max([res["extend_matches"]["err"]]
                                            + k2_errs)
     # launches: the 9 x 1 Mbp progressive path's, K13-K15 the trio's,
     # K18/K19 the pair's, K16/K17 the 3 x 8.7 Mbp path's, K20-K23 the
-    # decode run's, K24/K25 the bounded path's, K26-K28 the meshed pair's
+    # decode run's, K24/K25 the bounded path's, K26-K28 the meshed pair's,
+    # K29-K31 the tiled pair's
     launches = dict(paths.get("progressive", {}))
     for path, names in (("trio", MUM_KERNELS), ("pair", PAIR_KERNELS),
                         ("large", SEEDOCC_KERNELS),
                         ("decode", DECODE_KERNELS),
                         ("bounded", BOUNDED_KERNELS),
-                        ("mesh", MESH_KERNELS)):
+                        ("mesh", MESH_KERNELS),
+                        ("tiled", TILED_KERNELS)):
         if path in paths:
             launches.update({k: paths[path][k] for k in names})
     forbidden = [m for m in sys.modules

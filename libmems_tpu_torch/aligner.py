@@ -202,6 +202,25 @@ def resolve_mesh(mesh, device="cuda"):
     return make_mesh(int(mesh))
 
 
+def _build_index_maybe_multihost(genomes, cfg: AlignerConfig, device):
+    """SML construction, host-sharded under multi-process execution: with
+    cfg.mesh set and torch.distributed spanning two or more processes,
+    each process builds only the indexes of the genomes it owns and the
+    position-order key tables are exchanged once (parallel.multihost;
+    dmSML bin ownership promoted to processes).  Otherwise the ordinary
+    build.  Returns (SMLs or KeyTables, seed)."""
+    from libmems_tpu_torch.parallel.shard import process_count
+    if resolve_mesh(cfg.mesh, cfg.device) is not None \
+            and process_count() > 1:
+        from libmems_tpu_torch.parallel import multihost as mh
+        from libmems_tpu_torch.sml import default_seed
+        seed = cfg.seed if cfg.seed is not None else \
+            default_seed(genomes, cfg.seed_rank)
+        owned = mh.build_owned_smls(genomes, seed, device=device)
+        return mh.gather_key_tables(owned, len(genomes), seed), seed
+    return create_smls(genomes, cfg.seed, cfg.seed_rank, device=device)
+
+
 def _find_mums_maybe_sharded(smls, cfg: AlignerConfig) -> MatchArray:
     """Seed discovery through the single-device pipeline or, when
     cfg.mesh is set, the seed-prefix-sharded one: both find the same
@@ -215,6 +234,12 @@ def _find_mums_maybe_sharded(smls, cfg: AlignerConfig) -> MatchArray:
                              repeat_tolerance=cfg.repeat_tolerance)
 
 
+def _config_device(arguments):
+    """cuda.entry's pick: the device of the run's config."""
+    return (arguments["config"] or AlignerConfig()).device
+
+
+@cuda.entry(_config_device)
 def align(genomes: list[Genome], config: AlignerConfig | None = None
           ) -> tuple[IntervalList, MatchArray]:
     """Run the flat aligner (Aligner::align,
@@ -227,8 +252,7 @@ def align(genomes: list[Genome], config: AlignerConfig | None = None
     device = cuda.resolve_device(cfg.device)
 
     with trace.stage("sml_build"):
-        smls, seed = create_smls(genomes, cfg.seed, cfg.seed_rank,
-                                 device=device)
+        smls, seed = _build_index_maybe_multihost(genomes, cfg, device)
     with trace.stage("mum_find"):
         mums = _find_mums_maybe_sharded(smls, cfg)
 

@@ -29,6 +29,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from libmems_tpu_torch import cuda
 from libmems_tpu_torch.interval import IntervalList
 from libmems_tpu_torch.islands import (HssCols, find_big_gaps,
                                  find_hss_homology_batch)
@@ -119,6 +120,7 @@ def _interval_participation(ivs: IntervalList, params: HmmParams | None,
     return rendered, per_iv_part
 
 
+@cuda.entry(cuda.device_arg)
 def detect_backbone(ivs: IntervalList,
                     params: HmmParams | None = None,
                     min_bb_length: int = 0,
@@ -217,6 +219,7 @@ def _row_block_coords(iv, cum, lo: int, hi: int,
     return starts, lengths
 
 
+@cuda.entry(cuda.device_arg)
 def apply_backbone(ivs: IntervalList,
                    params: HmmParams | None = None,
                    min_bb_length: int = 0,

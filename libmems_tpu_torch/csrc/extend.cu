@@ -21,7 +21,8 @@
 // genome's window key, XORed with its strand flag, equals the reference
 // genome's (first present genome); no key is the sentinel; every probe
 // position lies in [0, gen_cnt).  Reach and the continue test copy
-// ops/extend.py:270-293, including `room + reach > C`.
+// ops/extend.py:270-293, including `room + reach > C`.  The round's three
+// steps are csrc/probe.cuh's, which K31 shares.
 //
 // A row's per-genome state (left end, offset, count, presence, strand)
 // lives in dynamic shared memory sized 5 * G ints at launch, so a row
@@ -32,10 +33,24 @@
 // state together, genome g on thread g mod 256; the reference genome (the
 // first present one) and the room left are block-wide min reductions.
 #include "common.cuh"
+#include "probe.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+
+// A probe key from the position-order table: genome g's window q, the
+// sentinel outside the table.
+struct TableFetch {
+  const long long* keys;
+  int64_t n_keys;
+  long long fill;
+  const int* s_off;
+  __device__ long long operator()(int g, int q, int, bool) const {
+    const int64_t idx = (int64_t)s_off[g] + q;
+    return (idx >= 0 && idx < n_keys) ? keys[idx] : fill;
+  }
+};
 
 __global__ void __launch_bounds__(kThreads) extend_kernel(
     const long long* __restrict__ keys, int64_t n_keys, long long fill,
@@ -78,80 +93,12 @@ __global__ void __launch_bounds__(kThreads) extend_kernel(
     while (active) {
       const int per = (C + nt - 1) / nt;
       const int d0 = tid * per + 1;
-      unsigned mbits = 0u;
-      for (int k = 0; k < per; ++k) {
-        const int d = d0 + k;
-        if (d > C) break;
-        bool ok = true;
-        long long ref_key = 0;
-        // genomes before `ref` are absent by definition of ref
-        for (int g = ref; g < G && ok; ++g) {
-          if (!s_pres[g]) continue;
-          const int l = s_left[g];
-          const bool back = side == 0 ? s_fwd[g] != 0 : s_fwd[g] == 0;
-          const int q = back ? l - d : l + len - seed_len + d;
-          if (q < 0 || q >= s_cnt[g]) {
-            ok = false;
-            break;
-          }
-          const int64_t idx = (int64_t)s_off[g] + q;
-          long long kq = (idx >= 0 && idx < n_keys) ? keys[idx] : fill;
-          if ((kq | 1LL) == fill) {
-            ok = false;
-            break;
-          }
-          kq ^= (long long)s_fwd[g];
-          if (g == ref) {
-            ref_key = kq;
-          } else if (kq != ref_key) {
-            ok = false;
-          }
-        }
-        if (ok) mbits |= 1u << k;
-      }
-
-      // furthest offset reachable from 0 with gaps <= seed_len
-      const int last_local = mbits ? d0 + (31 - __clz(mbits)) : 0;
-      const int prev =
-          lm::block_scan(last_local, 0, lm::MaxOp(), s_tmp).excl;
-      int bad = INT_MAX;
-      {
-        int p = prev;
-        for (int k = 0; k < per; ++k) {
-          if (!((mbits >> k) & 1u)) continue;
-          const int d = d0 + k;
-          if (d - p > seed_len) {
-            bad = d;
-            break;
-          }
-          p = d;
-        }
-      }
-      const int first_bad =
-          lm::block_scan(bad, INT_MAX, lm::MinOp(), s_tmp).total;
-      int rloc = 0;
-      for (int k = 0; k < per; ++k) {
-        if (((mbits >> k) & 1u) && d0 + k < first_bad) rloc = d0 + k;
-      }
-      const int reach = lm::block_scan(rloc, 0, lm::MaxOp(), s_tmp).total;
-
-      // advance the moving genomes and take the least room left; every
-      // thread computes the same new length and continue test
-      const int newlen = len + reach;
-      int room = 1 << 30;
-      for (int g = tid; g < G; g += nt) {
-        if (!s_pres[g]) continue;
-        const bool back = side == 0 ? s_fwd[g] != 0 : s_fwd[g] == 0;
-        if (back) s_left[g] -= reach;
-        const int back_room = s_left[g];
-        const int ahead_room =
-            (s_cnt[g] - 1) - (s_left[g] + newlen - seed_len);
-        const int rm = back ? back_room : ahead_room;
-        room = rm < room ? rm : room;
-      }
-      room = lm::block_scan(room, 1 << 30, lm::MinOp(), s_tmp).total;
-      len = newlen;
-      active = (reach + seed_len > C) && (room + reach > C);
+      const unsigned mbits = lm::probe_bits(
+          d0, per, C, G, ref, side, len, seed_len, s_left, s_cnt, s_pres,
+          s_fwd, fill, TableFetch{keys, n_keys, fill, s_off});
+      const int reach = lm::probe_reach(mbits, d0, per, seed_len, s_tmp);
+      active = lm::probe_advance(reach, len, C, G, side, seed_len, s_left,
+                                 s_cnt, s_pres, s_fwd, s_tmp);
       C = big;
     }
   }

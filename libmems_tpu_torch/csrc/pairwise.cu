@@ -60,6 +60,7 @@ __device__ __forceinline__ int gid_of(int64_t src, const int64_t* seg_off,
 __global__ void run_start_kernel(const int64_t* __restrict__ content,
                                  const int64_t* __restrict__ src,
                                  const int64_t* __restrict__ keys,
+                                 int by_row,
                                  const int64_t* __restrict__ seg_off, int G,
                                  int64_t n, int* __restrict__ sc,
                                  int* __restrict__ gid, int* __restrict__ pos,
@@ -69,7 +70,7 @@ __global__ void run_start_kernel(const int64_t* __restrict__ content,
     const int g = gid_of(s, seg_off, G);
     gid[i] = g;
     pos[i] = (int)(s - seg_off[g]);
-    strand[i] = (unsigned char)(keys[s] & 1);
+    strand[i] = (unsigned char)(keys[by_row ? i : s] & 1);
     sc[i] = (i == 0 || content[i] != content[i - 1]) ? 1 : 0;
   }
 }
@@ -225,15 +226,17 @@ __global__ void reps_kernel(const int64_t* __restrict__ cw,
 }  // namespace
 
 // K5, before the cumsum of sc.  content/src/keys/seg_off: int64; sc, gid,
-// pos: int32[n]; strand: uint8[n].
+// pos: int32[n]; strand: uint8[n].  The strand is keys[src[i]] & 1, or
+// keys[i] & 1 with by_row (keys then the sorted rows' own keys, int64[n]).
 extern "C" int lm_run_starts(const void* content, const void* src,
-                             const void* keys, const void* seg_off, int G,
-                             int64_t n, void* sc, void* gid, void* pos,
-                             void* strand, void* stream) {
+                             const void* keys, int by_row,
+                             const void* seg_off, int G, int64_t n, void* sc,
+                             void* gid, void* pos, void* strand,
+                             void* stream) {
   if (n > 0) {
     LM_LAUNCH(run_start_kernel, blocks_for(n), kThreads, 0,
               (cudaStream_t)stream, (const int64_t*)content,
-              (const int64_t*)src, (const int64_t*)keys,
+              (const int64_t*)src, (const int64_t*)keys, by_row,
               (const int64_t*)seg_off, G, n, (int*)sc, (int*)gid, (int*)pos,
               (unsigned char*)strand);
   }

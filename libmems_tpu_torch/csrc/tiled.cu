@@ -1,0 +1,319 @@
+// K29-K31: the position-tiled extension's probe round.
+//
+// Replace libmems_tpu/parallel/shard.py:538 _dist_fetch_factory (with
+// ops/extend.py:66 _fetch_spans) and the probe of ops/extend.py:210
+// make_probe_round on fetched spans, as _sharded_tiled_once (:663) drives
+// them: no shard holds the whole position-order key table, only its tile
+// of S keys plus a halo; a probe round asks the owner of each span start
+// for the span's C keys.
+//
+// The JAX fetch sorts every (row, genome) request of every row, valid or
+// not, by owner, sends a [n_dev, req_cap] buffer each way and answers
+// with [n_dev, req_cap, C] spans: 68.7 GB a shard at the 2 x 4.6 Mbp
+// pair's defaults.  Here only the active rows' present genomes ask, the
+// buffers hold the real counts, and the caller cuts the rows into blocks
+// whose responses stay under a bound.
+//
+// K29 (lm_tiled_count + lm_tiled_requests): each request's span start in
+// the padded global space (ops/extend.py:235-239), its owner clip(start /
+// S, 0, n_dev - 1) and its slot, the rank among the requests to that owner
+// in (row, genome) order.  Bound: bytes (the rows' state read, the send
+// buffer written); the ranks make it two passes around a cumsum of the
+// per-tile counts: a tile of 256 requests counts its requests per owner
+// (pass 1), then ranks them within the tile with __match_any_sync and the
+// warps' counts (pass 2), so the rank is deterministic and no sort runs.
+// Requests past req_cap for one owner are not sent (the caller counts
+// them for a retry).
+//
+// K30 (lm_tiled_serve): the owner copies tile[s : s + C] for each received
+// tile-local offset s, a sentinel row for an offset outside its tile
+// (parallel/shard.py:572-577).  A gather bound by bytes: consecutive
+// threads copy consecutive keys of a span.
+//
+// K31 (lm_tiled_probe): the probe round of ops/extend.py:241-294 on the
+// fetched spans, one block of 256 threads a row: csrc/probe.cuh's match
+// bits (the key of a backward genome at offset d is span[C - d], of an
+// ahead genome span[d - 1]; a dropped request reads the sentinel), reach
+// and advance, which K2 shares.  Bound: latency of the block scans, like
+// K2's round.
+#include "common.cuh"
+#include "probe.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+
+// Owner of request i = (row rows[i / G], genome i % G) and its tile-local
+// span start; owner -1 where the genome is absent from the row.
+struct Request {
+  int owner;
+  int64_t local;
+};
+
+__device__ __forceinline__ Request request_of(
+    int64_t i, int G, const int64_t* rows, const int* lefts,
+    const int* lengths, const uint8_t* present, const uint8_t* is_fwd,
+    const int* gen_off, int side, int C, int seed_len, int64_t big,
+    int64_t S, int n_dev) {
+  const int64_t r = rows[i / G];
+  const int g = (int)(i % G);
+  const int64_t k = r * G + g;
+  Request q{-1, 0};
+  if (!present[k]) return q;
+  const bool back = side == 0 ? is_fwd[k] != 0 : is_fwd[k] == 0;
+  const int64_t l = lefts[k];
+  const int64_t start =
+      (back ? l - C : l + lengths[r] - seed_len + 1) + gen_off[g] + big;
+  int64_t o = start >= 0 ? start / S : -((-start + S - 1) / S);
+  o = o < 0 ? 0 : (o > n_dev - 1 ? n_dev - 1 : o);
+  q.owner = (int)o;
+  q.local = start - o * S;
+  return q;
+}
+
+// Pass 1: requests per owner of each tile of kThreads requests.
+__global__ void __launch_bounds__(kThreads) tiled_count_kernel(
+    int64_t n, int G, const int64_t* __restrict__ rows,
+    const int* __restrict__ lefts, const int* __restrict__ lengths,
+    const uint8_t* __restrict__ present, const uint8_t* __restrict__ is_fwd,
+    const int* __restrict__ gen_off, int side, int C, int seed_len,
+    int64_t big, int64_t S, int n_dev, int* __restrict__ tile_counts) {
+  extern __shared__ int s_cnt[];
+  for (int o = threadIdx.x; o < n_dev; o += blockDim.x) s_cnt[o] = 0;
+  __syncthreads();
+  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (i < n) {
+    const Request q = request_of(i, G, rows, lefts, lengths, present, is_fwd,
+                                 gen_off, side, C, seed_len, big, S, n_dev);
+    if (q.owner >= 0) atomicAdd(&s_cnt[q.owner], 1);
+  }
+  __syncthreads();
+  for (int o = threadIdx.x; o < n_dev; o += blockDim.x) {
+    tile_counts[(int64_t)blockIdx.x * n_dev + o] = s_cnt[o];
+  }
+}
+
+// Pass 2: slot = the tile's base for the owner (requests to it in earlier
+// tiles) + the rank within the tile; slots below req_cap are written to
+// the owner's segment of the send buffer (send_off[owner] + slot), and
+// where[i] points there; -1 for an absent genome or a request past
+// req_cap.
+__global__ void __launch_bounds__(kThreads) tiled_requests_kernel(
+    int64_t n, int G, const int64_t* __restrict__ rows,
+    const int* __restrict__ lefts, const int* __restrict__ lengths,
+    const uint8_t* __restrict__ present, const uint8_t* __restrict__ is_fwd,
+    const int* __restrict__ gen_off, int side, int C, int seed_len,
+    int64_t big, int64_t S, int n_dev, const int64_t* __restrict__ tile_base,
+    const int64_t* __restrict__ send_off, int64_t req_cap,
+    int64_t* __restrict__ send, int64_t* __restrict__ where) {
+  extern __shared__ int s_warp[];  // [kWarps][n_dev]
+  for (int k = threadIdx.x; k < kWarps * n_dev; k += blockDim.x) s_warp[k] = 0;
+  __syncthreads();
+  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  Request q{-1, 0};
+  if (i < n) {
+    q = request_of(i, G, rows, lefts, lengths, present, is_fwd, gen_off, side,
+                   C, seed_len, big, S, n_dev);
+  }
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const unsigned same = __match_any_sync(0xffffffffu, q.owner);
+  const int in_warp = __popc(same & ((1u << lane) - 1u));
+  if (q.owner >= 0 && in_warp == 0) s_warp[warp * n_dev + q.owner] = __popc(same);
+  __syncthreads();
+  if (i >= n) return;
+  if (q.owner < 0) {
+    where[i] = -1;
+    return;
+  }
+  int64_t slot = tile_base[(int64_t)blockIdx.x * n_dev + q.owner] + in_warp;
+  for (int w = 0; w < warp; ++w) slot += s_warp[w * n_dev + q.owner];
+  if (slot >= req_cap) {
+    where[i] = -1;
+    return;
+  }
+  const int64_t at = send_off[q.owner] + slot;
+  send[at] = q.local;
+  where[i] = at;
+}
+
+// K30: out[j, c] = tile[offs[j] + c] for 0 <= offs[j] < S, else fill.
+__global__ void __launch_bounds__(kThreads) tiled_serve_kernel(
+    const long long* __restrict__ tile, int64_t S,
+    const int64_t* __restrict__ offs, int64_t n, int C, long long fill,
+    long long* __restrict__ out) {
+  const int64_t total = n * C;
+  for (int64_t e = lm::first_index(); e < total; e += lm::grid_stride()) {
+    const int64_t j = e / C;
+    const int c = (int)(e - j * C);
+    const int64_t s = offs[j];
+    out[e] = (s >= 0 && s < S) ? tile[s + c] : fill;
+  }
+}
+
+// A probe key from a fetched span: genome g's span of the block row b.
+struct SpanFetch {
+  const long long* resp;
+  const int64_t* where;  // the row's [G] indices into resp, -1: none
+  int C;
+  long long fill;
+  __device__ long long operator()(int g, int, int d, bool back) const {
+    const int64_t w = where[g];
+    if (w < 0) return fill;
+    return resp[w * C + (back ? C - d : d - 1)];
+  }
+};
+
+// K31: one probe round of block row b = blockIdx.x (row rows[b], active).
+__global__ void __launch_bounds__(kThreads) tiled_probe_kernel(
+    const long long* __restrict__ resp, const int64_t* __restrict__ where,
+    const int64_t* __restrict__ rows, int G, int* __restrict__ lefts,
+    int* __restrict__ lengths, const uint8_t* __restrict__ present,
+    const uint8_t* __restrict__ is_fwd, const int* __restrict__ gen_cnt,
+    uint8_t* __restrict__ active, int side, int C, int seed_len,
+    long long fill) {
+  extern __shared__ int s_dyn[];
+  __shared__ int s_tmp[lm::kScanTmp];
+  const int b = blockIdx.x;
+  const int64_t r = rows[b];
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  int* s_left = s_dyn;
+  int* s_cnt = s_dyn + G;
+  int* s_pres = s_dyn + 2 * G;
+  int* s_fwd = s_dyn + 3 * G;
+  int first = G;
+  for (int g = tid; g < G; g += nt) {
+    const int64_t k = r * G + g;
+    s_left[g] = lefts[k];
+    s_cnt[g] = gen_cnt[g];
+    s_pres[g] = present[k] != 0;
+    s_fwd[g] = is_fwd[k] != 0;
+    if (s_pres[g] && g < first) first = g;
+  }
+  // the block scan's barriers also publish the state written above
+  const int ref = lm::block_scan(first, G, lm::MinOp(), s_tmp).total;
+  if (ref >= G) {
+    if (tid == 0) active[r] = 0;
+    return;
+  }
+  int len = lengths[r];
+  const int per = (C + nt - 1) / nt;
+  const int d0 = tid * per + 1;
+  const unsigned mbits = lm::probe_bits(
+      d0, per, C, G, ref, side, len, seed_len, s_left, s_cnt, s_pres, s_fwd,
+      fill, SpanFetch{resp, where + (int64_t)b * G, C, fill});
+  const int reach = lm::probe_reach(mbits, d0, per, seed_len, s_tmp);
+  const bool more = lm::probe_advance(reach, len, C, G, side, seed_len,
+                                      s_left, s_cnt, s_pres, s_fwd, s_tmp);
+  for (int g = tid; g < G; g += nt) lefts[r * G + g] = s_left[g];
+  if (tid == 0) {
+    lengths[r] = len;
+    active[r] = more ? 1 : 0;
+  }
+}
+
+}  // namespace
+
+// K29 pass 1.  rows: int64[Rb] rows of the block (into lefts etc.);
+// lefts: int32[R, G]; lengths: int32[R]; present, is_fwd: uint8[R, G];
+// gen_off: int32[G]; tile_counts: int32[ceil(Rb * G / 256), n_dev].
+extern "C" int lm_tiled_count(const void* rows, int64_t Rb, int G,
+                              const void* lefts, const void* lengths,
+                              const void* present, const void* is_fwd,
+                              const void* gen_off, int side, int C,
+                              int seed_len, int64_t big, int64_t S, int n_dev,
+                              void* tile_counts, void* stream) {
+  const int64_t n = Rb * G;
+  if (G < 1 || n_dev < 1 || S < 1) return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    const size_t smem = (size_t)n_dev * sizeof(int);
+    const cudaError_t err = lm::allow_dyn_smem(tiled_count_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    LM_LAUNCH(tiled_count_kernel, (unsigned)((n + kThreads - 1) / kThreads),
+              kThreads, smem, (cudaStream_t)stream, n, G,
+              (const int64_t*)rows, (const int*)lefts, (const int*)lengths,
+              (const uint8_t*)present, (const uint8_t*)is_fwd,
+              (const int*)gen_off, side, C, seed_len, big, S, n_dev,
+              (int*)tile_counts);
+  }
+  return (int)cudaGetLastError();
+}
+
+// K29 pass 2.  tile_base: int64[tiles, n_dev] exclusive prefix over tiles
+// of tile_counts; send_off: int64[n_dev] each owner's first slot in send
+// (exclusive prefix of min(count, req_cap)); send: int64[sum of those];
+// where: int64[Rb, G].
+extern "C" int lm_tiled_requests(const void* rows, int64_t Rb, int G,
+                                 const void* lefts, const void* lengths,
+                                 const void* present, const void* is_fwd,
+                                 const void* gen_off, int side, int C,
+                                 int seed_len, int64_t big, int64_t S,
+                                 int n_dev, const void* tile_base,
+                                 const void* send_off, int64_t req_cap,
+                                 void* send, void* where, void* stream) {
+  const int64_t n = Rb * G;
+  if (G < 1 || n_dev < 1 || S < 1) return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    const size_t smem = (size_t)kWarps * n_dev * sizeof(int);
+    const cudaError_t err = lm::allow_dyn_smem(tiled_requests_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    LM_LAUNCH(tiled_requests_kernel,
+              (unsigned)((n + kThreads - 1) / kThreads), kThreads, smem,
+              (cudaStream_t)stream, n, G, (const int64_t*)rows,
+              (const int*)lefts, (const int*)lengths, (const uint8_t*)present,
+              (const uint8_t*)is_fwd, (const int*)gen_off, side, C, seed_len,
+              big, S, n_dev, (const int64_t*)tile_base,
+              (const int64_t*)send_off, req_cap, (int64_t*)send,
+              (int64_t*)where);
+  }
+  return (int)cudaGetLastError();
+}
+
+// K30.  tile: int64[S + halo]; offs: int64[n]; out: int64[n, C].
+extern "C" int lm_tiled_serve(const void* tile, int64_t S, const void* offs,
+                              int64_t n, int C, int64_t fill, void* out,
+                              void* stream) {
+  if (n > 0 && C > 0) {
+    LM_LAUNCH(tiled_serve_kernel, lm::blocks_for(n * C), kThreads, 0,
+              (cudaStream_t)stream, (const long long*)tile, S,
+              (const int64_t*)offs, n, C, (long long)fill, (long long*)out);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Bytes of shared memory K31's row state of G genomes takes, and what the
+// card lets a block of it opt into.
+extern "C" int64_t lm_tiled_probe_row_bytes(int G) {
+  return (int64_t)4 * G * (int64_t)sizeof(int);
+}
+
+extern "C" int64_t lm_tiled_probe_smem_limit() {
+  return lm::max_dyn_smem(tiled_probe_kernel);
+}
+
+// K31.  resp: int64[n_resp, C]; where: int64[Rb, G]; rows: int64[Rb];
+// lefts: int32[R, G], lengths: int32[R], active: uint8[R] updated in
+// place for the block's rows; present, is_fwd: uint8[R, G]; gen_cnt:
+// int32[G].  C <= 32 * 256.
+extern "C" int lm_tiled_probe(const void* resp, const void* where,
+                              const void* rows, int64_t Rb, int G,
+                              void* lefts, void* lengths, const void* present,
+                              const void* is_fwd, const void* gen_cnt,
+                              void* active, int side, int C, int seed_len,
+                              int64_t fill, void* stream) {
+  if (G < 1 || C < 1 || C > 32 * kThreads) return (int)cudaErrorInvalidValue;
+  if (Rb > 0) {
+    const int64_t smem = lm_tiled_probe_row_bytes(G);
+    const cudaError_t err = lm::allow_dyn_smem(tiled_probe_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    LM_LAUNCH(tiled_probe_kernel, (unsigned)Rb, kThreads, (size_t)smem,
+              (cudaStream_t)stream, (const long long*)resp,
+              (const int64_t*)where, (const int64_t*)rows, G, (int*)lefts,
+              (int*)lengths, (const uint8_t*)present, (const uint8_t*)is_fwd,
+              (const int*)gen_cnt, (uint8_t*)active, side, C, seed_len,
+              (long long)fill);
+  }
+  return (int)cudaGetLastError();
+}

@@ -18,7 +18,9 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import hashlib
+import inspect
 import os
 import shutil
 import subprocess
@@ -57,7 +59,7 @@ _SIGNATURES = {
     "lm_banded_fwd": ([_P] * 8 + [_L] + [_P] * 5 + [_I] * 4
                       + [_F, _F, _P, _P], _I),
     "lm_banded_walk": ([_P] * 3 + [_I] * 5 + [_P] * 4, _I),
-    "lm_run_starts": ([_P, _P, _P, _P, _I, _L, _P, _P, _P, _P, _P], _I),
+    "lm_run_starts": ([_P, _P, _P, _I, _P, _I, _L, _P, _P, _P, _P, _P], _I),
     "lm_run_flags": ([_P, _P, _P, _P, _P, _L, _I, _L, _P, _P, _P], _I),
     "lm_cluster_words": ([_P, _P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _L,
                           _I, _I, _I, _P, _P], _I),
@@ -91,6 +93,16 @@ _SIGNATURES = {
     "lm_shard_candidates": ([_P] * 6 + [_L, _L, _I] + [_P] * 5, _I),
     "lm_dedup_starts": ([_P] * 3 + [_L, _I, _P, _P], _I),
     "lm_dedup_flags": ([_P] * 4 + [_L, _I] + [_P] * 4, _I),
+    "lm_tiled_count": ([_P, _L, _I] + [_P] * 5 + [_I, _I, _I, _L, _L, _I,
+                                                   _P, _P], _I),
+    "lm_tiled_requests": ([_P, _L, _I] + [_P] * 5 + [_I, _I, _I, _L, _L, _I,
+                                                      _P, _P, _L, _P, _P,
+                                                      _P], _I),
+    "lm_tiled_serve": ([_P, _L, _P, _L, _I, _L, _P, _P], _I),
+    "lm_tiled_probe_row_bytes": ([_I], _L),
+    "lm_tiled_probe_smem_limit": ([], _L),
+    "lm_tiled_probe": ([_P, _P, _P, _L, _I] + [_P] * 6 + [_I, _I, _I, _L,
+                                                         _P], _I),
     "lm_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -220,6 +232,59 @@ def on(device: torch.device):
     if device.type == "cuda":
         return torch.cuda.device(device)
     return contextlib.nullcontext()
+
+
+def _first_device(args) -> torch.device | None:
+    """The device of the first tensor among args, looking one level into
+    tuples (the NamedTuples of flags the table kernels take)."""
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            return a.device
+        if isinstance(a, tuple):
+            for x in a:
+                if isinstance(x, torch.Tensor):
+                    return x.device
+    return None
+
+
+def launcher(fn):
+    """Decorator of a kernel wrapper: run it with the card of its first
+    tensor argument current, so its launches, its stream and its queries
+    of the card's limits all belong to that card, whichever card the
+    caller left current.  Costs nothing for CPU tensors or where the card
+    is already current."""
+    @functools.wraps(fn)
+    def run(*args, **kw):
+        dev = _first_device(args)
+        with on(dev) if dev is not None else contextlib.nullcontext():
+            return fn(*args, **kw)
+    return run
+
+
+def entry(pick):
+    """Decorator of a public entry point: run it with the device that
+    pick(arguments) names current (arguments bound by name, defaults
+    applied).  A CPU device, or a CUDA device where CUDA is absent (the
+    entry point then raises as it would), changes nothing."""
+    def wrap(fn):
+        sig = inspect.signature(fn)
+
+        @functools.wraps(fn)
+        def run(*args, **kw):
+            bound = sig.bind(*args, **kw)
+            bound.apply_defaults()
+            dev = torch.device(pick(bound.arguments))
+            if dev.type != "cuda" or not torch.cuda.is_available():
+                return fn(*args, **kw)
+            with on(dev):
+                return fn(*args, **kw)
+        return run
+    return wrap
+
+
+def device_arg(arguments):
+    """entry()'s pick for a function with a `device` argument."""
+    return arguments["device"]
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype,

@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from libmems_tpu_torch import seeds as seedlib
+from libmems_tpu_torch import cuda
 from libmems_tpu_torch.match import (MatchArray, read_match_list,
                                      write_match_list)
 from libmems_tpu_torch.ops import mums as ops_mums
@@ -195,6 +196,22 @@ def _fused_mum_pipeline(smls: list[SortedMerList], chunk: int,
     return starts, lengths, valid, n_rows, reps.n_reps
 
 
+
+def _smls_device(arguments):
+    """cuda.entry's pick: the device the SMLs lie on."""
+    return arguments["smls"][0].device
+
+
+def _run_device(arguments):
+    """cuda.entry's pick: the device the SMLs lie on, or `device` where
+    genomes are given."""
+    x = arguments["genomes_or_smls"]
+    if x and all(isinstance(s, SortedMerList) for s in x):
+        return x[0].device
+    return arguments["device"]
+
+
+@cuda.entry(_smls_device)
 def find_mums_device(smls: list[SortedMerList], capacity: int | None = None,
                      extend_capacity: int = 1 << 14,
                      chunk: int | None = None,
@@ -351,6 +368,7 @@ def _containment_filter(starts: np.ndarray, lengths: np.ndarray
     return starts[keep], lengths[keep]
 
 
+@cuda.entry(_run_device)
 def find_mums(genomes_or_smls, seed: int | None = None,
               repeat_tolerance: int = 0,
               repeat_limit: int = MER_REPEAT_LIMIT,
@@ -472,6 +490,7 @@ def _chunk_rows_to_matches(smls, keys, seg_off, content, src,
     return MatchArray(starts, lengths)
 
 
+@cuda.entry(_run_device)
 def find_mums_checkpointed(genomes_or_smls, state_path: str,
                            seed: int | None = None, n_chunks: int = 8,
                            repeat_limit: int = MER_REPEAT_LIMIT,
@@ -674,6 +693,7 @@ def pairwise_fused_fits(G: int, pos_bits: int) -> bool:
         and G <= 62
 
 
+@cuda.entry(_run_device)
 def find_pairwise_mums(genomes_or_smls, seed: int | None = None,
                        repeat_limit: int = MER_REPEAT_LIMIT,
                        extend: bool = True,

@@ -33,27 +33,46 @@ def _probe_round(keys, fill, seed_len, C, side, gen_off, gen_cnt, lefts,
     that are active); ops/extend.py:227-294."""
     R, G = lefts.shape
     n_keys = keys.shape[0]
-    d = torch.arange(1, C + 1, dtype=torch.int32, device=keys.device)
-    dd = d[None, :]
+    dd = torch.arange(1, C + 1, dtype=torch.int32, device=keys.device)[None]
     back = is_fwd if side == 0 else ~is_fwd
-    ref_idx = torch.argmax(present.to(torch.int8), dim=1)
-    keys_g, valid_g = [], []
+    keys_g = []
     for g in range(G):
         l = lefts[:, g:g + 1]
-        back_q = l - dd
-        ahead_q = l + lengths[:, None] - seed_len + dd
-        q = torch.where(back[:, g:g + 1], back_q, ahead_q)
-        valid_g.append((q >= 0) & (q < gen_cnt[:, g:g + 1]))
+        q = torch.where(back[:, g:g + 1], l - dd,
+                        l + lengths[:, None] - seed_len + dd)
         idx = gen_off[:, g:g + 1].to(torch.int64) + q
         inb = (idx >= 0) & (idx < n_keys)
-        k = torch.where(inb, keys[idx.clamp(0, max(n_keys - 1, 0))],
-                        torch.full_like(idx, fill))
-        keys_g.append(k ^ is_fwd[:, g:g + 1].to(torch.int64))
-    stacked = torch.stack(keys_g)                        # [G, R, C]
-    ref_keys = stacked[ref_idx, torch.arange(R, device=keys.device)]
+        keys_g.append(torch.where(inb, keys[idx.clamp(0, max(n_keys - 1, 0))],
+                                  torch.full_like(idx, fill)))
+    return probe_advance(keys_g, fill, seed_len, C, side, gen_cnt, lefts,
+                         present, is_fwd, lengths, active)
+
+
+def probe_advance(keys_g, fill, seed_len, C, side, gen_cnt, lefts, present,
+                  is_fwd, lengths, active):
+    """The probe round after its fetch (ops/extend.py:241-294): keys_g[g]
+    int64[R, C] holds genome g's key at probe offset d = 1..C (column
+    d - 1) of each row.  Matches (probe positions inside the genome, no
+    sentinel, keys XOR strand equal to the reference genome's), the
+    furthest reach with gaps <= seed_len, and the advance.  Returns
+    (lefts, lengths, active)."""
+    R, G = lefts.shape
+    dev = lefts.device
+    dd = torch.arange(1, C + 1, dtype=torch.int32, device=dev)[None]
+    back = is_fwd if side == 0 else ~is_fwd
+    ref_idx = torch.argmax(present.to(torch.int8), dim=1)
+    flipped, valid_g = [], []
+    for g in range(G):
+        l = lefts[:, g:g + 1]
+        q = torch.where(back[:, g:g + 1], l - dd,
+                        l + lengths[:, None] - seed_len + dd)
+        valid_g.append((q >= 0) & (q < gen_cnt[:, g:g + 1]))
+        flipped.append(keys_g[g] ^ is_fwd[:, g:g + 1].to(torch.int64))
+    stacked = torch.stack(flipped)                       # [G, R, C]
+    ref_keys = stacked[ref_idx, torch.arange(R, device=dev)]
     match = active[:, None].expand(R, C).clone()
     for g in range(G):
-        ok = valid_g[g] & (keys_g[g] == ref_keys) & ((keys_g[g] | 1) != fill)
+        ok = valid_g[g] & (flipped[g] == ref_keys) & ((flipped[g] | 1) != fill)
         match &= torch.where(present[:, g:g + 1], ok, True)
 
     # furthest offset reachable with gaps <= seed_len between matches
@@ -107,6 +126,7 @@ def extend_matches_plain(keys_concat, seed_len: int, chunk: int, gen_off,
     return lefts, lengths
 
 
+@cuda.launcher
 def extend_matches(keys_concat, seed_len: int, chunk: int, gen_off,
                    gen_cnt, lefts, present, is_fwd, lengths, fill: int,
                    scratch: bool = False):

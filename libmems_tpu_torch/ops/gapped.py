@@ -139,6 +139,7 @@ def walk_plain(ptrs: torch.Tensor, p_len: torch.Tensor, q_len: torch.Tensor,
     return steps, agaps, bgaps
 
 
+@cuda.launcher
 def traceback_walk(ptrs: torch.Tensor, p_len: torch.Tensor,
                    q_len: torch.Tensor, T: int):
     """Affine traceback of every window over its full pointer tensor.
@@ -291,6 +292,7 @@ def _gotoh_rows_scratch(B: int, N: int, device, scratch: bool):
                        device=device)
 
 
+@cuda.launcher
 def gotoh_forward(a, b, a_len, b_len, gap_open: int = GAP_OPEN,
                   gap_extend: int = GAP_EXTEND, K: int = CKPT_ROWS,
                   carries: bool = True, scratch: bool = False):
@@ -365,6 +367,7 @@ def gotoh_block_ptrs_plain(ck_h, ck_f, a_blk, b, gap_open: int,
     return pack_ptrs_plain(p) if packed else p
 
 
+@cuda.launcher
 def gotoh_block_ptrs(ck_h, ck_f, a_blk, b, gap_open: int = GAP_OPEN,
                      gap_extend: int = GAP_EXTEND, packed: bool = False,
                      scratch: bool = False):
@@ -535,6 +538,7 @@ def plan_pairs(pairs: list[tuple[np.ndarray, np.ndarray]]):
                Bpad * Mp * (N + 1) <= DEVICE_TB_BUDGET)
 
 
+@cuda.entry(cuda.device_arg)
 def align_pairs(pairs: list[tuple[np.ndarray, np.ndarray]],
                 gap_open: int = GAP_OPEN, gap_extend: int = GAP_EXTEND,
                 device="cuda") -> list[tuple[np.ndarray, np.ndarray]]:
@@ -577,6 +581,7 @@ def align_pairs(pairs: list[tuple[np.ndarray, np.ndarray]],
     return results
 
 
+@cuda.entry(cuda.device_arg)
 def align_score(a: np.ndarray, b: np.ndarray, gap_open: int = GAP_OPEN,
                 gap_extend: int = GAP_EXTEND, device="cuda") -> int:
     """Score-only global alignment of one pair on `device` (K22 without

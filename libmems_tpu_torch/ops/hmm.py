@@ -214,6 +214,7 @@ def _host_mats(mats) -> ctypes.Array:
     return (ctypes.c_double * 24)(*flat.tolist())
 
 
+@cuda.launcher
 def fb_posterior(obs, lengths, mats, threshold: float = POSTERIOR_THRESHOLD,
                  want_post: bool = True):
     """Posterior P(homologous) and calls for a padded batch.
@@ -296,6 +297,7 @@ def _fb_batched(sequences, params, device, threshold, want_post):
     return out
 
 
+@cuda.entry(cuda.device_arg)
 def posterior_homologous(sequences: list[np.ndarray],
                          params: HmmParams | None = None,
                          device="cuda") -> list[np.ndarray]:
@@ -305,6 +307,7 @@ def posterior_homologous(sequences: list[np.ndarray],
                                       POSTERIOR_THRESHOLD, True)]
 
 
+@cuda.entry(cuda.device_arg)
 def predict_homologous(sequences: list[np.ndarray],
                        params: HmmParams | None = None,
                        threshold: float = POSTERIOR_THRESHOLD,
@@ -363,6 +366,7 @@ def viterbi_path_plain(obs, lengths, mats):
     return path
 
 
+@cuda.launcher
 def viterbi_path(obs, lengths, mats):
     """Most likely state per column of a padded batch.
 
@@ -390,6 +394,7 @@ def viterbi_path(obs, lengths, mats):
 viterbi_path.launches = 0
 
 
+@cuda.entry(cuda.device_arg)
 def viterbi_homologous(sequences: list[np.ndarray],
                        params: HmmParams | None = None,
                        device="cuda") -> list[np.ndarray]:
@@ -474,6 +479,7 @@ def bw_counts_plain(obs, lengths, mats):
     return torch.where((lens > 0)[:, None], out, 0.0)
 
 
+@cuda.launcher
 def bw_counts(obs, lengths, mats):
     """Baum-Welch expected counts of each sequence of a padded batch.
 
@@ -529,6 +535,7 @@ def _bw_counts(obs: np.ndarray, lens: np.ndarray, params: HmmParams, dev):
     return sum_counts(np.concatenate(parts))
 
 
+@cuda.entry(cuda.device_arg)
 def baum_welch(sequences: list[np.ndarray],
                params: HmmParams | None = None,
                iterations: int = 5,

@@ -81,6 +81,7 @@ def canonical_seed_keys_plain(codes: torch.Tensor, seed: int,
     return keys
 
 
+@cuda.launcher
 def canonical_seed_keys(codes: torch.Tensor, seed: int,
                         ambig: torch.Tensor | None = None) -> torch.Tensor:
     """Canonical seed keys for every window of one genome.

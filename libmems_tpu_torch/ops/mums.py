@@ -96,10 +96,11 @@ def _segment_sum_broadcast(values, seg_starts):
 
 
 def mum_seed_flags_plain(content, src, keys, seg_off, repeat_tolerance: int,
-                         repeat_limit: int, sent_content: int) -> MumFlags:
+                         repeat_limit: int, sent_content: int,
+                         row_keys: bool = False) -> MumFlags:
     """Plain PyTorch version of K13: _mum_seed_flags as the JAX module
     computes it."""
-    gid, pos, strand = seed_table_meta(src, keys, seg_off)
+    gid, pos, strand = seed_table_meta(src, keys, seg_off, row_keys)
     n = content.shape[0]
     if n == 0:
         e = torch.zeros(0, dtype=torch.int32, device=content.device)
@@ -120,25 +121,30 @@ def mum_seed_flags_plain(content, src, keys, seg_off, repeat_tolerance: int,
     return MumFlags(kept_occ, row_id, ref_strand, n_rows, gid, pos, strand)
 
 
+@cuda.launcher
 def mum_seed_flags(content, src, keys, seg_off, repeat_tolerance: int,
-                   repeat_limit: int, sent_content: int) -> MumFlags:
+                   repeat_limit: int, sent_content: int,
+                   row_keys: bool = False) -> MumFlags:
     """MemHash seed-enumeration flags of the sorted seed table.
 
     content: int64[n] sorted contents (key >> 1, logical); src: int64[n]
     each row's index into keys, the int64 position-order concatenation of
-    the genomes' keys; seg_off: int64[G+1] genome bounds in keys.  CPU
-    tensors take the plain version; CUDA tensors launch K13 (with K5's
-    lm_run_starts for gid, pos and strand)."""
+    the genomes' keys (with row_keys: keys int64[n], the rows' own keys,
+    which a routed table carries so that no shard needs the whole table);
+    seg_off: int64[G+1] genome bounds in keys.  CPU tensors take the plain
+    version; CUDA tensors launch K13 (with K5's lm_run_starts for gid, pos
+    and strand)."""
     if content.device.type == "cpu":
         return mum_seed_flags_plain(content, src, keys, seg_off,
                                     repeat_tolerance, repeat_limit,
-                                    sent_content)
+                                    sent_content, row_keys)
     dev = content.device
     n = content.shape[0]
     G = seg_off.shape[0] - 1
     cuda.require(content, "content", torch.int64, dev, (n,))
     cuda.require(src, "src", torch.int64, dev, (n,))
-    cuda.require(keys, "keys", torch.int64, dev, (keys.shape[0],))
+    cuda.require(keys, "keys", torch.int64, dev,
+                 (n,) if row_keys else (keys.shape[0],))
     cuda.require(seg_off, "seg_off", torch.int64, dev, (G + 1,))
     i32 = dict(dtype=torch.int32, device=dev)
     u8 = dict(dtype=torch.uint8, device=dev)
@@ -149,7 +155,7 @@ def mum_seed_flags(content, src, keys, seg_off, repeat_tolerance: int,
     lib = cuda.library()
     stream = cuda.stream(content)
     cuda.check(lib.lm_run_starts(
-        content.data_ptr(), src.data_ptr(), keys.data_ptr(),
+        content.data_ptr(), src.data_ptr(), keys.data_ptr(), int(row_keys),
         seg_off.data_ptr(), G, n, sc.data_ptr(), gid.data_ptr(),
         pos.data_ptr(), strand.data_ptr(), stream), "lm_run_starts")
     rid1 = torch.cumsum(sc, 0, dtype=torch.int32)
@@ -265,6 +271,7 @@ def mum_candidates_plain(flags: MumFlags, G: int, seq_mask: int,
     return Candidates(starts, words, posref)
 
 
+@cuda.launcher
 def mum_candidates(flags: MumFlags, G: int, seq_mask: int,
                    pos_bits: int) -> Candidates:
     """Candidate rows of the surviving runs, filtered by seq_mask (bit
@@ -356,6 +363,7 @@ def mum_reps_plain(words, posref, ec: int, G: int, pos_bits: int,
     return MumReps(lefts, present, is_fwd, n_reps)
 
 
+@cuda.launcher
 def mum_reps(words, posref, ec: int, G: int, pos_bits: int,
              seed_len: int) -> MumReps:
     """Diagonal-cluster representatives of the sorted signature rows as

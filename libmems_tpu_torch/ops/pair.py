@@ -75,6 +75,7 @@ def pair_cluster_words_plain(keys_a, keys_b, pos_bits: int,
     return torch.where(surv, cw, -1), int(surv.sum())
 
 
+@cuda.launcher
 def pair_cluster_words(keys_a, keys_b, pos_bits: int, sent_content: int):
     """(cluster words int64[na + nb] in the order of the sorted seed
     words, candidate count).
@@ -170,6 +171,7 @@ def pair_reps_plain(cw, ec: int, pos_bits: int, seed_len: int) -> PairReps:
                     int(n_reps))
 
 
+@cuda.launcher
 def pair_reps(cw, ec: int, pos_bits: int, seed_len: int) -> PairReps:
     """Representatives of the sorted cluster words as EC extension rows
     (rows past min(n_reps, EC) are absent: zero left ends, forward,

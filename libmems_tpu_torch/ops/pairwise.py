@@ -55,13 +55,14 @@ class RunFlags(NamedTuple):
     strand: torch.Tensor       # uint8[n]
 
 
-def seed_table_meta(src, keys, seg_off):
+def seed_table_meta(src, keys, seg_off, row_keys: bool = False):
     """Genome, position and strand of each sorted row from its source
     index into keys (the position-order concatenation; seg_off int64[G+1]
-    the genome bounds)."""
+    the genome bounds).  With row_keys, keys are the rows' own keys
+    (int64[n]) and give the strand row by row."""
     gid = torch.searchsorted(seg_off, src, right=True) - 1
     pos = (src - seg_off[gid]).to(torch.int32)
-    strand = (keys[src] & 1).to(torch.uint8)
+    strand = ((keys if row_keys else keys[src]) & 1).to(torch.uint8)
     return gid.to(torch.int32), pos, strand
 
 
@@ -85,6 +86,7 @@ def run_flags_plain(content, src, keys, seg_off, repeat_limit: int,
     return RunFlags(unique_occ, (rid1 - 1).to(torch.int32), gid, pos, strand)
 
 
+@cuda.launcher
 def run_flags(content, src, keys, seg_off, repeat_limit: int,
               sent_content: int) -> RunFlags:
     """Run flags of the sorted seed table.
@@ -111,7 +113,7 @@ def run_flags(content, src, keys, seg_off, repeat_limit: int,
     lib = cuda.library()
     stream = cuda.stream(content)
     cuda.check(lib.lm_run_starts(
-        content.data_ptr(), src.data_ptr(), keys.data_ptr(),
+        content.data_ptr(), src.data_ptr(), keys.data_ptr(), 0,
         seg_off.data_ptr(), G, n, sc.data_ptr(), gid.data_ptr(),
         pos.data_ptr(), strand.data_ptr(), stream), "lm_run_starts")
     rid1 = torch.cumsum(sc, 0, dtype=torch.int32)
@@ -163,6 +165,7 @@ def cluster_words_plain(flags: RunFlags, G: int, pos_bits: int
     return torch.cat(out)
 
 
+@cuda.launcher
 def cluster_words(flags: RunFlags, G: int, pos_bits: int) -> torch.Tensor:
     """Unsorted cluster words int64[(G-1) * kept_count]: the word of
     shift s and kept row k pairs k with kept row k+s of the same run.
@@ -270,6 +273,7 @@ def cluster_reps_plain(cw, ec: int, G: int, pos_bits: int, seed_len: int,
                 n_reps)
 
 
+@cuda.launcher
 def cluster_reps(cw, ec: int, G: int, pos_bits: int, seed_len: int,
                  gen_off, gen_cnt) -> Reps:
     """Representatives of the sorted cluster words as EC compact

@@ -245,6 +245,7 @@ def _require_batch(p, q, p_len, q_len):
     return dev, B, M, N
 
 
+@cuda.launcher
 def profile_forward(p, q, p_len, q_len, gap_open: int = GAP_OPEN,
                     gap_extend: int = GAP_EXTEND):
     """Profile DP forward with pointer bytes for a batch of windows.
@@ -286,6 +287,7 @@ def profile_forward_scores_plain(p, q, p_len, q_len,
                                  emit_ptr=False)[1]
 
 
+@cuda.launcher
 def profile_forward_scores(p, q, p_len, q_len, gap_open: int = GAP_OPEN,
                            gap_extend: int = GAP_EXTEND):
     """Full-width forward scores float32[B] of a batch of windows (the
@@ -352,6 +354,7 @@ def profile_forward_ckpt_plain(p, q, p_len, q_len, gap_open: int = GAP_OPEN,
     return score, ck_h, ck_f
 
 
+@cuda.launcher
 def profile_forward_ckpt(p, q, p_len, q_len, gap_open: int = GAP_OPEN,
                          gap_extend: int = GAP_EXTEND, K: int = CKPT_ROWS):
     """Checkpointed forward profile DP of a batch of windows: the score
@@ -405,6 +408,7 @@ def profile_block_ptrs_plain(ck_h, ck_f, p_blk, q, q_len,
     return pack_ptrs_plain(ptrs)
 
 
+@cuda.launcher
 def profile_block_ptrs(ck_h, ck_f, p_blk, q, q_len,
                        gap_open: int = GAP_OPEN,
                        gap_extend: int = GAP_EXTEND):
@@ -652,6 +656,7 @@ def banded_forward_scores_plain(p, q, p_len, q_len, gap_open: int,
                                 H_W)[1:]
 
 
+@cuda.launcher
 def banded_forward_scores(p, q, p_len, q_len, gap_open: int,
                           gap_extend: int, H_W: int):
     """Banded forward scores float32[B] and certificates bool[B]
@@ -678,6 +683,7 @@ def banded_forward_ptrs_plain(p, q, p_len, q_len, gap_open: int,
                                 H_W, emit_ptr=True)
 
 
+@cuda.launcher
 def banded_forward_ptrs(p, q, p_len, q_len, gap_open: int, gap_extend: int,
                         H_W: int):
     """Banded forward with pointer bytes uint8[B, Mp, WB+1], scores and
@@ -714,6 +720,7 @@ def banded_traceback_walk_plain(ptrs, p_len, q_len, N: int, H_W: int,
     return walk_plain(ptrs, p_len, q_len, T, addr)
 
 
+@cuda.launcher
 def banded_traceback_walk(ptrs, p_len, q_len, N: int, H_W: int, T: int):
     """Affine traceback of every window over its banded pointers
     uint8[B, Mp, WB+1] (N: the bucket's columns).  Returns bool (steps,

@@ -47,6 +47,7 @@ def seed_run_counts_plain(sorted_keys, sorted_positions, length: int,
     return count
 
 
+@cuda.launcher
 def seed_run_counts(sorted_keys, sorted_positions, length: int,
                     sentinel: int) -> torch.Tensor:
     """int32[length] seed counts in position order.
@@ -104,6 +105,7 @@ def seed_smooth_plain(count: torch.Tensor, seed_len: int) -> torch.Tensor:
     return countf.clamp(min=1.0)
 
 
+@cuda.launcher
 def seed_smooth(count: torch.Tensor, seed_len: int) -> torch.Tensor:
     """float32[length] smoothed seed frequencies of int32[length] counts.
     CPU tensors take the plain version; CUDA tensors launch K17."""

@@ -88,6 +88,7 @@ def route_fill_plain(keys, base: int, sentinel: int, n_dev: int,
                   dropped)
 
 
+@cuda.launcher
 def route_fill(keys, base: int, sentinel: int, n_dev: int,
                cap: int) -> Routed:
     """Send buffers of one shard's rows (_route_local before the
@@ -165,6 +166,7 @@ def shard_candidates_plain(flags, G: int, capacity: int,
                                 device=dev), over)
 
 
+@cuda.launcher
 def shard_candidates(flags, G: int, capacity: int,
                      seed_len: int) -> ShardRows:
     """A shard's candidate rows from K13's flags of its routed table: row
@@ -243,6 +245,7 @@ def dedup_flags_plain(lefts, present, is_fwd, lengths, valid) -> Deduped:
     return Deduped(srows, slens, valid[order] & first)
 
 
+@cuda.launcher
 def dedup_flags(lefts, present, is_fwd, lengths, valid) -> Deduped:
     """Shard-local dedup of extended rows: signed 1-based starts
     (is_fwd ? 1 : -1) * (lefts + 1) where present, the rows sorted by

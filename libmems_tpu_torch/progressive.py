@@ -50,7 +50,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from libmems_tpu_torch import trace
+from libmems_tpu_torch import cuda, trace
 from libmems_tpu_torch.anchorscore import (pairwise_anchor_scores,
                                            seed_occurrence_lists)
 from libmems_tpu_torch.cga import CompactAlignment, merge_with_gap_masks
@@ -1129,6 +1129,12 @@ class _ProgressiveCheckpoint:
                              blocks=blocks)
 
 
+def _config_device(arguments):
+    """cuda.entry's pick: the device of the run's config."""
+    return (arguments["config"] or ProgressiveConfig()).device
+
+
+@cuda.entry(_config_device)
 def progressive_align(genomes: list[Genome],
                       config: ProgressiveConfig | None = None
                       ) -> tuple[IntervalList, TreeNode]:
@@ -1144,13 +1150,30 @@ def progressive_align(genomes: list[Genome],
     device = cuda.resolve_device(cfg.device)
     seed = cfg.seed if cfg.seed is not None else \
         default_seed(genomes, cfg.seed_rank)
+    from libmems_tpu_torch.aligner import resolve_mesh
+    from libmems_tpu_torch.parallel.shard import process_count
+    multihost = resolve_mesh(cfg.mesh, device) is not None \
+        and process_count() > 1
     with trace.stage("sml_build"):
-        smls, seed = create_smls(genomes, seed, device=device)
+        if multihost:
+            # host-sharded index build + one-time key-table exchange
+            # (seeding spans the processes' mesh, every later stage runs
+            # redundantly in each process; parallel/multihost.py)
+            from libmems_tpu_torch.parallel import multihost as mh
+            owned = mh.build_owned_smls(genomes, seed, device=device)
+            smls = mh.gather_key_tables(owned, len(genomes), seed)
+        else:
+            smls, seed = create_smls(genomes, seed, device=device)
 
     ckpt = _ProgressiveCheckpoint(cfg.checkpoint_dir, genomes, seed, cfg) \
         if cfg.checkpoint_dir else None
 
     def _sols():
+        if multihost:
+            # KeyTables carry no sorted arrays; the host twin is bit-equal
+            # to the device lists and local to the process
+            from libmems_tpu_torch.anchorscore import seed_occurrence_list_np
+            return [seed_occurrence_list_np(g, seed) for g in genomes]
         return seed_occurrence_lists(smls, genomes)
 
     codes = [g.codes for g in genomes]
@@ -1161,7 +1184,6 @@ def progressive_align(genomes: list[Genome],
             sols = _sols()
     else:
         with trace.stage("pairwise_mums"):
-            from libmems_tpu_torch.aligner import resolve_mesh
             mesh = resolve_mesh(cfg.mesh, device)
             if mesh is None:
                 matches = find_pairwise_mums(smls)
@@ -1294,6 +1316,7 @@ def node_alignment_from_intervals(ivs: IntervalList,
     return NodeAlignment(leaf_ids=list(leaf_ids), blocks=blocks)
 
 
+@cuda.entry(_config_device)
 def align_profiles(ivs1: IntervalList, genomes1: list[Genome],
                    ivs2: IntervalList, genomes2: list[Genome],
                    config: ProgressiveConfig | None = None

@@ -49,6 +49,13 @@ class RepeatMatchArray:
         return (self.starts != 0).sum(axis=1)
 
 
+def _run_device(arguments):
+    """cuda.entry's pick: the SML's device, or `device` for a genome."""
+    x = arguments["genome_or_sml"]
+    return x.device if isinstance(x, SortedMerList) else arguments["device"]
+
+
+@cuda.entry(_run_device)
 def find_repeats(genome_or_sml, seed: int | None = None,
                  max_multiplicity: int = 1000,
                  min_length: int | None = None,

@@ -98,6 +98,7 @@ class SortedMerList:
         return self.keys.device
 
     @staticmethod
+    @cuda.entry(cuda.device_arg)
     def create(genome_or_codes, seed: int, circular: bool = False,
                filename: str = "", ambig: np.ndarray | None = None,
                device="cuda") -> "SortedMerList":
@@ -166,6 +167,7 @@ class SortedMerList:
                 ).astype("<i4").tofile(fh)
 
     @staticmethod
+    @cuda.entry(cuda.device_arg)
     def load(path: str | os.PathLike, mmap: bool = True, device="cuda"
              ) -> "SortedMerList":
         """Load an SML file onto `device`.  With mmap=True (default) the
@@ -209,6 +211,7 @@ class SortedMerList:
                              circular=bool(circular), filename=path)
 
     @staticmethod
+    @cuda.entry(cuda.device_arg)
     def create_big(genome_or_codes, seed: int, sml_path: str,
                    scratch_dir: str | None = None,
                    mem_limit: int = 256 << 20,
@@ -236,6 +239,7 @@ class SortedMerList:
             mem_limit=mem_limit, circular=circular, device=device)
 
     @staticmethod
+    @cuda.entry(cuda.device_arg)
     def _big_create_py(genome_or_codes, seed: int, sml_path: str,
                        scratch_dir: str | None = None,
                        mem_limit: int = 256 << 20,
@@ -333,6 +337,7 @@ class SortedMerList:
         return SortedMerList.load(sml_path, device=device)
 
     @staticmethod
+    @cuda.entry(cuda.device_arg)
     def create_with_fallback(genome_or_codes, seed: int,
                              sml_path: str | os.PathLike | None = None,
                              circular: bool = False,
@@ -365,6 +370,7 @@ class SortedMerList:
                                         circular=circular, device=device)
 
     @staticmethod
+    @cuda.entry(cuda.device_arg)
     def load_or_create(genome: Genome, seed: int,
                        sml_path: str | os.PathLike | None = None,
                        circular: bool = False, device="cuda"
@@ -396,6 +402,7 @@ def default_seed(genomes: list[Genome], seed_rank: int = 0) -> int:
     return seedlib.get_seed(weight, seed_rank)
 
 
+@cuda.entry(cuda.device_arg)
 def create_smls(genomes: list[Genome], seed: int | None = None,
                 seed_rank: int = 0, device="cuda"
                 ) -> tuple[list[SortedMerList], int]:

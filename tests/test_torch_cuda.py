@@ -1045,3 +1045,102 @@ def test_align_profile_batch_mesh_split_on_cuda_equals_whole(dev,
     got = profile.banded_scores_split(*t, profile.GAP_OPEN,
                                       profile.GAP_EXTEND, H_W, mesh)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("G,n_dev,req_cap", [(2, 4, 1 << 20), (3, 4, 50),
+                                             (5, 3, 1 << 20), (2, 8, 3000)])
+def test_tiled_request_and_serve_kernels_equal_plain(dev, G, n_dev, req_cap):
+    """K29 (with requests past req_cap) and K30 (with starts outside the
+    tile) against their plain versions on both sides."""
+    from libmems_tpu_torch.ops import tiled
+    rng = np.random.default_rng(G * n_dev)
+    R, S, C = 6_000, 1 << 14, 512
+    lefts = torch.from_numpy(rng.integers(0, n_dev * S // 2, (R, G)
+                                          ).astype(np.int32))
+    lengths = torch.from_numpy(rng.integers(15, 400, R).astype(np.int32))
+    present = torch.from_numpy(rng.random((R, G)) < 0.9)
+    is_fwd = torch.from_numpy(rng.random((R, G)) < 0.5)
+    gen_off = torch.from_numpy((np.arange(G) * (n_dev * S // (2 * G))
+                                ).astype(np.int32))
+    rows = torch.from_numpy(np.sort(rng.choice(R, 4_000, replace=False)))
+    for side in (0, 1):
+        args = [rows, lefts, lengths, present, is_fwd, gen_off, side, C, 15,
+                C, S, n_dev, req_cap]
+        ref = tiled.tiled_requests_plain(*args)
+        got = tiled.tiled_requests(*[a.to(dev) if isinstance(a, torch.Tensor)
+                                     else a for a in args])
+        assert torch.equal(got.send.cpu(), ref.send)
+        assert torch.equal(got.where.cpu(), ref.where)
+        assert got.counts == ref.counts and got.dropped == ref.dropped
+        assert (ref.dropped > 0) == (req_cap < 1000)
+    tile = torch.from_numpy(rng.integers(-2**62, 2**62, S + C + 128))
+    offs = torch.from_numpy(rng.integers(-5, S + 5, 3_000))
+    ref = tiled.tiled_serve_plain(tile, S, offs, C, -1)
+    assert torch.equal(tiled.tiled_serve(tile.to(dev), S, offs.to(dev), C,
+                                         -1).cpu(), ref)
+
+
+def _tiled_genomes(rng_seed, n=60_000):
+    rng = np.random.default_rng(rng_seed)
+    a = rng.integers(0, 4, n).astype(np.uint8)
+    b = generate._mutant(rng, a, mutate=0.01, indel=0.0005)
+    b = np.concatenate([b[n // 2:], 3 - b[:n // 2][::-1]])
+    return [Genome(f"g{i}", generate._LUT[x]) for i, x in enumerate((a, b))]
+
+
+def test_sharded_find_mums_tiled_on_cuda_equals_find_mums(dev, monkeypatch):
+    """The tiled path on 4 shards of the card equals find_mums (which the
+    CPU tests hold to the JAX package); its first K31 launches equal
+    their plain version on the same inputs, on CPU tensors."""
+    from libmems_tpu_torch.matchfind import find_mums
+    from libmems_tpu_torch.ops import tiled
+    from libmems_tpu_torch.parallel import shard as psh
+    from libmems_tpu_torch.sml import create_smls
+    genomes = _tiled_genomes(5)
+    smls_g, _ = create_smls(genomes, device=dev)
+    real = tiled.tiled_probe
+    seen = []
+
+    def both(resp, where, rows, lefts, lengths, present, is_fwd, gen_cnt,
+             active, *rest):
+        if len(seen) >= 8:
+            return real(resp, where, rows, lefts, lengths, present, is_fwd,
+                        gen_cnt, active, *rest)
+        cpu = [x.cpu().clone() for x in (lefts, lengths, active)]
+        tiled.tiled_probe_plain(resp.cpu(), where.cpu(), rows.cpu(), cpu[0],
+                                cpu[1], present.cpu(), is_fwd.cpu(),
+                                gen_cnt.cpu(), cpu[2], *rest)
+        real(resp, where, rows, lefts, lengths, present, is_fwd, gen_cnt,
+             active, *rest)
+        seen.append(all(torch.equal(a.cpu(), b) for a, b in
+                        zip((lefts, lengths, active), cpu)))
+    both.launches = 0
+    monkeypatch.setattr(tiled, "tiled_probe", both)
+    launches = (tiled.tiled_requests.launches, tiled.tiled_serve.launches)
+    got = psh.sharded_find_mums_tiled(smls_g, psh.Mesh([dev] * 4))
+    monkeypatch.setattr(tiled, "tiled_probe", real)
+    assert seen and all(seen)
+    assert tiled.tiled_requests.launches > launches[0]
+    assert tiled.tiled_serve.launches > launches[1]
+    want = find_mums(smls_g)
+    assert len(want) > 10
+    np.testing.assert_array_equal(got.starts, want.starts)
+    np.testing.assert_array_equal(got.lengths, want.lengths)
+
+
+def test_align_on_second_card_equals_first(dev):
+    """Launches follow the tensors' card: with card 0 current, align on
+    cuda:1 gives the XMFA bytes of cuda:0, and card 0 stays current."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA GPUs")
+    genomes = _tiled_genomes(6)
+    cfg = dict(gapped_alignment=True, recursive=True)
+    out = []
+    with torch.cuda.device(0):
+        for d in ("cuda:0", "cuda:1"):
+            ivs, _ = align(genomes, AlignerConfig(device=d, **cfg))
+            buf = io.StringIO()
+            write_xmfa(buf, ivs)
+            out.append(buf.getvalue())
+            assert torch.cuda.current_device() == 0
+    assert out[0] == out[1]

@@ -1,0 +1,194 @@
+"""Port parity: the position-tiled extension (K29-K31 through their plain
+versions) against the JAX package's build_position_tiles,
+make_probe_round and sharded_find_mums_tiled.  Shards run on
+``Mesh([cpu] * n)``; the JAX package runs on its virtual CPU mesh
+(tests/conftest.py).  Exact throughout: tiles, row states and match rows
+equal."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from libmems_tpu import seeds as jseeds
+from libmems_tpu.ops.extend import _fetch_spans, make_probe_round
+from libmems_tpu.parallel import shard as jsh
+from libmems_tpu.sml import SortedMerList as JaxSML
+from libmems_tpu_torch.matchfind import find_mums
+from libmems_tpu_torch.ops import mums as ops_mums
+from libmems_tpu_torch.ops import shard as ops_shard
+from libmems_tpu_torch.ops.mers import sentinel_content
+from libmems_tpu_torch.parallel import shard as psh
+from libmems_tpu_torch.sml import SortedMerList
+
+CPU = torch.device("cpu")
+SEED = jseeds.get_seed(9, 0)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The plain versions run many small tensor operations; one intra-op
+    thread keeps them from contending with the other test workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _same(got, want):
+    np.testing.assert_array_equal(got.starts, want.starts)
+    np.testing.assert_array_equal(got.lengths, want.lengths)
+
+
+@pytest.fixture(scope="module")
+def pair():
+    """tests/test_sharded_mums.py:104's pair: a 6 kbp genome and a 2%
+    mutant whose halves are swapped, the first half inverted.  Returns
+    (the port's SMLs, the JAX package's SMLs, the JAX package's
+    sharded_find_mums_tiled on make_mesh(4) at capacity 2048, made once:
+    each JAX call compiles its rounds anew)."""
+    rng = np.random.default_rng(0)
+    a = rng.integers(0, 4, size=6000).astype(np.uint8)
+    b = a.copy()
+    idx = rng.random(len(b)) < 0.02
+    b[idx] = rng.integers(0, 4, size=int(idx.sum()))
+    b = np.concatenate([b[3000:], (3 - b[:3000])[::-1]])
+    jsmls = [JaxSML.create(x, SEED) for x in (a, b)]
+    want = jsh.sharded_find_mums_tiled(jsmls, jsh.make_mesh(4),
+                                       capacity=2048)
+    return ([SortedMerList.create(x, SEED, device="cpu") for x in (a, b)],
+            jsmls, want)
+
+
+@pytest.mark.parametrize("dtype", [np.uint32, np.uint64])
+@pytest.mark.parametrize("n_dev", [1, 2, 4])
+def test_build_position_tiles_equals_jax(dtype, n_dev):
+    """The padded tiles, tile size and offset of the JAX package's, and
+    the tiled path's own tiles (built from each genome's keys, the
+    concatenation never formed) equal their rows."""
+    rng = np.random.default_rng(n_dev)
+    keys = rng.integers(0, np.iinfo(dtype).max, 5_000, dtype=np.uint64
+                        ).astype(dtype)
+    want = jsh.build_position_tiles(keys, n_dev, 512)
+    got = psh.build_position_tiles(keys, n_dev, 512)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[0].dtype == want[0].dtype
+    assert got[1:] == want[1:]
+    cut = [keys[:1_800], keys[1_800:]]
+    as_i64 = [torch.from_numpy(k.astype(np.uint64).view(np.int64)) for k in cut]
+    sentinel = int(np.array(~dtype(0)).astype(np.uint64).view(np.int64))
+    S, big, halo = psh._tile_geometry(len(keys), n_dev, 512)
+    for d in range(n_dev):
+        tile = psh._table_range(as_i64, d * S - big, d * S + S + halo - big,
+                                sentinel, CPU)
+        np.testing.assert_array_equal(
+            tile.numpy(), want[0][d].astype(np.uint64).view(np.int64))
+
+
+def _shard_rows(mesh, tiles):
+    """The tiled path's init step on the CPU mesh: every shard's candidate
+    rows (K26, K13 at tolerance 0, K27)."""
+    tables, dropped = psh._route(mesh, tiles.slices, tiles.sentinel, 1 << 14)
+    assert dropped == 0
+    rows = []
+    for content, src, rk in tables:
+        f = ops_mums.mum_seed_flags(content, src, rk, tiles.seg_off[CPU], 0,
+                                    1000, sentinel_content(SEED),
+                                    row_keys=True)
+        rows.append(ops_shard.shard_candidates(f, 2, 2048, tiles.seed_len))
+    return rows
+
+
+@pytest.mark.parametrize("side", [0, 1])
+def test_probe_round_equals_jax(pair, side):
+    """One probe round of every shard's rows through K29-K31's plain
+    versions and the exchange of a 4-shard CPU mesh equals the JAX
+    make_probe_round with a local _fetch_spans fetch of the padded table:
+    left ends, lengths and activity (side 1 after a side-0 round)."""
+    smls, _, _ = pair
+    mesh = psh.Mesh([CPU] * 4)
+    tiles = psh._Tiles(smls, mesh, 512)
+    rows = _shard_rows(mesh, tiles)
+    assert sum(r.lengths.shape[0] for r in rows) > 20
+    padded = np.concatenate([t.numpy()[:tiles.S] for t in tiles.tiles]
+                            + [tiles.tiles[-1].numpy()[tiles.S:]])
+    keys = jnp.asarray(padded.view(np.uint64).astype(np.uint32))
+
+    def fetch(span_start, C, aux):
+        return _fetch_spans(keys, span_start, C), aux
+
+    # the JAX round on every shard's rows at once
+    counts = [s.n_windows for s in smls]
+    cat = {k: np.concatenate([getattr(r, k).numpy() for r in rows])
+           for k in ("lefts", "lengths", "present", "is_fwd")}
+    R = len(cat["lengths"])
+    pr = make_probe_round(
+        fetch, jnp.uint32, tiles.seed_len, tiles.big,
+        jnp.asarray(np.broadcast_to(np.array([0, counts[0]], np.int32),
+                                    (R, 2))),
+        jnp.asarray(np.broadcast_to(np.array(counts, np.int32), (R, 2))),
+        jnp.asarray(cat["present"]), jnp.asarray(cat["is_fwd"]))
+    start = jnp.asarray(cat["present"].any(axis=1))
+    state = (jnp.asarray(cat["lefts"]), jnp.asarray(cat["lengths"]), start)
+    for s in range(side + 1):
+        l, n, a, _ = pr(s, 512, *state, jnp.int32(0))
+        state = (l, n, a if s == side else start)
+    want = [np.asarray(x) for x in (l, n, a)]
+    lefts = [r.lefts for r in rows]
+    lengths = [r.lengths for r in rows]
+    for s in range(side + 1):
+        active = [r.present.any(dim=1) for r in rows]
+        blk = [torch.nonzero(a).flatten() for a in active]
+        assert psh._probe_block(tiles, mesh, rows, lefts, lengths, active,
+                                blk, s, 1 << 20) == 0
+    for got, w in zip((lefts, lengths, active), want):
+        np.testing.assert_array_equal(torch.cat(got).numpy(), w)
+
+
+def test_sharded_find_mums_tiled_equals_jax(pair):
+    smls, _, want = pair
+    got = psh.sharded_find_mums_tiled(smls, psh.Mesh([CPU] * 4),
+                                      capacity=2048)
+    assert len(want) > 0 and psh.TILED_STATS["rounds"] > 2
+    _same(got, want)
+    _same(got, find_mums(smls))
+
+
+def test_sharded_find_mums_tiled_req_cap_retry(pair, monkeypatch):
+    """An undersized request capacity drops requests, which are counted
+    and retried with req_cap doubled (tests/test_sharded_mums.py:127-146,
+    on the port only): more than one pass, the same matches."""
+    smls, _, want = pair
+    calls = []
+    real = psh._sharded_tiled_once
+
+    def spy(*a, **k):
+        out = real(*a, **k)
+        calls.append(out[3])
+        return out
+    monkeypatch.setattr(psh, "_sharded_tiled_once", spy)
+    got = psh.sharded_find_mums_tiled(smls, psh.Mesh([CPU] * 4),
+                                      capacity=2048, req_cap=256,
+                                      max_retries=8)
+    assert len(calls) >= 2 and calls[0] > 0 and calls[-1] == 0
+    _same(got, want)
+    with pytest.raises(ValueError, match="req_cap"):
+        psh.sharded_find_mums_tiled(smls, psh.Mesh([CPU] * 4),
+                                    capacity=2048, req_cap=256,
+                                    max_retries=0)
+
+
+def test_tiled_path_holds_no_whole_table(pair, monkeypatch):
+    """The tiled path never builds the replicated table (_Layout), and
+    each shard holds S + halo keys of the table, fewer than all of it."""
+    smls, _, want = pair
+
+    def refuse(*a, **k):
+        raise AssertionError("the tiled path built _Layout")
+    monkeypatch.setattr(psh, "_Layout", refuse)
+    mesh = psh.Mesh([CPU] * 4)
+    _same(psh.sharded_find_mums_tiled(smls, mesh, capacity=2048), want)
+    tiles = psh._Tiles(smls, mesh, 512)
+    n_keys = sum(s.n_windows for s in smls)
+    for t in tiles.tiles:
+        assert t.shape[0] == tiles.S + tiles.halo < n_keys
