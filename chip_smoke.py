@@ -52,7 +52,8 @@ non-zero and prints no result line):
              K1, K2 and K5-K7 launched, each genome's seed occurrence
              list bit-equal to the host twin, intervals partition every
              genome, backbone segments inside their intervals, stage
-             seconds printed;
+             seconds printed; its predict_homologous calls recorded and
+             K8 launched;
 7. profile DP - K3, K4 and K9-K12 against their plain versions on the
              profile-DP launches of the first progressive run: the node
              merges' and the refinement's align_profile_batch calls
@@ -64,8 +65,12 @@ non-zero and prints no result line):
              no launch or no uncertified window, tests/test_banded.py's
              adversarial windows run the same routes as well;
 8. hmm     - K8 against its plain version on the card on the HMM batches
-             of the first progressive run, at their full lengths (7 and 8
-             are the phase "profile_dp");
+             of the first progressive run and of phase 6b, at their full
+             lengths (posteriors within 1e-12, calls equal), timed; the
+             batches of padded width 2^17 and more (the chunked route)
+             once more through the sequential kernel that serves the
+             narrower ones: its time, the largest posterior difference,
+             the calls that differ (7 and 8 are the phase "profile_dp");
 9. decode  - decode and pairwise DP, the API no path calls: align_pairs
              on the pair path's inter-anchor windows (K23 + K4 on the
              card) and on 8 mutant pairs of 10 kbp (over the pointer
@@ -1503,9 +1508,9 @@ def phase_large(torch, lt, dev, genomes):
     """The progressiveMauve path, default config, on the 3 x 8.7 Mbp
     family `genomes`: every genome is above anchorscore.SOL_HOST_MAX seed windows,
     so the seed occurrence lists come from K16 and K17.  Returns
-    (launches, wall)."""
-    from libmems_tpu_torch import anchorscore, progressive, trace
-    from libmems_tpu_torch.ops import (extend, mers, pairwise, profile,
+    (launches, wall, the arguments of its predict_homologous calls)."""
+    from libmems_tpu_torch import anchorscore, islands, progressive, trace
+    from libmems_tpu_torch.ops import (extend, hmm, mers, pairwise, profile,
                                        seedocc)
     from libmems_tpu_torch.sml import default_seed
     wrappers = {"canonical_seed_keys": mers.canonical_seed_keys,
@@ -1514,7 +1519,8 @@ def phase_large(torch, lt, dev, genomes):
                 "cluster_words": pairwise.cluster_words,
                 "cluster_reps": pairwise.cluster_reps,
                 "seed_run_counts": seedocc.seed_run_counts,
-                "seed_smooth": seedocc.seed_smooth}
+                "seed_smooth": seedocc.seed_smooth,
+                "fb_posterior": hmm.fb_posterior}
     require(all(len(g) - 1 > anchorscore.SOL_HOST_MAX for g in genomes),
             "a genome of the large family is below SOL_HOST_MAX windows")
     cfg = lt.ProgressiveConfig(device=dev)
@@ -1532,14 +1538,15 @@ def phase_large(torch, lt, dev, genomes):
     for w in wrappers.values():
         w.launches = 0
     try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ivs, _ = lt.progressive_align(genomes, cfg)
-        t1 = time.perf_counter()
-        new_ivs, segs = lt.apply_backbone(ivs, device=dev)
-        outs = write_outputs(lt, new_ivs, segs, len(genomes))
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
+        with recording([(islands, "predict_homologous")]) as calls:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ivs, _ = lt.progressive_align(genomes, cfg)
+            t1 = time.perf_counter()
+            new_ivs, segs = lt.apply_backbone(ivs, device=dev)
+            outs = write_outputs(lt, new_ivs, segs, len(genomes))
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
     finally:
         progressive.seed_occurrence_lists = real
     launches = {k: w.launches for k, w in wrappers.items()}
@@ -1572,7 +1579,7 @@ def phase_large(torch, lt, dev, genomes):
     check_partition(ivs, genomes)
     check_partition(new_ivs, genomes)
     check_segments(new_ivs, segs)
-    return launches, t2 - t0
+    return launches, t2 - t0, calls["predict_homologous"]
 
 
 DP_KERNELS = ("banded_forward_scores", "profile_forward_scores",
@@ -1748,12 +1755,10 @@ def phase_profile_dp(torch, dev, calls, launches):
     return res
 
 
-def phase_hmm(torch, dev, calls, launches):
-    """K8 against its plain version on the card, on the batches of the
-    first progressive run's predict_homologous calls at their full
-    lengths, rebuilt into the path's launches by hmm.pack_batches:
-    posteriors within 1e-12, calls equal.  Returns the entry, the times
-    summed over those launches."""
+def hmm_batches(torch, dev, calls):
+    """The K8 launches of a path's recorded predict_homologous calls,
+    rebuilt by hmm.pack_batches: (obs, lengths, mats, threshold) on the
+    card."""
     from libmems_tpu_torch.ops import hmm
     batches = []
     for a in calls:
@@ -1762,30 +1767,80 @@ def phase_hmm(torch, dev, calls, launches):
             batches.append((torch.from_numpy(obs).to(dev),
                             torch.from_numpy(lens).to(dev), mats,
                             a["threshold"]))
-    require(len(batches) == launches["fb_posterior"],
-            f"{len(batches)} HMM launches rebuilt, the path made "
-            f"{launches['fb_posterior']}")
-    log(f"# K8 batches (B x T): "
+    return batches
+
+
+def hmm_vs_plain(torch, batches, label):
+    """K8 against its plain version on the card on `batches`: posteriors
+    within 1e-12, calls equal.  Then the batches of padded width
+    FB_SCAN_MIN_T and more once more through the sequential kernel (the
+    route every narrower width takes), timed once, against the chunked
+    route: its time, the largest posterior difference and the calls that
+    differ.  Returns the entry, the times summed over the launches."""
+    from libmems_tpu_torch.ops import hmm
+    log(f"# K8 {label} batches (B x T): "
         f"{sorted(tuple(o.shape) for o, _, _, _ in batches)}, longest "
         f"sequence {max(int(n.max()) for _, n, _, _ in batches)} columns")
 
-    def run(fn):
-        return [fn(o, n, m, t) for o, n, m, t in batches]
+    def run(fn, bs, **kw):
+        return [fn(o, n, m, t, **kw) for o, n, m, t in bs]
 
-    got = run(hmm.fb_posterior)
-    ref, pms = timed_once(lambda: run(hmm.fb_posterior_plain), torch)
+    got = run(hmm.fb_posterior, batches)
+    ref, pms = timed_once(lambda: run(hmm.fb_posterior_plain, batches), torch)
     for (o, _, _, _), (_, gc), (_, rc) in zip(batches, got, ref):
         require(torch.equal(gc, rc), f"K8 calls differ at {tuple(o.shape)}")
     err = max_abs_err([(g[0], r[0]) for g, r in zip(got, ref)])
     require(err <= 1e-12, f"K8 posteriors differ by {err}")
-    ms = timed_ms(lambda: run(hmm.fb_posterior), 3, torch)
-    log(f"# K8 vs plain at full length: max_abs_err {err}, calls equal; "
-        f"kernel {ms:.3f} ms, plain {pms:.3f} ms")
+    del ref
+    ms = timed_ms(lambda: run(hmm.fb_posterior, batches), 3, torch)
     # observations in, f64 posteriors and calls out, over each sequence's
     # columns
     cols = sum(int(n.sum()) for _, n, _, _ in batches)
-    return entry(err, ms, pms, work(10 * cols, HMM_COLUMN_OPS * cols,
-                                    F64_OPS_PER_S))
+    e = entry(err, ms, pms, work(10 * cols, HMM_COLUMN_OPS * cols,
+                                 F64_OPS_PER_S))
+    wide = [i for i, b in enumerate(batches)
+            if b[0].shape[1] >= hmm.FB_SCAN_MIN_T]
+    routes = {"wide_launches": len(wide)}
+    if wide:
+        bs = [batches[i] for i in wide]
+        routes["scan_ms"] = timed_ms(lambda: run(hmm.fb_posterior, bs), 3,
+                                     torch)
+        seq, routes["sequential_ms"] = timed_once(
+            lambda: run(hmm.fb_posterior, bs, sequential=True), torch)
+        routes["max_post_diff"] = max_abs_err(
+            [(got[i][0], q[0]) for i, q in zip(wide, seq)])
+        routes["calls_differ"] = sum(int((got[i][1] != q[1]).sum())
+                                     for i, q in zip(wide, seq))
+        routes["wide_columns"] = sum(int(b[1].sum()) for b in bs)
+    log(f"# K8 {label} vs plain: max_abs_err {err}, calls equal; kernel "
+        f"{ms:.3f} ms, plain {pms:.3f} ms, bound {bound(e['work'])[0]:.6f} "
+        f"ms, {len(batches)} launches; padded width >= "
+        f"{hmm.FB_SCAN_MIN_T}, chunked route vs the sequential kernel: "
+        + json.dumps(routes))
+    return e
+
+
+def phase_hmm(torch, dev, calls, launches, large_calls=None,
+              large_launches=None):
+    """K8 against its plain version on the card, on the batches of the
+    first progressive run's predict_homologous calls at their full
+    lengths, rebuilt into the path's launches by hmm.pack_batches:
+    posteriors within 1e-12, calls equal; and, where phase large ran, on
+    the batches of the 3 x 8.7 Mbp path the same way (logged apart).
+    Returns the 9 x 1 Mbp entry, the times summed over those launches."""
+    batches = hmm_batches(torch, dev, calls)
+    require(len(batches) == launches["fb_posterior"],
+            f"{len(batches)} HMM launches rebuilt, the path made "
+            f"{launches['fb_posterior']}")
+    e = hmm_vs_plain(torch, batches, f"{PROG_GENOMES} x {PROG_LEN} bp")
+    del batches
+    if large_calls is not None:
+        big = hmm_batches(torch, dev, large_calls)
+        require(len(big) == large_launches["fb_posterior"],
+                f"{len(big)} HMM launches rebuilt, the 3 x 8.7 Mbp path "
+                f"made {large_launches['fb_posterior']}")
+        hmm_vs_plain(torch, big, f"{LARGE_GENOMES} x {LARGE_LEN} bp")
+    return e
 
 
 def phase_decode(torch, lt, dev, hmm_calls):
@@ -1961,6 +2016,8 @@ def phase_decode(torch, lt, dev, hmm_calls):
                   key=lambda i: int(batches[i][1].max()))
     chosen = [t for i, t in enumerate(batches)
               if t[0].shape[1] <= HMM_CHECK_MAX_T or i == longest]
+    require(any(t[0].shape[1] >= hmm.FB_SCAN_MIN_T for t in chosen),
+            "no K21 batch of the chunked route's widths")
     cols = sum(int(n.sum()) for _, n, _ in chosen)
     rows = sum(int(n.numel()) for _, n, _ in chosen)
     log(f"# K20/K21 batches (B x T) compared: "
@@ -3316,8 +3373,8 @@ def main(argv=None) -> int:
         walls.append(f"progressive path {pdt[0]:.3f} s then {pdt[1]:.3f} s")
         lap("progressive")
     if "large" in phases:
-        paths["large"], ldt = phase_large(torch, lt, dev,
-                                          large or family_large(lt))
+        paths["large"], ldt, calls["large_hmm"] = phase_large(
+            torch, lt, dev, large or family_large(lt))
         walls.append(f"3 x {LARGE_LEN} bp path {ldt:.3f} s")
         lap("large")
     if "profile_dp" in phases:
@@ -3326,9 +3383,9 @@ def main(argv=None) -> int:
             if name in res:
                 e["err"] = max(e["err"], res[name]["err"])
             res[name] = e
-        res["fb_posterior"] = phase_hmm(torch, dev,
-                                        calls["predict_homologous"],
-                                        paths["progressive"])
+        res["fb_posterior"] = phase_hmm(
+            torch, dev, calls["predict_homologous"], paths["progressive"],
+            calls.get("large_hmm"), paths.get("large"))
         lap("profile DP and hmm")
     if "decode" in phases:
         dec_res, paths["decode"], err = phase_decode(

@@ -80,10 +80,10 @@ _SIGNATURES = {
     "lm_pair_cluster_words": ([_P, _L, _I, _L, _P, _P, _P], _I),
     "lm_pair_rep_flags": ([_P, _L, _I, _I, _P, _P, _P], _I),
     "lm_pair_reps": ([_P, _P, _P, _L, _L, _L, _P, _I, _I] + [_P] * 6, _I),
-    "lm_hmm_fb": ([_P, _P, _I, _I, _P, ctypes.c_double, _P, _P, _P, _P],
-                  _I),
+    "lm_hmm_scan_doubles": ([_I, _I, _I], _L),
+    "lm_hmm_fb": ([_P, _P, _I, _I, _P, ctypes.c_double] + [_P] * 5, _I),
     "lm_hmm_viterbi": ([_P, _P, _I, _I, _P, _P, _P, _P], _I),
-    "lm_hmm_bw": ([_P, _P, _I, _I, _P, _P, _P, _P, _P], _I),
+    "lm_hmm_bw": ([_P, _P, _I, _I, _P] + [_P] * 5, _I),
     "lm_gotoh_row_bytes": ([_I], _L),
     "lm_gotoh_smem_limit": ([], _L),
     "lm_gotoh_fwd": ([_P, _P, _P, _P] + [_I] * 6 + [_P] * 6, _I),

@@ -12,18 +12,37 @@ threshold (>= 0.9 => homologous, homologymain.cc:44-58).
 
 The JAX package dispatched three tiers by length (an f64 scan below 2^14
 columns, a checkpointed f64 scan below 2^17, an f32 associative scan
-above).  The port runs every length through one f64 forward/backward:
-identical to the f64 tiers, and at 2^17 columns or more it can differ
-from the JAX f32 tier only where a posterior lies within about 1e-3 of
-the threshold (ROADMAP queue 3).  Sequences are grouped by the JAX
-package's length buckets (a power of two, at least 64) into padded
-batches, each split so a launch holds at most FB_MAX_ELEMS columns; the
-grouping never changes an output.  ``viterbi_homologous`` and
-``baum_welch`` (the HMMoC Viterbi and Baum-Welch API, which libMems
-ships but never calls) run K20 and K21 the same way, in f64 at every
-length.  Baum-Welch sums each sequence's expected counts in column order
-on the device and the sequences' sums in index order on the host, so
-the kernel and its plain version add in the same order.
+above).  The port runs f64 at every length (R15), on two routes chosen
+only by a launch's padded width T:
+
+- T < FB_SCAN_MIN_T (2^17, the JAX package's _FB_ASSOC_MIN_T): the
+  sequential route, one walk along each sequence, identical to the JAX
+  f64 tiers.
+- T >= FB_SCAN_MIN_T: the chunked scan.  Each chunk of FB_SCAN_COLS
+  columns gives its 2x2 log-space transfer from unit vectors, both ways;
+  a fold over the chunks gives each chunk's carries as a normalised pair
+  plus an offset summed in double-double (two-sum) arithmetic; each chunk
+  then walks from its carries relative to those offsets, and a posterior
+  is exp((F + B) + ((off_f + off_b) - logP)).  Values stay small, so the
+  route is far more accurate than the sequential walk, whose rounding
+  grows with |F| (R16): against an 80-bit run of the recurrence at
+  2^17 + 5 columns the sequential f64 walk is off by 3.3e-7, the chunked
+  route by about 1e-10.  It therefore differs from the sequential route
+  by up to that error, and from the JAX f32 tier only where a posterior
+  lies near the threshold (ROADMAP queue 3).
+
+pack_batches derives T from each sequence's own length, so a sequence
+gets the same bits in any batch, split or launch (R7).  Sequences are
+grouped by the JAX package's length buckets (a power of two, at least
+64) into padded batches, each split so a launch holds at most
+FB_MAX_ELEMS columns.  ``viterbi_homologous`` and ``baum_welch`` (the
+HMMoC Viterbi and Baum-Welch API, which libMems ships but never calls)
+run K20 (sequential at every length) and K21 (both routes) the same
+way, in f64.  Baum-Welch sums each sequence's expected counts in column
+order on the device (on the chunked route: per chunk in column order,
+then over the chunks in chunk order) and the sequences' sums in index
+order on the host, so the kernel and its plain version add in the same
+order.
 """
 
 from __future__ import annotations
@@ -41,6 +60,14 @@ POSTERIOR_THRESHOLD = 0.9   # homologymain.cc:50
 # columns per launch: the kernel keeps 16 bytes of forward values per
 # column, so a launch holds at most 1 GiB of them
 FB_MAX_ELEMS = 1 << 26
+# padded widths from which K8 and K21 take the chunked scan (the JAX
+# package's _FB_ASSOC_MIN_T), and its chunk: csrc/hmm.cu kScanMinT and
+# kScanCols hold the same values
+FB_SCAN_MIN_T = 1 << 17
+FB_SCAN_COLS = 1024
+# a launch's padded width must be a multiple of one block's chunks
+# (csrc/hmm.cu kScanThreads = 128 chunk threads a block)
+FB_SCAN_BLOCK_COLS = FB_SCAN_COLS * 128
 
 
 @dataclass
@@ -162,9 +189,9 @@ def _lse(x, dim: int, finite: bool = False):
     return torch.log(torch.exp(x - m.unsqueeze(dim)).sum(dim)) + m
 
 
-def fb_posterior_plain(obs, lengths, mats, threshold: float):
-    """Plain PyTorch version of K8: the two lax.scans of
-    ops/hmm.py:_fb_posterior, with its length masking, in f64.  The
+def fb_sequential_plain(obs, lengths, mats, threshold: float):
+    """Plain PyTorch version of K8's sequential route: the two lax.scans
+    of ops/hmm.py:_fb_posterior, with its length masking, in f64.  The
     scans stop at the longest row: past it the forward carry is frozen
     and the backward carry is the stop vector, which no returned column
     reads.  Returns (post float64[B, T], calls bool[B, T]); columns at
@@ -205,6 +232,188 @@ def fb_posterior_plain(obs, lengths, mats, threshold: float):
     return post, valid & (post >= threshold)
 
 
+def _lse2(a, b):
+    """K8's lse2: max + log(exp(a - max) + exp(b - max)), a non-finite
+    max replaced by 0 (the kernel's `a > b ? a : b`)."""
+    m = torch.where(a > b, a, b)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    return torch.log(torch.exp(a - m) + torch.exp(b - m)) + m
+
+
+def _two_sum(a, b):
+    """(a + b rounded, its rounding error), exactly (Knuth's two-sum)."""
+    s = a + b
+    bp = s - a
+    return s, (a - (s - bp)) + (b - bp)
+
+
+def _normalise(n0, n1, hi, lo):
+    """A fold step's new pair less its finite max, the max added to the
+    double-double offset (hi, lo)."""
+    m = torch.where(n0 > n1, n0, n1)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    hi, e = _two_sum(hi, m)
+    return n0 - m, n1 - m, hi, lo + e
+
+
+def _scan_columns(obs, lengths, mats):
+    """The chunked scan's inputs: nch (chunks the longest row needs), the
+    emissions by chunk le_c f64[B, nch, K, 2] (zero symbols past T), each
+    chunk's first column c0 [nch] and the lengths as int64 [B, 1]."""
+    K = FB_SCAN_COLS
+    B, T = obs.shape
+    lens = lengths.to(torch.int64)
+    nch = -(-int(lens.max()) // K) if B else 0
+    ob = obs[:, :nch * K].to(torch.int64)
+    if ob.shape[1] < nch * K:      # a width that is no multiple of K
+        ob = torch.nn.functional.pad(ob, (0, nch * K - ob.shape[1]))
+    le_c = mats[3].t()[ob].reshape(B, nch, K, 2)
+    c0 = torch.arange(nch, device=obs.device) * K
+    return nch, le_c, c0, lens[:, None]
+
+
+def _scan_transfers(le_c, c0, L, mats):
+    """Phase 1 of the chunked scan: each chunk's forward and backward
+    transfers, walked from the unit vectors (0, -inf) and (-inf, 0) with
+    K8's steps.  Forward: g (the log-probability entering a column, by
+    state) through the chunk's columns; at a row's last column the walk
+    adds lstop and stops.  Backward: beta = le(o_i) + B_i from the
+    chunk's right edge leftwards; at a row's last column B starts at the
+    unit vector.  Returns Tf, Tb f64[B, nch, 2 (start), 2 (state)]."""
+    _, lt, lstop, _ = mats
+    K = FB_SCAN_COLS
+    B, nch = le_c.shape[:2]
+    dev = le_c.device
+    unit = torch.tensor([[0.0, -np.inf], [-np.inf, 0.0]], dtype=torch.float64,
+                        device=dev).expand(B, nch, 2, 2)
+    g = unit
+    for i in range(K):
+        col = (c0 + i)[None]
+        f = g + le_c[:, :, i, None, :]
+        step = _lse2(f[..., 0:1] + lt[0], f[..., 1:2] + lt[1])
+        last = (col == L - 1)[..., None, None]
+        live = (col < L)[..., None, None]
+        g = torch.where(last, f + lstop, torch.where(live, step, g))
+    Tf = g
+    beta = unit
+    for i in range(K - 1, -1, -1):
+        col = (c0 + i)[None]
+        step = _lse2(lt[:, 0] + beta[..., 0:1], lt[:, 1] + beta[..., 1:2])
+        b = torch.where((col == L - 1)[..., None, None], unit, step)
+        beta = torch.where((col < L)[..., None, None],
+                           le_c[:, :, i, None, :] + b, beta)
+    return Tf, beta
+
+
+def _scan_fold(Tf, Tb, L, mats):
+    """Phase 2: fold each row's chunk transfers from ls left to right and
+    from lstop right to left, chunk after chunk.  A carry is a pair less
+    its max plus an offset (hi, lo) summed with two-sum.  Returns Cf, Cb
+    f64[B, nch, 4] (pair, hi, lo) entering each chunk from the left (g
+    at its first column) and from the right (beta of the next chunk's
+    first column; the last chunk's: B = lstop at the row's last column),
+    and logP as (hi, lo) f64[B, 2]."""
+    ls, _, lstop, _ = mats
+    B, nch = Tf.shape[:2]
+    dev = Tf.device
+    nc = -(-L[:, 0] // FB_SCAN_COLS)
+    zero = torch.zeros(B, dtype=torch.float64, device=dev)
+
+    def start(v):
+        return _normalise(v[0].expand(B), v[1].expand(B), zero, zero)
+
+    Cf = torch.zeros((B, nch, 4), dtype=torch.float64, device=dev)
+    lp = torch.zeros((B, 2), dtype=torch.float64, device=dev)
+    p0, p1, hi, lo = start(ls)
+    for c in range(nch):
+        Cf[:, c] = torch.stack([p0, p1, hi, lo], 1)
+        n0 = _lse2(p0 + Tf[:, c, 0, 0], p1 + Tf[:, c, 1, 0])
+        n1 = _lse2(p0 + Tf[:, c, 0, 1], p1 + Tf[:, c, 1, 1])
+        lh, le_ = _two_sum(hi, _lse2(n0, n1))
+        done = c == nc - 1
+        lp = torch.where(done[:, None], torch.stack([lh, lo + le_], 1), lp)
+        step = c < nc - 1
+        new = _normalise(n0, n1, hi, lo)
+        p0, p1, hi, lo = (torch.where(step, n, o)
+                          for n, o in zip(new, (p0, p1, hi, lo)))
+    Cb = torch.zeros((B, nch, 4), dtype=torch.float64, device=dev)
+    p0, p1, hi, lo = start(lstop)
+    for c in range(nch - 1, -1, -1):
+        Cb[:, c] = torch.stack([p0, p1, hi, lo], 1)
+        if c == 0:
+            break
+        n0 = _lse2(p0 + Tb[:, c, 0, 0], p1 + Tb[:, c, 1, 0])
+        n1 = _lse2(p0 + Tb[:, c, 0, 1], p1 + Tb[:, c, 1, 1])
+        new = _normalise(n0, n1, hi, lo)
+        step = c <= nc - 1
+        p0, p1, hi, lo = (torch.where(step, n, o)
+                          for n, o in zip(new, (p0, p1, hi, lo)))
+    return Cf, Cb, lp
+
+
+def _scan_offsets(Cf, Cb, lp):
+    """(off_f + off_b) - logP of each chunk in double-double arithmetic,
+    rounded once: f64[B, nch]."""
+    s, e = _two_sum(Cf[..., 2], Cb[..., 2])
+    t = (Cf[..., 3] + Cb[..., 3]) + e
+    s2, e2 = _two_sum(s, -lp[:, None, 0])
+    return s2 + ((t - lp[:, None, 1]) + e2)
+
+
+def _scan_values(obs, lengths, mats):
+    """Phases 1-3 of the chunked scan for a padded batch: each chunk's
+    forward values from its left carry and backward values from its
+    right carry, relative to their offsets.  Returns (nch, le_c, c0, L,
+    Fh, Bh f64[B, nch, K, 2], Cb, D f64[B, nch], logP (hi, lo))."""
+    _, lt, _, _ = mats
+    K = FB_SCAN_COLS
+    nch, le_c, c0, L = _scan_columns(obs, lengths, mats)
+    Tf, Tb = _scan_transfers(le_c, c0, L, mats)
+    Cf, Cb, lp = _scan_fold(Tf, Tb, L, mats)
+    D = _scan_offsets(Cf, Cb, lp)
+    Fh = torch.empty_like(le_c)
+    g = Cf[..., 0:2]
+    for i in range(K):
+        f = g + le_c[:, :, i]
+        Fh[:, :, i] = f
+        g = _lse2(f[..., 0:1] + lt[0], f[..., 1:2] + lt[1])
+    Bh = torch.empty_like(le_c)
+    beta = Cb[..., 0:2]
+    for i in range(K - 1, -1, -1):
+        step = _lse2(lt[:, 0] + beta[..., 0:1], lt[:, 1] + beta[..., 1:2])
+        b = torch.where((c0 + i == L - 1)[..., None], Cb[..., 0:2], step)
+        Bh[:, :, i] = b
+        beta = le_c[:, :, i] + b
+    return nch, le_c, c0, L, Fh, Bh, Cb, D, lp
+
+
+def fb_scan_plain(obs, lengths, mats, threshold: float):
+    """Plain PyTorch version of K8's chunked route (padded widths from
+    FB_SCAN_MIN_T on): the kernel's arithmetic, vectorised over rows and
+    chunks, FB_SCAN_COLS steps a pass.  Returns (post float64[B, T],
+    calls bool[B, T]); columns at or past a row's length are 0 / False."""
+    B, T = obs.shape
+    dev = obs.device
+    post = torch.zeros((B, T), dtype=torch.float64, device=dev)
+    if B:
+        nch, _, _, _, Fh, Bh, _, D, _ = _scan_values(obs, lengths, mats)
+        p = torch.exp((Fh[..., 0] + Bh[..., 0]) + D[..., None])
+        n = min(nch * FB_SCAN_COLS, T)
+        post[:, :n] = p.reshape(B, -1)[:, :n]
+    valid = torch.arange(T, device=dev)[None, :] \
+        < lengths.to(torch.int64)[:, None]
+    post = torch.where(valid, post, 0.0)
+    return post, valid & (post >= threshold)
+
+
+def fb_posterior_plain(obs, lengths, mats, threshold: float):
+    """Plain PyTorch version of K8: fb_sequential_plain below a padded
+    width of FB_SCAN_MIN_T, fb_scan_plain from it on."""
+    if obs.shape[1] >= FB_SCAN_MIN_T:
+        return fb_scan_plain(obs, lengths, mats, threshold)
+    return fb_sequential_plain(obs, lengths, mats, threshold)
+
+
 def _host_mats(mats) -> ctypes.Array:
     """The 24 f64 matrix entries as the host array the launchers copy
     into the kernel (ls[2], lt[2, 2], lstop[2], le[2, 8])."""
@@ -214,32 +423,57 @@ def _host_mats(mats) -> ctypes.Array:
     return (ctypes.c_double * 24)(*flat.tolist())
 
 
+def _scan_route(obs, sequential: bool = False):
+    """True where the launch takes the chunked route: from a padded
+    width of FB_SCAN_MIN_T on, unless `sequential`."""
+    T = obs.shape[1]
+    scan = T >= FB_SCAN_MIN_T and not sequential
+    if scan and (T % FB_SCAN_BLOCK_COLS or obs.data_ptr() % 16):
+        raise ValueError(f"the chunked route needs T a multiple of "
+                         f"{FB_SCAN_BLOCK_COLS} and obs 16-byte aligned")
+    return scan
+
+
+def _scan_scratch(lib, B, T, counts, dev):
+    """The chunked route's scratch (transfers, carries, logP and `counts`
+    doubles a chunk), sized by the kernel library."""
+    n = lib.lm_hmm_scan_doubles(B, T, counts)
+    return torch.empty(n, dtype=torch.float64, device=dev)
+
+
 @cuda.launcher
 def fb_posterior(obs, lengths, mats, threshold: float = POSTERIOR_THRESHOLD,
-                 want_post: bool = True):
+                 want_post: bool = True, sequential: bool = False):
     """Posterior P(homologous) and calls for a padded batch.
 
     obs: uint8[B, T] symbols 0..7; lengths: int32[B] (1..T); mats: the
     f64 tensors (ls[2], lt[2, 2], lstop[2], le[2, 8]) on obs's device.
     Returns (post float64[B, T] or None when not want_post on CUDA,
     calls bool[B, T]), zero past each row's length.  CPU tensors take
-    the plain version; CUDA tensors launch K8."""
+    the plain version; CUDA tensors launch K8, on the chunked route from
+    a padded width of FB_SCAN_MIN_T on and the sequential one below it
+    (`sequential` forces the sequential kernel at any width on CUDA: a
+    measurement's switch, which no path sets)."""
     if obs.device.type == "cpu":
         return fb_posterior_plain(obs, lengths, mats, threshold)
     dev = obs.device
     B, T = obs.shape
     cuda.require(obs, "obs", torch.uint8, dev, (B, T))
     cuda.require(lengths, "lengths", torch.int32, dev, (B,))
+    scan = _scan_route(obs, sequential)
     host = _host_mats(mats)
-    fwd = torch.empty((B, T, 2), dtype=torch.float64, device=dev)
+    lib = cuda.library()
+    fwd = torch.empty((B, T) if scan else (B, T, 2), dtype=torch.float64,
+                      device=dev)
+    aux = _scan_scratch(lib, B, T, 0, dev) if scan else None
     post = torch.zeros((B, T), dtype=torch.float64, device=dev) \
         if want_post else None
     calls = torch.zeros((B, T), dtype=torch.bool, device=dev)
-    lib = cuda.library()
     cuda.check(lib.lm_hmm_fb(
         obs.data_ptr(), lengths.data_ptr(), B, T, host, float(threshold),
         fwd.data_ptr(), post.data_ptr() if post is not None else None,
-        calls.data_ptr(), cuda.stream(obs)), "lm_hmm_fb")
+        calls.data_ptr(), aux.data_ptr() if scan else None,
+        cuda.stream(obs)), "lm_hmm_fb")
     fb_posterior.launches += 1
     return post, calls
 
@@ -418,11 +652,12 @@ def viterbi_homologous(sequences: list[np.ndarray],
 BW_COUNTS = 23   # start[2], trans[2, 2], emit[2, 8], logP per sequence
 
 
-def bw_counts_plain(obs, lengths, mats):
-    """Plain PyTorch version of K21: the forward and backward scans and
-    masks of ops/hmm.py:_bw_counts, with each sequence's expected counts
-    summed over its columns in column order.  Values past a row's length
-    are computed but never read (the JAX scans freeze them there).
+def bw_sequential_plain(obs, lengths, mats):
+    """Plain PyTorch version of K21's sequential route: the forward and
+    backward scans and masks of ops/hmm.py:_bw_counts, with each
+    sequence's expected counts summed over its columns in column order.
+    Values past a row's length are computed but never read (the JAX
+    scans freeze them there).
     Returns f64[B, 23] (start[2], trans[2, 2], emit[2, 8], logP); a row of
     length 0 gives zeros."""
     ls, lt, lstop, le = mats
@@ -479,6 +714,57 @@ def bw_counts_plain(obs, lengths, mats):
     return torch.where((lens > 0)[:, None], out, 0.0)
 
 
+def bw_scan_plain(obs, lengths, mats):
+    """Plain PyTorch version of K21's chunked route (padded widths from
+    FB_SCAN_MIN_T on): K8's chunked values, then each chunk's expected
+    counts summed in column order (a transition out of a chunk's last
+    column takes beta of the next column from the chunk's right carry)
+    and the chunks' sums in chunk order.  Returns f64[B, 23] as
+    bw_sequential_plain does."""
+    _, lt, _, _ = mats
+    B, T = obs.shape
+    dev = obs.device
+    out = torch.zeros((B, BW_COUNTS), dtype=torch.float64, device=dev)
+    lens = lengths.to(torch.int64)
+    if B == 0 or int(lens.max()) == 0:
+        return out
+    nch, le_c, c0, L, Fh, Bh, Cb, D, lp = _scan_values(obs, lengths, mats)
+    K = FB_SCAN_COLS
+    ob = torch.nn.functional.pad(obs[:, :nch * K].to(torch.int64),
+                                 (0, max(nch * K - T, 0)))
+    onehot = torch.nn.functional.one_hot(ob.reshape(B, nch, K), 8) \
+        .to(torch.bool)
+    acc = torch.zeros((B, nch, 20), dtype=torch.float64, device=dev)
+    for i in range(K):
+        col = (c0 + i)[None]                                   # [1, nch]
+        gamma = torch.exp((Fh[:, :, i] + Bh[:, :, i]) + D[..., None])
+        gamma = torch.where((col < L)[..., None], gamma, 0.0)  # [B, nch, 2]
+        nb = le_c[:, :, i + 1] + Bh[:, :, i + 1] if i + 1 < K \
+            else Cb[..., 0:2]
+        xi = torch.exp(((Fh[:, :, i, :, None] + lt)
+                        + nb[:, :, None, :]) + D[..., None, None])
+        xi = torch.where((col + 1 < L)[..., None, None], xi, 0.0)
+        acc[..., :4] += xi.reshape(B, nch, 4)
+        acc[..., 4:] += torch.where(onehot[:, :, i, None, :],
+                                    gamma[..., None], 0.0).reshape(B, nch, 16)
+    tot = torch.zeros((B, 20), dtype=torch.float64, device=dev)
+    for c in range(nch):
+        tot += acc[:, c]
+    gamma0 = torch.exp((Fh[:, 0, 0] + Bh[:, 0, 0]) + D[:, 0, None])
+    out[:, 0:2] = gamma0
+    out[:, 2:22] = tot
+    out[:, 22] = lp[:, 0] + lp[:, 1]
+    return torch.where((lens > 0)[:, None], out, 0.0)
+
+
+def bw_counts_plain(obs, lengths, mats):
+    """Plain PyTorch version of K21: bw_sequential_plain below a padded
+    width of FB_SCAN_MIN_T, bw_scan_plain from it on."""
+    if obs.shape[1] >= FB_SCAN_MIN_T:
+        return bw_scan_plain(obs, lengths, mats)
+    return bw_sequential_plain(obs, lengths, mats)
+
+
 @cuda.launcher
 def bw_counts(obs, lengths, mats):
     """Baum-Welch expected counts of each sequence of a padded batch.
@@ -487,21 +773,25 @@ def bw_counts(obs, lengths, mats):
     fb_posterior.  Returns f64[B, 23]: start counts [2], transition
     counts [2, 2], emission counts [2, 8] and logP of each row (zeros for
     a row of length 0).  CPU tensors take the plain version; CUDA
-    tensors launch K21."""
+    tensors launch K21, on the chunked route from a padded width of
+    FB_SCAN_MIN_T on."""
     if obs.device.type == "cpu":
         return bw_counts_plain(obs, lengths, mats)
     dev = obs.device
     B, T = obs.shape
     cuda.require(obs, "obs", torch.uint8, dev, (B, T))
     cuda.require(lengths, "lengths", torch.int32, dev, (B,))
+    scan = _scan_route(obs)
     host = _host_mats(mats)
+    lib = cuda.library()
     fwd = torch.empty((B, T, 2), dtype=torch.float64, device=dev)
     bwd = torch.empty((B, T, 2), dtype=torch.float64, device=dev)
+    aux = _scan_scratch(lib, B, T, 22, dev) if scan else None
     part = torch.empty((B, BW_COUNTS), dtype=torch.float64, device=dev)
-    lib = cuda.library()
     cuda.check(lib.lm_hmm_bw(
         obs.data_ptr(), lengths.data_ptr(), B, T, host, fwd.data_ptr(),
-        bwd.data_ptr(), part.data_ptr(), cuda.stream(obs)), "lm_hmm_bw")
+        bwd.data_ptr(), part.data_ptr(), aux.data_ptr() if scan else None,
+        cuda.stream(obs)), "lm_hmm_bw")
     bw_counts.launches += 1
     return part
 

@@ -787,6 +787,54 @@ def test_hmm_decode_kernels_equal_plain(dev, T):
                                rtol=1e-12, atol=0)
 
 
+@pytest.mark.parametrize("n", [(1 << 17) + 5, (1 << 20) + 3])
+def test_hmm_scan_kernels_equal_plain(dev, n):
+    """K8 and K21 on the chunked route (padded widths from FB_SCAN_MIN_T
+    on) against their plain versions on a ragged batch: the longest row,
+    rows ending on a chunk boundary and one past it, length 1 and 0 (K21
+    only); posteriors within 1e-12 with calls equal, counts within 1e-12
+    relative; predict_homologous on the card equals CPU tensors."""
+    from libmems_tpu_torch.ops import hmm
+    K = hmm.FB_SCAN_COLS
+    T = 1 << (n - 1).bit_length()
+    assert T >= hmm.FB_SCAN_MIN_T
+    rng = np.random.default_rng(n)
+    lens = np.array([n, n - 999, 37 * K, 37 * K + 1, 1, 3 * K + 77],
+                    np.int32)
+    obs = rng.integers(0, 8, (len(lens), T)).astype(np.uint8)
+    blocks = np.repeat(rng.random((len(lens), T // 4096)) < 0.5, 4096, 1)
+    obs = np.where(blocks, rng.integers(0, 2, obs.shape), obs)
+    obs = obs.astype(np.uint8)
+    mats = hmm.log_matrices(hmm.adapted_hoxd_params(0.45), "cpu")
+    md = tuple(m.to(dev) for m in mats)
+    o, m = torch.from_numpy(obs), torch.from_numpy(lens)
+    ref_p, ref_c = hmm.fb_posterior_plain(o, m, mats, 0.9)
+    got_p, got_c = hmm.fb_posterior(o.to(dev), m.to(dev), md, 0.9)
+    assert float((got_p.cpu() - ref_p).abs().max()) <= 1e-12
+    assert torch.equal(got_c.cpu(), ref_c)
+    assert 0.1 < float(ref_c[0, :n].double().mean()) < 0.9
+    m0 = torch.from_numpy(np.append(lens[:-1], 0).astype(np.int32))
+    ref = hmm.bw_counts_plain(o, m0, mats)
+    got = hmm.bw_counts(o.to(dev), m0.to(dev), md).cpu()
+    rel = (got - ref).abs() / ref.abs().clamp(min=1e-300)
+    assert float(torch.where(got == ref, 0.0, rel).max()) <= 1e-12
+    assert torch.equal(got[-1], torch.zeros(hmm.BW_COUNTS,
+                                            dtype=torch.float64))
+    if n < (1 << 18):
+        # the sequential kernel, forced at this width, against its plain
+        # version on the longest row and the one past a chunk boundary
+        two = (o[[0, 3]].contiguous(), m[[0, 3]].contiguous())
+        sp, sc = hmm.fb_sequential_plain(*two, mats, 0.9)
+        kp, kc = hmm.fb_posterior(two[0].to(dev), two[1].to(dev), md, 0.9,
+                                  sequential=True)
+        assert float((kp.cpu() - sp).abs().max()) <= 1e-12
+        assert torch.equal(kc.cpu(), sc)
+        seqs = [obs[r, :lens[r]] for r in range(len(lens))]
+        for g, r in zip(hmm.predict_homologous(seqs, device=dev),
+                        hmm.predict_homologous(seqs, device="cpu")):
+            np.testing.assert_array_equal(g, r)
+
+
 def _fractional(rng, B, M, N, n_p, n_q):
     """Profiles of n_p and n_q aligned rows with gaps (one row: one-hot)
     whose lengths leave padded rows and columns."""

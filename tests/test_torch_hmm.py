@@ -1,5 +1,6 @@
-"""Port parity: the homology HMM (K8's plain version) against the JAX
-package's f64 tiers and its f32 associative tier."""
+"""Port parity: the homology HMM (K8's plain version; its sequential
+route below a padded width of 2^17) against the JAX package's f64 tiers
+and its f32 associative tier."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -78,20 +79,22 @@ def test_plain_posterior_equals_jax_f64_tiers(T):
 def test_long_sequence_f64_equals_jax_ckpt_tier_not_its_f32_tier():
     """At 2^17 columns and above the JAX package ran an f32 associative
     scan; the port stays f64 at every length.  Against the JAX package's
-    f64 checkpointed scan on the same 2^17+5 columns the port is exact
-    to 1e-9 with equal calls.  Against the f32 tier the calls agree away
-    from the threshold (|post - 0.9| > 1e-3, tests/test_hmm_decode.py:115)
-    except where that tier drops homologous calls from a 4096-column
-    block boundary on (ROADMAP queue 3): every such column has an f64
-    posterior >= 0.9 and they are a small share of the sequence."""
+    f64 checkpointed scan on the same 2^17+5 columns the port's
+    sequential route is exact to 1e-9 with equal calls.  At that width
+    the port computes the chunked route (tests/test_torch_hmm_scan.py
+    holds it to an 80-bit reference); against the f32 tier its calls
+    agree away from the threshold (|post - 0.9| > 1e-3,
+    tests/test_hmm_decode.py:115) except where that tier drops
+    homologous calls from a 4096-column block boundary on (ROADMAP queue
+    3): every such column has an f64 posterior >= 0.9 and they are a
+    small share of the sequence."""
     rng = np.random.default_rng(17)
     T = (1 << 17) + 5
     params = jhmm.adapted_hoxd_params(0.5)
     jm, tm = _mats(params)
     obs = _columns(rng, T, block=20_000)
-    post, calls = hmm.fb_posterior_plain(
-        torch.from_numpy(obs[None]), torch.tensor([T], dtype=torch.int32),
-        tm, 0.9)
+    batch = (torch.from_numpy(obs[None]), torch.tensor([T], dtype=torch.int32))
+    post, calls = hmm.fb_sequential_plain(*batch, tm, 0.9)
     post, calls = post.numpy()[0], calls.numpy()[0]
     Tp = (1 << 17) + 4096     # a multiple of both tiers' blocks
     obs_p = np.zeros((1, Tp), np.int32)
@@ -101,6 +104,8 @@ def test_long_sequence_f64_equals_jax_ckpt_tier_not_its_f32_tier():
                                                *jm, 1024))[0, :T]
     np.testing.assert_allclose(post, ref64, rtol=0, atol=1e-9)
     np.testing.assert_array_equal(calls, ref64 >= 0.9)
+    post, calls = hmm.fb_posterior_plain(*batch, tm, 0.9)
+    post, calls = post.numpy()[0], calls.numpy()[0]
     packed = np.asarray(jhmm._fb_calls_assoc(jnp.asarray(obs_p), lens, *jm,
                                              0.9))
     ref32 = np.unpackbits(packed, axis=1,
