@@ -63,7 +63,12 @@ non-zero and prints no result line):
              through K9); exact equality (scores bit for bit,
              certificates, pointer bytes, masks).  Where that run left K9
              no launch or no uncertified window, tests/test_banded.py's
-             adversarial windows run the same routes as well;
+             adversarial windows run the same routes as well; then
+             K10, K11 and K12 on a many-window launch (2,112 windows in
+             the 1024 bucket) and a wide-window one (three in the
+             11,664 bucket, the longest 10,000 rows): exact, each
+             launch's geometry printed, every geometry of the launcher's
+             table forced and timed;
 8. hmm     - K8 against its plain version on the card on the HMM batches
              of the first progressive run and of phase 6b, at their full
              lengths (posteriors within 1e-12, calls equal), timed; the
@@ -1618,6 +1623,118 @@ def adversarial_windows():
     return p_rows, q_rows
 
 
+def band_windows(rng, M, N, shapes):
+    """Windows of the given (p_len, q_len, insertion) shapes with
+    fractional multi-row profiles: q is p with 2% substitutions, an
+    insertion of that many random columns in the middle, then cut or
+    extended with random columns to q_len (tests/test_torch_cuda.py's
+    _band_windows)."""
+    from libmems_tpu_torch.ops.profile import rows_to_profile
+    B = len(shapes)
+    p = np.zeros((B, M, 5), np.float32)
+    q = np.zeros((B, N, 5), np.float32)
+    pl = np.zeros(B, np.int32)
+    ql = np.zeros(B, np.int32)
+    for r, (n_p, n_q, ins) in enumerate(shapes):
+        a = rng.integers(0, 4, n_p).astype(np.uint8)
+        b = a.copy()
+        sub = rng.random(n_p) < 0.02
+        b[sub] = rng.integers(0, 4, int(sub.sum()))
+        b = np.concatenate([b[:n_p // 2], rng.integers(0, 4, ins),
+                            b[n_p // 2:]]).astype(np.uint8)
+        b = np.concatenate([b, rng.integers(0, 4, max(n_q - len(b), 0))
+                            ]).astype(np.uint8)[:n_q]
+        for arr, s, k in ((p, a, 1 + r % 3), (q, b, 1 + r % 2)):
+            rows = np.stack([s] * k)
+            rows[rng.random(rows.shape) < 0.005] = 4
+            rows[:, (rows == 4).all(axis=0)] = 0
+            arr[r, :len(s)] = rows_to_profile(rows)
+        pl[r], ql[r] = n_p, n_q
+    return (p, q, pl, ql)
+
+
+def band_launches(torch, dev):
+    """One many-window K10/K11 launch, the refine gate's shape: 2,112
+    windows in the 1024 bucket (16 an SM on 132 SMs); and one
+    wide-window launch, the tracebacks' shape: three windows in the
+    11,664 bucket, the longest of 10,000 rows and 9,980 columns, one with
+    a 300-column insertion.  Returns [(label, packed CUDA tensors)]."""
+    rng = np.random.default_rng(11)
+    n = rng.integers(400, 985, 2112)
+    d = rng.integers(-20, 21, 2112)
+    many = band_windows(rng, 1024, 1024,
+                        [(int(a), int(a + b), 0) for a, b in zip(n, d)])
+    wide = band_windows(rng, 10_112, 11_664, [
+        (10_000, 9_980, 0), (6_000, 6_300, 300), (120, 170, 0)])
+    return [(label, [torch.from_numpy(x).to(dev) for x in t])
+            for label, t in (("many-window", many), ("wide-window", wide))]
+
+
+def band_geometries(lst, emit_ptr):
+    """The launcher's geometry of each K10 (K11) launch in lst, as
+    'B@N: S warps x K columns a lane, W windows an SM'."""
+    from libmems_tpu_torch.ops import profile
+    out = []
+    for a in lst:
+        B, N = int(a[0].shape[0]), int(a[1].shape[1])
+        g = profile.band_geometry(a[6], emit_ptr, B)
+        out.append(f"{B}@{N}: {g['warps']} x {g['K']}"
+                   f"{'' if g['qw_registers'] else ' (qw in smem)'}, "
+                   f"{g['windows_per_sm']}/SM")
+    return "; ".join(out)
+
+
+def extra_band_launches(torch, dev, fns, res):
+    """K10, K11 and K12 against their plain versions on the two launches
+    of band_launches, exact; each launch's geometry and time, every other
+    geometry of the launcher's table forced and timed, and K11's pointer
+    zero-fill timed apart.  Widens res's max_abs_err; the path's times
+    stay those of the path."""
+    from libmems_tpu_torch.ops import gapped, profile
+    for label, t in band_launches(torch, dev):
+        B, Mp, N = int(t[0].shape[0]), int(t[0].shape[1]), int(t[1].shape[1])
+        H_W = profile._band_half(N)
+        args = (*t, profile.GAP_OPEN, profile.GAP_EXTEND, H_W)
+        for name, emit_ptr in (("banded_forward_scores", False),
+                               ("banded_forward_ptrs", True)):
+            fn, plain = fns[name]
+            got = fn(*args)
+            ref, pms = timed_once(lambda: plain(*args), torch)
+            require(all(torch.equal(x, y) for x, y in zip(got, ref)),
+                    f"{name} differs from its plain version on the "
+                    f"{label} launch")
+            res[name]["err"] = max(res[name]["err"],
+                                   max_abs_err(zip(got, ref)))
+            ms = timed_ms(lambda: fn(*args), 3, torch)
+            forced = []
+            g = 0
+            while (geo := profile.band_geometry(H_W, emit_ptr, g=g)) \
+                    is not None:
+                if geo["windows_per_sm"]:
+                    g_ms = timed_ms(lambda: fn(*args, geometry=g), 3, torch)
+                    forced.append(
+                        f"{geo['warps']} x {geo['K']}"
+                        f"{'' if geo['qw_registers'] else ' (qw in smem)'}"
+                        f" {g_ms:.3f} ms")
+                g += 1
+            geo = band_geometries([args], emit_ptr)
+            log(f"# {name} {label} launch: {geo} (warps a window x columns "
+                f"a lane); kernel {ms:.3f} ms, "
+                f"plain {pms:.3f} ms, equal; forced: {'; '.join(forced)}")
+            if emit_ptr:
+                T = gapped._device_tb_T(Mp, N)
+                wa = (got[0], t[2], t[3], N, H_W, T)
+                walk, walk_plain = fns["banded_traceback_walk"]
+                require(all(torch.equal(x, y) for x, y in
+                            zip(walk(*wa), walk_plain(*wa))),
+                        f"banded_traceback_walk differs from its plain "
+                        f"version on the {label} launch")
+        fill_ms = timed_ms(lambda: torch.zeros(
+            (B, Mp, profile.band_width(H_W) + 1), dtype=torch.uint8,
+            device=dev), 3, torch)
+        log(f"# {label} launch: K11's pointer zero-fill {fill_ms:.3f} ms")
+
+
 def plan_profile_dp(score_calls, align_calls, dev):
     """The profile-DP launches of recorded profile_scores_batch and
     align_profile_batch calls, rebuilt with the path's own planners
@@ -1752,6 +1869,15 @@ def phase_profile_dp(torch, dev, calls, launches):
         log(f"# {name}: equal on {', '.join(lb for lb, l in runs if l[name])}"
             f"; kernel {ms:.3f} ms, plain {pms:.3f} ms over the {label} "
             f"launches")
+        if name in ("banded_forward_scores", "banded_forward_ptrs"):
+            sort_ms = timed_ms(lambda: [profile.band_costs(*a[:4])
+                                        for a in path[name]], 3, torch)
+            geo = band_geometries(path[name], name == "banded_forward_ptrs")
+            log(f"# {name} geometry of the path's launches (windows@N: "
+                f"warps a window x columns a lane): {geo}; the full sort "
+                f"of their gap costs (the plain version's; the kernel "
+                f"selects the largest instead) {sort_ms:.3f} ms")
+    extra_band_launches(torch, dev, fns, res)
     return res
 
 

@@ -623,30 +623,45 @@ def banded_forward_plain(p, q, p_len, q_len, gap_open: int, gap_extend: int,
 
 
 def _banded_launch(p, q, p_len, q_len, gap_open, gap_extend, H_W,
-                   emit_ptr):
+                   emit_ptr, geometry, bound=None):
     dev, B, Mp, N = _require_batch(p, q, p_len, q_len)
     _, _, _, WB = _band_shape(p, q, H_W)
     lib = cuda.library()
     f32 = dict(dtype=torch.float32, device=dev)
     stride = lib.lm_profile_cum_scratch(Mp + N)
-    costs = band_costs(p, q, p_len, q_len, gap_extend).contiguous()
     ptrs = torch.zeros((B, Mp, WB + 1), dtype=torch.uint8, device=dev) \
         if emit_ptr else None
     score = torch.empty((B,), **f32)
     cert = torch.empty((B,), dtype=torch.uint8, device=dev)
-    # scratch, held by name until the launch is enqueued: qw, ext_q,
-    # ext_cum, cumsum levels, column caps
-    scratch = (torch.empty((B, 5, N), **f32), torch.empty((B, N), **f32),
-               torch.empty((B, N + 1), **f32),
+    # scratch, held by name until the launch is enqueued: ext_q, ext_cum,
+    # cumsum levels, column caps
+    scratch = (torch.empty((B, N), **f32), torch.empty((B, N + 1), **f32),
                torch.empty((B, stride), **f32), torch.empty((B, N), **f32))
-    qw, ext_q, ext_cum, cum_lv, capbuf = (t.data_ptr() for t in scratch)
+    ext_q, ext_cum, cum_lv, capbuf = (t.data_ptr() for t in scratch)
     cuda.check(lib.lm_banded_fwd(
-        p.data_ptr(), q.data_ptr(), p_len.data_ptr(), q_len.data_ptr(), qw,
-        ext_q, ext_cum, cum_lv, stride, costs.data_ptr(), capbuf,
+        p.data_ptr(), q.data_ptr(), p_len.data_ptr(), q_len.data_ptr(),
+        ext_q, ext_cum, cum_lv, stride, capbuf,
         ptrs.data_ptr() if emit_ptr else None, score.data_ptr(),
-        cert.data_ptr(), B, Mp, N, H_W, float(gap_open), float(gap_extend),
-        _w5(), cuda.stream(p)), "lm_banded_fwd")
+        cert.data_ptr(), None if bound is None else bound.data_ptr(), B, Mp,
+        N, H_W, float(gap_open), float(gap_extend), _w5(), geometry,
+        cuda.stream(p)), "lm_banded_fwd")
     return ptrs, score, cert.bool()
+
+
+def band_geometry(H_W: int, emit_ptr: bool, B: int = 1, g: int = -1):
+    """The launch geometry of K10 (emit_ptr False) or K11 for B windows at
+    half band H_W on the current card: geometry g of csrc/banded.cu's
+    table, or for g < 0 the one the launcher picks.  Returns None past
+    the table's end, else {"geometry", "K" (band columns a lane),
+    "warps" (a window), "qw_registers", "windows_per_sm"};
+    windows_per_sm is 0 where geometry g does not fit the band."""
+    out = (ctypes.c_int * 5)()
+    rc = cuda.library().lm_banded_geometry(B, H_W, int(emit_ptr), g, out)
+    if rc == -1:
+        return None
+    cuda.check(rc, "lm_banded_geometry")
+    return {"geometry": out[0], "K": out[1], "warps": out[2],
+            "qw_registers": bool(out[3]), "windows_per_sm": out[4]}
 
 
 def banded_forward_scores_plain(p, q, p_len, q_len, gap_open: int,
@@ -658,17 +673,18 @@ def banded_forward_scores_plain(p, q, p_len, q_len, gap_open: int,
 
 @cuda.launcher
 def banded_forward_scores(p, q, p_len, q_len, gap_open: int,
-                          gap_extend: int, H_W: int):
+                          gap_extend: int, H_W: int, *, geometry: int = -1):
     """Banded forward scores float32[B] and certificates bool[B]
     (_banded_forward_scores).  Scores of uncertified windows are lower
     bounds only; callers re-run those at full width.  p: float32[B, Mp,
     5] with Mp a multiple of 128.  CPU tensors take the plain version;
-    CUDA tensors launch K10."""
+    CUDA tensors launch K10, in the launcher's geometry or in table
+    entry `geometry` (band_geometry) where that is >= 0."""
     if p.device.type == "cpu":
         return banded_forward_scores_plain(p, q, p_len, q_len, gap_open,
                                            gap_extend, H_W)
     _, score, cert = _banded_launch(p, q, p_len, q_len, gap_open,
-                                    gap_extend, H_W, False)
+                                    gap_extend, H_W, False, geometry)
     banded_forward_scores.launches += 1
     return score, cert
 
@@ -685,16 +701,17 @@ def banded_forward_ptrs_plain(p, q, p_len, q_len, gap_open: int,
 
 @cuda.launcher
 def banded_forward_ptrs(p, q, p_len, q_len, gap_open: int, gap_extend: int,
-                        H_W: int):
+                        H_W: int, *, geometry: int = -1):
     """Banded forward with pointer bytes uint8[B, Mp, WB+1], scores and
     certificates (the forward half of _banded_fwd_tb).  Pointers of
     certified windows walk to the full-width traceback.  CPU tensors take
-    the plain version; CUDA tensors launch K11."""
+    the plain version; CUDA tensors launch K11 (`geometry` as for
+    banded_forward_scores)."""
     if p.device.type == "cpu":
         return banded_forward_ptrs_plain(p, q, p_len, q_len, gap_open,
                                          gap_extend, H_W)
     out = _banded_launch(p, q, p_len, q_len, gap_open, gap_extend, H_W,
-                         True)
+                         True, geometry)
     banded_forward_ptrs.launches += 1
     return out
 

@@ -6,11 +6,23 @@ words, and K2 at the full row width)."""
 import inspect
 
 import numpy as np
+import pytest
+import torch
 
 import libmems_tpu
 import libmems_tpu_torch
 from libmems_tpu import matchfind as jmf
 from libmems_tpu_torch import matchfind
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The plain versions run many small tensor operations; one intra-op
+    thread keeps them from contending with the other test workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def test_exports_cover_the_reference():

@@ -13,6 +13,17 @@ from libmems_tpu.ops import gapped as jgapped
 from libmems_tpu.ops import profile as jprofile
 from libmems_tpu_torch.ops import gapped, profile
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The plain versions run many small tensor operations; one intra-op
+    thread keeps them from contending with the other test workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 GO, GE = profile.GAP_OPEN, profile.GAP_EXTEND
 
 

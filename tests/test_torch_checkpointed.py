@@ -7,12 +7,24 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from libmems_tpu import matchfind as jmatchfind
 from libmems_tpu.sequence import Genome as JaxGenome
 from libmems_tpu_torch import matchfind, seeds
 from libmems_tpu_torch.match import MatchArray, write_match_list
 from libmems_tpu_torch.sequence import Genome
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The plain versions run many small tensor operations; one intra-op
+    thread keeps them from contending with the other test workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 ALPHA = np.array(list("ACGT"))
 

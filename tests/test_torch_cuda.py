@@ -203,6 +203,132 @@ def test_banded_kernels_equal_plain(dev, M, N):
         assert torch.equal(g.cpu(), r)
 
 
+def _band_windows(rng, M, N, shapes):
+    """Windows of the given (p_len, q_len, insertion) shapes with
+    fractional multi-row profiles: q is p with 2% substitutions, an
+    insertion of that many random columns in the middle, then cut or
+    extended with random columns to q_len."""
+    B = len(shapes)
+    p = np.zeros((B, M, 5), np.float32)
+    q = np.zeros((B, N, 5), np.float32)
+    pl = np.zeros(B, np.int32)
+    ql = np.zeros(B, np.int32)
+    for r, (n_p, n_q, ins) in enumerate(shapes):
+        a = rng.integers(0, 4, n_p).astype(np.uint8)
+        b = a.copy()
+        sub = rng.random(n_p) < 0.02
+        b[sub] = rng.integers(0, 4, int(sub.sum()))
+        b = np.concatenate([b[:n_p // 2], rng.integers(0, 4, ins),
+                            b[n_p // 2:]]).astype(np.uint8)
+        b = np.concatenate([b, rng.integers(0, 4, max(n_q - len(b), 0))
+                            ]).astype(np.uint8)[:n_q]
+        for arr, s, k in ((p, a, 1 + r % 3), (q, b, 1 + r % 2)):
+            rows = np.stack([s] * k)
+            rows[rng.random(rows.shape) < 0.005] = 4
+            rows[:, (rows == 4).all(axis=0)] = 0
+            arr[r, :len(s)] = profile.rows_to_profile(rows)
+        pl[r], ql[r] = n_p, n_q
+    return [torch.from_numpy(x) for x in (p, q, pl, ql)]
+
+
+# the edge windows of the 1024 bucket: p_len under 128 (and not a
+# multiple of it), q_len under WB, an ineligible window (q_len > 2 p_len),
+# the 300-column insertion that fails the certificate, and q_len = 1.5
+# p_len, whose band start lo moves at every 128-row boundary
+EDGE_SHAPES = [(100, 130, 0), (301, 310, 0), (200, 300, 0), (200, 1000, 0),
+               (700, 1000, 300), (600, 900, 0)]
+
+
+def _plain_gap_bound(t, H_W):
+    """The certificate's gap bound as banded_forward_plain forms it: the
+    blocked prefix sum of the sorted gap costs (-inf as 0) at g_lb - 1."""
+    p, q, pl, ql = t
+    L = p.shape[1] + q.shape[1]
+    costs = profile.band_costs(p, q, pl, ql)
+    csum = profile.blocked_cumsum(torch.where(torch.isfinite(costs), costs,
+                                              0.0))
+    g_lb = (2 * H_W - 3 * (ql.long() - pl.long()).abs()).clamp(min=0)
+    gidx = (g_lb - 1).clamp(0, L - 1)
+    return torch.where(g_lb > 0, csum.gather(1, gidx[:, None])[:, 0], 0.0)
+
+
+def _banded_vs_plain(t, H_W, geometry=-1):
+    """K10, K11 and K12 on the card against their plain versions on the
+    same CUDA tensors: scores, certificates, the certificate's gap bound
+    (K10's selection of the largest gap costs against the full sort),
+    every pointer byte and the walk masks equal.  Returns the plain
+    certificates."""
+    go, ge = profile.GAP_OPEN, profile.GAP_EXTEND
+    kw = dict(geometry=geometry)
+    ref_s, ref_c = profile.banded_forward_scores_plain(*t, go, ge, H_W)
+    got_s, got_c = profile.banded_forward_scores(*t, go, ge, H_W, **kw)
+    assert torch.equal(got_s, ref_s) and torch.equal(got_c, ref_c)
+    bound = torch.empty(len(t[2]), dtype=torch.float32, device=t[0].device)
+    profile._banded_launch(*t, go, ge, H_W, False, geometry, bound)
+    assert torch.equal(bound, _plain_gap_bound(t, H_W))
+    ref_p, ref_s2, ref_c2 = profile.banded_forward_ptrs_plain(*t, go, ge,
+                                                              H_W)
+    got_p, got_s2, got_c2 = profile.banded_forward_ptrs(*t, go, ge, H_W,
+                                                        **kw)
+    assert torch.equal(got_p, ref_p)
+    assert torch.equal(got_s2, ref_s) and torch.equal(got_c2, ref_c)
+    assert torch.equal(ref_s2, ref_s) and torch.equal(ref_c2, ref_c)
+    Mp, N = t[0].shape[1], t[1].shape[1]
+    T = gapped._device_tb_T(Mp, N)
+    ref_m = profile.banded_traceback_walk_plain(ref_p, t[2], t[3], N, H_W, T)
+    got_m = profile.banded_traceback_walk(got_p, t[2], t[3], N, H_W, T)
+    for g, r in zip(got_m, ref_m):
+        assert torch.equal(g, r)
+    return ref_c
+
+
+def test_banded_many_windows_equal_plain(dev):
+    """K10/K11 at the refine gate's launch shape: 2,112 windows in the
+    1024 bucket (16 an SM on 132 SMs) with the edge windows among them,
+    in the launcher's geometry."""
+    rng = np.random.default_rng(1024)
+    n = rng.integers(400, 985, 2112 - len(EDGE_SHAPES))
+    d = rng.integers(-20, 21, len(n))
+    shapes = [(int(a), int(a + b), 0) for a, b in zip(n, d)] + EDGE_SHAPES
+    t = [x.to(dev) for x in _band_windows(rng, 1024, 1024, shapes)]
+    H_W = profile._band_half(1024)
+    cert = _banded_vs_plain(t, H_W).cpu()
+    assert bool(cert[0]) and not bool(cert[-2])   # the insertion fails
+
+
+def test_banded_wide_windows_equal_plain(dev):
+    """K10/K11 at the tracebacks' launch shape: three windows in the
+    11,664 bucket, one of 10,000 rows and 9,980 columns, one with the
+    300-column insertion and one short, in the launcher's geometry."""
+    rng = np.random.default_rng(11664)
+    shapes = [(10_000, 9_980, 0), (6_000, 6_300, 300), (120, 170, 0)]
+    t = [x.to(dev) for x in _band_windows(rng, 10_112, 11_664, shapes)]
+    H_W = profile._band_half(11_664)
+    geo = profile.band_geometry(H_W, True, B=3)
+    assert geo["warps"] > 1   # a wide window takes several strips
+    cert = _banded_vs_plain(t, H_W).cpu()
+    assert bool(cert[0]) and not bool(cert[1])
+
+
+@pytest.mark.parametrize("M,N", [(1024, 1024), (1536, 2304)])
+def test_banded_every_geometry_equals_plain(dev, M, N):
+    """Each geometry of the launcher's table that fits the band, forced,
+    on random windows and the edge windows."""
+    rng = np.random.default_rng(M + N + 1)
+    n = rng.integers(M // 2, M - 40, 6)
+    shapes = [(int(a), int(a + 7), 0) for a in n] + EDGE_SHAPES
+    t = [x.to(dev) for x in _band_windows(rng, M, N, shapes)]
+    H_W = profile._band_half(N)
+    fits = 0
+    g = 0
+    while (geo := profile.band_geometry(H_W, True, g=g)) is not None:
+        if geo["windows_per_sm"] > 0:
+            _banded_vs_plain(t, H_W, geometry=g)
+            fits += 1
+        g += 1
+    assert fits >= 4
+
+
 def test_refine_on_cuda_equals_cpu(dev):
     """align_codes with refinement: GPU kernels give the CPU tensors'
     rows."""

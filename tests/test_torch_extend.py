@@ -10,6 +10,17 @@ from libmems_tpu import seeds as jseeds
 from libmems_tpu.ops.extend import extend_matches as jax_extend
 from libmems_tpu_torch.ops import extend, mers
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The plain versions run many small tensor operations; one intra-op
+    thread keeps them from contending with the other test workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 N = 12_000
 INV = (5_000, 8_000)        # region of B that is A reverse-complemented
 

@@ -15,6 +15,16 @@ from libmems_tpu.ops import gapped as jg
 from libmems_tpu_torch.ops import gapped
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The plain versions run many small tensor operations; one intra-op
+    thread keeps them from contending with the other test workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _pairs(seed, n, lo=5, hi=60):
     """tests/test_gapped.py:test_traceback_reaches_dp_score's pairs."""
     rng = np.random.default_rng(seed)

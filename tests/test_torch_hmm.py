@@ -12,6 +12,16 @@ from libmems_tpu_torch import convert
 from libmems_tpu_torch.ops import hmm
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The plain versions run many small tensor operations; one intra-op
+    thread keeps them from contending with the other test workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _columns(rng, n, block=2_000):
     """Encoded columns of a pairwise projection: homologous stretches
     (identity symbols, 1% substitutions, short gap runs) alternating

@@ -11,6 +11,16 @@ from libmems_tpu.ops import hmm as jhmm
 from libmems_tpu_torch.ops import hmm
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The plain versions run many small tensor operations; one intra-op
+    thread keeps them from contending with the other test workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _params_equal(got, want, rtol):
     for name in ("start_homologous", "go_homologous", "go_unrelated",
                  "go_stop_from_homologous", "go_stop_from_unrelated"):

@@ -15,6 +15,17 @@ from libmems_tpu.ops import hmm as jhmm
 from libmems_tpu_torch.ops import hmm
 from tests.test_torch_hmm import _columns
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The plain versions run many small tensor operations; one intra-op
+    thread keeps them from contending with the other test workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 N_LONG = (1 << 17) + 5
 K = hmm.FB_SCAN_COLS
 

@@ -5,6 +5,7 @@ import io
 
 import numpy as np
 import pytest
+import torch
 
 from libmems_tpu import seeds as jseeds
 from libmems_tpu.matchfind import find_mums as jax_find_mums
@@ -20,6 +21,16 @@ from libmems_tpu_torch.ops.mers import sentinel_content
 from libmems_tpu_torch.sequence import Genome
 from libmems_tpu_torch.sml import create_smls
 from tests.golden import generate
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The plain versions run many small tensor operations; one intra-op
+    thread keeps them from contending with the other test workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _pair_ascii(rng_seed, n=40_000):

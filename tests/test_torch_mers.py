@@ -12,6 +12,17 @@ from libmems_tpu.sml import SortedMerList as JaxSML
 from libmems_tpu_torch.ops import mers
 from libmems_tpu_torch.sml import SortedMerList
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The plain versions run many small tensor operations; one intra-op
+    thread keeps them from contending with the other test workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 SEEDS = {"u32_w15": jseeds.get_seed(15), "u64_w17": jseeds.get_seed(17)}
 
 

@@ -32,6 +32,17 @@ import libmems_tpu_torch as lt
 from libmems_tpu_torch.parallel import multihost as mh
 from libmems_tpu_torch.parallel import shard as psh
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The plain versions run many small tensor operations; one intra-op
+    thread keeps them from contending with the other test workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 WORKER = os.path.join(HERE, "torch_multihost_worker.py")
 CHILD_TIMEOUT_S = 120

@@ -25,6 +25,17 @@ from libmems_tpu_torch.sml import create_smls
 from tests.golden import generate
 from tests.oracle.refimpl import find_mums_oracle, match_set
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The plain versions run many small tensor operations; one intra-op
+    thread keeps them from contending with the other test workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 LUT = np.frombuffer(b"ACGT", dtype=np.uint8)
 
 

@@ -17,6 +17,16 @@ from libmems_tpu_torch.sml import create_smls
 from tests.golden import generate
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The plain versions run many small tensor operations; one intra-op
+    thread keeps them from contending with the other test workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _family(G, rng_seed, n=20_000):
     """G seeded mutants of one ancestor: inversions in every other
     genome, an N run in genome 1."""

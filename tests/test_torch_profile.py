@@ -12,6 +12,16 @@ from libmems_tpu_torch import convert
 from libmems_tpu_torch.ops import gapped, profile
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The plain versions run many small tensor operations; one intra-op
+    thread keeps them from contending with the other test workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _mutate(rng, a, rate=0.03, indels=2):
     b = a.copy()
     sub = rng.random(len(b)) < rate

@@ -21,6 +21,17 @@ import libmems_tpu_torch as lt
 from libmems_tpu_torch.ops import gapped, profile
 from tests.golden import generate
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The plain versions run many small tensor operations; one intra-op
+    thread keeps them from contending with the other test workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 GO, GE = profile.GAP_OPEN, profile.GAP_EXTEND
 K = 128
 

@@ -20,6 +20,16 @@ from libmems_tpu_torch.ops import seedocc
 from tests.golden import generate
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The plain versions run many small tensor operations; one intra-op
+    thread keeps them from contending with the other test workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _nine():
     return [lt.Genome(g.name, g.ascii, filename=g.filename)
             for g in generate._genomes_nine()]

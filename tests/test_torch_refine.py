@@ -5,6 +5,8 @@ default refine=True) against the JAX package; exact equality."""
 import io
 
 import numpy as np
+import pytest
+import torch
 
 from libmems_tpu import msa as jmsa
 from libmems_tpu.backbone import apply_backbone as jax_apply_backbone
@@ -21,6 +23,16 @@ from libmems_tpu_torch import msa, trace
 from libmems_tpu_torch.ops import profile
 from libmems_tpu_torch.tree import neighbor_joining
 from tests.golden import generate
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The plain versions run many small tensor operations; one intra-op
+    thread keeps them from contending with the other test workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _text(write, *args):

@@ -7,10 +7,21 @@ import io
 
 import numpy as np
 import pytest
+import torch
 
 from libmems_tpu import repeats as jrep
 from libmems_tpu import seeds as jseeds
 from libmems_tpu_torch import repeats
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The plain versions run many small tensor operations; one intra-op
+    thread keeps them from contending with the other test workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _to_str(c):

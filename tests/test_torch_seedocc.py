@@ -18,6 +18,17 @@ from libmems_tpu_torch.ops import seedocc
 from libmems_tpu_torch.sequence import Genome
 from libmems_tpu_torch.sml import SortedMerList
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The plain versions run many small tensor operations; one intra-op
+    thread keeps them from contending with the other test workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 _LUT = np.frombuffer(b"ACGT", dtype=np.uint8)
 SEED = jseeds.get_seed(11, 0)
 SEED_LEN = jseeds.seed_length(SEED)

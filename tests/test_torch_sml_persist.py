@@ -19,6 +19,17 @@ from libmems_tpu_torch.ops.mers import canonical_seed_keys
 from libmems_tpu_torch.sequence import Genome
 from libmems_tpu_torch.sml import SortedMerList
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The plain versions run many small tensor operations; one intra-op
+    thread keeps them from contending with the other test workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 needs_native = pytest.mark.skipif(
     not (native.available() and jnative.available()),
     reason="native toolchain unavailable")
