@@ -19,7 +19,10 @@ non-zero and prints no result line):
              card at its path's shapes (K1-K4, K18 and K19 the pair's,
              K5-K7 the 9 x 1 Mbp seeder's, K13-K15 and K2 the first
              trio's, K16 and K17 one 8.7 Mbp genome's; exact equality),
-             with timings; K1, K2, K18 and K19 once more at the 8.7 Mbp
+             with timings (K18's two passes timed without the library
+             sort between them, which is timed apart; K4's walk bytes to
+             the host and tb_unpack's seconds printed); K1, K2, K18 and
+             K19 once more at the 8.7 Mbp
              family's weight-17 seed, K16 and K17 once more on a 1 Mbp
              genome beside the host twin's seconds;
 4. goldens - the port on the GPU reproduces tests/golden/pair.mums,
@@ -61,14 +64,18 @@ non-zero and prints no result line):
              through K3 + K4) and the refine gate's profile_scores_batch
              calls (banded K10, uncertified and small-bucket windows
              through K9); exact equality (scores bit for bit,
-             certificates, pointer bytes, masks).  Where that run left K9
+             certificates, pointer bytes, the walks' column codes), each
+             walk's bytes to the host, tb_unpack's host seconds and
+             latency floor printed.  Where that run left K9
              no launch or no uncertified window, tests/test_banded.py's
              adversarial windows run the same routes as well; then
              K10, K11 and K12 on a many-window launch (2,112 windows in
              the 1024 bucket) and a wide-window one (three in the
              11,664 bucket, the longest 10,000 rows): exact, each
              launch's geometry printed, every geometry of the launcher's
-             table forced and timed;
+             table forced and timed; K12 and K4 (on K3's pointers of the
+             same windows) on both launches in every walk geometry that
+             fits, exact and timed;
 8. hmm     - K8 against its plain version on the card on the HMM batches
              of the first progressive run and of phase 6b, at their full
              lengths (posteriors within 1e-12, calls equal), timed; the
@@ -249,7 +256,11 @@ F32_OPS_PER_S = 67e12
 F64_OPS_PER_S = 34e12
 DP_CELL_OPS = 20      # per profile-DP cell: 9 for the row score (a
                       # product and four FMAs), 11 adds and maxes
-WALK_STEP_BYTES = 4   # per traceback step: one pointer byte, three masks
+WALK_STEP_BYTES = 1   # per traceback step: one pointer byte
+# the walks' latency floor: a step is at least one shared-memory load
+# (about 30 cycles on Hopper) at the H100 SXM's boost clock
+SMEM_STEP_CYCLES = 30
+SM_CLOCK_HZ = 1.98e9
 HMM_COLUMN_OPS = 60   # per HMM column: two passes of 2-state log-sum-exps
 GOTOH_CELL_OPS = 3    # per pairwise DP cell (K22): F, the diagonal, g
 GOTOH_PTR_CELL_OPS = 5  # K23: the same and the pointer byte's compares
@@ -377,8 +388,13 @@ def entry(err, ms, plain_ms, w):
 
 
 def sum_work(ws):
+    """The work of several launches; their latency floors (walks) add,
+    as the launches run one after another."""
     ws = list(ws)
-    return work(sum(w["bytes"] for w in ws), sum(w["ops"] for w in ws))
+    out = work(sum(w["bytes"] for w in ws), sum(w["ops"] for w in ws))
+    if any("latency_ms" in w for w in ws):
+        out["latency_ms"] = sum(w.get("latency_ms", 0.0) for w in ws)
+    return out
 
 
 def _lens(t):
@@ -422,10 +438,46 @@ def dp_work(name, t, H_W=None):
     return work(io + out, DP_CELL_OPS * cells)
 
 
-def walk_work(masks):
-    """Work of one traceback walk: the steps it took (masks[0])."""
-    steps = int(masks[0].sum())
-    return work(WALK_STEP_BYTES * steps + 8 * masks[0].shape[1], 10 * steps)
+def walk_work(walk):
+    """Work of one traceback walk (a WalkCodes): a pointer byte a step
+    taken, the lengths in and the codes, counts and steps out; and its
+    latency floor, the longest window's steps at one shared-memory load
+    a step."""
+    steps = walk.steps.long()
+    w = work(WALK_STEP_BYTES * int(steps.sum()) + 8 * steps.numel()
+             + nbytes(walk), 10 * int(steps.sum()))
+    w["latency_ms"] = (int(steps.max()) if steps.numel() else 0) \
+        * SMEM_STEP_CYCLES / SM_CLOCK_HZ * 1e3
+    return w
+
+
+def walk_geometries(kind, launches):
+    """The launcher's geometry of each K4 (kind "full") or K12
+    ("banded") launch in launches, (pointer tensor, N or H_W) each, as
+    'B@S: rows x depth (x cols), W windows a block', S the bytes a
+    pointer row."""
+    from libmems_tpu_torch.ops import gapped
+    out = []
+    for ptrs, n in launches:
+        B, M, S = (int(x) for x in ptrs.shape)
+        g = gapped.walk_geometry(kind, B, M, n)
+        out.append(f"{B}@{S}: {g['rows']} x {g['depth']}"
+                   f"{' x ' + str(g['cols']) if g['cols'] else ''}, "
+                   f"{g['warps']}/block")
+    return "; ".join(out)
+
+
+def walk_host_tail(torch, outs):
+    """(bytes, host seconds) of the walks' host tail over the outputs of
+    a list of walk launches: the bytes each output copies to the host,
+    and tb_unpack decoding every window of every launch (its copy to the
+    host included), as the path's callers decode them."""
+    from libmems_tpu_torch.ops import gapped
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for o in outs:
+        gapped.tb_unpack(o, int(o[1].shape[-1]))
+    return nbytes(outs), time.perf_counter() - t0
 
 
 def max_abs_err(pairs):
@@ -716,16 +768,21 @@ def pair_kernels_vs_plain(torch, smls, seed, pb, EC, timed):
         f"representatives: {got_r.n_reps} reps in EC={EC} equal "
         f"(weight {smls[0].seed_weight}, pos_bits {pb})")
     if timed:
+        wrap_ms = timed_ms(lambda: pair.pair_cluster_words(*wargs), 10,
+                           torch)
+        passes_ms = timed_ms(k18_passes(torch, *wargs), 10, torch)
         res["pair_cluster_words"] = entry(
             max_abs_err([(got_w, ref_w)]),
-            timed_ms(lambda: pair.pair_cluster_words(*wargs), 10, torch),
+            # K18's two passes alone: the sort of the seed words between
+            # them is a library call inside the wrapper, timed apart
+            passes_ms,
             timed_ms(lambda: pair.pair_cluster_words_plain(*wargs), 3,
                      torch, warmup=False),
-            # both genomes' keys in, one cluster word a row out (the
-            # sort of the seed words between the two passes is a library
-            # call inside the wrapper and moves more than this); ~25
+            # both genomes' keys in, one cluster word a row out; ~25
             # integer operations a row: pack, four unpacks, compares
             work(nbytes(wargs[:2], got_w), 25 * n))
+        log(f"# K18's two passes {passes_ms:.3f} ms; the wrapper with its "
+            f"torch.sort {wrap_ms:.3f} ms")
         res["pair_reps"] = entry(
             max_abs_err(list(zip(got_r[:-1], ref_r[:-1]))),
             timed_ms(lambda: pair.pair_reps(*rargs), 10, torch),
@@ -736,6 +793,34 @@ def pair_kernels_vs_plain(torch, smls, seed, pb, EC, timed):
         log(f"# torch.sort of the {n} seed words (inside K18's wrapper): "
             f"{sort_ms:.3f} ms")
     return res, got_r
+
+
+def k18_passes(torch, keys_a, keys_b, pos_bits, sent_content):
+    """A function that launches K18's two passes as its wrapper does
+    (pack, then flags and words over the sorted seed words), without the
+    library sort between them: the words are sorted once here."""
+    from libmems_tpu_torch import cuda
+    from libmems_tpu_torch.ops import pairwise
+    lib = cuda.library()
+    stream = cuda.stream(keys_a)
+    na, nb = keys_a.shape[0], keys_b.shape[0]
+    w = torch.empty(na + nb, dtype=torch.int64, device=keys_a.device)
+    cw = torch.empty_like(w)
+    n_cands = torch.zeros(1, dtype=torch.int64, device=keys_a.device)
+
+    def pack():
+        cuda.check(lib.lm_pair_pack(keys_a.data_ptr(), na, keys_b.data_ptr(),
+                                    nb, pos_bits, w.data_ptr(), stream),
+                   "lm_pair_pack")
+    pack()
+    ws = pairwise.usort(w)
+
+    def passes():
+        pack()
+        cuda.check(lib.lm_pair_cluster_words(
+            ws.data_ptr(), na + nb, pos_bits, sent_content, cw.data_ptr(),
+            n_cands.data_ptr(), stream), "lm_pair_cluster_words")
+    return passes
 
 
 def pair_windows(lt, genomes, smls, seed, dev):
@@ -877,14 +962,20 @@ def phase_kernels(torch, lt, dev):
         timed_ms(lambda: run3(packed, profile.profile_forward_plain), 1,
                  torch, warmup=False),
         sum_work(dp_work("profile_forward", t) for _, _, t in packed))
-    masks = run4(packed, ptrs, gapped.traceback_walk)
+    walks = run4(packed, ptrs, gapped.traceback_walk)
+    tail_b, tail_s = walk_host_tail(torch, walks)
+    w4 = sum_work(walk_work(w) for w in walks)
+    log(f"# K4 pair windows: {len(walks)} launches, walk output to the "
+        f"host {tail_b} bytes, tb_unpack {tail_s:.6f} s; geometries "
+        f"{walk_geometries('full', [(p, N) for (_, N, _), (p, _) in zip(packed, ptrs)])}"
+        f"; latency floor {w4['latency_ms']:.4f} ms")
     res["traceback_walk"] = entry(
         max_abs_err(errs4),
         timed_ms(lambda: run4(packed, ptrs, gapped.traceback_walk), 5,
                  torch),
         timed_ms(lambda: run4(packed, ptrs, gapped.traceback_walk_plain),
                  1, torch, warmup=False),
-        sum_work(walk_work(m) for m in masks))
+        w4)
     for M, N, t in extra:
         ptr = profile.profile_forward(*t)[0]
         T = gapped._device_tb_T(M, N)
@@ -896,7 +987,8 @@ def phase_kernels(torch, lt, dev):
         p4 = timed_ms(lambda: gapped.traceback_walk_plain(ptr, t[2], t[3], T),
                       1, torch, warmup=False)
         log(f"# K3 at {M}x{N} B={t[0].shape[0]}: kernel {k3:.3f} ms, plain "
-            f"{p3:.3f} ms; K4: kernel {k4:.3f} ms, plain {p4:.3f} ms")
+            f"{p3:.3f} ms; K4 ({walk_geometries('full', [(ptr, N)])}): "
+            f"kernel {k4:.3f} ms, plain {p4:.3f} ms")
     for name, e in res.items():
         log(f"# {name}: kernel {e['ms']:.3f} ms, plain {e['plain_ms']:.3f} "
             f"ms, max_abs_err {e['err']}")
@@ -1513,10 +1605,12 @@ def phase_large(torch, lt, dev, genomes):
     """The progressiveMauve path, default config, on the 3 x 8.7 Mbp
     family `genomes`: every genome is above anchorscore.SOL_HOST_MAX seed windows,
     so the seed occurrence lists come from K16 and K17.  Returns
-    (launches, wall, the arguments of its predict_homologous calls)."""
-    from libmems_tpu_torch import anchorscore, islands, progressive, trace
-    from libmems_tpu_torch.ops import (extend, hmm, mers, pairwise, profile,
-                                       seedocc)
+    (launches, wall, the arguments of its predict_homologous calls, those
+    of its align_profile_batch calls)."""
+    from libmems_tpu_torch import (anchorscore, islands, msa, progressive,
+                                   trace)
+    from libmems_tpu_torch.ops import (extend, gapped, hmm, mers, pairwise,
+                                       profile, seedocc)
     from libmems_tpu_torch.sml import default_seed
     wrappers = {"canonical_seed_keys": mers.canonical_seed_keys,
                 "extend_matches": extend.extend_matches,
@@ -1525,7 +1619,9 @@ def phase_large(torch, lt, dev, genomes):
                 "cluster_reps": pairwise.cluster_reps,
                 "seed_run_counts": seedocc.seed_run_counts,
                 "seed_smooth": seedocc.seed_smooth,
-                "fb_posterior": hmm.fb_posterior}
+                "fb_posterior": hmm.fb_posterior,
+                "traceback_walk": gapped.traceback_walk,
+                "banded_traceback_walk": profile.banded_traceback_walk}
     require(all(len(g) - 1 > anchorscore.SOL_HOST_MAX for g in genomes),
             "a genome of the large family is below SOL_HOST_MAX windows")
     cfg = lt.ProgressiveConfig(device=dev)
@@ -1543,7 +1639,9 @@ def phase_large(torch, lt, dev, genomes):
     for w in wrappers.values():
         w.launches = 0
     try:
-        with recording([(islands, "predict_homologous")]) as calls:
+        with recording([(islands, "predict_homologous"),
+                        (progressive, "align_profile_batch"),
+                        (msa, "align_profile_batch")]) as calls:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             ivs, _ = lt.progressive_align(genomes, cfg)
@@ -1584,7 +1682,8 @@ def phase_large(torch, lt, dev, genomes):
     check_partition(ivs, genomes)
     check_partition(new_ivs, genomes)
     check_segments(new_ivs, segs)
-    return launches, t2 - t0, calls["predict_homologous"]
+    return launches, t2 - t0, calls["predict_homologous"], \
+        calls["align_profile_batch"]
 
 
 DP_KERNELS = ("banded_forward_scores", "profile_forward_scores",
@@ -1725,14 +1824,95 @@ def extra_band_launches(torch, dev, fns, res):
                 T = gapped._device_tb_T(Mp, N)
                 wa = (got[0], t[2], t[3], N, H_W, T)
                 walk, walk_plain = fns["banded_traceback_walk"]
-                require(all(torch.equal(x, y) for x, y in
-                            zip(walk(*wa), walk_plain(*wa))),
-                        f"banded_traceback_walk differs from its plain "
-                        f"version on the {label} launch")
+                walk_vs_plain(torch, "banded", walk, walk_plain, wa, label,
+                              res["banded_traceback_walk"])
+                # K4 on K3's full pointers of the same windows
+                fp = profile.profile_forward(*t)[0]
+                walk_vs_plain(torch, "full", fns["traceback_walk"][0],
+                              fns["traceback_walk"][1],
+                              (fp, t[2], t[3], T), label,
+                              res["traceback_walk"])
+                del fp
         fill_ms = timed_ms(lambda: torch.zeros(
             (B, Mp, profile.band_width(H_W) + 1), dtype=torch.uint8,
             device=dev), 3, torch)
         log(f"# {label} launch: K11's pointer zero-fill {fill_ms:.3f} ms")
+
+
+def walk_vs_plain(torch, kind, walk, plain, wa, label, e):
+    """K4 (kind "full") or K12 on one launch against its plain version,
+    exact, in the launcher's geometry and in every geometry of the
+    table that fits, each timed; the output's bytes to the host,
+    tb_unpack's seconds and the latency floor logged.  Widens the
+    entry e's max_abs_err."""
+    from libmems_tpu_torch.ops import gapped
+    ptrs = wa[0]
+    n = ptrs.shape[2] - 1 if kind == "full" else wa[4]
+    ref, pms = timed_once(lambda: plain(*wa), torch)
+    times = []
+    for g in range(-1, 5):
+        geo = gapped.walk_geometry(kind, int(ptrs.shape[0]),
+                                   int(ptrs.shape[1]), n, g)
+        if not geo["warps"]:
+            continue
+        got = walk(*wa, geometry=g)
+        require(all(torch.equal(x, y) for x, y in zip(got, ref)),
+                f"{kind} walk differs from its plain version on the {label} "
+                f"launch in geometry {geo}")
+        e["err"] = max(e["err"], max_abs_err(zip(got, ref)))
+        ms = timed_ms(lambda: walk(*wa, geometry=g), 3, torch)
+        times.append(f"{'pick ' if g < 0 else ''}{geo['rows']} x "
+                     f"{geo['depth']}{' x ' + str(geo['cols']) if geo['cols'] else ''}"
+                     f" ({geo['warps']}/block) {ms:.3f} ms")
+    tail_b, tail_s = walk_host_tail(torch, [ref])
+    w = walk_work(ref)
+    log(f"# {kind} walk {label} launch: {'; '.join(times)}; plain "
+        f"{pms:.3f} ms, equal; longest window {int(ref.steps.max())} "
+        f"steps, latency floor {w['latency_ms']:.4f} ms; output to the "
+        f"host {tail_b} bytes, tb_unpack {tail_s:.6f} s")
+
+
+def walk_step_costs(torch, dev):
+    """What a walk step and a walk launch cost apart: K12 (the launcher's
+    geometry) on one-window launches of a 1024-column band: no step
+    (p_len = q_len = 0), 4,096 diagonal steps, 1,153 steps along one row
+    (all E) and 4,096 rows straight up (all F); K4 on a 2,048 x 2,048
+    diagonal (the slab route) and forced into whole rows.  Logs each
+    launch's ms and ns a step net of the empty launch."""
+    from libmems_tpu_torch.ops import gapped, profile
+    e_run = gapped.H_E | gapped.E_EXT_BIT
+    f_run = gapped.H_F | gapped.F_EXT_BIT
+    H_W = profile._band_half(1024)
+    W1 = profile.band_width(H_W) + 1
+
+    def one(n):
+        return torch.tensor([n], dtype=torch.int32, device=dev)
+    cases = [("banded", "empty", 0, 0, 0, 128, W1, -1),
+             ("banded", "diagonal", 0, 4096, 1024, 4096, W1, -1),
+             ("banded", "one row (E)", e_run, 128, 1024, 128, W1, -1),
+             ("banded", "straight up (F)", f_run, 4096, 1000, 4096, W1, -1),
+             ("full", "diagonal", 0, 2048, 2048, 2048, 2049, -1),
+             ("full", "diagonal, whole rows", 0, 2048, 2048, 2048, 2049, 1)]
+    out, empty = [], 0.0
+    for kind, label, val, pl, ql, M, S, g in cases:
+        ptrs = torch.full((1, M, S), val, dtype=torch.uint8, device=dev)
+        N = 1024 if kind == "banded" else S - 1
+        T = gapped._device_tb_T(M, N)
+        if kind == "banded":
+            args = (ptrs, one(pl), one(ql), N, H_W, T)
+            fn = profile.banded_traceback_walk
+        else:
+            args = (ptrs, one(pl), one(ql), T)
+            fn = gapped.traceback_walk
+        steps = int(fn(*args, geometry=g).steps[0])
+        ms = timed_ms(lambda: fn(*args, geometry=g), 5, torch)
+        if label == "empty":
+            empty = ms
+            out.append(f"{kind} {label} {ms:.4f} ms")
+        else:
+            out.append(f"{kind} {label} {steps} steps {ms:.4f} ms, "
+                       f"{(ms - empty) * 1e6 / steps:.1f} ns a step")
+    log(f"# walk step costs (one window a launch): {'; '.join(out)}")
 
 
 def plan_profile_dp(score_calls, align_calls, dev):
@@ -1791,6 +1971,46 @@ def plan_profile_dp(score_calls, align_calls, dev):
                 ptrs, _ = profile.profile_forward(*t, go, ge)
                 launches["traceback_walk"].append((ptrs, t[2], t[3], T))
     return launches, uncert
+
+
+def large_walks(torch, dev, align_calls, launches, res):
+    """K4 and K12 against their plain versions on the card, exact, on the
+    walk launches of phase 6b's align_profile_batch calls (rebuilt by
+    plan_profile_dp, as many as the path made); their kernel ms, bytes
+    to the host, tb_unpack's seconds and latency floor, summed over the
+    launches.  Widens res's max_abs_err; the path's times stay the 9 x 1
+    Mbp path's."""
+    from libmems_tpu_torch.ops import gapped, profile
+    path, _ = plan_profile_dp([], align_calls, dev)
+    fns = {"traceback_walk": (gapped.traceback_walk,
+                              gapped.traceback_walk_plain),
+           "banded_traceback_walk": (profile.banded_traceback_walk,
+                                     profile.banded_traceback_walk_plain)}
+    for name, (fn, plain) in fns.items():
+        lst = path[name]
+        require(len(lst) == launches[name],
+                f"{name}: {len(lst)} launches rebuilt, the 3 x {LARGE_LEN} "
+                f"bp path made {launches[name]}")
+        got = [fn(*a) for a in lst]
+        ref, pms = timed_once(lambda: [plain(*a) for a in lst], torch)
+        for a, g, r in zip(lst, got, ref):
+            require(all(torch.equal(x, y) for x, y in zip(g, r)),
+                    f"{name} differs from its plain version on a 3 x "
+                    f"{LARGE_LEN} bp launch at {tuple(a[0].shape)}")
+            res[name]["err"] = max(res[name]["err"], max_abs_err(zip(g, r)))
+        ms = timed_ms(lambda: [fn(*a) for a in lst], 3, torch) if lst \
+            else 0.0
+        w = sum_work(walk_work(g) for g in got)
+        tail_b, tail_s = walk_host_tail(torch, got)
+        kind = "full" if name == "traceback_walk" else "banded"
+        geo = walk_geometries(kind, [(a[0], a[0].shape[2] - 1 if
+                                      kind == "full" else a[4])
+                                     for a in lst])
+        log(f"# {name} on the 3 x {LARGE_LEN} bp path: {len(lst)} launches "
+            f"({sum(int(a[0].shape[0]) for a in lst)} windows), equal; "
+            f"kernel {ms:.3f} ms, plain {pms:.3f} ms; walk output to the "
+            f"host {tail_b} bytes, tb_unpack {tail_s:.6f} s, latency floor "
+            f"{w.get('latency_ms', 0.0):.4f} ms; geometries {geo}")
 
 
 def phase_profile_dp(torch, dev, calls, launches):
@@ -1860,6 +2080,18 @@ def phase_profile_dp(torch, dev, calls, launches):
                 ms = timed_ms(lambda: [fn(*a) for a in lst[name]], 3, torch)
                 if name in ("traceback_walk", "banded_traceback_walk"):
                     w = sum_work(walk_work(g) for g in got)
+                    tail_b, tail_s = walk_host_tail(torch, got)
+                    kind = "full" if name == "traceback_walk" else "banded"
+                    geo = walk_geometries(kind, [
+                        (a[0], a[0].shape[2] - 1 if kind == "full"
+                         else a[4])
+                        for a in lst[name]])
+                    log(f"# {name} {label}: {len(got)} launches, walk "
+                        f"output to the host {tail_b} bytes, tb_unpack "
+                        f"{tail_s:.6f} s, latency floor "
+                        f"{w['latency_ms']:.4f} ms (longest windows "
+                        f"{[int(g.steps.max()) for g in got]} steps); "
+                        f"geometries {geo}")
                 else:
                     w = sum_work(dp_work(name, a[:4], a[6] if len(a) > 6
                                          else None) for a in lst[name])
@@ -1878,6 +2110,7 @@ def phase_profile_dp(torch, dev, calls, launches):
                 f"of their gap costs (the plain version's; the kernel "
                 f"selects the largest instead) {sort_ms:.3f} ms")
     extra_band_launches(torch, dev, fns, res)
+    walk_step_costs(torch, dev)
     return res
 
 
@@ -3499,8 +3732,8 @@ def main(argv=None) -> int:
         walls.append(f"progressive path {pdt[0]:.3f} s then {pdt[1]:.3f} s")
         lap("progressive")
     if "large" in phases:
-        paths["large"], ldt, calls["large_hmm"] = phase_large(
-            torch, lt, dev, large or family_large(lt))
+        paths["large"], ldt, calls["large_hmm"], calls["large_align"] = \
+            phase_large(torch, lt, dev, large or family_large(lt))
         walls.append(f"3 x {LARGE_LEN} bp path {ldt:.3f} s")
         lap("large")
     if "profile_dp" in phases:
@@ -3509,6 +3742,9 @@ def main(argv=None) -> int:
             if name in res:
                 e["err"] = max(e["err"], res[name]["err"])
             res[name] = e
+        if calls.get("large_align"):
+            large_walks(torch, dev, calls["large_align"], paths["large"],
+                        res)
         res["fb_posterior"] = phase_hmm(
             torch, dev, calls["predict_homologous"], paths["progressive"],
             calls.get("large_hmm"), paths.get("large"))
@@ -3582,6 +3818,8 @@ def main(argv=None) -> int:
                         "max_abs_err": e["err"], "ms": e["ms"],
                         "plain_ms": e["plain_ms"], "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": None})
+        if "latency_ms" in e["work"]:   # the walks' second bound
+            kernels[-1]["latency_bound_ms"] = e["work"]["latency_ms"]
     log(f"# card: {card}; " + "; ".join(walls))
     log(json.dumps({"kernels": kernels}))
     if phases != list(PHASES):

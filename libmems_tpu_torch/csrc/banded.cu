@@ -72,7 +72,9 @@
 // issue floor is tighter: about 16-20 warp instructions a cell in the
 // register geometries, so 4.27 G cells need 4-5 ms on 132 SMs at four
 // warp instructions a clock.  K11 also writes w1 pointer bytes a row; K12
-// is latency-bound as K4 (one dependent byte a step).
+// is latency-bound as K4 (one dependent byte a step): the walk of
+// csrc/walk.cuh, one warp a window over a ring of band rows in shared
+// memory.
 //
 // Certificate (ops/profile.py:381-406), in the epilogue: gap_bound is
 // the blocked prefix sum, read at g_lb - 1 with g_lb = max(2*H_W -
@@ -87,6 +89,7 @@
 // max(max_y qw[y][j], 0) over the columns j < q_len (0 beyond); cert =
 // score > ((sumcap + open) + gap_bound) + 64.
 #include "common.cuh"
+#include "walk.cuh"
 
 namespace {
 
@@ -569,56 +572,64 @@ __global__ void __launch_bounds__(512) banded_kernel_smem(BandArgs a) {
   banded_window<K, kPtr, false>(a);
 }
 
-__global__ void banded_walk_kernel(const unsigned char* __restrict__ ptr,
-                                   const int* __restrict__ p_len,
-                                   const int* __restrict__ q_len, int B,
-                                   int Mp, int N, int H_W, int T,
-                                   unsigned char* __restrict__ steps,
-                                   unsigned char* __restrict__ agaps,
-                                   unsigned char* __restrict__ bgaps) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const int WB = kBandK * 2 + 2 * H_W + 2;
-  const int64_t w1 = WB + 1;
-  const int lo_cap = N - WB > 0 ? N - WB : 0;
-  const unsigned char* pb = ptr + (int64_t)b * Mp * w1;
-  const int ql = q_len[b];
-  const int plc = p_len[b] > 1 ? p_len[b] : 1;
-  int i = p_len[b];
-  int j = ql;
-  int st = 0;
-  for (int t = 0; t < T; ++t) {
-    if (i <= 0 && j <= 0) break;
-    const bool c0 = i == 0;
-    const bool c1 = i > 0 && j == 0;
-    const bool c2 = i > 0 && j > 0;
-    int byte = 0;
-    if (c2) {
-      const int lo = band_lo((i - 1) / kBandK, ql, plc, H_W, lo_cap);
-      int w = j - lo;
-      w = w < 0 ? 0 : (w > WB ? WB : w);
-      byte = pb[(int64_t)(i - 1) * w1 + w];
-    }
-    const bool was_h = c2 && st == 0;
-    const bool was_e = c2 && st == 1;
-    const bool was_f = c2 && st == 2;
-    const int newst = byte & 3;
-    const bool dm = was_h && newst == 0;
-    const int64_t o = (int64_t)t * B + b;
-    steps[o] = (c0 || c1 || dm || was_e || was_f) ? 1 : 0;
-    agaps[o] = (c0 || was_e) ? 1 : 0;
-    bgaps[o] = (c1 || was_f) ? 1 : 0;
-    i -= (c1 || dm || was_f) ? 1 : 0;
-    j -= (c0 || dm || was_e) ? 1 : 0;
-    if (was_h) {
-      st = newst;
-    } else if (was_e) {
-      st = (byte & kEExt) ? 1 : 0;
-    } else if (was_f) {
-      st = (byte & kFExt) ? 2 : 0;
+// K12's column of DP cell (r+1, j) in banded pointer row r: clip(j -
+// lo, 0, WB), lo of r's 128-row block, computed when the walk enters the
+// block (band_lo divides in 64 bits).
+struct BandCol {
+  int ql, plc, H_W, lo_cap, WB;
+  int bi = -1, lo = 0;
+  __device__ __forceinline__ void enter(int r) {
+    const int b = r / kBandK;
+    if (b != bi) {
+      bi = b;
+      lo = band_lo(b, ql, plc, H_W, lo_cap);
     }
   }
+  __device__ __forceinline__ int at(int j) const {
+    const int w = j - lo;
+    return w < 0 ? 0 : (w > WB ? WB : w);
+  }
+  __device__ __forceinline__ int first_row(int r) const {
+    return r / kBandK * kBandK;
+  }
+};
+
+struct BandColOf {
+  const int* p_len;
+  const int* q_len;
+  int H_W, lo_cap, WB;
+  __device__ BandCol operator()(int b) const {
+    BandCol c;
+    c.ql = q_len[b];
+    c.plc = p_len[b] > 1 ? p_len[b] : 1;
+    c.H_W = H_W;
+    c.lo_cap = lo_cap;
+    c.WB = WB;
+    return c;
+  }
+};
+
+template <bool kWhole>
+__global__ void banded_walk_kernel(const unsigned char* __restrict__ ptr,
+                                   int64_t total,
+                                   const int* __restrict__ p_len,
+                                   const int* __restrict__ q_len, int B,
+                                   int Mp, int N, int H_W, int T, int C16,
+                                   lm_walk::Plan pl,
+                                   uint32_t* __restrict__ words,
+                                   int* __restrict__ counts,
+                                   int* __restrict__ steps) {
+  const int WB = kBandK * 2 + 2 * H_W + 2;
+  const int lo_cap = N - WB > 0 ? N - WB : 0;
+  lm_walk::walk_kernel_body<kWhole>(ptr, total, p_len, q_len, B, Mp, WB + 1,
+                                    T, C16, pl, words, counts, steps,
+                                    BandColOf{p_len, q_len, H_W, lo_cap, WB});
 }
+
+using WalkKernel = decltype(&banded_walk_kernel<true>);
+const WalkKernel kWalkKernels[2] = {banded_walk_kernel<false>,
+                                    banded_walk_kernel<true>};
+lm_walk::Card walk_cards[lm_walk::kMaxCards];
 
 // The geometries the launcher chooses from: K band columns a lane, qw in
 // registers or in shared memory, and the cost of a held column relative
@@ -808,19 +819,48 @@ extern "C" int lm_banded_geometry(int B, int H_W, int ptr, int g, int* out) {
   return 0;
 }
 
-// K12.  ptr: uint8[B, Mp, WB+1]; p_len, q_len: int32[B]; steps, agaps,
-// bgaps: uint8[T, B], zero-filled by the caller.
+// K12.  ptr: uint8[B, Mp, WB+1] (16-byte aligned); p_len, q_len:
+// int32[B]; words: int32[B, C16] with 16 * C16 >= Mp + N; counts, steps:
+// int32[B]; geometry: an index of lm_walk::kGeometries to force, or -1
+// for the launcher's pick.  No buffer needs a fill.
 extern "C" int lm_banded_walk(const void* ptr, const void* p_len,
                               const void* q_len, int B, int Mp, int N,
-                              int H_W, int T, void* steps, void* agaps,
-                              void* bgaps, void* stream) {
+                              int H_W, int T, int C16, void* words,
+                              void* counts, void* steps, int geometry,
+                              void* stream) {
+  const int64_t w1 = kBandK * 2 + 2 * H_W + 3;
+  if (16 * (int64_t)C16 < (int64_t)Mp + N || Mp * w1 >= INT_MAX ||
+      ((uintptr_t)ptr & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  lm_walk::Plan pl;
+  const cudaError_t err =
+      lm_walk::plan_launch(kWalkKernels, walk_cards, B, Mp, w1, geometry, &pl);
+  if (err != cudaSuccess) return (int)err;
+  if (pl.warps <= 0) return (int)cudaErrorInvalidConfiguration;
+  const auto kernel = kWalkKernels[pl.cols == 0 ? 1 : 0];
   if (B > 0) {
-    const int threads = 128;
-    const unsigned blocks = (unsigned)((B + threads - 1) / threads);
-    LM_LAUNCH(banded_walk_kernel, blocks, threads, 0, (cudaStream_t)stream,
-              (const unsigned char*)ptr, (const int*)p_len,
-              (const int*)q_len, B, Mp, N, H_W, T, (unsigned char*)steps,
-              (unsigned char*)agaps, (unsigned char*)bgaps);
+    const unsigned blocks = (unsigned)((B + pl.warps - 1) / pl.warps);
+    LM_LAUNCH(kernel, blocks, 32 * pl.warps, (size_t)pl.smem,
+              (cudaStream_t)stream, (const unsigned char*)ptr,
+              (int64_t)B * Mp * w1, (const int*)p_len, (const int*)q_len, B,
+              Mp, N, H_W, T, C16, pl, (uint32_t*)words, (int*)counts,
+              (int*)steps);
   }
   return (int)cudaGetLastError();
+}
+
+// The geometry of a K12 launch of B windows of Mp rows at half band H_W
+// on the current card: geometry g, or the launcher's pick for g < 0.
+// out: int[6] as lm_walk::describe.  Returns -1 for g past the last
+// geometry, else a cudaError_t.
+extern "C" int lm_banded_walk_geometry(int B, int Mp, int H_W, int g,
+                                       int* out) {
+  if (g >= lm_walk::kGeometryCount) return -1;
+  lm_walk::Plan pl;
+  const cudaError_t err =
+      lm_walk::plan_launch(kWalkKernels, walk_cards, B, Mp,
+                           kBandK * 2 + 2 * H_W + 3, g, &pl);
+  if (err != cudaSuccess) return (int)err;
+  lm_walk::describe(pl, out);
+  return 0;
 }

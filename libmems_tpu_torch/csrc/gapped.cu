@@ -1,78 +1,89 @@
-// K4: affine traceback walk, one thread per window.
+// K4: affine traceback walk over full pointer rows, one warp a window.
 //
 // Replaces libmems_tpu/ops/gapped.py _device_tb_scan (a lax.scan of T
 // lockstep steps over the whole batch, bit-packed with packbits for the
 // transfer to the host).
 //
-// Bound: latency.  Each step of a walk reads one pointer byte whose
-// address depends on the previous step, so a window costs up to
-// T = 2(M+N)+4 dependent loads; the kernel moves 3 bytes per step and
-// window.  Design: one thread per window, the state machine of
-// ops/gapped.py:230-254, stopping when the walk reaches (0, 0); the
-// caller zero-fills the masks, so a finished walk writes nothing more.
-// Masks are laid out [T, B] so a warp's stores of one step are
-// contiguous.  The TPU's packbits is dropped: the host reads bool masks.
-#include "common.cuh"
+// Bound: latency (one dependent pointer byte a step).  Design: the walk
+// of csrc/walk.cuh with DP cell (i, j) at byte (i-1)*(N+1) + j of the
+// window's rows: a ring of whole-row slabs in shared memory where rows
+// of N+1 bytes fit it, else slabs of 512 columns; the output is the
+// window's 2-bit column codes, so the host copies at most two bits a
+// column instead of the JAX scan's three bit rows of T steps.
+#include "walk.cuh"
 
 namespace {
 
-constexpr unsigned char kEExt = 4, kFExt = 8;
+// The column of DP cell (r+1, j) in pointer row r: j, the same for
+// every row.
+struct FullCol {
+  __device__ __forceinline__ void enter(int) {}
+  __device__ __forceinline__ int at(int j) const { return j; }
+  __device__ __forceinline__ int first_row(int) const { return 0; }
+};
 
+struct FullColOf {
+  __device__ FullCol operator()(int) const { return FullCol(); }
+};
+
+template <bool kWhole>
 __global__ void traceback_kernel(const unsigned char* __restrict__ ptr,
-                                 const int* __restrict__ p_len,
+                                 int64_t total, const int* __restrict__ p_len,
                                  const int* __restrict__ q_len, int B, int M,
-                                 int N, int T, unsigned char* __restrict__ steps,
-                                 unsigned char* __restrict__ agaps,
-                                 unsigned char* __restrict__ bgaps) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const int64_t n1 = N + 1;
-  const unsigned char* pb = ptr + (int64_t)b * M * n1;
-  int i = p_len[b];
-  int j = q_len[b];
-  int st = 0;
-  for (int t = 0; t < T; ++t) {
-    if (i <= 0 && j <= 0) break;
-    const bool c0 = i == 0;
-    const bool c1 = i > 0 && j == 0;
-    const bool c2 = i > 0 && j > 0;
-    const int byte = c2 ? pb[(int64_t)(i - 1) * n1 + j] : 0;
-    const bool was_h = c2 && st == 0;
-    const bool was_e = c2 && st == 1;
-    const bool was_f = c2 && st == 2;
-    const int newst = byte & 3;
-    const bool dm = was_h && newst == 0;
-    const int64_t o = (int64_t)t * B + b;
-    steps[o] = (c0 || c1 || dm || was_e || was_f) ? 1 : 0;
-    agaps[o] = (c0 || was_e) ? 1 : 0;
-    bgaps[o] = (c1 || was_f) ? 1 : 0;
-    i -= (c1 || dm || was_f) ? 1 : 0;
-    j -= (c0 || dm || was_e) ? 1 : 0;
-    if (was_h) {
-      st = newst;
-    } else if (was_e) {
-      st = (byte & kEExt) ? 1 : 0;
-    } else if (was_f) {
-      st = (byte & kFExt) ? 2 : 0;
-    }
-  }
+                                 int N, int T, int C16, lm_walk::Plan pl,
+                                 uint32_t* __restrict__ words,
+                                 int* __restrict__ counts,
+                                 int* __restrict__ steps) {
+  lm_walk::walk_kernel_body<kWhole>(ptr, total, p_len, q_len, B, M, N + 1, T,
+                                    C16, pl, words, counts, steps,
+                                    FullColOf());
 }
+
+using Kernel = decltype(&traceback_kernel<true>);
+const Kernel kKernels[2] = {traceback_kernel<false>,
+                            traceback_kernel<true>};
+lm_walk::Card cards[lm_walk::kMaxCards];
 
 }  // namespace
 
-// ptr: uint8[B, M, N+1]; p_len, q_len: int32[B];
-// steps, agaps, bgaps: uint8[T, B], zero-filled by the caller.
+// ptr: uint8[B, M, N+1] (16-byte aligned); p_len, q_len: int32[B]; words:
+// int32[B, C16] with 16 * C16 >= M + N; counts, steps: int32[B];
+// geometry: an index of lm_walk::kGeometries to force, or -1 for the
+// launcher's pick.  No buffer needs a fill.
 extern "C" int lm_traceback(const void* ptr, const void* p_len,
                             const void* q_len, int B, int M, int N, int T,
-                            void* steps, void* agaps, void* bgaps,
-                            void* stream) {
+                            int C16, void* words, void* counts, void* steps,
+                            int geometry, void* stream) {
+  if (16 * (int64_t)C16 < (int64_t)M + N || (int64_t)M * (N + 1) >= INT_MAX ||
+      ((uintptr_t)ptr & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  lm_walk::Plan pl;
+  const cudaError_t err =
+      lm_walk::plan_launch(kKernels, cards, B, M, N + 1, geometry, &pl);
+  if (err != cudaSuccess) return (int)err;
+  if (pl.warps <= 0) return (int)cudaErrorInvalidConfiguration;
+  const auto kernel = kKernels[pl.cols == 0 ? 1 : 0];
   if (B > 0) {
-    const int threads = 128;
-    const unsigned blocks = (unsigned)((B + threads - 1) / threads);
-    LM_LAUNCH(traceback_kernel, blocks, threads, 0, (cudaStream_t)stream,
-              (const unsigned char*)ptr, (const int*)p_len,
-              (const int*)q_len, B, M, N, T, (unsigned char*)steps,
-              (unsigned char*)agaps, (unsigned char*)bgaps);
+    const unsigned blocks = (unsigned)((B + pl.warps - 1) / pl.warps);
+    LM_LAUNCH(kernel, blocks, 32 * pl.warps, (size_t)pl.smem,
+              (cudaStream_t)stream, (const unsigned char*)ptr,
+              (int64_t)B * M * (N + 1), (const int*)p_len, (const int*)q_len,
+              B, M, N, T, C16, pl, (uint32_t*)words, (int*)counts,
+              (int*)steps);
   }
   return (int)cudaGetLastError();
+}
+
+// The geometry of a K4 launch of B windows of M rows and N+1 columns on
+// the current card: geometry g, or the launcher's pick for g < 0.  out:
+// int[6] as lm_walk::describe.  Returns -1 for g past the last geometry,
+// else a cudaError_t.
+extern "C" int lm_traceback_geometry(int B, int M, int N, int g, int* out) {
+  if (g >= lm_walk::kGeometryCount) return -1;
+  lm_walk::Plan pl;
+  const cudaError_t err =
+      lm_walk::plan_launch(kKernels, cards, B, M, N + 1, g, &pl);
+  if (err != cudaSuccess) return (int)err;
+  lm_walk::describe(pl, out);
+  return 0;
 }

@@ -55,11 +55,13 @@ _SIGNATURES = {
     "lm_profile_score": ([_P] * 10 + [_I, _I, _I, _F, _F, _P, _P], _I),
     "lm_profile_ckpt": ([_P] * 12 + [_I] * 4 + [_F, _F, _P, _P], _I),
     "lm_profile_block_ptrs": ([_P] * 12 + [_I] * 3 + [_F, _F, _P, _P], _I),
-    "lm_traceback": ([_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P], _I),
+    "lm_traceback": ([_P, _P, _P] + [_I] * 5 + [_P] * 3 + [_I, _P], _I),
+    "lm_traceback_geometry": ([_I] * 4 + [_P], _I),
     "lm_banded_fwd": ([_P] * 7 + [_L] + [_P] * 5 + [_I] * 4
                       + [_F, _F, _P, _I, _P], _I),
     "lm_banded_geometry": ([_I] * 4 + [_P], _I),
-    "lm_banded_walk": ([_P] * 3 + [_I] * 5 + [_P] * 4, _I),
+    "lm_banded_walk": ([_P] * 3 + [_I] * 6 + [_P] * 3 + [_I, _P], _I),
+    "lm_banded_walk_geometry": ([_I] * 4 + [_P], _I),
     "lm_run_starts": ([_P, _P, _P, _I, _P, _I, _L, _P, _P, _P, _P, _P], _I),
     "lm_run_flags": ([_P, _P, _P, _P, _P, _L, _I, _L, _P, _P, _P], _I),
     "lm_cluster_words": ([_P, _P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _L,

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -86,34 +87,54 @@ def _device_tb_T(M: int, N: int) -> int:
     return -(-t // 8) * 8
 
 
+class WalkCodes(NamedTuple):
+    """The output of a traceback walk (K4, K12 and their plain versions):
+    per window its 2-bit column codes (0 aligned, 1 gap in a, 2 gap in
+    b) in column order, right-aligned in its row of words: column c of
+    a row of 16 * C16 codes is bits 2*(c % 16) of word c // 16, and the
+    window's alignment is its last counts[b] columns; the words left of
+    them are 0."""
+    words: torch.Tensor    # int32[B, C16]
+    counts: torch.Tensor   # int32[B]: columns emitted
+    steps: torch.Tensor    # int32[B]: steps taken (at most T)
+
+
+def code_words(M: int, N: int) -> int:
+    """Words of a window's code row: a walk over M rows and N columns
+    emits at most M + N columns, 16 a word."""
+    return -(-(M + N) // 16)
+
+
 def traceback_walk_plain(ptrs: torch.Tensor, p_len: torch.Tensor,
-                         q_len: torch.Tensor, T: int):
+                         q_len: torch.Tensor, T: int) -> WalkCodes:
     """Plain PyTorch version of K4: the state machine of
-    ops/gapped.py:230-254, all windows in lockstep for T steps.
-    Returns bool (steps, a_gaps, b_gaps), each [T, B]."""
-    N1 = ptrs.shape[2]
-    return walk_plain(ptrs, p_len, q_len, T, lambda i, j: (i - 1) * N1 + j)
+    ops/gapped.py:230-254, all windows in lockstep for T steps."""
+    M, N1 = ptrs.shape[1:]
+    return walk_plain(ptrs, p_len, q_len, T, lambda i, j: (i - 1) * N1 + j,
+                      code_words(M, N1 - 1))
 
 
 def walk_plain(ptrs: torch.Tensor, p_len: torch.Tensor, q_len: torch.Tensor,
-               T: int, addr):
+               T: int, addr, C16: int) -> WalkCodes:
     """The lockstep affine traceback over pointer bytes ptrs[B, R, W]:
     addr(i, j) gives each window's byte offset of DP cell (i, j) within
-    its R*W bytes (clamped here).  Returns bool (steps, a_gaps, b_gaps),
-    each [T, B]."""
+    its R*W bytes (clamped here).  Each emitted column's code goes to
+    column 16*C16 - 1 - (columns emitted before it) of the window's row,
+    and the rows are packed 16 codes a word."""
     B, M, N1 = ptrs.shape
     dev = ptrs.device
+    C = 16 * C16
     flat = ptrs.reshape(B, M * N1)
     i = p_len.to(torch.int64).clone()
     j = q_len.to(torch.int64).clone()
     st = torch.zeros(B, dtype=torch.int64, device=dev)
-    steps = torch.zeros((T, B), dtype=torch.bool, device=dev)
-    agaps = torch.zeros((T, B), dtype=torch.bool, device=dev)
-    bgaps = torch.zeros((T, B), dtype=torch.bool, device=dev)
+    cnt = torch.zeros(B, dtype=torch.int64, device=dev)
+    taken = torch.zeros(B, dtype=torch.int64, device=dev)
+    codes = torch.zeros((B, C + 1), dtype=torch.int64, device=dev)
     for t in range(T):
         active = (i > 0) | (j > 0)
         if t % 64 == 0 and not bool(active.any()):
-            break   # every walk is done; the remaining steps stay zero
+            break   # every walk is done
         c0 = active & (i == 0)
         c1 = active & (i > 0) & (j == 0)
         c2 = active & (i > 0) & (j > 0)
@@ -125,9 +146,14 @@ def walk_plain(ptrs: torch.Tensor, p_len: torch.Tensor, q_len: torch.Tensor,
         was_f = c2 & (st == 2)
         newst = byte & 3
         dm = was_h & (newst == 0)
-        agaps[t] = c0 | was_e
-        bgaps[t] = c1 | was_f
-        steps[t] = c0 | c1 | dm | was_e | was_f
+        emit = c0 | c1 | dm | was_e | was_f
+        code = (c0 | was_e).to(torch.int64) + 2 * (c1 | was_f).to(
+            torch.int64)
+        # columns not emitted this step write to the spare column C
+        pos = torch.where(emit, C - 1 - cnt, C)
+        codes.scatter_(1, pos[:, None], code[:, None])
+        cnt += emit.to(torch.int64)
+        taken += active.to(torch.int64)
         i = i - (c1 | dm | was_f).to(torch.int64)
         j = j - (c0 | dm | was_e).to(torch.int64)
         st = torch.where(
@@ -136,19 +162,59 @@ def walk_plain(ptrs: torch.Tensor, p_len: torch.Tensor, q_len: torch.Tensor,
                         torch.where(was_f,
                                     2 * ((byte & F_EXT_BIT) != 0).to(
                                         torch.int64), st)))
-    return steps, agaps, bgaps
+    shifts = 2 * torch.arange(16, dtype=torch.int64, device=dev)
+    words = (codes[:, :C].reshape(B, C16, 16) << shifts).sum(-1)
+    words = torch.where(words >= 1 << 31, words - (1 << 32), words)
+    return WalkCodes(words.to(torch.int32), cnt.to(torch.int32),
+                     taken.to(torch.int32))
+
+
+def walk_geometry(kind: str, B: int, M: int, N: int, g: int = -1):
+    """The launch geometry of K4 (kind "full": M rows of N+1 pointer
+    bytes) or K12 (kind "banded": M rows at half band N) for B windows
+    on the current card: geometry g of csrc/walk.cuh's table, or for
+    g < 0 the one the launcher picks.  Returns None past the table's
+    end, else {"geometry", "rows" (a slab), "depth" (slabs in the ring),
+    "cols" (a slab; 0 for whole rows), "warps" (windows a block, 0 where
+    geometry g does not fit), "smem" (bytes a block)}."""
+    out = (ctypes.c_int * 6)()
+    lib = cuda.library()
+    fn = lib.lm_traceback_geometry if kind == "full" else \
+        lib.lm_banded_walk_geometry
+    rc = fn(B, M, N, g, out)
+    if rc == -1:
+        return None
+    cuda.check(rc, fn.__name__)
+    return dict(zip(("geometry", "rows", "depth", "cols", "warps", "smem"),
+                    out))
+
+
+def walk_outputs(B: int, C16: int, dev) -> WalkCodes:
+    """Unfilled output buffers of a walk launch (the kernel writes every
+    word), in one allocation."""
+    buf = torch.empty(B * (C16 + 2), dtype=torch.int32, device=dev)
+    return WalkCodes(buf[:B * C16].view(B, C16), buf[B * C16:B * (C16 + 1)],
+                     buf[B * (C16 + 1):])
+
+
+def check_walk_ptrs(ptrs: torch.Tensor) -> None:
+    """The walks stage pointer rows with 16-byte copies from the tensor's
+    start."""
+    if ptrs.data_ptr() % 16:
+        raise ValueError("ptrs: the walk needs a 16-byte aligned tensor")
 
 
 @cuda.launcher
 def traceback_walk(ptrs: torch.Tensor, p_len: torch.Tensor,
-                   q_len: torch.Tensor, T: int):
+                   q_len: torch.Tensor, T: int, *,
+                   geometry: int = -1) -> WalkCodes:
     """Affine traceback of every window over its full pointer tensor.
 
     ptrs: uint8[B, M, N+1] (pointer row i-1 holds DP row i); p_len,
-    q_len: int32[B].  Returns bool (steps, a_gaps, b_gaps), each [T, B]:
-    step t of window b emitted a column (steps) with a gap in p (a_gaps)
-    or in q (b_gaps).  CPU tensors take the plain version; CUDA tensors
-    launch K4."""
+    q_len: int32[B]; T bounds the steps.  Returns the windows' column
+    codes (WalkCodes; tb_unpack decodes them).  CPU tensors take the
+    plain version; CUDA tensors launch K4, in the launcher's geometry or
+    in table entry `geometry` (walk_geometry) where that is >= 0."""
     if ptrs.device.type == "cpu":
         return traceback_walk_plain(ptrs, p_len, q_len, T)
     dev = ptrs.device
@@ -156,33 +222,39 @@ def traceback_walk(ptrs: torch.Tensor, p_len: torch.Tensor,
     cuda.require(ptrs, "ptrs", torch.uint8, dev, (B, M, N1))
     cuda.require(p_len, "p_len", torch.int32, dev, (B,))
     cuda.require(q_len, "q_len", torch.int32, dev, (B,))
-    out = torch.zeros((3, T, B), dtype=torch.uint8, device=dev)
-    lib = cuda.library()
-    cuda.check(lib.lm_traceback(
+    check_walk_ptrs(ptrs)
+    C16 = code_words(M, N1 - 1)
+    out = walk_outputs(B, C16, dev)
+    cuda.check(cuda.library().lm_traceback(
         ptrs.data_ptr(), p_len.data_ptr(), q_len.data_ptr(), B, M, N1 - 1,
-        T, out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-        cuda.stream(ptrs)), "lm_traceback")
+        T, C16, out.words.data_ptr(), out.counts.data_ptr(),
+        out.steps.data_ptr(), geometry, cuda.stream(ptrs)), "lm_traceback")
     traceback_walk.launches += 1
-    out = out.to(torch.bool)
-    return out[0], out[1], out[2]
+    return out
 
 
 traceback_walk.launches = 0
 
+_CODE_SHIFTS = np.array([0, 2, 4, 6], dtype=np.uint8)
 
-def tb_unpack(masks, n_pairs: int):
-    """Host tail of the walk: compact each window's step masks to its
-    (a_gaps, b_gaps) bool arrays in column order (the contract of the
-    JAX package's tb_unpack / traceback_blocks).  `n_pairs` is a count
-    of leading windows or a list of window indices."""
-    steps, agaps, bgaps = (m.cpu().numpy() for m in masks)
-    out = []
-    ks = range(n_pairs) if isinstance(n_pairs, int) else n_pairs
-    for k in ks:
-        sel = steps[:, k]
-        out.append((agaps[sel, k][::-1].copy(),
-                    bgaps[sel, k][::-1].copy()))
-    return out
+
+def tb_unpack(walk: WalkCodes, n_pairs):
+    """Host tail of the walk: each window's (a_gaps, b_gaps) bool arrays
+    in column order (the contract of the JAX package's tb_unpack /
+    traceback_blocks), decoded from its contiguous code row.
+    `n_pairs` is a count of leading windows or a list of window
+    indices."""
+    ks = list(range(n_pairs)) if isinstance(n_pairs, int) else list(n_pairs)
+    if not ks:
+        return []
+    words = walk.words.cpu().numpy()
+    counts = walk.counts.cpu().numpy()
+    sel = np.ascontiguousarray(words[ks]).view(np.uint8)
+    codes = ((sel[:, :, None] >> _CODE_SHIFTS) & 3).reshape(len(ks), -1)
+    a_all, b_all = codes == 1, codes == 2
+    C = codes.shape[1]
+    return [(a_all[r, C - n:].copy(), b_all[r, C - n:].copy())
+            for r, n in enumerate(counts[ks].tolist())]
 
 
 # --------------------------------------------------------------------------
@@ -560,7 +632,7 @@ def align_pairs(pairs: list[tuple[np.ndarray, np.ndarray]],
         blj = torch.from_numpy(b_len).to(dev)
         if device_walk:
             # the full pointer tensor fits: derive it from the first row
-            # and walk it on the device (the fetch is the gap masks)
+            # and walk it on the device (the fetch is the column codes)
             ptrs = gotoh_block_ptrs(None, None, aj, bj, gap_open,
                                     gap_extend)
             tb = tb_unpack(traceback_walk(ptrs, alj, blj,

@@ -45,10 +45,12 @@ import torch
 from libmems_tpu_torch import cuda
 from libmems_tpu_torch.ops.gapped import (CKPT_ROWS, E_EXT_BIT, F_EXT_BIT,
                                           GAP_EXTEND, GAP_OPEN, H_DIAG, H_E,
-                                          H_F, HOXD70, _device_tb_T,
-                                          pack_ptrs_plain, tb_unpack,
-                                          traceback_blocks, traceback_walk,
-                                          unpack_ptrs, walk_plain)
+                                          H_F, HOXD70, WalkCodes,
+                                          _device_tb_T, check_walk_ptrs,
+                                          code_words, pack_ptrs_plain,
+                                          tb_unpack, traceback_blocks,
+                                          traceback_walk, unpack_ptrs,
+                                          walk_outputs, walk_plain)
 
 GAP_CODE = 4
 
@@ -720,10 +722,10 @@ banded_forward_ptrs.launches = 0
 
 
 def banded_traceback_walk_plain(ptrs, p_len, q_len, N: int, H_W: int,
-                                T: int):
+                                T: int) -> WalkCodes:
     """Plain PyTorch version of K12: the walk of ops/profile.py:445-477,
     reading byte (i-1)*(WB+1) + clip(j - lo(i), 0, WB)."""
-    W1 = ptrs.shape[2]
+    Mp, W1 = ptrs.shape[1:]
     WB = W1 - 1
     lo_cap = max(N - WB, 0)
     plc = p_len.to(torch.int64).clamp(min=1)
@@ -734,16 +736,18 @@ def banded_traceback_walk_plain(ptrs, p_len, q_len, N: int, H_W: int,
         lo = ((bi * BAND_K * ql) // plc - (H_W + 1)).clamp(0, lo_cap)
         return (i - 1) * W1 + (j - lo).clamp(0, WB)
 
-    return walk_plain(ptrs, p_len, q_len, T, addr)
+    return walk_plain(ptrs, p_len, q_len, T, addr, code_words(Mp, N))
 
 
 @cuda.launcher
-def banded_traceback_walk(ptrs, p_len, q_len, N: int, H_W: int, T: int):
+def banded_traceback_walk(ptrs, p_len, q_len, N: int, H_W: int, T: int, *,
+                          geometry: int = -1) -> WalkCodes:
     """Affine traceback of every window over its banded pointers
-    uint8[B, Mp, WB+1] (N: the bucket's columns).  Returns bool (steps,
-    a_gaps, b_gaps), each [T, B], in K4's layout, so tb_unpack serves
-    both walks.  CPU tensors take the plain version; CUDA tensors launch
-    K12."""
+    uint8[B, Mp, WB+1] (N: the bucket's columns).  Returns the windows'
+    column codes in K4's form (WalkCodes), so tb_unpack serves both
+    walks.  CPU tensors take the plain version; CUDA tensors launch K12,
+    in the launcher's geometry or in table entry `geometry`
+    (gapped.walk_geometry) where that is >= 0."""
     if ptrs.device.type == "cpu":
         return banded_traceback_walk_plain(ptrs, p_len, q_len, N, H_W, T)
     dev = ptrs.device
@@ -754,14 +758,15 @@ def banded_traceback_walk(ptrs, p_len, q_len, N: int, H_W: int, T: int):
     cuda.require(ptrs, "ptrs", torch.uint8, dev, (B, Mp, W1))
     cuda.require(p_len, "p_len", torch.int32, dev, (B,))
     cuda.require(q_len, "q_len", torch.int32, dev, (B,))
-    out = torch.zeros((3, T, B), dtype=torch.uint8, device=dev)
+    check_walk_ptrs(ptrs)
+    C16 = code_words(Mp, N)
+    out = walk_outputs(B, C16, dev)
     cuda.check(cuda.library().lm_banded_walk(
         ptrs.data_ptr(), p_len.data_ptr(), q_len.data_ptr(), B, Mp, N, H_W,
-        T, out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-        cuda.stream(ptrs)), "lm_banded_walk")
+        T, C16, out.words.data_ptr(), out.counts.data_ptr(),
+        out.steps.data_ptr(), geometry, cuda.stream(ptrs)), "lm_banded_walk")
     banded_traceback_walk.launches += 1
-    out = out.to(torch.bool)
-    return out[0], out[1], out[2]
+    return out
 
 
 banded_traceback_walk.launches = 0
@@ -1057,13 +1062,13 @@ def _align_launch(p_rows, q_rows, sub: list[int], Mp: int, N: int, dev,
     if elig.any():
         H_W = _band_half(N)
         ptrs, _, cert = banded_forward_ptrs(*t, gap_open, gap_extend, H_W)
-        masks = banded_traceback_walk(ptrs, t[2], t[3], N, H_W, T)
+        walk = banded_traceback_walk(ptrs, t[2], t[3], N, H_W, T)
         del ptrs
         yield
         okm = elig & cert.cpu().numpy()
         _band_note(elig, okm, len(sub))
         rs = np.flatnonzero(okm).tolist()
-        for r, (p_gaps, q_gaps) in zip(rs, tb_unpack(masks, rs)):
+        for r, (p_gaps, q_gaps) in zip(rs, tb_unpack(walk, rs)):
             k = sub[r]
             results[k] = merge_rows(p_rows[k], q_rows[k], p_gaps, q_gaps)
         todo = [k for r, k in enumerate(sub) if not okm[r]]
@@ -1074,10 +1079,10 @@ def _align_launch(p_rows, q_rows, sub: list[int], Mp: int, N: int, dev,
             tb = ckpt_tracebacks(*t, gap_open, gap_extend)
         else:
             ptrs, _ = profile_forward(*t, gap_open, gap_extend)
-            masks = traceback_walk(ptrs, t[2], t[3], T)
+            walk = traceback_walk(ptrs, t[2], t[3], T)
             del ptrs
             yield
-            tb = tb_unpack(masks, len(chunk))
+            tb = tb_unpack(walk, len(chunk))
         for k, (p_gaps, q_gaps) in zip(chunk, tb):
             results[k] = merge_rows(p_rows[k], q_rows[k], p_gaps, q_gaps)
 

@@ -34,6 +34,7 @@ import os
 import numpy as np
 import torch
 
+from libmems_tpu_torch import cuda
 from libmems_tpu_torch import seeds as seedlib
 from libmems_tpu_torch.parallel.shard import (Mesh, make_mesh, process_count,
                                               process_index)
@@ -80,13 +81,13 @@ def global_mesh(shards_per_process: int | None = None,
     on its CPU with gloo (the tests' layout); any process may also take
     several shards of its card.  In one process: every visible card
     (make_mesh), or `shards_per_process` shards of `device` where it is
-    the CPU (one by default)."""
+    the CPU (one by default).  `device` defaults to the card: without a
+    usable GPU it raises (cuda.resolve_device); the CPU mesh is asked for
+    with device="cpu"."""
     n_proc = process_count()
     k = shards_per_process or 1
     if n_proc == 1:
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        dev = torch.device(device)
+        dev = cuda.resolve_device("cuda" if device is None else device)
         if dev.type == "cuda" and shards_per_process is None:
             return make_mesh()
         return Mesh([dev] * k)

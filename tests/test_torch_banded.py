@@ -126,8 +126,8 @@ def test_banded_walk_masks_equal_jax():
     ptrs, _, cert = profile.banded_forward_ptrs(*t, GO, GE, H_W)
     assert ptrs.shape == (len(pl), p.shape[1], profile.band_width(H_W) + 1)
     np.testing.assert_array_equal(cert.numpy(), np.asarray(ref_c))
-    masks = profile.banded_traceback_walk(ptrs, t[2], t[3], N, H_W, T)
-    for (ra, rb), (ga, gb) in zip(ref_tb, gapped.tb_unpack(masks, len(pl))):
+    walk = profile.banded_traceback_walk(ptrs, t[2], t[3], N, H_W, T)
+    for (ra, rb), (ga, gb) in zip(ref_tb, gapped.tb_unpack(walk, len(pl))):
         np.testing.assert_array_equal(ga, ra)
         np.testing.assert_array_equal(gb, rb)
 

@@ -103,9 +103,9 @@ def test_profile_and_traceback_kernels_equal_plain(dev, monkeypatch, M, N,
     assert torch.equal(got_p.cpu(), ref_p)
     assert torch.equal(got_s.cpu(), ref_s)
     T = gapped._device_tb_T(M, N)
-    ref_m = gapped.traceback_walk_plain(ref_p, cpu[2], cpu[3], T)
-    got_m = gapped.traceback_walk(got_p, cpu[2].to(dev), cpu[3].to(dev), T)
-    for g, r in zip(got_m, ref_m):
+    ref_w = gapped.traceback_walk_plain(ref_p, cpu[2], cpu[3], T)
+    got_w = gapped.traceback_walk(got_p, cpu[2].to(dev), cpu[3].to(dev), T)
+    for g, r in zip(got_w, ref_w):    # codes, counts, steps
         assert torch.equal(g.cpu(), r)
 
 
@@ -176,7 +176,7 @@ def test_score_forward_kernel_equals_plain(dev, monkeypatch, N, smem):
 @pytest.mark.parametrize("M,N", [(1024, 1024), (1536, 2304)])
 def test_banded_kernels_equal_plain(dev, M, N):
     """K10, K11 and K12 against their plain versions: scores bit for bit,
-    certificates, pointer bytes and walk masks equal."""
+    certificates, pointer bytes and the walk's column codes equal."""
     cpu = _band_batch(np.random.default_rng(M + N), 7, M, N)
     cuda_t = [x.to(dev) for x in cpu]
     H_W = profile._band_half(N)
@@ -195,11 +195,11 @@ def test_banded_kernels_equal_plain(dev, M, N):
     assert torch.equal(got_s2.cpu(), ref_s) and torch.equal(got_c2.cpu(),
                                                             ref_c)
     T = gapped._device_tb_T(M, N)
-    ref_m = profile.banded_traceback_walk_plain(ref_p, cpu[2], cpu[3], N,
+    ref_w = profile.banded_traceback_walk_plain(ref_p, cpu[2], cpu[3], N,
                                                 H_W, T)
-    got_m = profile.banded_traceback_walk(got_p, cuda_t[2], cuda_t[3], N,
+    got_w = profile.banded_traceback_walk(got_p, cuda_t[2], cuda_t[3], N,
                                           H_W, T)
-    for g, r in zip(got_m, ref_m):
+    for g, r in zip(got_w, ref_w):    # codes, counts, steps
         assert torch.equal(g.cpu(), r)
 
 
@@ -256,7 +256,8 @@ def _banded_vs_plain(t, H_W, geometry=-1):
     """K10, K11 and K12 on the card against their plain versions on the
     same CUDA tensors: scores, certificates, the certificate's gap bound
     (K10's selection of the largest gap costs against the full sort),
-    every pointer byte and the walk masks equal.  Returns the plain
+    every pointer byte and the walks' column codes equal.  Returns the
+    plain
     certificates."""
     go, ge = profile.GAP_OPEN, profile.GAP_EXTEND
     kw = dict(geometry=geometry)
@@ -275,9 +276,9 @@ def _banded_vs_plain(t, H_W, geometry=-1):
     assert torch.equal(ref_s2, ref_s) and torch.equal(ref_c2, ref_c)
     Mp, N = t[0].shape[1], t[1].shape[1]
     T = gapped._device_tb_T(Mp, N)
-    ref_m = profile.banded_traceback_walk_plain(ref_p, t[2], t[3], N, H_W, T)
-    got_m = profile.banded_traceback_walk(got_p, t[2], t[3], N, H_W, T)
-    for g, r in zip(got_m, ref_m):
+    ref_w = profile.banded_traceback_walk_plain(ref_p, t[2], t[3], N, H_W, T)
+    got_w = profile.banded_traceback_walk(got_p, t[2], t[3], N, H_W, T)
+    for g, r in zip(got_w, ref_w):    # codes, counts, steps
         assert torch.equal(g, r)
     return ref_c
 
@@ -327,6 +328,128 @@ def test_banded_every_geometry_equals_plain(dev, M, N):
             fits += 1
         g += 1
     assert fits >= 4
+
+
+E_RUN = gapped.H_E | gapped.E_EXT_BIT    # enter E and stay
+F_RUN = gapped.H_F | gapped.F_EXT_BIT    # enter F and stay
+
+
+def _walk_vs_plain(kind, ptrs, pl, ql, N, H_W=None, geometries=(-1,)):
+    """K4 (kind "full") or K12 ("banded") on the card against its plain
+    version on the same CUDA tensors, exactly (codes, counts, steps), in
+    each geometry of `geometries` (-1: the launcher's pick) that fits.
+    Returns the geometries run, as walk_geometry describes them."""
+    B, M = ptrs.shape[:2]
+    T = gapped._device_tb_T(M, N)
+    if kind == "full":
+        ref = gapped.traceback_walk_plain(ptrs, pl, ql, T)
+
+        def run(g):
+            return gapped.traceback_walk(ptrs, pl, ql, T, geometry=g)
+    else:
+        ref = profile.banded_traceback_walk_plain(ptrs, pl, ql, N, H_W, T)
+
+        def run(g):
+            return profile.banded_traceback_walk(ptrs, pl, ql, N, H_W, T,
+                                                 geometry=g)
+    ran = []
+    for g in geometries:
+        geo = gapped.walk_geometry(kind, B, M, N if kind == "full" else H_W,
+                                   g)
+        if not geo["warps"]:
+            continue
+        got = run(g)
+        assert all(torch.equal(x, y) for x, y in zip(got, ref)), (kind, geo)
+        ran.append(geo)
+    return ran
+
+
+def _run_ptrs(dev, B, M, N1, seed, diag=85):
+    """Pointer bytes made on the card: 0 (diagonal) with probability
+    diag %, else a random byte whose state bits are 0-2."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shape = (B, M, N1)
+    r = torch.randint(0, 16, shape, generator=gen, device=dev,
+                      dtype=torch.uint8)
+    r = torch.where(r % 4 == 3, r - 3, r)
+    keep = torch.randint(0, 100, shape, generator=gen, device=dev,
+                         dtype=torch.uint8) < diag
+    return torch.where(keep, 0, r)
+
+
+@pytest.mark.parametrize("kind", ["full", "banded"])
+def test_walk_kernels_every_geometry_equal_plain(dev, kind):
+    """K4 and K12 in each geometry of csrc/walk.cuh's table, forced, and
+    in the launcher's pick, on the pointers of K3 (K11) over random and
+    edge windows of the 1024 bucket, with one window's pointers all E
+    and one's all F."""
+    rng = np.random.default_rng(1025)
+    n = rng.integers(400, 985, 8)
+    shapes = [(int(a), int(a + 9), 0) for a in n] + EDGE_SHAPES
+    t = [x.to(dev) for x in _band_windows(rng, 1024, 1024, shapes)]
+    if kind == "full":
+        ptrs, _ = profile.profile_forward(*t)
+        H_W = None
+    else:
+        H_W = profile._band_half(1024)
+        ptrs, _, _ = profile.banded_forward_ptrs(
+            *t, profile.GAP_OPEN, profile.GAP_EXTEND, H_W)
+    ptrs[0] = E_RUN
+    ptrs[1] = F_RUN
+    ran = _walk_vs_plain(kind, ptrs, t[2], t[3], 1024, H_W,
+                         (-1,) + tuple(range(5)))
+    assert len(ran) == 6, ran   # every geometry fits these rows
+    assert ran[-1]["cols"] == 512 and ran[1]["rows"] == 32
+
+
+def test_walk_kernels_straight_runs_equal_plain(dev):
+    """A walk straight up through many slabs (all F, 4,096 rows) and one
+    along a row (all E, 8,192 columns: K4 takes the slab route), in every
+    geometry that fits."""
+    pl = torch.tensor([4096, 4000], dtype=torch.int32, device=dev)
+    ql = torch.tensor([60, 64], dtype=torch.int32, device=dev)
+    ptrs = torch.full((2, 4096, 65), F_RUN, dtype=torch.uint8, device=dev)
+    assert len(_walk_vs_plain("full", ptrs, pl, ql, 64,
+                              geometries=(-1,) + tuple(range(5)))) == 6
+    H_W = profile._band_half(1024)
+    bp = torch.full((2, 4096, profile.band_width(H_W) + 1), F_RUN,
+                    dtype=torch.uint8, device=dev)
+    ql = torch.tensor([1000, 1024], dtype=torch.int32, device=dev)
+    assert len(_walk_vs_plain("banded", bp, pl, ql, 1024, H_W,
+                              (-1,) + tuple(range(5)))) == 6
+    pl = torch.tensor([64], dtype=torch.int32, device=dev)
+    ql = torch.tensor([8192], dtype=torch.int32, device=dev)
+    ptrs = torch.full((1, 64, 8193), E_RUN, dtype=torch.uint8, device=dev)
+    ran = _walk_vs_plain("full", ptrs, pl, ql, 8192,
+                         geometries=(-1,) + tuple(range(5)))
+    assert ran[0]["cols"] == 512 and len(ran) >= 3
+
+
+def test_full_walk_many_and_wide_windows_equal_plain(dev):
+    """K4 at the refine gate's launch shape (2,112 windows in the 1024
+    bucket), at the wide one (three windows of 10,112 rows in the 11,664
+    bucket, the longest 10,000 x 9,980) and on windows wide enough for
+    the column-slab route (24,576 columns), on pointer bytes made on the
+    card, in the launcher's geometry and a forced whole-row one."""
+    rng = np.random.default_rng(2112)
+    pl = torch.from_numpy(rng.integers(400, 1025, 2112).astype(np.int32))
+    ql = (pl + torch.from_numpy(rng.integers(-20, 21, 2112).astype(
+        np.int32))).clamp(0, 1024)
+    ptrs = _run_ptrs(dev, 2112, 1024, 1025, 1)
+    ran = _walk_vs_plain("full", ptrs, pl.to(dev), ql.to(dev), 1024)
+    assert ran[0]["cols"] == 0 and ran[0]["warps"] == 16
+    del ptrs
+    pl = torch.tensor([10_000, 6_000, 120], dtype=torch.int32, device=dev)
+    ql = torch.tensor([9_980, 6_300, 170], dtype=torch.int32, device=dev)
+    ptrs = _run_ptrs(dev, 3, 10_112, 11_665, 2, diag=95)
+    ran = _walk_vs_plain("full", ptrs, pl, ql, 11_664, geometries=(-1, 3))
+    assert ran[0]["cols"] == 512 and ran[1]["cols"] == 0
+    del ptrs
+    pl = torch.tensor([256, 200], dtype=torch.int32, device=dev)
+    ql = torch.tensor([24_000, 24_576], dtype=torch.int32, device=dev)
+    ptrs = _run_ptrs(dev, 2, 256, 24_577, 3, diag=40)
+    ran = _walk_vs_plain("full", ptrs, pl, ql, 24_576)
+    assert ran[0]["cols"] == 512
 
 
 def test_refine_on_cuda_equals_cpu(dev):

@@ -126,9 +126,9 @@ def test_pointer_tensor_and_walk_equal_jax(M, N):
     packed = jgapped._device_tb_scan(jnp.asarray(got), jnp.asarray(pl),
                                      jnp.asarray(ql), T)
     ref_tb = jgapped.tb_unpack(packed, len(pl), T)
-    masks = gapped.traceback_walk(ptrs, torch.from_numpy(pl),
+    walk = gapped.traceback_walk(ptrs, torch.from_numpy(pl),
                                   torch.from_numpy(ql), T)
-    for (ra, rb), (ga, gb) in zip(ref_tb, gapped.tb_unpack(masks, len(pl))):
+    for (ra, rb), (ga, gb) in zip(ref_tb, gapped.tb_unpack(walk, len(pl))):
         np.testing.assert_array_equal(ga, ra)
         np.testing.assert_array_equal(gb, rb)
 
@@ -165,9 +165,9 @@ def test_fractional_pointers_scores_and_walk_equal_jax(n_p, n_q, seed):
         np.testing.assert_array_equal(got[r, :pl[r], :ql[r] + 1],
                                       ref_ptrs[r, :pl[r], :ql[r] + 1])
     np.testing.assert_array_equal(score.numpy(), np.asarray(ref_score))
-    masks = gapped.traceback_walk_plain(ptrs, torch.from_numpy(pl),
+    walk = gapped.traceback_walk_plain(ptrs, torch.from_numpy(pl),
                                         torch.from_numpy(ql), T)
-    for (ra, rb), (ga, gb) in zip(ref_tb, gapped.tb_unpack(masks, B)):
+    for (ra, rb), (ga, gb) in zip(ref_tb, gapped.tb_unpack(walk, B)):
         np.testing.assert_array_equal(ga, ra)
         np.testing.assert_array_equal(gb, rb)
 
