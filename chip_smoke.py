@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py [phase ...]
 
-With no argument every phase runs; naming phases (kernels, goldens, main,
-trio, progressive, large, profile_dp, decode, bounded, mesh, tiled,
-multihost, cards) runs only those, plus the progressive run whose
+With no argument every phase runs; naming phases (kernels, seeder,
+goldens, main, trio, progressive, large, profile_dp, decode, bounded,
+mesh, tiled, multihost, cards) runs only those, plus the progressive run whose
 recorded inputs profile_dp and decode read (and the main, trio and
 progressive runs whose outputs mesh and cards are held to, the main run
 for tiled and multihost).  Needs one NVIDIA Hopper GPU (compute capability 9.0) and the CUDA
@@ -15,16 +15,22 @@ non-zero and prints no result line):
 
 1. device  - CUDA present, capability (9, 0); card name and power limit;
 2. build   - compile the kernel library, report its build seconds;
-3. kernels - each hand kernel against its plain PyTorch version on the
-             card at its path's shapes (K1-K4, K18 and K19 the pair's,
-             K5-K7 the 9 x 1 Mbp seeder's, K13-K15 and K2 the first
-             trio's, K16 and K17 one 8.7 Mbp genome's; exact equality),
-             with timings (K18's two passes timed without the library
-             sort between them, which is timed apart; K4's walk bytes to
-             the host and tb_unpack's seconds printed); K1, K2, K18 and
-             K19 once more at the 8.7 Mbp
-             family's weight-17 seed, K16 and K17 once more on a 1 Mbp
-             genome beside the host twin's seconds;
+3. kernels - each hand kernel but K5-K7 against its plain PyTorch
+             version on the card at its path's shapes (K1-K4, K18 and
+             K19 the pair's, K13-K15 and K2 the first trio's, K16 and
+             K17 one 8.7 Mbp genome's; exact equality), with timings
+             (K18's two passes timed without the library sort between
+             them, which is timed apart; K4's walk bytes to the host and
+             tb_unpack's seconds printed); K1, K2, K18 and K19 once more
+             at the 8.7 Mbp family's weight-17 seed, K16 and K17 once
+             more on a 1 Mbp genome beside the host twin's seconds;
+3b. seeder - K5-K7 against their plain versions on the 9 x 1 Mbp
+             seeder's table, then K6 and K7 once more on the 3 x 8.7 Mbp
+             family's (26 M rows, tens of thousands of tiles); exact
+             equality, with timings: K7 as the path runs it (its scan,
+             the read of n_reps and the decode at the final capacity)
+             and at the initial capacity, the sort of K6's words apart,
+             and each pass of K6 and K7 alone;
 4. goldens - the port on the GPU reproduces tests/golden/pair.mums,
              three.mums, pair.xmfa and nine.{xmfa,bbseq,bbcols} byte for
              byte; find_mums on the nine-genome family (G = 9) and that
@@ -48,7 +54,9 @@ non-zero and prints no result line):
              equal the same call on CPU tensors, intervals partition
              every genome, backbone segments lie inside their intervals,
              stage seconds (refine/* among them) and banding outcomes
-             printed;
+             printed; K7's decode launched once for each scan, and
+             find_pairwise_mums of the first family launching K6, K7's
+             scan and its decode once each;
 6b. large  - the same path on one 3 x 8.7 Mbp family (weight-17 seed,
              26.1 M seed windows, every genome above the host twin's
              8 M-window limit): K16 and K17 launched three times each,
@@ -288,9 +296,9 @@ MESH_KERNELS = ("route_fill", "shard_candidates", "dedup_flags")
 # NCCL rank a card), their time caps; the cards phase's ranks' cap
 TILED_CAP_S, MULTIHOST_CAP_S, CARDS_RANKS_CAP_S = 90.0, 90.0, 300.0
 TILED_KERNELS = ("tiled_requests", "tiled_serve", "tiled_probe")
-PHASES = ("kernels", "goldens", "main", "trio", "progressive", "large",
-          "profile_dp", "decode", "bounded", "mesh", "tiled", "multihost",
-          "cards")
+PHASES = ("kernels", "seeder", "goldens", "main", "trio", "progressive",
+          "large", "profile_dp", "decode", "bounded", "mesh", "tiled",
+          "multihost", "cards")
 
 
 class SmokeFailure(RuntimeError):
@@ -995,26 +1003,20 @@ def phase_kernels(torch, lt, dev):
     return res
 
 
-def phase_pairwise_kernels(torch, lt, dev):
+def phase_pairwise_kernels(torch, lt, dev, large=None):
     """K5-K7 against their plain versions on the card, on the seed table
-    of the 9 x 1 Mbp family (rng 0); exact equality.  Returns {name:
-    entry}."""
-    from libmems_tpu_torch.matchfind import _pair_pos_bits
+    of the 9 x 1 Mbp family (rng 0); exact equality.  K7 is timed as the
+    path runs it, at the capacity the path ends with (its scan, the read
+    of n_reps and the decode), and at the initial capacity; the sort of
+    the cluster words between K6 and K7 is timed apart.  With `large`
+    (the 3 x 8.7 Mbp genomes), K6 and K7 once more on their seed table.
+    Returns {name: entry}."""
     from libmems_tpu_torch.ops import pairwise
-    from libmems_tpu_torch.ops.mers import sentinel_content
-    from libmems_tpu_torch.sml import create_smls
 
     res = {}
-    smls, seed = create_smls(family_nine(lt, 0), device=dev)
-    G = len(smls)
-    cnts = [s.n_windows for s in smls]
-    keys = torch.cat([s.keys for s in smls])
-    seg_off = torch.from_numpy(np.concatenate([[0], np.cumsum(cnts)])
-                               ).to(dev)
-    c_sorted, src = torch.sort(pairwise.shr(keys, 1), stable=True)
-    args = (c_sorted, src, keys, seg_off, 1000, sentinel_content(seed))
-    got = pairwise.run_flags(*args)
-    ref = pairwise.run_flags_plain(*args)
+    t = seeder_table(torch, lt, dev, family_nine(lt, 0))
+    args = t["flag_args"]
+    got, ref = t["flags"], pairwise.run_flags_plain(*args)
     require(all(torch.equal(g, r) for g, r in zip(got, ref)),
             "K5 differs from its plain version")
     res["run_flags"] = entry(
@@ -1023,51 +1025,157 @@ def phase_pairwise_kernels(torch, lt, dev):
         timed_ms(lambda: pairwise.run_flags_plain(*args), 3, torch,
                  warmup=False),
         # ~10 integer operations a row: neighbour compares, run bounds
-        work(nbytes(args, got), 10 * keys.numel()))
-    kept = int(got.unique_occ.sum())
-    log(f"# K5 run flags: rows={keys.numel()} kept={kept} equal")
-
-    pb = _pair_pos_bits(max(cnts))
-    got_w = pairwise.cluster_words(got, G, pb)
-    ref_w = pairwise.cluster_words_plain(ref, G, pb)
-    require(torch.equal(got_w, ref_w), "K6 differs from its plain version")
+        work(nbytes(args, got), 10 * t["rows"]))
+    log(f"# K5 run flags: rows={t['rows']} kept="
+        f"{int(got.unique_occ.sum())} equal")
+    k6, k7, cw = seeder_k6_k7(torch, t, ref)
     res["cluster_words"] = entry(
-        max_abs_err([(got_w, ref_w)]),
-        timed_ms(lambda: pairwise.cluster_words(got, G, pb), 10, torch),
-        timed_ms(lambda: pairwise.cluster_words_plain(ref, G, pb), 3, torch,
-                 warmup=False),
-        work(nbytes(got, got_w), 5 * got_w.numel()))
-    log(f"# K6 cluster words: {got_w.numel()} words equal")
-
-    cw = pairwise.usort(got_w)
-    total = keys.numel()
-    ec = min(1 << 14, 1 << (max(total, 2) - 1).bit_length())
-    off = seg_off[:-1].to(torch.int32)
-    cnt = torch.tensor(cnts, dtype=torch.int32, device=dev)
-    seed_len = smls[0].seed_length
-    rargs = (cw, ec, G, pb, seed_len, off, cnt)
-    got_r = pairwise.cluster_reps(*rargs)
-    if got_r.n_reps > ec:       # the main path's capacity retry
-        ec = 1 << (got_r.n_reps - 1).bit_length()
-        rargs = (cw, ec, G, pb, seed_len, off, cnt)
-        got_r = pairwise.cluster_reps(*rargs)
-    ref_r = pairwise.cluster_reps_plain(*rargs)
-    require(got_r.n_reps == ref_r.n_reps
-            and all(torch.equal(g, r) for g, r in zip(got_r[:-1],
-                                                      ref_r[:-1])),
-            "K7 differs from its plain version")
+        k6["err"], k6["ms"], k6["plain_ms"],
+        work(nbytes(got, k6["words"]), 5 * k6["words"].numel()))
+    # K7 needs only the valid words: the -1 words sort last, and a block
+    # whose tile starts at one leaves without reading more
+    out = nbytes(t["gen"], k7["reps"][:-1])
     res["cluster_reps"] = entry(
-        max_abs_err(list(zip(got_r[:-1], ref_r[:-1]))),
-        timed_ms(lambda: pairwise.cluster_reps(*rargs), 10, torch),
-        timed_ms(lambda: pairwise.cluster_reps_plain(*rargs), 3, torch,
-                 warmup=False),
-        work(nbytes(cw, off, cnt, got_r[:-1]), 10 * cw.numel()))
-    log(f"# K7 representatives: {got_r.n_reps} reps in EC={ec} equal")
+        k7["err"], k7["ms"], k7["plain_ms"],
+        work(8 * k7["n_cands"] + out, 10 * k7["n_cands"]))
+    log(f"# K7 bound's bytes: {8 * k7['n_cands'] + out} (the valid words "
+        f"and the decode's outputs); all {cw.numel()} words counted, as "
+        f"before, {nbytes(cw) + out} bytes, "
+        f"{bound(work(nbytes(cw) + out, 10 * cw.numel()))[0]:.4f} ms")
     for name in ("run_flags", "cluster_words", "cluster_reps"):
         e = res[name]
         log(f"# {name}: kernel {e['ms']:.3f} ms, plain {e['plain_ms']:.3f} "
             f"ms, max_abs_err {e['err']}")
+    if large is not None:
+        t = seeder_table(torch, lt, dev, large)
+        seeder_k6_k7(torch, t, pairwise.run_flags_plain(*t["flag_args"]))
     return res
+
+
+def seeder_table(torch, lt, dev, genomes):
+    """The pairwise seeder's table of `genomes` on the card as
+    find_pairwise_mums builds it: K5's arguments and flags, G, pos_bits,
+    the seed length, the genomes' offsets and counts."""
+    from libmems_tpu_torch.matchfind import _pair_pos_bits
+    from libmems_tpu_torch.ops import pairwise
+    from libmems_tpu_torch.ops.mers import sentinel_content
+    from libmems_tpu_torch.sml import create_smls
+    smls, seed = create_smls(genomes, device=dev)
+    cnts = [s.n_windows for s in smls]
+    keys = torch.cat([s.keys for s in smls])
+    seg_off = torch.from_numpy(np.concatenate([[0], np.cumsum(cnts)])
+                               ).to(dev)
+    c_sorted, src = torch.sort(pairwise.shr(keys, 1), stable=True)
+    args = (c_sorted, src, keys, seg_off, 1000, sentinel_content(seed))
+    return {"flag_args": args, "flags": pairwise.run_flags(*args),
+            "G": len(smls), "rows": keys.numel(),
+            "pos_bits": _pair_pos_bits(max(cnts)),
+            "seed_len": smls[0].seed_length,
+            "gen": (seg_off[:-1].to(torch.int32),
+                    torch.tensor(cnts, dtype=torch.int32, device=dev))}
+
+
+def seeder_k6_k7(torch, t, ref_flags):
+    """K6, the word sort and K7 on the table t (seeder_table) against
+    the plain versions (on ref_flags, K5's plain flags); exact, timed.
+    K7 at the capacity the path ends with: the initial one if the
+    representatives fit, else the power of two above their count.
+    Returns (K6's {err, ms, plain_ms, words}, K7's {err, ms, plain_ms,
+    reps, n_cands}, the sorted words)."""
+    from libmems_tpu_torch.ops import pairwise
+    G, pb, seed_len = t["G"], t["pos_bits"], t["seed_len"]
+    flags = t["flags"]
+    got_w = pairwise.cluster_words(flags, G, pb)
+    ref_w = pairwise.cluster_words_plain(ref_flags, G, pb)
+    require(torch.equal(got_w, ref_w),
+            f"K6 differs from its plain version ({t['rows']} rows)")
+    cw = pairwise.usort(got_w)
+    ec0 = min(1 << 14, 1 << (max(t["rows"], 2) - 1).bit_length())
+    got_r = pairwise.cluster_reps(cw, ec0, G, pb, seed_len, *t["gen"])
+    ec = ec0
+    if got_r.n_reps > ec0:
+        ec = 1 << (got_r.n_reps - 1).bit_length()
+        got_r = pairwise.cluster_reps(cw, ec, G, pb, seed_len, *t["gen"])
+    ref_r = pairwise.cluster_reps_plain(cw, ec, G, pb, seed_len, *t["gen"])
+    require(got_r.n_reps == ref_r.n_reps
+            and all(torch.equal(g, r) for g, r in zip(got_r[:-1],
+                                                      ref_r[:-1])),
+            f"K7 differs from its plain version ({cw.numel()} words)")
+    kept = int(flags.unique_occ.sum())
+    n_valid = int((cw != -1).sum())
+    log(f"# K6 cluster words: G={G} rows={t['rows']} kept={kept} "
+        f"words={cw.numel()} ({n_valid} valid) equal; K7: "
+        f"{got_r.n_reps} reps in EC={ec} equal")
+    k6 = {"err": max_abs_err([(got_w, ref_w)]), "words": got_w}
+    k7 = {"err": max_abs_err(list(zip(got_r[:-1], ref_r[:-1]))),
+          "reps": got_r}
+    gen = t["gen"]
+    k6["ms"] = timed_ms(lambda: pairwise.cluster_words(flags, G, pb), 10,
+                        torch)
+    k6["plain_ms"] = timed_ms(
+        lambda: pairwise.cluster_words_plain(ref_flags, G, pb), 3, torch,
+        warmup=False)
+    sort_ms = timed_ms(lambda: pairwise.usort(got_w), 10, torch)
+    k7["ms"] = timed_ms(
+        lambda: pairwise.cluster_reps(cw, ec, G, pb, seed_len, *gen), 10,
+        torch)
+    first_ms = timed_ms(
+        lambda: pairwise.cluster_reps(cw, ec0, G, pb, seed_len, *gen), 10,
+        torch)
+    k7["plain_ms"] = timed_ms(
+        lambda: pairwise.cluster_reps_plain(cw, ec, G, pb, seed_len, *gen),
+        3, torch, warmup=False)
+    log(f"# seeder on {t['rows']} rows: K6 {k6['ms']:.4f} ms; the "
+        f"unsigned sort of its {cw.numel()} words {sort_ms:.4f} ms; K7 "
+        f"at the final EC={ec} {k7['ms']:.4f} ms, at the initial "
+        f"EC={ec0} {first_ms:.4f} ms; plain K6 {k6['plain_ms']:.3f} ms, "
+        f"K7 {k7['plain_ms']:.3f} ms")
+    seeder_passes(torch, t, cw, ec)
+    k7["n_cands"] = n_valid
+    return k6, k7, cw
+
+
+def seeder_passes(torch, t, cw, ec):
+    """K6's and K7's passes each timed alone (CUDA events), through the
+    wrappers' own launch helpers: K6's compaction and its word pass, K7's
+    scan and its decode at EC, each beside the bytes it moves; and one
+    host read of an int64 from the card, the stall each of the two
+    wrappers takes once."""
+    from libmems_tpu_torch.ops import pairwise
+    flags, G, pb, seed_len = t["flags"], t["G"], t["pos_bits"], t["seed_len"]
+    gid_bits = pairwise.gid_bits_for(G)
+    dev = flags.unique_occ.device
+    n, m = flags.unique_occ.shape[0], cw.shape[0]
+    rec = torch.empty(n, dtype=torch.int64, device=dev)
+    scratch6 = pairwise.scan_scratch(n, dev)
+    index = torch.empty(m, dtype=torch.int32, device=dev)
+    scratch7 = pairwise.scan_scratch(m, dev)
+    kept = int(pairwise._compact_kept(flags, pb, gid_bits, rec, scratch6))
+    words = torch.empty(kept * (G - 1), dtype=torch.int64, device=dev)
+    idx = pairwise.rep_index(cw, pb, seed_len)
+    one = torch.zeros(1, dtype=torch.int64, device=dev)
+    ms = {name: timed_ms(fn, 20, torch) for name, fn in (
+        ("compaction", lambda: pairwise._compact_kept(flags, pb, gid_bits,
+                                                      rec, scratch6)),
+        ("words", lambda: pairwise._word_pass(rec, kept, G, pb, gid_bits,
+                                              words)),
+        ("scan", lambda: pairwise._rep_scan(cw, pb, seed_len, index,
+                                            scratch7)),
+        ("decode", lambda: pairwise.decode_reps(cw, idx, ec, G, pb,
+                                                seed_len, *t["gen"])),
+        ("read", lambda: int(one[0])))}
+    n_valid = int(idx.counts[0])
+    log(f"# seeder blocks: K6 {pairwise.scan_tiles(n)} compaction tiles, "
+        f"{-(-kept // 256)} word blocks; K7 {pairwise.scan_tiles(m)} scan "
+        f"tiles, {pairwise.scan_tiles(n_valid)} of them with a valid word")
+    moved = {"compaction": nbytes(flags) + 8 * kept,
+             "words": 8 * kept * G,
+             "scan": 8 * n_valid + 4 * idx.n_reps,
+             "decode": 12 * min(idx.n_reps, ec) + 26 * ec}
+    log("# seeder passes alone: " + "; ".join(
+        f"{k} {v:.4f} ms" + (f" ({moved[k] / v / 1e6:.0f} GB/s of "
+                             f"{moved[k]} bytes)" if k in moved else "")
+        for k, v in ms.items()))
 
 
 def phase_seedocc_kernels(torch, lt, dev, genomes):
@@ -1534,7 +1642,7 @@ def phase_progressive(torch, lt, dev):
                 "traceback_walk": gapped.traceback_walk,
                 "run_flags": pairwise.run_flags,
                 "cluster_words": pairwise.cluster_words,
-                "cluster_reps": pairwise.cluster_reps,
+                "cluster_reps": pairwise.rep_index,
                 "fb_posterior": hmm.fb_posterior,
                 "profile_forward_scores": profile.profile_forward_scores,
                 "banded_forward_scores": profile.banded_forward_scores,
@@ -1552,7 +1660,7 @@ def phase_progressive(torch, lt, dev):
         genomes = family_nine(lt, rng_seed)
         trace.reset()
         profile.BAND_STATS.update(dict.fromkeys(profile.BAND_STATS, 0))
-        for w in wrappers.values():
+        for w in (*wrappers.values(), pairwise.decode_reps):
             w.launches = 0
         with recording(targets if capture else []) as calls:
             torch.cuda.synchronize()
@@ -1579,6 +1687,8 @@ def phase_progressive(torch, lt, dev):
         log(f"# BAND_STATS: {json.dumps(profile.BAND_STATS)}")
         for name, n in launches.items():
             require(n > 0, f"{name}: no launch on the progressive path")
+        require(pairwise.decode_reps.launches == launches["cluster_reps"],
+                "K7: a decode for each scan of the cluster words")
         check_partition(ivs, genomes)
         check_partition(new_ivs, genomes)
         check_segments(new_ivs, segs)
@@ -1588,7 +1698,15 @@ def phase_progressive(torch, lt, dev):
     first_outs = {}
     trace.set_enabled(True, stream=sys.stdout)
     genomes, launches, calls, dt1 = run(0, True)
+    steps = (pairwise.cluster_words, pairwise.rep_index, pairwise.decode_reps)
+    for w in steps:
+        w.launches = 0
     got = lt.find_pairwise_mums(genomes, device=dev)
+    counts = [w.launches for w in steps]
+    log(f"# find_pairwise_mums on the card: K6 {counts[0]}, K7's scan "
+        f"{counts[1]}, K7's decode {counts[2]} launches")
+    require(counts == [1, 1, 1], "find_pairwise_mums: the cluster words "
+            "are not scanned exactly once")
     ref = lt.find_pairwise_mums(genomes, device="cpu")
     require(np.array_equal(got.starts, ref.starts)
             and np.array_equal(got.lengths, ref.lengths),
@@ -1616,7 +1734,7 @@ def phase_large(torch, lt, dev, genomes):
                 "extend_matches": extend.extend_matches,
                 "run_flags": pairwise.run_flags,
                 "cluster_words": pairwise.cluster_words,
-                "cluster_reps": pairwise.cluster_reps,
+                "cluster_reps": pairwise.rep_index,
                 "seed_run_counts": seedocc.seed_run_counts,
                 "seed_smooth": seedocc.seed_smooth,
                 "fb_posterior": hmm.fb_posterior,
@@ -1636,7 +1754,7 @@ def phase_large(torch, lt, dev, genomes):
     trace.reset()
     profile.BAND_STATS.update(dict.fromkeys(profile.BAND_STATS, 0))
     progressive.seed_occurrence_lists = keep_lists
-    for w in wrappers.values():
+    for w in (*wrappers.values(), pairwise.decode_reps):
         w.launches = 0
     try:
         with recording([(islands, "predict_homologous"),
@@ -1664,6 +1782,8 @@ def phase_large(torch, lt, dev, genomes):
     log(f"# BAND_STATS: {json.dumps(profile.BAND_STATS)}")
     for name, n in launches.items():
         require(n > 0, f"{name}: no launch on the large-family path")
+    require(pairwise.decode_reps.launches == launches["cluster_reps"],
+            "K7: a decode for each scan of the cluster words")
     for name in SEEDOCC_KERNELS:
         require(launches[name] == len(genomes),
                 f"{name}: {launches[name]} launches for {len(genomes)} "
@@ -2934,7 +3054,7 @@ def phase_mesh(torch, lt, dev, refs, calls):
                    "route_fill": shard.route_fill,
                    "run_flags": pairwise.run_flags,
                    "cluster_words": pairwise.cluster_words,
-                   "cluster_reps": pairwise.cluster_reps,
+                   "cluster_reps": pairwise.rep_index,
                    "extend_matches": extend.extend_matches}
     seeded = []
     targets = [(psh, "_sharded_find_mums_once"),
@@ -3703,10 +3823,10 @@ def main(argv=None) -> int:
     lap("build")
     res, paths, walls, k2_errs, refs, calls = {}, {}, [], [], {}, {}
     large = None
+    if "kernels" in phases or "seeder" in phases:
+        large = family_large(lt)
     if "kernels" in phases:
         res = phase_kernels(torch, lt, dev)
-        res.update(phase_pairwise_kernels(torch, lt, dev))
-        large = family_large(lt)
         occ_res, err = phase_seedocc_kernels(torch, lt, dev, large)
         res.update(occ_res)
         k2_errs.append(err)
@@ -3715,6 +3835,9 @@ def main(argv=None) -> int:
         k2_errs.append(err)
         sort_rows(torch, lt, dev)
         lap("kernels")
+    if "seeder" in phases:
+        res.update(phase_pairwise_kernels(torch, lt, dev, large))
+        lap("seeder")
     if "goldens" in phases:
         phase_goldens(lt, dev)
         lap("goldens")

@@ -14,7 +14,7 @@
 // depend on the order).
 //
 // K19, representatives, replaces :546-594 on the sorted cluster words: the
-// representative flags (reps.cuh, shared with K7), their compaction to the
+// representative flags (reps.cuh), their compaction to the
 // cumsum rank (the JAX binary search over the ranks picks the same rows in
 // the same order) and per representative the extension row K2 takes: both
 // left ends, the strand of genome 1, and a length seeded with the

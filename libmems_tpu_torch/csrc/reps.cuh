@@ -1,7 +1,8 @@
 // Representative flags and their compaction over sorted cluster words,
-// shared by K7 (pairwise.cu) and K19 (pair.cu).  Both word layouts end in
+// K19's (pair.cu) two passes around a cumsum.  The word layout ends in
 // `head | posA` with posA in the low pos_bits bits and -1 for an invalid
-// word, and both sort the invalid words last.
+// word, and the invalid words sort last.  (K7, pairwise.cu, finds its
+// representatives in one scan, scan.cuh.)
 #pragma once
 
 #include "common.cuh"

@@ -707,7 +707,8 @@ def find_pairwise_mums(genomes_or_smls, seed: int | None = None,
     (find_pairwise_mums -> _fused_pairwise_pipeline -> _pairwise_core):
     stable sort of the concatenated contents (the (content, gid, pos)
     order) -> run flags (K5) -> shifted-compare cluster words (K6) ->
-    unsigned sort -> representatives (K7) -> span-seeded extension (K2).
+    unsigned sort -> representatives (K7: one scan, then the decode at
+    the capacity their count asks for) -> span-seeded extension (K2).
     Genomes are indexed on `device`; SMLs are used where they lie.  The
     JAX package's bucket padding only added sentinel rows to the masked
     run, so the port works on the exact windows.  ``extend=False``, a
@@ -735,14 +736,16 @@ def find_pairwise_mums(genomes_or_smls, seed: int | None = None,
     cw = _usort(ops_pairwise.cluster_words(flags, G, pos_bits))
     del flags
 
+    # K7 finds the representatives in one scan; the capacity is the JAX
+    # loop's last: the initial one if they fit, else the next power of
+    # two above their count
+    idx = ops_pairwise.rep_index(cw, pos_bits, seed_len)
     ec = min(extend_capacity, 1 << (max(total, 2) - 1).bit_length())
-    while True:
-        reps = ops_pairwise.cluster_reps(cw, ec, G, pos_bits, seed_len,
-                                         gen_off, gen_cnt)
-        if reps.n_reps <= ec:
-            break
-        ec = 1 << (reps.n_reps - 1).bit_length()
-    del cw
+    if idx.n_reps > ec:
+        ec = 1 << (idx.n_reps - 1).bit_length()
+    reps = ops_pairwise.decode_reps(cw, idx, ec, G, pos_bits, seed_len,
+                                    gen_off, gen_cnt)
+    del cw, idx
     if reps.n_reps == 0:
         return MatchArray.empty(G)
     # the exact-row dedup of the JAX pipeline is MatchArray.dedup here

@@ -11,8 +11,10 @@ libMems/PairwiseMatchFinder.cpp:37-71):
   (``_unique_occ_flags``; gid and pos replace ``_padded_table_meta``);
 * ``cluster_words`` (K6): the kept rows' G-1 shifted compares as packed
   cluster words ``fwd | pair_id | delta | posA`` (-1 where invalid);
-* ``cluster_reps`` (K7): diagonal-cluster representatives of the sorted
-  words and their compact [EC, 2] extension rows for K2.
+* ``rep_index`` then ``decode_reps`` (K7): the diagonal-cluster
+  representatives of the sorted words, found in one scan, then decoded
+  into compact [EC, 2] extension rows for K2 at a capacity EC chosen from
+  their count; ``cluster_reps`` is the two in one call.
 
 64-bit words are int64 tensors holding unsigned patterns (right shifts
 mask the sign fill, sorts flip bit 63); -1 is the all-ones sentinel.
@@ -131,9 +133,18 @@ def run_flags(content, src, keys, seg_off, repeat_limit: int,
 run_flags.launches = 0
 
 
+# K6's records hold a genome id in 6 bits (the word budget's G <= 62)
+MAX_GENOMES = 62
+
+
+def gid_bits_for(G: int) -> int:
+    """Bits of a genome id in K6's records: ceil(log2(G-1))."""
+    return max(G - 1, 1).bit_length()
+
+
 def pair_bits_for(G: int) -> int:
     """Bits of the pair id field: 2 * ceil(log2(G-1)) as the JAX word."""
-    return 2 * max(G - 1, 1).bit_length()
+    return 2 * gid_bits_for(G)
 
 
 def cluster_words_plain(flags: RunFlags, G: int, pos_bits: int
@@ -165,11 +176,48 @@ def cluster_words_plain(flags: RunFlags, G: int, pos_bits: int
     return torch.cat(out)
 
 
+def scan_scratch(n: int, dev) -> torch.Tensor:
+    """Scratch of a compacting scan over n items (csrc/scan.cuh), unfilled:
+    its launcher zeroes it."""
+    return torch.empty(cuda.library().lm_scan_scratch_words(n),
+                       dtype=torch.int64, device=dev)
+
+
+def scan_tiles(n: int) -> int:
+    """Tiles (blocks) of a compacting scan over n items."""
+    lib = cuda.library()
+    return lib.lm_scan_scratch_words(n) - lib.lm_scan_scratch_words(0)
+
+
+def _compact_kept(flags: RunFlags, pos_bits: int, gid_bits: int, rec,
+                  scratch) -> torch.Tensor:
+    """K6's compaction pass: the kept rows' records into rec's first
+    entries; returns their count (int64 on the card)."""
+    keep = flags.unique_occ
+    cuda.check(cuda.library().lm_compact_kept(
+        keep.data_ptr(), flags.run_id.data_ptr(), flags.gid.data_ptr(),
+        flags.pos.data_ptr(), flags.strand.data_ptr(), keep.shape[0],
+        pos_bits, gid_bits, rec.data_ptr(), scratch.data_ptr(),
+        cuda.stream(keep)), "lm_compact_kept")
+    return scratch[1]
+
+
+def _word_pass(rec, kept: int, G: int, pos_bits: int, gid_bits: int,
+               out) -> None:
+    """K6's word pass: the (G-1) * kept words of rec's first kept
+    records into out."""
+    cuda.check(cuda.library().lm_cluster_words(
+        rec.data_ptr(), kept, G, pos_bits, gid_bits, pair_bits_for(G),
+        out.data_ptr(), cuda.stream(rec)), "lm_cluster_words")
+
+
 @cuda.launcher
 def cluster_words(flags: RunFlags, G: int, pos_bits: int) -> torch.Tensor:
     """Unsorted cluster words int64[(G-1) * kept_count]: the word of
     shift s and kept row k pairs k with kept row k+s of the same run.
-    CPU tensors take the plain version; CUDA tensors launch K6."""
+    CPU tensors take the plain version; CUDA tensors launch K6: the kept
+    rows' records compacted in one pass, one host read of their count,
+    then the words."""
     keep = flags.unique_occ
     if keep.device.type == "cpu":
         return cluster_words_plain(flags, G, pos_bits)
@@ -181,21 +229,19 @@ def cluster_words(flags: RunFlags, G: int, pos_bits: int) -> torch.Tensor:
                         ("pos", flags.pos, torch.int32),
                         ("strand", flags.strand, torch.uint8)):
         cuda.require(t, name, dt, dev, (n,))
-    rank = cumsum32(keep)
-    kept = int(rank[-1]) if n else 0
-    i32 = dict(dtype=torch.int32, device=dev)
-    k_rid = torch.empty(kept, **i32)
-    k_gid = torch.empty(kept, **i32)
-    k_pos = torch.empty(kept, **i32)
-    k_str = torch.empty(kept, dtype=torch.uint8, device=dev)
+    gid_bits = gid_bits_for(G)
+    if G > MAX_GENOMES or pos_bits + gid_bits + 1 > 32:
+        raise ValueError(f"K6 records hold G <= {MAX_GENOMES} genomes and "
+                         f"pos_bits + gid_bits + 1 <= 32 bits (G={G}, "
+                         f"pos_bits={pos_bits})")
+    if n == 0:
+        return torch.zeros(0, dtype=torch.int64, device=dev)
+    rec = torch.empty(n, dtype=torch.int64, device=dev)
+    scratch = scan_scratch(n, dev)
+    # the one host read: the words' count
+    kept = int(_compact_kept(flags, pos_bits, gid_bits, rec, scratch))
     out = torch.empty(kept * (G - 1), dtype=torch.int64, device=dev)
-    lib = cuda.library()
-    cuda.check(lib.lm_cluster_words(
-        keep.data_ptr(), rank.data_ptr(), n, flags.run_id.data_ptr(),
-        flags.gid.data_ptr(), flags.pos.data_ptr(), flags.strand.data_ptr(),
-        k_rid.data_ptr(), k_gid.data_ptr(), k_pos.data_ptr(),
-        k_str.data_ptr(), kept, G, pos_bits, pair_bits_for(G),
-        out.data_ptr(), cuda.stream(keep)), "lm_cluster_words")
+    _word_pass(rec, kept, G, pos_bits, gid_bits, out)
     cluster_words.launches += 1
     return out
 
@@ -215,28 +261,77 @@ class Reps(NamedTuple):
     n_reps: int
 
 
-def cluster_reps_plain(cw, ec: int, G: int, pos_bits: int, seed_len: int,
-                       gen_off, gen_cnt) -> Reps:
-    """Plain PyTorch version of K7 (matchfind.py:1163-1214)."""
+class RepIndex(NamedTuple):
+    index: torch.Tensor      # int32: entries [0, n_reps) the reps' words
+    counts: torch.Tensor     # int64[2]: n_cands (valid words), n_reps
+    n_reps: int
+
+
+def rep_index_plain(cw, pos_bits: int, seed_len: int) -> RepIndex:
+    """Plain PyTorch version of K7's scan (matchfind.py:1163-1178)."""
+    valid = cw != -1
+    s_pos = cw & ((1 << pos_bits) - 1)
+    head = shr(cw, pos_bits)
+    prev_head = torch.cat([torch.full((1,), -1, dtype=cw.dtype,
+                                      device=cw.device), head[:-1]])
+    prev_pos = torch.cat([torch.zeros(1, dtype=cw.dtype, device=cw.device),
+                          s_pos[:-1]])
+    rep = valid & ((head != prev_head) | (s_pos - prev_pos > seed_len))
+    index = torch.nonzero(rep).flatten().to(torch.int32)
+    counts = torch.stack([valid.sum(), rep.sum()]).to(torch.int64)
+    return RepIndex(index, counts, index.shape[0])
+
+
+def _rep_scan(cw, pos_bits: int, seed_len: int, index, scratch
+              ) -> torch.Tensor:
+    """K7's scan: the reps' word indices into index's first entries;
+    returns (n_cands, n_reps) as int64[2] on the card."""
+    cuda.check(cuda.library().lm_rep_index(
+        cw.data_ptr(), cw.shape[0], pos_bits, seed_len, index.data_ptr(),
+        scratch.data_ptr(), cuda.stream(cw)), "lm_rep_index")
+    return scratch[1:3]
+
+
+@cuda.launcher
+def rep_index(cw, pos_bits: int, seed_len: int) -> RepIndex:
+    """The representatives of the sorted cluster words: their word
+    indices in order, the valid-word and rep counts (on cw's device),
+    and n_reps read to the host.
+
+    cw: int64[m] cluster words in unsigned order (-1 last).  CPU tensors
+    take the plain version; CUDA tensors launch K7's scan."""
+    if cw.device.type == "cpu":
+        return rep_index_plain(cw, pos_bits, seed_len)
     dev = cw.device
     m = cw.shape[0]
+    cuda.require(cw, "cw", torch.int64, dev, (m,))
+    if m >= 1 << 31:
+        raise ValueError(f"K7 indexes words with int32: {m} words")
+    if m == 0:
+        return RepIndex(torch.zeros(0, dtype=torch.int32, device=dev),
+                        torch.zeros(2, dtype=torch.int64, device=dev), 0)
+    index = torch.empty(m, dtype=torch.int32, device=dev)
+    scratch = scan_scratch(m, dev)
+    counts = _rep_scan(cw, pos_bits, seed_len, index, scratch)
+    rep_index.launches += 1
+    return RepIndex(index, counts, int(counts[1]))
+
+
+rep_index.launches = 0
+
+
+def decode_reps_plain(cw, idx: RepIndex, ec: int, G: int, pos_bits: int,
+                      seed_len: int, gen_off, gen_cnt) -> Reps:
+    """Plain PyTorch version of K7's decode (matchfind.py:1180-1215):
+    the reps at word indices src, each cluster ending before word nxt,
+    in EC slots."""
+    src = idx.index[:min(idx.n_reps, ec)].to(torch.int64)
+    nxt = torch.cat([src[1:], idx.counts[:1]])[:src.shape[0]]
+    dev = cw.device
+    n_valid = src.shape[0]
     pmask = (1 << pos_bits) - 1
     pair_bits = pair_bits_for(G)
     bias = 1 << pos_bits
-    valid = cw != -1
-    s_pos = cw & pmask
-    head = shr(cw, pos_bits)
-    prev_head = torch.cat([torch.full((1,), -1, dtype=cw.dtype, device=dev),
-                           head[:-1]])
-    prev_pos = torch.cat([torch.zeros(1, dtype=cw.dtype, device=dev),
-                          s_pos[:-1]])
-    rep = valid & ((head != prev_head) | (s_pos - prev_pos > seed_len))
-    n_cands = int(valid.sum())
-    n_reps = int(rep.sum())
-    n_valid = min(n_reps, ec)
-    src = torch.nonzero(rep).flatten()[:n_valid]
-    nxt = torch.cat([src[1:], torch.full((1,), n_cands, dtype=src.dtype,
-                                         device=dev)])[:n_valid]
     w = cw[src]
     r_pos = w & pmask
     r_delta = shr(w, pos_bits) & ((1 << (pos_bits + 2)) - 1)
@@ -270,38 +365,35 @@ def cluster_reps_plain(cw, ec: int, G: int, pos_bits: int, seed_len: int,
     ra[v] = r_a.to(torch.int32)
     rb[v] = r_b.to(torch.int32)
     return Reps(lefts, present, is_fwd, off2, cnt2, lengths0, ra, rb,
-                n_reps)
+                idx.n_reps)
+
+
+def cluster_reps_plain(cw, ec: int, G: int, pos_bits: int, seed_len: int,
+                       gen_off, gen_cnt) -> Reps:
+    """Plain PyTorch version of K7 in one call (matchfind.py:1163-1214)."""
+    return decode_reps_plain(cw, rep_index_plain(cw, pos_bits, seed_len), ec,
+                             G, pos_bits, seed_len, gen_off, gen_cnt)
 
 
 @cuda.launcher
-def cluster_reps(cw, ec: int, G: int, pos_bits: int, seed_len: int,
-                 gen_off, gen_cnt) -> Reps:
-    """Representatives of the sorted cluster words as EC compact
-    extension rows (rows past min(n_reps, EC) are absent).
+def decode_reps(cw, idx: RepIndex, ec: int, G: int, pos_bits: int,
+                seed_len: int, gen_off, gen_cnt) -> Reps:
+    """The first min(n_reps, EC) representatives of rep_index(cw) as EC
+    compact extension rows (rows past it are absent).
 
-    cw: int64[m] cluster words in unsigned order (-1 last); gen_off,
-    gen_cnt: int32[G] genome offsets and window counts in the keys that
-    K2 probes.  CPU tensors take the plain version; CUDA tensors launch
-    K7."""
+    gen_off, gen_cnt: int32[G] genome offsets and window counts in the
+    keys that K2 probes.  CPU tensors take the plain version; CUDA
+    tensors launch K7's decode."""
     if cw.device.type == "cpu":
-        return cluster_reps_plain(cw, ec, G, pos_bits, seed_len, gen_off,
-                                  gen_cnt)
+        return decode_reps_plain(cw, idx, ec, G, pos_bits, seed_len,
+                                 gen_off, gen_cnt)
     dev = cw.device
-    m = cw.shape[0]
-    cuda.require(cw, "cw", torch.int64, dev, (m,))
+    cuda.require(cw, "cw", torch.int64, dev, (cw.shape[0],))
+    cuda.require(idx.index, "index", torch.int32, dev)
+    cuda.require(idx.counts, "counts", torch.int64, dev, (2,))
     cuda.require(gen_off, "gen_off", torch.int32, dev, (G,))
     cuda.require(gen_cnt, "gen_cnt", torch.int32, dev, (G,))
-    lib = cuda.library()
-    stream = cuda.stream(cw)
-    rep = torch.empty(m, dtype=torch.int32, device=dev)
-    n_cands = torch.zeros(1, dtype=torch.int64, device=dev)
-    cuda.check(lib.lm_rep_flags(cw.data_ptr(), m, pos_bits, seed_len,
-                                rep.data_ptr(), n_cands.data_ptr(), stream),
-               "lm_rep_flags")
-    rank = torch.cumsum(rep, 0, dtype=torch.int32)
-    n_reps = int(rank[-1]) if m else 0
     i32 = dict(dtype=torch.int32, device=dev)
-    src = torch.empty(max(ec, 1), dtype=torch.int64, device=dev)
     lefts = torch.empty((ec, 2), **i32)
     present = torch.empty((ec, 2), dtype=torch.bool, device=dev)
     is_fwd = torch.empty((ec, 2), dtype=torch.bool, device=dev)
@@ -310,16 +402,30 @@ def cluster_reps(cw, ec: int, G: int, pos_bits: int, seed_len: int,
     lengths0 = torch.empty(ec, **i32)
     r_a = torch.empty(ec, **i32)
     r_b = torch.empty(ec, **i32)
-    cuda.check(lib.lm_reps(
-        cw.data_ptr(), rep.data_ptr(), rank.data_ptr(), m, ec,
-        min(n_reps, ec), n_cands.data_ptr(), G, pos_bits, pair_bits_for(G),
-        seed_len, gen_off.data_ptr(), gen_cnt.data_ptr(), src.data_ptr(),
-        lefts.data_ptr(), present.data_ptr(), is_fwd.data_ptr(),
-        off2.data_ptr(), cnt2.data_ptr(), lengths0.data_ptr(),
-        r_a.data_ptr(), r_b.data_ptr(), stream), "lm_reps")
-    cluster_reps.launches += 1
+    if ec > 0:
+        cuda.check(cuda.library().lm_reps(
+            cw.data_ptr(), idx.index.data_ptr(), idx.counts.data_ptr(),
+            min(idx.n_reps, ec), ec, G, pos_bits, pair_bits_for(G), seed_len,
+            gen_off.data_ptr(), gen_cnt.data_ptr(), lefts.data_ptr(),
+            present.data_ptr(), is_fwd.data_ptr(), off2.data_ptr(),
+            cnt2.data_ptr(), lengths0.data_ptr(), r_a.data_ptr(),
+            r_b.data_ptr(), cuda.stream(cw)), "lm_reps")
+        decode_reps.launches += 1
     return Reps(lefts, present, is_fwd, off2, cnt2, lengths0, r_a, r_b,
-                n_reps)
+                idx.n_reps)
 
 
-cluster_reps.launches = 0
+decode_reps.launches = 0
+
+
+def cluster_reps(cw, ec: int, G: int, pos_bits: int, seed_len: int,
+                 gen_off, gen_cnt) -> Reps:
+    """Representatives of the sorted cluster words as EC compact
+    extension rows (rows past min(n_reps, EC) are absent): rep_index then
+    decode_reps at EC.
+
+    cw: int64[m] cluster words in unsigned order (-1 last); gen_off,
+    gen_cnt: int32[G] genome offsets and window counts in the keys that
+    K2 probes."""
+    return decode_reps(cw, rep_index(cw, pos_bits, seed_len), ec, G,
+                       pos_bits, seed_len, gen_off, gen_cnt)

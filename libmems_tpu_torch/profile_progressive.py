@@ -14,7 +14,9 @@ seconds and the stage seconds.  Last, input rng 3 runs under
 ``torch.profiler`` (CPU and CUDA activities); its device time is the sum
 of the kernel, memcpy and memset events of the exported Chrome trace
 (``key_averages()`` would count an op and its kernels twice), and the
-busy share is that sum over the run's wall.  The configuration is the
+busy share is that sum over the run's wall; the pairwise seeder's
+stages (K5, K6, the sort of its cluster words, K7) are cut from the
+same trace (``seeder_time``).  The configuration is the
 default ``ProgressiveConfig()``, which refines, so the stage table has
 the ``refine/*`` stages; each timed input also prints its banding
 outcomes (``ops.profile.BAND_STATS``).  With ``--trio`` each input is
@@ -34,6 +36,7 @@ import collections
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -114,6 +117,49 @@ def device_time(trace_path: str) -> tuple[float, list]:
                               for k, v in ms.most_common(25)]
 
 
+def _named(name: str, kernel: str) -> bool:
+    """Whether a trace event's name is `kernel` itself (not a kernel
+    whose name ends in it, such as seed_run_start_kernel)."""
+    return re.search(r"(?<!\w)" + kernel + r"\b", name) is not None
+
+
+def seeder_time(trace_path: str) -> dict:
+    """Device milliseconds and events of the pairwise seeder's stages in
+    a Chrome trace, cut at its kernels (csrc/pairwise.cu): K5 from
+    run_start_kernel through run_flags_kernel; K6 from there through
+    cluster_words_kernel (its wrapper's own work included); the word
+    sort from there to K7's rep_index_kernel; K7 from there up to K2's
+    extend_kernel (every scan, host read and decode of the call).  The
+    path runs on one stream, so what runs inside a stage's span is the
+    stage's."""
+    with open(trace_path) as fh:
+        events = sorted((e for e in json.load(fh)["traceEvents"]
+                         if e.get("cat") in ("kernel", "gpu_memcpy",
+                                             "gpu_memset")),
+                        key=lambda e: e["ts"])
+    ms = collections.Counter()
+    count = collections.Counter()
+    stage = None
+    for e in events:
+        name = e["name"]
+        if _named(name, "run_start_kernel"):
+            stage = "K5"
+        elif stage == "sort" and _named(name, "rep_index_kernel"):
+            stage = "K7"
+        elif stage == "K7" and _named(name, "extend_kernel"):
+            stage = None
+        if stage is None:
+            continue
+        ms[stage] += e["dur"] / 1e3
+        count[stage] += 1
+        if stage == "K5" and _named(name, "run_flags_kernel"):
+            stage = "K6"
+        elif stage == "K6" and _named(name, "cluster_words_kernel"):
+            stage = "sort"
+    return {"ms": {k: round(v, 4) for k, v in ms.items()},
+            "events": dict(count)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -163,7 +209,7 @@ def main() -> int:
     wall_ms = walls["total"] * 1e3
     print(json.dumps({"rng_seed": profiled, "profiled_wall_ms": wall_ms,
                       "device_busy_ms": busy, "busy_share": busy / wall_ms,
-                      "top": top}))
+                      "top": top, "seeder": seeder_time(path)}))
     return 0
 
 

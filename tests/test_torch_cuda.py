@@ -526,6 +526,130 @@ def test_pairwise_mums_cuda_equal_cpu(dev):
     np.testing.assert_array_equal(got.lengths, ref.lengths)
 
 
+def _synth_flags(n, G, pos_bits, rng_seed, p_keep=0.9, max_run=12,
+                 sentinel=None):
+    """Run flags of n table rows: runs of 1..max_run rows, a kept share
+    p_keep, random genomes, positions below 2^pos_bits and strands; with
+    sentinel=(a, b) rows [a, b) form one run of which none is kept."""
+    from libmems_tpu_torch.ops import pairwise
+    rng = np.random.default_rng(rng_seed)
+    rid = np.repeat(np.arange(n), rng.integers(1, max_run + 1, size=n))[:n]
+    keep = rng.random(n) < p_keep
+    if sentinel is not None:
+        a, b = sentinel
+        keep[a:b] = False
+        rid[b:] += rid[a] + 1 - rid[b]
+        rid[a:b] = rid[a]
+    return pairwise.RunFlags(
+        torch.from_numpy(keep), torch.from_numpy(rid.astype(np.int32)),
+        torch.from_numpy(rng.integers(0, G, size=n).astype(np.int32)),
+        torch.from_numpy(rng.integers(0, 1 << pos_bits, size=n)
+                         .astype(np.int32)),
+        torch.from_numpy(rng.integers(0, 2, size=n).astype(np.uint8)))
+
+
+@pytest.mark.parametrize("case,n,G,pos_bits", [
+    ("kept0", 5_000, 9, 20),
+    ("kept_below_shifts", 5_000, 9, 20),
+    ("ragged", 3 * 4096 + 77, 2, 29),
+    ("ragged", 3 * 4096 + 77, 3, 28),
+    ("ragged", 3 * 4096 + 77, 62, 24),
+    ("long_runs", 100_003, 9, 20),
+    ("sentinel_run", 1_200_000, 9, 20),
+    ("many_blocks", 10_000_019, 3, 24)])
+def test_cluster_words_kernel_edges_equal_plain(dev, case, n, G, pos_bits):
+    """K6 against its plain version on synthetic tables built to reach
+    its edges: no kept row, fewer kept rows than shifts, row counts that
+    are no multiple of a tile or a block with runs across their bounds,
+    runs of thousands of rows, a sentinel run of 10^6 rows, and a table
+    of several thousand tiles (the look-back between tiles); exact."""
+    from libmems_tpu_torch.ops import pairwise
+    flags = _synth_flags(
+        n, G, pos_bits, 61, p_keep=0.0 if case.startswith("kept") else 0.9,
+        max_run=5_000 if case == "long_runs" else 12,
+        sentinel=(100_000, 1_100_000) if case == "sentinel_run" else None)
+    if case == "kept_below_shifts":
+        flags.unique_occ[[10, 4095, 4096]] = True
+        flags.run_id[:] = 3
+    ref = pairwise.cluster_words_plain(flags, G, pos_bits)
+    got = pairwise.cluster_words(pairwise.RunFlags(*(t.to(dev)
+                                                     for t in flags)),
+                                 G, pos_bits)
+    assert got.shape == ref.shape
+    assert torch.equal(got.cpu(), ref)
+
+
+def _sorted_words(m, n_heads, pos_bits, rng_seed, invalid=0, top_bit=False):
+    """m sorted words head << pos_bits | pos (n_heads heads, so clusters
+    of close positions run across tiles), bit 63 set on the upper heads
+    with top_bit, then `invalid` -1 words."""
+    rng = np.random.default_rng(rng_seed)
+    head = rng.integers(0, n_heads, size=m).astype(np.uint64)
+    if top_bit:
+        head[head >= n_heads // 2] |= np.uint64(1 << (63 - pos_bits))
+    w = np.sort((head << np.uint64(pos_bits))
+                | rng.integers(0, 1 << pos_bits, size=m).astype(np.uint64))
+    w = np.concatenate([w, np.full(invalid, 2**64 - 1, np.uint64)])
+    return torch.from_numpy(w.view(np.int64).copy())
+
+
+@pytest.mark.parametrize("case", ["bit63", "all_invalid", "empty", "single",
+                                  "tile_end", "no_invalid", "many_blocks"])
+def test_rep_index_and_decode_kernels_edges_equal_plain(dev, case):
+    """K7's scan and decode against their plain versions, exact: words
+    with bit 63 set, no valid word (n_reps = 0), no word, one word, the
+    last valid word at a tile's end, no -1 word, and several thousand
+    tiles; each decoded below, exactly at and above n_reps."""
+    from libmems_tpu_torch.ops import pairwise
+    G, pos_bits, seed_len = 9, 20, 15
+    cw = {"bit63": lambda: _sorted_words(9_000, 64, pos_bits, 71, 1_500,
+                                         top_bit=True),
+          "all_invalid": lambda: torch.full((5_000,), -1, dtype=torch.int64),
+          "empty": lambda: torch.zeros(0, dtype=torch.int64),
+          "single": lambda: torch.tensor([5 << pos_bits | 7]),
+          "tile_end": lambda: _sorted_words(8_192, 8, pos_bits, 72, 2_048),
+          "no_invalid": lambda: _sorted_words(4_099, 8, pos_bits, 73),
+          "many_blocks": lambda: _sorted_words(8_000_000, 50, pos_bits, 74,
+                                               3_000_001)}[case]()
+    ref_i = pairwise.rep_index_plain(cw, pos_bits, seed_len)
+    idx = pairwise.rep_index(cw.to(dev), pos_bits, seed_len)
+    assert idx.n_reps == ref_i.n_reps
+    assert torch.equal(idx.counts.cpu(), ref_i.counts)
+    assert torch.equal(idx.index[:idx.n_reps].cpu(), ref_i.index)
+    off = torch.arange(G, dtype=torch.int32) * 1000
+    cnt = torch.arange(G, dtype=torch.int32) + 500
+    for ec in sorted({8, max(idx.n_reps - 1, 1), max(idx.n_reps, 1),
+                      idx.n_reps + 5}):
+        ref = pairwise.cluster_reps_plain(cw, ec, G, pos_bits, seed_len, off,
+                                          cnt)
+        got = pairwise.decode_reps(cw.to(dev), idx, ec, G, pos_bits,
+                                   seed_len, off.to(dev), cnt.to(dev))
+        assert got.n_reps == ref.n_reps
+        for g, r in zip(got[:-1], ref[:-1]):
+            assert torch.equal(g.cpu(), r)
+    if case == "many_blocks":
+        assert 0 < idx.n_reps < int(idx.counts[0]) < cw.shape[0]
+
+
+def test_find_pairwise_mums_scans_words_once(dev):
+    """With a capacity below the representative count, find_pairwise_mums
+    on the card scans the cluster words once and decodes once at the
+    capacity their count asks for; matches equal CPU tensors."""
+    from libmems_tpu_torch import find_pairwise_mums
+    from libmems_tpu_torch.ops import pairwise
+    gs = _family(5, 50_000, 37)
+    ref = find_pairwise_mums(gs, device="cpu", extend_capacity=8)
+    for w in (pairwise.cluster_words, pairwise.rep_index,
+              pairwise.decode_reps):
+        w.launches = 0
+    got = find_pairwise_mums(gs, device=dev, extend_capacity=8)
+    assert (pairwise.cluster_words.launches, pairwise.rep_index.launches,
+            pairwise.decode_reps.launches) == (1, 1, 1)
+    assert len(ref) > 8
+    np.testing.assert_array_equal(got.starts, ref.starts)
+    np.testing.assert_array_equal(got.lengths, ref.lengths)
+
+
 @pytest.mark.parametrize("T", [64, 4096, (1 << 14) + 3])
 def test_hmm_kernel_equals_plain(dev, T):
     from libmems_tpu_torch.ops import hmm

@@ -162,6 +162,39 @@ def test_cluster_reps_capacity_retry_equal_results():
     np.testing.assert_array_equal(small.lengths, full.lengths)
 
 
+@pytest.mark.parametrize("ec", [8, 64, 1 << 14])
+def test_rep_index_then_decode_equals_cluster_reps(ec):
+    """K7 in two parts, the representatives' index and counts and then
+    the decode at a chosen capacity, gives cluster_reps's results below
+    and above the representative count."""
+    G = 4
+    fam = _family(G, 43)
+    smls, seed = create_smls([Genome(f"g{i}", a) for i, a in enumerate(fam)],
+                             device="cpu")
+    keys = torch.cat([s.keys for s in smls])
+    cnts = [s.n_windows for s in smls]
+    offs = torch.from_numpy(np.concatenate([[0], np.cumsum(cnts)]))
+    c_sorted, src = torch.sort(pairwise.shr(keys, 1), stable=True)
+    flags = pairwise.run_flags(c_sorted, src, keys, offs,
+                               jmatchfind.MER_REPEAT_LIMIT,
+                               sentinel_content(seed))
+    pos_bits = _pair_pos_bits(max(cnts))
+    cw = pairwise.usort(pairwise.cluster_words(flags, G, pos_bits))
+    seed_len = smls[0].seed_length
+    gen = (offs[:-1].to(torch.int32), torch.tensor(cnts, dtype=torch.int32))
+    ref = pairwise.cluster_reps_plain(cw, ec, G, pos_bits, seed_len, *gen)
+    idx = pairwise.rep_index(cw, pos_bits, seed_len)
+    got = pairwise.decode_reps(cw, idx, ec, G, pos_bits, seed_len, *gen)
+    assert idx.n_reps == ref.n_reps == int(idx.counts[1]) > 64
+    assert int(idx.counts[0]) == int((cw != -1).sum())
+    assert bool((idx.index[1:] > idx.index[:-1]).all())
+    for g, r in zip(got[:-1], ref[:-1]):
+        assert torch.equal(g, r)
+    composed = pairwise.cluster_reps(cw, ec, G, pos_bits, seed_len, *gen)
+    for g, r in zip(composed, got):
+        assert torch.equal(g, r) if isinstance(g, torch.Tensor) else g == r
+
+
 def _assert_same(got, ref):
     np.testing.assert_array_equal(got.starts, ref.starts)
     np.testing.assert_array_equal(got.lengths, ref.lengths)
