@@ -4,9 +4,9 @@
     python3 chip_smoke.py [phase ...]
 
 With no argument every phase runs; naming phases (kernels, seeder,
-goldens, main, trio, progressive, large, profile_dp, decode, bounded,
-mesh, tiled, multihost, cards) runs only those, plus the progressive run whose
-recorded inputs profile_dp and decode read (and the main, trio and
+seedocc, goldens, main, trio, progressive, large, profile_dp, decode,
+bounded, mesh, tiled, multihost, cards) runs only those, plus the
+progressive run whose recorded inputs profile_dp and decode read (and the main, trio and
 progressive runs whose outputs mesh and cards are held to, the main run
 for tiled and multihost).  Needs one NVIDIA Hopper GPU (compute capability 9.0) and the CUDA
 toolkit's nvcc; builds the port's kernels from libmems_tpu_torch/csrc at
@@ -15,15 +15,13 @@ non-zero and prints no result line):
 
 1. device  - CUDA present, capability (9, 0); card name and power limit;
 2. build   - compile the kernel library, report its build seconds;
-3. kernels - each hand kernel but K5-K7 against its plain PyTorch
-             version on the card at its path's shapes (K1-K4, K18 and
-             K19 the pair's, K13-K15 and K2 the first trio's, K16 and
-             K17 one 8.7 Mbp genome's; exact equality), with timings
-             (K18's two passes timed without the library sort between
-             them, which is timed apart; K4's walk bytes to the host and
-             tb_unpack's seconds printed); K1, K2, K18 and K19 once more
-             at the 8.7 Mbp family's weight-17 seed, K16 and K17 once
-             more on a 1 Mbp genome beside the host twin's seconds;
+3. kernels - each hand kernel but K5-K7, K16 and K17 against its plain
+             PyTorch version on the card at its path's shapes (K1-K4,
+             K18 and K19 the pair's, K13-K15 and K2 the first trio's;
+             exact equality), with timings (K18's two passes timed
+             without the library sort between them, which is timed
+             apart; K4's walk bytes to the host and tb_unpack's seconds
+             printed);
 3b. seeder - K5-K7 against their plain versions on the 9 x 1 Mbp
              seeder's table, then K6 and K7 once more on the 3 x 8.7 Mbp
              family's (26 M rows, tens of thousands of tiles); exact
@@ -31,6 +29,18 @@ non-zero and prints no result line):
              the read of n_reps and the decode at the final capacity)
              and at the initial capacity, the sort of K6's words apart,
              and each pass of K6 and K7 alone;
+3c. seedocc - K16 and K17 against their plain versions on one 8.7 Mbp
+             genome of the 3 x 8.7 Mbp family (K16's tile summaries too;
+             exact), timed through the wrappers and each launch alone
+             (K16's summaries and its count pass, K17; through
+             ops.seedocc's launch helpers), K16 then K17 back to back,
+             and a scatter-only pass of the same positions; K1, K2, K18
+             and K19 at that family's weight-17 seed; K16 on
+             tests/test_torch_seedocc_tables.py's tables: a run over more
+             than 32 tiles at 8.7 M rows, and 10 M rows of short runs
+             against 10 M rows holding one content run of 10^6 rows (at
+             most twice the time); K16 and K17 once more on a 1 Mbp
+             genome beside the host twin's seconds;
 4. goldens - the port on the GPU reproduces tests/golden/pair.mums,
              three.mums, pair.xmfa and nine.{xmfa,bbseq,bbcols} byte for
              byte; find_mums on the nine-genome family (G = 9) and that
@@ -296,9 +306,9 @@ MESH_KERNELS = ("route_fill", "shard_candidates", "dedup_flags")
 # NCCL rank a card), their time caps; the cards phase's ranks' cap
 TILED_CAP_S, MULTIHOST_CAP_S, CARDS_RANKS_CAP_S = 90.0, 90.0, 300.0
 TILED_KERNELS = ("tiled_requests", "tiled_serve", "tiled_probe")
-PHASES = ("kernels", "seeder", "goldens", "main", "trio", "progressive",
-          "large", "profile_dp", "decode", "bounded", "mesh", "tiled",
-          "multihost", "cards")
+PHASES = ("kernels", "seeder", "seedocc", "goldens", "main", "trio",
+          "progressive", "large", "profile_dp", "decode", "bounded", "mesh",
+          "tiled", "multihost", "cards")
 
 
 class SmokeFailure(RuntimeError):
@@ -1178,11 +1188,66 @@ def seeder_passes(torch, t, cw, ec):
         for k, v in ms.items()))
 
 
+def seedocc_tables():
+    """tests/test_torch_seedocc_tables.py (K16's sorted tables), loaded by
+    path: the card's machine has a `tests` package of its own."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "seedocc_tables", os.path.join(ROOT, "tests",
+                                       "test_torch_seedocc_tables.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def seedocc_launches(torch, cargs, seed_len, label):
+    """Each launch of K16 and K17 alone (CUDA events, through
+    ops.seedocc's launch helpers, beside the bytes each must move): K16's
+    tile summaries and its count pass, K17; K16 then K17 back to back
+    through the wrappers, as the path runs them; and a scatter-only pass
+    of the same positions (torch's scatter_ of int32 values at them, then
+    at the identity permutation), which shows what K16's 4-byte scattered
+    writes cost alone."""
+    from libmems_tpu_torch.ops import seedocc
+    keys, pos, L, sent = cargs
+    n = keys.shape[0]
+    dev = keys.device
+    edges = torch.empty(2 * seedocc.seed_tiles(n), dtype=torch.int32,
+                        device=dev)
+    count = torch.empty(L, dtype=torch.int32, device=dev)
+    smooth = torch.empty(L, dtype=torch.float32, device=dev)
+    seedocc._tile_edges(keys, edges)
+    seedocc._count_pass(keys, pos, edges, L, sent, count)
+    at, seq = pos.long(), torch.arange(n, device=dev)
+    vals = torch.ones(n, dtype=torch.int32, device=dev)
+    sink = torch.empty(n, dtype=torch.int32, device=dev)
+    ms = {name: timed_ms(fn, 20, torch) for name, fn in (
+        ("K16 summaries", lambda: seedocc._tile_edges(keys, edges)),
+        ("K16 counts", lambda: seedocc._count_pass(keys, pos, edges, L, sent,
+                                                   count)),
+        ("K17", lambda: seedocc._smooth_pass(count, seed_len, smooth)),
+        ("K16 + K17", lambda: seedocc.seed_smooth(
+            seedocc.seed_run_counts(*cargs), seed_len)),
+        ("scatter at pos", lambda: sink.scatter_(0, at, vals)),
+        ("scatter in order", lambda: sink.scatter_(0, seq, vals)))}
+    moved = {"K16 counts": 16 * n, "K17": 8 * L,
+             "scatter at pos": 16 * n, "scatter in order": 16 * n}
+    log(f"# {label}: {n} rows, {seedocc.seed_tiles(n)} tiles, launches "
+        "alone: " + "; ".join(
+            f"{k} {v:.4f} ms" + (f" ({moved[k] / v / 1e6:.0f} GB/s of "
+                                 f"{moved[k]} bytes)" if k in moved else "")
+            for k, v in ms.items()))
+
+
 def phase_seedocc_kernels(torch, lt, dev, genomes):
     """K16 and K17 against their plain versions on the card on one
-    8.7 Mbp genome of the large family `genomes` (timed), K1, K18, K19
-    and K2 on that family's weight-17 tables (35-bit keys, 24 position
-    bits), and K16 + K17 on one 1 Mbp genome beside the host twin; exact
+    8.7 Mbp genome of the large family `genomes` (timed, each launch
+    alone as well, and beside a scatter-only pass), K1, K18, K19 and K2 on
+    that family's weight-17 tables (35-bit keys, 24 position bits), K16 on
+    the tests' sorted tables at the path's sizes (a run over more than 32
+    tiles at 8.7 M rows; 10 M rows of short runs and 10 M rows holding one
+    content run of 10^6 rows, the second within twice the first's time),
+    and K16 + K17 on one 1 Mbp genome beside the host twin; exact
     equality.  Returns ({name: entry}, K2's max_abs_err)."""
     from libmems_tpu_torch import anchorscore, matchfind, seeds
     from libmems_tpu_torch.ops import extend, mers, seedocc
@@ -1200,18 +1265,30 @@ def phase_seedocc_kernels(torch, lt, dev, genomes):
     smls, _ = create_smls(genomes[:2], seed, device=dev)
     log(f"# K1 at weight 17: n={smls[0].n_windows} equal")
 
+    def k16_vs_plain(cargs, what):
+        got = seedocc.seed_run_counts(*cargs)
+        ref = seedocc.seed_run_counts_plain(*cargs)
+        require(torch.equal(got, ref),
+                f"K16 differs from its plain version ({what})")
+        edges = torch.empty(2 * seedocc.seed_tiles(cargs[0].shape[0]),
+                            dtype=torch.int32, device=dev)
+        seedocc._tile_edges(cargs[0], edges)
+        require(torch.equal(edges, seedocc.seed_tile_edges_plain(cargs[0])),
+                f"K16's tile summaries differ from their plain version "
+                f"({what})")
+        return got, ref
+
     def occ_vs_plain(sml, reps):
         n, L = sml.n_windows, sml.length
         cargs = (sml.sorted_keys, sml.sorted_positions, L,
                  mers.key_sentinel(sml.seed))
-        got_c = seedocc.seed_run_counts(*cargs)
-        ref_c = seedocc.seed_run_counts_plain(*cargs)
-        require(torch.equal(got_c, ref_c),
-                "K16 differs from its plain version")
+        got_c, ref_c = k16_vs_plain(cargs, f"{n} windows")
         got_s = seedocc.seed_smooth(got_c, sml.seed_length)
         ref_s = seedocc.seed_smooth_plain(got_c, sml.seed_length)
         require(torch.equal(got_s, ref_s),
                 "K17 differs from its plain version")
+        seedocc_launches(torch, cargs, sml.seed_length,
+                         f"K16/K17 on {L} bp")
         return {
             # sorted keys and positions in, one count a position out; ~8
             # integer operations a row (compare, run bounds, scatter)
@@ -1256,6 +1333,26 @@ def phase_seedocc_kernels(torch, lt, dev, genomes):
     log(f"# K2 at weight 17: rows={EC} live={min(reps.n_reps, EC)} "
         f"max_len={int(kn.max())} equal")
     del smls, keys
+
+    # K16 on the tests' sorted tables: a run over more than 32 tiles at
+    # the 8.7 Mbp genome's rows, and 10 M rows of short runs against 10 M
+    # rows with one content run of 10^6 rows
+    tables = seedocc_tables()
+    table_ms = {}
+    for case, n in (("multi_tile_run", LARGE_LEN), ("many_rows", None),
+                    ("content_run", 10_000_019)):
+        keys, pos, L, sent = tables.sorted_table(case, n)
+        cargs = (keys.to(dev), pos.to(dev), L, sent)
+        got, _ = k16_vs_plain(cargs, f"table {case}")
+        table_ms[case] = timed_ms(lambda: seedocc.seed_run_counts(*cargs),
+                                  10, torch)
+        log(f"# K16 on table {case}: {keys.shape[0]} rows, longest run "
+            f"{int(got.max())}, {table_ms[case]:.4f} ms; equal")
+    ratio = table_ms["content_run"] / table_ms["many_rows"]
+    log(f"# K16: 10 M rows with a 10^6-row content run / 10 M rows of "
+        f"short runs = {ratio:.3f}")
+    require(ratio <= 2.0, f"K16 on a 10^6-row run takes {ratio:.2f}x the "
+            f"short runs' time")
 
     # one 1 Mbp genome: the device route beside the host twin it would
     # replace below anchorscore.SOL_HOST_MAX
@@ -3823,13 +3920,10 @@ def main(argv=None) -> int:
     lap("build")
     res, paths, walls, k2_errs, refs, calls = {}, {}, [], [], {}, {}
     large = None
-    if "kernels" in phases or "seeder" in phases:
+    if {"seeder", "seedocc"} & set(phases):
         large = family_large(lt)
     if "kernels" in phases:
         res = phase_kernels(torch, lt, dev)
-        occ_res, err = phase_seedocc_kernels(torch, lt, dev, large)
-        res.update(occ_res)
-        k2_errs.append(err)
         mum_res, err = phase_mum_kernels(torch, lt, dev)
         res.update(mum_res)
         k2_errs.append(err)
@@ -3838,6 +3932,11 @@ def main(argv=None) -> int:
     if "seeder" in phases:
         res.update(phase_pairwise_kernels(torch, lt, dev, large))
         lap("seeder")
+    if "seedocc" in phases:
+        occ_res, err = phase_seedocc_kernels(torch, lt, dev, large)
+        res.update(occ_res)
+        k2_errs.append(err)
+        lap("seedocc")
     if "goldens" in phases:
         phase_goldens(lt, dev)
         lap("goldens")

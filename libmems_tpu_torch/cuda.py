@@ -76,8 +76,8 @@ _SIGNATURES = {
                           _I),
     "lm_mum_rep_flags": ([_P, _P, _L, _I, _I, _I, _I, _P, _P], _I),
     "lm_mum_reps": ([_P] * 4 + [_L, _L, _I, _I] + [_P] * 4, _I),
-    "lm_seed_run_starts": ([_P, _L, _P, _P], _I),
-    "lm_seed_run_counts": ([_P] * 5 + [_L, _L, _L, _P, _P], _I),
+    "lm_seed_tile_edges": ([_P, _L, _L, _P, _P], _I),
+    "lm_seed_run_counts": ([_P] * 3 + [_L] * 4 + [_P, _P], _I),
     "lm_seed_smooth": ([_P, _L, _I, _P, _P], _I),
     "lm_pair_pack": ([_P, _L, _P, _L, _I, _P, _P], _I),
     "lm_pair_cluster_words": ([_P, _L, _I, _L, _P, _P, _P], _I),

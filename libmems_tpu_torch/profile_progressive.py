@@ -16,7 +16,8 @@ of the kernel, memcpy and memset events of the exported Chrome trace
 (``key_averages()`` would count an op and its kernels twice), and the
 busy share is that sum over the run's wall; the pairwise seeder's
 stages (K5, K6, the sort of its cluster words, K7) are cut from the
-same trace (``seeder_time``).  The configuration is the
+same trace (``seeder_time``), and so are the seed occurrence lists'
+kernels (K16, K17: ``seedocc_time``).  The configuration is the
 default ``ProgressiveConfig()``, which refines, so the stage table has
 the ``refine/*`` stages; each timed input also prints its banding
 outcomes (``ops.profile.BAND_STATS``).  With ``--trio`` each input is
@@ -160,6 +161,36 @@ def seeder_time(trace_path: str) -> dict:
             "events": dict(count)}
 
 
+def seedocc_time(trace_path: str) -> dict:
+    """Device milliseconds and events of the seed occurrence lists' kernels
+    in a Chrome trace: K16 from its first kernel (csrc/seedocc.cu's
+    seed_tile_* or seed_run_*) through seed_run_counts_kernel, with
+    whatever runs between them on the stream; K17 its
+    seed_smooth_kernel."""
+    with open(trace_path) as fh:
+        events = sorted((e for e in json.load(fh)["traceEvents"]
+                         if e.get("cat") in ("kernel", "gpu_memcpy",
+                                             "gpu_memset")),
+                        key=lambda e: e["ts"])
+    ms = collections.Counter()
+    count = collections.Counter()
+    in_k16 = False
+    for e in events:
+        name = e["name"]
+        if _named(name, "seed_smooth_kernel"):
+            stage = "K17"
+        elif in_k16 or re.search(r"(?<!\w)seed_(tile|run)_\w*kernel\b",
+                                 name):
+            stage = "K16"
+            in_k16 = not _named(name, "seed_run_counts_kernel")
+        else:
+            continue
+        ms[stage] += e["dur"] / 1e3
+        count[stage] += 1
+    return {"ms": {k: round(v, 4) for k, v in ms.items()},
+            "events": dict(count)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -209,7 +240,8 @@ def main() -> int:
     wall_ms = walls["total"] * 1e3
     print(json.dumps({"rng_seed": profiled, "profiled_wall_ms": wall_ms,
                       "device_busy_ms": busy, "busy_share": busy / wall_ms,
-                      "top": top, "seeder": seeder_time(path)}))
+                      "top": top, "seeder": seeder_time(path),
+                      "seed_occurrence": seedocc_time(path)}))
     return 0
 
 

@@ -25,6 +25,12 @@ _spec = importlib.util.spec_from_file_location(
         __file__)), "golden", "generate.py"))
 generate = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(generate)
+# the sorted seed tables of K16's CPU tests, loaded by path as well
+_spec = importlib.util.spec_from_file_location(
+    "seedocc_tables", os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "test_torch_seedocc_tables.py"))
+seedocc_tables = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(seedocc_tables)
 
 pytestmark = pytest.mark.cuda
 
@@ -894,6 +900,64 @@ def test_seed_smooth_kernel_equals_plain(dev, seed_len, n):
     count[rng.random(n) < 0.5] = 1
     ref = seedocc.seed_smooth_plain(torch.from_numpy(count), seed_len)
     got = seedocc.seed_smooth(torch.from_numpy(count).to(dev), seed_len)
+    assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.parametrize("case", list(seedocc_tables.TABLES))
+def test_seed_run_counts_kernel_tables_equal_plain(dev, case):
+    """K16's two launches against their plain versions on the sorted
+    tables of tests/test_torch_seedocc_tables.py: one row, one tile and one
+    tile plus a row, runs starting or ending exactly at a tile boundary, a
+    run over more than 32 tiles, sentinel and content runs of 10^6 rows,
+    one run, the tail of 1s, u32 and u64 sentinels, and 10 M rows.  The
+    summaries, the count pass on the plain summaries and the wrapper (one
+    launch counted) are each exact."""
+    from libmems_tpu_torch.ops import seedocc
+    keys, pos, length, sent = seedocc_tables.sorted_table(case)
+    ref_edges = seedocc.seed_tile_edges_plain(keys)
+    ref = seedocc.seed_run_counts_plain(keys, pos, length, sent)
+    kd, pd = keys.to(dev), pos.to(dev)
+    edges = torch.empty_like(ref_edges, device=dev)
+    seedocc._tile_edges(kd, edges)
+    assert torch.equal(edges.cpu(), ref_edges)
+    count = torch.empty(length, dtype=torch.int32, device=dev)
+    seedocc._count_pass(kd, pd, ref_edges.to(dev), length, sent, count)
+    assert torch.equal(count.cpu(), ref)
+    before = seedocc.seed_run_counts.launches
+    got = seedocc.seed_run_counts(kd, pd, length, sent)
+    assert seedocc.seed_run_counts.launches == before + 1
+    assert torch.equal(got.cpu(), ref)
+
+
+def test_seed_run_counts_kernel_without_windows(dev):
+    """No window: no tile summary, and the count pass writes 1 at every
+    position."""
+    from libmems_tpu_torch.ops import seedocc
+    keys = torch.zeros(0, dtype=torch.int64, device=dev)
+    pos = torch.zeros(0, dtype=torch.int32, device=dev)
+    got = seedocc.seed_run_counts(keys, pos, 5_000, -1)
+    assert torch.equal(got.cpu(), torch.ones(5_000, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("seed_len,n,offset", [
+    (23, 1_000_003, 0), (40, 50_001, 0), (23, 50_000, 1), (4_096, 100_000, 0),
+    (4_097, 100_002, 0), (9_000, 100_000, 3), (70_000, 30_000, 0),
+    (30_000, 30_001, 0), (1, 9_999, 0), (21, 1, 0), (0, 100, 0)])
+def test_seed_smooth_kernel_windows_equal_plain(dev, seed_len, n, offset):
+    """K17 against its plain version, bit for bit: windows longer than a
+    thread's 16 positions, than a tile of 4,096 and than what a block
+    stages (so their far part comes from device memory), a window longer
+    than the genome, lengths that are no multiple of 4, counts at an
+    offset of 1 or 3 (unaligned: no 16-byte loads), window sums above
+    2^24, and the pass-through cases."""
+    from libmems_tpu_torch.ops import seedocc
+    rng = np.random.default_rng(seed_len + n)
+    count = rng.integers(1, 1 << 22, n).astype(np.int32)
+    count[rng.random(n) < 0.5] = 1
+    ref = seedocc.seed_smooth_plain(torch.from_numpy(count), seed_len)
+    buf = torch.zeros(n + offset, dtype=torch.int32, device=dev)
+    buf[offset:] = torch.from_numpy(count).to(dev)
+    got = seedocc.seed_smooth(buf[offset:], seed_len)
     assert torch.equal(got.cpu(), ref)
 
 

@@ -92,6 +92,27 @@ def test_seed_occurrence_list_equals_jax_and_host_twin(case):
         assert (got[1000:1040 - SEED_LEN] == 1.0).all()
 
 
+def test_long_poly_a_and_n_runs_equal_jax_and_host_twin():
+    """A 40 kbp genome with a 20 kbp poly-A run and a 10 kbp N run: a
+    content run and a sentinel run of thousands of windows, each across
+    several of K16's tiles of SEED_TILE sorted rows.  The port's plain
+    route equals both host twins bit for bit, and the JAX device
+    construction within one ulp (its division is a reciprocal multiply on
+    the CPU, as in the poly_a case above)."""
+    rng = np.random.default_rng(14)
+    asc = _LUT[rng.integers(0, 4, 40_000)].copy()
+    asc[5_000:25_000] = ord("A")
+    asc[28_000:38_000] = ord("N")
+    got, ref, twin = _three_ways(asc, False)
+    np.testing.assert_array_equal(got, twin)
+    np.testing.assert_array_equal(got, janchorscore.seed_occurrence_list_np(
+        JaxGenome("g", asc.copy()), SEED))
+    np.testing.assert_array_max_ulp(got, ref, maxulp=1)
+    assert (got != ref).sum() < 10
+    assert got.max() > 10_000
+    assert (got[28_000:38_000 - SEED_LEN] == 1.0).all()
+
+
 def test_bucket_boundary_lengths_equal_jax():
     """Genome lengths either side of a JAX length bucket: the JAX package
     pads the table to the bucket, the port never pads."""
