@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py [phase ...]
 
-With no argument every phase runs; naming phases (kernels, seeder,
-seedocc, goldens, main, trio, progressive, large, profile_dp, decode,
-bounded, mesh, tiled, multihost, cards) runs only those, plus the
+With no argument every phase runs but the light fullwidth and wide;
+naming phases (kernels, seeder, seedocc, goldens, main, trio,
+progressive, large, profile_dp, decode, bounded, mesh, tiled, multihost,
+cards, fullwidth, wide) runs only those, plus the
 progressive run whose recorded inputs profile_dp and decode read (and the main, trio and
 progressive runs whose outputs mesh and cards are held to, the main run
 for tiled and multihost).  Needs one NVIDIA Hopper GPU (compute capability 9.0) and the CUDA
@@ -21,7 +22,16 @@ non-zero and prints no result line):
              exact equality), with timings (K18's two passes timed
              without the library sort between them, which is timed
              apart; K4's walk bytes to the host and tb_unpack's seconds
-             printed);
+             printed); K3 and K9 alone (fullwidth_checks): an empty
+             launch timed by CUDA events, on the card alone and on the
+             host clock (the launcher's host time), then launch by launch
+             on the pair's windows, 1024 x 1024 and 4096 x 4096 shapes,
+             fractional 3 + 2 and 4 + 5-row windows and the strip
+             kernels' edge widths (q_len at 32K - 1, 32K, 32K + 1 for each
+             lane width K; the wide route's boundary), exact in the
+             launcher's geometry (the one the launch reports taking) and
+             in every geometry that fits, each timed, with its latency
+             floor;
 3b. seeder - K5-K7 against their plain versions on the 9 x 1 Mbp
              seeder's table, then K6 and K7 once more on the 3 x 8.7 Mbp
              family's (26 M rows, tens of thousands of tiles); exact
@@ -84,7 +94,9 @@ non-zero and prints no result line):
              through K9); exact equality (scores bit for bit,
              certificates, pointer bytes, the walks' column codes), each
              walk's bytes to the host, tb_unpack's host seconds and
-             latency floor printed.  Where that run left K9
+             latency floor printed; K3 and K9 also launch by launch in
+             every geometry, each timed (fullwidth_launches).  Where
+             that run left K9
              no launch or no uncertified window, tests/test_banded.py's
              adversarial windows run the same routes as well; then
              K10, K11 and K12 on a many-window launch (2,112 windows in
@@ -118,7 +130,8 @@ non-zero and prints no result line):
              34 kbp swapped locus at max_gapped_window 40,000: its
              34,003 x 34,000 window takes the checkpointed route (K24,
              K25, the host walk), and the XMFA equals the same input's
-             with PTR_BUDGET raised here (K3 + K4, 1.44 GiB of pointers);
+             with PTR_BUDGET raised here (K3 on its wide route + K4, 1.44
+             GiB of pointers);
              genome a's SML saved, loaded memory-mapped and built by
              create_big (native, 64 MB) byte-equal; find_mums_checkpointed
              (8 ranges) stopped after range 3 and resumed == find_mums,
@@ -157,7 +170,13 @@ non-zero and prints no result line):
              phase main's XMFA; one NCCL rank a card on the pair (three
              seeding modes, align, the route exchange timed), the trio
              (align) and the 9 x 1 Mbp family (progressive_align,
-             backbone, writers), byte-equal to phases 5, 5b and 6.
+             backbone, writers), byte-equal to phases 5, 5b and 6;
+fullwidth - (named runs only) K3 and K9 alone, as phase 3 holds them, on
+             the rng-0 pair's windows and the shapes; with the progressive
+             phase, each of its K3 and K9 launches too;
+wide     - (named runs only) K3 and K9 on their wide route (a 4,608- and
+             an 11,664-column bucket), exact and timed, through the
+             wrappers alone, so that it times an older tree as well.
 
 The inputs of phases 7-9 are recorded one layer above the kernel
 wrappers (align_profile_batch, profile_scores_batch, predict_homologous,
@@ -274,6 +293,19 @@ F32_OPS_PER_S = 67e12
 F64_OPS_PER_S = 34e12
 DP_CELL_OPS = 20      # per profile-DP cell: 9 for the row score (a
                       # product and four FMAs), 11 adds and maxes
+# the full-width DP's latency floor (K3, K9): a row depends on the row
+# above through at least DP_ROW_OPS dependent float32 operations of a cell
+# (fo's two adds, F's max, G's max, Wv's add and subtract, e's add, H's
+# max) and E's prefix maximum over the row's q_len + 1 columns, at best
+# ceil(log2(q_len + 1)) dependent maxima with every column in its own
+# lane; each dependent operation waits DP_DEP_CYCLES (the FP32 pipeline's
+# latency on Hopper).  A launch's floor is its longest window's rows at
+# that many cycles a row, at SM_CLOCK_HZ; no communication is counted.
+DP_ROW_OPS = 8
+DP_DEP_CYCLES = 4
+# cycles of the sleep kernel that hides the host's launch time (device_ms):
+# about 1 ms, far above a wrapper's host time
+SLEEP_CYCLES = 2_000_000
 WALK_STEP_BYTES = 1   # per traceback step: one pointer byte
 # the walks' latency floor: a step is at least one shared-memory load
 # (about 30 cycles on Hopper) at the H100 SXM's boost clock
@@ -309,6 +341,9 @@ TILED_KERNELS = ("tiled_requests", "tiled_serve", "tiled_probe")
 PHASES = ("kernels", "seeder", "seedocc", "goldens", "main", "trio",
           "progressive", "large", "profile_dp", "decode", "bounded", "mesh",
           "tiled", "multihost", "cards")
+# phases only a named run takes: their checks are part of the full run's
+# phases already
+LIGHT_PHASES = ("fullwidth", "wide")
 
 
 class SmokeFailure(RuntimeError):
@@ -339,6 +374,40 @@ def timed_ms(fn, reps, torch, warmup=True):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def device_ms(fn, reps, torch):
+    """Median milliseconds of fn()'s work on the card alone: a sleep
+    kernel (torch.cuda._sleep, SLEEP_CYCLES) keeps the stream busy while
+    the host enqueues fn, so the events bracket fn's kernels and not the
+    host's time to launch them.  One untimed warm-up run first."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def host_ms(fn, reps, torch):
+    """Median milliseconds of fn() on the host clock, synchronised before
+    and after each run (the launcher's host time and the card's)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
 
 
@@ -440,20 +509,36 @@ def band_cells(t, H_W):
 def dp_work(name, t, H_W=None):
     """Work of one profile-DP launch on the packed batch t: the profile
     rows it reads (20 bytes a row and column), the lengths, its outputs
-    (pointer bytes of the computed cells, scores, certificates; the
+    (scores, certificates, pointer bytes: K11's of the computed cells,
+    K3's whole [B, M, N+1] tensor, every byte of which it writes; the
     banded forward also reads the sorted gap costs) and DP_CELL_OPS a
-    cell."""
+    cell; K3 and K9 also carry their latency floor (dp_latency_ms)."""
     pl, ql = _lens(t)
     B = len(pl)
     io = int(((pl + ql) * 20).sum()) + 8 * B
     if name in ("profile_forward", "profile_forward_scores"):
         cells = int((pl * (ql + 1)).sum())
-        out = 4 * B + (cells if name == "profile_forward" else 0)
-    else:
-        cells = band_cells(t, H_W)
-        io += 4 * B * (t[0].shape[1] + t[1].shape[1])
-        out = 5 * B + (cells if name == "banded_forward_ptrs" else 0)
+        # K3 writes every byte of its [B, M, N+1] pointer tensor
+        out = 4 * B + (t[0].shape[0] * t[0].shape[1] * (t[1].shape[1] + 1)
+                       if name == "profile_forward" else 0)
+        w = work(io + out, DP_CELL_OPS * cells)
+        w["latency_ms"] = dp_latency_ms(pl, ql)
+        return w
+    cells = band_cells(t, H_W)
+    io += 4 * B * (t[0].shape[1] + t[1].shape[1])
+    out = 5 * B + (cells if name == "banded_forward_ptrs" else 0)
     return work(io + out, DP_CELL_OPS * cells)
+
+
+def dp_latency_ms(pl, ql):
+    """The full-width DP's latency floor of a launch with these window
+    lengths: its longest chain of rows, p_len x DP_DEP_CYCLES x
+    (DP_ROW_OPS + ceil(log2(q_len + 1))) cycles, at SM_CLOCK_HZ."""
+    if not len(pl):
+        return 0.0
+    depth = np.ceil(np.log2(np.asarray(ql, np.float64) + 1))
+    cycles = np.asarray(pl, np.float64) * DP_DEP_CYCLES * (DP_ROW_OPS + depth)
+    return float(cycles.max()) / SM_CLOCK_HZ * 1e3
 
 
 def walk_work(walk):
@@ -857,6 +942,18 @@ def pair_windows(lt, genomes, smls, seed, dev):
                                                   None)[1]]
 
 
+def pair_launches(lt, genomes, smls, seed, dev):
+    """The pair path's inter-anchor windows (pair_windows) as the path
+    launches them: (windows, [(M, N, packed tensors), one a launch])."""
+    from libmems_tpu_torch.ops import profile
+    windows = pair_windows(lt, genomes, smls, seed, dev)
+    p_rows = [w[2][0][None] for w in windows]
+    q_rows = [w[2][1][None] for w in windows]
+    return windows, [
+        (M, N, profile.pack_profiles(p_rows, q_rows, sub, M, N, dev))
+        for M, N, sub in profile.plan_launches(p_rows, q_rows)]
+
+
 def phase_kernels(torch, lt, dev):
     """Each kernel against its plain version on the card; exact
     equality.  Returns {name: entry}, entry = {err, ms, plain_ms,
@@ -936,20 +1033,10 @@ def phase_kernels(torch, lt, dev):
         f"max_len={int(kn.max())} equal")
 
     # K3/K4: the pair's inter-anchor window batch, launch by launch
-    windows = pair_windows(lt, genomes, smls, seed, dev)
-    p_rows = [w[2][0][None] for w in windows]
-    q_rows = [w[2][1][None] for w in windows]
-    launches = profile.plan_launches(p_rows, q_rows)
-    packed = [(M, N, profile.pack_profiles(p_rows, q_rows, sub, M, N, dev))
-              for M, N, sub in launches]
-    log(f"# window batch: {len(windows)} windows in {len(launches)} "
-        f"launches, buckets {sorted({(M, N) for M, N, _ in launches})}")
-    extra = []
-    rng = np.random.default_rng(11)
-    for n, M, N, B in ((1000, 1024, 1024, 16), (4000, 4096, 4096, 2)):
-        arrs = mutant_profiles(rng, B, n, M, N)
-        extra.append((M, N, tuple(torch.from_numpy(x).to(dev)
-                                  for x in arrs)))
+    windows, packed = pair_launches(lt, genomes, smls, seed, dev)
+    log(f"# window batch: {len(windows)} windows in {len(packed)} "
+        f"launches, buckets {sorted({(M, N) for M, N, _ in packed})}")
+    extra = fullwidth_shapes(torch, dev)
 
     def run3(batches, fn):
         return [fn(*t) for _, _, t in batches]
@@ -997,16 +1084,25 @@ def phase_kernels(torch, lt, dev):
     for M, N, t in extra:
         ptr = profile.profile_forward(*t)[0]
         T = gapped._device_tb_T(M, N)
-        k3 = timed_ms(lambda: profile.profile_forward(*t), 3, torch)
-        p3 = timed_ms(lambda: profile.profile_forward_plain(*t), 1, torch,
-                      warmup=False)
         k4 = timed_ms(lambda: gapped.traceback_walk(ptr, t[2], t[3], T), 3,
                       torch)
         p4 = timed_ms(lambda: gapped.traceback_walk_plain(ptr, t[2], t[3], T),
                       1, torch, warmup=False)
-        log(f"# K3 at {M}x{N} B={t[0].shape[0]}: kernel {k3:.3f} ms, plain "
-            f"{p3:.3f} ms; K4 ({walk_geometries('full', [(ptr, N)])}): "
-            f"kernel {k4:.3f} ms, plain {p4:.3f} ms")
+        log(f"# K4 at {M}x{N} B={t[0].shape[0]} "
+            f"({walk_geometries('full', [(ptr, N)])}): kernel {k4:.3f} ms, "
+            f"plain {p4:.3f} ms")
+    # K3 and K9 alone: launch by launch, every geometry, the edge widths
+    fw = fullwidth_checks(torch, dev, packed, extra)
+    res["profile_forward"]["err"] = max(res["profile_forward"]["err"],
+                                        max_abs_err(fw["profile_forward"]))
+    k9 = [t for _, _, t in packed]
+    res["profile_forward_scores"] = entry(
+        max_abs_err(fw["profile_forward_scores"]),
+        timed_ms(lambda: [profile.profile_forward_scores(*t) for t in k9],
+                 5, torch),
+        timed_ms(lambda: [profile.profile_forward_scores_plain(*t)
+                          for t in k9], 1, torch, warmup=False),
+        sum_work(dp_work("profile_forward_scores", t) for t in k9))
     for name, e in res.items():
         log(f"# {name}: kernel {e['ms']:.3f} ms, plain {e['plain_ms']:.3f} "
             f"ms, max_abs_err {e['err']}")
@@ -1188,13 +1284,12 @@ def seeder_passes(torch, t, cw, ec):
         for k, v in ms.items()))
 
 
-def seedocc_tables():
-    """tests/test_torch_seedocc_tables.py (K16's sorted tables), loaded by
-    path: the card's machine has a `tests` package of its own."""
+def tests_module(name):
+    """tests/<name>.py, loaded by path: the card's machine has a `tests`
+    package of its own."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(
-        "seedocc_tables", os.path.join(ROOT, "tests",
-                                       "test_torch_seedocc_tables.py"))
+        name, os.path.join(ROOT, "tests", f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -1337,7 +1432,7 @@ def phase_seedocc_kernels(torch, lt, dev, genomes):
     # K16 on the tests' sorted tables: a run over more than 32 tiles at
     # the 8.7 Mbp genome's rows, and 10 M rows of short runs against 10 M
     # rows with one content run of 10^6 rows
-    tables = seedocc_tables()
+    tables = tests_module("test_torch_seedocc_tables")
     table_ms = {}
     for case, n in (("multi_tile_run", LARGE_LEN), ("many_rows", None),
                     ("content_run", 10_000_019)):
@@ -2132,6 +2227,215 @@ def walk_step_costs(torch, dev):
     log(f"# walk step costs (one window a launch): {'; '.join(out)}")
 
 
+def geometry_label(geo):
+    if geo["route"] == "wide":
+        return "wide route (one block a window)"
+    return (f"{geo['warps']} x {geo['K']}, {geo['windows_per_block']}/block,"
+            f" {geo['windows_per_sm']}/SM")
+
+
+def fullwidth_launches(torch, label, lst, emit_ptr):
+    """K3 (emit_ptr) or K9 against its plain version on each launch of
+    lst ((p, q, p_len, q_len, ...) on the card), exact, in the launcher's
+    geometry and in every geometry of the table that fits; a log line a
+    launch: its bucket (Mp, N), windows, longest p_len and q_len,
+    geometry, time with CUDA events (the host's launch time included
+    where the card waits for it), time on the card alone (device_ms),
+    latency floor and each forced geometry's time.  Returns (compared
+    pairs, sum of event ms, sum of card ms)."""
+    from libmems_tpu_torch.ops import profile
+    fn, plain = ((profile.profile_forward, profile.profile_forward_plain)
+                 if emit_ptr else (profile.profile_forward_scores,
+                                   profile.profile_forward_scores_plain))
+    name = "K3" if emit_ptr else "K9"
+    pairs, tot_ms, tot_dev = [], 0.0, 0.0
+    for k, a in enumerate(lst):
+        B, Mp, N = (int(a[0].shape[0]), int(a[0].shape[1]),
+                    int(a[1].shape[1]))
+        pl, ql = _lens(a[:4])
+        ref = plain(*a)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        geo = profile.profile_geometry(B, N, emit_ptr)
+        runs = [-1]
+        if geo["route"] == "strips":
+            g = 0
+            while (x := profile.profile_geometry(B, N, emit_ptr, g)) \
+                    is not None:
+                if x["windows_per_sm"]:
+                    runs.append(g)
+                g += 1
+        forced = []
+        for g in runs:
+            def call(g=g):
+                return fn(*a) if g < 0 else fn(*a, geometry=g)
+            got = call()
+            if g < 0:
+                took = profile.launched_geometry(a[0].device)
+                require(took == geo, f"{name} {label} launch {k}: the "
+                        f"launch took {took}, the query says {geo}")
+            got = got if isinstance(got, tuple) else (got,)
+            require(all(torch.equal(x, y) for x, y in zip(got, ref)),
+                    f"{name} differs from its plain version on {label} "
+                    f"launch {k} ({Mp}, {N}) B={B} in geometry {g}")
+            pairs += list(zip(got, ref))
+            if g >= 0:
+                x = profile.profile_geometry(B, N, emit_ptr, g)
+                forced.append(f"{geometry_label(x)} "
+                              f"{timed_ms(call, 3, torch):.4f}")
+        ms = timed_ms(lambda: fn(*a), 5, torch)
+        dev_ms = device_ms(lambda: fn(*a), 5, torch)
+        tot_ms += ms
+        tot_dev += dev_ms
+        log(f"# {name} {label} launch {k}: ({Mp}, {N}) B={B}, longest "
+            f"p_len {int(pl.max(initial=0))}, q_len {int(ql.max(initial=0))}"
+            f"; {geometry_label(geo)}; {ms:.4f} ms (events), {dev_ms:.4f} ms"
+            f" on the card, latency floor {dp_latency_ms(pl, ql):.4f} ms"
+            f"{'; forced: ' + '; '.join(forced) + ' ms' if forced else ''}")
+    log(f"# {name} {label}: {len(lst)} launches, equal; sum {tot_ms:.4f} ms "
+        f"(events), {tot_dev:.4f} ms on the card")
+    return pairs, tot_ms, tot_dev
+
+
+def empty_launch_split(torch, dev):
+    """K3 and K9 on one empty window (B = 1, p_len = q_len = 0, a 16 x 16
+    bucket), timed four ways: CUDA events around the wrapper (as the
+    path's launches are timed), the card's time alone (device_ms), the
+    host clock around the wrapper with a synchronise on each side, and
+    the host's time a call over 100 calls back to back.  The launcher's
+    host time is the host clock less the card's time."""
+    from libmems_tpu_torch.ops import profile
+    z = torch.zeros((1,), dtype=torch.int32, device=dev)
+    args = (torch.zeros((1, 16, 5), device=dev),
+            torch.zeros((1, 16, 5), device=dev), z, z)
+    out = []
+    for name, fn in (("K3", profile.profile_forward),
+                     ("K9", profile.profile_forward_scores)):
+        ev = timed_ms(lambda: fn(*args), 20, torch)
+        card = device_ms(lambda: fn(*args), 20, torch)
+        host = host_ms(lambda: fn(*args), 20, torch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            fn(*args)
+        enq = (time.perf_counter() - t0) * 10
+        torch.cuda.synchronize()
+        out.append(f"{name} events {ev:.4f} ms, card {card:.4f} ms, host "
+                   f"clock {host:.4f} ms (launcher's host time "
+                   f"{host - card:.4f} ms), enqueue {enq:.4f} ms a call")
+    log(f"# empty launch (B = 1, p_len = q_len = 0): {'; '.join(out)}")
+
+
+def edge_launches(dev, torch):
+    """Launches at the strip kernels' edge widths (the EDGES of
+    tests/profile_windows.py, which the tests hold too): for each lane
+    width K of the geometry table a one-warp bucket (N = 32K - 1) and a
+    two-strip one (N = 32K + 1), q_len at 32K - 1, 32K and 32K + 1 where
+    they fit, empty windows and windows with p_len = 0 or q_len = 0; and
+    the wide route's boundary, N = STRIP_MAX_N - 1, STRIP_MAX_N and
+    STRIP_MAX_N + 1.  Fractional 3 + 2-row profiles."""
+    w = tests_module("profile_windows")
+    rng = np.random.default_rng(23)
+    return [(f"N={N}", [torch.from_numpy(x).to(dev)
+                        for x in w.sized_profiles(rng, M, N, shapes)])
+            for M, N, shapes in w.EDGES]
+
+
+def fullwidth_checks(torch, dev, pair_packed, shapes):
+    """K3 and K9 alone: the empty launch's host/card split, then each
+    against its plain version, launch by launch and in every geometry
+    that fits (fullwidth_launches), on the pair's inter-anchor windows,
+    the 1024 x 1024 and 4096 x 4096 shapes, fractional 3 + 2 and 4 + 5-row
+    windows and the edge widths.  Returns {name: compared pairs}."""
+    empty_launch_split(torch, dev)
+    rng = np.random.default_rng(29)
+    w = tests_module("profile_windows")
+    frac = [(f"{n_p}+{n_q} rows", [torch.from_numpy(x).to(dev) for x in
+                                   w.sized_profiles(rng, 300, 256, [
+                                       (int(rng.integers(128, 257)),
+                                        int(rng.integers(128, 257)))
+                                       for _ in range(6)], n_p, n_q)])
+            for n_p, n_q in ((3, 2), (4, 5))]
+    groups = [("pair windows", [t for _, _, t in pair_packed]),
+              ("shape", [t for _, _, t in shapes]),
+              ("fractional", [t for _, t in frac]),
+              ("edge", [t for _, t in edge_launches(dev, torch)])]
+    out = {"profile_forward": [], "profile_forward_scores": []}
+    for label, lst in groups:
+        for name, emit_ptr in (("profile_forward", True),
+                               ("profile_forward_scores", False)):
+            out[name] += fullwidth_launches(torch, label, lst, emit_ptr)[0]
+    return out
+
+
+def phase_fullwidth(torch, lt, dev, calls):
+    """The light K3/K9 phase (not part of the full run, whose kernels and
+    profile_dp phases hold the same checks): fullwidth_checks on the
+    rng-0 pair's windows and the shapes, and, where the progressive run
+    was recorded, each of its K3 and K9 launches (plan_profile_dp)."""
+    from libmems_tpu_torch.sml import create_smls
+    genomes = genome_pair(lt, 0)
+    smls, seed = create_smls(genomes, device=dev)
+    _, packed = pair_launches(lt, genomes, smls, seed, dev)
+    fullwidth_checks(torch, dev, packed, fullwidth_shapes(torch, dev))
+    if calls.get("align_profile_batch"):
+        path, _ = plan_profile_dp(calls.get("profile_scores_batch", []),
+                                  calls["align_profile_batch"], dev)
+        fullwidth_launches(torch, "path", path["profile_forward"], True)
+        fullwidth_launches(torch, "path", path["profile_forward_scores"],
+                           False)
+
+
+def fullwidth_shapes(torch, dev):
+    """The single-launch shapes: 16 one-hot windows of about 1,000
+    columns in the 1024 bucket, 2 of about 4,000 at 4096 x 4096."""
+    rng = np.random.default_rng(11)
+    out = []
+    for n, M, N, B in ((1000, 1024, 1024, 16), (4000, 4096, 4096, 2)):
+        arrs = mutant_profiles(rng, B, n, M, N)
+        out.append((M, N, tuple(torch.from_numpy(x).to(dev)
+                                for x in arrs)))
+    return out
+
+
+def wide_shapes(torch, dev):
+    """Launches on K3's and K9's wide route (one block a window): 4
+    one-hot windows of about 4,500 columns in a 4,608-column bucket, and 2
+    of about 9,000 in the 11,664 bucket, which windows of 7,777-10,000
+    columns take under the default cap."""
+    rng = np.random.default_rng(13)
+    return [(M, N, tuple(torch.from_numpy(x).to(dev)
+                         for x in mutant_profiles(rng, B, n, M, N)))
+            for n, M, N, B in ((4500, 4608, 4608, 4),
+                               (9000, 11664, 11664, 2))]
+
+
+def phase_wide(torch, dev):
+    """The light wide-route phase: K3 and K9 on wide_shapes, exact
+    against their plain versions, then timed with CUDA events and on the
+    card alone (device_ms), with the card's time a row of the longest
+    window.  It calls only the wrappers and their plain versions, so the
+    same phase times a tree from before the strip kernels."""
+    from libmems_tpu_torch.ops import profile
+    for M, N, t in wide_shapes(torch, dev):
+        B, rows = int(t[0].shape[0]), int(t[2].max())
+        ref_p, ref_s = profile.profile_forward_plain(*t)
+        got_p, got_s = profile.profile_forward(*t)
+        require(torch.equal(got_p, ref_p) and torch.equal(got_s, ref_s),
+                f"K3 differs from its plain version at ({M}, {N}) B={B}")
+        require(torch.equal(profile.profile_forward_scores(*t), ref_s),
+                f"K9 differs from its plain version at ({M}, {N}) B={B}")
+        del ref_p, got_p
+        parts = []
+        for name, fn in (("K3", profile.profile_forward),
+                         ("K9", profile.profile_forward_scores)):
+            ev = timed_ms(lambda: fn(*t), 5, torch)
+            card = device_ms(lambda: fn(*t), 5, torch)
+            parts.append(f"{name} {ev:.4f} ms (events), {card:.4f} ms on "
+                         f"the card, {card * 1e3 / rows:.3f} us a row")
+        log(f"# wide route ({M}, {N}) B={B}, longest p_len {rows}, "
+            f"equal: {'; '.join(parts)}")
+
+
 def plan_profile_dp(score_calls, align_calls, dev):
     """The profile-DP launches of recorded profile_scores_batch and
     align_profile_batch calls, rebuilt with the path's own planners
@@ -2326,6 +2630,11 @@ def phase_profile_dp(torch, dev, calls, launches):
                 f"warps a window x columns a lane): {geo}; the full sort "
                 f"of their gap costs (the plain version's; the kernel "
                 f"selects the largest instead) {sort_ms:.3f} ms")
+    for label, lst in runs:   # K3 and K9 launch by launch, every geometry
+        for name, emit_ptr in (("profile_forward", True),
+                               ("profile_forward_scores", False)):
+            if lst[name]:
+                fullwidth_launches(torch, label, lst[name], emit_ptr)
     extra_band_launches(torch, dev, fns, res)
     walk_step_costs(torch, dev)
     return res
@@ -2887,6 +3196,11 @@ def phase_bounded(torch, lt, dev):
         f"{json.dumps(s_full)}; launches {json.dumps(l_full)}")
     require(s_full["windows"] == 0 and l_full["profile_forward"] > 0,
             "the raised budget did not take the one-launch route")
+    for N in sorted({c["q"].shape[1] for c in calls}):
+        geo = profile.profile_geometry(1, N, True)
+        log(f"# K3's one launch at N = {N}: {geometry_label(geo)}")
+        require(geo["route"] == "wide", f"K3 at N = {N} is not on the wide "
+                f"route")
     require(xmfa_ck == xmfa_full, "the checkpointed route's XMFA differs "
             "from the one-launch route's")
     log(f"# XMFA byte-equal across the two routes ({len(xmfa_ck)} bytes)")
@@ -3886,9 +4200,10 @@ def select_phases(argv):
     """The phases to run: those named on the command line (PHASES), all
     when none is, plus the progressive run that profile_dp and decode
     read their inputs from."""
-    bad = [a for a in argv if a not in PHASES]
+    bad = [a for a in argv if a not in PHASES + LIGHT_PHASES]
     if bad:
-        raise SystemExit(f"unknown phase {bad}; phases: {' '.join(PHASES)}")
+        raise SystemExit(f"unknown phase {bad}; phases: "
+                         f"{' '.join(PHASES + LIGHT_PHASES)}")
     want = set(argv or PHASES)
     if want & {"profile_dp", "decode"}:
         want.add("progressive")
@@ -3896,7 +4211,7 @@ def select_phases(argv):
         want |= {"main", "trio", "progressive"}
     if want & {"tiled", "multihost"}:
         want.add("main")
-    return [p for p in PHASES if p in want]
+    return [p for p in PHASES + LIGHT_PHASES if p in want]
 
 
 def main(argv=None) -> int:
@@ -4008,6 +4323,12 @@ def main(argv=None) -> int:
                                                  device=dev)
             walls.append(cards_processes(torch, lt, refs, pairwise))
         lap("cards")
+    if "fullwidth" in phases:
+        phase_fullwidth(torch, lt, dev, calls)
+        lap("fullwidth")
+    if "wide" in phases:
+        phase_wide(torch, dev)
+        lap("wide")
     if "extend_matches" in res:
         res["extend_matches"]["err"] = max([res["extend_matches"]["err"]]
                                            + k2_errs)

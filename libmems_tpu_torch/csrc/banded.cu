@@ -89,6 +89,7 @@
 // max(max_y qw[y][j], 0) over the columns j < q_len (0 beyond); cert =
 // score > ((sumcap + open) + gap_bound) + 64.
 #include "common.cuh"
+#include "strip.cuh"
 #include "walk.cuh"
 
 namespace {
@@ -96,27 +97,20 @@ namespace {
 constexpr float kNegBig = -1e30f;
 constexpr unsigned char kHDiag = 0, kHE = 1, kHF = 2, kEExt = 4, kFExt = 8;
 constexpr int kBandK = 128;
-constexpr int kRing = 16;   // rows a strip may run ahead of the next
-constexpr int kSlot = 3;    // words a hand-off slot holds
-constexpr unsigned kFull = 0xffffffffu;
+using lm_strip::await_row_word;
+using lm_strip::kFull;
+using lm_strip::kIssueWarps;
+using lm_strip::kRing;
+using lm_strip::kSlot;
+using lm_strip::qw_of;
+using lm_strip::row_word;
+using lm_strip::sm_count;
 
 __device__ __forceinline__ int band_lo(int bi, int ql, int plc, int H_W,
                                        int lo_cap) {
   const long long t =
       ((long long)bi * kBandK * ql) / plc - (long long)(H_W + 1);
   return (int)(t < 0 ? 0 : (t > lo_cap ? lo_cap : t));
-}
-
-// qw[y] of one q column: ((q0 w_y0 + q1 w_y1) + (q2 w_y2 + q3 w_y3)) +
-// q4 w_y4, as lm::profile_q_setup forms it.
-__device__ __forceinline__ float qw_of(const float* qv, const lm::W5& w5,
-                                       int y) {
-  const float* wy = w5.w + y * 5;
-  const float t01 =
-      __fadd_rn(__fmul_rn(qv[0], wy[0]), __fmul_rn(qv[1], wy[1]));
-  const float t23 =
-      __fadd_rn(__fmul_rn(qv[2], wy[2]), __fmul_rn(qv[3], wy[3]));
-  return __fadd_rn(__fadd_rn(t01, t23), __fmul_rn(qv[4], wy[4]));
 }
 
 // Floats of dynamic shared memory a block of S warps takes: the exchange
@@ -126,22 +120,6 @@ __host__ __device__ inline int64_t band_smem_floats(int K, int S,
                                                     bool qw_reg) {
   return (int64_t)(qw_reg ? 2 : 5) * 32 * S * K +
          (int64_t)2 * kSlot * S * kRing + S;
-}
-
-// A hand-off word: a float and the row it belongs to, stored as one
-// 64-bit word, so that a reader that sees the row sees the value and
-// neither side needs a memory fence.
-__device__ __forceinline__ unsigned long long row_word(float v, int row) {
-  return ((unsigned long long)(unsigned)row << 32) | __float_as_uint(v);
-}
-
-__device__ __forceinline__ float await_row_word(
-    const volatile unsigned long long* w, int row) {
-  unsigned long long x;
-  do {
-    x = *w;
-  } while ((int)(x >> 32) != row);
-  return __uint_as_float((unsigned)x);
 }
 
 // Order-preserving 32-bit key of a float (larger float, larger key) and
@@ -649,9 +627,6 @@ constexpr Geometry kGeometries[] = {{17, true, 100, 170},
                                     {5, true, 85, 85},
                                     {17, false, 130, 250}};
 constexpr int kGeometryCount = 5;
-// Warps an SM issues from at once (four schedulers): below this many
-// strips an SM, a row takes one strip's latency.
-constexpr int kIssueWarps = 4;
 
 template <bool kPtr>
 const void* band_kernel_of(int g) {
@@ -704,13 +679,6 @@ inline cudaError_t band_plan(int g, int B, int n_sm, int w1, bool ptr,
   }
   *out = pl;
   return cudaSuccess;
-}
-
-inline cudaError_t sm_count(int* n_sm) {
-  int dev = 0;
-  const cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  return cudaDeviceGetAttribute(n_sm, cudaDevAttrMultiProcessorCount, dev);
 }
 
 // The geometry for B windows of a band of w1 columns: the cheapest that

@@ -163,15 +163,16 @@ __host__ __device__ inline int64_t cum_scratch(int64_t n) {
   return used > 0 ? used : 1;
 }
 
-// Inclusive prefix sum of x[0..n) into out[0..n) (out may be x) by the
-// whole thread block, in the JAX package's CPU cumsum order: sequential
-// within blocks of 16, the block totals' prefix (the same, recursively)
-// added to every later block.  lv is global scratch for the block totals
-// of every level (cum_scratch(n) floats).
-__device__ inline void blocked_cumsum(const float* x, float* out, int n,
-                                      float* lv) {
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
+// Inclusive prefix sum of x[0..n) into out[0..n) (out may be x) by a
+// group of nt threads (tid: this thread's index in it; sync: a barrier of
+// the group), in the JAX package's CPU cumsum order: sequential within
+// blocks of 16, the block totals' prefix (the same, recursively) added to
+// every later block.  lv is scratch for the block totals of every level
+// (cum_scratch(n) floats), global or shared.
+template <typename Sync>
+__device__ inline void blocked_cumsum_in(const float* x, float* out, int n,
+                                         float* lv, int tid, int nt,
+                                         Sync sync) {
   int len[kMaxLevels + 1];
   int off[kMaxLevels + 1];
   int top = 0;
@@ -201,7 +202,7 @@ __device__ inline void blocked_cumsum(const float* x, float* out, int n,
       }
       if (l < top) lv[off[l + 1] + bk] = acc;
     }
-    __syncthreads();
+    sync();
   }
   // down: every block of a level adds the prefix of the totals before it
   for (int l = top - 1; l >= 0; --l) {
@@ -211,8 +212,15 @@ __device__ inline void blocked_cumsum(const float* x, float* out, int n,
       const int bk = k / kCumBlock;
       o[k] = __fadd_rn(o[k], bk > 0 ? up[bk - 1] : 0.0f);
     }
-    __syncthreads();
+    sync();
   }
+}
+
+// blocked_cumsum_in by the whole thread block.
+__device__ inline void blocked_cumsum(const float* x, float* out, int n,
+                                      float* lv) {
+  blocked_cumsum_in(x, out, n, lv, threadIdx.x, blockDim.x,
+                    [] { __syncthreads(); });
 }
 
 // The 5x5 expected-score matrix W5, passed by value.

@@ -1,7 +1,7 @@
 // K3: profile-profile Gotoh forward DP with pointer bytes, K9: the same
 // forward without pointers (the score only), K24: the forward with the
 // (H, F) carry every K rows, and K25: the pointer bytes of a block of rows
-// from such a carry; one thread block per window.
+// from such a carry.
 //
 // K3 replaces libmems_tpu/ops/profile.py _full_ptr_tb / _full_ptr_tb_jit
 // (the lax.scan over rows of _profile_row_fn with emit_ptr=True, which
@@ -11,23 +11,69 @@
 // K24 replaces profile_forward_ckpt at K = 128 (ops/profile.py:116), the
 // route of a bucket whose full pointer tensor exceeds the budget, and K25
 // replaces profile_block_ptrs (:142) followed by pack_ptrs (ops/gapped.py
-// :188): two 4-bit cells a byte, cell 2k in the low nibble.  All four are
-// one template: K9 and K24 compile the pointer and flag writes out, so
-// their scores equal K3's bit for bit, and K25 started from K24's carry
-// at row bi*K gives K3's pointer bytes of rows bi*K+1 .. (bi+1)*K.
+// :188): two 4-bit cells a byte, cell 2k in the low nibble.
 //
 // Bound: the row recurrence.  Each of a window's rows depends on the
 // previous one, and within a row E needs a prefix maximum over the
-// columns, so a row costs three barriers and one block scan whatever its
-// width; per cell it reads 5 qw floats, K3 and K25 write a pointer byte
-// (K25 half of one) and K24 writes 8 bytes of carry every K rows.
-// Design: threads across columns j, a loop over rows i.  The window's
-// H (double-buffered), F, scan and flag rows live in shared memory when
-// 17*(N+1) bytes fit (every window up to the 10,000-column cap does),
-// otherwise in global scratch the wrapper allocates.  qw = q.W5^T,
-// ext_q and ext_cum are computed once per window into global scratch.
+// columns; per cell the DP reads 5 qw floats, K3 writes a pointer byte
+// (K25 half of one) and K24 writes 8 bytes of carry every K rows.  At the
+// path's shapes the bytes are tiny, so a launch costs its longest
+// window's rows times the latency of a row.
 //
-// Arithmetic and tie order copy ops/profile.py:49-93 exactly:
+// Two routes, chosen by the launch's column bucket N alone:
+//
+// Strips (K3, K9 with N <= kStripMaxN; strip_kernel).  The design of
+// K10/K11 (csrc/banded.cu, csrc/strip.cuh) with the band's lo fixed at 0
+// and no band blocks: lane l of warp s holds the K consecutive columns
+// from (32*s + l)*K in registers (H, F, ext_cum, ext_q and the five qw
+// values of each), a warp is a strip of 32*K columns and a window takes
+// S = ceil((N+1) / (32*K)) strips.  A row has no block barrier: F and G
+// for each held column, the diagonal neighbour by __shfl_up_sync (from
+// the strip to the left at the strip's first column); E from each lane's
+// running maximum, a shuffle max-scan over the warp and the maximum
+// carried in from the strip to the left; then H and the pointer bytes.
+// Strips run the rows as a pipeline, handing on H of their last column,
+// the running maximum and the last e + ext_q in row-tagged 64-bit words
+// through a ring in shared memory.  Windows of one strip (S == 1) are
+// packed kStripPack to a block, one warp each.  Each warp loads its
+// window's profile rows 32 at a time, a row a lane, and broadcasts row
+// i's five values by shuffles.  Per window, once: each lane forms its
+// columns' qw and ext_q from q in registers (no global scratch), and the
+// window's ext_cum is the blocked cumsum (lm::blocked_cumsum_in) in
+// shared memory.  The kernel writes every byte of its [B, M, N+1]
+// pointer tensor (zeros outside rows 1..p_len and columns 0..q_len; the
+// rows past p_len, and at K = 17 every row, through a staging row in
+// shared memory as 4-byte words), so the wrapper allocates it without a
+// fill.  The launcher picks K (kStripK) by the price of a row of the
+// launch (StripCost), as band_pick does.
+//
+// Where strips stop: a block of 256 threads always gets its registers
+// (255 a thread is the most, and 256 x 256 fills an SM's 65,536), while
+// wider blocks fit only with fewer registers than K = 13 or 17 need (the
+// pointer kernels take 207 and 243 by ptxas; K11's K = 17 already spills
+// at 255), and more columns a lane would spill.  So the widest strip
+// window is 8 warps x 32 lanes x 17 columns, 4,352 columns: kStripMaxN =
+// 4,351.  Wider buckets (5,184 and up, the
+// 11,664 bucket of the default 10,000-column cap, the 39,366 of a raised
+// one) take the wide route, as do K24 and K25.
+//
+// Wide (profile_fwd_kernel): one thread block a window, threads across
+// columns j, a loop over rows i with three barriers and one block scan a
+// row.  The window's H (double-buffered), F, scan and flag rows live in
+// shared memory when 17*(N+1) bytes fit, otherwise in global scratch.
+// qw = q.W5^T, ext_q and ext_cum are computed once per window into global
+// scratch (one allocation, carved by the launcher).  K3 writes rows
+// 1..p_len, columns 0..q_len, and its caller zero-fills the pointer
+// tensor first: writing the rest in the kernel, a byte a thread from the
+// one block a window, cost 118.1 ms against 103.5 ms at B = 2 in the
+// 11,664 bucket on an H100 (chip_smoke.py wide), where the fill is one
+// launch at the memory's rate.  K9 and K24 compile
+// the pointer and flag writes out, so their scores equal K3's bit for bit,
+// and K25 started from K24's carry at row bi*K gives K3's pointer bytes
+// of rows bi*K+1 .. (bi+1)*K.
+//
+// Arithmetic and tie order copy ops/profile.py:49-93 exactly, on both
+// routes:
 //   F = max((H_prev + open) + ext_p, F_prev + ext_p)
 //   g = max(H_prev[j-1] + p.qw[j-1], F)            (column 0: g = F)
 //   E[j] = ext_cum[j] + max_{k<j}((g[k] + open) - ext_cum[k])
@@ -36,12 +82,13 @@
 //   E extend bit iff E[j] == E[j-1] + ext_q[j-1]   (j >= 2).
 // E is the same max-scan formula as the JAX code, not a left-to-right E
 // recurrence, so fractional profiles keep the same structure of float
-// operations.  K3 and K9 compute rows 1..p_len and columns 0..q_len only:
-// the traceback never reads past them (K3's wrapper zero-fills the
-// rest).  K24 and K25 compute every row and column of the padded
-// [M, N+1] matrix, as the JAX scan does, so the carries and pointer bytes
-// equal the JAX arrays whole; a column's values never depend on a later
-// column, so those inside the window are K3's.
+// operations; the strips associate its maximum differently (lanes, then
+// strips), and a maximum of floats is exact in any association.  K3 and
+// K9 compute rows 1..p_len and columns 0..q_len only: no value the score
+// or the walk reads depends on the others.  K24 and K25 compute every row
+// and column of the padded [M, N+1] matrix, as the JAX scan does, so the
+// carries and pointer bytes equal the JAX arrays whole; a column's values
+// never depend on a later column, so those inside the window are K3's.
 //
 // Rounding: multi-row profiles hold fractions (1/3, 1/7), so the order
 // of float operations decides ties in the pointer choice.  Every product
@@ -52,7 +99,10 @@
 //   s        = fma(p4, qw4, fma(p3, qw3, fma(p2, qw2, fma(p1, qw1, p0 qw0))))
 //   ext_cum  = the JAX CPU cumsum order: sequential within blocks of 16,
 //              the block totals' prefix (the same, recursively) added on.
+#include <mutex>
+
 #include "common.cuh"
+#include "strip.cuh"
 
 namespace {
 
@@ -280,6 +330,596 @@ ProfileArgs make_args(const void* p, const void* q, const void* q_len,
   return a;
 }
 
+// ---------------------------------------------------------------------------
+// The strip route of K3 and K9 (see the top of the file).
+
+using lm_strip::await_row_word;
+using lm_strip::kFull;
+using lm_strip::kRing;
+using lm_strip::kSlot;
+using lm_strip::qw_of;
+using lm_strip::row_word;
+
+// The widest bucket the strips take: 8 warps x 32 lanes x 17 columns - 1.
+constexpr int kStripMaxN = 4351;
+// Windows of one strip a block (one warp each).
+constexpr int kStripPack = 4;
+
+struct StripArgs {
+  const float* p;        // [B, M, 5]
+  const float* q;        // [B, N, 5]
+  const int* p_len;      // [B]
+  const int* q_len;      // [B]
+  unsigned char* ptr;    // K3: [B, M, N+1]; K9: null
+  float* score;          // [B]
+  int B, M, N;
+  int S, W;              // warps a window, windows a block
+  float gap_open, gap_extend;
+  lm::W5 w5;
+};
+
+// Floats of shared memory a window takes: its ext_cum (N+1) and the
+// cumsum's levels, an even count so that the ring after the block's
+// windows is 8-byte aligned.
+__host__ __device__ inline int64_t strip_window_floats(int N) {
+  return (N + 1 + lm::cum_scratch(N) + 1) & ~(int64_t)1;
+}
+
+// Floats of the hand-off ring and its flags a window of S strips takes
+// (none for one strip).
+__host__ __device__ inline int64_t strip_ring_floats(int S) {
+  return S > 1 ? (int64_t)2 * kSlot * S * kRing + S : 0;
+}
+
+// Floats of a strip's staging row for its pointer bytes: 32*K bytes and
+// a word of slack for the unaligned word reads.
+__host__ __device__ inline int64_t strip_stage_floats(int K) {
+  return 8 * K + 2;
+}
+
+// Bytes of dynamic shared memory a block takes: W windows, for windows of
+// several strips the hand-off ring and a flag a strip, and with pointers
+// a staging row a strip.
+__host__ __device__ inline int64_t strip_smem_bytes(int N, int K, int S,
+                                                    int W, bool ptr) {
+  return 4 * (W * strip_window_floats(N) + strip_ring_floats(S) +
+              (ptr ? W * S * strip_stage_floats(K) : 0));
+}
+
+// Writes a strip's pointer bytes of one row, staged at stg (32*K bytes,
+// 4-byte aligned, every lane's K bytes stored), to dst[0..len): the bytes
+// before dst's first 4-byte boundary and after its last one singly, the
+// rest as 4-byte words, a lane a word, read from the staging row by a
+// funnel shift of the two aligned words that hold it.
+__device__ __forceinline__ void store_stage(const unsigned char* stg,
+                                            unsigned char* dst, int len,
+                                            int lane) {
+  const int head = min((int)((4 - ((uintptr_t)dst & 3)) & 3), len);
+  const int words = (len - head) >> 2;
+  const int tail = head + 4 * words;
+  const unsigned* s32 = reinterpret_cast<const unsigned*>(stg);
+  if (lane < head) dst[lane] = stg[lane];
+  for (int w = lane; w < words; w += 32) {
+    const int o = head + 4 * w;
+    const unsigned lo = s32[o >> 2];
+    const unsigned hi = s32[(o >> 2) + 1];
+    reinterpret_cast<unsigned*>(dst + head)[w] =
+        __funnelshift_r(lo, hi, 8 * (o & 3));
+  }
+  if (tail + lane < len) dst[tail + lane] = stg[tail + lane];
+}
+
+// One window a group of S warps (S > 1: the block; S == 1: one warp of a
+// block of W windows).  K columns a lane; no block barrier in the row loop.
+template <int K, bool kPtr>
+__global__ void strip_kernel(StripArgs a) {
+  // A lane's K pointer bytes of a row lie K apart from the next lane's, so
+  // a warp's byte store touches up to K sectors.  At K = 17 (up to 8
+  // strips a block) that saturates the load/store unit, and the row goes
+  // through the staging row as words (4096 x 4096: 8.3 -> 6.4 ms on an
+  // H100); narrower lanes store bytes directly, since the staging's
+  // shared-memory round trip lies on the row's latency chain (1024 x
+  // 1024 at K <= 13: 0.77-1.09 ms direct, 0.95-1.24 staged).
+  constexpr bool kStage = K == 17;
+  extern __shared__ float lm_smem[];
+  const int S = a.S;
+  const int N = a.N, M = a.M, n1 = N + 1;
+  const int lane = threadIdx.x & 31;
+  const int slot = (threadIdx.x >> 5) / S;         // the block's window
+  const int warp = (threadIdx.x >> 5) - slot * S;  // the window's strip
+  const int b = blockIdx.x * a.W + slot;
+  if (b >= a.B) return;   // only where S == 1: no block barrier follows
+  const float gap_open = a.gap_open, gap_extend = a.gap_extend;
+  const int pl = a.p_len[b];
+  const int ql = a.q_len[b];
+  const int c0 = warp * 32 * K;         // the strip's first column
+  const int cb = c0 + lane * K;         // this lane's first column
+  const bool col0 = warp == 0 && lane == 0;
+  const int gt = warp * 32 + lane;      // the thread in the window's group
+  const int gn = 32 * S;
+  auto sync = [S] {
+    if (S > 1) {
+      __syncthreads();
+    } else {
+      __syncwarp();
+    }
+  };
+
+  // shared memory: the window's ext_cum and cumsum levels; then the ring:
+  // slot r of strip s holds {H[i][last], running max, e + ext_q of its
+  // last column} of row i = r (mod kRing)
+  const int64_t wf = strip_window_floats(N);
+  float* ecs = lm_smem + slot * wf;
+  float* lv = ecs + n1;
+  volatile unsigned long long* ring =
+      reinterpret_cast<volatile unsigned long long*>(lm_smem + a.W * wf);
+  volatile int* used =   // rows a strip has read from the one before
+      reinterpret_cast<volatile int*>(ring + kSlot * S * kRing);
+  // the strip's staging row of pointer bytes
+  unsigned char* stg = reinterpret_cast<unsigned char*>(
+      lm_smem + a.W * wf + strip_ring_floats(S) +
+      (slot * S + warp) * strip_stage_floats(K));
+  const int seg = min(32 * K, n1 - c0);   // the strip's bytes of a row
+
+  // per window, once: the held columns' qw (of q column c-1) and ext_q
+  // (of q column c, the next column's kEExt test) in registers; ext_q
+  // also into shared memory for the window's ext_cum
+  const float* qb = a.q + (int64_t)b * N * 5;
+  float H[K], F[K], EC[K];
+  float EQ[kPtr ? K : 1];
+  float QW[5 * K];
+#pragma unroll
+  for (int m = 0; m < K; ++m) {
+    const int c = cb + m;
+    float qv[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
+    if (c >= 1 && c - 1 < ql) {
+#pragma unroll
+      for (int x = 0; x < 5; ++x) qv[x] = qb[(c - 1) * 5 + x];
+    }
+#pragma unroll
+    for (int y = 0; y < 5; ++y) QW[m * 5 + y] = qw_of(qv, a.w5, y);
+    const float eq =
+        c < ql ? __fmul_rn(gap_extend, __fsub_rn(1.0f, qb[c * 5 + 4])) : 0.f;
+    if (kPtr) EQ[m] = eq;
+    if (c < ql) ecs[c + 1] = eq;
+  }
+  if (S > 1) {
+    for (int k = gt; k < kSlot * S * kRing; k += gn) ring[k] = 0;
+    if (gt < S) used[gt] = 0;
+  }
+  if (gt == 0) ecs[0] = 0.f;
+  sync();
+  lm::blocked_cumsum_in(ecs + 1, ecs + 1, ql, lv, gt, gn, sync);
+#pragma unroll
+  for (int m = 0; m < K; ++m) {
+    const int c = cb + m;
+    EC[m] = c <= ql ? ecs[c] : 0.f;
+    H[m] = c == 0 ? 0.f : (c <= ql ? gap_open + EC[m] : kNegBig);
+    F[m] = kNegBig;
+  }
+  // H[i-1][c0-1] for the strip's first column (strips after the first)
+  float h_left = c0 >= 1 && c0 - 1 <= ql ? gap_open + ecs[c0 - 1] : kNegBig;
+
+  // a strip takes part while its first column is computed, and hands
+  // rows on while the next strip's is
+  const bool active = c0 <= ql;
+  const bool feeds = c0 + 32 * K <= ql;
+  if (active) {
+    // the profile rows, 32 at a time, a row a lane; row i's five values
+    // reach every lane by shuffles
+    const float* pb = a.p + (int64_t)b * M * 5;
+    float P[5], PN[5];
+    auto load_rows = [&](int first) {
+      const int r = first + lane;
+#pragma unroll
+      for (int x = 0; x < 5; ++x) PN[x] = r < pl ? pb[r * 5 + x] : 0.f;
+    };
+    load_rows(0);
+    for (int i = 1; i <= pl; ++i) {
+      const int r = (i - 1) & 31;
+      if (r == 0) {
+#pragma unroll
+        for (int x = 0; x < 5; ++x) P[x] = PN[x];
+        load_rows(i + 31);
+      }
+      float pc[5];
+#pragma unroll
+      for (int x = 0; x < 5; ++x) pc[x] = __shfl_sync(kFull, P[x], r);
+      const float ext_pi = __fmul_rn(gap_extend, __fsub_rn(1.0f, pc[4]));
+
+      // 1. F and G; the running max of Wv over the lane's columns
+      float hl = __shfl_up_sync(kFull, H[K - 1], 1);
+      if (lane == 0) hl = h_left;
+      float run = -INFINITY;
+      unsigned dmask = 0, fmask = 0;
+#pragma unroll
+      for (int m = 0; m < K; ++m) {
+        const float hp = H[m];
+        const float fp = F[m];
+        const float fo = (hp + gap_open) + ext_pi;
+        const float fe = fp + ext_pi;
+        const float f = fmaxf(fo, fe);
+        if (kPtr && f == fe && fp > kNegBig / 2) fmask |= 1u << m;
+        F[m] = f;
+        float g = f;
+        if (m > 0 || !col0) {
+          float s = __fmul_rn(pc[0], QW[m * 5]);
+          s = __fmaf_rn(pc[1], QW[m * 5 + 1], s);
+          s = __fmaf_rn(pc[2], QW[m * 5 + 2], s);
+          s = __fmaf_rn(pc[3], QW[m * 5 + 3], s);
+          s = __fmaf_rn(pc[4], QW[m * 5 + 4], s);
+          const float diag = hl + s;
+          g = fmaxf(diag, f);
+          if (kPtr && g == diag) dmask |= 1u << m;
+        }
+        hl = hp;   // column m's H[i-1] is column m+1's diagonal
+        H[m] = g;
+        run = fmaxf(run, (g + gap_open) - EC[m]);
+      }
+
+      // 2. the exclusive max-scan over the lanes, then the strip's carry
+      float x = run;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float n = __shfl_up_sync(kFull, x, o);
+        if (lane >= o) x = fmaxf(n, x);
+      }
+      float pre = __shfl_up_sync(kFull, x, 1);
+      if (lane == 0) pre = -INFINITY;
+      float eeq_in = 0.f;
+      if (warp > 0) {
+        const volatile unsigned long long* sl =
+            ring + ((warp - 1) * kRing + i % kRing) * kSlot;
+        h_left = await_row_word(sl, i);   // H[i][c0-1], next row's diagonal
+        pre = fmaxf(pre, await_row_word(sl + 1, i));
+        if (kPtr) eeq_in = await_row_word(sl + 2, i);
+        __syncwarp();
+        if (lane == 0) used[warp] = i;
+      }
+
+      // 3. H = max(G, E) and the pointer bytes (zero past q_len)
+      unsigned char* prow =
+          kPtr ? a.ptr + ((int64_t)b * M + (i - 1)) * n1 : nullptr;
+      float e0 = 0.f, eeq = 0.f;   // eeq: the previous column's e + ext_q
+      unsigned char byte0 = 0;
+#pragma unroll
+      for (int m = 0; m < K; ++m) {
+        const int c = cb + m;
+        const float g = H[m];
+        const float wv = (g + gap_open) - EC[m];
+        if (m == 0 && col0) {   // column 0: H = G, the pointer F
+          pre = fmaxf(pre, wv);
+          if (kPtr) byte0 = kHF | ((fmask & 1u) ? kFExt : 0);
+          continue;
+        }
+        const float e = EC[m] + pre;
+        pre = fmaxf(pre, wv);
+        const float h = fmaxf(g, e);
+        H[m] = h;
+        if (kPtr) {
+          const unsigned char src = (((dmask >> m) & 1u) && h == g)
+                                        ? kHDiag
+                                        : (h == e ? kHE : kHF);
+          unsigned char out = src | (((fmask >> m) & 1u) ? kFExt : 0);
+          if (m == 0) {
+            e0 = e;
+            byte0 = out;
+          } else {
+            if (c >= 2 && e == eeq) out |= kEExt;
+            if (kStage) {
+              stg[lane * K + m] = c <= ql ? out : 0;
+            } else if (c <= N) {
+              prow[c] = c <= ql ? out : 0;
+            }
+          }
+          eeq = e + EQ[m];
+        }
+      }
+      if (kPtr) {
+        float eeq_left = __shfl_up_sync(kFull, eeq, 1);
+        if (lane == 0) eeq_left = eeq_in;
+        if (!col0 && cb >= 2 && e0 == eeq_left) byte0 |= kEExt;
+        if (kStage) {
+          stg[lane * K] = cb <= ql ? byte0 : 0;
+          __syncwarp();
+          store_stage(stg, prow + c0, seg, lane);
+          __syncwarp();   // the next row's bytes overwrite the staging row
+        } else if (cb <= N) {
+          prow[cb] = cb <= ql ? byte0 : 0;
+        }
+      }
+
+      // hand the row to the next strip
+      if (feeds) {
+        if (i > kRing) {
+          while (used[warp + 1] < i - kRing) {
+          }
+        }
+        if (lane == 31) {
+          volatile unsigned long long* sl =
+              ring + (warp * kRing + i % kRing) * kSlot;
+          sl[0] = row_word(H[K - 1], i);
+          sl[1] = row_word(pre, i);
+          if (kPtr) sl[2] = row_word(eeq, i);
+        }
+      }
+    }
+    // H at (p_len, q_len); row 0's where p_len is 0
+#pragma unroll
+    for (int m = 0; m < K; ++m) {
+      if (cb + m == ql) a.score[b] = H[m];
+    }
+  }
+  if (kPtr) {   // the strip's columns of the rows past p_len are zero
+    for (int k = lane; k < 32 * K; k += 32) stg[k] = 0;
+    __syncwarp();
+    for (int r = active ? pl : 0; r < M; ++r) {
+      store_stage(stg, a.ptr + ((int64_t)b * M + r) * n1 + c0, seg, lane);
+    }
+  }
+}
+
+// The geometries the launcher chooses from: K columns a lane.  A
+// geometry's S is ceil((N+1) / (32*K)); windows of one strip go
+// kStripPack to a block.
+constexpr int kStripK[] = {17, 13, 9, 5, 3, 1};
+constexpr int kStripGeometryCount = 6;
+
+// The launcher's price of a row of a launch, in ns: the larger of a
+// strip's row latency, A + Bk*K + Cs*S, plus H where strips hand rows on
+// (a chain longer with more strips), and the issue time where an SM's
+// strips need more than its four schedulers give, strips an SM x (K*I +
+// J) instructions at 4 x 1.98 a ns.  Fitted to the forced-geometry times
+// of chip_smoke.py fullwidth on an H100 (windows of 16 to 4,096 columns;
+// K9's row takes 0.33-0.52 us almost whatever K, K3's grows with K
+// through its pointer bytes).
+struct StripCost {
+  int A, Bk, Cs, H, I, J;
+};
+constexpr StripCost kCostScores = {200, 15, 30, 60, 20, 60};
+constexpr StripCost kCostPtrs = {300, 50, 30, 60, 40, 60};
+
+template <bool kPtr>
+const void* strip_kernel_of(int g) {
+  switch (g) {
+    case 0: return (const void*)strip_kernel<17, kPtr>;
+    case 1: return (const void*)strip_kernel<13, kPtr>;
+    case 2: return (const void*)strip_kernel<9, kPtr>;
+    case 3: return (const void*)strip_kernel<5, kPtr>;
+    case 4: return (const void*)strip_kernel<3, kPtr>;
+    default: return (const void*)strip_kernel<1, kPtr>;
+  }
+}
+
+struct StripPlan {
+  int g = -1;      // geometry index
+  int S = 0;       // warps a window
+  int W = 0;       // windows a block
+  int per_sm = 0;  // windows an SM holds at once
+  int64_t smem = 0;
+  int64_t cost = 0;
+};
+
+// Geometry g for windows of N+1 columns: S, W, the shared memory and the
+// windows an SM holds; per_sm == 0 where the block does not fit (threads
+// beyond what the kernel's registers allow, or shared memory beyond the
+// opt-in).  A kernel that fits may opt into all the shared memory the card
+// allows, so that any bucket's launch is within its limit.
+inline cudaError_t strip_fit(int g, int N, bool ptr, StripPlan* out) {
+  const int K = kStripK[g];
+  StripPlan pl;
+  pl.g = g;
+  pl.S = (N + 1 + 32 * K - 1) / (32 * K);
+  pl.W = pl.S == 1 ? kStripPack : 1;
+  pl.smem = strip_smem_bytes(N, K, pl.S, pl.W, ptr);
+  const void* fn = ptr ? strip_kernel_of<true>(g) : strip_kernel_of<false>(g);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return err;
+  const int threads = 32 * pl.S * pl.W;
+  const int64_t optin = lm::max_dyn_smem(fn);
+  if (threads <= attr.maxThreadsPerBlock && threads <= 1024 &&
+      pl.smem <= optin) {
+    err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)optin);
+    if (err != cudaSuccess) return err;
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads,
+                                                        pl.smem);
+    if (err != cudaSuccess) return err;
+    pl.per_sm = blocks * pl.W;
+  }
+  *out = pl;
+  return cudaSuccess;
+}
+
+// Every geometry's fit for an N-column bucket on one card, kept so that
+// a launch asks the runtime nothing (the queries cost more host time than
+// a small launch's kernel).
+struct StripFits {
+  int dev = -1, N = -1;
+  bool ptr = false;
+  int n_sm = 0;
+  StripPlan plans[kStripGeometryCount];
+};
+constexpr int kFitCache = 64;
+StripFits fit_cache[kFitCache];
+int fit_next = 0;
+std::mutex fit_mutex;
+
+inline cudaError_t strip_fits(int N, bool ptr, StripFits* out) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(fit_mutex);
+  for (const StripFits& f : fit_cache) {
+    if (f.dev == dev && f.N == N && f.ptr == ptr) {
+      *out = f;
+      return cudaSuccess;
+    }
+  }
+  StripFits f;
+  f.dev = dev;
+  f.N = N;
+  f.ptr = ptr;
+  err = lm_strip::sm_count(&f.n_sm);
+  for (int g = 0; g < kStripGeometryCount && err == cudaSuccess; ++g)
+    err = strip_fit(g, N, ptr, &f.plans[g]);
+  if (err != cudaSuccess) return err;
+  fit_cache[fit_next] = f;
+  fit_next = (fit_next + 1) % kFitCache;
+  *out = f;
+  return cudaSuccess;
+}
+
+// The price of a row of a launch of B windows in geometry pl on n_sm SMs
+// (StripCost).
+inline int64_t strip_cost(const StripPlan& pl, int B, int n_sm, bool ptr) {
+  const StripCost c = ptr ? kCostPtrs : kCostScores;
+  const int K = kStripK[pl.g];
+  const int64_t latency =
+      c.A + c.Bk * K + c.Cs * pl.S + (pl.S > 1 ? c.H : 0);
+  const int64_t strips = (int64_t)(B + n_sm - 1) / n_sm * pl.S;
+  const int64_t issue = strips * (K * c.I + c.J) * 100 / (4 * 198);
+  return latency > issue ? latency : issue;
+}
+
+// Geometry g (g >= 0) or the cheapest that fits (g < 0) for B windows of
+// N+1 columns; cudaErrorInvalidConfiguration where none does.
+inline cudaError_t strip_pick(int B, int N, bool ptr, int g, StripPlan* out) {
+  StripFits f;
+  const cudaError_t err = strip_fits(N, ptr, &f);
+  if (err != cudaSuccess) return err;
+  if (g >= 0) {
+    *out = f.plans[g];
+    out->cost = strip_cost(*out, B, f.n_sm, ptr);
+    return cudaSuccess;
+  }
+  StripPlan best;
+  for (StripPlan pl : f.plans) {
+    pl.cost = strip_cost(pl, B, f.n_sm, ptr);
+    if (pl.per_sm > 0 && (best.g < 0 || pl.cost < best.cost)) best = pl;
+  }
+  if (best.g < 0) return cudaErrorInvalidConfiguration;
+  *out = best;
+  return cudaSuccess;
+}
+
+// out: int[6] = {route (0 strips, 1 wide), geometry, K, warps a window,
+// windows a block, windows an SM} of a strip plan.
+inline void describe_strips(const StripPlan& pl, int* out) {
+  const int v[6] = {0, pl.g, kStripK[pl.g], pl.S, pl.W, pl.per_sm};
+  for (int k = 0; k < 6; ++k) out[k] = v[k];
+}
+
+// The same for the wide route of an N-column bucket: one block a window
+// of up to 1,024 threads, with the rows in shared memory unless
+// rows_global, and the blocks an SM holds; kept per card and bucket as
+// the strips' fits are, so that a launch asks the runtime nothing past
+// its bucket's first.  The queries are launch_profile's own and the
+// occupancy of the same block, so they fail only where the launch would.
+struct WideFit {
+  int dev = -1, N = -1;
+  bool ptr = false, rows_global = false;
+  int out[6] = {};
+};
+WideFit wide_cache[kFitCache];
+int wide_next = 0;
+
+inline cudaError_t describe_wide(int N, bool ptr, bool rows_global,
+                                 int* out) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(fit_mutex);
+  for (const WideFit& f : wide_cache) {
+    if (f.dev == dev && f.N == N && f.ptr == ptr &&
+        f.rows_global == rows_global) {
+      for (int k = 0; k < 6; ++k) out[k] = f.out[k];
+      return cudaSuccess;
+    }
+  }
+  int threads = ((N + 1 + 31) / 32) * 32;
+  threads = threads > 1024 ? 1024 : threads;
+  const void* fn = ptr ? (const void*)profile_fwd_kernel<true>
+                       : (const void*)profile_fwd_kernel<false>;
+  const int64_t smem = rows_global ? 0 : (int64_t)17 * (N + 1);
+  int blocks = 0;
+  err = lm::allow_dyn_smem(fn, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads,
+                                                        smem);
+  if (err != cudaSuccess) return err;
+  WideFit f;
+  f.dev = dev;
+  f.N = N;
+  f.ptr = ptr;
+  f.rows_global = rows_global;
+  const int v[6] = {1, -1, 0, threads / 32, 1, blocks};
+  for (int k = 0; k < 6; ++k) out[k] = f.out[k] = v[k];
+  wide_cache[wide_next] = f;
+  wide_next = (wide_next + 1) % kFitCache;
+  return cudaSuccess;
+}
+
+template <int K, bool kPtr>
+void launch_strip_geometry(const StripPlan& pl, const StripArgs& a,
+                           void* stream) {
+  const auto kernel = strip_kernel<K, kPtr>;
+  LM_LAUNCH(kernel, (unsigned)((a.B + pl.W - 1) / pl.W), 32 * pl.S * pl.W,
+            (size_t)pl.smem, (cudaStream_t)stream, a);
+}
+
+template <bool kPtr>
+int launch_strips(int force, StripArgs a, void* stream, int* taken) {
+  StripPlan pl;
+  const cudaError_t err = strip_pick(a.B, a.N, kPtr, force, &pl);
+  if (err != cudaSuccess) return (int)err;
+  if (pl.per_sm == 0) return (int)cudaErrorInvalidConfiguration;
+  if (taken != nullptr) describe_strips(pl, taken);
+  a.S = pl.S;
+  a.W = pl.W;
+  if (a.B > 0) {
+    switch (pl.g) {
+      case 0: launch_strip_geometry<17, kPtr>(pl, a, stream); break;
+      case 1: launch_strip_geometry<13, kPtr>(pl, a, stream); break;
+      case 2: launch_strip_geometry<9, kPtr>(pl, a, stream); break;
+      case 3: launch_strip_geometry<5, kPtr>(pl, a, stream); break;
+      case 4: launch_strip_geometry<3, kPtr>(pl, a, stream); break;
+      default: launch_strip_geometry<1, kPtr>(pl, a, stream); break;
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+// The wide route's scratch, carved from one allocation: byte offsets of
+// qw [B, 5, N], ext_q [B, N], ext_cum [B, N+1] and the cumsum levels,
+// then (rows in global memory) the rows [B, 4, N+1] and, with pointers,
+// the flags [B, N+1]; -1 where absent.
+struct WideScratch {
+  int64_t qw, ext_q, ext_cum, cum_lv, rows, flags, total;
+};
+
+inline WideScratch wide_scratch(int B, int N, bool ptr, bool rows_global) {
+  auto up = [](int64_t x) { return (x + 15) & ~(int64_t)15; };
+  WideScratch w;
+  int64_t o = 0;
+  w.qw = o;
+  o += up(4LL * B * 5 * N);
+  w.ext_q = o;
+  o += up(4LL * B * N);
+  w.ext_cum = o;
+  o += up(4LL * B * (N + 1));
+  w.cum_lv = o;
+  o += up(4LL * B * lm::cum_scratch(N));
+  w.rows = rows_global ? o : -1;
+  if (rows_global) o += up(16LL * B * (N + 1));
+  w.flags = rows_global && ptr ? o : -1;
+  if (rows_global && ptr) o += up((int64_t)B * (N + 1));
+  w.total = o;
+  return w;
+}
+
 }  // namespace
 
 // Bytes of shared memory one window's rows need at N columns.
@@ -290,44 +930,88 @@ extern "C" int64_t lm_profile_row_bytes(int N) {
 // Floats of cumsum scratch one window needs for n elements.
 extern "C" int64_t lm_profile_cum_scratch(int n) { return lm::cum_scratch(n); }
 
-// K3.  p: f32[B, M, 5]; q: f32[B, N, 5]; p_len, q_len: int32[B];
-// qw: f32[B, 5, N], ext_q: f32[B, N], ext_cum: f32[B, N+1], cum_lv:
-// f32[B, lm_profile_cum_scratch(N)] (scratch);
-// rows: f32[B, 4, N+1] and flags: uint8[B, N+1] global row scratch, or
-// both null to keep the rows in shared memory; ptr: uint8[B, M, N+1]
-// (zero-filled by the caller); score: f32[B]; w5: HOST float[25].
+// Bytes of scratch a K3 (ptr != 0) or K9 launch of B windows in an N-column
+// bucket takes, in one allocation: 0 on the strip route (N <= kStripMaxN);
+// on the wide route its qw, ext_q, ext_cum, cumsum levels and, with
+// rows_global, the rows and flags.
+extern "C" int64_t lm_profile_scratch_bytes(int B, int N, int ptr,
+                                            int rows_global) {
+  if (N <= kStripMaxN) return 0;
+  return wide_scratch(B, N, ptr != 0, rows_global != 0).total;
+}
+
+// K3 (ptr non-null) and K9 (ptr null).  p: f32[B, M, 5]; q: f32[B, N, 5];
+// p_len, q_len: int32[B]; scratch: lm_profile_scratch_bytes(B, N, ptr,
+// rows_global) bytes, 16-byte aligned, or null where that is 0; ptr:
+// uint8[B, M, N+1] (zero outside rows 1..p_len and columns 0..q_len: the
+// strip route writes every byte, the wide route, N > kStripMaxN, only
+// the window's, so the caller zero-fills it there), or null; score:
+// f32[B]; rows_global: the wide
+// route's rows in global scratch instead of shared memory; w5: HOST
+// float[25]; geometry: an index of kStripK to force (strip route
+// only), or -1 for the launcher's pick; taken: HOST int[6], the geometry
+// the launch took as lm_profile_geometry describes it, or null.  The
+// route is N's alone.
 extern "C" int lm_profile_fwd(const void* p, const void* q, const void* p_len,
-                              const void* q_len, void* qw, void* ext_q,
-                              void* ext_cum, void* cum_lv, void* rows,
-                              void* flags, void* ptr, void* score, int B,
-                              int M, int N, float gap_open, float gap_extend,
-                              const float* w5, void* stream) {
-  ProfileArgs a = make_args(p, q, q_len, qw, ext_q, ext_cum, cum_lv, rows, B,
-                            M, N, gap_open, gap_extend, w5);
+                              const void* q_len, void* scratch, void* ptr,
+                              void* score, int B, int M, int N,
+                              int rows_global, float gap_open,
+                              float gap_extend, const float* w5,
+                              int geometry, int* taken, void* stream) {
+  if (geometry >= kStripGeometryCount || (N > kStripMaxN && geometry >= 0))
+    return (int)cudaErrorInvalidValue;
+  if (N <= kStripMaxN) {
+    StripArgs a = {(const float*)p, (const float*)q, (const int*)p_len,
+                   (const int*)q_len, (unsigned char*)ptr, (float*)score,
+                   B, M, N, 0, 0, gap_open, gap_extend, {}};
+    for (int k = 0; k < 25; ++k) a.w5.w[k] = w5[k];
+    return ptr != nullptr ? launch_strips<true>(geometry, a, stream, taken)
+                          : launch_strips<false>(geometry, a, stream, taken);
+  }
+  const WideScratch w = wide_scratch(B, N, ptr != nullptr, rows_global != 0);
+  if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+  if (taken != nullptr) {
+    const cudaError_t err =
+        describe_wide(N, ptr != nullptr, rows_global != 0, taken);
+    if (err != cudaSuccess) return (int)err;
+  }
+  char* s = (char*)scratch;
+  ProfileArgs a = make_args(p, q, q_len, s + w.qw, s + w.ext_q,
+                            s + w.ext_cum, s + w.cum_lv,
+                            w.rows >= 0 ? s + w.rows : nullptr, B, M, N,
+                            gap_open, gap_extend, w5);
   a.p_len = (const int*)p_len;
-  a.flags = (unsigned char*)flags;
+  a.flags = w.flags >= 0 ? (unsigned char*)(s + w.flags) : nullptr;
   a.ptr = (unsigned char*)ptr;
   a.score = (float*)score;
-  return launch_profile<true>(a, stream);
+  return ptr != nullptr ? launch_profile<true>(a, stream)
+                        : launch_profile<false>(a, stream);
 }
 
-// K9: the arguments of lm_profile_fwd without flags and ptr; rows:
-// f32[B, 4, N+1] or null.
-extern "C" int lm_profile_score(const void* p, const void* q,
-                                const void* p_len, const void* q_len,
-                                void* qw, void* ext_q, void* ext_cum,
-                                void* cum_lv, void* rows, void* score, int B,
-                                int M, int N, float gap_open,
-                                float gap_extend, const float* w5,
-                                void* stream) {
-  ProfileArgs a = make_args(p, q, q_len, qw, ext_q, ext_cum, cum_lv, rows, B,
-                            M, N, gap_open, gap_extend, w5);
-  a.p_len = (const int*)p_len;
-  a.score = (float*)score;
-  return launch_profile<false>(a, stream);
+// The geometry of a K3 (ptr != 0) or K9 launch of B windows in an
+// N-column bucket on the current card: strip geometry g, or for g < 0 the
+// launcher's pick.  out: int[6] = {route (0 strips, 1 wide), geometry, K,
+// warps a window, windows a block, windows an SM}; on the strip route
+// out[5] is 0 where g does not fit the bucket, on the wide route it is
+// the blocks an SM holds with the rows where rows_global puts them (as
+// for lm_profile_fwd; the strips ignore it).  Returns -1 for
+// g past the table's end or g >= 0 on the wide route, else a cudaError_t.
+extern "C" int lm_profile_geometry(int B, int N, int ptr, int g,
+                                   int rows_global, int* out) {
+  if (g >= kStripGeometryCount || (N > kStripMaxN && g >= 0)) return -1;
+  if (N > kStripMaxN)
+    return (int)describe_wide(N, ptr != 0, rows_global != 0, out);
+  StripPlan pl;
+  const cudaError_t err = strip_pick(B, N, ptr != 0, g, &pl);
+  if (err != cudaSuccess) return (int)err;
+  describe_strips(pl, out);
+  return 0;
 }
 
-// K24: the arguments of lm_profile_score (M a multiple of K) and ck_h,
+// K24.  p, q, p_len, q_len as for lm_profile_fwd (M a multiple of K);
+// qw: f32[B, 5, N], ext_q: f32[B, N], ext_cum: f32[B, N+1], cum_lv:
+// f32[B, lm_profile_cum_scratch(N)] (scratch); rows: f32[B, 4, N+1] or
+// null; score: f32[B]; w5: HOST float[25]; ck_h,
 // ck_f: f32[M / K, B, N+1], the (H, F) carry at the top of every K-row
 // block (block 0: the DP's first row).  Every row and column is computed.
 extern "C" int lm_profile_ckpt(const void* p, const void* q,

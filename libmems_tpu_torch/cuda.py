@@ -51,8 +51,9 @@ _SIGNATURES = {
                    _P, _P], _I),
     "lm_profile_row_bytes": ([_I], _L),
     "lm_profile_cum_scratch": ([_I], _L),
-    "lm_profile_fwd": ([_P] * 12 + [_I, _I, _I, _F, _F, _P, _P], _I),
-    "lm_profile_score": ([_P] * 10 + [_I, _I, _I, _F, _F, _P, _P], _I),
+    "lm_profile_scratch_bytes": ([_I] * 4, _L),
+    "lm_profile_fwd": ([_P] * 7 + [_I] * 4 + [_F, _F, _P, _I, _P, _P], _I),
+    "lm_profile_geometry": ([_I] * 5 + [_P], _I),
     "lm_profile_ckpt": ([_P] * 12 + [_I] * 4 + [_F, _F, _P, _P], _I),
     "lm_profile_block_ptrs": ([_P] * 12 + [_I] * 3 + [_F, _F, _P, _P], _I),
     "lm_traceback": ([_P, _P, _P] + [_I] * 5 + [_P] * 3 + [_I, _P], _I),

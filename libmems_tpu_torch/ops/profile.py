@@ -63,8 +63,13 @@ W5[:4, :4] = HOXD70.astype(np.float32)
 NEG_BIG = np.float32(-1e30)
 
 PTR_BUDGET = 1 << 30          # bytes of pointer tensor per launch
-# windows whose rows need more shared memory than this keep them in
-# global scratch instead (csrc/profile.cu: 17 bytes per column)
+# the widest column bucket K3 and K9 run as strips of warps; wider ones
+# take the wide route, one thread block a window (csrc/profile.cu
+# kStripMaxN: 8 warps x 32 lanes x 17 columns - 1)
+STRIP_MAX_N = 4351
+# on the wide route, windows whose rows need more shared memory than this
+# keep them in global scratch instead (csrc/profile.cu: 17 bytes per
+# column)
 PROFILE_SMEM_LIMIT = 200 * 1024
 
 
@@ -223,17 +228,22 @@ def profile_forward_plain(p, q, p_len, q_len, gap_open: int = GAP_OPEN,
 
 
 def _profile_scratch(lib, B, N, dev):
+    """K24's and K25's scratch: qw, ext_q, ext_cum, the cumsum levels and
+    (rows past PROFILE_SMEM_LIMIT) the rows in global memory."""
     f32 = dict(dtype=torch.float32, device=dev)
     rows = None
-    if lib.lm_profile_row_bytes(N) > PROFILE_SMEM_LIMIT:
+    if _rows_global(lib, N):
         rows = torch.empty((B, 4, N + 1), **f32)
     return (torch.empty((B, 5, N), **f32), torch.empty((B, N), **f32),
             torch.empty((B, N + 1), **f32),
             torch.empty((B, lib.lm_profile_cum_scratch(N)), **f32), rows)
 
 
-def _w5():
-    return (ctypes.c_float * 25)(*W5.ravel().tolist())
+# the W5 matrix as the launchers take it (a host float[25]), built once
+_W5_C = (ctypes.c_float * 25)(*W5.ravel().tolist())
+# the geometry of the latest K3 or K9 launch on each card (lm_profile_fwd's
+# `taken`), by device index
+_TAKEN = {}
 
 
 def _require_batch(p, q, p_len, q_len):
@@ -247,35 +257,95 @@ def _require_batch(p, q, p_len, q_len):
     return dev, B, M, N
 
 
+def _full_launch(p, q, p_len, q_len, gap_open, gap_extend, emit_ptr,
+                 geometry):
+    """One K3 (emit_ptr) or K9 launch: the pointer tensor uninitialised
+    on the strip route (the kernel writes every byte) and zero-filled on
+    the wide route (its kernel writes each window's rows and columns
+    only), the wide route's scratch in one allocation (none on the strip
+    route).  Returns (ptrs or None, score)."""
+    dev, B, M, N = _require_batch(p, q, p_len, q_len)
+    lib = cuda.library()
+    rows_global = _rows_global(lib, N)
+    n = lib.lm_profile_scratch_bytes(B, N, int(emit_ptr), int(rows_global))
+    # held by name until the launch is enqueued
+    scratch = torch.empty((n,), dtype=torch.uint8, device=dev) if n else None
+    alloc = torch.empty if N <= STRIP_MAX_N else torch.zeros
+    ptrs = alloc((B, M, N + 1), dtype=torch.uint8, device=dev) \
+        if emit_ptr else None
+    score = torch.empty((B,), dtype=torch.float32, device=dev)
+    taken = _TAKEN.get(dev.index)
+    if taken is None:
+        taken = _TAKEN.setdefault(dev.index, (ctypes.c_int * 6)())
+    cuda.check(lib.lm_profile_fwd(
+        p.data_ptr(), q.data_ptr(), p_len.data_ptr(), q_len.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
+        None if ptrs is None else ptrs.data_ptr(), score.data_ptr(), B, M,
+        N, int(rows_global), float(gap_open), float(gap_extend), _W5_C,
+        geometry, taken, cuda.stream(p)), "lm_profile_fwd")
+    return ptrs, score
+
+
+def _describe(out):
+    return {"route": ("strips", "wide")[out[0]], "geometry": out[1],
+            "K": out[2], "warps": out[3], "windows_per_block": out[4],
+            "windows_per_sm": out[5]}
+
+
+def _rows_global(lib, N):
+    """Whether the wide route keeps an N-column bucket's rows in global
+    scratch (past PROFILE_SMEM_LIMIT) instead of shared memory."""
+    return lib.lm_profile_row_bytes(N) > PROFILE_SMEM_LIMIT
+
+
+def launched_geometry(device=None):
+    """The geometry the latest K3 or K9 launch on `device` (the current
+    card by default) took, as profile_geometry describes it; None before
+    the card's first."""
+    d = torch.device("cuda" if device is None else device)
+    out = _TAKEN.get(torch.cuda.current_device() if d.index is None
+                     else d.index)
+    return None if out is None else _describe(out)
+
+
+def profile_geometry(B: int, N: int, emit_ptr: bool = True, g: int = -1):
+    """The launch geometry of K3 (emit_ptr) or K9 for B windows in an
+    N-column bucket on the current card.  Up to STRIP_MAX_N: entry g of
+    csrc/profile.cu's strip table, or for g < 0 the launcher's pick,
+    {"route": "strips", "geometry", "K" (columns a lane), "warps" (a
+    window), "windows_per_block", "windows_per_sm"} with windows_per_sm 0
+    where g does not fit the bucket; None past the table's end.  Wider:
+    {"route": "wide", "geometry": -1, "warps" (the block), ...,
+    "windows_per_sm" with the rows where PROFILE_SMEM_LIMIT puts them} for
+    g < 0, None for g >= 0."""
+    lib = cuda.library()
+    out = (ctypes.c_int * 6)()
+    rc = lib.lm_profile_geometry(B, N, int(emit_ptr), g,
+                                 int(_rows_global(lib, N)), out)
+    if rc == -1:
+        return None
+    cuda.check(rc, "lm_profile_geometry")
+    return _describe(out)
+
+
 @cuda.launcher
 def profile_forward(p, q, p_len, q_len, gap_open: int = GAP_OPEN,
-                    gap_extend: int = GAP_EXTEND):
+                    gap_extend: int = GAP_EXTEND, *, geometry: int = -1):
     """Profile DP forward with pointer bytes for a batch of windows.
 
     p: float32[B, M, 5], q: float32[B, N, 5] (zero-padded profiles);
     p_len, q_len: int32[B].  Returns (ptrs uint8[B, M, N+1], score
     float32[B]) as profile_forward_plain does.  CPU tensors take the
-    plain version; CUDA tensors launch K3."""
+    plain version; CUDA tensors launch K3, in the launcher's geometry or
+    in strip table entry `geometry` (profile_geometry) where that is >= 0
+    and N <= STRIP_MAX_N."""
     if p.device.type == "cpu":
         return profile_forward_plain(p, q, p_len, q_len, gap_open,
                                      gap_extend)
-    dev, B, M, N = _require_batch(p, q, p_len, q_len)
-    lib = cuda.library()
-    qw, ext_q, ext_cum, cum_lv, rows = _profile_scratch(lib, B, N, dev)
-    flags = None
-    if rows is not None:
-        flags = torch.empty((B, N + 1), dtype=torch.uint8, device=dev)
-    ptrs = torch.zeros((B, M, N + 1), dtype=torch.uint8, device=dev)
-    score = torch.empty((B,), dtype=torch.float32, device=dev)
-    cuda.check(lib.lm_profile_fwd(
-        p.data_ptr(), q.data_ptr(), p_len.data_ptr(), q_len.data_ptr(),
-        qw.data_ptr(), ext_q.data_ptr(), ext_cum.data_ptr(),
-        cum_lv.data_ptr(), rows.data_ptr() if rows is not None else None,
-        flags.data_ptr() if flags is not None else None,
-        ptrs.data_ptr(), score.data_ptr(), B, M, N, float(gap_open),
-        float(gap_extend), _w5(), cuda.stream(p)), "lm_profile_fwd")
+    out = _full_launch(p, q, p_len, q_len, gap_open, gap_extend, True,
+                       geometry)
     profile_forward.launches += 1
-    return ptrs, score
+    return out
 
 
 profile_forward.launches = 0
@@ -291,25 +361,18 @@ def profile_forward_scores_plain(p, q, p_len, q_len,
 
 @cuda.launcher
 def profile_forward_scores(p, q, p_len, q_len, gap_open: int = GAP_OPEN,
-                           gap_extend: int = GAP_EXTEND):
+                           gap_extend: int = GAP_EXTEND, *,
+                           geometry: int = -1):
     """Full-width forward scores float32[B] of a batch of windows (the
     gate's fallback: profile_forward_ckpt with K = Mp,
     ops/profile.py:115-138, checkpoints discarded).  Equal bit for bit to
     profile_forward's score.  CPU tensors take the plain version; CUDA
-    tensors launch K9."""
+    tensors launch K9 (`geometry` as for profile_forward)."""
     if p.device.type == "cpu":
         return profile_forward_scores_plain(p, q, p_len, q_len, gap_open,
                                             gap_extend)
-    dev, B, M, N = _require_batch(p, q, p_len, q_len)
-    lib = cuda.library()
-    qw, ext_q, ext_cum, cum_lv, rows = _profile_scratch(lib, B, N, dev)
-    score = torch.empty((B,), dtype=torch.float32, device=dev)
-    cuda.check(lib.lm_profile_score(
-        p.data_ptr(), q.data_ptr(), p_len.data_ptr(), q_len.data_ptr(),
-        qw.data_ptr(), ext_q.data_ptr(), ext_cum.data_ptr(),
-        cum_lv.data_ptr(), rows.data_ptr() if rows is not None else None,
-        score.data_ptr(), B, M, N, float(gap_open), float(gap_extend),
-        _w5(), cuda.stream(p)), "lm_profile_score")
+    _, score = _full_launch(p, q, p_len, q_len, gap_open, gap_extend, False,
+                            geometry)
     profile_forward_scores.launches += 1
     return score
 
@@ -384,7 +447,7 @@ def profile_forward_ckpt(p, q, p_len, q_len, gap_open: int = GAP_OPEN,
         qw.data_ptr(), ext_q.data_ptr(), ext_cum.data_ptr(),
         cum_lv.data_ptr(), rows.data_ptr() if rows is not None else None,
         score.data_ptr(), ck_h.data_ptr(), ck_f.data_ptr(), B, M, N, K,
-        float(gap_open), float(gap_extend), _w5(), cuda.stream(p)),
+        float(gap_open), float(gap_extend), _W5_C, cuda.stream(p)),
         "lm_profile_ckpt")
     profile_forward_ckpt.launches += 1
     return score, ck_h, ck_f
@@ -447,7 +510,7 @@ def profile_block_ptrs(ck_h, ck_f, p_blk, q, q_len,
         ext_cum.data_ptr(), cum_lv.data_ptr(),
         rows.data_ptr() if rows is not None else None,
         flags.data_ptr() if flags is not None else None, ptr.data_ptr(), B,
-        R, N, float(gap_open), float(gap_extend), _w5(), cuda.stream(q)),
+        R, N, float(gap_open), float(gap_extend), _W5_C, cuda.stream(q)),
         "lm_profile_block_ptrs")
     profile_block_ptrs.launches += 1
     return ptr
@@ -645,7 +708,7 @@ def _banded_launch(p, q, p_len, q_len, gap_open, gap_extend, H_W,
         ext_q, ext_cum, cum_lv, stride, capbuf,
         ptrs.data_ptr() if emit_ptr else None, score.data_ptr(),
         cert.data_ptr(), None if bound is None else bound.data_ptr(), B, Mp,
-        N, H_W, float(gap_open), float(gap_extend), _w5(), geometry,
+        N, H_W, float(gap_open), float(gap_extend), _W5_C, geometry,
         cuda.stream(p)), "lm_banded_fwd")
     return ptrs, score, cert.bool()
 

@@ -223,8 +223,8 @@ def test_c_signatures_cover_every_entry_point():
         for m in re.finditer(r'extern "C"[^(]*?\b(lm_\w+)\(([^)]*)\)', text):
             args = [a for a in m.group(2).split(",") if a.strip()]
             found[m.group(1)] = len(args)
-    assert {"lm_profile_score", "lm_banded_fwd", "lm_banded_walk"} <= \
-        set(found)
+    assert {"lm_profile_fwd", "lm_profile_geometry", "lm_banded_fwd",
+            "lm_banded_walk"} <= set(found)
     assert set(found) == set(cuda._SIGNATURES)
     for name, n in found.items():
         assert len(cuda._SIGNATURES[name][0]) == n, name

@@ -31,6 +31,12 @@ _spec = importlib.util.spec_from_file_location(
         __file__)), "test_torch_seedocc_tables.py"))
 seedocc_tables = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(seedocc_tables)
+# K3's and K9's test windows, loaded by path as well
+_spec = importlib.util.spec_from_file_location(
+    "profile_windows", os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "profile_windows.py"))
+windows = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(windows)
 
 pytestmark = pytest.mark.cuda
 
@@ -89,10 +95,12 @@ def test_extend_kernel_equals_plain(dev):
 
 
 @pytest.mark.parametrize("M,N,smem", [(64, 64, True), (64, 1536, True),
-                                      (64, 1536, False)])
+                                      (64, 4608, True), (64, 4608, False)])
 def test_profile_and_traceback_kernels_equal_plain(dev, monkeypatch, M, N,
                                                    smem):
-    if not smem:   # rows in global scratch instead of shared memory
+    """K3 (strips up to STRIP_MAX_N columns, the wide route beyond it)
+    and K4 on its pointers against their plain versions."""
+    if not smem:   # the wide route's rows in global scratch
         monkeypatch.setattr(profile, "PROFILE_SMEM_LIMIT", 0)
     rng = np.random.default_rng(M + N)
     B = 4
@@ -108,6 +116,9 @@ def test_profile_and_traceback_kernels_equal_plain(dev, monkeypatch, M, N,
     got_p, got_s = profile.profile_forward(*[x.to(dev) for x in cpu])
     assert torch.equal(got_p.cpu(), ref_p)
     assert torch.equal(got_s.cpu(), ref_s)
+    # the launch's geometry, rows in shared or global memory alike
+    assert profile.launched_geometry(got_p.device) == \
+        profile.profile_geometry(B, N, True)
     T = gapped._device_tb_T(M, N)
     ref_w = gapped.traceback_walk_plain(ref_p, cpu[2], cpu[3], T)
     got_w = gapped.traceback_walk(got_p, cpu[2].to(dev), cpu[3].to(dev), T)
@@ -115,9 +126,11 @@ def test_profile_and_traceback_kernels_equal_plain(dev, monkeypatch, M, N,
         assert torch.equal(g.cpu(), r)
 
 
-def test_profile_kernel_equals_plain_on_fractional_profiles(dev):
-    """Multi-row profiles (thirds, fifths): K3's fixed rounding order
-    gives the plain version's bytes and scores exactly."""
+@pytest.mark.parametrize("rows", ["mixed", (3, 2), (4, 5)])
+def test_profile_kernel_equals_plain_on_fractional_profiles(dev, rows):
+    """Multi-row profiles (thirds, fifths; 3 + 2 and 4 + 5 rows, or a
+    mix): K3's and K9's fixed rounding order gives the plain version's
+    bytes and scores exactly, in every strip geometry."""
     rng = np.random.default_rng(35)
     B, M, N = 6, 256, 256
     p = np.zeros((B, M, 5), np.float32)
@@ -125,16 +138,115 @@ def test_profile_kernel_equals_plain_on_fractional_profiles(dev):
     pl = rng.integers(M // 2, M + 1, B).astype(np.int32)
     ql = rng.integers(N // 2, N + 1, B).astype(np.int32)
     for r in range(B):
-        for arr, n, k in ((p, pl[r], 3 + r % 2), (q, ql[r], 5 - r % 3)):
-            rows = rng.integers(0, 4, (k, n)).astype(np.uint8)
-            rows[rng.random((k, n)) < 0.15] = 4
-            rows[:, (rows == 4).all(axis=0)] = 0
-            arr[r, :n] = profile.rows_to_profile(rows)
+        k_p, k_q = (3 + r % 2, 5 - r % 3) if rows == "mixed" else rows
+        for arr, n, k in ((p, pl[r], k_p), (q, ql[r], k_q)):
+            rs = rng.integers(0, 4, (k, n)).astype(np.uint8)
+            rs[rng.random((k, n)) < 0.15] = 4
+            rs[:, (rs == 4).all(axis=0)] = 0
+            arr[r, :n] = profile.rows_to_profile(rs)
     cpu = [torch.from_numpy(x) for x in (p, q, pl, ql)]
     ref_p, ref_s = profile.profile_forward_plain(*cpu)
-    got_p, got_s = profile.profile_forward(*[x.to(dev) for x in cpu])
+    for g in [-1] + _fitting_geometries(B, N):
+        got_p, got_s = profile.profile_forward(*[x.to(dev) for x in cpu],
+                                               geometry=g)
+        assert torch.equal(got_p.cpu(), ref_p)
+        assert torch.equal(got_s.cpu(), ref_s)
+        got_9 = profile.profile_forward_scores(*[x.to(dev) for x in cpu],
+                                               geometry=g)
+        assert torch.equal(got_9.cpu(), ref_s)
+
+
+def _fitting_geometries(B, N):
+    """The strip geometries that fit an N-column bucket on this card."""
+    out, g = [], 0
+    while (geo := profile.profile_geometry(B, N, True, g)) is not None:
+        if geo["windows_per_sm"]:
+            out.append(g)
+        g += 1
+    return out
+
+
+def _sized_profiles(rng, M, N, shapes):
+    """profile_windows.sized_profiles as CPU tensors: fractional 3- and
+    2-row profiles."""
+    return [torch.from_numpy(x)
+            for x in windows.sized_profiles(rng, M, N, shapes)]
+
+
+def _full_kernels_equal_plain(dev, cpu, g=-1):
+    """K3 and K9 in geometry g (the launcher's for -1) against their
+    plain versions, K4 on K3's pointers against K4 on the plain
+    version's; the launch took the geometry profile_geometry reports."""
+    B, M, N = cpu[0].shape[0], cpu[0].shape[1], cpu[1].shape[1]
+    cuda_t = [x.to(dev) for x in cpu]
+    ref_p, ref_s = profile.profile_forward_plain(*cpu)
+    got_p, got_s = profile.profile_forward(*cuda_t, geometry=g)
+    assert profile.launched_geometry() == profile.profile_geometry(B, N,
+                                                                   True, g)
     assert torch.equal(got_p.cpu(), ref_p)
     assert torch.equal(got_s.cpu(), ref_s)
+    got_9 = profile.profile_forward_scores(*cuda_t, geometry=g)
+    assert profile.launched_geometry() == profile.profile_geometry(B, N,
+                                                                   False, g)
+    assert torch.equal(got_9.cpu(), ref_s)
+    T = gapped._device_tb_T(M, N)
+    ref_w = gapped.traceback_walk_plain(ref_p, cpu[2], cpu[3], T)
+    got_w = gapped.traceback_walk(got_p, cuda_t[2], cuda_t[3], T)
+    for a, b in zip(got_w, ref_w):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("g", range(6))
+def test_strip_kernels_every_geometry_equal_plain(dev, g):
+    """K3 and K9 in strip geometry g at its edge widths: a one-warp
+    bucket (N = 32K - 1) and a two-strip one (N = 32K + 1), q_len at
+    32K - 1, 32K and 32K + 1 where they fit, empty windows and windows
+    with p_len = 0 or q_len = 0."""
+    K = profile.profile_geometry(1, 16, True, g)["K"]
+    assert K == windows.STRIP_KS[g]
+    rng = np.random.default_rng(40 + g)
+    for M, N, shapes in windows.strip_edges(K):
+        cpu = _sized_profiles(rng, M, N, shapes)
+        if profile.profile_geometry(len(shapes), N, True, g)[
+                "windows_per_sm"]:
+            _full_kernels_equal_plain(dev, cpu, g)
+        _full_kernels_equal_plain(dev, cpu)
+
+
+def test_strip_kernels_many_windows_equal_plain(dev):
+    """More windows of the 16-column bucket than the card holds at once
+    (windows an SM x the SMs, plus some): packed blocks in waves."""
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    per_sm = profile.profile_geometry(1 << 20, 16, True)["windows_per_sm"]
+    B = per_sm * n_sm + 7
+    rng = np.random.default_rng(41)
+    p = np.zeros((B, 16, 5), np.float32)
+    q = np.zeros((B, 16, 5), np.float32)
+    pl = rng.integers(0, 17, B).astype(np.int32)
+    ql = rng.integers(0, 17, B).astype(np.int32)
+    p[np.arange(B)[:, None], np.arange(16)[None], rng.integers(0, 4, (B, 16))] = 1
+    q[np.arange(B)[:, None], np.arange(16)[None], rng.integers(0, 4, (B, 16))] = 1
+    p[np.arange(16)[None] >= pl[:, None]] = 0
+    q[np.arange(16)[None] >= ql[:, None]] = 0
+    assert profile.profile_geometry(B, 16, True)["windows_per_sm"] == per_sm
+    _full_kernels_equal_plain(dev, [torch.from_numpy(x)
+                                    for x in (p, q, pl, ql)])
+
+
+@pytest.mark.parametrize("d", [-1, 0, 1])
+def test_wide_route_boundary_equal_plain(dev, d):
+    """At N = STRIP_MAX_N - 1 and STRIP_MAX_N the strips, at
+    STRIP_MAX_N + 1 the wide route (which takes no forced geometry)."""
+    M, N, shapes = windows.BOUNDARY[d + 1]
+    assert N == profile.STRIP_MAX_N + d
+    cpu = _sized_profiles(np.random.default_rng(50 + d), M, N, shapes)
+    _full_kernels_equal_plain(dev, cpu)
+    route = profile.launched_geometry()["route"]
+    assert route == ("wide" if d > 0 else "strips")
+    if d > 0:
+        assert profile.profile_geometry(4, N, True, 0) is None
+        with pytest.raises(RuntimeError):
+            profile.profile_forward(*[x.to(dev) for x in cpu], geometry=0)
 
 
 def _band_batch(rng, B, M, N):
@@ -166,12 +278,15 @@ def _band_batch(rng, B, M, N):
     return [torch.from_numpy(x) for x in (p, q, pl, ql)]
 
 
-@pytest.mark.parametrize("N,smem", [(1024, True), (1536, False)])
-def test_score_forward_kernel_equals_plain(dev, monkeypatch, N, smem):
-    """K9 against its plain version, and bit for bit K3's score."""
-    if not smem:   # rows in global scratch instead of shared memory
+@pytest.mark.parametrize("M,N,smem", [(1024, 1024, True),
+                                      (1536, 1536, True),
+                                      (512, 4608, False)])
+def test_score_forward_kernel_equals_plain(dev, monkeypatch, M, N, smem):
+    """K9 against its plain version, and bit for bit K3's score (strips;
+    at 4608 columns the wide route with its rows in global scratch)."""
+    if not smem:   # the wide route's rows in global scratch
         monkeypatch.setattr(profile, "PROFILE_SMEM_LIMIT", 0)
-    cpu = _band_batch(np.random.default_rng(N), 6, N, N)
+    cpu = _band_batch(np.random.default_rng(N), 6, M, N)
     ref = profile.profile_forward_scores_plain(*cpu)
     got = profile.profile_forward_scores(*[x.to(dev) for x in cpu])
     assert torch.equal(got.cpu(), ref)

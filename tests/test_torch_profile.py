@@ -1,6 +1,9 @@
 """Port parity: the profile DP (K3's plain version), the traceback walk
 (K4's plain version) and align_profile_batch against the JAX package."""
 
+import importlib.util
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -10,6 +13,14 @@ from libmems_tpu.ops import gapped as jgapped
 from libmems_tpu.ops import profile as jprofile
 from libmems_tpu_torch import convert
 from libmems_tpu_torch.ops import gapped, profile
+
+# K3's and K9's test windows (tests/profile_windows.py), loaded by path as
+# tests/test_torch_cuda.py and chip_smoke.py load them
+_spec = importlib.util.spec_from_file_location(
+    "profile_windows", os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "profile_windows.py"))
+windows = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(windows)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -62,17 +73,6 @@ def test_align_profile_batch_pairs_equal_jax(bucket, sizes):
         np.testing.assert_array_equal(g, r)
 
 
-def _msa_rows(rng, n_rows, n):
-    """n_rows aligned rows with gap columns: a fractional profile."""
-    base = rng.integers(0, 4, size=n).astype(np.uint8)
-    rows = np.stack([base] * n_rows)
-    rows[rng.random(rows.shape) < 0.1] = 4
-    mut = rng.random(rows.shape) < 0.05
-    rows[mut] = rng.integers(0, 4, size=int(mut.sum()))
-    rows[:, (rows == 4).all(axis=0)] = 0
-    return rows
-
-
 def _profiles(rng, B, M, N, n_p, n_q):
     p = np.zeros((B, M, 5), np.float32)
     q = np.zeros((B, N, 5), np.float32)
@@ -81,8 +81,8 @@ def _profiles(rng, B, M, N, n_p, n_q):
     for r in range(B):
         cp = int(rng.integers(M // 2, M + 1))
         cq = int(rng.integers(N // 2, N + 1))
-        p[r, :cp] = profile.rows_to_profile(_msa_rows(rng, n_p, cp))
-        q[r, :cq] = profile.rows_to_profile(_msa_rows(rng, n_q, cq))
+        p[r, :cp] = profile.rows_to_profile(windows.msa_rows(rng, n_p, cp))
+        q[r, :cq] = profile.rows_to_profile(windows.msa_rows(rng, n_q, cq))
         pl[r], ql[r] = cp, cq
     return p, q, pl, ql
 
@@ -221,3 +221,57 @@ def test_scoring_constants_equal_jax():
         assert getattr(gapped, name) == getattr(jgapped, name)
     assert profile.NEG_BIG == jprofile.NEG_BIG
     assert profile.GAP_CODE == jprofile.GAP_CODE
+
+
+@pytest.mark.parametrize("M,N,shapes", windows.EDGES,
+                         ids=[f"N{N}" for _, N, _ in windows.EDGES])
+def test_plain_equals_jax_at_strip_edge_widths(M, N, shapes):
+    """K3's and K9's plain versions at the widths where the strip kernels
+    change strips or route, on fractional 3 + 2-row profiles with empty
+    windows: pointer bytes (the JAX block pointers from the first row),
+    zeros outside each window, scores bit for bit (profile_forward_ckpt
+    at K = M, the JAX form of K9) and traceback masks (_full_ptr_tb)
+    equal the JAX package's."""
+    rng = np.random.default_rng(N)
+    p, q, pl, ql = windows.sized_profiles(rng, M, N, shapes)
+    jp, jq, jpl, jql = map(jnp.asarray, (p, q, pl, ql))
+    _, _, _, h0, f0 = jprofile._profile_q_setup(jq, profile.GAP_OPEN,
+                                                profile.GAP_EXTEND)
+    ext_p = profile.GAP_EXTEND * (1.0 - jp[:, :, 4])
+    ref_ptrs = np.asarray(jprofile.profile_block_ptrs(
+        h0, f0, jp, ext_p, jq, jql, profile.GAP_OPEN, profile.GAP_EXTEND))
+    ref_score, _, _ = jprofile.profile_forward_ckpt(
+        jp, jq, jpl, jql, profile.GAP_OPEN, profile.GAP_EXTEND, M)
+    T = gapped._device_tb_T(M, N)
+    ref_tb = jgapped.tb_unpack(jprofile._full_ptr_tb_jit(
+        jp, ext_p, jq, jql, jpl, profile.GAP_OPEN, profile.GAP_EXTEND, T),
+        len(pl), T)
+
+    t = [torch.from_numpy(x) for x in (p, q, pl, ql)]
+    ptrs, score = profile.profile_forward(*t)
+    got = ptrs.numpy()
+    for r in range(len(pl)):
+        np.testing.assert_array_equal(got[r, :pl[r], :ql[r] + 1],
+                                      ref_ptrs[r, :pl[r], :ql[r] + 1])
+        assert not got[r, pl[r]:].any() and not got[r, :, ql[r] + 1:].any()
+    np.testing.assert_array_equal(score.numpy(), np.asarray(ref_score))
+    np.testing.assert_array_equal(
+        profile.profile_forward_scores(*t).numpy(), np.asarray(ref_score))
+    walk = gapped.traceback_walk(ptrs, t[2], t[3], T)
+    for (ra, rb), (ga, gb) in zip(ref_tb, gapped.tb_unpack(walk, len(pl))):
+        np.testing.assert_array_equal(ga, ra)
+        np.testing.assert_array_equal(gb, rb)
+
+
+def test_strip_boundary_matches_the_kernels():
+    """STRIP_MAX_N is csrc/profile.cu's kStripMaxN: the widest bucket the
+    strip kernels take (8 warps x 32 lanes x 17 columns - 1); and the
+    edge widths' lane widths (tests/profile_windows.py) are its kStripK."""
+    import re
+    from libmems_tpu_torch import cuda
+    src = (cuda._CSRC / "profile.cu").read_text()
+    m = re.search(r"constexpr int kStripMaxN = (\d+);", src)
+    assert m and int(m.group(1)) == profile.STRIP_MAX_N == 8 * 32 * 17 - 1
+    m = re.search(r"constexpr int kStripK\[\] = \{([\d, ]+)\};", src)
+    assert m and tuple(int(k) for k in m.group(1).split(",")) == \
+        windows.STRIP_KS
