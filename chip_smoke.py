@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (libmems_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [phase ...]
+    python3 chip_smoke.py [--sweep] [phase ...]
 
 With no argument every phase runs but the light fullwidth and wide;
 naming phases (kernels, seeder, seedocc, goldens, main, trio,
@@ -124,19 +124,25 @@ non-zero and prints no result line):
              1,000 slots a row, in shared memory and global scratch
              (find_mums on 64 genomes GPU == CPU tensors, find_repeats on a
              1,000-copy element family);
-10. bounded - the memory-bounded routes: K24 and K25 exact against their
-             plain versions on 2 windows of about 2,300 columns (one-hot,
-             3+2 rows); align + write_xmfa of the 2 x 4.6 Mbp pair with a
-             34 kbp swapped locus at max_gapped_window 40,000: its
-             34,003 x 34,000 window takes the checkpointed route (K24,
-             K25, the host walk), and the XMFA equals the same input's
-             with PTR_BUDGET raised here (K3 on its wide route + K4, 1.44
-             GiB of pointers);
+10. bounded - the memory-bounded routes: K24 and K25 (batched and one
+             block) exact against their plain versions on 2 windows of
+             about 2,300 columns and 2,304 rows (one-hot, 3+2 rows), in
+             the pick and in geometries spanning 2 and 10 blocks; align +
+             write_xmfa of the 2 x 4.6 Mbp pair with a 34 kbp swapped
+             locus at max_gapped_window 40,000: its 34,003 x 34,000 window
+             takes the checkpointed route (K24, batched K25, the host
+             walk; its time split into K24, K25, copies, unpack and
+             walk), and the XMFA equals the same input's with PTR_BUDGET
+             raised here (K3 on its wide route + K4, 1.44 GiB of
+             pointers);
              genome a's SML saved, loaded memory-mapped and built by
              create_big (native, 64 MB) byte-equal; find_mums_checkpointed
              (8 ranges) stopped after range 3 and resumed == find_mums,
              with an uninterrupted run's file bytes; all within 90 s; then
-             K24 and K25, kernel and plain, on the counted launches;
+             K24 and K25 on the counted launches by events and on the
+             card alone, and their plain versions (K25's on its first and
+             last launches); with --sweep also K24 and K25 in every
+             geometry of SWEEP_GEOMETRIES beside span_cost's price;
 11. mesh   - the seed-prefix-sharded path with 4 shards on the card:
              K26-K28 exact against their plain versions at the pair's
              shapes (every shard's slice routed with route_cap slots a
@@ -201,6 +207,7 @@ Imports neither JAX nor libmems_tpu.
 from __future__ import annotations
 
 import contextlib
+import functools
 import inspect
 import io
 import json
@@ -328,6 +335,15 @@ HMM_CHECK_MAX_T = 1 << 14   # K20/K21 vs plain: these batches + the longest
 # over the pointer budget, K24/K25 vs plain on windows of about 2,300
 SWAP_AT, SWAP_LEN, SWAP_WINDOW = 2_000_000, 34_000, 40_000
 CKPT_CHECK_N, CKPT_CHECK_MP = 2_300, 2_304
+# K24/K25's geometries on those windows: the launcher's pick, then forced
+# (g, W) whose 2,305 columns span 2 blocks (K = 17, 3 strips a block) and
+# 10 blocks (K = 1, 8 strips a block)
+CKPT_CHECK_GEOMETRIES = (None, (0, 3), (7, 8))
+# bounded --sweep: forced geometries timed on the swapped locus's K24
+# launch and on its first K25 launch, for span_cost's fit
+SWEEP_GEOMETRIES = ((0, 1), (0, 4), (0, 7), (1, 4), (2, 4), (3, 2),
+                    (3, 4), (4, 2), (5, 1), (5, 2), (5, 4), (6, 1),
+                    (6, 2), (6, 4), (7, 1), (7, 4), (7, 8), (1, 7))
 CKPT_CHUNKS, CKPT_STOP = 8, 3     # the resumable search's ranges, its stop
 BOUNDED_CAP_S = 90.0
 BOUNDED_KERNELS = ("profile_forward_ckpt", "profile_block_ptrs")
@@ -423,6 +439,25 @@ def timed_once(fn, torch):
     return out, start.elapsed_time(end)
 
 
+class Patched:
+    """A stand-in at a wrapper's module name: calls go through `run`, and
+    attributes are the wrapper's, so that its launch count, which the
+    wrapper adds to under its own module name, stays the wrapper's."""
+
+    def __init__(self, fn, run):
+        object.__setattr__(self, "_fn", fn)
+        object.__setattr__(self, "_run", run)
+
+    def __call__(self, *args, **kw):
+        return self._run(*args, **kw)
+
+    def __getattr__(self, name):
+        return getattr(self._fn, name)
+
+    def __setattr__(self, name, value):
+        setattr(self._fn, name, value)
+
+
 @contextlib.contextmanager
 def recording(targets):
     """Patch each (module, name) so that every call's arguments, bound to
@@ -439,7 +474,7 @@ def recording(targets):
             _calls.append(dict(bound.arguments))
             return _fn(*args, **kw)
         saved.append((mod, name, fn))
-        setattr(mod, name, rec)
+        setattr(mod, name, Patched(fn, rec))
     try:
         yield logs
     finally:
@@ -3035,64 +3070,180 @@ def fractional_profiles(rng, B, n, M, N, n_p, n_q):
 def ckpt_work(t, K):
     """Work of one K24 launch on the packed batch t: every cell of the
     padded [Mp, N+1] matrix (the carries span every column), the
-    profiles and lengths read, the score and the carries written."""
+    profiles and lengths read, the score and the carries written; its
+    latency floor is Mp dependent rows of N+1 columns (dp_latency_ms)."""
     B, Mp, _ = t[0].shape
     N = t[1].shape[1]
-    return work(nbytes(*t) + 4 * B + 8 * (Mp // K) * B * (N + 1),
-                DP_CELL_OPS * B * Mp * (N + 1))
+    w = work(nbytes(*t) + 4 * B + 8 * (Mp // K) * B * (N + 1),
+             DP_CELL_OPS * B * Mp * (N + 1))
+    w["latency_ms"] = dp_latency_ms([Mp], [N])
+    return w
 
 
-def block_work(a):
-    """Work of one K25 launch (ck_h, ck_f, p_blk, q, q_len, ...): every
-    cell of its rows, the carry and profiles read, the nibble-packed
-    pointers written."""
-    B, R, _ = a[2].shape
-    N = a[3].shape[1]
-    return work(nbytes(*a[:5]) + B * R * ((N + 2) // 2),
-                DP_CELL_OPS * B * R * (N + 1))
+def block_work(c):
+    """Work of one batched K25 launch (a recorded profile_block_ptrs_batch
+    call c): every cell of its G x B blocks of R rows, their carries,
+    rows and q read, the nibble-packed pointers written; its latency
+    floor is R dependent rows (the blocks run side by side)."""
+    nb, B = c["ck_h"].shape[:2]
+    N = c["q"].shape[1]
+    R = c["p"].shape[1] // nb
+    G = c["G"]
+    w = work(8 * G * B * (N + 1) + 20 * G * B * R + nbytes(c["q"], c["q_len"])
+             + G * B * R * ((N + 2) // 2), DP_CELL_OPS * G * B * R * (N + 1))
+    w["latency_ms"] = dp_latency_ms([R], [N])
+    return w
 
 
-def ckpt_vs_plain(torch, t, go, ge):
-    """K24 and every K25 block against their plain versions on the launch
-    t.  Returns the compared pairs."""
+def ckpt_vs_plain(torch, t, go, ge, geometries=(None,)):
+    """K24 and K25 against their plain versions on the launch t, in each
+    geometry (None: the launcher's pick): K24's score and carries, K25
+    over every row block in one launch and block 0 alone.  The plain
+    versions run once.  Returns the compared pairs, K24's first."""
     from libmems_tpu_torch.ops import profile
     K = profile.CKPT_ROWS
-    got = profile.profile_forward_ckpt(*t, go, ge, K)
+    nb = t[0].shape[1] // K
     ref = profile.profile_forward_ckpt_plain(*t, go, ge, K)
-    for g, r, what in zip(got, ref, ("score", "ck_h", "ck_f")):
-        require(torch.equal(g, r), f"K24 {what} differs from its plain "
-                f"version at {tuple(t[0].shape)} x {t[1].shape[1]}")
-    pairs = list(zip(got, ref))
-    for bi in range(t[0].shape[1] // K):
-        pb = t[0][:, bi * K:(bi + 1) * K].contiguous()
-        r = profile.profile_block_ptrs_plain(ref[1][bi], ref[2][bi], pb,
-                                             t[1], t[3], go, ge)
-        g = profile.profile_block_ptrs(got[1][bi], got[2][bi], pb, t[1],
-                                       t[3], go, ge)
-        require(torch.equal(g, r), f"K25 block {bi} differs from its plain "
-                f"version at {tuple(pb.shape)} x {t[1].shape[1]}")
-        pairs.append((g, r))
-    return pairs
+    ref25 = profile.profile_block_ptrs_batch_plain(ref[1], ref[2], t[0], t[1],
+                                                   t[3], 0, nb, go, ge)
+    p24, p25 = [], []
+    for geo in geometries:
+        got = profile.profile_forward_ckpt(*t, go, ge, K, geometry=geo)
+        d = profile.span_geometry(t[0].shape[0], t[0].shape[1],
+                                  t[1].shape[1], False, geo)
+        where = (f"at {tuple(t[0].shape)} x {t[1].shape[1]}, K = {d['K']}, "
+                 f"{d['blocks']} blocks of {d['warps']} strips")
+        for g, r, what in zip(got, ref, ("score", "ck_h", "ck_f")):
+            require(torch.equal(g, r), f"K24 {what} differs from its plain "
+                    f"version {where}")
+        p24 += list(zip(got, ref))
+        many = profile.profile_block_ptrs_batch(got[1], got[2], t[0], t[1],
+                                                t[3], 0, nb, go, ge,
+                                                geometry=geo)
+        one = profile.profile_block_ptrs(got[1][0], got[2][0],
+                                         t[0][:, :K].contiguous(), t[1], t[3],
+                                         go, ge, geometry=geo)
+        require(torch.equal(many, ref25) and torch.equal(one, ref25[0]),
+                f"K25 differs from its plain version {where}")
+        p25 += [(many, ref25), (one, ref25[0])]
+    return p24, p25
 
 
-def phase_bounded(torch, lt, dev):
-    """The memory-bounded routes.  (1) K24 and every K25 block against
-    their plain versions on 2 windows of about 2,300 columns, one-hot and
-    3+2-row profiles (exact).  (2) align + write_xmfa of the swapped-locus
-    pair with max_gapped_window 40,000 (counted run): the 34,003 x 34,000
-    window takes the checkpointed route (CKPT_STATS, K24 and K25
-    launched); the same input with PTR_BUDGET raised here (K3 + K4 in one
-    launch) writes the same XMFA bytes; both walls and device memory
-    peaks printed.  (3) genome a's SML saved and loaded back memory-mapped
+class RouteSplit:
+    """The checkpointed route's time by part, on the host clock with the
+    card synchronised at each boundary: K24 (profile_forward_ckpt), K25
+    (its launches), the copies to the host, the unpack and the host walk
+    (traceback_blocks less its fetches).  A context manager that wraps
+    the names ops.profile's route calls."""
+
+    def __init__(self, torch):
+        from libmems_tpu_torch.ops import profile
+        self.torch, self.profile = torch, profile
+        self.s = dict.fromkeys(("K24", "K25", "fetch", "unpack", "walk"), 0.0)
+        self.n = {"K25": 0, "fetch": 0}
+
+    def _timed(self, key, fn, sync=True):
+        @functools.wraps(fn)
+        def run(*a, **kw):
+            if sync:
+                self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            if sync:
+                self.torch.cuda.synchronize()
+            self.s[key] += time.perf_counter() - t0
+            if key in self.n:
+                self.n[key] += 1
+            return out
+        return run
+
+    def __enter__(self):
+        p = self.profile
+        self.saved = {k: getattr(p, k) for k in (
+            "profile_forward_ckpt", "profile_block_ptrs_batch",
+            "unpack_ptrs", "traceback_blocks")}
+        for key, name in (("K24", "profile_forward_ckpt"),
+                          ("K25", "profile_block_ptrs_batch")):
+            fn = getattr(p, name)
+            setattr(p, name, Patched(fn, self._timed(key, fn)))
+        p.unpack_ptrs = self._timed("unpack", p.unpack_ptrs, sync=False)
+        real_tb = self.saved["traceback_blocks"]
+
+        def tb(fetch, *a, **kw):
+            t0 = time.perf_counter()
+            out = real_tb(self._timed("fetch", fetch, sync=False), *a, **kw)
+            self.s["walk"] += time.perf_counter() - t0
+            return out
+        p.traceback_blocks = tb
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            setattr(self.profile, k, v)
+
+    def text(self):
+        s = self.s
+        copy = s["fetch"] - s["K25"] - s["unpack"]
+        walk = s["walk"] - s["fetch"]
+        return (f"K24 {s['K24']:.4f} s, K25 {s['K25']:.4f} s in "
+                f"{self.n['K25']} launches, copies {copy:.4f} s, unpack "
+                f"{s['unpack']:.4f} s, host walk {walk:.4f} s "
+                f"({self.n['fetch']} blocks fetched)")
+
+
+def span_sweep(torch, c24, c25):
+    """K24 on the recorded launch c24 and K25 on c25 in every geometry of
+    SWEEP_GEOMETRIES that fits the card: each output equal to the
+    pick's, its time on the card alone beside span_cost's price (the
+    data span_cost is fitted to)."""
+    from libmems_tpu_torch.ops import profile
+    B, M, N = c24["p"].shape[0], c24["p"].shape[1], c24["q"].shape[1]
+    G, R = c25["G"], c25["p"].shape[1] // c25["ck_h"].shape[0]
+    for label, fn, args, n_inst, rows, ptr in (
+            ("K24", profile.profile_forward_ckpt, c24, B, M, False),
+            ("K25", profile.profile_block_ptrs_batch, c25, G * B, R, True)):
+        base = fn(**args)
+        base = base if isinstance(base, tuple) else (base,)
+        for geo in SWEEP_GEOMETRIES:
+            d = profile.span_geometry(n_inst, rows, N, ptr, geo)
+            where = f"K = {d['K']}, {d['warps']} strips a block"
+            if d["blocks_per_sm"] <= 0:
+                log(f"# sweep {label} {where}: does not fit")
+                continue
+            kw = dict(args, geometry=geo)
+            out = fn(**kw)
+            out = out if isinstance(out, tuple) else (out,)
+            require(all(torch.equal(x, y) for x, y in zip(out, base)),
+                    f"{label} in geometry {geo} differs from the pick's")
+            ms = device_ms(lambda: fn(**kw), 1, torch)
+            log(f"# sweep {label} {where} ({d['blocks_per_sm']} an SM): "
+                f"{ms:.3f} ms on the card, priced {d['cost_ns'] / 1e6:.3f}")
+        log(f"# sweep {label} pick: "
+            f"{profile.span_geometry(n_inst, rows, N, ptr)['geometry']}")
+
+
+def phase_bounded(torch, lt, dev, sweep=False):
+    """The memory-bounded routes.  (1) K24 and K25 (all row blocks in one
+    launch, and one alone) against their plain versions on 2 windows of
+    about 2,300 columns and 2,304 rows, one-hot and 3+2-row profiles
+    (exact), in the launcher's geometry and in two forced ones whose
+    windows span 2 and 10 blocks.  (2) align + write_xmfa of the
+    swapped-locus pair with max_gapped_window 40,000 (counted run): the
+    34,003 x 34,000 window takes the checkpointed route (CKPT_STATS, K24
+    and K25 launched), its time split by part (RouteSplit); the same
+    input with PTR_BUDGET raised here (K3 + K4 in one launch) writes the
+    same XMFA bytes; both walls and device memory peaks printed.  (3) genome a's SML saved and loaded back memory-mapped
     equals the in-memory one; create_big through the native bridge
     (mem_limit 64 MB) writes save()'s bytes; find_mums_checkpointed over
     CKPT_CHUNKS ranges, stopped after range CKPT_STOP and resumed, equals
     find_mums and leaves an uninterrupted run's file bytes.  The phase
     (its plain versions on the counted launches aside) must end within
-    BOUNDED_CAP_S.  (4) K24 and K25 timed, kernel and plain, over the
-    counted run's launches, and compared there too.  Returns ({name:
+    BOUNDED_CAP_S.  (4) K24 and K25 timed over the counted run's
+    launches with CUDA events and on the card alone (device_ms), and
+    their plain versions timed and compared there too (K25's on its
+    first and last launches, whose event times its entry holds); with
+    `sweep`, span_sweep on the first launch of each.  Returns ({name:
     entry}, the counted run's launches, walls)."""
-    import functools
     import shutil
     from libmems_tpu_torch import matchfind, native, trace
     from libmems_tpu_torch.ops import profile
@@ -3111,12 +3262,17 @@ def phase_bounded(torch, lt, dev):
     errs = {name: [] for name in BOUNDED_KERNELS}
     for label, arrays in checks.items():
         t = tuple(torch.from_numpy(x).to(dev) for x in arrays)
-        pairs = ckpt_vs_plain(torch, t, go, ge)
-        errs["profile_forward_ckpt"] += pairs[:3]
-        errs["profile_block_ptrs"] += pairs[3:]
-        log(f"# K24 and {len(pairs) - 3} K25 blocks equal their plain "
-            f"versions on 2 {label} windows, {tuple(t[0].shape)} x "
-            f"{t[1].shape[1]}")
+        p24, p25 = ckpt_vs_plain(torch, t, go, ge, CKPT_CHECK_GEOMETRIES)
+        errs["profile_forward_ckpt"] += p24
+        errs["profile_block_ptrs"] += p25
+        geos = [profile.span_geometry(2, t[0].shape[1], t[1].shape[1],
+                                      False, g) for g in
+                CKPT_CHECK_GEOMETRIES]
+        log(f"# K24 and K25 (all {t[0].shape[1] // K} row blocks at once, "
+            f"and block 0 alone) equal their plain versions on 2 {label} "
+            f"windows, {tuple(t[0].shape)} x {t[1].shape[1]}, in "
+            + ", ".join(f"K = {d['K']} x {d['warps']} strips a block "
+                        f"({d['blocks']} blocks)" for d in geos))
 
     # 2. the full-width path: the checkpointed route, then one launch
     genomes = swapped_pair(lt)
@@ -3160,7 +3316,10 @@ def phase_bounded(torch, lt, dev):
     profile.ckpt_tracebacks = timed_ckpt
     trace.set_enabled(True, stream=sys.stdout)
     try:
-        with recording([(profile, "ckpt_tracebacks")]) as rec:
+        with recording([(profile, "ckpt_tracebacks"),
+                        (profile, "profile_forward_ckpt"),
+                        (profile, "profile_block_ptrs_batch")]) as rec, \
+                RouteSplit(torch) as split:
             xmfa_ck, dt_ck, peak_ck, launches, stats, stages = run()
     finally:
         trace.set_enabled(False)
@@ -3172,8 +3331,7 @@ def phase_bounded(torch, lt, dev):
         f"{json.dumps(stats)}; launches {json.dumps(launches)}; "
         f"checkpointed launches "
         f"{[(tuple(c['p'].shape), c['q'].shape[1]) for c in calls]}, "
-        f"their route {sum(ckpt_walls):.3f} s (K24, K25, fetches, host "
-        f"walk)")
+        f"their route {sum(ckpt_walls):.3f} s: {split.text()}")
     log("# stages (bounded path): " + json.dumps(stages))
     require(stats["windows"] >= 1 and calls,
             "no window took the checkpointed route")
@@ -3298,54 +3456,89 @@ def phase_bounded(torch, lt, dev):
     require(wall <= BOUNDED_CAP_S, f"phase bounded took {wall:.1f} s, over "
             f"its {BOUNDED_CAP_S} s cap")
 
-    # 4. K24 and K25 over the counted run's launches: kernel, plain, work
+    # 4. K24 and K25 over the counted run's launches: events, the card's
+    # time, plain, work
     t_plain = time.perf_counter()
     res = {}
-    k24 = [(c["p"], c["q"], c["p_len"], c["q_len"]) for c in calls]
-    got24 = [profile.profile_forward_ckpt(*t, go, ge, K) for t in k24]
+    k24 = rec["profile_forward_ckpt"]
+    k25 = rec["profile_block_ptrs_batch"]
+    require(len(k24) == launches["profile_forward_ckpt"]
+            and len(k25) == launches["profile_block_ptrs"],
+            f"recorded {len(k24)} K24 and {len(k25)} K25 calls, the counted "
+            f"run launched {launches['profile_forward_ckpt']} and "
+            f"{launches['profile_block_ptrs']}")
+    geo24 = [profile.span_geometry(c["p"].shape[0], c["p"].shape[1],
+                                   c["q"].shape[1], False) for c in k24]
+    geo25 = [profile.span_geometry(c["G"] * c["p"].shape[0],
+                                   c["p"].shape[1] // c["ck_h"].shape[0],
+                                   c["q"].shape[1], True) for c in k25]
+    log("# K24 geometries: " + "; ".join(
+        f"K = {d['K']}, {d['warps']} strips a block, {d['blocks']} blocks, "
+        f"{d['blocks_per_sm']} an SM" for d in geo24) + "; K25: " +
+        "; ".join(f"G = {c['G']}: K = {d['K']}, {d['warps']} strips a "
+                  f"block, {d['blocks']} blocks a block row, "
+                  f"{d['blocks_per_sm']} an SM, {d['waves']} waves"
+                  for c, d in zip(k25, geo25)))
+    got24 = [profile.profile_forward_ckpt(**c) for c in k24]
     ref24, p24 = timed_once(lambda: [profile.profile_forward_ckpt_plain(
-        *t, go, ge, K) for t in k24], torch)
-    for t, g, r in zip(k24, got24, ref24):
+        c["p"], c["q"], c["p_len"], c["q_len"], c["gap_open"],
+        c["gap_extend"], c["K"]) for c in k24], torch)
+    for c, g, r in zip(k24, got24, ref24):
         for x, y in zip(g, r):
             require(torch.equal(x, y), f"K24 differs from its plain version "
-                    f"on the counted launch {tuple(t[0].shape)}")
+                    f"on the counted launch {tuple(c['p'].shape)}")
             errs["profile_forward_ckpt"].append((x, y))
-    ms24 = timed_ms(lambda: [profile.profile_forward_ckpt(*t, go, ge, K)
-                             for t in k24], 1, torch, warmup=False)
+    del ref24, got24
+    run24 = lambda: [profile.profile_forward_ckpt(**c) for c in k24]
+    ms24 = timed_ms(run24, 3, torch)
+    card24 = device_ms(run24, 3, torch)
     res["profile_forward_ckpt"] = entry(
         max_abs_err(errs["profile_forward_ckpt"]), ms24, p24,
-        sum_work(ckpt_work(t, K) for t in k24))
-    # the blocks the walk fetched: every block that holds a window row
-    k25 = []
-    for t, (_, ck_h, ck_f) in zip(k24, got24):
-        pl = t[2].cpu().numpy()
-        for bi in range(t[0].shape[1] // K):
-            if bi == 0 or (pl > bi * K).any():
-                k25.append((ck_h[bi], ck_f[bi],
-                            t[0][:, bi * K:(bi + 1) * K].contiguous(), t[1],
-                            t[3]))
-    require(len(k25) == launches["profile_block_ptrs"],
-            f"K25: {len(k25)} launches rebuilt, the counted run made "
-            f"{launches['profile_block_ptrs']}")
-    del ref24
-    ref25, p25 = timed_once(lambda: [profile.profile_block_ptrs_plain(
-        *a, go, ge) for a in k25], torch)
-    for a, r in zip(k25, ref25):
-        g = profile.profile_block_ptrs(*a, go, ge)
-        require(torch.equal(g, r), f"K25 differs from its plain version on "
-                f"a counted launch {tuple(a[2].shape)}")
-        errs["profile_block_ptrs"].append((g, r))
-    ms25 = timed_ms(lambda: [profile.profile_block_ptrs(*a, go, ge)
-                             for a in k25], 1, torch, warmup=False)
+        sum_work(ckpt_work(
+            (c["p"], c["q"], c["p_len"], c["q_len"]), c["K"]) for c in k24))
+    # K25's plain version on the first and the last counted launches (the
+    # XMFA equality above covers the walk's every block); its entry's
+    # times and work are of those launches
+    held = k25[:1] + k25[1:][-1:]
+    p25 = 0.0
+    for c in held:
+        plain_args = (c["ck_h"], c["ck_f"], c["p"], c["q"], c["q_len"],
+                      c["first"], c["G"], c["gap_open"], c["gap_extend"])
+        ref25, ms = timed_once(
+            lambda a=plain_args: profile.profile_block_ptrs_batch_plain(*a),
+            torch)
+        p25 += ms
+        g = profile.profile_block_ptrs_batch(**c)
+        require(torch.equal(g, ref25), f"K25 differs from its plain version "
+                f"on the counted launch of blocks {c['first']}.."
+                f"{c['first'] + c['G'] - 1}")
+        errs["profile_block_ptrs"].append((g, ref25))
+        del ref25, g
+    ms25 = timed_ms(lambda: [profile.profile_block_ptrs_batch(**c)
+                             for c in held], 3, torch)
+    run25 = lambda: [profile.profile_block_ptrs_batch(**c) for c in k25]
+    all25 = timed_ms(run25, 3, torch)
+    card25 = device_ms(run25, 3, torch)
     res["profile_block_ptrs"] = entry(
         max_abs_err(errs["profile_block_ptrs"]), ms25, p25,
-        sum_work(block_work(a) for a in k25))
-    for name in BOUNDED_KERNELS:
-        e = res[name]
-        log(f"# {name}: {launches[name]} launches, kernel {e['ms']:.3f} ms,"
-            f" plain {e['plain_ms']:.3f} ms, max_abs_err {e['err']}")
+        sum_work(block_work(c) for c in held))
+    floor25 = sum_work(block_work(c) for c in k25)["latency_ms"]
+    e = res["profile_forward_ckpt"]
+    log(f"# profile_forward_ckpt: {len(k24)} launch(es), {ms24:.3f} ms by "
+        f"events, {card24:.3f} ms on the card, plain {p24:.3f} ms, latency "
+        f"floor {e['work']['latency_ms']:.4f} ms, max_abs_err {e['err']}")
+    e = res["profile_block_ptrs"]
+    log(f"# profile_block_ptrs: launches of blocks "
+        + ", ".join(f"{c['first']}..{c['first'] + c['G'] - 1}"
+                    for c in held)
+        + f" {ms25:.3f} ms by events, plain {p25:.3f} ms, latency floor "
+        f"{e['work']['latency_ms']:.4f} ms; all {len(k25)} launches Σ "
+        f"{all25:.3f} ms by events, {card25:.3f} ms on the card, latency "
+        f"floor {floor25:.4f} ms; max_abs_err {e['err']}")
     log(f"# K24/K25 plain versions on the counted launches: "
         f"{time.perf_counter() - t_plain:.1f} s")
+    if sweep:
+        span_sweep(torch, k24[0], k25[0])
     walls = (f"bounded path {dt_ck:.3f} s (peak {peak_ck} B), one-launch "
              f"route {dt_full:.3f} s (peak {peak_full} B)")
     return res, launches, walls
@@ -4076,6 +4269,22 @@ def phase_cards(torch, lt, dev, dp_calls):
     if n < 2:
         log("# phase cards: skipped, one card visible")
         return None
+    # K24 and batched K25 on cuda:1 with card 0 current equal cuda:0's
+    arrays = fractional_profiles(np.random.default_rng(17), 2, CKPT_CHECK_N,
+                                 CKPT_CHECK_MP, CKPT_CHECK_MP, 3, 2)
+    spans = []
+    with torch.cuda.device(0):
+        for d in (torch.device("cuda", 0), torch.device("cuda", 1)):
+            t = tuple(torch.from_numpy(x).to(d) for x in arrays)
+            sc, ck_h, ck_f = profile.profile_forward_ckpt(*t)
+            ptr = profile.profile_block_ptrs_batch(ck_h, ck_f, t[0], t[1],
+                                                   t[3], 0, ck_h.shape[0])
+            spans.append([x.cpu() for x in (sc, ck_h, ck_f, ptr)])
+            require(torch.cuda.current_device() == 0, "a K24/K25 launch on "
+                    f"{d} left another card current")
+    require(all(torch.equal(a, b) for a, b in zip(*spans)),
+            "K24/K25 on cuda:1 differ from cuda:0")
+    log("# cards: K24 and K25 on cuda:1 with card 0 current equal cuda:0")
     many = psh.make_mesh()
     one = psh.Mesh([dev] * many.size)
     genomes = genome_pair(lt, 0)
@@ -4221,7 +4430,8 @@ def main(argv=None) -> int:
     import torch
     import libmems_tpu_torch as lt
 
-    phases = select_phases(argv)
+    sweep = "--sweep" in argv
+    phases = select_phases([a for a in argv if a != "--sweep"])
     card = phase_device(torch)
     dev = torch.device("cuda", 0)
     clock = [time.perf_counter()]
@@ -4293,7 +4503,8 @@ def main(argv=None) -> int:
         k2_errs.append(err)
         lap("decode")
     if "bounded" in phases:
-        b_res, paths["bounded"], b_walls = phase_bounded(torch, lt, dev)
+        b_res, paths["bounded"], b_walls = phase_bounded(torch, lt, dev,
+                                                         sweep)
         res.update(b_res)
         walls.append(b_walls)
         lap("bounded")

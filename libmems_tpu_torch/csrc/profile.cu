@@ -55,7 +55,7 @@
 // window is 8 warps x 32 lanes x 17 columns, 4,352 columns: kStripMaxN =
 // 4,351.  Wider buckets (5,184 and up, the
 // 11,664 bucket of the default 10,000-column cap, the 39,366 of a raised
-// one) take the wide route, as do K24 and K25.
+// one) take the wide route.
 //
 // Wide (profile_fwd_kernel): one thread block a window, threads across
 // columns j, a loop over rows i with three barriers and one block scan a
@@ -67,10 +67,28 @@
 // tensor first: writing the rest in the kernel, a byte a thread from the
 // one block a window, cost 118.1 ms against 103.5 ms at B = 2 in the
 // 11,664 bucket on an H100 (chip_smoke.py wide), where the fill is one
-// launch at the memory's rate.  K9 and K24 compile
-// the pointer and flag writes out, so their scores equal K3's bit for bit,
-// and K25 started from K24's carry at row bi*K gives K3's pointer bytes
-// of rows bi*K+1 .. (bi+1)*K.
+// launch at the memory's rate.  K9 compiles the pointer and flag writes
+// out, so its score equals K3's bit for bit.
+//
+// Spans (K24, K25; span_kernel): the strips over several blocks, at any
+// width (csrc/strip.cuh).  A window's S strips go W to a block of W + 1
+// warps, C = ceil(S / W) blocks a window: inside a block the strips hand
+// rows on through the shared ring, at a block's edge through a column of
+// row-tagged words in global memory that holds every row (no
+// back-pressure), which the next block's warp 0 copies into its ring.  A
+// block takes its (instance, segment) from an atomic ticket, so it only
+// waits on blocks already running.  An instance is K24's window (rows
+// 1..M, the (H, F) carry stored every KR rows, the score at p_len) or
+// one of K25's G x B row blocks (R rows from its carry; the G blocks of a
+// window that the host walk needs next are independent given K24's
+// carries, so they run side by side in one launch).  ext_cum is formed
+// once a window into global scratch (span_ext_cum_kernel), qw and ext_q
+// per lane from q.  K25 packs two cells a byte in the store (at an odd
+// K the odd lanes' first cell goes to the left lane's last byte by
+// shuffle), through a staging row at K >= 16.  The host picks K and W
+// (ops.profile.span_pick, from the card's fits, lm_span_fits) and G.
+// K24's score equals K3's bit for bit, and K25 started from K24's carry
+// at row bi*K gives K3's pointer bytes of rows bi*K+1 .. (bi+1)*K.
 //
 // Arithmetic and tie order copy ops/profile.py:49-93 exactly, on both
 // routes:
@@ -113,23 +131,17 @@ constexpr unsigned char kIsDiag = 1;  // flag: g came from the diagonal
 struct ProfileArgs {
   const float* p;        // [B, M, 5] the profile rows computed
   const float* q;        // [B, N, 5]
-  const int* p_len;      // [B], or null (K25)
+  const int* p_len;      // [B]
   const int* q_len;      // [B]
-  const float* h_in;     // K25: [B, N+1] carry at the rows' top; null:
-  const float* f_in;     //   the DP's first row
   float* qw;             // [B, 5, N] scratch
   float* ext_q;          // [B, N] scratch
   float* ext_cum;        // [B, N+1] scratch
   float* cum_lv;         // [B, cum_scratch(N)] scratch
   float* rows;           // [B, 4, N+1] global row scratch, or null
   unsigned char* flags;  // [B, N+1] with rows when pointers are written
-  unsigned char* ptr;    // K3: [B, M, N+1]; K25: [B, M, (N+2)/2]
-  float* score;          // [B] H at (p_len, q_len), or null
-  float* ck_h;           // K24: [M / K, B, N+1] carries, or null
-  float* ck_f;
-  int B, M, N, K;
-  int full;              // every row 1..M and column 0..N (K24, K25)
-  int packed;            // two pointer cells a byte (K25)
+  unsigned char* ptr;    // K3: [B, M, N+1], or null (K9)
+  float* score;          // [B] H at (p_len, q_len)
+  int B, M, N;
   float gap_open, gap_extend;
   lm::W5 w5;
 };
@@ -145,11 +157,11 @@ __global__ void profile_fwd_kernel(ProfileArgs a) {
   const int nt = blockDim.x;
   const int N = a.N;
   const int n1 = N + 1;
-  const int pl = a.p_len != nullptr ? a.p_len[b] : 0;
+  const int pl = a.p_len[b];
   const int ql = a.q_len[b];
   // rows 1..row_hi and columns 0..chi are computed
-  const int row_hi = a.full ? a.M : pl;
-  const int chi = a.full ? N : ql;
+  const int row_hi = pl;
+  const int chi = ql;
   const float gap_open = a.gap_open;
   const float gap_extend = a.gap_extend;
 
@@ -177,35 +189,17 @@ __global__ void profile_fwd_kernel(ProfileArgs a) {
   if (tid == 0) ec[0] = 0.f;
   __syncthreads();
   for (int c = tid; c <= chi; c += nt) {
-    if (a.h_in != nullptr) {
-      Hp[c] = a.h_in[(int64_t)b * n1 + c];
-      F[c] = a.f_in[(int64_t)b * n1 + c];
-    } else {
-      Hp[c] = c == 0 ? 0.f : gap_open + ec[c];
-      F[c] = kNegBig;
-    }
+    Hp[c] = c == 0 ? 0.f : gap_open + ec[c];
+    F[c] = kNegBig;
   }
   __syncthreads();
-  if (a.full && a.score != nullptr && pl == 0 && tid == 0) {
-    a.score[b] = Hp[ql];
-  }
 
   // contiguous column chunk per thread for the row's max-scan
   const int per = (chi + 1 + nt - 1) / nt;
   const int c_lo = tid * per;
   const int c_hi = min(c_lo + per, chi + 1);
-  const int64_t width = a.packed ? (N + 2) / 2 : n1;
 
   for (int i = 1; i <= row_hi; ++i) {
-    if (a.ck_h != nullptr && (i - 1) % a.K == 0) {
-      // K24: the carry at the top of block (i-1)/K; each thread stores
-      // the columns it overwrites in pass 1 below
-      const int64_t off = ((int64_t)((i - 1) / a.K) * a.B + b) * n1;
-      for (int c = tid; c <= chi; c += nt) {
-        a.ck_h[off + c] = Hp[c];
-        a.ck_f[off + c] = F[c];
-      }
-    }
     if (tid < 5) s_p[tid] = a.p[((int64_t)b * a.M + (i - 1)) * 5 + tid];
     __syncthreads();
     const float ext_pi = __fmul_rn(gap_extend, __fsub_rn(1.0f, s_p[4]));
@@ -243,17 +237,15 @@ __global__ void profile_fwd_kernel(ProfileArgs a) {
     }
     __syncthreads();
 
-    // pass 2: E, H and (K3, K25) the pointer byte.  Every thread runs the
-    // same number of iterations, so a warp's lanes can pair their bytes.
+    // pass 2: E, H and (K3) the pointer byte
     unsigned char* prow =
-        kPtr ? a.ptr + ((int64_t)b * a.M + (i - 1)) * width : nullptr;
-    for (int base = 0; base <= chi; base += nt) {
-      const int c = base + tid;
+        kPtr ? a.ptr + ((int64_t)b * a.M + (i - 1)) * n1 : nullptr;
+    for (int c = tid; c <= chi; c += nt) {
       unsigned char out = 0;
       if (c == 0) {
         // H[i][0] = F[i][0], already in Hc
         if (kPtr) out = kHF | (fl[0] & kFExt);
-      } else if (c <= chi) {
+      } else {
         const float e = ec[c] + Wv[c];
         const float g = Hc[c];
         const float h = fmaxf(g, e);
@@ -268,29 +260,14 @@ __global__ void profile_fwd_kernel(ProfileArgs a) {
         }
         Hc[c] = h;
       }
-      if (kPtr) {
-        if (a.packed) {
-          // lane+1 holds column c+1 (blockDim is a multiple of 32, so
-          // even columns sit on even lanes); past chi its byte is the
-          // zero pad cell
-          const unsigned hi = __shfl_down_sync(0xffffffffu, (unsigned)out, 1);
-          if (c <= chi && !(c & 1)) {
-            prow[c >> 1] = (unsigned char)(out | (hi << 4));
-          }
-        } else if (c <= chi) {
-          prow[c] = out;
-        }
-      }
+      if (kPtr) prow[c] = out;
     }
     __syncthreads();
     float* t = Hp;
     Hp = Hc;
     Hc = t;
-    if (a.full && a.score != nullptr && i == pl && tid == 0) {
-      a.score[b] = Hp[ql];
-    }
   }
-  if (!a.full && a.score != nullptr && tid == 0) a.score[b] = Hp[ql];
+  if (tid == 0) a.score[b] = Hp[ql];
 }
 
 template <bool kPtr>
@@ -323,7 +300,6 @@ ProfileArgs make_args(const void* p, const void* q, const void* q_len,
   a.B = B;
   a.M = M;
   a.N = N;
-  a.K = 1;
   a.gap_open = gap_open;
   a.gap_extend = gap_extend;
   for (int k = 0; k < 25; ++k) a.w5.w[k] = w5[k];
@@ -920,6 +896,462 @@ inline WideScratch wide_scratch(int B, int N, bool ptr, bool rows_global) {
   return w;
 }
 
+// ---------------------------------------------------------------------------
+// K24 and K25: strips over several blocks (see the top of the file).
+
+using lm_strip::kBatch;
+
+// The column widths a lane of K24/K25 may take; a geometry is an index
+// of this table and W, the strips a block.  Odd and even widths: at an
+// odd K a cell pair straddles two lanes, at an even K none does.
+constexpr int kSpanK[] = {17, 16, 13, 9, 8, 5, 3, 1};
+constexpr int kSpanGeometryCount = 8;
+constexpr int kSpanMaxW = 8;
+
+struct SpanArgs {
+  const float* p;          // [B, M, 5] the window's profile rows
+  const float* q;          // [B, N, 5]
+  const int* p_len;        // K24: [B] (the score's row); K25: null
+  const int* q_len;        // [B]
+  const float* ext_cum;    // [B, N+1] scratch (span_ext_cum_kernel)
+  const float* h_in;       // K25: [G, B, N+1] the carries the blocks
+  const float* f_in;       //   start from; K24: null (the DP's row 0)
+  unsigned long long* edges;   // [G*B, C-1, R, words], zeroed
+  unsigned* ticket;            // zeroed
+  unsigned char* ptr;      // K25: [G, B, R, (N+2)/2]
+  float* score;            // K24: [B]
+  float* ck_h;             // K24: [M / KR, B, N+1]
+  float* ck_f;
+  int B, M, N;
+  int R;                   // rows an instance computes (K24: M)
+  int first;               // K25: the first row block's index
+  int KR;                  // K24: rows between carries
+  int S, W, C;             // strips a window, strips a block, blocks
+  float gap_open, gap_extend;
+  lm::W5 w5;
+};
+
+__host__ __device__ inline int span_strips(int N, int K) {
+  return (N + 1 + 32 * K - 1) / (32 * K);
+}
+
+// Bytes of a K25 strip's staging row (K >= 16): 16*K packed bytes and a
+// word of slack for store_stage's unaligned word reads.
+__host__ __device__ inline int64_t span_stage_bytes(int K) {
+  return (16 * K + 8 + 7) & ~(int64_t)7;
+}
+
+// Dynamic shared memory of a block of W strips: W + 1 ring sets (set 0
+// the receiver's), a used count a strip, and for K25 at K >= 16 a
+// staging row a strip.
+__host__ __device__ inline int64_t span_smem_bytes(int K, int W, bool ptr) {
+  return (int64_t)8 * kSlot * kRing * (W + 1) + 8 * ((W + 2) / 2) +
+         (ptr && K >= 16 ? W * span_stage_bytes(K) : 0);
+}
+
+// ext_cum of each window (one block a window): ext_q of every q column
+// (padding included, as every column is computed), then the blocked
+// cumsum in place, in the JAX CPU order.
+__global__ void span_ext_cum_kernel(const float* q, float* ext_cum,
+                                    float* cum_lv, int N, float gap_extend) {
+  const int b = blockIdx.x;
+  const float* qb = q + (int64_t)b * N * 5;
+  float* ec = ext_cum + (int64_t)b * (N + 1);
+  for (int j = threadIdx.x; j < N; j += blockDim.x)
+    ec[j + 1] = __fmul_rn(gap_extend, __fsub_rn(1.0f, qb[j * 5 + 4]));
+  if (threadIdx.x == 0) ec[0] = 0.f;
+  __syncthreads();
+  lm::blocked_cumsum(ec + 1, ec + 1, N, cum_lv + (int64_t)b *
+                                            lm::cum_scratch(N));
+}
+
+// One instance (K24: a window's rows 1..M; K25: row block first+g of
+// window b) is C blocks of up to W strips; warp 0 of a block is its
+// receiver, warps 1..W its strips.  Every row and column of the padded
+// matrix is computed.  No block barrier after the setup.
+template <int K, bool kPtr>
+__global__ void span_kernel(SpanArgs a) {
+  // K25's row of packed bytes goes through a staging row at K >= 16, as
+  // K3's does at 17 (a lane's bytes lie K/2 apart from the next lane's)
+  constexpr bool kStage = kPtr && K >= 16;
+  constexpr int kWords = kPtr ? 3 : 2;   // h, the running max, e + ext_q
+  extern __shared__ unsigned long long lm_span_smem[];
+  const int W = a.W;
+  volatile unsigned long long* ring = lm_span_smem;
+  volatile int* used =   // rows strip w has read from set w-1
+      reinterpret_cast<volatile int*>(lm_span_smem + kSlot * kRing * (W + 1));
+  for (int k = threadIdx.x; k < kSlot * kRing * (W + 1); k += blockDim.x)
+    ring[k] = 0;
+  if ((int)threadIdx.x <= W) used[threadIdx.x] = 0;
+  const int t = lm_strip::take_ticket(a.ticket);   // a barrier
+  const int inst = t / a.C;
+  const int seg = t - inst * a.C;
+  const int g = inst / a.B;
+  const int b = inst - g * a.B;
+  const int R = a.R;
+  const int nw = min(W, a.S - seg * W);   // strips of this block
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  unsigned long long* edges =
+      a.edges + (int64_t)inst * (a.C - 1) * R * kWords;
+  if (warp == 0) {
+    if (seg > 0) {
+      lm_strip::receive_rows<kWords>(
+          edges + (int64_t)(seg - 1) * R * kWords, ring, used, R, lane);
+    }
+    return;
+  }
+  if (warp > nw) return;
+
+  const int N = a.N, n1 = N + 1;
+  const int s = seg * W + warp - 1;       // the window's strip
+  const int c0 = s * 32 * K;              // the strip's first column
+  const int cb = c0 + lane * K;           // this lane's first column
+  const bool col0 = s == 0 && lane == 0;
+  const bool feeds = s + 1 < a.S;
+  const float gap_open = a.gap_open, gap_extend = a.gap_extend;
+  const float* qb = a.q + (int64_t)b * N * 5;
+  const float* ec = a.ext_cum + (int64_t)b * n1;
+  const float* h0 = kPtr ? a.h_in + ((int64_t)g * a.B + b) * n1 : nullptr;
+  const float* f0 = kPtr ? a.f_in + ((int64_t)g * a.B + b) * n1 : nullptr;
+  const int pl = kPtr ? 0 : a.p_len[b];
+  const int ql = a.q_len[b];
+
+  // per instance, once: the held columns' qw (of q column c-1), ext_q (of
+  // q column c, the next column's kEExt test), ext_cum and the carry
+  float H[K], F[K], EC[K];
+  float EQ[kPtr ? K : 1];
+  float QW[5 * K];
+#pragma unroll
+  for (int m = 0; m < K; ++m) {
+    const int c = cb + m;
+    float qv[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
+    if (c >= 1 && c <= N) {
+#pragma unroll
+      for (int x = 0; x < 5; ++x) qv[x] = qb[(c - 1) * 5 + x];
+    }
+#pragma unroll
+    for (int y = 0; y < 5; ++y) QW[m * 5 + y] = qw_of(qv, a.w5, y);
+    if (kPtr) {
+      EQ[m] = c < N ? __fmul_rn(gap_extend, __fsub_rn(1.0f, qb[c * 5 + 4]))
+                    : 0.f;
+    }
+    EC[m] = c <= N ? ec[c] : 0.f;
+    if (kPtr) {
+      H[m] = c <= N ? h0[c] : kNegBig;
+      F[m] = c <= N ? f0[c] : kNegBig;
+    } else {
+      H[m] = c == 0 ? 0.f : (c <= N ? gap_open + EC[m] : kNegBig);
+      F[m] = kNegBig;
+    }
+  }
+  // H[i-1][c0-1], the first column's diagonal (strips after the first)
+  float h_left = kNegBig;
+  if (s > 0) h_left = kPtr ? h0[c0 - 1] : gap_open + ec[c0 - 1];
+  if (!kPtr && pl == 0) {   // the score of a window of no rows: row 0's
+#pragma unroll
+    for (int m = 0; m < K; ++m) {
+      if (cb + m == ql) a.score[b] = H[m];
+    }
+  }
+
+  // where the strip reads its row words from and hands its own on
+  const volatile unsigned long long* in_ring =
+      ring + (int64_t)(warp - 1) * kRing * kSlot;
+  volatile unsigned long long* out_ring =
+      ring + (int64_t)warp * kRing * kSlot;
+  volatile unsigned long long* out_edge =
+      edges + (int64_t)seg * R * kWords;
+  const bool to_edge = warp == nw;
+  // K25: the instance's packed rows and the strip's staging row
+  const int64_t width = (N + 2) / 2;
+  unsigned char* prows =
+      kPtr ? a.ptr + ((int64_t)g * a.B + b) * R * width : nullptr;
+  unsigned char* stg =
+      reinterpret_cast<unsigned char*>(
+          lm_span_smem + kSlot * kRing * (W + 1) + (W + 2) / 2) +
+      (warp - 1) * span_stage_bytes(K);
+  const int seg_bytes =
+      (int)(width - c0 / 2 < 16 * K ? width - c0 / 2 : 16 * K);
+
+  // the instance's profile rows, 32 at a time, a row a lane; row i's
+  // five values reach every lane by shuffles
+  const float* pb =
+      a.p + ((int64_t)b * a.M + (int64_t)(a.first + g) * R) * 5;
+  float P[5], PN[5];
+  auto load_rows = [&](int first) {
+    const int r = first + lane;
+#pragma unroll
+    for (int x = 0; x < 5; ++x) PN[x] = r < R ? pb[r * 5 + x] : 0.f;
+  };
+  load_rows(0);
+  int ck = 0;   // K24: the next carry, at the top of row ck * KR + 1
+  for (int i = 1; i <= R; ++i) {
+    if (!kPtr && i - 1 == ck * a.KR) {
+      const int64_t off = ((int64_t)ck++ * a.B + b) * n1;
+#pragma unroll
+      for (int m = 0; m < K; ++m) {
+        if (cb + m <= N) {
+          a.ck_h[off + cb + m] = H[m];
+          a.ck_f[off + cb + m] = F[m];
+        }
+      }
+    }
+    const int r = (i - 1) & 31;
+    if (r == 0) {
+#pragma unroll
+      for (int x = 0; x < 5; ++x) P[x] = PN[x];
+      load_rows(i + 31);
+    }
+    float pc[5];
+#pragma unroll
+    for (int x = 0; x < 5; ++x) pc[x] = __shfl_sync(kFull, P[x], r);
+    const float ext_pi = __fmul_rn(gap_extend, __fsub_rn(1.0f, pc[4]));
+
+    // 1. F and G; the running max of Wv over the lane's columns
+    float hl = __shfl_up_sync(kFull, H[K - 1], 1);
+    if (lane == 0) hl = h_left;
+    float run = -INFINITY;
+    unsigned dmask = 0, fmask = 0;
+#pragma unroll
+    for (int m = 0; m < K; ++m) {
+      const float hp = H[m];
+      const float fp = F[m];
+      const float fo = (hp + gap_open) + ext_pi;
+      const float fe = fp + ext_pi;
+      const float f = fmaxf(fo, fe);
+      if (kPtr && f == fe && fp > kNegBig / 2) fmask |= 1u << m;
+      F[m] = f;
+      float g2 = f;
+      if (m > 0 || !col0) {
+        float sc = __fmul_rn(pc[0], QW[m * 5]);
+        sc = __fmaf_rn(pc[1], QW[m * 5 + 1], sc);
+        sc = __fmaf_rn(pc[2], QW[m * 5 + 2], sc);
+        sc = __fmaf_rn(pc[3], QW[m * 5 + 3], sc);
+        sc = __fmaf_rn(pc[4], QW[m * 5 + 4], sc);
+        const float diag = hl + sc;
+        g2 = fmaxf(diag, f);
+        if (kPtr && g2 == diag) dmask |= 1u << m;
+      }
+      hl = hp;   // column m's H[i-1] is column m+1's diagonal
+      H[m] = g2;
+      run = fmaxf(run, (g2 + gap_open) - EC[m]);
+    }
+
+    // 2. the exclusive max-scan over the lanes, then the strip's carry
+    float x = run;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float n = __shfl_up_sync(kFull, x, o);
+      if (lane >= o) x = fmaxf(n, x);
+    }
+    float pre = __shfl_up_sync(kFull, x, 1);
+    if (lane == 0) pre = -INFINITY;
+    float eeq_in = 0.f;
+    if (s > 0) {
+      const volatile unsigned long long* sl =
+          in_ring + (i % kRing) * kSlot;
+      h_left = await_row_word(sl, i);   // H[i][c0-1], next row's diagonal
+      pre = fmaxf(pre, await_row_word(sl + 1, i));
+      if (kPtr) eeq_in = await_row_word(sl + 2, i);
+      __syncwarp();
+      if (lane == 0) used[warp] = i;
+    }
+
+    // 3. H = max(G, E) and (K25) the pointer nibbles: nibble m of the
+    // lane at bits 4m of nib, from m = 16 on at bits 4(m-16) of nib_hi
+    float e0 = 0.f, eeq = 0.f;   // eeq: the previous column's e + ext_q
+    unsigned long long nib = 0;
+    unsigned nib_hi = 0;
+#pragma unroll
+    for (int m = 0; m < K; ++m) {
+      const int c = cb + m;
+      const float g2 = H[m];
+      const float wv = (g2 + gap_open) - EC[m];
+      if (m == 0 && col0) {   // column 0: H = G, the pointer F
+        pre = fmaxf(pre, wv);
+        if (kPtr) nib = kHF | ((fmask & 1u) ? kFExt : 0);
+        continue;
+      }
+      const float e = EC[m] + pre;
+      pre = fmaxf(pre, wv);
+      const float h = fmaxf(g2, e);
+      H[m] = h;
+      if (kPtr) {
+        const unsigned src = (((dmask >> m) & 1u) && h == g2)
+                                 ? kHDiag
+                                 : (h == e ? kHE : kHF);
+        unsigned out = src | (((fmask >> m) & 1u) ? kFExt : 0);
+        if (m == 0) {
+          e0 = e;
+        } else if (c >= 2 && e == eeq) {
+          out |= kEExt;
+        }
+        if (c <= N) {
+          if (m < 16) {
+            nib |= (unsigned long long)out << (4 * m);
+          } else {
+            nib_hi |= out << (4 * (m - 16));
+          }
+        }
+        eeq = e + EQ[m];
+      }
+    }
+
+    // hand the row to the next strip, before the pointer stores
+    if (feeds) {
+      if (!to_edge) {
+        if (i > kRing) {
+          while (used[warp + 1] < i - kRing) {
+          }
+        }
+        if (lane == 31) {
+          volatile unsigned long long* sl = out_ring + (i % kRing) * kSlot;
+          sl[0] = row_word(H[K - 1], i);
+          sl[1] = row_word(pre, i);
+          if (kPtr) sl[2] = row_word(eeq, i);
+        }
+      } else if (lane == 31) {
+        volatile unsigned long long* d = out_edge + (int64_t)(i - 1) * kWords;
+        d[0] = row_word(H[K - 1], i);
+        d[1] = row_word(pre, i);
+        if (kPtr) d[2] = row_word(eeq, i);
+      }
+    }
+    if (!kPtr && i == pl) {   // K24: H at (p_len, q_len)
+#pragma unroll
+      for (int m = 0; m < K; ++m) {
+        if (cb + m == ql) a.score[b] = H[m];
+      }
+    }
+
+    if (kPtr) {
+      float eeq_left = __shfl_up_sync(kFull, eeq, 1);
+      if (lane == 0) eeq_left = eeq_in;
+      if (!col0 && cb >= 2 && cb <= N && e0 == eeq_left) nib |= kEExt;
+      // Pack: cell 2k in the low nibble of byte k.  c0 is even; at an odd
+      // K a lane's first column is odd on odd lanes: that cell is the
+      // high nibble of the left lane's last byte, taken by shuffle.
+      const unsigned right =
+          __shfl_down_sync(kFull, (unsigned)(nib & 0xF), 1);
+      auto cell = [&](int j) -> unsigned {   // nibble j, right at j = K
+        if (j == K) return right;
+        return j < 16 ? (unsigned)(nib >> (4 * j)) & 0xF
+                      : (nib_hi >> (4 * (j - 16))) & 0xF;
+      };
+      const bool odd = cb & 1;
+      const int c_first = cb + (odd ? 1 : 0);   // an even column
+      unsigned char* prow = prows + (int64_t)(i - 1) * width;
+#pragma unroll
+      for (int k = 0; k < (K + 1) / 2; ++k) {
+        const int c = c_first + 2 * k;
+        // at an odd K odd lanes hold (K - 1) / 2 whole bytes, even lanes
+        // (K + 1) / 2; at an even K every lane K / 2
+        if ((!odd || k < (K - 1) / 2) && c <= N) {
+          const unsigned v = odd ? cell(2 * k + 1) | (cell(2 * k + 2) << 4)
+                                 : cell(2 * k) | (cell(2 * k + 1) << 4);
+          if (kStage) {
+            stg[(c - c0) >> 1] = (unsigned char)v;
+          } else {
+            prow[c >> 1] = (unsigned char)v;
+          }
+        }
+      }
+      if (kStage) {
+        __syncwarp();
+        store_stage(stg, prow + c0 / 2, seg_bytes, lane);
+        __syncwarp();   // the next row's bytes overwrite the staging row
+      }
+    }
+  }
+}
+
+template <bool kPtr>
+const void* span_kernel_of(int g) {
+  switch (g) {
+    case 0: return (const void*)span_kernel<17, kPtr>;
+    case 1: return (const void*)span_kernel<16, kPtr>;
+    case 2: return (const void*)span_kernel<13, kPtr>;
+    case 3: return (const void*)span_kernel<9, kPtr>;
+    case 4: return (const void*)span_kernel<8, kPtr>;
+    case 5: return (const void*)span_kernel<5, kPtr>;
+    case 6: return (const void*)span_kernel<3, kPtr>;
+    default: return (const void*)span_kernel<1, kPtr>;
+  }
+}
+
+// Scratch of a K24 (R = M, G = 1) or K25 launch, carved from one
+// allocation: ext_cum [B, N+1] and its cumsum levels, then the hand-off
+// columns [G*B, C-1, R, words] (2 words a row for K24, 3 for K25) and the
+// ticket, which the launcher zeroes.
+struct SpanScratch {
+  int64_t ext_cum, cum_lv, edges, ticket, total;
+};
+
+inline SpanScratch span_scratch(int B, int G, int R, int N, int C,
+                                bool ptr) {
+  auto up = [](int64_t x) { return (x + 15) & ~(int64_t)15; };
+  SpanScratch w;
+  int64_t o = 0;
+  w.ext_cum = o;
+  o += up(4LL * B * (N + 1));
+  w.cum_lv = o;
+  o += up(4LL * B * lm::cum_scratch(N));
+  w.edges = o;
+  o += 8LL * G * B * (C - 1) * R * (ptr ? 3 : 2);
+  w.ticket = o;
+  o += 16;
+  w.total = o;
+  return w;
+}
+
+template <int K, bool kPtr>
+void launch_span_k(unsigned grid, int threads, int64_t smem, void* stream,
+                   const SpanArgs& a) {
+  const auto kernel = span_kernel<K, kPtr>;
+  LM_LAUNCH(kernel, grid, threads, (size_t)smem, (cudaStream_t)stream, a);
+}
+
+// The launch of a K24 (kPtr false) or K25 geometry: zero the hand-off
+// columns and the ticket, ext_cum, then the strips.  `instances`: G*B.
+template <bool kPtr>
+int launch_span(SpanArgs a, int g, int W, int instances, char* scratch,
+                void* stream) {
+  if (g < 0 || g >= kSpanGeometryCount || W < 1 || W > kSpanMaxW)
+    return (int)cudaErrorInvalidValue;
+  const int K = kSpanK[g];
+  a.S = span_strips(a.N, K);
+  a.W = W;
+  a.C = (a.S + W - 1) / W;
+  const SpanScratch w =
+      span_scratch(a.B, a.B > 0 ? instances / a.B : 0, a.R, a.N, a.C, kPtr);
+  a.ext_cum = (const float*)(scratch + w.ext_cum);
+  a.edges = (unsigned long long*)(scratch + w.edges);
+  a.ticket = (unsigned*)(scratch + w.ticket);
+  if (instances == 0 || a.R == 0) return (int)cudaGetLastError();
+  cudaError_t err = cudaMemsetAsync(scratch + w.edges, 0,
+                                    (size_t)(w.total - w.edges),
+                                    (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  LM_LAUNCH(span_ext_cum_kernel, (unsigned)a.B, 1024, 0,
+            (cudaStream_t)stream, a.q, (float*)(scratch + w.ext_cum),
+            (float*)(scratch + w.cum_lv), a.N, a.gap_extend);
+  const int64_t smem = span_smem_bytes(K, W, kPtr);
+  const unsigned grid = (unsigned)((int64_t)instances * a.C);
+  const int threads = 32 * (W + 1);
+  switch (g) {
+    case 0: launch_span_k<17, kPtr>(grid, threads, smem, stream, a); break;
+    case 1: launch_span_k<16, kPtr>(grid, threads, smem, stream, a); break;
+    case 2: launch_span_k<13, kPtr>(grid, threads, smem, stream, a); break;
+    case 3: launch_span_k<9, kPtr>(grid, threads, smem, stream, a); break;
+    case 4: launch_span_k<8, kPtr>(grid, threads, smem, stream, a); break;
+    case 5: launch_span_k<5, kPtr>(grid, threads, smem, stream, a); break;
+    case 6: launch_span_k<3, kPtr>(grid, threads, smem, stream, a); break;
+    default: launch_span_k<1, kPtr>(grid, threads, smem, stream, a); break;
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Bytes of shared memory one window's rows need at N columns.
@@ -1008,49 +1440,114 @@ extern "C" int lm_profile_geometry(int B, int N, int ptr, int g,
   return 0;
 }
 
-// K24.  p, q, p_len, q_len as for lm_profile_fwd (M a multiple of K);
-// qw: f32[B, 5, N], ext_q: f32[B, N], ext_cum: f32[B, N+1], cum_lv:
-// f32[B, lm_profile_cum_scratch(N)] (scratch); rows: f32[B, 4, N+1] or
-// null; score: f32[B]; w5: HOST float[25]; ck_h,
-// ck_f: f32[M / K, B, N+1], the (H, F) carry at the top of every K-row
-// block (block 0: the DP's first row).  Every row and column is computed.
+// Bytes of scratch a K24 (ptr 0, G = 1, R = M) or K25 launch of G row
+// blocks of R rows for B windows in an N-column bucket takes in geometry
+// (g, W): ext_cum, its cumsum levels, the hand-off columns and the
+// ticket; -1 for a geometry past the table.
+extern "C" int64_t lm_span_scratch_bytes(int B, int G, int R, int N, int g,
+                                         int W, int ptr) {
+  if (g < 0 || g >= kSpanGeometryCount || W < 1 || W > kSpanMaxW) return -1;
+  const int S = span_strips(N, kSpanK[g]);
+  return span_scratch(B, G, R, N, (S + W - 1) / W, ptr != 0).total;
+}
+
+// The fits of K24 (ptr 0) or K25 on the current card, for the host's
+// pick: out: int[1 + 8 + 8 * 8], the SM count, kSpanK, then at 9 + g*8 +
+// W-1 the blocks an SM holds of geometry g (kSpanK[g] columns a lane)
+// with W strips a block (0: the block does not fit the kernel's
+// registers).
+// The blocks' shared memory does not depend on the bucket, so one query
+// a card serves every launch.
+extern "C" int lm_span_fits(int ptr, int* out) {
+  int n_sm = 0;
+  cudaError_t err = lm_strip::sm_count(&n_sm);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = n_sm;
+  for (int g = 0; g < kSpanGeometryCount; ++g) out[1 + g] = kSpanK[g];
+  int* fits = out + 1 + kSpanGeometryCount;
+  for (int g = 0; g < kSpanGeometryCount; ++g) {
+    const void* fn = ptr ? span_kernel_of<true>(g) : span_kernel_of<false>(g);
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, fn);
+    if (err != cudaSuccess) return (int)err;
+    for (int W = 1; W <= kSpanMaxW; ++W) {
+      const int threads = 32 * (W + 1);
+      int blocks = 0;
+      if (threads <= attr.maxThreadsPerBlock) {
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &blocks, fn, threads, span_smem_bytes(kSpanK[g], W, ptr != 0));
+        if (err != cudaSuccess) return (int)err;
+      }
+      fits[g * kSpanMaxW + W - 1] = blocks;
+    }
+  }
+  return 0;
+}
+
+// K24.  p: f32[B, M, 5] (M a multiple of K), q: f32[B, N, 5]; p_len,
+// q_len: int32[B]; scratch: lm_span_scratch_bytes(B, 1, M, N, g, W)
+// bytes, 16-byte aligned; score: f32[B]; ck_h, ck_f: f32[M / K, B, N+1],
+// the (H, F) carry at the top of every K-row block (block 0: the DP's
+// first row); w5: HOST float[25]; (g, W): the geometry.  Every row and
+// column is computed.
 extern "C" int lm_profile_ckpt(const void* p, const void* q,
                                const void* p_len, const void* q_len,
-                               void* qw, void* ext_q, void* ext_cum,
-                               void* cum_lv, void* rows, void* score,
-                               void* ck_h, void* ck_f, int B, int M, int N,
-                               int K, float gap_open, float gap_extend,
-                               const float* w5, void* stream) {
-  if (K < 1 || M % K != 0) return (int)cudaErrorInvalidValue;
-  ProfileArgs a = make_args(p, q, q_len, qw, ext_q, ext_cum, cum_lv, rows, B,
-                            M, N, gap_open, gap_extend, w5);
+                               void* scratch, void* score, void* ck_h,
+                               void* ck_f, int B, int M, int N, int K,
+                               float gap_open, float gap_extend,
+                               const float* w5, int g, int W, void* stream) {
+  if (K < 1 || M % K != 0 || scratch == nullptr)
+    return (int)cudaErrorInvalidValue;
+  SpanArgs a = {};
+  a.p = (const float*)p;
+  a.q = (const float*)q;
   a.p_len = (const int*)p_len;
+  a.q_len = (const int*)q_len;
   a.score = (float*)score;
   a.ck_h = (float*)ck_h;
   a.ck_f = (float*)ck_f;
-  a.K = K;
-  a.full = 1;
-  return launch_profile<false>(a, stream);
+  a.B = B;
+  a.M = M;
+  a.N = N;
+  a.R = M;
+  a.KR = K;
+  a.gap_open = gap_open;
+  a.gap_extend = gap_extend;
+  for (int k = 0; k < 25; ++k) a.w5.w[k] = w5[k];
+  return launch_span<false>(a, g, W, B, (char*)scratch, stream);
 }
 
-// K25.  p_blk: f32[B, R, 5] the block's profile rows; q: f32[B, N, 5];
-// q_len: int32[B]; h_in, f_in: f32[B, N+1] the carry at the block's top;
-// scratch as for lm_profile_fwd (flags with rows); ptr: uint8[B, R,
-// (N+2)/2], two cells a byte.  Every row and column is written.
-extern "C" int lm_profile_block_ptrs(const void* p_blk, const void* q,
+// K25 over G row blocks at once.  p: f32[B, M, 5] the windows' rows (M
+// >= (first + G) * R), q: f32[B, N, 5]; q_len: int32[B]; h_in, f_in:
+// f32[G, B, N+1], the carries at the tops of blocks first .. first+G-1
+// (rows of K24's ck_h / ck_f); scratch: lm_span_scratch_bytes(B, G, R,
+// N, g, W) bytes; ptr: uint8[G, B, R, (N+2)/2], two cells a byte, every
+// row and column written (a zero pad cell at an odd N+1).
+extern "C" int lm_profile_block_ptrs(const void* p, const void* q,
                                      const void* q_len, const void* h_in,
-                                     const void* f_in, void* qw, void* ext_q,
-                                     void* ext_cum, void* cum_lv, void* rows,
-                                     void* flags, void* ptr, int B, int R,
-                                     int N, float gap_open, float gap_extend,
-                                     const float* w5, void* stream) {
-  ProfileArgs a = make_args(p_blk, q, q_len, qw, ext_q, ext_cum, cum_lv,
-                            rows, B, R, N, gap_open, gap_extend, w5);
+                                     const void* f_in, void* scratch,
+                                     void* ptr, int B, int M, int N, int R,
+                                     int first, int G, float gap_open,
+                                     float gap_extend, const float* w5,
+                                     int g, int W, void* stream) {
+  if (R < 1 || first < 0 || G < 0 || (int64_t)(first + G) * R > M ||
+      scratch == nullptr)
+    return (int)cudaErrorInvalidValue;
+  SpanArgs a = {};
+  a.p = (const float*)p;
+  a.q = (const float*)q;
+  a.q_len = (const int*)q_len;
   a.h_in = (const float*)h_in;
   a.f_in = (const float*)f_in;
-  a.flags = (unsigned char*)flags;
   a.ptr = (unsigned char*)ptr;
-  a.packed = 1;
-  a.full = 1;
-  return launch_profile<true>(a, stream);
+  a.B = B;
+  a.M = M;
+  a.N = N;
+  a.R = R;
+  a.first = first;
+  a.KR = R;
+  a.gap_open = gap_open;
+  a.gap_extend = gap_extend;
+  for (int k = 0; k < 25; ++k) a.w5.w[k] = w5[k];
+  return launch_span<true>(a, g, W, G * B, (char*)scratch, stream);
 }

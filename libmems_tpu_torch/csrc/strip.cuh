@@ -1,8 +1,9 @@
 // Pieces of the strip kernels shared by the banded profile DP (K10/K11,
-// csrc/banded.cu) and the full-width one (K3/K9, csrc/profile.cu): a
-// window's columns are cut into strips of 32 lanes x K columns, one warp a
-// strip, and strips run the rows as a pipeline, handing each other one
-// row-tagged 64-bit word per value through a ring in shared memory.
+// csrc/banded.cu) and the full-width one (K3/K9 and K24/K25,
+// csrc/profile.cu): a window's columns are cut into strips of 32 lanes x
+// K columns, one warp a strip, and strips run the rows as a pipeline,
+// handing each other one row-tagged 64-bit word per value through a ring
+// in shared memory, or through global memory between blocks.
 #pragma once
 
 #include "common.cuh"
@@ -42,6 +43,71 @@ __device__ __forceinline__ float await_row_word(
     x = *w;
   } while ((int)(x >> 32) != row);
   return __uint_as_float((unsigned)x);
+}
+
+// ---------------------------------------------------------------------------
+// Strips over several blocks (K24/K25, csrc/profile.cu span_kernel).  A
+// window's S strips go W to a block, C = ceil(S / W) blocks a window.
+// Inside a block the strips hand rows on through the shared ring as
+// above; at a block's edge the last strip writes the same row-tagged
+// words into a column in global memory, [rows][kWords] words an edge
+// (kWords <= kSlot, the words a kernel hands on) and
+// zeroed by the launcher (row tags start at 1, so a zero never reads as
+// ready), with no back-pressure: the column holds every row.  The next
+// block's warp 0 (the receiver) copies them into ring set 0, where the
+// block's first strip reads them as from a strip of its own block.
+//
+// Forward progress: a block takes (window, segment) from an atomic
+// ticket, numbered segment-major within a window, so it waits only on
+// the block of the ticket before it, which already runs.  No block count
+// needs to be resident at once, and a window's width has no cap.
+
+// Rows a receiver's poll loads at once (half the ring).
+constexpr int kBatch = kRing / 2;
+
+// The block's ticket; every thread of the block must call it.
+__device__ __forceinline__ int take_ticket(unsigned* counter) {
+  __shared__ unsigned ticket;
+  if (threadIdx.x == 0) ticket = atomicAdd(counter, 1u);
+  __syncthreads();
+  return (int)ticket;
+}
+
+// The receiver: rows 1..rows of kWords hand-off words from the global
+// column src (src[(i-1)*kWords + k], tagged with row i) into ring set 0
+// (ring[(i % kRing)*kSlot + k]), a word a lane: each poll loads the next
+// kBatch rows at once (one coalesced load) and passes on the rows that
+// have arrived before the first that has not, so a row waits for no
+// later one.  A row's slot is free once the block's first strip has
+// read the row kRing before it (used[1]).  Called by the 32 lanes of one
+// warp.
+template <int kWords>
+__device__ void receive_rows(const unsigned long long* src,
+                             volatile unsigned long long* ring,
+                             volatile int* used, int rows, int lane) {
+  static_assert(kBatch * kWords <= 32, "a batch is a word a lane");
+  const volatile unsigned long long* vs = src;
+  const int r = lane / kWords;
+  const int k = lane - r * kWords;
+  for (int base = 1; base <= rows;) {
+    const int i = base + r;
+    const bool mine = r < kBatch && i <= rows;
+    unsigned long long x = 0;
+    if (mine) x = vs[(int64_t)(i - 1) * kWords + k];
+    // rows base .. base+n-1 have arrived: n whole rows before the first
+    // lane whose word has not (lanes past the batch count as arrived)
+    const unsigned late = __ballot_sync(kFull, mine && (int)(x >> 32) != i);
+    const int first_late = late ? __ffs(late) - 1 : 32;
+    const int n = min(first_late / kWords, min(kBatch, rows - base + 1));
+    if (n == 0) continue;
+    if (lane == 0) {
+      while (used[1] < base + n - 1 - kRing) {
+      }
+    }
+    __syncwarp();
+    if (r < n) ring[(i % kRing) * kSlot + k] = x;
+    base += n;
+  }
 }
 
 inline cudaError_t sm_count(int* n_sm) {

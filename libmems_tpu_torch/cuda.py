@@ -54,8 +54,11 @@ _SIGNATURES = {
     "lm_profile_scratch_bytes": ([_I] * 4, _L),
     "lm_profile_fwd": ([_P] * 7 + [_I] * 4 + [_F, _F, _P, _I, _P, _P], _I),
     "lm_profile_geometry": ([_I] * 5 + [_P], _I),
-    "lm_profile_ckpt": ([_P] * 12 + [_I] * 4 + [_F, _F, _P, _P], _I),
-    "lm_profile_block_ptrs": ([_P] * 12 + [_I] * 3 + [_F, _F, _P, _P], _I),
+    "lm_span_scratch_bytes": ([_I] * 7, _L),
+    "lm_span_fits": ([_I, _P], _I),
+    "lm_profile_ckpt": ([_P] * 8 + [_I] * 4 + [_F, _F, _P, _I, _I, _P], _I),
+    "lm_profile_block_ptrs": ([_P] * 7 + [_I] * 6 + [_F, _F, _P, _I, _I,
+                                                     _P], _I),
     "lm_traceback": ([_P, _P, _P] + [_I] * 5 + [_P] * 3 + [_I, _P], _I),
     "lm_traceback_geometry": ([_I] * 4 + [_P], _I),
     "lm_banded_fwd": ([_P] * 7 + [_L] + [_P] * 5 + [_I] * 4

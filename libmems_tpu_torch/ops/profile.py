@@ -27,7 +27,10 @@ module's checkpointed route (``profile_forward_ckpt`` at K = 128 +
 ``profile_block_ptrs``).  K24 keeps the (H, F) carry every 128 rows,
 launches split so the carries stay under PTR_BUDGET too, and the host
 walk ``ops.gapped.traceback_blocks`` fetches each 128-row block's
-pointers, nibble-packed, from K25 (``CKPT_STATS`` counts the windows).
+pointers, nibble-packed, from K25, which computes the ``block_batch``
+blocks below the one asked for side by side (``CKPT_STATS`` counts the
+windows).  Both run a window's columns as strips of warps over several
+thread blocks (``span_geometry``).
 With two or more cards (``dp_mesh``) or a mesh passed in, each launch's
 windows are cut into one contiguous slice a device (the ``_shard_*``
 wrappers of the JAX module).  Windows are independent and padding never
@@ -227,18 +230,6 @@ def profile_forward_plain(p, q, p_len, q_len, gap_open: int = GAP_OPEN,
     return ptrs, score
 
 
-def _profile_scratch(lib, B, N, dev):
-    """K24's and K25's scratch: qw, ext_q, ext_cum, the cumsum levels and
-    (rows past PROFILE_SMEM_LIMIT) the rows in global memory."""
-    f32 = dict(dtype=torch.float32, device=dev)
-    rows = None
-    if _rows_global(lib, N):
-        rows = torch.empty((B, 4, N + 1), **f32)
-    return (torch.empty((B, 5, N), **f32), torch.empty((B, N), **f32),
-            torch.empty((B, N + 1), **f32),
-            torch.empty((B, lib.lm_profile_cum_scratch(N)), **f32), rows)
-
-
 # the W5 matrix as the launchers take it (a host float[25]), built once
 _W5_C = (ctypes.c_float * 25)(*W5.ravel().tolist())
 # the geometry of the latest K3 or K9 launch on each card (lm_profile_fwd's
@@ -419,9 +410,138 @@ def profile_forward_ckpt_plain(p, q, p_len, q_len, gap_open: int = GAP_OPEN,
     return score, ck_h, ck_f
 
 
+# K24's and K25's geometry: SPAN_K[g] columns a lane (csrc/profile.cu
+# kSpanK), W strips a block of W + 1 warps (warp 0 the receiver),
+# W <= SPAN_MAX_W
+SPAN_K = (17, 16, 13, 9, 8, 5, 3, 1)
+SPAN_MAX_W = 8
+# The price of a span launch, in ns (span_cost): a row of a strip costs
+# A + Bk*K + Cs*W; an instance alone takes R rows plus its pipeline's
+# fill, Hop a strip and E a block edge (the hand-off through L2); many
+# instances take the card's block slots for their rows and their blocks'
+# waits.  (A, Bk, Cs, Hop, E) for the carries (K24) and the pointers
+# (K25), fitted to the forced-geometry times of `chip_smoke.py --sweep
+# bounded` on an H100 (the swapped-locus launch of 39,367 columns: K24
+# one window of 39,424 rows, K25 53 row blocks of 128; within 11% and
+# 31% of the times).
+SPAN_COST = {False: (350, 20, 20, 200, 5_000),
+             True: (1_200, 40, 20, 200, 500)}
+# a launch's hand-off columns hold at most PTR_BUDGET / SPAN_EDGE_SHARE
+# bytes: span_pick leaves out the geometries of more blocks
+SPAN_EDGE_SHARE = 16
+# K25's launches on the checkpointed route hold at most this share of
+# PTR_BUDGET in packed pointers (block_batch)
+PTR_BATCH_SHARE = 8
+# the card's fits of K24 (False) and K25 (True), by device index
+_SPAN_FITS = {}
+
+
+def span_plan(N: int, K: int, W: int) -> tuple[int, int]:
+    """(S, C): the strips of K columns a lane that cover an N-column
+    bucket's N+1 columns, and the blocks of W strips that hold them."""
+    S = -(-(N + 1) // (32 * K))
+    return S, -(-S // W)
+
+
+def span_cost(n_inst: int, R: int, N: int, ptr: bool, g: int, W: int,
+              per_sm: int, n_sm: int) -> float:
+    """The price in ns of a span launch of n_inst instances of R rows in
+    geometry (g, W), with per_sm blocks an SM and n_sm SMs (SPAN_COST):
+    the larger of one instance's rows and fill, and the block slots its
+    instances hold (each block its R rows and on average half its
+    instance's fill); an instance wider than the card's slots runs its
+    blocks in turns."""
+    A, Bk, Cs, Hop, E = SPAN_COST[ptr]
+    K = SPAN_K[g]
+    S, C = span_plan(N, K, W)
+    w = min(W, S)
+    resident = per_sm * n_sm
+    row = A + Bk * K + Cs * w
+    span = R * row + S * Hop + (C - 1) * E
+    if C > resident:
+        return n_inst * -(-C // resident) * span
+    slots = n_inst * C * (R * row + (C - 1) / 2 * (w * Hop + E)) / resident
+    return max(span, slots)
+
+
+def span_edge_bytes(n_inst: int, R: int, N: int, ptr: bool, g: int,
+                    W: int) -> int:
+    """Bytes of a span launch's hand-off columns: R rows of 2 (K24) or 3
+    (K25) words at each of an instance's C - 1 block edges."""
+    C = span_plan(N, SPAN_K[g], W)[1]
+    return n_inst * (C - 1) * R * (24 if ptr else 16)
+
+
+def _span_fits(ptr: bool):
+    """(n_sm, {(g, W): blocks an SM}) of K24 (ptr False) or K25 on the
+    current card, asked of the runtime once a card."""
+    key = (torch.cuda.current_device(), ptr)
+    fits = _SPAN_FITS.get(key)
+    if fits is None:
+        nk = len(SPAN_K)
+        out = (ctypes.c_int * (1 + nk + nk * SPAN_MAX_W))()
+        cuda.check(cuda.library().lm_span_fits(int(ptr), out), "lm_span_fits")
+        if tuple(out[1:1 + nk]) != SPAN_K:
+            raise RuntimeError(f"csrc/profile.cu's kSpanK {out[1:1 + nk]} "
+                               f"is not SPAN_K {SPAN_K}")
+        fits = _SPAN_FITS.setdefault(key, (out[0], {
+            (g, W): out[1 + nk + g * SPAN_MAX_W + W - 1]
+            for g in range(nk) for W in range(1, SPAN_MAX_W + 1)}))
+    return fits
+
+
+def span_pick(n_inst: int, R: int, N: int, ptr: bool, n_sm: int,
+              fits: dict) -> tuple[int, int]:
+    """The cheapest geometry (g, W) by span_cost among those that fit
+    (fits[(g, W)] > 0 blocks an SM) with no more warps than strips and
+    hand-off columns within PTR_BUDGET / SPAN_EDGE_SHARE; where none is
+    that small, the fitting one with the fewest edge bytes."""
+    cands = [(g, W) for (g, W), per_sm in sorted(fits.items())
+             if per_sm > 0 and W <= span_plan(N, SPAN_K[g], 1)[0]]
+    if not cands:
+        raise RuntimeError(f"no span geometry fits an {N}-column bucket")
+    cap = PTR_BUDGET // SPAN_EDGE_SHARE
+    small = [c for c in cands
+             if span_edge_bytes(n_inst, R, N, ptr, *c) <= cap]
+    if not small:
+        return min(cands, key=lambda c: span_edge_bytes(n_inst, R, N, ptr,
+                                                        *c))
+    return min(small, key=lambda c: span_cost(n_inst, R, N, ptr, *c,
+                                               fits[c], n_sm))
+
+
+def span_geometry(n_inst: int, R: int, N: int, ptr: bool,
+                  geometry=None) -> dict:
+    """The launch geometry of K24 (ptr False; n_inst = B, R = M) or K25
+    (n_inst = G*B row blocks of R rows) on the current card: `geometry`
+    (g, W) or the pick.  {"K" (columns a lane), "warps" (strips a block),
+    "strips" (a window's), "blocks" (an instance's), "blocks_per_sm",
+    "waves", "cost_ns"}."""
+    n_sm, fits = _span_fits(ptr)
+    g, W = span_pick(n_inst, R, N, ptr, n_sm, fits) if geometry is None \
+        else geometry
+    S, C = span_plan(N, SPAN_K[g], W)
+    per_sm = fits[(g, W)]
+    return {"geometry": (g, W), "K": SPAN_K[g], "warps": W, "strips": S,
+            "blocks": C, "blocks_per_sm": per_sm,
+            "waves": -(-(n_inst * C) // max(1, per_sm * n_sm)),
+            "cost_ns": span_cost(n_inst, R, N, ptr, g, W, max(1, per_sm),
+                                 n_sm)}
+
+
+def _span_scratch(lib, dev, B, G, R, N, geometry, ptr):
+    """One scratch allocation of a span launch (ext_cum, its levels, the
+    hand-off columns, the ticket), held by the caller until enqueued."""
+    n = lib.lm_span_scratch_bytes(B, G, R, N, *geometry, int(ptr))
+    if n < 0:
+        raise ValueError(f"no span geometry {geometry}")
+    return torch.empty((n,), dtype=torch.uint8, device=dev)
+
+
 @cuda.launcher
 def profile_forward_ckpt(p, q, p_len, q_len, gap_open: int = GAP_OPEN,
-                         gap_extend: int = GAP_EXTEND, K: int = CKPT_ROWS):
+                         gap_extend: int = GAP_EXTEND, K: int = CKPT_ROWS,
+                         *, geometry=None):
     """Checkpointed forward profile DP of a batch of windows: the score
     and the (H, F) carry every K rows, for the host walk over re-derived
     blocks when the full pointer tensor exceeds PTR_BUDGET.
@@ -430,7 +550,8 @@ def profile_forward_ckpt(p, q, p_len, q_len, gap_open: int = GAP_OPEN,
     p_len, q_len: int32[B].  Returns (score float32[B], equal bit for bit
     to profile_forward's; ck_h, ck_f float32[M/K, B, N+1]), as
     profile_forward_ckpt_plain.  CPU tensors take the plain version;
-    CUDA tensors launch K24."""
+    CUDA tensors launch K24, strips over several blocks in the pick of
+    span_geometry or in `geometry` (g, W)."""
     if p.device.type == "cpu":
         return profile_forward_ckpt_plain(p, q, p_len, q_len, gap_open,
                                           gap_extend, K)
@@ -438,17 +559,16 @@ def profile_forward_ckpt(p, q, p_len, q_len, gap_open: int = GAP_OPEN,
     if K < 1 or M % K:
         raise ValueError(f"M = {M} is not a multiple of K = {K}")
     lib = cuda.library()
-    qw, ext_q, ext_cum, cum_lv, rows = _profile_scratch(lib, B, N, dev)
+    geo = span_geometry(B, M, N, False, geometry)["geometry"]
+    scratch = _span_scratch(lib, dev, B, 1, M, N, geo, False)
     score = torch.empty((B,), dtype=torch.float32, device=dev)
     ck_h = torch.empty((M // K, B, N + 1), dtype=torch.float32, device=dev)
     ck_f = torch.empty_like(ck_h)
     cuda.check(lib.lm_profile_ckpt(
         p.data_ptr(), q.data_ptr(), p_len.data_ptr(), q_len.data_ptr(),
-        qw.data_ptr(), ext_q.data_ptr(), ext_cum.data_ptr(),
-        cum_lv.data_ptr(), rows.data_ptr() if rows is not None else None,
-        score.data_ptr(), ck_h.data_ptr(), ck_f.data_ptr(), B, M, N, K,
-        float(gap_open), float(gap_extend), _W5_C, cuda.stream(p)),
-        "lm_profile_ckpt")
+        scratch.data_ptr(), score.data_ptr(), ck_h.data_ptr(),
+        ck_f.data_ptr(), B, M, N, K, float(gap_open), float(gap_extend),
+        _W5_C, *geo, cuda.stream(p)), "lm_profile_ckpt")
     profile_forward_ckpt.launches += 1
     return score, ck_h, ck_f
 
@@ -473,12 +593,68 @@ def profile_block_ptrs_plain(ck_h, ck_f, p_blk, q, q_len,
     return pack_ptrs_plain(ptrs)
 
 
+def profile_block_ptrs_batch_plain(ck_h, ck_f, p, q, q_len, first: int,
+                                   G: int, gap_open: int = GAP_OPEN,
+                                   gap_extend: int = GAP_EXTEND):
+    """Plain PyTorch version of the batched K25: profile_block_ptrs_plain
+    of row blocks first .. first+G-1, stacked."""
+    R = p.shape[1] // ck_h.shape[0]
+    return torch.stack([profile_block_ptrs_plain(
+        ck_h[bi], ck_f[bi], p[:, bi * R:(bi + 1) * R].contiguous(), q,
+        q_len, gap_open, gap_extend) for bi in range(first, first + G)])
+
+
 @cuda.launcher
+def profile_block_ptrs_batch(ck_h, ck_f, p, q, q_len, first: int, G: int,
+                             gap_open: int = GAP_OPEN,
+                             gap_extend: int = GAP_EXTEND, *,
+                             geometry=None):
+    """Pointer bytes of G row blocks of a batch of windows at once, each
+    re-derived from its carry, two cells a byte.
+
+    ck_h, ck_f: float32[nb, B, N+1], the carries at the top of every
+    R-row block (profile_forward_ckpt's); p: float32[B, nb*R, 5] the
+    windows' rows; q: float32[B, N, 5]; q_len: int32[B].  Returns
+    uint8[G, B, R, ceil((N+1)/2)]: blocks first .. first+G-1, cell 2k in
+    the low nibble, every column written; ops.gapped.unpack_ptrs restores
+    a block's uint8[B, R, N+1] in K3's layout.  CPU tensors take the
+    plain version; CUDA tensors launch K25 (its launches are counted on
+    profile_block_ptrs), every row block side by side, in the pick of
+    span_geometry or in `geometry` (g, W)."""
+    if q.device.type == "cpu":
+        return profile_block_ptrs_batch_plain(ck_h, ck_f, p, q, q_len,
+                                              first, G, gap_open, gap_extend)
+    dev = q.device
+    nb, B = ck_h.shape[:2]
+    M, N = p.shape[1], q.shape[1]
+    R = M // max(nb, 1)
+    if nb < 1 or R * nb != M or first < 0 or G < 1 or first + G > nb:
+        raise ValueError(f"blocks {first}..{first + G - 1} of {nb} over "
+                         f"{M} rows")
+    cuda.require(p, "p", torch.float32, dev, (B, M, 5))
+    cuda.require(q, "q", torch.float32, dev, (B, N, 5))
+    cuda.require(q_len, "q_len", torch.int32, dev, (B,))
+    cuda.require(ck_h, "ck_h", torch.float32, dev, (nb, B, N + 1))
+    cuda.require(ck_f, "ck_f", torch.float32, dev, (nb, B, N + 1))
+    lib = cuda.library()
+    geo = span_geometry(G * B, R, N, True, geometry)["geometry"]
+    scratch = _span_scratch(lib, dev, B, G, R, N, geo, True)
+    ptr = torch.empty((G, B, R, (N + 2) // 2), dtype=torch.uint8, device=dev)
+    cuda.check(lib.lm_profile_block_ptrs(
+        p.data_ptr(), q.data_ptr(), q_len.data_ptr(), ck_h[first].data_ptr(),
+        ck_f[first].data_ptr(), scratch.data_ptr(), ptr.data_ptr(), B, M, N,
+        R, first, G, float(gap_open), float(gap_extend), _W5_C, *geo,
+        cuda.stream(q)), "lm_profile_block_ptrs")
+    profile_block_ptrs.launches += 1
+    return ptr
+
+
 def profile_block_ptrs(ck_h, ck_f, p_blk, q, q_len,
                        gap_open: int = GAP_OPEN,
-                       gap_extend: int = GAP_EXTEND):
+                       gap_extend: int = GAP_EXTEND, *, geometry=None):
     """Pointer bytes of a block of profile-DP rows, re-derived from their
-    carry, two cells a byte.
+    carry, two cells a byte: profile_block_ptrs_batch of one block (G =
+    1).
 
     ck_h, ck_f: float32[B, N+1], the (H, F) carry at the block's top (a
     row of profile_forward_ckpt's checkpoints); p_blk: float32[B, R, 5]
@@ -490,30 +666,9 @@ def profile_block_ptrs(ck_h, ck_f, p_blk, q, q_len,
     if q.device.type == "cpu":
         return profile_block_ptrs_plain(ck_h, ck_f, p_blk, q, q_len,
                                         gap_open, gap_extend)
-    dev = q.device
-    B, R, _ = p_blk.shape
-    N = q.shape[1]
-    cuda.require(p_blk, "p_blk", torch.float32, dev, (B, R, 5))
-    cuda.require(q, "q", torch.float32, dev, (B, N, 5))
-    cuda.require(q_len, "q_len", torch.int32, dev, (B,))
-    cuda.require(ck_h, "ck_h", torch.float32, dev, (B, N + 1))
-    cuda.require(ck_f, "ck_f", torch.float32, dev, (B, N + 1))
-    lib = cuda.library()
-    qw, ext_q, ext_cum, cum_lv, rows = _profile_scratch(lib, B, N, dev)
-    flags = None
-    if rows is not None:
-        flags = torch.empty((B, N + 1), dtype=torch.uint8, device=dev)
-    ptr = torch.empty((B, R, (N + 2) // 2), dtype=torch.uint8, device=dev)
-    cuda.check(lib.lm_profile_block_ptrs(
-        p_blk.data_ptr(), q.data_ptr(), q_len.data_ptr(), ck_h.data_ptr(),
-        ck_f.data_ptr(), qw.data_ptr(), ext_q.data_ptr(),
-        ext_cum.data_ptr(), cum_lv.data_ptr(),
-        rows.data_ptr() if rows is not None else None,
-        flags.data_ptr() if flags is not None else None, ptr.data_ptr(), B,
-        R, N, float(gap_open), float(gap_extend), _W5_C, cuda.stream(q)),
-        "lm_profile_block_ptrs")
-    profile_block_ptrs.launches += 1
-    return ptr
+    return profile_block_ptrs_batch(ck_h[None], ck_f[None], p_blk, q, q_len,
+                                    0, 1, gap_open, gap_extend,
+                                    geometry=geometry)[0]
 
 
 profile_block_ptrs.launches = 0
@@ -882,25 +1037,46 @@ def full_window_bytes(Mp: int, N: int) -> int:
     return Mp * (N + 1)
 
 
+def block_batch(B: int, R: int, N: int, nb: int) -> int:
+    """G, the row blocks of R rows a K25 launch of the checkpointed route
+    computes side by side: as many as keep their packed pointers (B * R *
+    ceil((N+1)/2) bytes a block) within PTR_BUDGET / PTR_BATCH_SHARE, at
+    least 1 and at most the nb blocks there are."""
+    per = B * R * ((N + 2) // 2)
+    return max(1, min(nb, PTR_BUDGET // PTR_BATCH_SHARE // max(per, 1)))
+
+
 def ckpt_tracebacks(p, q, p_len, q_len, gap_open: int = GAP_OPEN,
-                    gap_extend: int = GAP_EXTEND):
+                    gap_extend: int = GAP_EXTEND, G: int | None = None):
     """The checkpointed route of a launch (ops/profile.py:814-831): K24's
     carries every K = min(128, Mp) rows, then the host walk
     traceback_blocks over each block's pointers from K25, nibble-packed.
-    Returns the (p_gaps, q_gaps) masks of every window, as tb_unpack does
-    for the full-width walk."""
-    Mp, N = p.shape[1], q.shape[1]
+    The walk asks for blocks from the last down; each K25 launch computes
+    the G blocks below the one asked for (block_batch by default) side by
+    side, and one copy brings them to the host, which unpacks each as the
+    walk reaches it.  Returns the (p_gaps, q_gaps) masks of every window,
+    as tb_unpack does for the full-width walk."""
+    B, Mp, N = p.shape[0], p.shape[1], q.shape[1]
     K = min(CKPT_ROWS, Mp)
+    nb = Mp // K
+    if G is None:
+        G = block_batch(B, K, N, nb)
     _, ck_h, ck_f = profile_forward_ckpt(p, q, p_len, q_len, gap_open,
                                          gap_extend, K)
+    held = {}   # the latest launch's blocks on the host, packed
 
     def fetch(bi):
-        return unpack_ptrs(profile_block_ptrs(
-            ck_h[bi], ck_f[bi], p[:, bi * K:(bi + 1) * K].contiguous(), q,
-            q_len, gap_open, gap_extend).cpu().numpy(), N + 1)
+        if bi not in held:
+            held.clear()
+            lo = max(0, bi - G + 1)
+            packed = profile_block_ptrs_batch(
+                ck_h, ck_f, p, q, q_len, lo, bi + 1 - lo, gap_open,
+                gap_extend).cpu().numpy()
+            held.update((lo + k, packed[k]) for k in range(len(packed)))
+        return unpack_ptrs(held[bi], N + 1)
 
-    CKPT_STATS["windows"] += p.shape[0]
-    return traceback_blocks(fetch, Mp // K, K, p_len.cpu().numpy(),
+    CKPT_STATS["windows"] += B
+    return traceback_blocks(fetch, nb, K, p_len.cpu().numpy(),
                             q_len.cpu().numpy())
 
 

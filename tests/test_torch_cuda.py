@@ -1407,16 +1407,13 @@ def _fractional(rng, B, M, N, n_p, n_q):
     return [torch.from_numpy(x) for x in (p, q, pl, ql)]
 
 
-@pytest.mark.parametrize("n_p,n_q,M,N,smem", [
-    (1, 1, 256, 700, True), (3, 2, 384, 1000, True),
-    (3, 2, 256, 700, False), (4, 5, 256, 12_160, True)])
-def test_ckpt_kernels_equal_plain(dev, monkeypatch, n_p, n_q, M, N, smem):
+@pytest.mark.parametrize("n_p,n_q,M,N", [
+    (1, 1, 256, 700), (3, 2, 384, 1000), (3, 2, 256, 4_352),
+    (4, 5, 256, 12_160)])
+def test_ckpt_kernels_equal_plain(dev, n_p, n_q, M, N):
     """K24 (score, ck_h, ck_f) and K25 (every block's packed pointer
-    bytes) equal their plain versions exactly, with the rows in shared memory
-    and in global scratch (the limit forced to 0, or N = 12,160 columns,
-    17 bytes each, above PROFILE_SMEM_LIMIT)."""
-    if not smem:
-        monkeypatch.setattr(profile, "PROFILE_SMEM_LIMIT", 0)
+    bytes, one block a launch and all blocks in one) equal their plain
+    versions exactly, in the launcher's geometry."""
     cpu = _fractional(np.random.default_rng(M + N + n_p), 2, M, N, n_p, n_q)
     gpu = [x.to(dev) for x in cpu]
     K = profile.CKPT_ROWS
@@ -1425,13 +1422,71 @@ def test_ckpt_kernels_equal_plain(dev, monkeypatch, n_p, n_q, M, N, smem):
     for g, r in zip(got, ref):
         assert torch.equal(g.cpu(), r)
     assert torch.equal(got[0], profile.profile_forward_scores(*gpu))
-    for bi in range(M // K):
+    nb = M // K
+    for bi in range(nb):
         pb = cpu[0][:, bi * K:(bi + 1) * K].contiguous()
         want = profile.profile_block_ptrs_plain(ref[1][bi], ref[2][bi], pb,
                                                 cpu[1], cpu[3])
         g = profile.profile_block_ptrs(got[1][bi], got[2][bi], pb.to(dev),
                                        gpu[1], gpu[3])
         assert torch.equal(g.cpu(), want), bi
+    many = profile.profile_block_ptrs_batch(got[1], got[2], gpu[0], gpu[1],
+                                            gpu[3], 0, nb)
+    assert torch.equal(many.cpu(), profile.profile_block_ptrs_batch_plain(
+        ref[1], ref[2], cpu[0], cpu[1], cpu[3], 0, nb))
+
+
+# (geometry (g, W), N): windows of 2, 3 and 10+ blocks, odd and even K
+# (SPAN_K[g]), a last block with fewer strips than W
+SPAN_CASES = [((0, 3), 2_303), ((1, 2), 2_303), ((5, 1), 2_303),
+              ((4, 1), 4_000), ((7, 4), 2_303), ((2, 4), 2_303)]
+
+
+@pytest.mark.parametrize("geometry,N", SPAN_CASES)
+@pytest.mark.parametrize("n_p,n_q", [(1, 1), (3, 2)])
+def test_span_kernels_multi_block_equal_plain(dev, geometry, N, n_p, n_q):
+    """K24 and batched K25 in a forced geometry whose windows span
+    several blocks (hand-offs through global memory): three windows of
+    different q_len, one-hot and 3+2-row profiles, exact; K25 over every
+    row block at once, over the last two, and one at a time."""
+    B, M, K = 3, 384, profile.CKPT_ROWS
+    g, W = geometry
+    S, C = profile.span_plan(N, profile.SPAN_K[g], W)
+    assert C >= 2
+    cpu = _fractional(np.random.default_rng(N + 7 * g + W + n_p), B, M, N,
+                      n_p, n_q)
+    assert len(set(cpu[3].tolist())) == B
+    gpu = [x.to(dev) for x in cpu]
+    ref = profile.profile_forward_ckpt_plain(*cpu, K=K)
+    got = profile.profile_forward_ckpt(*gpu, K=K, geometry=geometry)
+    for name, x, r in zip(("score", "ck_h", "ck_f"), got, ref):
+        assert torch.equal(x.cpu(), r), (name, S, C)
+    nb = M // K
+    for first, G in ((0, nb), (nb - 2, 2)):
+        want = profile.profile_block_ptrs_batch_plain(
+            ref[1], ref[2], cpu[0], cpu[1], cpu[3], first, G)
+        many = profile.profile_block_ptrs_batch(
+            got[1], got[2], gpu[0], gpu[1], gpu[3], first, G,
+            geometry=geometry)
+        assert torch.equal(many.cpu(), want), (first, G, S, C)
+    pb = gpu[0][:, K:2 * K].contiguous()
+    one = profile.profile_block_ptrs(got[1][1], got[2][1], pb, gpu[1],
+                                     gpu[3], geometry=geometry)
+    assert torch.equal(one.cpu(), profile.profile_block_ptrs_plain(
+        ref[1][1], ref[2][1], pb.cpu(), cpu[1], cpu[3]))
+
+
+def test_span_geometry_fits_the_bounded_shapes(dev):
+    """The pick for the swapped-locus launch (K24: 39,424 rows x 39,366
+    columns; K25: block_batch's G row blocks) fits the card, and its
+    blocks cover the window's columns."""
+    N, M, K = 39_366, 39_424, profile.CKPT_ROWS
+    G = profile.block_batch(1, K, N, M // K)
+    for n_inst, R, ptr in ((1, M, False), (G, K, True)):
+        geo = profile.span_geometry(n_inst, R, N, ptr)
+        assert geo["blocks_per_sm"] > 0
+        assert geo["strips"] * 32 * geo["K"] >= N + 1
+        assert geo["blocks"] * geo["warps"] >= geo["strips"]
 
 
 def test_ckpt_route_equals_one_launch_on_cuda(dev, monkeypatch):
@@ -1726,6 +1781,25 @@ def test_sharded_find_mums_tiled_on_cuda_equals_find_mums(dev, monkeypatch):
     assert len(want) > 10
     np.testing.assert_array_equal(got.starts, want.starts)
     np.testing.assert_array_equal(got.lengths, want.lengths)
+
+
+def test_span_kernels_on_second_card_equal_first(dev):
+    """K24 and batched K25 launch on their tensors' card: on cuda:1 with
+    card 0 current they give cuda:0's outputs, and card 0 stays
+    current."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA GPUs")
+    cpu = _fractional(np.random.default_rng(23), 2, 384, 2_303, 3, 2)
+    outs = []
+    with torch.cuda.device(0):
+        for d in ("cuda:0", "cuda:1"):
+            t = [x.to(d) for x in cpu]
+            sc, ck_h, ck_f = profile.profile_forward_ckpt(*t)
+            ptr = profile.profile_block_ptrs_batch(ck_h, ck_f, t[0], t[1],
+                                                   t[3], 0, ck_h.shape[0])
+            outs.append([x.cpu() for x in (sc, ck_h, ck_f, ptr)])
+            assert torch.cuda.current_device() == 0
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
 
 
 def test_align_on_second_card_equals_first(dev):

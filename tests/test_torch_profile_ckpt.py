@@ -222,3 +222,140 @@ def test_progressive_ckpt_route_xmfa_equals_jax(monkeypatch):
         write(buf, x)
         return buf.getvalue()
     assert text(lt.write_xmfa, ivs) == text(jax_write_xmfa, ref)
+
+
+def _ckpt_batch(seed, B, nb, N, n_p=3, n_q=2):
+    rng = np.random.default_rng(seed)
+    t = tuple(map(torch.from_numpy, _profiles(rng, B, nb * K, N, n_p, n_q)))
+    _, ck_h, ck_f = profile.profile_forward_ckpt_plain(*t, GO, GE, K)
+    return t, ck_h, ck_f
+
+
+@pytest.mark.parametrize("G", [1, 3, 5])
+def test_block_ptrs_batch_plain_equals_blocks(G):
+    """The batched K25's plain version over G row blocks (G = 1, 3 and
+    nb = 5) is profile_block_ptrs_plain block by block, and the wrapper
+    takes it for CPU tensors."""
+    t, ck_h, ck_f = _ckpt_batch(61, 2, 5, 48)
+    for first in sorted({0, 5 - G}):
+        got = profile.profile_block_ptrs_batch_plain(ck_h, ck_f, t[0], t[1],
+                                                     t[3], first, G, GO, GE)
+        assert got.shape == (G, 2, K, (48 + 2) // 2)
+        for k in range(G):
+            bi = first + k
+            want = profile.profile_block_ptrs_plain(
+                ck_h[bi], ck_f[bi], t[0][:, bi * K:(bi + 1) * K].contiguous(),
+                t[1], t[3], GO, GE)
+            assert torch.equal(got[k], want), bi
+        assert torch.equal(got, profile.profile_block_ptrs_batch(
+            ck_h, ck_f, t[0], t[1], t[3], first, G, GO, GE))
+
+
+@pytest.mark.parametrize("G", [1, 3, 5])
+def test_ckpt_tracebacks_batches_equal_jax(monkeypatch, G):
+    """ckpt_tracebacks with G row blocks a K25 launch (1, 3 and all 5)
+    gives the JAX package's checkpointed route's gap masks; the walk's
+    requests are served from as many launches as the groups need (the
+    top block, above every window's rows, is never asked for)."""
+    rng = np.random.default_rng(67)
+    B, nb, N = 3, 5, 56
+    p = np.zeros((B, nb * K, 5), np.float32)
+    q = np.zeros((B, N, 5), np.float32)
+    pl = np.array([300, 470, 512], np.int32)
+    ql = np.array([40, 55, 29], np.int32)
+    for r in range(B):
+        p[r, :pl[r]] = profile.rows_to_profile(_msa_rows(rng, 3, pl[r]))
+        q[r, :ql[r]] = profile.rows_to_profile(_msa_rows(rng, 2, ql[r]))
+    jp, jq, jpl, jql = map(jnp.asarray, (p, q, pl, ql))
+    _, jh, jf = jprofile.profile_forward_ckpt(jp, jq, jpl, jql, GO, GE, K)
+    ext_p = GE * (1.0 - jp[:, :, 4])
+
+    def jfetch(bi):
+        sl = slice(bi * K, (bi + 1) * K)
+        return np.asarray(jprofile.profile_block_ptrs(
+            jh[bi], jf[bi], jp[:, sl], ext_p[:, sl], jq, jql, GO, GE))
+    ref = jgapped.traceback_blocks(jfetch, nb, K, pl, ql)
+    calls = []
+    real = profile.profile_block_ptrs_batch
+
+    def spy(ck_h, ck_f, p_, q_, q_len, first, count, *a, **k):
+        calls.append((first, count))
+        return real(ck_h, ck_f, p_, q_, q_len, first, count, *a, **k)
+    monkeypatch.setattr(profile, "profile_block_ptrs_batch", spy)
+    got = profile.ckpt_tracebacks(*map(torch.from_numpy, (p, q, pl, ql)),
+                                  GO, GE, G=G)
+    assert len(got) == len(ref) == B
+    for (ga, gb), (ra, rb) in zip(got, ref):
+        np.testing.assert_array_equal(ga, ra)
+        np.testing.assert_array_equal(gb, rb)
+    # blocks 3 .. 0 are asked for, from the top window's row 512 down
+    want = {1: [(3, 1), (2, 1), (1, 1), (0, 1)], 3: [(1, 3), (0, 1)],
+            5: [(0, 4)]}[G]
+    assert calls == want
+
+
+def span_tickets(n_inst, N, K, W):
+    """The blocks of a span launch of n_inst instances in ticket order,
+    as csrc/profile.cu's span_kernel maps a ticket: (ticket, instance,
+    segment, strips, columns [lo, hi)), segment-major within an
+    instance."""
+    S, C = profile.span_plan(N, K, W)
+    out = []
+    for t in range(n_inst * C):
+        inst, seg = divmod(t, C)
+        strips = list(range(seg * W, min(S, (seg + 1) * W)))
+        out.append((t, inst, seg, strips,
+                    (strips[0] * 32 * K, min(N + 1, (strips[-1] + 1) * 32 * K))))
+    return out
+
+
+@pytest.mark.parametrize("N", [4_352, 12_160, 39_366])
+def test_span_plan_covers_every_column_once(N):
+    """The host-side plan of K24/K25 (ticket -> instance, segment,
+    strips, columns) covers an instance's N+1 columns exactly once, in
+    every geometry, with blocks that hold fewer strips than W at the end
+    (S not a multiple of W); a block waits only on the ticket before
+    it."""
+    partial = 0
+    for g, Kc in enumerate(profile.SPAN_K):
+        for W in range(1, profile.SPAN_MAX_W + 1):
+            S, C = profile.span_plan(N, Kc, W)
+            partial += S % W != 0
+            seen = np.zeros((2, N + 1), np.int32)
+            tickets = span_tickets(2, N, Kc, W)
+            assert len(tickets) == 2 * C
+            for t, inst, seg, strips, (lo, hi) in tickets:
+                assert 1 <= len(strips) <= W
+                assert lo == strips[0] * 32 * Kc
+                seen[inst, lo:hi] += 1
+                if seg > 0:
+                    assert tickets[t - 1][1:3] == (inst, seg - 1)
+            assert (seen == 1).all(), (g, W)
+    assert partial > 0
+
+
+def test_span_pick_and_block_batch():
+    """The pick of (K, warps) takes only geometries that fit the card's
+    registers (fits > 0), never more warps than strips, and covers the
+    window; G keeps a K25 launch's packed pointers within
+    PTR_BUDGET / PTR_BATCH_SHARE."""
+    fits = {(g, W): (0 if g == 0 and W == 8 else 1)
+            for g in range(len(profile.SPAN_K))
+            for W in range(1, profile.SPAN_MAX_W + 1)}
+    for n_inst, R, N, ptr in ((1, 34_048, 39_366, False),
+                              (53, 128, 39_366, True),
+                              (2, 2_304, 2_303, False), (1, 128, 100, True)):
+        g, W = profile.span_pick(n_inst, R, N, ptr, 132, fits)
+        S, C = profile.span_plan(N, profile.SPAN_K[g], W)
+        assert fits[(g, W)] > 0 and W <= S and C * W >= S
+        assert S * 32 * profile.SPAN_K[g] >= N + 1
+    with pytest.raises(RuntimeError):
+        profile.span_pick(1, 128, 100, True, 132, dict.fromkeys(fits, 0))
+    N, nb = 39_366, 266
+    G = profile.block_batch(1, K, N, nb)
+    per = K * ((N + 2) // 2)
+    assert 1 <= G <= nb
+    assert G * per <= profile.PTR_BUDGET // profile.PTR_BATCH_SHARE
+    assert (G + 1) * per > profile.PTR_BUDGET // profile.PTR_BATCH_SHARE
+    assert profile.block_batch(1, K, 64, 5) == 5
+    assert profile.block_batch(4, K, 10 ** 9, 5) == 1
