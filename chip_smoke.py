@@ -3,13 +3,14 @@
 
     python3 chip_smoke.py [--sweep] [phase ...]
 
-With no argument every phase runs but the light fullwidth and wide;
-naming phases (kernels, seeder, seedocc, goldens, main, trio,
-progressive, large, profile_dp, decode, bounded, mesh, tiled, multihost,
-cards, fullwidth, wide) runs only those, plus the
-progressive run whose recorded inputs profile_dp and decode read (and the main, trio and
-progressive runs whose outputs mesh and cards are held to, the main run
-for tiled and multihost).  Needs one NVIDIA Hopper GPU (compute capability 9.0) and the CUDA
+With no argument every phase runs but the light fullwidth, wide, hmm
+and hmmstage; naming phases (kernels, seeder, seedocc, goldens, main,
+trio, progressive, large, profile_dp, decode, bounded, mesh, tiled,
+multihost, cards, fullwidth, wide, hmm, hmmstage) runs only those, plus
+the progressive run whose recorded inputs profile_dp, decode and hmm
+read (and the large run for hmm, the main, trio and progressive runs
+whose outputs mesh and cards are held to, the main run for tiled and
+multihost).  Needs one NVIDIA Hopper GPU (compute capability 9.0) and the CUDA
 toolkit's nvcc; builds the port's kernels from libmems_tpu_torch/csrc at
 first use.  Phases, each raising on failure (the script then exits
 non-zero and prints no result line):
@@ -106,13 +107,19 @@ non-zero and prints no result line):
              table forced and timed; K12 and K4 (on K3's pointers of the
              same windows) on both launches in every walk geometry that
              fits, exact and timed;
-8. hmm     - K8 against its plain version on the card on the HMM batches
-             of the first progressive run and of phase 6b, at their full
-             lengths (posteriors within 1e-12, calls equal), timed; the
-             batches of padded width 2^17 and more (the chunked route)
-             once more through the sequential kernel that serves the
-             narrower ones: its time, the largest posterior difference,
-             the calls that differ (7 and 8 are the phase "profile_dp");
+8. hmm     - K8 against its plain version on the card on the launches
+             of the first progressive run's predict_homologous calls and
+             of phase 6b's, rebuilt by hmm.plan_launches at their full
+             lengths: the sequential route's ragged launches (fb_ragged,
+             posteriors bit-equal, max_abs_err 0.0) and the chunked
+             route's padded ones (fb_posterior, within 1e-12), calls
+             equal; each route timed apart by events and on the card;
+             one chain step's cycles by clock64 on one pair of lanes (the
+             sequential route's latency floor); the HMM stage's device
+             peak; the batches of padded width 2^17 and more (the chunked
+             route) once more through the sequential route: its time,
+             the largest posterior difference, the calls that differ (7
+             and 8 are the phase "profile_dp");
 9. decode  - decode and pairwise DP, the API no path calls: align_pairs
              on the pair path's inter-anchor windows (K23 + K4 on the
              card) and on 8 mutant pairs of 10 kbp (over the pointer
@@ -182,7 +189,16 @@ fullwidth - (named runs only) K3 and K9 alone, as phase 3 holds them, on
              phase, each of its K3 and K9 launches too;
 wide     - (named runs only) K3 and K9 on their wide route (a 4,608- and
              an 11,664-column bucket), exact and timed, through the
-             wrappers alone, so that it times an older tree as well.
+             wrappers alone, so that it times an older tree as well;
+hmm      - (named runs only) phase 8 alone, with the progressive and
+             large runs it reads its inputs from; it also writes both
+             paths' predict_homologous calls to HMM_CALLS;
+hmmstage - (named runs only) those calls, read back from HMM_CALLS,
+             through predict_homologous as each path makes them: the
+             stage's wall, its device time by kernel (torch.profiler)
+             and its device peak.  It calls only predict_homologous, so
+             the same phase copied into an older tree's archive (with
+             HMM_CALLS) times that tree.
 
 The inputs of phases 7-9 are recorded one layer above the kernel
 wrappers (align_profile_batch, profile_scores_batch, predict_homologous,
@@ -212,6 +228,7 @@ import inspect
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -359,7 +376,9 @@ PHASES = ("kernels", "seeder", "seedocc", "goldens", "main", "trio",
           "tiled", "multihost", "cards")
 # phases only a named run takes: their checks are part of the full run's
 # phases already
-LIGHT_PHASES = ("fullwidth", "wide")
+LIGHT_PHASES = ("fullwidth", "wide", "hmm", "hmmstage")
+# the HMM calls phase hmm records for phase hmmstage
+HMM_CALLS = os.path.join(ROOT, "build", "chip_smoke_hmm", "calls.npz")
 
 
 class SmokeFailure(RuntimeError):
@@ -1871,6 +1890,7 @@ def phase_progressive(torch, lt, dev):
                 "cluster_words": pairwise.cluster_words,
                 "cluster_reps": pairwise.rep_index,
                 "fb_posterior": hmm.fb_posterior,
+                "fb_ragged": hmm.fb_ragged,
                 "profile_forward_scores": profile.profile_forward_scores,
                 "banded_forward_scores": profile.banded_forward_scores,
                 "banded_forward_ptrs": profile.banded_forward_ptrs,
@@ -1965,6 +1985,7 @@ def phase_large(torch, lt, dev, genomes):
                 "seed_run_counts": seedocc.seed_run_counts,
                 "seed_smooth": seedocc.seed_smooth,
                 "fb_posterior": hmm.fb_posterior,
+                "fb_ragged": hmm.fb_ragged,
                 "traceback_walk": gapped.traceback_walk,
                 "banded_traceback_walk": profile.banded_traceback_walk}
     require(all(len(g) - 1 > anchorscore.SOL_HOST_MAX for g in genomes),
@@ -2676,91 +2697,260 @@ def phase_profile_dp(torch, dev, calls, launches):
 
 
 def hmm_batches(torch, dev, calls):
-    """The K8 launches of a path's recorded predict_homologous calls,
-    rebuilt by hmm.pack_batches: (obs, lengths, mats, threshold) on the
-    card."""
+    """K8's launches of a path's recorded predict_homologous calls,
+    rebuilt by hmm.plan_launches, on the card: (the sequential route's
+    ragged launches as (obs, offsets, lengths, mats, threshold), the
+    chunked route's padded ones as (obs, lengths, mats, threshold))."""
     from libmems_tpu_torch.ops import hmm
-    batches = []
+    rows, padded = [], []
     for a in calls:
         mats = hmm.log_matrices(a["params"] or hmm.hoxd_params(), dev)
-        for _, obs, lens in hmm.pack_batches(a["sequences"]):
-            batches.append((torch.from_numpy(obs).to(dev),
-                            torch.from_numpy(lens).to(dev), mats,
-                            a["threshold"]))
-    return batches
+        ragged, wide = hmm.plan_launches(a["sequences"])
+        rows += [(*b.tensors(dev), mats, a["threshold"]) for b in ragged]
+        padded += [(torch.from_numpy(obs).to(dev),
+                    torch.from_numpy(lens).to(dev), mats, a["threshold"])
+                   for _, obs, lens in wide]
+    return rows, padded
 
 
-def hmm_vs_plain(torch, batches, label):
-    """K8 against its plain version on the card on `batches`: posteriors
-    within 1e-12, calls equal.  Then the batches of padded width
-    FB_SCAN_MIN_T and more once more through the sequential kernel (the
-    route every narrower width takes), timed once, against the chunked
-    route: its time, the largest posterior difference and the calls that
-    differ.  Returns the entry, the times summed over the launches."""
+def hmm_step_cycles(torch, rows):
+    """Cycles of one step of the sequential route's forward and backward
+    chains (hmm.chain_step_cycles, clock64 on one pair of lanes) over the
+    longest row of `rows`' first launch (the rows go longest first);
+    the second of two runs."""
     from libmems_tpu_torch.ops import hmm
-    log(f"# K8 {label} batches (B x T): "
-        f"{sorted(tuple(o.shape) for o, _, _, _ in batches)}, longest "
-        f"sequence {max(int(n.max()) for _, n, _, _ in batches)} columns")
+    obs, offsets, lengths, mats, _ = rows[0]
+    o, n = int(offsets[0]), int(lengths[0])
+    hmm.chain_step_cycles(obs[o:o + n], mats)
+    return hmm.chain_step_cycles(obs[o:o + n], mats)
+
+
+def hmm_vs_plain(torch, dev, batches, calls, label):
+    """K8 against its plain version on the card on `batches`
+    (hmm_batches): the sequential route's launches bit-equal
+    (max_abs_err 0.0), the chunked route's within 1e-12, calls equal;
+    each route timed by events and on the card; a chain step's cycles
+    and the route's latency floor (each launch's longest row at that
+    many cycles a column); the device peak of the path's HMM stage
+    (`calls` run again through predict_homologous).  Then the batches of
+    padded width FB_SCAN_MIN_T and more once more through the
+    sequential route, timed once, against the chunked route: its time,
+    the largest posterior difference and the calls that differ.
+    Returns the entry, the times summed over the launches."""
+    from libmems_tpu_torch.ops import hmm
+    rows, padded = batches
+    log(f"# K8 {label}: sequential route {len(rows)} launch(es) of "
+        f"{[int(r[2].shape[0]) for r in rows]} rows, "
+        f"{[int(r[0].shape[0]) for r in rows]} columns, longest "
+        f"{[int(r[2][0]) for r in rows]}; chunked route (B x T) "
+        f"{sorted(tuple(o.shape) for o, _, _, _ in padded)}")
 
     def run(fn, bs, **kw):
-        return [fn(o, n, m, t, **kw) for o, n, m, t in bs]
+        return [fn(*b, **kw) for b in bs]
 
-    got = run(hmm.fb_posterior, batches)
-    ref, pms = timed_once(lambda: run(hmm.fb_posterior_plain, batches), torch)
-    for (o, _, _, _), (_, gc), (_, rc) in zip(batches, got, ref):
+    got = run(hmm.fb_ragged, rows)
+    ref, seq_pms = timed_once(lambda: run(hmm.fb_ragged_plain, rows), torch)
+    for (o, _, _, _, _), (_, gc), (_, rc) in zip(rows, got, ref):
+        require(torch.equal(gc, rc),
+                f"K8's sequential route: calls differ ({o.shape[0]} columns)")
+    seq_err = max_abs_err([(g[0], r[0]) for g, r in zip(got, ref)])
+    require(seq_err == 0.0, f"K8's sequential route: posteriors differ by "
+            f"{seq_err}")
+    del got, ref
+    got = run(hmm.fb_posterior, padded)
+    ref, scan_pms = timed_once(lambda: run(hmm.fb_posterior_plain, padded),
+                               torch)
+    for (o, _, _, _), (_, gc), (_, rc) in zip(padded, got, ref):
         require(torch.equal(gc, rc), f"K8 calls differ at {tuple(o.shape)}")
-    err = max_abs_err([(g[0], r[0]) for g, r in zip(got, ref)])
-    require(err <= 1e-12, f"K8 posteriors differ by {err}")
+    scan_err = max_abs_err([(g[0], r[0]) for g, r in zip(got, ref)])
+    require(scan_err <= 1e-12, f"K8 posteriors differ by {scan_err}")
     del ref
-    ms = timed_ms(lambda: run(hmm.fb_posterior, batches), 3, torch)
+    ms = timed_ms(lambda: (run(hmm.fb_ragged, rows),
+                           run(hmm.fb_posterior, padded)), 3, torch)
+    step = hmm_step_cycles(torch, rows) if rows else (0.0, 0.0)
+    latency = sum(int(r[2][0]) for r in rows) * max(step) / SM_CLOCK_HZ * 1e3
+    routes = {
+        "sequential": {
+            "launches": len(rows),
+            "columns": sum(int(r[2].sum()) for r in rows),
+            "events_ms": timed_ms(lambda: run(hmm.fb_ragged, rows), 3,
+                                  torch),
+            "device_ms": device_ms(lambda: run(hmm.fb_ragged, rows), 3,
+                                   torch),
+            "plain_ms": seq_pms, "max_abs_err": seq_err,
+            "step_cycles": list(step), "latency_bound_ms": latency},
+        "chunked": {
+            "launches": len(padded),
+            "columns": sum(int(b[1].sum()) for b in padded),
+            "events_ms": timed_ms(lambda: run(hmm.fb_posterior, padded), 3,
+                                  torch),
+            "device_ms": device_ms(lambda: run(hmm.fb_posterior, padded), 3,
+                                   torch),
+            "plain_ms": scan_pms, "max_abs_err": scan_err}}
+    if padded:
+        seq, routes["sequential_on_wide_ms"] = timed_once(
+            lambda: run(hmm.fb_posterior, padded, sequential=True), torch)
+        routes["wide_max_post_diff"] = max_abs_err(
+            [(g[0], q[0]) for g, q in zip(got, seq)])
+        routes["wide_calls_differ"] = sum(int((g[1] != q[1]).sum())
+                                          for g, q in zip(got, seq))
+        del seq
+    del got
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for a in calls:
+        hmm.predict_homologous(a["sequences"], a["params"], a["threshold"],
+                               device=dev)
+    routes["stage_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    cols = routes["sequential"]["columns"] + routes["chunked"]["columns"]
     # observations in, f64 posteriors and calls out, over each sequence's
     # columns
-    cols = sum(int(n.sum()) for _, n, _, _ in batches)
-    e = entry(err, ms, pms, work(10 * cols, HMM_COLUMN_OPS * cols,
-                                 F64_OPS_PER_S))
-    wide = [i for i, b in enumerate(batches)
-            if b[0].shape[1] >= hmm.FB_SCAN_MIN_T]
-    routes = {"wide_launches": len(wide)}
-    if wide:
-        bs = [batches[i] for i in wide]
-        routes["scan_ms"] = timed_ms(lambda: run(hmm.fb_posterior, bs), 3,
-                                     torch)
-        seq, routes["sequential_ms"] = timed_once(
-            lambda: run(hmm.fb_posterior, bs, sequential=True), torch)
-        routes["max_post_diff"] = max_abs_err(
-            [(got[i][0], q[0]) for i, q in zip(wide, seq)])
-        routes["calls_differ"] = sum(int((got[i][1] != q[1]).sum())
-                                     for i, q in zip(wide, seq))
-        routes["wide_columns"] = sum(int(b[1].sum()) for b in bs)
-    log(f"# K8 {label} vs plain: max_abs_err {err}, calls equal; kernel "
-        f"{ms:.3f} ms, plain {pms:.3f} ms, bound {bound(e['work'])[0]:.6f} "
-        f"ms, {len(batches)} launches; padded width >= "
-        f"{hmm.FB_SCAN_MIN_T}, chunked route vs the sequential kernel: "
-        + json.dumps(routes))
+    e = entry(max(seq_err, scan_err), ms, seq_pms + scan_pms,
+              work(10 * cols, HMM_COLUMN_OPS * cols, F64_OPS_PER_S))
+    e["work"]["latency_ms"] = latency
+    log(f"# K8 {label} vs plain: max_abs_err {seq_err} (sequential), "
+        f"{scan_err} (chunked), calls equal; kernel {ms:.3f} ms, plain "
+        f"{seq_pms + scan_pms:.3f} ms, bound {bound(e['work'])[0]:.6f} ms, "
+        f"latency floor {latency:.4f} ms, {len(rows) + len(padded)} "
+        f"launches; by route: " + json.dumps(routes))
     return e
 
 
 def phase_hmm(torch, dev, calls, launches, large_calls=None,
-              large_launches=None):
-    """K8 against its plain version on the card, on the batches of the
+              large_launches=None, save=False):
+    """K8 against its plain version on the card, on the launches of the
     first progressive run's predict_homologous calls at their full
-    lengths, rebuilt into the path's launches by hmm.pack_batches:
-    posteriors within 1e-12, calls equal; and, where phase large ran, on
-    the batches of the 3 x 8.7 Mbp path the same way (logged apart).
-    Returns the 9 x 1 Mbp entry, the times summed over those launches."""
-    batches = hmm_batches(torch, dev, calls)
-    require(len(batches) == launches["fb_posterior"],
-            f"{len(batches)} HMM launches rebuilt, the path made "
-            f"{launches['fb_posterior']}")
-    e = hmm_vs_plain(torch, batches, f"{PROG_GENOMES} x {PROG_LEN} bp")
-    del batches
+    lengths, rebuilt by hmm.plan_launches (fb_ragged's for the
+    sequential route, fb_posterior's for the chunked one; each count the
+    path's): the sequential route bit for bit, the chunked within 1e-12,
+    calls equal; and, where phase large ran, on the 3 x 8.7 Mbp path's
+    the same way (logged apart); with `save`, both paths' calls to
+    HMM_CALLS.  Returns the 9 x 1 Mbp entry, the times summed over those
+    launches."""
+    def rebuilt(calls, launches, label):
+        rows, padded = hmm_batches(torch, dev, calls)
+        for name, made in (("fb_ragged", rows), ("fb_posterior", padded)):
+            require(len(made) == launches[name],
+                    f"{len(made)} {name} launches rebuilt, the {label} path "
+                    f"made {launches[name]}")
+        return rows, padded
+
+    e = hmm_vs_plain(torch, dev, rebuilt(calls, launches, "progressive"),
+                     calls, f"{PROG_GENOMES} x {PROG_LEN} bp")
+    paths = {"progressive": calls}
     if large_calls is not None:
-        big = hmm_batches(torch, dev, large_calls)
-        require(len(big) == large_launches["fb_posterior"],
-                f"{len(big)} HMM launches rebuilt, the 3 x 8.7 Mbp path "
-                f"made {large_launches['fb_posterior']}")
-        hmm_vs_plain(torch, big, f"{LARGE_GENOMES} x {LARGE_LEN} bp")
+        hmm_vs_plain(torch, dev,
+                     rebuilt(large_calls, large_launches, "3 x 8.7 Mbp"),
+                     large_calls, f"{LARGE_GENOMES} x {LARGE_LEN} bp")
+        paths["large"] = large_calls
+    if save:
+        save_hmm_calls(paths)
     return e
+
+
+_HMM_PARAMS = ("start_homologous", "go_homologous", "go_unrelated",
+               "go_stop_from_homologous", "go_stop_from_unrelated")
+
+
+def save_hmm_calls(paths):
+    """Write each path's recorded predict_homologous calls (sequences,
+    params, threshold) to HMM_CALLS."""
+    from libmems_tpu_torch.ops import hmm
+    out = {}
+    for label, calls in paths.items():
+        seqs = [s for a in calls for s in a["sequences"]]
+        pars = [a["params"] or hmm.hoxd_params() for a in calls]
+        out[label + ":seqs"] = np.concatenate(seqs) if seqs \
+            else np.zeros(0, np.uint8)
+        out[label + ":lens"] = np.array([len(s) for s in seqs], np.int64)
+        out[label + ":calls"] = np.array([len(a["sequences"]) for a in calls],
+                                         np.int64)
+        out[label + ":thresholds"] = np.array([a["threshold"] for a in calls])
+        out[label + ":scalars"] = np.array(
+            [[getattr(q, k) for k in _HMM_PARAMS] for q in pars])
+        out[label + ":emit"] = np.array(
+            [np.concatenate([q.emit_homologous, q.emit_unrelated])
+             for q in pars])
+    os.makedirs(os.path.dirname(HMM_CALLS), exist_ok=True)
+    np.savez(HMM_CALLS, **out)
+    log(f"# HMM calls of {sorted(paths)} written to {HMM_CALLS}")
+
+
+def load_hmm_calls():
+    """{label: [(sequences, HmmParams, threshold), ...]} from HMM_CALLS."""
+    from libmems_tpu_torch.ops import hmm
+    require(os.path.exists(HMM_CALLS), f"{HMM_CALLS} is missing: run "
+            f"`chip_smoke.py hmm` first")
+    z = np.load(HMM_CALLS)
+    out = {}
+    for label in sorted({k.split(":")[0] for k in z.files}):
+        seqs = np.split(z[label + ":seqs"], np.cumsum(z[label + ":lens"])[:-1])
+        bounds = np.concatenate([[0], np.cumsum(z[label + ":calls"])])
+        calls = []
+        for c, th in enumerate(z[label + ":thresholds"]):
+            sc, em = z[label + ":scalars"][c], z[label + ":emit"][c]
+            par = hmm.HmmParams(**dict(zip(_HMM_PARAMS, map(float, sc))),
+                                emit_homologous=em[:8].copy(),
+                                emit_unrelated=em[8:].copy())
+            calls.append((seqs[bounds[c]:bounds[c + 1]], par, float(th)))
+        out[label] = calls
+    return out
+
+
+def trace_kernels(path):
+    """{name: [events, device ms]} of a Chrome trace's kernels, memcpys
+    and memsets (a kernel by its name before the argument list)."""
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    out = {}
+    for e in events:
+        cat = e.get("cat")
+        if cat not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        if cat == "kernel":
+            m = re.search(r"(\w+)(?:<[^()]*>)?\(", e["name"])
+            name = m.group(1) if m else e["name"][:60]
+        else:
+            name = cat + ":" + e["name"].split(" ")[0]
+        c = out.setdefault(name, [0, 0.0])
+        c[0] += 1
+        c[1] += e["dur"] / 1e3
+    return out
+
+
+def phase_hmmstage(torch, dev):
+    """The HMM stage of each path as the path runs it: its recorded
+    predict_homologous calls (HMM_CALLS) through predict_homologous on
+    the card, after one warm-up: the wall (host clock, synchronised,
+    median of 3), the device time by kernel in one traced run
+    (torch.profiler, CUDA activity), and the device peak above what was
+    allocated before."""
+    from libmems_tpu_torch.ops import hmm
+    for label, calls in load_hmm_calls().items():
+        def run():
+            for seqs, par, th in calls:
+                hmm.predict_homologous(seqs, par, th, device=dev)
+        wall = host_ms(run, 3, torch)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        run()
+        peak = torch.cuda.max_memory_allocated() - base
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        path = os.path.join(os.path.dirname(HMM_CALLS), f"{label}.json")
+        prof.export_chrome_trace(path)
+        kernels = trace_kernels(path)
+        log(f"# HMM stage {label}: {len(calls)} calls, "
+            f"{sum(len(c[0]) for c in calls)} sequences, "
+            f"{sum(len(x) for c in calls for x in c[0])} columns; wall "
+            f"{wall:.3f} ms, device peak {peak} bytes, device ms by "
+            f"kernel: " + json.dumps(
+                {k: [n, round(ms, 4)] for k, (n, ms) in sorted(
+                    kernels.items(), key=lambda kv: -kv[1][1])}))
 
 
 def phase_decode(torch, lt, dev, hmm_calls):
@@ -2967,7 +3157,19 @@ def phase_decode(torch, lt, dev, hmm_calls):
         timed_ms(lambda: [hmm.bw_counts(*t) for t in chosen], 3, torch),
         p21, work(cols + (4 + 8 * hmm.BW_COUNTS) * rows,
                   BW_COLUMN_OPS * cols, F64_OPS_PER_S))
-    log(f"# K20 equal; K21 within {rel} relative")
+    # K21's sequential route runs K8's two chains, so K8's measured step
+    # (the longer of its forward and backward steps) floors each of its
+    # launches at one chain of its longest row
+    seq21 = [t for t in chosen if t[0].shape[1] < hmm.FB_SCAN_MIN_T]
+    o, n, m = max(seq21, key=lambda t: int(t[1].max()))
+    r = int(torch.argmax(n))
+    hmm.chain_step_cycles(o[r, :int(n[r])], m)
+    step = max(hmm.chain_step_cycles(o[r, :int(n[r])], m))
+    res["bw_counts"]["work"]["latency_ms"] = sum(
+        int(t[1].max()) for t in seq21) * step / SM_CLOCK_HZ * 1e3
+    log(f"# K20 equal; K21 within {rel} relative; K21's sequential "
+        f"launches' latency floor {res['bw_counts']['work']['latency_ms']:.4f}"
+        f" ms at K8's step of {step:.1f} cycles")
 
     # K2 at 64 slots a row (find_mums' device pipeline, whose K14/K15
     # signature words then hold 64 mask and sign bits) and at 1,000
@@ -4414,8 +4616,10 @@ def select_phases(argv):
         raise SystemExit(f"unknown phase {bad}; phases: "
                          f"{' '.join(PHASES + LIGHT_PHASES)}")
     want = set(argv or PHASES)
-    if want & {"profile_dp", "decode"}:
+    if want & {"profile_dp", "decode", "hmm"}:
         want.add("progressive")
+    if "hmm" in want:
+        want.add("large")
     if want & {"mesh", "cards"}:
         want |= {"main", "trio", "progressive"}
     if want & {"tiled", "multihost"}:
@@ -4496,6 +4700,14 @@ def main(argv=None) -> int:
             torch, dev, calls["predict_homologous"], paths["progressive"],
             calls.get("large_hmm"), paths.get("large"))
         lap("profile DP and hmm")
+    elif "hmm" in phases:
+        res["fb_posterior"] = phase_hmm(
+            torch, dev, calls["predict_homologous"], paths["progressive"],
+            calls["large_hmm"], paths["large"], save=True)
+        lap("hmm")
+    if "hmmstage" in phases:
+        phase_hmmstage(torch, dev)
+        lap("hmmstage")
     if "decode" in phases:
         dec_res, paths["decode"], err = phase_decode(
             torch, lt, dev, calls["predict_homologous"])
@@ -4548,6 +4760,10 @@ def main(argv=None) -> int:
     # decode run's, K24/K25 the bounded path's, K26-K28 the meshed pair's,
     # K29-K31 the tiled pair's
     launches = dict(paths.get("progressive", {}))
+    # K8's launches: its chunked route's (fb_posterior) and its sequential
+    # route's (fb_ragged)
+    if "fb_ragged" in launches:
+        launches["fb_posterior"] += launches.pop("fb_ragged")
     for path, names in (("trio", MUM_KERNELS), ("pair", PAIR_KERNELS),
                         ("large", SEEDOCC_KERNELS),
                         ("decode", DECODE_KERNELS),
@@ -4572,7 +4788,7 @@ def main(argv=None) -> int:
                         "max_abs_err": e["err"], "ms": e["ms"],
                         "plain_ms": e["plain_ms"], "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": None})
-        if "latency_ms" in e["work"]:   # the walks' second bound
+        if "latency_ms" in e["work"]:   # a chain's second bound
             kernels[-1]["latency_bound_ms"] = e["work"]["latency_ms"]
     log(f"# card: {card}; " + "; ".join(walls))
     log(json.dumps({"kernels": kernels}))

@@ -5,18 +5,32 @@
 // _fb_calls_assoc (:295).  The JAX package ran three tiers by length (an
 // f64 scan, a checkpointed f64 scan, and an f32 associative scan from
 // 2^17 columns on); here every length runs in f64, on two routes that
-// the launch's padded width T chooses (the wrapper passes the scan's
-// scratch from T >= kScanMinT on):
+// a row's padded width chooses (ops/hmm.py plan_launches; lm_hmm_fb_rows
+// below kScanMinT, lm_hmm_fb with the scan's scratch from it on):
 //
-// The sequential route (T < kScanMinT = 2^17, fb_kernel).  Bound:
-// latency.  The 2-state log-space recurrence is sequential along a
-// sequence, one step costing two log-sum-exps (an exp and a log each) of
-// f64, so a sequence runs in one thread, column after column; many
-// sequences (every genome pair of every interval) run side by side.  The
-// forward values of a sequence are kept in global memory (16 bytes per
-// column) and read back by the backward sweep, which writes the
-// posterior and the call; the wrapper splits a batch so that this
-// scratch stays under a byte budget.
+// The sequential route (rows padded below kScanMinT = 2^17 columns).
+// Bound: latency.  The 2-state log-space recurrence is sequential along a
+// row, one step costing two log-sum-exps (two exps and a log each) of
+// f64.  libdevice's f64 exp and log branch on their special cases, so one
+// thread runs a step's two log-sum-exps one after the other.  Here a
+// chain runs on a pair of lanes, lane s computing state s's
+// log-sum-exp and taking the other state's from its partner by a shuffle
+// each step.  Every row of a call goes into one ragged launch (rows
+// concatenated at 16-byte aligned offsets, longest first so a warp holds
+// rows of like length).  fb_chain_kernel: one warp a block, kChainRows
+// rows a warp, blocks 2k and 2k + 1 the forward (F of state 0 and logP)
+// and the backward (B of state 0) chains of the same rows, so the launch
+// costs one chain of its longest row, not two, and the longest rows'
+// chains spread over as many SMs as they have warps (two chains on one
+// SM slow each other's steps).  The live lanes of a warp all run its
+// longest row's steps, those past their own row idling, so each shuffle
+// names lanes that run it.  Nothing but the
+// log-sum-exps and the shuffle is on a chain: the symbols come 16 at a
+// time (uint4) a group ahead, a column's emission pair from a table in
+// shared memory a column ahead, and F and B are stored and never read
+// back there.  fb_post_kernel then forms every column's posterior and
+// call, one thread a column, coalesced.  The scratch is 16 bytes a column
+// (F0, B0): only state 0's posterior is asked for.
 //
 // Arithmetic copies ops/hmm.py:_fb_posterior, including jax.nn.logsumexp's
 // form max + log(sum(exp(x - max))) with a non-finite max replaced by 0,
@@ -28,6 +42,8 @@
 //   B_i[k]   = LSE_j(lt[k][j] + (le[j][o_{i+1}] + B_{i+1}[j]))
 //   post_i   = exp((F_i[0] + B_i[0]) - logP),  call_i = post_i >= threshold
 // There is no multiply, so no contraction into fused multiply-adds.
+// The chains and the posterior pass do exactly these operations in this
+// order, so they give the bits of the one-thread walk they replaced.
 //
 // The chunked scan (T >= kScanMinT).  One thread walking 8.7 M columns
 // leaves 131 of 132 SMs idle, and its f64 values grow to |F| ~ 1e7, where
@@ -99,56 +115,6 @@ __device__ __forceinline__ double lse2(double a, double b) {
   double m = a > b ? a : b;
   if (!isfinite(m)) m = 0.0;
   return log(exp(a - m) + exp(b - m)) + m;
-}
-
-__global__ void fb_kernel(const unsigned char* __restrict__ obs,
-                          const int* __restrict__ lengths, int B, int T,
-                          HmmMats mt, double threshold,
-                          double* __restrict__ fwd,
-                          double* __restrict__ post,
-                          unsigned char* __restrict__ calls) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const int L = lengths[b];
-  if (L <= 0) return;
-  const unsigned char* o = obs + (int64_t)b * T;
-  double* F = fwd + (int64_t)b * T * 2;
-  double* P = post != nullptr ? post + (int64_t)b * T : nullptr;
-  unsigned char* C = calls + (int64_t)b * T;
-
-  int sym = o[0];
-  double f0 = mt.ls[0] + mt.le[sym];
-  double f1 = mt.ls[1] + mt.le[8 + sym];
-  F[0] = f0;
-  F[1] = f1;
-  for (int i = 1; i < L; ++i) {
-    sym = o[i];
-    const double g0 = lse2(f0 + mt.lt[0], f1 + mt.lt[2]) + mt.le[sym];
-    const double g1 = lse2(f0 + mt.lt[1], f1 + mt.lt[3]) + mt.le[8 + sym];
-    f0 = g0;
-    f1 = g1;
-    F[2 * i] = f0;
-    F[2 * i + 1] = f1;
-  }
-  const double logp = lse2(f0 + mt.lstop[0], f1 + mt.lstop[1]);
-
-  double b0 = mt.lstop[0];
-  double b1 = mt.lstop[1];
-  double p = exp((F[2 * (L - 1)] + b0) - logp);
-  if (P != nullptr) P[L - 1] = p;
-  C[L - 1] = p >= threshold ? 1 : 0;
-  for (int i = L - 2; i >= 0; --i) {
-    sym = o[i + 1];
-    const double t0 = mt.le[sym] + b0;
-    const double t1 = mt.le[8 + sym] + b1;
-    const double n0 = lse2(mt.lt[0] + t0, mt.lt[1] + t1);
-    const double n1 = lse2(mt.lt[2] + t0, mt.lt[3] + t1);
-    b0 = n0;
-    b1 = n1;
-    p = exp((F[2 * i] + b0) - logp);
-    if (P != nullptr) P[i] = p;
-    C[i] = p >= threshold ? 1 : 0;
-  }
 }
 
 __global__ void viterbi_kernel(const unsigned char* __restrict__ obs,
@@ -656,6 +622,192 @@ __global__ void scan_bw_reduce_kernel(const int* __restrict__ lengths, int B,
   part[t] = v;
 }
 
+// ---------------------------------------------------------------------
+// The sequential route (rows padded below kScanMinT): K8's short rows,
+// one ragged launch a call.
+// ---------------------------------------------------------------------
+
+constexpr int kChainRows = 8;   // rows a warp, two lanes a row
+
+// A block's shared table of each symbol's emission pair (le[0][s],
+// le[1][s]).
+__device__ __forceinline__ void fill_emissions(const HmmMats& mt,
+                                               double2* le) {
+  for (int t = threadIdx.x; t < 8; t += blockDim.x) {
+    le[t] = make_double2(mt.le[t], mt.le[8 + t]);
+  }
+  __syncthreads();
+}
+
+// The emission pair of symbol k of a group of 16 (symbols are 0..7: the
+// mask keeps a symbol read past a row's end inside the table).
+__device__ __forceinline__ double2 emission(const double2* le,
+                                            const uint4& v, int k) {
+  return le[symbol_of(v, k) & 7];
+}
+
+// A row's forward chain on a pair of lanes, lane s computing state s and
+// taking the other state from its partner by a shuffle over `mask` (every
+// live lane of the warp: all of them run Lw - 1 steps, the warp's longest
+// row, so that each shuffle names lanes that run it): F[i] = F_i[0] for i
+// < L, then logP, stored by lane 0.  o: the row's symbols, 16-byte
+// aligned and readable up to the next multiple of 16; a group is loaded
+// 16 columns ahead and a column's emission pair one column ahead, never
+// past the row's last group.
+__device__ __forceinline__ void forward_chain(const unsigned char* o, int L,
+                                              int Lw, const HmmMats& mt,
+                                              const double2* le, int s,
+                                              unsigned mask, double* F,
+                                              double* logp) {
+  const uint4* o4 = reinterpret_cast<const uint4*>(o);
+  const int groups = (L + 15) >> 4;
+  uint4 v = o4[0];
+  uint4 nv = groups > 1 ? o4[1] : v;
+  double2 e = emission(le, v, 0);
+  double f0 = mt.ls[0] + e.x;
+  double f1 = mt.ls[1] + e.y;
+  if (s == 0) F[0] = f0;
+  const double la = s ? mt.lt[1] : mt.lt[0];   // lt[0][s]
+  const double lb = s ? mt.lt[3] : mt.lt[2];   // lt[1][s]
+  double l0 = f0, l1 = f1;                     // F_{L-1}
+  e = emission(le, v, 1);
+  for (int i = 1; i < Lw; ++i) {
+    const double es = s ? e.y : e.x;
+    const int n = i + 1;
+    if ((n & 15) == 0) {
+      v = nv;
+      nv = (n >> 4) + 1 < groups ? o4[(n >> 4) + 1] : v;
+    }
+    e = emission(le, v, n & 15);
+    const double g = lse2(f0 + la, f1 + lb) + es;
+    const double h = __shfl_xor_sync(mask, g, 1);
+    f0 = s ? h : g;
+    f1 = s ? g : h;
+    if (s == 0 && i < L) F[i] = f0;
+    l0 = i < L ? f0 : l0;
+    l1 = i < L ? f1 : l1;
+  }
+  if (s == 0) *logp = lse2(l0 + mt.lstop[0], l1 + mt.lstop[1]);
+}
+
+// A row's backward chain from lstop on a pair of lanes, lane s computing
+// state s: Bk[i] = B_i[0] for i < L, stored by lane 0.  The warp walks
+// the columns c = Lw - 1 down to 1 together (symbol o[c] takes B_c to
+// B_{c-1}), a lane joining at its row's last column, so the groups (each
+// loaded 16 columns ahead, none past the row's last) change for every
+// lane at once.
+__device__ __forceinline__ void backward_chain(const unsigned char* o, int L,
+                                               int Lw, const HmmMats& mt,
+                                               const double2* le, int s,
+                                               unsigned mask, double* Bk) {
+  const uint4* o4 = reinterpret_cast<const uint4*>(o);
+  const int groups = (L + 15) >> 4;
+  double b0 = mt.lstop[0];
+  double b1 = mt.lstop[1];
+  if (s == 0) Bk[L - 1] = b0;
+  const int q = (Lw - 1) >> 4;
+  uint4 v = q < groups ? o4[q] : make_uint4(0, 0, 0, 0);
+  uint4 nv = q > 0 && q - 1 < groups ? o4[q - 1] : v;
+  const double la = s ? mt.lt[2] : mt.lt[0];   // lt[s][0]
+  const double lb = s ? mt.lt[3] : mt.lt[1];   // lt[s][1]
+  double2 e = emission(le, v, (Lw - 1) & 15);
+  for (int c = Lw - 1; c >= 1; --c) {
+    const int n = c - 1;
+    if ((n & 15) == 15) {
+      v = nv;
+      const int qn = (n >> 4) - 1;
+      nv = qn >= 0 && qn < groups ? o4[qn] : v;
+    }
+    const double2 en = emission(le, v, n & 15);
+    const double t0 = e.x + b0;
+    const double t1 = e.y + b1;
+    const double g = lse2(la + t0, lb + t1);
+    const double h = __shfl_xor_sync(mask, g, 1);
+    if (c < L) {
+      b0 = s ? h : g;
+      b1 = s ? g : h;
+      if (s == 0) Bk[n] = b0;
+    }
+    e = en;
+  }
+}
+
+// One warp a block: block 2k + d runs direction d (0 forward into
+// fb[off + i] and logp, 1 backward into fb[total + off + i]) of rows
+// kChainRows k.., lanes 2j and 2j + 1 row j's two states.  Lanes past the
+// rows, and rows of length 0, exit; the rest run the warp's longest row.
+__global__ void __launch_bounds__(32)
+    fb_chain_kernel(const unsigned char* __restrict__ obs,
+                    const int64_t* __restrict__ offsets,
+                    const int* __restrict__ lengths, int N, int64_t total,
+                    HmmMats mt, double* __restrict__ fb,
+                    double* __restrict__ logp) {
+  __shared__ double2 le[8];
+  fill_emissions(mt, le);
+  const int lane = threadIdx.x;
+  const int j = lane >> 1;
+  const int r = (blockIdx.x >> 1) * kChainRows + j;
+  const int L = j < kChainRows && r < N ? lengths[r] : 0;
+  const int Lw = (int)__reduce_max_sync(0xffffffffu, (unsigned)max(L, 0));
+  if (L <= 0) return;
+  const unsigned mask = (1u << (2 * kChainRows)) - 1;
+  const int64_t off = offsets[r];
+  const int s = lane & 1;
+  if ((blockIdx.x & 1) == 0) {
+    forward_chain(obs + off, L, Lw, mt, le, s, mask, fb + off, logp + r);
+  } else {
+    backward_chain(obs + off, L, Lw, mt, le, s, mask, fb + total + off);
+  }
+}
+
+// One thread a column of the layout: the row is the last whose offset is
+// at or below it; below the row's length the posterior and the call,
+// elsewhere 0.
+__global__ void fb_post_kernel(const int64_t* __restrict__ offsets,
+                               const int* __restrict__ lengths, int N,
+                               int64_t total, const double* __restrict__ fb,
+                               const double* __restrict__ logp,
+                               double threshold, double* __restrict__ post,
+                               unsigned char* __restrict__ calls) {
+  for (int64_t g = lm::first_index(); g < total; g += lm::grid_stride()) {
+    int lo = 0, hi = N - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (offsets[mid] <= g) {
+        lo = mid;
+      } else {
+        hi = mid - 1;
+      }
+    }
+    const bool valid = g - offsets[lo] < lengths[lo];
+    const double p = valid ? exp((fb[g] + fb[total + g]) - logp[lo]) : 0.0;
+    if (post != nullptr) post[g] = p;
+    calls[g] = valid && p >= threshold ? 1 : 0;
+  }
+}
+
+// The chains' step measured on one pair of lanes: clock64 around a row's
+// forward chain, then around its backward chain.
+__global__ void fb_step_cycles_kernel(const unsigned char* __restrict__ o,
+                                      int L, int64_t stride, HmmMats mt,
+                                      double* __restrict__ fb,
+                                      long long* __restrict__ cycles) {
+  __shared__ double2 le[8];
+  fill_emissions(mt, le);
+  const int s = threadIdx.x & 1;
+  double logp = 0.0;
+  const long long t0 = clock64();
+  forward_chain(o, L, L, mt, le, s, 3u, fb, &logp);
+  const long long t1 = clock64();
+  backward_chain(o, L, L, mt, le, s, 3u, fb + stride);
+  const long long t2 = clock64();
+  if (s == 0) {
+    fb[2 * stride] = logp;
+    cycles[0] = t1 - t0;
+    cycles[1] = t2 - t1;
+  }
+}
+
 HmmMats make_mats(const double* mats) {
   HmmMats mt;
   for (int k = 0; k < 2; ++k) mt.ls[k] = mats[k];
@@ -696,25 +848,19 @@ extern "C" int64_t lm_hmm_scan_doubles(int B, int T, int counts) {
          2 * (int64_t)B;
 }
 
-// obs: uint8[B, T] symbols 0..7 (16-byte aligned); lengths: int32[B]
-// (<= T); mats: HOST doubles ls[2], lt[4], lstop[2], le[16]; post: f64[B,
-// T] or null; calls: uint8[B, T].  Columns at or past a row's length are
-// left as they are.  scan null: the sequential route, fwd f64[B, T, 2]
-// scratch.  scan non-null (T >= kScanMinT, T a multiple of kScanCols *
-// kScanThreads): the chunked route, fwd f64[B, T] scratch and scan f64
-// scratch of lm_hmm_scan_doubles(B, T, 0).
+// K8's chunked route.  obs: uint8[B, T] symbols 0..7 (16-byte
+// aligned; T >= kScanMinT, a multiple of kScanCols * kScanThreads);
+// lengths: int32[B] (<= T); mats: HOST doubles ls[2], lt[4], lstop[2],
+// le[16]; post: f64[B, T] or null; calls: uint8[B, T]; fwd: f64[B, T]
+// scratch; scan: f64 scratch of lm_hmm_scan_doubles(B, T, 0).  Columns at
+// or past a row's length are left as they are.
 extern "C" int lm_hmm_fb(const void* obs, const void* lengths, int B, int T,
                          const double* mats, double threshold, void* fwd,
                          void* post, void* calls, void* scan, void* stream) {
   if (B <= 0) return (int)cudaGetLastError();
+  if (scan == nullptr) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const HmmMats mt = make_mats(mats);
-  if (scan == nullptr) {
-    LM_LAUNCH(fb_kernel, hmm_blocks(B), kHmmThreads, 0, st,
-              (const unsigned char*)obs, (const int*)lengths, B, T, mt,
-              threshold, (double*)fwd, (double*)post, (unsigned char*)calls);
-    return (int)cudaGetLastError();
-  }
   double *carry, *logp;
   launch_scan_fold(obs, lengths, B, T, mt, (double*)scan, st, &carry, &logp);
   const unsigned chunks = (unsigned)((int64_t)B * (T / kScanCols) /
@@ -726,8 +872,48 @@ extern "C" int lm_hmm_fb(const void* obs, const void* lengths, int B, int T,
   return (int)cudaGetLastError();
 }
 
-// K20.  obs, lengths, mats as for lm_hmm_fb; ptr: uint8[B, T] scratch;
-// path: uint8[B, T], zero-filled by the caller (1 = homologous).
+// K8's sequential route, N rows in one launch.  obs: uint8 symbols 0..7,
+// row r at obs + offsets[r] (int64, ascending, multiples of 16 from a
+// 16-byte aligned obs) with lengths[r] (int32) columns, readable up to
+// the next multiple of 16; total: the layout's columns, every row's span
+// inside them.  mats as for lm_hmm_fb; fb: f64[2 * total] scratch; logp:
+// f64[N] scratch; post: f64[total] or null; calls: uint8[total].  Every
+// column of the layout is written: a row's posterior and call below its
+// length, 0 elsewhere.
+extern "C" int lm_hmm_fb_rows(const void* obs, const void* offsets,
+                              const void* lengths, int N, int64_t total,
+                              const double* mats, double threshold, void* fb,
+                              void* logp, void* post, void* calls,
+                              void* stream) {
+  if (N <= 0 || total <= 0) return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  LM_LAUNCH(fb_chain_kernel,
+            2u * (unsigned)((N + kChainRows - 1) / kChainRows), 32, 0, st,
+            (const unsigned char*)obs, (const int64_t*)offsets, (const int*)lengths, N, total,
+            make_mats(mats), (double*)fb, (double*)logp);
+  LM_LAUNCH(fb_post_kernel, lm::blocks_for(total), lm::kTableThreads, 0, st,
+            (const int64_t*)offsets, (const int*)lengths, N, total,
+            (const double*)fb, (const double*)logp, threshold,
+            (double*)post, (unsigned char*)calls);
+  return (int)cudaGetLastError();
+}
+
+// The sequential chains' cycles on one pair of lanes: obs a row of L >= 2
+// symbols as lm_hmm_fb_rows reads one; fb: f64[2 * stride + 1] scratch,
+// stride >= L; cycles: int64[2], the forward chain's and the backward
+// chain's (L - 1 steps each).
+extern "C" int lm_hmm_step_cycles(const void* obs, int L, int64_t stride,
+                                  const double* mats, void* fb, void* cycles,
+                                  void* stream) {
+  LM_LAUNCH(fb_step_cycles_kernel, 1, 2, 0, (cudaStream_t)stream,
+            (const unsigned char*)obs, L, stride, make_mats(mats),
+            (double*)fb, (long long*)cycles);
+  return (int)cudaGetLastError();
+}
+
+// K20.  obs, lengths, mats as for lm_hmm_fb, at any T; ptr: uint8[B, T]
+// scratch; path: uint8[B, T], zero-filled by the caller (1 =
+// homologous).
 extern "C" int lm_hmm_viterbi(const void* obs, const void* lengths, int B,
                               int T, const double* mats, void* ptr,
                               void* path, void* stream) {
@@ -743,8 +929,8 @@ extern "C" int lm_hmm_viterbi(const void* obs, const void* lengths, int B,
 // K21.  obs, lengths, mats as for lm_hmm_fb; fwd, bwd: f64[B, T, 2]
 // scratch; part: f64[B, 23] per-sequence counts (start[2], trans[2][2],
 // emit[2][8], logP; zero for a row of length 0).  scan null: the
-// sequential route; non-null: the chunked route (as for lm_hmm_fb), scan
-// f64 scratch of lm_hmm_scan_doubles(B, T, 22).
+// sequential route, at any T; non-null: the chunked route (T as for
+// lm_hmm_fb), scan f64 scratch of lm_hmm_scan_doubles(B, T, 22).
 extern "C" int lm_hmm_bw(const void* obs, const void* lengths, int B, int T,
                          const double* mats, void* fwd, void* bwd,
                          void* part, void* scan, void* stream) {

@@ -13,12 +13,18 @@ threshold (>= 0.9 => homologous, homologymain.cc:44-58).
 The JAX package dispatched three tiers by length (an f64 scan below 2^14
 columns, a checkpointed f64 scan below 2^17, an f32 associative scan
 above).  The port runs f64 at every length (R15), on two routes chosen
-only by a launch's padded width T:
+only by a sequence's padded width T = max(64, 2^ceil(log2 L)), the JAX
+package's length bucket:
 
 - T < FB_SCAN_MIN_T (2^17, the JAX package's _FB_ASSOC_MIN_T): the
   sequential route, one walk along each sequence, identical to the JAX
-  f64 tiers.
-- T >= FB_SCAN_MIN_T: the chunked scan.  Each chunk of FB_SCAN_COLS
+  f64 tiers.  Every such sequence of a call goes into one ragged launch
+  (plan_launches, fb_ragged): the rows longest first, their symbols
+  concatenated at 16-byte aligned offsets, one upload and one download;
+  the forward and backward chains of a row run side by side in two
+  warps, then one thread a column forms the posteriors and calls.
+- T >= FB_SCAN_MIN_T: the chunked scan, on padded batches of one bucket
+  each (pack_batches, fb_posterior).  Each chunk of FB_SCAN_COLS
   columns gives its 2x2 log-space transfer from unit vectors, both ways;
   a fold over the chunks gives each chunk's carries as a normalised pair
   plus an offset summed in double-double (two-sum) arithmetic; each chunk
@@ -31,14 +37,14 @@ only by a launch's padded width T:
   by up to that error, and from the JAX f32 tier only where a posterior
   lies near the threshold (ROADMAP queue 3).
 
-pack_batches derives T from each sequence's own length, so a sequence
-gets the same bits in any batch, split or launch (R7).  Sequences are
-grouped by the JAX package's length buckets (a power of two, at least
-64) into padded batches, each split so a launch holds at most
-FB_MAX_ELEMS columns.  ``viterbi_homologous`` and ``baum_welch`` (the
-HMMoC Viterbi and Baum-Welch API, which libMems ships but never calls)
-run K20 (sequential at every length) and K21 (both routes) the same
-way, in f64.  Baum-Welch sums each sequence's expected counts in column
+A sequence gets the same bits in any batch, split or launch (R7), since
+its route and its arithmetic depend on its own length alone.  A launch
+holds at most FB_MAX_ELEMS columns: the sequential route splits its
+rows, longest first, and pack_batches each padded bucket.
+``viterbi_homologous`` and ``baum_welch`` (the HMMoC Viterbi and
+Baum-Welch API, which libMems ships but never calls) run K20 (sequential
+at every length) and K21 (both routes) on pack_batches' padded batches,
+in f64.  Baum-Welch sums each sequence's expected counts in column
 order on the device (on the chunked route: per chunk in column order,
 then over the chunks in chunk order) and the sequences' sums in index
 order on the host, so the kernel and its plain version add in the same
@@ -57,9 +63,13 @@ from libmems_tpu_torch import cuda
 
 POSTERIOR_THRESHOLD = 0.9   # homologymain.cc:50
 
-# columns per launch: the kernel keeps 16 bytes of forward values per
-# column, so a launch holds at most 1 GiB of them
+# columns per launch: the sequential route keeps 16 bytes of scratch a
+# column (forward and backward values of state 0), the chunked route 8
+# (forward), so a launch holds at most 1 GiB of them
 FB_MAX_ELEMS = 1 << 26
+# the sequential route's rows start at multiples of this many bytes (its
+# kernels read the symbols 16 at a time)
+FB_ROW_ALIGN = 16
 # padded widths from which K8 and K21 take the chunked scan (the JAX
 # package's _FB_ASSOC_MIN_T), and its chunk: csrc/hmm.cu kScanMinT and
 # kScanCols hold the same values
@@ -407,11 +417,47 @@ def fb_scan_plain(obs, lengths, mats, threshold: float):
 
 
 def fb_posterior_plain(obs, lengths, mats, threshold: float):
-    """Plain PyTorch version of K8: fb_sequential_plain below a padded
-    width of FB_SCAN_MIN_T, fb_scan_plain from it on."""
+    """Plain PyTorch version of K8 on a padded batch: fb_sequential_plain
+    below a padded width of FB_SCAN_MIN_T, fb_scan_plain from it on."""
     if obs.shape[1] >= FB_SCAN_MIN_T:
         return fb_scan_plain(obs, lengths, mats, threshold)
     return fb_sequential_plain(obs, lengths, mats, threshold)
+
+
+def padded_width(n: int) -> int:
+    """A sequence's padded width: the JAX package's length bucket, a
+    power of two of at least 64 (n >= 1)."""
+    return max(64, 1 << (n - 1).bit_length())
+
+
+def _round_up(n, k: int):
+    return -(-n // k) * k
+
+
+def fb_ragged_plain(obs, offsets, lengths, mats, threshold: float):
+    """Plain PyTorch version of K8's sequential route on a ragged batch
+    (fb_ragged's layout): the rows grouped by padded width, each group
+    through fb_sequential_plain.  Returns (post float64[total], calls
+    bool[total]), 0 / False outside the rows."""
+    total = obs.shape[0]
+    dev = obs.device
+    post = torch.zeros(total, dtype=torch.float64, device=dev)
+    calls = torch.zeros(total, dtype=torch.bool, device=dev)
+    groups: dict[int, list[int]] = {}
+    for r, n in enumerate(lengths.tolist()):
+        if n > 0:
+            groups.setdefault(padded_width(n), []).append(r)
+    for T, rows in groups.items():
+        rows = torch.tensor(rows, dtype=torch.int64, device=dev)
+        n = lengths[rows]
+        cols = torch.arange(T, device=dev)
+        valid = cols[None] < n[:, None].to(torch.int64)
+        idx = offsets[rows][:, None] + cols[None]
+        o = torch.where(valid, obs[idx.clamp(max=total - 1)], 0)
+        p, c = fb_sequential_plain(o.to(torch.uint8), n, mats, threshold)
+        post[idx[valid]] = p[valid]
+        calls[idx[valid]] = c[valid]
+    return post, calls
 
 
 def _host_mats(mats) -> ctypes.Array:
@@ -441,6 +487,63 @@ def _scan_scratch(lib, B, T, counts, dev):
     return torch.empty(n, dtype=torch.float64, device=dev)
 
 
+def _launch_rows(obs, offsets, lengths, mats, threshold, want_post):
+    """K8's sequential route on the card (lm_hmm_fb_rows: the chains,
+    then the posterior pass) over fb_ragged's layout.  Returns (post
+    float64[total] or None, calls bool[total]), views of one byte buffer,
+    post first."""
+    dev = obs.device
+    N, total = lengths.shape[0], obs.shape[0]
+    host = _host_mats(mats)
+    lib = cuda.library()
+    fb = torch.empty(2 * total, dtype=torch.float64, device=dev)
+    logp = torch.empty(max(N, 1), dtype=torch.float64, device=dev)
+    out = torch.empty(total * (9 if want_post else 1), dtype=torch.uint8,
+                      device=dev)
+    post = out[:8 * total].view(torch.float64) if want_post else None
+    calls = out[out.shape[0] - total:]
+    cuda.check(lib.lm_hmm_fb_rows(
+        obs.data_ptr(), offsets.data_ptr(), lengths.data_ptr(), N, total,
+        host, float(threshold), fb.data_ptr(), logp.data_ptr(),
+        post.data_ptr() if want_post else None, calls.data_ptr(),
+        cuda.stream(obs)), "lm_hmm_fb_rows")
+    return post, calls.view(torch.bool)
+
+
+@cuda.launcher
+def fb_ragged(obs, offsets, lengths, mats,
+              threshold: float = POSTERIOR_THRESHOLD,
+              want_post: bool = True):
+    """K8's sequential route: posterior P(homologous) and calls for a
+    ragged batch of rows at once (the chains, then the posterior pass).
+
+    obs: uint8[total] symbols 0..7, 16-byte aligned; offsets: int64[N],
+    ascending multiples of FB_ROW_ALIGN, row r's symbols at obs[offsets[r]
+    :offsets[r] + lengths[r]] and its span (the length rounded up to
+    FB_ROW_ALIGN) inside obs; lengths: int32[N]; mats as for
+    fb_posterior.  Returns (post float64[total] or None when not
+    want_post on CUDA, calls bool[total]), zero outside the rows; on
+    CUDA both are views of one byte buffer, post first, so one copy
+    brings them to the host.  CPU tensors take the plain version; CUDA
+    tensors launch the chains and the posterior pass (lm_hmm_fb_rows)."""
+    if obs.device.type == "cpu":
+        return fb_ragged_plain(obs, offsets, lengths, mats, threshold)
+    dev = obs.device
+    N = lengths.shape[0]
+    cuda.require(obs, "obs", torch.uint8, dev, (obs.shape[0],))
+    cuda.require(offsets, "offsets", torch.int64, dev, (N,))
+    cuda.require(lengths, "lengths", torch.int32, dev, (N,))
+    if obs.data_ptr() % FB_ROW_ALIGN:
+        raise ValueError(f"obs must be {FB_ROW_ALIGN}-byte aligned")
+    post, calls = _launch_rows(obs, offsets, lengths, mats, threshold,
+                               want_post)
+    fb_ragged.launches += 1
+    return post, calls
+
+
+fb_ragged.launches = 0
+
+
 @cuda.launcher
 def fb_posterior(obs, lengths, mats, threshold: float = POSTERIOR_THRESHOLD,
                  want_post: bool = True, sequential: bool = False):
@@ -451,34 +554,68 @@ def fb_posterior(obs, lengths, mats, threshold: float = POSTERIOR_THRESHOLD,
     Returns (post float64[B, T] or None when not want_post on CUDA,
     calls bool[B, T]), zero past each row's length.  CPU tensors take
     the plain version; CUDA tensors launch K8, on the chunked route from
-    a padded width of FB_SCAN_MIN_T on and the sequential one below it
-    (`sequential` forces the sequential kernel at any width on CUDA: a
-    measurement's switch, which no path sets)."""
+    a padded width of FB_SCAN_MIN_T on and the sequential one below it,
+    with rows at offsets b * T (`sequential` forces the sequential route
+    at any width on CUDA: a measurement's switch, which no path sets)."""
     if obs.device.type == "cpu":
         return fb_posterior_plain(obs, lengths, mats, threshold)
     dev = obs.device
     B, T = obs.shape
     cuda.require(obs, "obs", torch.uint8, dev, (B, T))
     cuda.require(lengths, "lengths", torch.int32, dev, (B,))
-    scan = _scan_route(obs, sequential)
+    if not _scan_route(obs, sequential):
+        S = _round_up(T, FB_ROW_ALIGN)
+        rows = obs
+        if S != T or obs.data_ptr() % FB_ROW_ALIGN:
+            rows = torch.zeros((B, S), dtype=torch.uint8, device=dev)
+            rows[:, :T] = obs
+        offsets = torch.arange(B, dtype=torch.int64, device=dev) * S
+        post, calls = _launch_rows(rows.reshape(-1), offsets, lengths, mats,
+                                   threshold, want_post)
+        fb_posterior.launches += 1
+        post = post.view(B, S)[:, :T].contiguous() if want_post else None
+        return post, calls.view(B, S)[:, :T].contiguous()
     host = _host_mats(mats)
     lib = cuda.library()
-    fwd = torch.empty((B, T) if scan else (B, T, 2), dtype=torch.float64,
-                      device=dev)
-    aux = _scan_scratch(lib, B, T, 0, dev) if scan else None
+    fwd = torch.empty((B, T), dtype=torch.float64, device=dev)
+    aux = _scan_scratch(lib, B, T, 0, dev)
     post = torch.zeros((B, T), dtype=torch.float64, device=dev) \
         if want_post else None
     calls = torch.zeros((B, T), dtype=torch.bool, device=dev)
     cuda.check(lib.lm_hmm_fb(
         obs.data_ptr(), lengths.data_ptr(), B, T, host, float(threshold),
         fwd.data_ptr(), post.data_ptr() if post is not None else None,
-        calls.data_ptr(), aux.data_ptr() if scan else None,
-        cuda.stream(obs)), "lm_hmm_fb")
+        calls.data_ptr(), aux.data_ptr(), cuda.stream(obs)), "lm_hmm_fb")
     fb_posterior.launches += 1
     return post, calls
 
 
 fb_posterior.launches = 0
+
+
+@cuda.launcher
+def chain_step_cycles(row, mats):
+    """A measurement on the card, no path's: the cycles of one step of
+    the sequential route's forward and backward chains, timed with
+    clock64 on one pair of lanes (one chain) over `row` (uint8[L]
+    symbols on the card, L >= 2).  Returns (forward, backward) cycles a
+    step."""
+    if row.device.type != "cuda":
+        raise ValueError("chain_step_cycles measures the card")
+    dev = row.device
+    L = row.shape[0]
+    if L < 2:
+        raise ValueError("chain_step_cycles needs two columns or more")
+    S = _round_up(L, FB_ROW_ALIGN)
+    obs = torch.zeros(S, dtype=torch.uint8, device=dev)
+    obs[:L] = row
+    fb = torch.empty(2 * S + 1, dtype=torch.float64, device=dev)
+    cycles = torch.zeros(2, dtype=torch.int64, device=dev)
+    cuda.check(cuda.library().lm_hmm_step_cycles(
+        obs.data_ptr(), L, S, _host_mats(mats), fb.data_ptr(),
+        cycles.data_ptr(), cuda.stream(obs)), "lm_hmm_step_cycles")
+    fwd, bwd = cycles.tolist()
+    return fwd / (L - 1), bwd / (L - 1)
 
 
 def log_matrices(params: HmmParams, device) -> tuple:
@@ -487,16 +624,18 @@ def log_matrices(params: HmmParams, device) -> tuple:
                  for x in _log_matrices(params))
 
 
-def pack_batches(sequences):
-    """Bucket the non-empty sequences by the JAX package's padded length
-    (a power of two >= 64) and split each bucket so a launch holds at
-    most FB_MAX_ELEMS columns.  Yields (sequence indices, obs uint8[B,
-    T], lengths int32[B]) per launch, on the host."""
+def _buckets(sequences) -> dict[int, list[int]]:
+    """The non-empty sequences' indices by padded width, in index order."""
     buckets: dict[int, list[int]] = {}
     for i, s in enumerate(sequences):
         if len(s):
-            T = max(64, 1 << (len(s) - 1).bit_length())
-            buckets.setdefault(T, []).append(i)
+            buckets.setdefault(padded_width(len(s)), []).append(i)
+    return buckets
+
+
+def _pad_buckets(sequences, buckets):
+    """Each bucket split so a launch holds at most FB_MAX_ELEMS columns:
+    (sequence indices, obs uint8[B, T], lengths int32[B]) per launch."""
     for T, idxs in buckets.items():
         max_rows = max(1, FB_MAX_ELEMS // T)
         for base in range(0, len(idxs), max_rows):
@@ -509,8 +648,107 @@ def pack_batches(sequences):
             yield part, obs, lens
 
 
+def pack_batches(sequences):
+    """Bucket the non-empty sequences by the JAX package's padded length
+    (a power of two >= 64) and split each bucket so a launch holds at
+    most FB_MAX_ELEMS columns.  Yields (sequence indices, obs uint8[B,
+    T], lengths int32[B]) per launch, on the host."""
+    yield from _pad_buckets(sequences, _buckets(sequences))
+
+
+@dataclass
+class RaggedBatch:
+    """One launch of K8's sequential route, on the host: the rows
+    (sequence indices, longest first) and one buffer holding offsets
+    int64[N], lengths int32[N] and, from a 16-byte aligned byte, the
+    symbols, each row at its offset (fb_ragged's layout)."""
+
+    rows: list
+    buf: np.ndarray
+    total: int
+
+    @property
+    def start(self) -> int:
+        return _round_up(12 * len(self.rows), FB_ROW_ALIGN)
+
+    @property
+    def offsets(self) -> np.ndarray:
+        return self.buf[:8 * len(self.rows)].view(np.int64)
+
+    @property
+    def lengths(self) -> np.ndarray:
+        return self.buf[8 * len(self.rows):12 * len(self.rows)].view(np.int32)
+
+    def tensors(self, device):
+        """(obs uint8[total], offsets int64[N], lengths int32[N]) on
+        `device`, from one host-to-device copy."""
+        n = len(self.rows)
+        d = torch.from_numpy(self.buf).to(device)
+        return (d[self.start:], d[:8 * n].view(torch.int64),
+                d[8 * n:12 * n].view(torch.int32))
+
+
+def pack_ragged(sequences, idxs):
+    """The sequential route's launches of the sequences `idxs`: the rows
+    longest first (ties in index order), cut so a launch holds at most
+    FB_MAX_ELEMS columns (each row's length rounded up to FB_ROW_ALIGN;
+    a row alone may hold more).  Yields a RaggedBatch per launch."""
+    order = sorted(idxs, key=lambda i: -len(sequences[i]))
+    launch, cols = [], 0
+    for i in order:
+        span = _round_up(len(sequences[i]), FB_ROW_ALIGN)
+        if launch and cols + span > FB_MAX_ELEMS:
+            yield _ragged_batch(sequences, launch)
+            launch, cols = [], 0
+        launch.append(i)
+        cols += span
+    if launch:
+        yield _ragged_batch(sequences, launch)
+
+
+def _ragged_batch(sequences, rows) -> RaggedBatch:
+    lens = np.array([len(sequences[i]) for i in rows], dtype=np.int64)
+    spans = _round_up(lens, FB_ROW_ALIGN)
+    offs = np.concatenate([[0], np.cumsum(spans)[:-1]]).astype(np.int64)
+    total = int(spans.sum())
+    batch = RaggedBatch(rows, np.zeros(_round_up(12 * len(rows), FB_ROW_ALIGN)
+                                       + total, dtype=np.uint8), total)
+    batch.offsets[:] = offs
+    batch.lengths[:] = lens
+    obs = batch.buf[batch.start:]
+    for i, o, n_i in zip(rows, offs, lens):
+        obs[o:o + n_i] = sequences[i]
+    return batch
+
+
+def plan_launches(sequences):
+    """K8's launches for a call: (the sequential route's RaggedBatches,
+    pack_batches' padded launches of the chunked route).  A sequence of
+    padded width below FB_SCAN_MIN_T takes the sequential route, every
+    other one the chunked route, in pack_batches' buckets and splits;
+    empty sequences take neither."""
+    buckets = _buckets(sequences)
+    short = [i for T, idxs in buckets.items() if T < FB_SCAN_MIN_T
+             for i in idxs]
+    wide = {T: idxs for T, idxs in buckets.items() if T >= FB_SCAN_MIN_T}
+    return (list(pack_ragged(sequences, short)),
+            list(_pad_buckets(sequences, wide)))
+
+
+def _to_host(post, calls):
+    """fb_ragged's (post or None, calls) as numpy arrays; on the card one
+    copy of the byte buffer both are views of."""
+    if calls.device.type == "cpu":
+        return (post.numpy() if post is not None else None), calls.numpy()
+    raw = torch.empty(0, dtype=torch.uint8, device=calls.device).set_(
+        calls.untyped_storage()).cpu().numpy()
+    n = calls.shape[0]
+    return (raw[:8 * n].view(np.float64) if post is not None else None,
+            raw[raw.shape[0] - n:].view(np.bool_))
+
+
 def _fb_batched(sequences, params, device, threshold, want_post):
-    """Run K8 (or its plain version) on each launch of pack_batches.
+    """Run K8 (or its plain version) on the launches of plan_launches.
     Returns per sequence (post float64 or None, calls bool) on the host;
     empty sequences give empty arrays."""
     dev = cuda.resolve_device(device)
@@ -519,7 +757,14 @@ def _fb_batched(sequences, params, device, threshold, want_post):
     mats = log_matrices(params, dev)
     out: list = [(np.zeros(0, np.float64), np.zeros(0, bool))] \
         * len(sequences)
-    for part, obs, lens in pack_batches(sequences):
+    ragged, padded = plan_launches(sequences)
+    for batch in ragged:
+        post, calls = _to_host(*fb_ragged(*batch.tensors(dev), mats,
+                                          threshold, want_post))
+        for i, o in zip(batch.rows, batch.offsets.tolist()):
+            n = len(sequences[i])
+            out[i] = (post[o:o + n] if want_post else None, calls[o:o + n])
+    for part, obs, lens in padded:
         post, calls = fb_posterior(
             torch.from_numpy(obs).to(dev), torch.from_numpy(lens).to(dev),
             mats, threshold, want_post)

@@ -790,6 +790,86 @@ def test_hmm_kernel_equals_plain(dev, T):
     assert torch.equal(got_c.cpu(), ref_c)
 
 
+def _hmm_ragged_case(case):
+    """Sequences for K8's sequential route: rows of unequal length sharing
+    warps, lengths around the 16-symbol group edges, or one row of
+    65,536 columns (the route's widest) beside short ones."""
+    rng = np.random.default_rng(len(case))
+    if case == "warps":
+        lens = rng.integers(1, 3_000, 45)
+    elif case == "edges":
+        lens = [16 * k + d for k in (1, 2, 3, 8) for d in (-1, 0, 1)] + \
+            [1, 2, 3]
+    else:
+        lens = [1 << 16, 1_000, 1]
+    seqs = []
+    for n in lens:
+        s = rng.integers(0, 8, n).astype(np.uint8)
+        keep = np.repeat(rng.random(n // 64 + 1) < 0.5, 64)[:n]
+        seqs.append(np.where(keep, rng.integers(0, 2, n), s).astype(np.uint8))
+    return seqs
+
+
+@pytest.mark.parametrize("case", ["warps", "edges", "long"])
+def test_hmm_ragged_kernels_equal_plain(dev, case):
+    """K8's sequential route (fb_ragged: the forward and backward chains,
+    then the posterior pass) against its plain version on the card, bit
+    for bit: posteriors torch.equal, calls equal, every column outside
+    the rows 0; without posteriors the same calls; predict_homologous and
+    posterior_homologous on the card equal to CPU tensors within 1e-12
+    (the CPU's exp and log may differ in the last bit)."""
+    from libmems_tpu_torch.ops import hmm
+    seqs = _hmm_ragged_case(case)
+    params = hmm.adapted_hoxd_params(0.45)
+    md = hmm.log_matrices(params, dev)
+    (batch,), padded = hmm.plan_launches(seqs)
+    assert padded == []
+    t = batch.tensors(dev)
+    ref_p, ref_c = hmm.fb_ragged_plain(*t, md, 0.9)
+    got_p, got_c = hmm.fb_ragged(*t, md, 0.9)
+    assert torch.equal(got_p, ref_p)
+    assert torch.equal(got_c, ref_c)
+    assert 0 < int(ref_c.sum()) < sum(len(s) for s in seqs)
+    _, calls = hmm.fb_ragged(*t, md, 0.9, want_post=False)
+    assert torch.equal(calls, ref_c)
+    for g, r in zip(hmm.predict_homologous(seqs, params, device=dev),
+                    hmm.predict_homologous(seqs, params, device="cpu")):
+        np.testing.assert_array_equal(g, r)
+    for g, r in zip(hmm.posterior_homologous(seqs, params, device=dev),
+                    hmm.posterior_homologous(seqs, params, device="cpu")):
+        np.testing.assert_allclose(g, r, rtol=0, atol=1e-12)
+
+
+def test_hmm_sequential_forced_at_wide_width_equals_plain(dev):
+    """fb_posterior(..., sequential=True) at a padded width of 2^17 (the
+    smoke's comparison of the two routes): the new chains on rows at
+    offsets b * T, bit-equal to fb_sequential_plain on the card."""
+    from libmems_tpu_torch.ops import hmm
+    T = hmm.FB_SCAN_MIN_T
+    rng = np.random.default_rng(T)
+    lens = np.array([T, T - 1, 70_001, 17], np.int32)
+    obs = rng.integers(0, 8, (len(lens), T)).astype(np.uint8)
+    blocks = np.repeat(rng.random((len(lens), T // 4096)) < 0.5, 4096, 1)
+    obs = np.where(blocks, rng.integers(0, 2, obs.shape), obs)
+    o = torch.from_numpy(obs.astype(np.uint8)).to(dev)
+    n = torch.from_numpy(lens).to(dev)
+    md = hmm.log_matrices(hmm.adapted_hoxd_params(0.45), dev)
+    ref_p, ref_c = hmm.fb_sequential_plain(o, n, md, 0.9)
+    got_p, got_c = hmm.fb_posterior(o, n, md, 0.9, sequential=True)
+    assert torch.equal(got_p, ref_p)
+    assert torch.equal(got_c, ref_c)
+
+
+def test_hmm_chain_step_cycles(dev):
+    """The one-thread step measurement runs and gives a positive count
+    of cycles a step each way."""
+    from libmems_tpu_torch.ops import hmm
+    row = torch.from_numpy(_hmm_ragged_case("edges")[-4]).to(dev)
+    md = hmm.log_matrices(hmm.hoxd_params(), dev)
+    fwd, bwd = hmm.chain_step_cycles(row, md)
+    assert 0 < fwd < 1e5 and 0 < bwd < 1e5
+
+
 def test_nine_goldens_on_cuda(dev):
     from libmems_tpu_torch import (ProgressiveConfig, apply_backbone,
                                    progressive_align,
