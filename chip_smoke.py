@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py [--sweep] [phase ...]
 
-With no argument every phase runs but the light fullwidth, wide, hmm
-and hmmstage; naming phases (kernels, seeder, seedocc, goldens, main,
-trio, progressive, large, profile_dp, decode, bounded, mesh, tiled,
-multihost, cards, fullwidth, wide, hmm, hmmstage) runs only those, plus
+With no argument every phase runs but the light fullwidth, wide, hmm,
+hmmstage and runflags; naming phases (kernels, seeder, seedocc, goldens,
+main, trio, progressive, large, profile_dp, decode, bounded, mesh, tiled,
+multihost, cards, fullwidth, wide, hmm, hmmstage, runflags) runs only
+those, plus
 the progressive run whose recorded inputs profile_dp, decode and hmm
 read (and the large run for hmm, the main, trio and progressive runs
 whose outputs mesh and cards are held to, the main run for tiled and
@@ -20,7 +21,8 @@ non-zero and prints no result line):
 3. kernels - each hand kernel but K5-K7, K16 and K17 against its plain
              PyTorch version on the card at its path's shapes (K1-K4,
              K18 and K19 the pair's, K13-K15 and K2 the first trio's;
-             exact equality), with timings (K18's two passes timed
+             exact equality; K13 launch by launch too, and on the card
+             apart from its host launch), with timings (K18's two passes timed
              without the library sort between them, which is timed
              apart; K4's walk bytes to the host and tb_unpack's seconds
              printed); K3 and K9 alone (fullwidth_checks): an empty
@@ -34,12 +36,15 @@ non-zero and prints no result line):
              in every geometry that fits, each timed, with its latency
              floor;
 3b. seeder - K5-K7 against their plain versions on the 9 x 1 Mbp
-             seeder's table, then K6 and K7 once more on the 3 x 8.7 Mbp
+             seeder's table, then K5-K7 once more on the 3 x 8.7 Mbp
              family's (26 M rows, tens of thousands of tiles); exact
-             equality, with timings: K7 as the path runs it (its scan,
-             the read of n_reps and the decode at the final capacity)
-             and at the initial capacity, the sort of K6's words apart,
-             and each pass of K6 and K7 alone;
+             equality, K5 (and K13 in phase 3) also launch by launch
+             (run_flag_launches: the summaries, the flag pass on the
+             plain summaries), with timings: K5 by events and on the
+             card, each of its launches alone, K7 as the path runs it
+             (its scan, the read of n_reps and the decode at the final
+             capacity) and at the initial capacity, the sort of K6's
+             words apart, and each pass of K6 and K7 alone;
 3c. seedocc - K16 and K17 against their plain versions on one 8.7 Mbp
              genome of the 3 x 8.7 Mbp family (K16's tile summaries too;
              exact), timed through the wrappers and each launch alone
@@ -376,7 +381,7 @@ PHASES = ("kernels", "seeder", "seedocc", "goldens", "main", "trio",
           "tiled", "multihost", "cards")
 # phases only a named run takes: their checks are part of the full run's
 # phases already
-LIGHT_PHASES = ("fullwidth", "wide", "hmm", "hmmstage")
+LIGHT_PHASES = ("fullwidth", "wide", "hmm", "hmmstage", "runflags")
 # the HMM calls phase hmm records for phase hmmstage
 HMM_CALLS = os.path.join(ROOT, "build", "chip_smoke_hmm", "calls.npz")
 
@@ -1186,8 +1191,13 @@ def phase_pairwise_kernels(torch, lt, dev, large=None):
                  warmup=False),
         # ~10 integer operations a row: neighbour compares, run bounds
         work(nbytes(args, got), 10 * t["rows"]))
+    res["run_flags"]["card_ms"] = device_ms(
+        lambda: pairwise.run_flags(*args), 10, torch)
     log(f"# K5 run flags: rows={t['rows']} kept="
-        f"{int(got.unique_occ.sum())} equal")
+        f"{int(got.unique_occ.sum())} equal; "
+        f"{res['run_flags']['ms']:.4f} ms by events, "
+        f"{res['run_flags']['card_ms']:.4f} on the card")
+    run_flag_launches(torch, args, None, "K5 on the 9 x 1 Mbp table")
     k6, k7, cw = seeder_k6_k7(torch, t, ref)
     res["cluster_words"] = entry(
         k6["err"], k6["ms"], k6["plain_ms"],
@@ -1208,8 +1218,88 @@ def phase_pairwise_kernels(torch, lt, dev, large=None):
             f"ms, max_abs_err {e['err']}")
     if large is not None:
         t = seeder_table(torch, lt, dev, large)
-        seeder_k6_k7(torch, t, pairwise.run_flags_plain(*t["flag_args"]))
+        ref = pairwise.run_flags_plain(*t["flag_args"])
+        require(all(torch.equal(g, r) for g, r in zip(t["flags"], ref)),
+                "K5 differs from its plain version on the 3 x 8.7 Mbp table")
+        run_flag_launches(torch, t["flag_args"], None,
+                          "K5 on the 3 x 8.7 Mbp table")
+        seeder_k6_k7(torch, t, ref)
     return res
+
+
+def run_flag_launches(torch, args, span, label):
+    """K5's (span None; args run_flags') or K13's (span = repeat_tolerance
+    + 1; args mum_seed_flags') two launches each against its plain
+    version on the card: the summaries, and the flag pass on the plain
+    summaries with its look-back words zeroed; exact.  Each launch timed
+    alone by CUDA events and on the card (device_ms), the flag pass with
+    a zero fill of its look-back words, which is timed apart; and torch's
+    gather keys[src] (the strands' random reads, the flag pass's floor),
+    where keys are in position order."""
+    from libmems_tpu_torch.ops import mums, pairwise
+    content, src, keys, seg_off = args[:4]
+    n, dev = content.shape[0], content.device
+    scratch = pairwise.run_scratch(n, dev)
+    words = pairwise.run_summary_words(scratch, n)
+    pairwise._summaries(content, src, seg_off, span, scratch)
+    ref_words = pairwise.run_summaries_plain(content, src, seg_off, span)
+    require(torch.equal(words, ref_words),
+            f"{label}: the summaries differ from their plain version")
+    look = scratch[:scratch.shape[0] - words.shape[0]]
+    look.zero_()
+    i32 = dict(dtype=torch.int32, device=dev)
+    u8 = dict(dtype=torch.uint8, device=dev)
+    if span is None:
+        _, _, _, _, limit, sent = args
+        out = pairwise.RunFlags(torch.empty(n, dtype=torch.bool, device=dev),
+                                torch.empty(n, **i32), torch.empty(n, **i32),
+                                torch.empty(n, **i32), torch.empty(n, **u8))
+
+        def flag_pass():
+            pairwise._flag_pass(content, src, keys, seg_off, limit, sent,
+                                scratch, out)
+        flag_pass()
+        ref = pairwise.run_flags_from_summaries_plain(
+            content, src, keys, seg_off, ref_words, limit, sent)
+    else:
+        tol, limit, sent = args[4:7]
+        row_keys = args[7] if len(args) > 7 else False
+        out = mums.MumFlags(torch.empty(n, dtype=torch.bool, device=dev),
+                            torch.empty(n, **i32), torch.empty(n, **u8), 0,
+                            torch.empty(n, **i32), torch.empty(n, **i32),
+                            torch.empty(n, **u8))
+
+        def flag_pass():
+            mums._flag_pass(content, src, keys, seg_off, tol, limit, sent,
+                            row_keys, scratch, out)
+        flag_pass()
+        out = out._replace(n_rows=int(scratch[1]))
+        ref = mums.mum_flags_from_summaries_plain(
+            content, src, keys, seg_off, ref_words, tol, limit, sent,
+            row_keys)
+    require(all(torch.equal(g, r) if hasattr(r, "shape") else g == r
+                for g, r in zip(out, ref)),
+            f"{label}: the flag pass differs from its plain version")
+
+    def summaries():
+        pairwise._summaries(content, src, seg_off, span, scratch)
+
+    def filled_pass():
+        look.zero_()
+        flag_pass()
+    ms = {}
+    timed = [("summaries", summaries), ("flag pass", filled_pass),
+             ("zero fill", look.zero_)]
+    if span is None or not row_keys:
+        timed.append(("keys[src] gather",
+                      lambda: torch.index_select(keys, 0, src)))
+    for name, fn in timed:
+        ms[name] = (timed_ms(fn, 20, torch), device_ms(fn, 20, torch))
+    tiles = pairwise.run_tiles(n)
+    log(f"# {label}: {n} rows, {tiles} tiles, each launch equal to its "
+        f"plain version; alone (events, card ms): " + "; ".join(
+            f"{k} {e:.4f}, {c:.4f}" for k, (e, c) in ms.items()))
+    return ms
 
 
 def seeder_table(torch, lt, dev, genomes):
@@ -1528,6 +1618,58 @@ def phase_seedocc_kernels(torch, lt, dev, genomes):
     return res, max_abs_err([(kl, rl), (kn, rn)])
 
 
+def phase_runflags(torch, lt, dev):
+    """K5 and K13 through their wrappers alone at the paths' shapes: K5 on
+    the 9 x 1 Mbp family's seed table (rng 0) and on the 3 x 8.7 Mbp
+    family's, K13 on the first trio's and on the meshed pair's shard 0
+    (its routed rows, MESH_SHARDS shards); each equal to its plain
+    version, then timed by CUDA events and on the card (device_ms), 20
+    runs each, median.  It calls only the wrappers, their plain versions
+    and the paths' table builders, so this script copied into an older
+    tree's archive times that tree the same way.  Prints one JSON line
+    {"runflags": {table: {rows, events_ms, card_ms}}}."""
+    from libmems_tpu_torch.matchfind import _seed_table
+    from libmems_tpu_torch.ops import mums, pairwise
+    from libmems_tpu_torch.ops.mers import key_sentinel, sentinel_content
+    from libmems_tpu_torch.parallel import shard as psh
+    from libmems_tpu_torch.sml import create_smls
+    tables = {}
+    for label, fam in (("K5 9 x 1 Mbp", family_nine(lt, 0)),
+                       ("K5 3 x 8.7 Mbp", family_large(lt))):
+        tables[label] = (pairwise.run_flags, pairwise.run_flags_plain,
+                         seeder_table(torch, lt, dev, fam)["flag_args"])
+    smls, seed = create_smls(family_trio(lt, 0), device=dev)
+    keys, seg_off, content, src = _seed_table(smls)
+    tables["K13 3 x 1.5 Mbp trio"] = (
+        mums.mum_seed_flags, mums.mum_seed_flags_plain,
+        (content, src, keys, seg_off, 0, 1000, sentinel_content(seed)))
+    smls, seed = create_smls(genome_pair(lt, 0), device=dev)
+    mesh = psh.Mesh([dev] * MESH_SHARDS)
+    lay = psh._Layout(smls, mesh)
+    _, route_cap = psh._default_caps(lay.total, mesh.size, None, None)
+    routed, dropped = psh._route(mesh, lay.slices, key_sentinel(seed),
+                                 route_cap)
+    require(dropped == 0, f"{dropped} rows dropped at route_cap {route_cap}")
+    content, src, _ = routed[0]
+    tables["K13 meshed pair shard 0"] = (
+        mums.mum_seed_flags, mums.mum_seed_flags_plain,
+        (content, src, lay.keys[dev], lay.seg_off[dev], 0, 1000,
+         sentinel_content(seed)))
+    out = {}
+    for label, (fn, plain, args) in tables.items():
+        got, ref = fn(*args), plain(*args)
+        require(all(torch.equal(g, r) if hasattr(r, "shape") else g == r
+                    for g, r in zip(got, ref)),
+                f"{label}: differs from its plain version")
+        out[label] = {"rows": args[0].shape[0],
+                      "events_ms": timed_ms(lambda: fn(*args), 20, torch),
+                      "card_ms": device_ms(lambda: fn(*args), 20, torch)}
+        log(f"# {label}: {out[label]['rows']} rows, equal; "
+            f"{out[label]['events_ms']:.4f} ms by events, "
+            f"{out[label]['card_ms']:.4f} on the card")
+    log(json.dumps({"runflags": out}))
+
+
 def phase_mum_kernels(torch, lt, dev):
     """K13-K15 against their plain versions on the card, on the seed
     table of the first trio input (rng 0), and K2 on that input's
@@ -1564,7 +1706,12 @@ def phase_mum_kernels(torch, lt, dev):
         # the sorted table and keys in, seven per-row columns out; ~12
         # integer operations a row (compares, run bounds, flags)
         work(nbytes(args, tensors(got)), 12 * n))
-    log(f"# K13 seed flags: rows={n} candidate rows={got.n_rows} equal")
+    res["mum_seed_flags"]["card_ms"] = device_ms(
+        lambda: mums.mum_seed_flags(*args), 10, torch)
+    log(f"# K13 seed flags: rows={n} candidate rows={got.n_rows} equal; "
+        f"{res['mum_seed_flags']['ms']:.4f} ms by events, "
+        f"{res['mum_seed_flags']['card_ms']:.4f} on the card")
+    run_flag_launches(torch, args, args[4] + 1, "K13 on the trio's table")
 
     pos_bits = n.bit_length()
     got_c = mums.mum_candidates(got, G, 0, pos_bits)
@@ -3785,9 +3932,14 @@ def shard_kernels_vs_plain(torch, lt, dev, genomes):
     require(dropped == 0, f"{dropped} rows dropped at route_cap {route_cap}")
     content, src, _ = tables[0]
     del tables
-    flags = mums.mum_seed_flags(content, src, lay.keys[dev],
-                                lay.seg_off[dev], 0, 1000,
-                                sentinel_content(seed))
+    fargs = (content, src, lay.keys[dev], lay.seg_off[dev], 0, 1000,
+             sentinel_content(seed))
+    flags = mums.mum_seed_flags(*fargs)
+    ref_f = mums.mum_seed_flags_plain(*fargs)
+    require(flags.n_rows == ref_f.n_rows
+            and all(torch.equal(g, r) for g, r in zip(flags, ref_f)
+                    if hasattr(r, "shape")),
+            "K13 differs from its plain version on shard 0's routed table")
     G, seed_len = lay.G, lay.seed_len
     got = shard.shard_candidates(flags, G, capacity, seed_len)
     ref = shard.shard_candidates_plain(flags, G, capacity, seed_len)
@@ -4752,6 +4904,9 @@ def main(argv=None) -> int:
     if "wide" in phases:
         phase_wide(torch, dev)
         lap("wide")
+    if "runflags" in phases:
+        phase_runflags(torch, lt, dev)
+        lap("runflags")
     if "extend_matches" in res:
         res["extend_matches"]["err"] = max([res["extend_matches"]["err"]]
                                            + k2_errs)
@@ -4790,6 +4945,8 @@ def main(argv=None) -> int:
                         "bound_by": bound_by, "library_ms": None})
         if "latency_ms" in e["work"]:   # a chain's second bound
             kernels[-1]["latency_bound_ms"] = e["work"]["latency_ms"]
+        if "card_ms" in e:   # the card's time apart from the host launch
+            kernels[-1]["card_ms"] = e["card_ms"]
     log(f"# card: {card}; " + "; ".join(walls))
     log(json.dumps({"kernels": kernels}))
     if phases != list(PHASES):

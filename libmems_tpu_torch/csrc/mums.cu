@@ -3,20 +3,32 @@
 //
 // K13, seed-enumeration flags, replaces libmems_tpu/matchfind.py
 // _mum_seed_flags (:67-95) with the ops/segments.py run helpers it calls.
-// Input: the (content, gid, pos)-sorted seed table, as the sorted content
-// plus each row's genome, position and strand (K5's lm_run_starts derives
-// them from the sort's source index) and the inclusive cumsum of the
-// run-start flags.  A run is kept when it holds at least two genomes, no
-// (content, gid) subrun is longer than repeat_tolerance + 1, it has at
-// most repeat_limit rows and its content is not the masked-window
-// sentinel.  No thread walks a run (the sentinel run and repeats past the
-// limit can be a million rows long): run bounds are a scatter of the run
-// starts to their run id, the genome count is a compare of the run's
-// first and last gid (rows are gid-sorted within a run), and a subrun is
-// too long exactly when some row has the row tolerance + 1 places before
-// it in the same subrun, so those flags are counted over the run with a
-// cumsum difference.  Kept runs are numbered by a cumsum of their start
-// flags.
+// Input: the (content, gid, pos)-sorted seed table as K5 takes it (sorted
+// content, each row's source index into the position-order keys, the
+// genome bounds).  A run is kept when its first and last rows' genomes
+// differ (rows are gid-sorted within a run, so it holds two genomes), no
+// row of it is big (a (content, gid) subrun longer than repeat_tolerance +
+// 1 holds a row whose row span = repeat_tolerance + 1 places back is in
+// its subrun), it has at most repeat_limit rows and its content is not the
+// masked-window sentinel.  Two launches over tiles of lm::kRunTile rows
+// (runs.cuh), with no cumsum, no O(n) scratch and no row walking its run
+// (the sentinel run and repeats past the limit can be a million rows):
+//  1. K5's run_summaries_kernel with the big rows flagged: each tile's
+//     first and last run start, whether a big row lies before the first
+//     or at or after the last;
+//  2. mum_tile_flags_kernel, one block a tile: each row's genome, position
+//     and strand, the run, subrun and big rows as ballot words, each row's
+//     run bounds as K5 finds them; the row that ends a run in the tile (or
+//     the tile's last row) decides the run: the first row's genome and
+//     strand from shared memory (or, for a run across the left edge, from
+//     its start row), big rows from the nearest big row at or before it
+//     and, across the edges, the summaries' flags the walks passed.  Its
+//     verdict goes through shared memory to the run's rows: kept_occ
+//     (subrun start and kept), ref_strand (the strand of the run's first
+//     row), row_id = the kept runs of the earlier tiles (decoupled
+//     look-back, scan.cuh) + the rank of the row's run start among the
+//     tile's kept starts - 1; the last tile leaves n_rows in the scratch,
+//     the call's one host read.
 //
 // K14, candidates, replaces _fused_mum_pipeline :355-380 and
 // _packed_diagonal_words (:283-311): one thread per kept row scatters
@@ -38,9 +50,11 @@
 // rows in the same order) as K2's [EC, G] extension rows.
 //
 // Bound: memory traffic.  Each pass reads a few int32/int64 columns of
-// the table once, coalesced, and writes one or two; the sorts and cumsums
-// between the passes stay library calls and cost more than the passes.
+// the table once, coalesced, and writes one or two (K13's gather of the
+// rows' strands aside); the sorts between the passes, and K15's cumsum,
+// stay library calls and cost more than the passes.
 #include "common.cuh"
+#include "runs.cuh"
 
 namespace {
 
@@ -122,59 +136,151 @@ __device__ __forceinline__ int recover_start(const int64_t* __restrict__ words,
   return (int)(neg ? -(pos + 1) : pos + 1);
 }
 
-// K13 pass 1: run r starts at run_start[r], run_start[n_runs] = n; big
-// flags the rows whose (content, gid) subrun holds the row `span` places
-// before them (span = repeat_tolerance + 1).
-__global__ void mum_bounds_kernel(const int64_t* __restrict__ content,
-                                  const int* __restrict__ gid,
-                                  const int* __restrict__ sc,
-                                  const int* __restrict__ rid1, int64_t n,
-                                  int span, int64_t* __restrict__ run_start,
-                                  int* __restrict__ big) {
-  for (int64_t i = first_index(); i < n; i += grid_stride()) {
-    if (sc[i]) run_start[rid1[i] - 1] = i;
-    if (i == n - 1) run_start[rid1[i]] = n;
-    const int64_t j = i - span;
-    big[i] = (j >= 0 && content[j] == content[i] && gid[j] == gid[i]) ? 1 : 0;
-  }
+constexpr int kWarps = kThreads / 32;
+using lm::kRunRowsPerLane;
+using lm::kRunTile;
+using lm::kRunWarpRows;
+
+__device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
+  return a < b ? a : b;
 }
 
-// K13 pass 2: the run test, kept_occ (first row of a (content, gid)
-// subrun of a kept run), ref_strand (the strand of the run's first row)
-// and the kept runs' start flags.  big_cum is the inclusive cumsum of big.
-__global__ void mum_keep_kernel(const int64_t* __restrict__ content,
-                                const int* __restrict__ gid,
-                                const unsigned char* __restrict__ strand,
-                                const int* __restrict__ rid1,
-                                const int64_t* __restrict__ run_start,
-                                const int* __restrict__ big_cum, int64_t n,
-                                int repeat_limit, int64_t sent_content,
-                                unsigned char* __restrict__ kept_occ,
-                                unsigned char* __restrict__ ref_strand,
-                                int* __restrict__ keep_start) {
-  for (int64_t i = first_index(); i < n; i += grid_stride()) {
-    const int r = rid1[i] - 1;
-    const int64_t s = run_start[r];
-    const int64_t e = run_start[r + 1];
-    const int big_in_run = big_cum[e - 1] - (s > 0 ? big_cum[s - 1] : 0);
-    const bool keep = gid[s] != gid[e - 1] && big_in_run == 0 &&
-                      e - s <= repeat_limit && content[i] != sent_content;
-    const bool sub_start =
-        i == 0 || content[i - 1] != content[i] || gid[i - 1] != gid[i];
-    kept_occ[i] = (sub_start && keep) ? 1 : 0;
-    ref_strand[i] = strand[s];
-    keep_start[i] = (i == s && keep) ? 1 : 0;
-  }
-}
+// K13's launch 2 on the tile of the block's ticket (span = repeat_tolerance
+// + 1); t.scan word 1 holds n_rows after the launch.
+__global__ void __launch_bounds__(kThreads, lm::kRunMinBlocks)
+    mum_tile_flags_kernel(lm::SeedTable t, int span, int64_t repeat_limit,
+                          int64_t sent_content,
+                          unsigned char* __restrict__ kept_occ,
+                          int* __restrict__ row_id,
+                          unsigned char* __restrict__ ref_strand) {
+  __shared__ lm::RowWords rw;
+  __shared__ lm::BigWords bw;
+  __shared__ int warp_first[kWarps], warp_last[kWarps], warp_big[kWarps];
+  // the runs across the left and the right edge: start, end, genome of
+  // the first and of the last row, big rows outside the tile, the first
+  // row's strand; whether row b starts a subrun
+  __shared__ int64_t start_in, end_out;
+  __shared__ int gid_in, gid_out;
+  __shared__ bool big_in, big_out, strand_in, scg_b;
+  const int64_t tile = lm::take_tile(t.scan);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int ws0 = warp * kRunRowsPerLane;
+  const int64_t a = tile * kRunTile;
+  const int64_t b = min64(a + kRunTile, t.n);
+  const int64_t w0 = a + warp * kRunWarpRows;
 
-// K13 pass 3: row_id = (kept runs up to and including the row's run) - 1.
-__global__ void mum_row_id_kernel(const int* __restrict__ rid1,
-                                  const int64_t* __restrict__ run_start,
-                                  const int* __restrict__ keep_cum, int64_t n,
-                                  int* __restrict__ row_id) {
-  for (int64_t i = first_index(); i < n; i += grid_stride()) {
-    row_id[i] = keep_cum[run_start[rid1[i] - 1]] - 1;
+  unsigned starts;
+  const unsigned sent = lm::load_tile_rows<true>(t, span, w0, a, b,
+                                                 sent_content, rw, &bw,
+                                                 starts);
+  lm::step_carries(rw.sc, rw.before, rw.after, w0, a);
+  lm::step_carries(bw.big, bw.big_before, nullptr, w0, a);
+  if (lane == 0) {
+    warp_first[warp] = lm::warp_first_bit(rw.sc, rw.after, ws0, w0, a);
+    warp_last[warp] = lm::warp_last_bit(rw.sc, rw.before, ws0, w0, a);
+    warp_big[warp] = lm::warp_last_bit(bw.big, bw.big_before, ws0, w0, a);
   }
+  if (warp == 0) {
+    if (rw.sc[0] & 1u) {
+      if (lane == 0) start_in = -1;
+    } else {
+      const lm::RunEdge left =
+          lm::walk_summaries(t.words + t.tiles, tile, t.tiles, -1);
+      if (lane == 0) {
+        const int64_t s0 = t.src[left.at];
+        start_in = left.at;
+        big_in = left.flag;
+        gid_in = lm::gid_of(s0, t.seg_off, t.G);
+        strand_in = t.keys[t.by_row ? left.at : s0] & 1;
+      }
+    }
+  } else if (warp == 1) {
+    const lm::RunEdge right = lm::walk_summaries(t.words, tile, t.tiles, 1);
+    if (lane == 0) {
+      const int64_t e = right.at >= 0 ? right.at : t.n;
+      end_out = e;
+      big_out = right.flag;
+      gid_out = lm::gid_of(t.src[e - 1], t.seg_off, t.G);
+      scg_b = lm::subrun_starts_at(t, b);
+    }
+  }
+  __syncthreads();
+  // tile-relative from here on
+  const int n_tile = (int)(b - a);
+  int64_t first_in = start_in - a;
+  int64_t end_in = end_out - a;
+  int64_t big_before = -1;
+  for (int w = 0; w < warp; ++w) {
+    if (warp_last[w] >= 0) first_in = warp_last[w];
+    if (warp_big[w] >= 0) big_before = warp_big[w];
+  }
+  for (int w = kWarps - 1; w > warp; --w) {
+    if (warp_first[w] >= 0) end_in = warp_first[w];
+  }
+
+  // the verdict of each run, at the row that decides it: its last row in
+  // the tile
+  const unsigned upto = (2u << lane) - 1u;  // lanes 0..lane
+  for (int s = 0; s < kRunRowsPerLane; ++s) {
+    const int ws = ws0 + s;
+    const int r = ws * 32 + lane;
+    const unsigned m = rw.sc[ws];
+    bool keep = false;
+    if (r < n_tile) {
+      const int64_t end = lm::bit_after(m, upto, ws * 32, rw.after[ws], end_in);
+      if (end == r + 1 || r == n_tile - 1) {
+        const int64_t first =
+            lm::bit_at_or_before(m, upto, ws * 32, rw.before[ws], first_in);
+        const int64_t near_big = lm::bit_at_or_before(
+            bw.big[ws], upto, ws * 32, bw.big_before[ws], big_before);
+        const int g_first = first >= 0 ? bw.gid[first] : gid_in;
+        const int g_last = end == r + 1 ? bw.gid[r] : gid_out;
+        const bool big = near_big >= (first > 0 ? first : 0) ||
+                         (first < 0 && big_in) || (end > n_tile && big_out);
+        keep = g_first != g_last && !big && end - first <= repeat_limit &&
+               !((sent >> s) & 1u);
+      }
+    }
+    const unsigned kw = __ballot_sync(lm::kRunFull, keep);
+    if (lane == 0) bw.kept[ws] = kw;
+  }
+  __syncthreads();
+
+  // each row's verdict from its run's deciding row; the kept runs' starts
+  unsigned count = 0;
+  for (int s = 0; s < kRunRowsPerLane; ++s) {
+    const int ws = ws0 + s;
+    const int r = ws * 32 + lane;
+    const unsigned m = rw.sc[ws];
+    bool kept = false;
+    if (r < n_tile) {
+      const int64_t end = lm::bit_after(m, upto, ws * 32, rw.after[ws], end_in);
+      const int64_t first =
+          lm::bit_at_or_before(m, upto, ws * 32, rw.before[ws], first_in);
+      const int d = (int)min64(end, n_tile) - 1;
+      kept = (bw.kept[d >> 5] >> (d & 31)) & 1u;
+      ref_strand[a + r] =
+          first >= 0 ? (bw.strand[first >> 5] >> (first & 31)) & 1u
+                     : (unsigned)strand_in;
+      kept_occ[a + r] = kept && ((rw.scg[ws] >> lane) & 1u) ? 1 : 0;
+    }
+    const unsigned km = __ballot_sync(lm::kRunFull, kept && ((m >> lane) & 1u));
+    if (lane == 0) bw.kept_start[ws] = km;
+    count += __popc(km);
+  }
+  unsigned warp_off, total;
+  const unsigned long long excl =
+      lm::block_offsets(t.scan, tile, count, &warp_off, &total);
+  int64_t at = (int64_t)excl + warp_off;
+  for (int s = 0; s < kRunRowsPerLane; ++s) {
+    const int ws = ws0 + s;
+    const int r = ws * 32 + lane;
+    const unsigned km = bw.kept_start[ws];
+    if (r < n_tile) row_id[a + r] = (int)(at + __popc(km & upto) - 1);
+    at += __popc(km);
+  }
+  if (tile == t.tiles - 1 && threadIdx.x == 0) t.scan[1] = excl + total;
 }
 
 // K14 pass 1: the kept rows into the zeroed candidate table [n_rows, G].
@@ -280,50 +386,26 @@ __global__ void mum_reps_kernel(const int64_t* __restrict__ words,
 
 }  // namespace
 
-// K13, after lm_run_starts and the cumsum of its run-start flags:
-// content int64[n] sorted; gid, sc, rid1 int32[n]; run_start int64[n+1]
-// and big int32[n] are outputs (scratch of the next passes).
-extern "C" int lm_mum_bounds(const void* content, const void* gid,
-                             const void* sc, const void* rid1, int64_t n,
-                             int span, void* run_start, void* big,
-                             void* stream) {
+// K13's launch 2, after lm_run_summaries (big, span) on the same
+// scratch: keys int64 the position-order keys, or with by_row the rows'
+// own (int64[n]); kept_occ, ref_strand, strand uint8[n]; row_id, gid, pos
+// int32[n]; scratch word 1 n_rows after the launch.
+extern "C" int lm_mum_tile_flags(const void* content, const void* src,
+                                 const void* keys, int by_row,
+                                 const void* seg_off, int G, int64_t n,
+                                 int span, int64_t repeat_limit,
+                                 int64_t sent_content, void* scratch,
+                                 void* kept_occ, void* row_id,
+                                 void* ref_strand, void* gid, void* pos,
+                                 void* strand, void* stream) {
   if (n > 0) {
-    LM_LAUNCH(mum_bounds_kernel, blocks_for(n), kThreads, 0,
-              (cudaStream_t)stream, (const int64_t*)content, (const int*)gid,
-              (const int*)sc, (const int*)rid1, n, span, (int64_t*)run_start,
-              (int*)big);
-  }
-  return (int)cudaGetLastError();
-}
-
-// K13, after the cumsum of big: kept_occ, ref_strand uint8[n];
-// keep_start int32[n] (its cumsum numbers the kept runs).
-extern "C" int lm_mum_keep(const void* content, const void* gid,
-                           const void* strand, const void* rid1,
-                           const void* run_start, const void* big_cum,
-                           int64_t n, int repeat_limit, int64_t sent_content,
-                           void* kept_occ, void* ref_strand, void* keep_start,
-                           void* stream) {
-  if (n > 0) {
-    LM_LAUNCH(mum_keep_kernel, blocks_for(n), kThreads, 0,
-              (cudaStream_t)stream, (const int64_t*)content, (const int*)gid,
-              (const unsigned char*)strand, (const int*)rid1,
-              (const int64_t*)run_start, (const int*)big_cum, n, repeat_limit,
-              sent_content, (unsigned char*)kept_occ,
-              (unsigned char*)ref_strand, (int*)keep_start);
-  }
-  return (int)cudaGetLastError();
-}
-
-// K13, after the cumsum of keep_start: row_id int32[n].
-extern "C" int lm_mum_row_ids(const void* rid1, const void* run_start,
-                              const void* keep_cum, int64_t n, void* row_id,
-                              void* stream) {
-  if (n > 0) {
-    LM_LAUNCH(mum_row_id_kernel, blocks_for(n), kThreads, 0,
-              (cudaStream_t)stream, (const int*)rid1,
-              (const int64_t*)run_start, (const int*)keep_cum, n,
-              (int*)row_id);
+    const lm::SeedTable t = lm::seed_table(content, src, keys, by_row,
+                                           seg_off, G, n, scratch, gid, pos,
+                                           strand);
+    LM_LAUNCH(mum_tile_flags_kernel, (unsigned)t.tiles, kThreads, 0,
+              (cudaStream_t)stream, t, span, repeat_limit, sent_content,
+              (unsigned char*)kept_occ, (int*)row_id,
+              (unsigned char*)ref_strand);
   }
   return (int)cudaGetLastError();
 }

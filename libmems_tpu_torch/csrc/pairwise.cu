@@ -8,9 +8,21 @@
 // position-order concatenation of the genomes' keys (a stable sort on
 // content of that concatenation is exactly the (content, gid, pos) order).
 // A row's gid and pos come from its source index and the G+1 segment
-// bounds.  Run lengths are run-start flags -> cumsum (torch) -> a scatter
-// of run starts -> a difference, so no row ever walks its run: the
-// sentinel run of ambiguous windows can be a million rows long.
+// bounds.  K5 is two launches over tiles of lm::kRunTile rows (runs.cuh),
+// with no cumsum and no O(n) scratch:
+//  1. run_summaries_kernel, one warp a tile: the tile's first and last run
+//     start (and, for K13, whose launch 1 it is too, whether a big row
+//     lies before the first or at or after the last); it also zeroes the
+//     look-back scratch of launch 2;
+//  2. run_tile_flags_kernel, one block a tile (taken from a ticket,
+//     scan.cuh): each row's genome, position and strand; run and subrun
+//     starts as ballot words; each row's run bounds from bit scans in the
+//     tile and from the summaries across its edges, so no row walks its
+//     run; unique_occ = (subrun_len == 1) & (runlen <= repeat_limit) &
+//     not_sent, the subrun's length one where the row and the next both
+//     start a subrun (one row past the tile's end read); run_id = the run
+//     starts of the earlier tiles (the decoupled look-back) + the row's
+//     run start's rank in the tile - 1.
 //
 // K6, cluster words, replaces the kept-row payload decode and the G-1
 // shifted compares of _pairwise_core (:1127-1160), in two kernels around
@@ -46,12 +58,14 @@
 //    words are scanned once a call.
 //
 // Bound: memory traffic.  Every pass reads or writes each of its bytes
-// once, coalesced, with no library cumsum between passes; the sorts
-// around them stay library calls.
+// once, coalesced, with no library cumsum between passes (K5's random
+// gather of keys[src] for the strand aside); the sorts around them stay
+// library calls.
 //
 // 64-bit words are int64 holding unsigned patterns: right shifts go
 // through uint64, and the -1 sentinel is all ones.
 #include "common.cuh"
+#include "runs.cuh"
 #include "scan.cuh"
 
 namespace {
@@ -64,69 +78,113 @@ using lm::kScanItems;
 using lm::kScanThreads;
 using lm::kWarpSpan;
 
-// genome of a position-order row: the largest g with seg_off[g] <= src
-__device__ __forceinline__ int gid_of(int64_t src, const int64_t* seg_off,
-                                      int G) {
-  int lo = 0, hi = G;
-  while (hi - lo > 1) {
-    const int mid = (lo + hi) >> 1;
-    if (seg_off[mid] <= src) lo = mid; else hi = mid;
-  }
-  return lo;
+constexpr int kWarps = kThreads / 32;
+using lm::kRunRowsPerLane;
+using lm::kRunTile;
+using lm::kRunWarpRows;
+
+__host__ __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
+  return a < b ? a : b;
 }
 
-// K5 pass 1: per sorted row its genome, position, strand and run-start
-// flag (content differs from the previous row).
-__global__ void run_start_kernel(const int64_t* __restrict__ content,
-                                 const int64_t* __restrict__ src,
-                                 const int64_t* __restrict__ keys,
-                                 int by_row,
-                                 const int64_t* __restrict__ seg_off, int G,
-                                 int64_t n, int* __restrict__ sc,
-                                 int* __restrict__ gid, int* __restrict__ pos,
-                                 unsigned char* __restrict__ strand) {
-  for (int64_t i = first_index(); i < n; i += grid_stride()) {
-    const int64_t s = src[i];
-    const int g = gid_of(s, seg_off, G);
-    gid[i] = g;
-    pos[i] = (int)(s - seg_off[g]);
-    strand[i] = (unsigned char)(keys[by_row ? i : s] & 1);
-    sc[i] = (i == 0 || content[i] != content[i - 1]) ? 1 : 0;
-  }
-}
-
-// K5 pass 2: run r starts at run_start[r]; run_start[n_runs] = n.
-// rid1 is the inclusive cumsum of the run-start flags.
-__global__ void run_bounds_kernel(const int* __restrict__ sc,
-                                  const int* __restrict__ rid1, int64_t n,
-                                  int64_t* __restrict__ run_start) {
-  for (int64_t i = first_index(); i < n; i += grid_stride()) {
-    if (sc[i]) run_start[rid1[i] - 1] = i;
-    if (i == n - 1) run_start[rid1[i]] = n;
+// K5's and K13's launch 1: words[t] = tile t's first run start * 2 + (a
+// big row lies before it), words[tiles + t] = its last * 2 + (one lies at
+// or after it); -2 + (one lies in the tile) where it holds no start (no
+// row is big unless rows.big).  The look-back scratch `scan` of launch 2
+// zeroed.  One warp a tile.
+__global__ void __launch_bounds__(kThreads)
+    run_summaries_kernel(lm::TableRows rows, int64_t n, int64_t tiles,
+                         long long* __restrict__ words,
+                         unsigned long long* __restrict__ scan) {
+  if (blockIdx.x == 0 && threadIdx.x < lm::kScanHeader) scan[threadIdx.x] = 0;
+  const int64_t t = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (t >= tiles) return;
+  const int64_t a = t * kRunTile;
+  const lm::TileEdges e = lm::tile_edges(rows, a, min64(a + kRunTile, n));
+  if ((threadIdx.x & 31) == 0) {
+    scan[lm::kScanHeader + t] = 0;
+    words[t] = e.first * 2 + (e.flag_first ? 1 : 0);
+    words[tiles + t] = e.last * 2 + (e.flag_last ? 1 : 0);
   }
 }
 
-// K5 pass 3: unique_occ = (subrun_len == 1) & (runlen <= repeat_limit) &
-// not_sent, run_id = rid1 - 1.  A (content, gid) subrun has length one
-// iff the row starts a subrun and the next row starts one too.
-__global__ void run_flags_kernel(const int64_t* __restrict__ content,
-                                 const int* __restrict__ gid,
-                                 const int* __restrict__ rid1,
-                                 const int64_t* __restrict__ run_start,
-                                 int64_t n, int repeat_limit,
-                                 int64_t sent_content,
-                                 unsigned char* __restrict__ unique_occ,
-                                 int* __restrict__ run_id) {
-  for (int64_t i = first_index(); i < n; i += grid_stride()) {
-    const int64_t c = content[i];
-    const int g = gid[i];
-    const int r = rid1[i] - 1;
-    const int64_t runlen = run_start[r + 1] - run_start[r];
-    const bool sub_start = i == 0 || content[i - 1] != c || gid[i - 1] != g;
-    const bool sub_end = i == n - 1 || content[i + 1] != c || gid[i + 1] != g;
-    unique_occ[i] = (sub_start && sub_end && runlen <= repeat_limit &&
-                     c != sent_content) ? 1 : 0;
-    run_id[i] = r;
+// K5's launch 2 on the tile of the block's ticket.
+__global__ void __launch_bounds__(kThreads, lm::kRunMinBlocks)
+    run_tile_flags_kernel(lm::SeedTable t, int64_t repeat_limit,
+                          int64_t sent_content,
+                          unsigned char* __restrict__ unique_occ,
+                          int* __restrict__ run_id) {
+  __shared__ lm::RowWords rw;
+  __shared__ int warp_first[kWarps], warp_last[kWarps];
+  __shared__ int64_t carry[2];
+  __shared__ bool scg_b;
+  const int64_t tile = lm::take_tile(t.scan);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int ws0 = warp * kRunRowsPerLane;
+  const int64_t a = tile * kRunTile;
+  const int64_t b = min64(a + kRunTile, t.n);
+  const int64_t w0 = a + warp * kRunWarpRows;
+
+  unsigned starts;
+  const unsigned sent = lm::load_tile_rows<false>(t, 0, w0, a, b, sent_content,
+                                                  rw, nullptr, starts);
+  lm::step_carries(rw.sc, rw.before, rw.after, w0, a);
+  if (lane == 0) {
+    warp_first[warp] = lm::warp_first_bit(rw.sc, rw.after, ws0, w0, a);
+    warp_last[warp] = lm::warp_last_bit(rw.sc, rw.before, ws0, w0, a);
+  }
+  // the run across the tile's left edge starts in the nearest earlier
+  // tile with a start; the run across its right edge ends at the nearest
+  // later tile's first start, or n
+  if (warp == 0) {
+    const int64_t left =
+        rw.sc[0] & 1u ? -1
+                      : lm::walk_summaries(t.words + t.tiles, tile, t.tiles, -1)
+                            .at;
+    if (lane == 0) carry[0] = left;
+  } else if (warp == 1) {
+    const int64_t right = lm::walk_summaries(t.words, tile, t.tiles, 1).at;
+    if (lane == 0) {
+      carry[1] = right >= 0 ? right : t.n;
+      scg_b = lm::subrun_starts_at(t, b);
+    }
+  }
+  // the run starts of the earlier tiles (its barriers publish the above)
+  unsigned warp_off, total;
+  const unsigned long long excl =
+      lm::block_offsets(t.scan, tile, starts, &warp_off, &total);
+  // tile-relative from here on
+  int64_t start_in = carry[0] - a;
+  int64_t end_in = carry[1] - a;
+  for (int w = 0; w < warp; ++w) {
+    if (warp_last[w] >= 0) start_in = warp_last[w];
+  }
+  for (int w = kWarps - 1; w > warp; --w) {
+    if (warp_first[w] >= 0) end_in = warp_first[w];
+  }
+  const unsigned upto = (2u << lane) - 1u;  // lanes 0..lane
+  int64_t at = (int64_t)excl + warp_off;
+  for (int s = 0; s < kRunRowsPerLane; ++s) {
+    const int ws = ws0 + s;
+    const int r = ws * 32 + lane;
+    const unsigned m = rw.sc[ws];
+    if (a + r < b) {
+      run_id[a + r] = (int)(at + __popc(m & upto) - 1);
+      const int64_t start =
+          lm::bit_at_or_before(m, upto, ws * 32, rw.before[ws], start_in);
+      const int64_t end = lm::bit_after(m, upto, ws * 32, rw.after[ws], end_in);
+      // the subrun has one row: it starts here and the next row starts one
+      const bool next = a + r + 1 == b
+                            ? scg_b
+                            : (rw.scg[(r + 1) >> 5] >> ((r + 1) & 31)) & 1u;
+      const bool single = ((rw.scg[ws] >> lane) & 1u) && next;
+      unique_occ[a + r] = single && end - start <= repeat_limit &&
+                                  !((sent >> s) & 1u)
+                              ? 1
+                              : 0;
+    }
+    at += __popc(m);
   }
 }
 
@@ -357,38 +415,46 @@ __global__ void reps_kernel(const int64_t* __restrict__ cw,
 
 }  // namespace
 
-// K5, before the cumsum of sc.  content/src/keys/seg_off: int64; sc, gid,
-// pos: int32[n]; strand: uint8[n].  The strand is keys[src[i]] & 1, or
-// keys[i] & 1 with by_row (keys then the sorted rows' own keys, int64[n]).
-extern "C" int lm_run_starts(const void* content, const void* src,
-                             const void* keys, int by_row,
-                             const void* seg_off, int G, int64_t n, void* sc,
-                             void* gid, void* pos, void* strand,
-                             void* stream) {
+// Words of K5's and K13's scratch over n rows: the look-back of launch 2
+// (scan.cuh: its header, a status word a tile), then the tiles' summary
+// words (two a tile).
+extern "C" int64_t lm_run_scratch_words(int64_t n) {
+  return lm::kScanHeader + 3 * lm::run_tiles(n);
+}
+
+// K5's and K13's launch 1.  content, src: int64[n] the sorted table;
+// seg_off: int64[G+1]; big: flag K13's big rows (span = repeat_tolerance +
+// 1); scratch: int64[lm_run_scratch_words(n)].
+extern "C" int lm_run_summaries(const void* content, const void* src,
+                                const void* seg_off, int G, int64_t n,
+                                int big, int span, void* scratch,
+                                void* stream) {
   if (n > 0) {
-    LM_LAUNCH(run_start_kernel, blocks_for(n), kThreads, 0,
-              (cudaStream_t)stream, (const int64_t*)content,
-              (const int64_t*)src, (const int64_t*)keys, by_row,
-              (const int64_t*)seg_off, G, n, (int*)sc, (int*)gid, (int*)pos,
-              (unsigned char*)strand);
+    const int64_t tiles = lm::run_tiles(n);
+    unsigned long long* scan = (unsigned long long*)scratch;
+    const lm::TableRows rows{(const int64_t*)content, (const int64_t*)src,
+                             (const int64_t*)seg_off, G, span, big != 0};
+    LM_LAUNCH(run_summaries_kernel, (unsigned)((tiles + kWarps - 1) / kWarps),
+              kThreads, 0, (cudaStream_t)stream, rows, n, tiles,
+              (long long*)(scan + lm::kScanHeader + tiles), scan);
   }
   return (int)cudaGetLastError();
 }
 
-// K5, after the cumsum: rid1 int32[n] inclusive cumsum of sc; run_start
-// int64[n+1] scratch; unique_occ uint8[n]; run_id int32[n].
-extern "C" int lm_run_flags(const void* content, const void* sc,
-                            const void* gid, const void* rid1,
-                            void* run_start, int64_t n, int repeat_limit,
-                            int64_t sent_content, void* unique_occ,
-                            void* run_id, void* stream) {
+// K5's launch 2, after lm_run_summaries on the same scratch.  keys:
+// int64 the position-order keys; unique_occ, strand uint8[n]; run_id,
+// gid, pos int32[n].
+extern "C" int lm_run_tile_flags(const void* content, const void* src,
+                                 const void* keys, const void* seg_off, int G,
+                                 int64_t n, int64_t repeat_limit,
+                                 int64_t sent_content, void* scratch,
+                                 void* unique_occ, void* run_id, void* gid,
+                                 void* pos, void* strand, void* stream) {
   if (n > 0) {
-    cudaStream_t s = (cudaStream_t)stream;
-    LM_LAUNCH(run_bounds_kernel, blocks_for(n), kThreads, 0, s,
-              (const int*)sc, (const int*)rid1, n, (int64_t*)run_start);
-    LM_LAUNCH(run_flags_kernel, blocks_for(n), kThreads, 0, s,
-              (const int64_t*)content, (const int*)gid, (const int*)rid1,
-              (const int64_t*)run_start, n, repeat_limit, sent_content,
+    const lm::SeedTable t = lm::seed_table(content, src, keys, 0, seg_off, G,
+                                           n, scratch, gid, pos, strand);
+    LM_LAUNCH(run_tile_flags_kernel, (unsigned)t.tiles, kThreads, 0,
+              (cudaStream_t)stream, t, repeat_limit, sent_content,
               (unsigned char*)unique_occ, (int*)run_id);
   }
   return (int)cudaGetLastError();

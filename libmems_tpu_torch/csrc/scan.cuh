@@ -60,9 +60,8 @@ __device__ __forceinline__ int64_t take_tile(unsigned long long* scratch) {
 // Exclusive offset of `tile`, whose own count is `count`, from the
 // tiles before it; publishes the tile's inclusive prefix.  Called by all
 // 32 lanes of one warp; every lane returns the offset.
-__device__ unsigned long long tile_lookback(unsigned long long* scratch,
-                                           int64_t tile,
-                                           unsigned long long count) {
+__device__ inline unsigned long long tile_lookback(
+    unsigned long long* scratch, int64_t tile, unsigned long long count) {
   volatile unsigned long long* status = scratch + kScanHeader;
   const int lane = threadIdx.x & 31;
   if (tile == 0) {

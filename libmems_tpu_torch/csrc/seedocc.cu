@@ -27,7 +27,8 @@
 //      through shared memory across the block.  A run crossing the tile's
 //      left edge takes its start from the nearest earlier tile whose
 //      summary holds one, a run crossing the right edge its end from the
-//      nearest later one (or n): one warp reads 128 summaries a step.
+//      nearest later one (or n): one warp reads 128 summaries a step
+//      (runs.cuh's walk_summaries).
 //   Every summary is written before launch 2 starts, so no block waits on
 //   another, and no thread walks a run's rows: a run of R rows (a poly-A
 //   run, the sentinel run of N-masked windows) costs each tile it spans
@@ -55,6 +56,7 @@
 // each count from device memory about once a block and writes 4 bytes a
 // position.
 #include "common.cuh"
+#include "runs.cuh"
 
 namespace {
 
@@ -62,14 +64,10 @@ constexpr int kThreads = lm::kTableThreads;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 
-// K16: rows a lane takes in launch 2, rows a tile, groups of 32 rows a
-// step of launch 1's edge scans after the first, summaries a lane reads a
-// step of the walks.
-constexpr int kRowsPerLane = 16;
-constexpr int kWarpRows = 32 * kRowsPerLane;
-constexpr int64_t kSeedTile = (int64_t)kThreads * kRowsPerLane;
-constexpr int kEdgeGroups = 8;
-constexpr int kWalkSpan = 4;
+// K16: rows a lane takes in launch 2, rows a tile (runs.cuh's).
+constexpr int kRowsPerLane = lm::kRunRowsPerLane;
+constexpr int kWarpRows = lm::kRunWarpRows;
+constexpr int64_t kSeedTile = lm::kRunTile;
 
 // K17: positions a thread slides over, positions a tile, and the most
 // window positions before a tile that a block stages.
@@ -89,58 +87,6 @@ __device__ __forceinline__ uint64_t content_of(int64_t key) {
   return (uint64_t)key >> 1;
 }
 
-// The first run start among rows [lo, min(lo + 32 * G, hi)), or -1.  One
-// warp; lane l reads rows lo + 32 g + l.
-template <int G>
-__device__ __forceinline__ int64_t first_start_up(
-    const int64_t* __restrict__ keys, int64_t lo, int64_t hi) {
-  const int lane = threadIdx.x & 31;
-  int64_t key[G], before[G];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    const int64_t i = lo + g * 32 + lane;
-    key[g] = i < hi ? keys[i] : 0;
-    before[g] = lane == 0 && i < hi && i > 0 ? keys[i - 1] : 0;
-  }
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    const int64_t i = lo + g * 32 + lane;
-    int64_t prev = __shfl_up_sync(kFull, key[g], 1);
-    if (lane == 0) prev = before[g];
-    const bool start =
-        i < hi && (i == 0 || content_of(key[g]) != content_of(prev));
-    const unsigned b = __ballot_sync(kFull, start);
-    if (b) return lo + g * 32 + __ffs(b) - 1;
-  }
-  return -1;
-}
-
-// The last run start among rows [max(lo, top - 32 * G + 1), top], or -1.
-// One warp; lane l reads rows top - 32 g - l.
-template <int G>
-__device__ __forceinline__ int64_t last_start_down(
-    const int64_t* __restrict__ keys, int64_t lo, int64_t top) {
-  const int lane = threadIdx.x & 31;
-  int64_t key[G], before[G];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    const int64_t i = top - g * 32 - lane;
-    key[g] = i >= lo ? keys[i] : 0;
-    before[g] = lane == 31 && i >= lo && i > 0 ? keys[i - 1] : 0;
-  }
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    const int64_t i = top - g * 32 - lane;
-    int64_t prev = __shfl_down_sync(kFull, key[g], 1);
-    if (lane == 31) prev = before[g];
-    const bool start =
-        i >= lo && (i == 0 || content_of(key[g]) != content_of(prev));
-    const unsigned b = __ballot_sync(kFull, start);
-    if (b) return top - g * 32 - (__ffs(b) - 1);
-  }
-  return -1;
-}
-
 // K16 launch 1: edges[t] the first and edges[tiles + t] the last run
 // start of tile t (rows [t * kSeedTile, +kSeedTile) of n), -1 where the
 // tile holds none.  One warp a tile.
@@ -150,45 +96,11 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t t = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (t >= tiles) return;
   const int64_t a = t * kSeedTile;
-  const int64_t b = min64(a + kSeedTile, n);
-  int64_t first = first_start_up<1>(keys, a, b);
-  for (int64_t lo = a + 32; first < 0 && lo < b; lo += 32 * kEdgeGroups) {
-    first = first_start_up<kEdgeGroups>(keys, lo, b);
-  }
-  int64_t last = -1;
-  if (first >= 0) {
-    // row `first` starts a run, so the downward scan stops by it
-    last = last_start_down<1>(keys, first, b - 1);
-    for (int64_t top = b - 33; last < 0; top -= 32 * kEdgeGroups) {
-      last = last_start_down<kEdgeGroups>(keys, first, top);
-    }
-  }
+  const lm::TileEdges e =
+      lm::tile_edges(lm::KeyRows{keys}, a, min64(a + kSeedTile, n));
   if ((threadIdx.x & 31) == 0) {
-    edges[t] = (int)first;
-    edges[tiles + t] = (int)last;
-  }
-}
-
-// The nearest summary >= 0 in s[t + dir], s[t + 2 dir], ... inside
-// [0, tiles), or -1 where none is.  One warp; a step reads 32 *
-// kWalkSpan summaries.
-__device__ int64_t walk_summaries(const int* __restrict__ s, int64_t t,
-                                  int64_t tiles, int dir) {
-  const int lane = threadIdx.x & 31;
-  for (int64_t d = 1;; d += 32 * kWalkSpan) {
-    int v[kWalkSpan];
-#pragma unroll
-    for (int u = 0; u < kWalkSpan; ++u) {
-      const int64_t tt = t + dir * (d + u * 32 + lane);
-      v[u] = tt >= 0 && tt < tiles ? s[tt] : -1;
-    }
-#pragma unroll
-    for (int u = 0; u < kWalkSpan; ++u) {
-      const unsigned b = __ballot_sync(kFull, v[u] >= 0);
-      if (b) return __shfl_sync(kFull, v[u], __ffs(b) - 1);
-    }
-    const int64_t far = t + dir * (d + 32 * kWalkSpan - 1);
-    if (far < 0 || far >= tiles) return -1;
+    edges[t] = (int)e.first;
+    edges[tiles + t] = (int)e.last;
   }
 }
 
@@ -263,10 +175,11 @@ __global__ void __launch_bounds__(kThreads)
   // the nearest later tile's first start, or n
   if (warp == 0) {
     const int64_t left =
-        mask[0] & 1u ? -1 : walk_summaries(edges + tiles, t, tiles, -1);
+        mask[0] & 1u ? -1
+                     : lm::walk_summaries(edges + tiles, t, tiles, -1).at;
     if (lane == 0) carry[0] = left;
   } else if (warp == 1) {
-    const int64_t right = walk_summaries(edges, t, tiles, 1);
+    const int64_t right = lm::walk_summaries(edges, t, tiles, 1).at;
     if (lane == 0) carry[1] = right >= 0 ? right : n;
   }
   __syncthreads();

@@ -66,16 +66,16 @@ _SIGNATURES = {
     "lm_banded_geometry": ([_I] * 4 + [_P], _I),
     "lm_banded_walk": ([_P] * 3 + [_I] * 6 + [_P] * 3 + [_I, _P], _I),
     "lm_banded_walk_geometry": ([_I] * 4 + [_P], _I),
-    "lm_run_starts": ([_P, _P, _P, _I, _P, _I, _L, _P, _P, _P, _P, _P], _I),
-    "lm_run_flags": ([_P, _P, _P, _P, _P, _L, _I, _L, _P, _P, _P], _I),
+    "lm_run_scratch_words": ([_L], _L),
+    "lm_run_summaries": ([_P, _P, _P, _I, _L, _I, _I, _P, _P], _I),
+    "lm_run_tile_flags": ([_P] * 4 + [_I, _L, _L, _L] + [_P] * 7, _I),
     "lm_scan_scratch_words": ([_L], _L),
     "lm_compact_kept": ([_P] * 5 + [_L, _I, _I, _P, _P, _P], _I),
     "lm_cluster_words": ([_P, _L, _I, _I, _I, _I, _P, _P], _I),
     "lm_rep_index": ([_P, _L, _I, _I, _P, _P, _P], _I),
     "lm_reps": ([_P, _P, _P, _L, _L, _I, _I, _I, _I] + [_P] * 11, _I),
-    "lm_mum_bounds": ([_P, _P, _P, _P, _L, _I, _P, _P, _P], _I),
-    "lm_mum_keep": ([_P] * 6 + [_L, _I, _L] + [_P] * 4, _I),
-    "lm_mum_row_ids": ([_P, _P, _P, _L, _P, _P], _I),
+    "lm_mum_tile_flags": ([_P] * 3 + [_I, _P, _I, _L, _I, _L, _L]
+                          + [_P] * 8, _I),
     "lm_mum_candidates": ([_P] * 6 + [_L, _I, _L, _L, _I, _I] + [_P] * 4,
                           _I),
     "lm_mum_rep_flags": ([_P, _P, _L, _I, _I, _I, _I, _P, _P], _I),

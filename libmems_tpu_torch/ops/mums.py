@@ -9,7 +9,12 @@ libMems/MemHash.cpp:109-251):
   genome, position and strand, ``kept_occ`` (the first occurrence of each
   (content, genome) in a surviving run), ``row_id`` (surviving runs
   numbered densely), ``ref_strand`` (the strand of the run's first row)
-  and ``n_rows``;
+  and ``n_rows``, in two launches over tiles of ``pairwise.RUN_TILE``
+  rows: K5's run summaries with K13's big rows flagged
+  (``pairwise._summaries``), then the flags (``_flag_pass``), each with a
+  plain version (``pairwise.run_summaries_plain``,
+  ``mum_flags_from_summaries_plain``) that compose to
+  ``mum_seed_flags_plain``;
 * ``mum_candidates`` (K14): the candidate scatter, the ``seq_mask``
   filter and ``_packed_diagonal_words``: starts int32[n_rows, G], the
   packed signature words int64[n_words, n_rows] and posref int64[n_rows];
@@ -32,7 +37,9 @@ from typing import NamedTuple
 import torch
 
 from libmems_tpu_torch import cuda
-from libmems_tpu_torch.ops.pairwise import cumsum32, seed_table_meta, shr
+from libmems_tpu_torch.ops import pairwise
+from libmems_tpu_torch.ops.pairwise import (cumsum32, run_starts,
+                                            seed_table_meta, shr)
 
 WORD_BITS = 63      # payload bits of a signature word (matchfind._WORD_BITS)
 
@@ -54,15 +61,6 @@ class MumFlags(NamedTuple):
 
 
 # ops/segments.py, in torch ----------------------------------------------
-
-def _run_starts(*cols: torch.Tensor) -> torch.Tensor:
-    n = cols[0].shape[0]
-    flag = torch.zeros(n, dtype=torch.bool, device=cols[0].device)
-    flag[:1] = True
-    for c in cols:
-        flag[1:] |= c[1:] != c[:-1]
-    return flag
-
 
 def _start_index(starts: torch.Tensor) -> torch.Tensor:
     idx = torch.arange(starts.shape[0], device=starts.device)
@@ -105,8 +103,8 @@ def mum_seed_flags_plain(content, src, keys, seg_off, repeat_tolerance: int,
     if n == 0:
         e = torch.zeros(0, dtype=torch.int32, device=content.device)
         return MumFlags(e.bool(), e, e.to(torch.uint8), 0, gid, pos, strand)
-    sc = _run_starts(content)
-    scg = _run_starts(content, gid)
+    sc = run_starts(content)
+    scg = run_starts(content, gid)
     max_subrun = _segment_max_broadcast(_run_lengths(scg), sc)
     ngids = _segment_sum_broadcast(scg.to(torch.int64), sc)
     runlen = _run_lengths(sc)
@@ -121,6 +119,61 @@ def mum_seed_flags_plain(content, src, keys, seg_off, repeat_tolerance: int,
     return MumFlags(kept_occ, row_id, ref_strand, n_rows, gid, pos, strand)
 
 
+def mum_flags_from_summaries_plain(content, src, keys, seg_off, words,
+                                   repeat_tolerance: int, repeat_limit: int,
+                                   sent_content: int,
+                                   row_keys: bool = False) -> MumFlags:
+    """Plain version of K13's second launch: mum_seed_flags_plain's flags,
+    each run decided at its last row in a tile (its end's row, or the
+    tile's last): run bounds and big rows in the tile and, across its
+    edges, from the summary words (pairwise.run_summaries_plain with span
+    repeat_tolerance + 1); the genomes of the run's first and last rows;
+    kept runs numbered by tile (pairwise.tile_ranks_plain)."""
+    gid, pos, strand = seed_table_meta(src, keys, seg_off, row_keys)
+    n = content.shape[0]
+    dev = content.device
+    if n == 0:
+        e = torch.zeros(0, dtype=torch.int32, device=dev)
+        return MumFlags(e.bool(), e, e.to(torch.uint8), 0, gid, pos, strand)
+    sc = run_starts(content)
+    scg = run_starts(content, gid)
+    b = pairwise.tile_runs_plain(sc, words)
+    idx = torch.arange(n, device=dev)
+    tile = idx // pairwise.RUN_TILE
+    lo = tile * pairwise.RUN_TILE
+    hi = torch.clamp(lo + pairwise.RUN_TILE, max=n)
+    big = pairwise.big_rows(content, gid, repeat_tolerance + 1)
+    near_big = torch.cummax(pairwise._tile_view(torch.where(big, idx, -1),
+                                                -1), 1).values
+    near_big = torch.maximum(near_big.flatten()[:n], lo - 1)
+    decider = torch.minimum(b.end, hi) - 1
+    has_big = (near_big[decider] >= torch.maximum(b.start, lo)) \
+        | ((b.start < lo) & b.flag_in[tile]) \
+        | ((b.end > hi) & b.flag_out[tile])
+    keep = (gid[b.start] != gid[b.end - 1]) & ~has_big \
+        & (b.end - b.start <= repeat_limit) & (content != sent_content)
+    kept_start = sc & keep
+    return MumFlags(scg & keep, pairwise.tile_ranks_plain(kept_start),
+                    strand[b.start], int(kept_start.sum()), gid, pos,
+                    strand)
+
+
+def _flag_pass(content, src, keys, seg_off, repeat_tolerance: int,
+               repeat_limit: int, sent_content: int, row_keys: bool,
+               scratch, out: MumFlags) -> None:
+    """K13's second launch into out's tensors (its n_rows ignored), after
+    pairwise._summaries with span repeat_tolerance + 1 (or with scratch's
+    look-back words zeroed and its summary words filled); scratch word 1
+    then holds n_rows."""
+    cuda.check(cuda.library().lm_mum_tile_flags(
+        content.data_ptr(), src.data_ptr(), keys.data_ptr(), int(row_keys),
+        seg_off.data_ptr(), seg_off.shape[0] - 1, content.shape[0],
+        repeat_tolerance + 1, repeat_limit, sent_content, scratch.data_ptr(),
+        out.kept_occ.data_ptr(), out.row_id.data_ptr(),
+        out.ref_strand.data_ptr(), out.gid.data_ptr(), out.pos.data_ptr(),
+        out.strand.data_ptr(), cuda.stream(content)), "lm_mum_tile_flags")
+
+
 @cuda.launcher
 def mum_seed_flags(content, src, keys, seg_off, repeat_tolerance: int,
                    repeat_limit: int, sent_content: int,
@@ -132,8 +185,8 @@ def mum_seed_flags(content, src, keys, seg_off, repeat_tolerance: int,
     the genomes' keys (with row_keys: keys int64[n], the rows' own keys,
     which a routed table carries so that no shard needs the whole table);
     seg_off: int64[G+1] genome bounds in keys.  CPU tensors take the plain
-    version; CUDA tensors launch K13 (with K5's lm_run_starts for gid, pos
-    and strand)."""
+    version; CUDA tensors launch K13: the tile summaries (K5's launch,
+    big rows flagged), then the flags, and read n_rows once."""
     if content.device.type == "cpu":
         return mum_seed_flags_plain(content, src, keys, seg_off,
                                     repeat_tolerance, repeat_limit,
@@ -148,40 +201,19 @@ def mum_seed_flags(content, src, keys, seg_off, repeat_tolerance: int,
     cuda.require(seg_off, "seg_off", torch.int64, dev, (G + 1,))
     i32 = dict(dtype=torch.int32, device=dev)
     u8 = dict(dtype=torch.uint8, device=dev)
-    sc = torch.empty(n, **i32)
-    gid = torch.empty(n, **i32)
-    pos = torch.empty(n, **i32)
-    strand = torch.empty(n, **u8)
-    lib = cuda.library()
-    stream = cuda.stream(content)
-    cuda.check(lib.lm_run_starts(
-        content.data_ptr(), src.data_ptr(), keys.data_ptr(), int(row_keys),
-        seg_off.data_ptr(), G, n, sc.data_ptr(), gid.data_ptr(),
-        pos.data_ptr(), strand.data_ptr(), stream), "lm_run_starts")
-    rid1 = torch.cumsum(sc, 0, dtype=torch.int32)
-    run_start = torch.empty(n + 1, dtype=torch.int64, device=dev)
-    big = torch.empty(n, **i32)
-    cuda.check(lib.lm_mum_bounds(
-        content.data_ptr(), gid.data_ptr(), sc.data_ptr(), rid1.data_ptr(),
-        n, repeat_tolerance + 1, run_start.data_ptr(), big.data_ptr(),
-        stream), "lm_mum_bounds")
-    big_cum = torch.cumsum(big, 0, dtype=torch.int32)
-    kept_occ = torch.empty(n, dtype=torch.bool, device=dev)
-    ref_strand = torch.empty(n, **u8)
-    keep_start = torch.empty(n, **i32)
-    cuda.check(lib.lm_mum_keep(
-        content.data_ptr(), gid.data_ptr(), strand.data_ptr(),
-        rid1.data_ptr(), run_start.data_ptr(), big_cum.data_ptr(), n,
-        repeat_limit, sent_content, kept_occ.data_ptr(),
-        ref_strand.data_ptr(), keep_start.data_ptr(), stream), "lm_mum_keep")
-    keep_cum = torch.cumsum(keep_start, 0, dtype=torch.int32)
-    row_id = torch.empty(n, **i32)
-    cuda.check(lib.lm_mum_row_ids(
-        rid1.data_ptr(), run_start.data_ptr(), keep_cum.data_ptr(), n,
-        row_id.data_ptr(), stream), "lm_mum_row_ids")
-    n_rows = int(keep_cum[-1]) if n else 0
+    out = MumFlags(torch.empty(n, dtype=torch.bool, device=dev),
+                   torch.empty(n, **i32), torch.empty(n, **u8), 0,
+                   torch.empty(n, **i32), torch.empty(n, **i32),
+                   torch.empty(n, **u8))
+    if not n:
+        return out
+    scratch = pairwise.run_scratch(n, dev)
+    pairwise._summaries(content, src, seg_off, repeat_tolerance + 1, scratch)
+    _flag_pass(content, src, keys, seg_off, repeat_tolerance, repeat_limit,
+               sent_content, row_keys, scratch, out)
     mum_seed_flags.launches += 1
-    return MumFlags(kept_occ, row_id, ref_strand, n_rows, gid, pos, strand)
+    # the one host read: the kept runs' count
+    return out._replace(n_rows=int(scratch[1]))
 
 
 mum_seed_flags.launches = 0

@@ -8,7 +8,11 @@ libMems/PairwiseMatchFinder.cpp:37-71):
 * ``run_flags`` (K5): per row of the (content, gid, pos)-sorted seed
   table its genome, position, strand, run id and the unique-occurrence
   flag ``(subrun_len == 1) & (runlen <= repeat_limit) & not_sent``
-  (``_unique_occ_flags``; gid and pos replace ``_padded_table_meta``);
+  (``_unique_occ_flags``; gid and pos replace ``_padded_table_meta``), in
+  two launches over tiles of RUN_TILE rows: the tiles' run summaries
+  (``_summaries``, shared with K13), then the flags (``_flag_pass``), each
+  with a plain version (``run_summaries_plain``,
+  ``run_flags_from_summaries_plain``) that compose to ``run_flags_plain``;
 * ``cluster_words`` (K6): the kept rows' G-1 shifted compares as packed
   cluster words ``fwd | pair_id | delta | posA`` (-1 where invalid);
 * ``rep_index`` then ``decode_reps`` (K7): the diagonal-cluster
@@ -88,6 +92,201 @@ def run_flags_plain(content, src, keys, seg_off, repeat_limit: int,
     return RunFlags(unique_occ, (rid1 - 1).to(torch.int32), gid, pos, strand)
 
 
+# rows a tile of K5's and K13's launches (lm::kRunTile, csrc/runs.cuh);
+# words of their scratch before the tiles' look-back status words
+# (lm::kScanHeader, csrc/scan.cuh)
+RUN_TILE = 4096
+SCAN_HEADER = 4
+
+
+def run_tiles(n: int) -> int:
+    """Tiles of K5's and K13's launches over n sorted rows."""
+    return -(-n // RUN_TILE)
+
+
+def _tile_view(x: torch.Tensor, fill) -> torch.Tensor:
+    """x[n] as [tiles, RUN_TILE], the last tile padded with fill."""
+    tiles = run_tiles(x.shape[0])
+    return torch.nn.functional.pad(
+        x, (0, tiles * RUN_TILE - x.shape[0]), value=fill).view(
+            tiles, RUN_TILE)
+
+
+def run_starts(*cols: torch.Tensor) -> torch.Tensor:
+    """bool[n]: row i starts a run (row 0, or a column differs from the
+    row before)."""
+    n = cols[0].shape[0]
+    flag = torch.zeros(n, dtype=torch.bool, device=cols[0].device)
+    flag[:1] = True
+    for c in cols:
+        flag[1:] |= c[1:] != c[:-1]
+    return flag
+
+
+def big_rows(content, gid, span: int) -> torch.Tensor:
+    """bool[n]: row i - span lies in row i's (content, genome) subrun (K13's
+    test of a subrun longer than span = repeat_tolerance + 1); every row
+    where span <= 0."""
+    n = content.shape[0]
+    if span <= 0:
+        return torch.ones(n, dtype=torch.bool, device=content.device)
+    big = torch.zeros(n, dtype=torch.bool, device=content.device)
+    if span < n:
+        big[span:] = (content[span:] == content[:-span]) \
+            & (gid[span:] == gid[:-span])
+    return big
+
+
+def run_summaries_plain(content, src, seg_off, span: int | None = None
+                        ) -> torch.Tensor:
+    """Plain version of K5's and K13's first launch: int64[2 * tiles], each
+    tile's first run start * 2 + (a big row lies before it), then its last
+    * 2 + (one lies at or after it); -2 + (one lies in the tile) where it
+    holds no start.  span None flags no row (K5); else big_rows(span)."""
+    n = content.shape[0]
+    dev = content.device
+    if n == 0:
+        return torch.zeros(0, dtype=torch.int64, device=dev)
+    idx = torch.arange(n, device=dev)
+    sc = run_starts(content)
+    first = _tile_view(torch.where(sc, idx, n), n).amin(1)
+    first = torch.where(first == n, -1, first)
+    last = _tile_view(torch.where(sc, idx, -1), -1).amax(1)
+    if span is None:
+        flag_first = flag_last = torch.zeros_like(first)
+    else:
+        gid = torch.searchsorted(seg_off, src, right=True) - 1
+        big = _tile_view(big_rows(content, gid, span), False)
+        rows = _tile_view(idx, n)
+        before = torch.where(first < 0, n, first)
+        flag_first = (big & (rows < before[:, None])).any(1).long()
+        flag_last = (big & (rows >= last[:, None])).any(1).long()
+    return torch.cat([first * 2 + flag_first, last * 2 + flag_last])
+
+
+class TileRuns(NamedTuple):
+    """Each row's run bounds as the row pass finds them: in its tile, and
+    across the tile's edges from the summaries."""
+    start: torch.Tensor      # int64[n] the row's run's first row
+    end: torch.Tensor        # int64[n] one past its last row
+    flag_in: torch.Tensor    # bool[tiles] a flagged row of the run across
+                             # the tile's left edge lies before the tile
+    flag_out: torch.Tensor   # bool[tiles] ... across its right edge, after
+
+
+def tile_runs_plain(sc, words) -> TileRuns:
+    """The run bounds of the rows whose run-start flags are sc (bool[n]),
+    from their tiles and the summary words (run_summaries_plain): a run
+    across a tile's left edge starts at the last start of the nearest
+    earlier tile with one, a run across its right edge ends at the first
+    start of the nearest later tile with one, or n; the flags of the
+    tiles passed on the way, and of the one reached, OR-ed."""
+    n = sc.shape[0]
+    dev = sc.device
+    tiles = run_tiles(n)
+    first, last = words[:tiles] >> 1, words[tiles:] >> 1
+    f_first, f_last = words[:tiles] & 1, words[tiles:] & 1
+    k = torch.arange(tiles, device=dev)
+    none = torch.full((1,), -1, dtype=torch.int64, device=dev)
+    # left: the nearest earlier tile holding a start, its flags to t - 1
+    at = torch.cummax(torch.where(last >= 0, k, -1), 0).values
+    left = torch.cat([none, at[:-1]])
+    left_start = torch.where(left >= 0, last[left.clamp(min=0)], -1)
+    c_last = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                        torch.cumsum(f_last, 0)])
+    flag_in = c_last[k] - c_last[left.clamp(min=0)] > 0
+    # right: the nearest later one, its flags from t + 1
+    nxt = torch.cummin(torch.where(first >= 0, k, tiles).flip(0),
+                       0).values.flip(0)
+    right = torch.cat([nxt[1:], torch.full((1,), tiles, device=dev)])
+    right_end = torch.where(right < tiles, first[right.clamp(max=tiles - 1)],
+                            n)
+    c_first = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                         torch.cumsum(f_first, 0)])
+    flag_out = c_first[right.clamp(max=tiles - 1) + 1] - c_first[k + 1] > 0
+    idx = torch.arange(n, device=dev)
+    start = torch.cummax(_tile_view(torch.where(sc, idx, -1), -1),
+                         1).values
+    start = torch.where(start < 0, left_start[:, None], start)
+    after = torch.cummin(_tile_view(torch.where(sc, idx, n), n).flip(1),
+                         1).values.flip(1)
+    end = torch.cat([after[:, 1:], torch.full((tiles, 1), n, device=dev)],
+                    1)
+    end = torch.where(end == n, right_end[:, None], end)
+    return TileRuns(start.flatten()[:n], end.flatten()[:n], flag_in,
+                    flag_out)
+
+
+def tile_ranks_plain(flags) -> torch.Tensor:
+    """int32[n]: the set flags of the earlier tiles (the look-back) + the
+    set flags at or before each row in its tile - 1."""
+    t = _tile_view(flags.to(torch.int64), 0)
+    counts = t.sum(1)
+    excl = torch.cumsum(counts, 0) - counts
+    rank = excl[:, None] + torch.cumsum(t, 1) - 1
+    return rank.flatten()[:flags.shape[0]].to(torch.int32)
+
+
+def run_flags_from_summaries_plain(content, src, keys, seg_off, words,
+                                   repeat_limit: int,
+                                   sent_content: int) -> RunFlags:
+    """Plain version of K5's second launch: run_flags_plain's flags, each
+    run's bounds found in its row's tile and, across the tile's edges,
+    from the summary words (run_summaries_plain)."""
+    n = content.shape[0]
+    gid, pos, strand = seed_table_meta(src, keys, seg_off)
+    if n == 0:
+        return RunFlags(torch.zeros(0, dtype=torch.bool,
+                                    device=content.device),
+                        gid.clone(), gid, pos, strand)
+    sc = run_starts(content)
+    scg = run_starts(content, gid)
+    b = tile_runs_plain(sc, words)
+    one = torch.ones(1, dtype=torch.bool, device=content.device)
+    single = scg & torch.cat([scg[1:], one])
+    unique_occ = single & (b.end - b.start <= repeat_limit) \
+        & (content != sent_content)
+    return RunFlags(unique_occ, tile_ranks_plain(sc), gid, pos, strand)
+
+
+def run_scratch(n: int, dev) -> torch.Tensor:
+    """Scratch of K5's and K13's launches over n rows, unfilled (launch 1
+    zeroes what launch 2 needs zeroed): the look-back's header and status
+    words, then the tiles' summary words (run_summary_words)."""
+    return torch.empty(cuda.library().lm_run_scratch_words(n),
+                       dtype=torch.int64, device=dev)
+
+
+def run_summary_words(scratch: torch.Tensor, n: int) -> torch.Tensor:
+    """The summary words of a run_scratch over n rows (launch 1's output,
+    laid out as run_summaries_plain's)."""
+    return scratch[SCAN_HEADER + run_tiles(n):]
+
+
+def _summaries(content, src, seg_off, span: int | None, scratch) -> None:
+    """K5's and K13's first launch: the tile summaries of the sorted table
+    into scratch (run_scratch), K13's big rows flagged where span is not
+    None; the look-back words of the second launch zeroed."""
+    n = content.shape[0]
+    cuda.check(cuda.library().lm_run_summaries(
+        content.data_ptr(), src.data_ptr(), seg_off.data_ptr(),
+        seg_off.shape[0] - 1, n, int(span is not None), span or 0,
+        scratch.data_ptr(), cuda.stream(content)), "lm_run_summaries")
+
+
+def _flag_pass(content, src, keys, seg_off, repeat_limit: int,
+               sent_content: int, scratch, out: RunFlags) -> None:
+    """K5's second launch into out's tensors, after _summaries (or with
+    scratch's look-back words zeroed and its summary words filled)."""
+    cuda.check(cuda.library().lm_run_tile_flags(
+        content.data_ptr(), src.data_ptr(), keys.data_ptr(),
+        seg_off.data_ptr(), seg_off.shape[0] - 1, content.shape[0],
+        repeat_limit, sent_content, scratch.data_ptr(),
+        out.unique_occ.data_ptr(), out.run_id.data_ptr(),
+        out.gid.data_ptr(), out.pos.data_ptr(), out.strand.data_ptr(),
+        cuda.stream(content)), "lm_run_tile_flags")
+
+
 @cuda.launcher
 def run_flags(content, src, keys, seg_off, repeat_limit: int,
               sent_content: int) -> RunFlags:
@@ -96,7 +295,8 @@ def run_flags(content, src, keys, seg_off, repeat_limit: int,
     content: int64[n] sorted contents (key >> 1); src: int64[n] each
     row's index into keys, the int64 position-order concatenation of the
     genomes' keys; seg_off: int64[G+1] genome bounds in keys.  CPU
-    tensors take the plain version; CUDA tensors launch K5."""
+    tensors take the plain version; CUDA tensors launch K5: the tile
+    summaries, then the flags."""
     if content.device.type == "cpu":
         return run_flags_plain(content, src, keys, seg_off, repeat_limit,
                                sent_content)
@@ -108,26 +308,17 @@ def run_flags(content, src, keys, seg_off, repeat_limit: int,
     cuda.require(keys, "keys", torch.int64, dev, (keys.shape[0],))
     cuda.require(seg_off, "seg_off", torch.int64, dev, (G + 1,))
     i32 = dict(dtype=torch.int32, device=dev)
-    sc = torch.empty(n, **i32)
-    gid = torch.empty(n, **i32)
-    pos = torch.empty(n, **i32)
-    strand = torch.empty(n, dtype=torch.uint8, device=dev)
-    lib = cuda.library()
-    stream = cuda.stream(content)
-    cuda.check(lib.lm_run_starts(
-        content.data_ptr(), src.data_ptr(), keys.data_ptr(), 0,
-        seg_off.data_ptr(), G, n, sc.data_ptr(), gid.data_ptr(),
-        pos.data_ptr(), strand.data_ptr(), stream), "lm_run_starts")
-    rid1 = torch.cumsum(sc, 0, dtype=torch.int32)
-    run_start = torch.empty(n + 1, dtype=torch.int64, device=dev)
-    unique_occ = torch.empty(n, dtype=torch.bool, device=dev)
-    run_id = torch.empty(n, **i32)
-    cuda.check(lib.lm_run_flags(
-        content.data_ptr(), sc.data_ptr(), gid.data_ptr(), rid1.data_ptr(),
-        run_start.data_ptr(), n, repeat_limit, sent_content,
-        unique_occ.data_ptr(), run_id.data_ptr(), stream), "lm_run_flags")
-    run_flags.launches += 1
-    return RunFlags(unique_occ, run_id, gid, pos, strand)
+    out = RunFlags(torch.empty(n, dtype=torch.bool, device=dev),
+                   torch.empty(n, **i32), torch.empty(n, **i32),
+                   torch.empty(n, **i32),
+                   torch.empty(n, dtype=torch.uint8, device=dev))
+    if n:
+        scratch = run_scratch(n, dev)
+        _summaries(content, src, seg_off, None, scratch)
+        _flag_pass(content, src, keys, seg_off, repeat_limit, sent_content,
+                   scratch, out)
+        run_flags.launches += 1
+    return out
 
 
 run_flags.launches = 0

@@ -120,15 +120,16 @@ def device_time(trace_path: str) -> tuple[float, list]:
 
 def _named(name: str, kernel: str) -> bool:
     """Whether a trace event's name is `kernel` itself (not a kernel
-    whose name ends in it, such as seed_run_start_kernel)."""
+    whose name ends in it, such as mum_tile_flags_kernel for
+    tile_flags_kernel)."""
     return re.search(r"(?<!\w)" + kernel + r"\b", name) is not None
 
 
 def seeder_time(trace_path: str) -> dict:
     """Device milliseconds and events of the pairwise seeder's stages in
     a Chrome trace, cut at its kernels (csrc/pairwise.cu): K5 from
-    run_start_kernel through run_flags_kernel; K6 from there through
-    cluster_words_kernel (its wrapper's own work included); the word
+    run_summaries_kernel through run_tile_flags_kernel; K6 from there
+    through cluster_words_kernel (its wrapper's own work included); the word
     sort from there to K7's rep_index_kernel; K7 from there up to K2's
     extend_kernel (every scan, host read and decode of the call).  The
     path runs on one stream, so what runs inside a stage's span is the
@@ -143,7 +144,7 @@ def seeder_time(trace_path: str) -> dict:
     stage = None
     for e in events:
         name = e["name"]
-        if _named(name, "run_start_kernel"):
+        if _named(name, "run_summaries_kernel"):
             stage = "K5"
         elif stage == "sort" and _named(name, "rep_index_kernel"):
             stage = "K7"
@@ -153,7 +154,7 @@ def seeder_time(trace_path: str) -> dict:
             continue
         ms[stage] += e["dur"] / 1e3
         count[stage] += 1
-        if stage == "K5" and _named(name, "run_flags_kernel"):
+        if stage == "K5" and _named(name, "run_tile_flags_kernel"):
             stage = "K6"
         elif stage == "K6" and _named(name, "cluster_words_kernel"):
             stage = "sort"

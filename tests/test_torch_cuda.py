@@ -31,6 +31,12 @@ _spec = importlib.util.spec_from_file_location(
         __file__)), "test_torch_seedocc_tables.py"))
 seedocc_tables = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(seedocc_tables)
+# the sorted seed tables of K5's and K13's CPU tests, loaded by path too
+_spec = importlib.util.spec_from_file_location(
+    "run_tables", os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "test_torch_run_tables.py"))
+run_tables = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(run_tables)
 # K3's and K9's test windows, loaded by path as well
 _spec = importlib.util.spec_from_file_location(
     "profile_windows", os.path.join(os.path.dirname(os.path.abspath(
@@ -1122,6 +1128,130 @@ def test_seed_run_counts_kernel_tables_equal_plain(dev, case):
     got = seedocc.seed_run_counts(kd, pd, length, sent)
     assert seedocc.seed_run_counts.launches == before + 1
     assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.parametrize("case", list(run_tables.TABLES))
+def test_run_flag_launches_tables_equal_plain(dev, case):
+    """K5's and K13's launches against their plain versions on the sorted
+    tables of tests/test_torch_run_tables.py: the summaries (K13's with
+    its big rows flagged), each flag pass on the plain summaries (with
+    its look-back words zeroed) and each wrapper (one launch counted),
+    every field exact."""
+    from libmems_tpu_torch.ops import mums, pairwise
+    content, src, keys, seg_off, tol, limit, sent, row_keys = \
+        run_tables.sorted_table(case)
+    pos_keys = keys
+    if row_keys:
+        pos_keys = torch.zeros(int(seg_off[-1]), dtype=torch.int64).scatter_(
+            0, src, keys)
+    n = content.shape[0]
+    c, s, k, pk, so = (x.to(dev) for x in (content, src, keys, pos_keys,
+                                           seg_off))
+
+    def check(got, ref, what):
+        assert len(got) == len(ref), what
+        for i, (g, r) in enumerate(zip(got, ref)):
+            if isinstance(r, torch.Tensor):
+                assert torch.equal(g.cpu(), r), f"{what}: field {i}"
+            else:
+                assert g == r, f"{what}: field {i}"
+
+    for span in (None, tol + 1):
+        ref_words = pairwise.run_summaries_plain(content, src, seg_off, span)
+        scratch = pairwise.run_scratch(n, dev)
+        pairwise._summaries(c, s, so, span, scratch)
+        assert torch.equal(pairwise.run_summary_words(scratch, n).cpu(),
+                           ref_words), f"{case}: summaries, span {span}"
+        scratch.zero_()
+        pairwise.run_summary_words(scratch, n).copy_(ref_words)
+        i32 = dict(dtype=torch.int32, device=dev)
+        u8 = dict(dtype=torch.uint8, device=dev)
+        if span is None:
+            out = pairwise.RunFlags(torch.empty(n, dtype=torch.bool,
+                                                device=dev),
+                                    torch.empty(n, **i32),
+                                    torch.empty(n, **i32),
+                                    torch.empty(n, **i32),
+                                    torch.empty(n, **u8))
+            pairwise._flag_pass(c, s, pk, so, limit, sent, scratch, out)
+            check(out, pairwise.run_flags_from_summaries_plain(
+                content, src, pos_keys, seg_off, ref_words, limit, sent),
+                f"{case}: K5's flag pass")
+            before = pairwise.run_flags.launches
+            got = pairwise.run_flags(c, s, pk, so, limit, sent)
+            assert pairwise.run_flags.launches == before + 1
+            check(got, pairwise.run_flags_plain(content, src, pos_keys,
+                                                seg_off, limit, sent),
+                  f"{case}: K5")
+        else:
+            out = mums.MumFlags(torch.empty(n, dtype=torch.bool, device=dev),
+                                torch.empty(n, **i32), torch.empty(n, **u8),
+                                0, torch.empty(n, **i32),
+                                torch.empty(n, **i32), torch.empty(n, **u8))
+            mums._flag_pass(c, s, k, so, tol, limit, sent, row_keys, scratch,
+                            out)
+            out = out._replace(n_rows=int(scratch[1]))
+            check(out, mums.mum_flags_from_summaries_plain(
+                content, src, keys, seg_off, ref_words, tol, limit, sent,
+                row_keys), f"{case}: K13's flag pass")
+            before = mums.mum_seed_flags.launches
+            got = mums.mum_seed_flags(c, s, k, so, tol, limit, sent,
+                                      row_keys)
+            assert mums.mum_seed_flags.launches == before + 1
+            check(got, mums.mum_seed_flags_plain(content, src, keys, seg_off,
+                                                 tol, limit, sent, row_keys),
+                  f"{case}: K13")
+
+
+def test_run_flag_wrappers_trace_two_kernels(dev, tmp_path):
+    """One call of each wrapper, traced by torch.profiler: two kernels
+    (the summaries and the flag pass), no library cumsum or scan, and for
+    K13 one copy to the host (n_rows), none for K5."""
+    import json
+    import re
+    from libmems_tpu_torch.ops import mums, pairwise
+    content, src, keys, seg_off, tol, limit, sent, _ = \
+        run_tables.sorted_table("multi_tile_run")
+    c, s, k, so = (x.to(dev) for x in (content, src, keys, seg_off))
+    calls = {"K5": lambda: pairwise.run_flags(c, s, k, so, limit, sent),
+             "K13": lambda: mums.mum_seed_flags(c, s, k, so, tol, limit,
+                                                sent)}
+    want = {"K5": ("run_summaries_kernel", "run_tile_flags_kernel"),
+            "K13": ("run_summaries_kernel", "mum_tile_flags_kernel")}
+    for label, call in calls.items():
+        call()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        path = tmp_path / f"{label}.json"
+        prof.export_chrome_trace(str(path))
+        events = [e for e in json.loads(path.read_text())["traceEvents"]
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+        kernels = [re.search(r"(\w+)(?:<[^()]*>)?\(", e["name"]).group(1)
+                   for e in events if e["cat"] == "kernel"]
+        assert kernels == list(want[label]), (label, kernels)
+        assert not any(re.search(r"(?i)cumsum|scan", e["name"])
+                       for e in events), label
+        d2h = [e for e in events if e["cat"] == "gpu_memcpy"
+               and "DtoH" in e["name"]]
+        assert len(d2h) == (1 if label == "K13" else 0), (label, d2h)
+
+
+def test_run_flag_wrappers_empty_table(dev):
+    """No row: empty flags, no candidate row, no launch counted."""
+    from libmems_tpu_torch.ops import mums, pairwise
+    e = torch.zeros(0, dtype=torch.int64, device=dev)
+    so = torch.tensor([0, 0, 0], device=dev)
+    before = (pairwise.run_flags.launches, mums.mum_seed_flags.launches)
+    got = pairwise.run_flags(e, e, e, so, 1000, run_tables.SENT)
+    assert all(x.numel() == 0 for x in got)
+    got = mums.mum_seed_flags(e, e, e, so, 0, 1000, run_tables.SENT)
+    assert got.n_rows == 0 and all(x.numel() == 0 for x in got
+                                   if isinstance(x, torch.Tensor))
+    assert (pairwise.run_flags.launches,
+            mums.mum_seed_flags.launches) == before
 
 
 def test_seed_run_counts_kernel_without_windows(dev):
