@@ -4,10 +4,10 @@
     python3 chip_smoke.py [--sweep] [phase ...]
 
 With no argument every phase runs but the light fullwidth, wide, hmm,
-hmmstage and runflags; naming phases (kernels, seeder, seedocc, goldens,
-main, trio, progressive, large, profile_dp, decode, bounded, mesh, tiled,
-multihost, cards, fullwidth, wide, hmm, hmmstage, runflags) runs only
-those, plus
+hmmstage, runflags and seedwords; naming phases (kernels, seeder,
+seedocc, goldens, main, trio, progressive, large, profile_dp, decode,
+bounded, mesh, tiled, multihost, cards, fullwidth, wide, hmm, hmmstage,
+runflags, seedwords) runs only those, plus
 the progressive run whose recorded inputs profile_dp, decode and hmm
 read (and the large run for hmm, the main, trio and progressive runs
 whose outputs mesh and cards are held to, the main run for tiled and
@@ -204,6 +204,13 @@ hmmstage - (named runs only) those calls, read back from HMM_CALLS,
              and its device peak.  It calls only predict_homologous, so
              the same phase copied into an older tree's archive (with
              HMM_CALLS) times that tree.
+runflags - (named runs only) K5 and K13 through their wrappers alone
+             (phase_runflags); it times an older tree's archive as well;
+seedwords - (named runs only) K1 at 1, 4.6 and 8.7 Mbp with and without
+             N runs, K18's wrapper and its two passes on the pair's rows,
+             the seed-word and cluster-word sorts beside them, by events,
+             on the card and on the host (phase_seedwords); it times an
+             older tree's archive as well.
 
 The inputs of phases 7-9 are recorded one layer above the kernel
 wrappers (align_profile_batch, profile_scores_batch, predict_homologous,
@@ -381,7 +388,8 @@ PHASES = ("kernels", "seeder", "seedocc", "goldens", "main", "trio",
           "tiled", "multihost", "cards")
 # phases only a named run takes: their checks are part of the full run's
 # phases already
-LIGHT_PHASES = ("fullwidth", "wide", "hmm", "hmmstage", "runflags")
+LIGHT_PHASES = ("fullwidth", "wide", "hmm", "hmmstage", "runflags",
+                "seedwords")
 # the HMM calls phase hmm records for phase hmmstage
 HMM_CALLS = os.path.join(ROOT, "build", "chip_smoke_hmm", "calls.npz")
 
@@ -926,13 +934,15 @@ def pair_kernels_vs_plain(torch, smls, seed, pb, EC, timed):
             and all(torch.equal(g, r) for g, r in zip(got_r[:-1],
                                                       ref_r[:-1])),
             "K19 differs from its plain version")
-    log(f"# K18 cluster words: rows={n} candidates={got_n} equal; K19 "
+    log(f"# K18 cluster words: rows={n} candidates={got_n} "
+        f"({got_n / n:.4f} of the rows) equal; K19 "
         f"representatives: {got_r.n_reps} reps in EC={EC} equal "
         f"(weight {smls[0].seed_weight}, pos_bits {pb})")
     if timed:
         wrap_ms = timed_ms(lambda: pair.pair_cluster_words(*wargs), 10,
                            torch)
-        passes_ms = timed_ms(k18_passes(torch, *wargs), 10, torch)
+        pack, flags = k18_passes(torch, *wargs)
+        passes_ms = timed_ms(lambda: (pack(), flags()), 10, torch)
         res["pair_cluster_words"] = entry(
             max_abs_err([(got_w, ref_w)]),
             # K18's two passes alone: the sort of the seed words between
@@ -940,35 +950,51 @@ def pair_kernels_vs_plain(torch, smls, seed, pb, EC, timed):
             passes_ms,
             timed_ms(lambda: pair.pair_cluster_words_plain(*wargs), 3,
                      torch, warmup=False),
-            # both genomes' keys in, one cluster word a row out; ~25
+            # the pack reads a key and writes a word a row, the flag pass
+            # reads a sorted word a row and writes a word a candidate; ~25
             # integer operations a row: pack, four unpacks, compares
-            work(nbytes(wargs[:2], got_w), 25 * n))
-        log(f"# K18's two passes {passes_ms:.3f} ms; the wrapper with its "
-            f"torch.sort {wrap_ms:.3f} ms")
+            work(k18_bytes(n, got_n), 25 * n))
+        res["pair_cluster_words"]["card_ms"] = device_ms(
+            lambda: (pack(), flags()), 10, torch)
+        log(f"# K18's two passes {passes_ms:.3f} ms "
+            f"({res['pair_cluster_words']['card_ms']:.4f} on the card); the "
+            f"wrapper with its torch.sort {wrap_ms:.3f} ms")
         res["pair_reps"] = entry(
             max_abs_err(list(zip(got_r[:-1], ref_r[:-1]))),
             timed_ms(lambda: pair.pair_reps(*rargs), 10, torch),
             timed_ms(lambda: pair.pair_reps_plain(*rargs), 3, torch,
                      warmup=False),
-            work(nbytes(cw, got_r[:-1]), 10 * n))
+            # its input is K18's n_cands words
+            work(nbytes(cw, got_r[:-1]), 10 * cw.numel()))
         sort_ms = timed_ms(lambda: pairwise.usort(got_w), 10, torch)
-        log(f"# torch.sort of the {n} seed words (inside K18's wrapper): "
+        log(f"# torch.sort of the {got_n} cluster words (K19's input): "
             f"{sort_ms:.3f} ms")
     return res, got_r
 
 
+def k18_bytes(n, n_cands):
+    """Bytes K18's two passes must move over n rows with n_cands
+    candidates: the pack reads a key and writes a word a row (16), the
+    flag pass reads a sorted word a row (8) and writes a word a
+    candidate."""
+    return 24 * n + 8 * n_cands
+
+
 def k18_passes(torch, keys_a, keys_b, pos_bits, sent_content):
-    """A function that launches K18's two passes as its wrapper does
-    (pack, then flags and words over the sorted seed words), without the
-    library sort between them: the words are sorted once here."""
+    """(pack, flags): functions that launch K18's two passes as its
+    wrapper does, without the library sort between them (the words are
+    sorted once here).  The flag pass of a tree whose K18 writes a word
+    a row (before the compaction) counts into a word its caller zeroes:
+    it gets a fresh zero each call, as its wrapper gave it."""
     from libmems_tpu_torch import cuda
-    from libmems_tpu_torch.ops import pairwise
+    from libmems_tpu_torch.ops import pair, pairwise
     lib = cuda.library()
     stream = cuda.stream(keys_a)
     na, nb = keys_a.shape[0], keys_b.shape[0]
     w = torch.empty(na + nb, dtype=torch.int64, device=keys_a.device)
     cw = torch.empty_like(w)
-    n_cands = torch.zeros(1, dtype=torch.int64, device=keys_a.device)
+    compacted = hasattr(pair, "scan_scratch")
+    scratch = pairwise.scan_scratch(na + nb, keys_a.device)
 
     def pack():
         cuda.check(lib.lm_pair_pack(keys_a.data_ptr(), na, keys_b.data_ptr(),
@@ -976,13 +1002,15 @@ def k18_passes(torch, keys_a, keys_b, pos_bits, sent_content):
                    "lm_pair_pack")
     pack()
     ws = pairwise.usort(w)
+    k18_passes.words = w
 
-    def passes():
-        pack()
+    def flags():
+        if not compacted:
+            scratch[:1].zero_()
         cuda.check(lib.lm_pair_cluster_words(
             ws.data_ptr(), na + nb, pos_bits, sent_content, cw.data_ptr(),
-            n_cands.data_ptr(), stream), "lm_pair_cluster_words")
-    return passes
+            scratch.data_ptr(), stream), "lm_pair_cluster_words")
+    return pack, flags
 
 
 def pair_windows(lt, genomes, smls, seed, dev):
@@ -1048,7 +1076,11 @@ def phase_kernels(torch, lt, dev):
         # codes and flags in, int64 keys out; ~4 integer operations per
         # seed position and strand
         work(n + n + 8 * n, 4 * seeds.seed_weight(seed) * n))
-    log(f"# K1 seed keys: n={k.numel()} equal")
+    card = [device_ms(lambda: mers.canonical_seed_keys(codes, seed, a), 20,
+                      torch) for a in (ambt, None)]
+    res["canonical_seed_keys"]["card_ms"] = card[0]
+    log(f"# K1 seed keys: n={k.numel()} equal; on the card {card[0]:.4f} ms "
+        f"with N runs, {card[1]:.4f} without")
 
     # K18/K19: the 4.6 Mbp pair's seed words and cluster words
     smls, seed = create_smls(genomes, device=dev)
@@ -1668,6 +1700,80 @@ def phase_runflags(torch, lt, dev):
             f"{out[label]['events_ms']:.4f} ms by events, "
             f"{out[label]['card_ms']:.4f} on the card")
     log(json.dumps({"runflags": out}))
+
+
+def phase_seedwords(torch, lt, dev):
+    """K1 and K18 alone at the paths' shapes: K1's wrapper on the first
+    genome of the 9 x 1 Mbp family, of the 4.6 Mbp pair and of the 3 x
+    8.7 Mbp family, each with 40 N runs and without; on the pair's rows
+    K18's wrapper, its pack and its flag pass, the seed-word sort between
+    them and the cluster-word sort after them (K19's input).  Each is
+    equal to its plain version, then timed by CUDA events, on the card
+    (device_ms; not for K18's wrapper, whose host read waits for the
+    card) and on the host clock (host_ms), 20 runs each, median.  It calls
+    only the wrappers, their plain versions, the launchers K18's wrapper
+    calls and the SML builder, so this script copied into an older tree's
+    archive times that tree the same way.  Prints one JSON line
+    {"seedwords": {label: {rows, events_ms, card_ms, host_ms}}}."""
+    from libmems_tpu_torch import matchfind
+    from libmems_tpu_torch.ops import mers, pair, pairwise
+    from libmems_tpu_torch.ops.mers import sentinel_content
+    from libmems_tpu_torch.sml import create_smls, default_seed
+    out = {}
+
+    def timings(label, rows, fn, card=True):
+        out[label] = {"rows": rows,
+                      "events_ms": timed_ms(fn, 20, torch),
+                      "card_ms": device_ms(fn, 20, torch) if card else None,
+                      "host_ms": host_ms(fn, 20, torch)}
+        e = out[label]
+        card_s = "" if e["card_ms"] is None else f", {e['card_ms']:.4f} card"
+        log(f"# {label}: {rows} rows; {e['events_ms']:.4f} ms by events"
+            f"{card_s}, {e['host_ms']:.4f} on the host")
+
+    pair_genomes = genome_pair(lt, 0)
+    for label, fam in (("1 Mbp", family_nine(lt, 0)),
+                       ("4.6 Mbp", pair_genomes),
+                       ("8.7 Mbp", family_large(lt))):
+        seed = default_seed(fam)
+        codes = torch.from_numpy(fam[0].codes.copy()).to(dev)
+        amb = np.zeros(len(fam[0]), bool)
+        rng = np.random.default_rng(7)
+        for s in rng.integers(0, len(amb) - 500, size=40):
+            amb[s:s + int(rng.integers(1, 400))] = True
+        ambt = torch.from_numpy(amb).to(dev)
+        del fam
+        for a, what in ((ambt, "with N runs"), (None, "no mask")):
+            got = mers.canonical_seed_keys(codes, seed, a)
+            require(torch.equal(got, mers.canonical_seed_keys_plain(
+                codes, seed, a)), f"K1 {label} {what}: differs from its "
+                "plain version")
+            timings(f"K1 {label} {what}", got.numel(),
+                    lambda: mers.canonical_seed_keys(codes, seed, a))
+        del codes, ambt
+
+    smls, seed = create_smls(pair_genomes, device=dev)
+    n = sum(s.n_windows for s in smls)
+    pb = matchfind._pair_pos_bits(max(s.n_windows for s in smls))
+    wargs = (smls[0].keys, smls[1].keys, pb, sentinel_content(seed))
+    got_w, got_n = pair.pair_cluster_words(*wargs)
+    ref_w, ref_n = pair.pair_cluster_words_plain(*wargs)
+    require(got_n == ref_n and torch.equal(got_w, ref_w),
+            "K18 differs from its plain version")
+    log(f"# K18 on the pair: {n} rows, {got_n} candidates "
+        f"({got_n / n:.4f}), {got_w.numel()} cluster words sorted after")
+    pack, flags = k18_passes(torch, *wargs)
+    words = k18_passes.words
+    timings("K18 wrapper", n, lambda: pair.pair_cluster_words(*wargs),
+            card=False)
+    timings("K18 pack", n, pack)
+    timings("K18 flags", n, flags)
+    timings("K18 both passes", n, lambda: (pack(), flags()))
+    timings("seed-word sort", n, lambda: pairwise.usort(words))
+    timings("cluster-word sort", got_w.numel(),
+            lambda: pairwise.usort(got_w))
+    out["K18 candidates"] = got_n
+    log(json.dumps({"seedwords": out}))
 
 
 def phase_mum_kernels(torch, lt, dev):
@@ -4907,6 +5013,9 @@ def main(argv=None) -> int:
     if "runflags" in phases:
         phase_runflags(torch, lt, dev)
         lap("runflags")
+    if "seedwords" in phases:
+        phase_seedwords(torch, lt, dev)
+        lap("seedwords")
     if "extend_matches" in res:
         res["extend_matches"]["err"] = max([res["extend_matches"]["err"]]
                                            + k2_errs)

@@ -44,7 +44,7 @@ _L = ctypes.c_int64
 _F = ctypes.c_float
 # C signatures of csrc/*.cu (extern "C"); the launchers return cudaError_t
 _SIGNATURES = {
-    "lm_seed_keys": ([_P, _P, _L, _P, _I, _I, _L, _P, _P], _I),
+    "lm_seed_keys": ([_P, _P, _L, _P, _L, _P, _P], _I),
     "lm_extend_row_bytes": ([_I], _L),
     "lm_extend_smem_limit": ([], _L),
     "lm_extend": ([_P, _L, _L, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,

@@ -88,8 +88,8 @@ def pair_candidates(seed_len: int, pos_bits: int, extend_capacity: int,
                     keys_a, keys_b, seed: int):
     """Stages before extension of the G=2 pipeline
     (libmems_tpu/matchfind.py:495-594): seed words, sort, exact-pair
-    cluster words (K18), sort, cluster representatives as extension rows
-    (K19).  Returns (lefts int32[EC, 2], present, is_fwd bool[EC, 2],
+    cluster words (K18, the n_cands candidates only), their sort, cluster
+    representatives as extension rows (K19).  Returns (lefts int32[EC, 2], present, is_fwd bool[EC, 2],
     lengths int32[EC], n_cands, n_reps); rows past n_reps are absent."""
     cw, n_cands = ops_pair.pair_cluster_words(keys_a, keys_b, pos_bits,
                                               sentinel_content(seed))

@@ -17,6 +17,7 @@ sentinel sorts FIRST as int64, so sorts flip bit 63 (``sort_keys``).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -57,11 +58,18 @@ def _window_bad(ambig: torch.Tensor, length: int, n: int) -> torch.Tensor:
     return (c[length:length + n] - c[:n]) > 0
 
 
+def umin(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise minimum of 64-bit patterns held in int64, in unsigned
+    order (the JAX package's u64 keys)."""
+    return torch.where((a ^ _I64_MIN) < (b ^ _I64_MIN), a, b)
+
+
 def canonical_seed_keys_plain(codes: torch.Tensor, seed: int,
                               ambig: torch.Tensor | None = None
                               ) -> torch.Tensor:
     """Plain PyTorch version of K1: one strided slice per seed offset,
-    as the JAX module builds it."""
+    as the JAX module builds it (the minimum in unsigned order: at weight
+    32 the shifted keys use bit 63)."""
     length = seedlib.seed_length(seed)
     weight = seedlib.seed_weight(seed)
     n = codes.shape[0] - length + 1
@@ -73,12 +81,58 @@ def canonical_seed_keys_plain(codes: torch.Tensor, seed: int,
         ch = codes[off:off + n].to(torch.int64)
         fwd |= ch << (2 * (weight - 1 - j))
         rc |= (3 - ch) << (2 * j)
-    keys = torch.minimum(fwd << 1, (rc << 1) | 1)
+    keys = umin(fwd << 1, (rc << 1) | 1)
     if ambig is not None:
         bad = _window_bad(ambig, length, n)
         keys = torch.where(bad, torch.full_like(keys, key_sentinel(seed)),
                            keys)
     return keys
+
+
+MAX_RUNS = 32   # csrc/mers.cu kMaxRuns
+
+
+class SeedRuns(ctypes.Structure):
+    """csrc/mers.cu's SeedRuns: the seed's run table."""
+    _fields_ = [("n_runs", ctypes.c_int), ("weight", ctypes.c_int),
+                ("length", ctypes.c_int), ("pad", ctypes.c_int),
+                ("shift", ctypes.c_int * MAX_RUNS),
+                ("mask", ctypes.c_uint64 * MAX_RUNS)]
+
+
+def seed_runs(seed: int) -> list[tuple[int, int]]:
+    """The seed's runs of consecutive sampled positions as K1 applies
+    them: (shift, mask) pairs such that fwd is the OR of (W >> shift) &
+    mask over the runs, where W holds a window's first 32 bases MSB-first
+    (base k at bits 63-2k).  A run of `r` offsets starting at sample j
+    and offset o moves base o + t (group 31 - o - t of W) to group
+    weight - 1 - j - t of the content."""
+    weight = seedlib.seed_weight(seed)
+    offs = seedlib.seed_offsets(seed)
+    runs, j = [], 0
+    while j < weight:
+        r = 1
+        while j + r < weight and offs[j + r] == offs[j] + r:
+            r += 1
+        runs.append((2 * (32 - weight + j - offs[j]),
+                     ((1 << 2 * r) - 1) << 2 * (weight - j - r)))
+        j += r
+    return runs
+
+
+@functools.lru_cache(maxsize=None)
+def _seed_runs_struct(seed: int) -> SeedRuns:
+    """The run table of `seed` as K1's launcher takes it, built once."""
+    runs = seed_runs(seed)
+    length = seedlib.seed_length(seed)
+    if len(runs) > MAX_RUNS or length > 32:
+        raise ValueError(f"K1 takes seeds of at most 32 bases and "
+                         f"{MAX_RUNS} runs (seed {seed:#b})")
+    sr = SeedRuns(len(runs), seedlib.seed_weight(seed), length, 0)
+    for r, (shift, mask) in enumerate(runs):
+        sr.shift[r] = shift
+        sr.mask[r] = mask
+    return sr
 
 
 @cuda.launcher
@@ -94,17 +148,14 @@ def canonical_seed_keys(codes: torch.Tensor, seed: int,
         return canonical_seed_keys_plain(codes, seed, ambig)
     dev = codes.device
     cuda.require(codes, "codes", torch.uint8, dev, (codes.shape[0],))
-    length = seedlib.seed_length(seed)
-    weight = seedlib.seed_weight(seed)
-    n = max(codes.shape[0] - length + 1, 0)
+    n = max(codes.shape[0] - seedlib.seed_length(seed) + 1, 0)
     if ambig is not None:
         cuda.require(ambig, "ambig", torch.bool, dev, (codes.shape[0],))
     out = torch.empty(n, dtype=torch.int64, device=dev)
-    offs = (ctypes.c_int * weight)(*seedlib.seed_offsets(seed))
-    lib = cuda.library()
-    cuda.check(lib.lm_seed_keys(
+    runs = _seed_runs_struct(seed)
+    cuda.check(cuda.library().lm_seed_keys(
         codes.data_ptr(), ambig.data_ptr() if ambig is not None else None,
-        n, offs, weight, length, key_sentinel(seed), out.data_ptr(),
+        n, ctypes.addressof(runs), key_sentinel(seed), out.data_ptr(),
         cuda.stream(codes)), "lm_seed_keys")
     canonical_seed_keys.launches += 1
     return out

@@ -6,8 +6,8 @@ between its two sorts (the G = 2 unique-MUM pipeline of ``find_mums``):
 * ``pair_cluster_words`` (K18): one word per seed window of both genomes
   (content | gid | pos | strand), sorted; a content run of exactly one
   window of genome 0 then one of genome 1 is a candidate pair, and its
-  row gets the cluster word ``fwd | biased diagonal | posA`` (-1
-  elsewhere); the candidate count;
+  cluster word ``fwd | biased diagonal | posA`` is kept, in the order of
+  the sorted seed words; the candidate count;
 * ``pair_reps`` (K19): over the sorted cluster words, the diagonal
   clusters' representatives as compact [EC, 2] extension rows for K2,
   each seeded with its cluster's extent.
@@ -26,7 +26,7 @@ from typing import NamedTuple
 import torch
 
 from libmems_tpu_torch import cuda
-from libmems_tpu_torch.ops.pairwise import shr, usort
+from libmems_tpu_torch.ops.pairwise import scan_scratch, shr, usort
 
 
 def _nxt(x: torch.Tensor, k: int, fill: int) -> torch.Tensor:
@@ -69,21 +69,23 @@ def pair_cluster_words_plain(keys_a, keys_b, pos_bits: int,
     posB = _nxt(pos, 1, 0)
     fwd = strand == _nxt(strand, 1, 0)
 
-    # cluster word: (fwd | biased diagonal | posA); invalid rows sort last
+    # cluster word: (fwd | biased diagonal | posA), the survivors' only
     delta_b = torch.where(fwd, posB - posA + (1 << pb), posB + posA)
     cw = (fwd.to(torch.int64) << (2 * pb + 2)) | (delta_b << pb) | posA
-    return torch.where(surv, cw, -1), int(surv.sum())
+    cw = cw[surv]
+    return cw, cw.shape[0]
 
 
 @cuda.launcher
 def pair_cluster_words(keys_a, keys_b, pos_bits: int, sent_content: int):
-    """(cluster words int64[na + nb] in the order of the sorted seed
-    words, candidate count).
+    """(cluster words int64[n_cands] of the candidate pairs, in the
+    order of the sorted seed words, n_cands).
 
     keys_a, keys_b: int64 keys of the two genomes in position order;
     sent_content: the masked-window content (``ops.mers.sentinel_content``).
     CPU tensors take the plain version; CUDA tensors launch K18 (pack,
-    ``torch.sort``, flags and words)."""
+    ``torch.sort``, then flags and words compacted in one pass) and read
+    the count once."""
     if keys_a.device.type == "cpu":
         return pair_cluster_words_plain(keys_a, keys_b, pos_bits,
                                         sent_content)
@@ -100,12 +102,14 @@ def pair_cluster_words(keys_a, keys_b, pos_bits: int, sent_content: int):
                "lm_pair_pack")
     w = usort(w)
     cw = torch.empty(n, dtype=torch.int64, device=dev)
-    n_cands = torch.zeros(1, dtype=torch.int64, device=dev)
+    scratch = scan_scratch(n, dev)
     cuda.check(lib.lm_pair_cluster_words(
         w.data_ptr(), n, pos_bits, sent_content, cw.data_ptr(),
-        n_cands.data_ptr(), stream), "lm_pair_cluster_words")
+        scratch.data_ptr(), stream), "lm_pair_cluster_words")
     pair_cluster_words.launches += 1
-    return cw, int(n_cands)
+    # the one host read: the candidates' count
+    n_cands = int(scratch[1])
+    return cw[:n_cands], n_cands
 
 
 pair_cluster_words.launches = 0
@@ -123,6 +127,9 @@ def pair_reps_plain(cw, ec: int, pos_bits: int, seed_len: int) -> PairReps:
     """Plain PyTorch version of K19 (matchfind.py:546-594)."""
     pb = pos_bits
     dev = cw.device
+    if cw.shape[0] == 0:
+        # no candidate: one invalid word gives the same absent rows
+        cw = torch.full((1,), -1, dtype=torch.int64, device=dev)
     pmask = (1 << pb) - 1
     valid_c = cw != -1
     s_posA = cw & pmask
@@ -142,16 +149,17 @@ def pair_reps_plain(cw, ec: int, pos_bits: int, seed_len: int) -> PairReps:
         rank, torch.arange(1, ec + 1, dtype=torch.int64, device=dev),
         side="left")
     e_valid = torch.arange(ec, device=dev) < n_reps
+    # cluster extent: the cluster's last member is the row before the
+    # next rep (or the last valid candidate row; taken before the clamp
+    # below, since the candidates may fill cw to its end)
+    next_src = torch.cat([src[1:], torch.full((1,), cw.shape[0],
+                                              dtype=src.dtype, device=dev)])
     src = src.clamp(max=cw.shape[0] - 1)
     rep_cw = cw[src]
     r_posA = rep_cw & pmask
     r_delta = shr(rep_cw, pb) & ((1 << (pb + 2)) - 1)
     r_fwd = (shr(rep_cw, 2 * pb + 2) & 1) == 1
 
-    # cluster extent: the cluster's last member is the row before the
-    # next rep (or the last valid candidate row)
-    next_src = torch.cat([src[1:], torch.full((1,), cw.shape[0],
-                                              dtype=src.dtype, device=dev)])
     end_row = torch.minimum(next_src, n_cands) - 1
     end_row = end_row.clamp(0, cw.shape[0] - 1)
     last_posA = torch.maximum(cw[end_row] & pmask, r_posA)
@@ -177,8 +185,9 @@ def pair_reps(cw, ec: int, pos_bits: int, seed_len: int) -> PairReps:
     (rows past min(n_reps, EC) are absent: zero left ends, forward,
     length seed_len).
 
-    cw: int64[m] cluster words in unsigned order (-1 last).  CPU tensors
-    take the plain version; CUDA tensors launch K19."""
+    cw: int64[m] cluster words in unsigned order (K18's candidates; any
+    -1 words last).  CPU tensors take the plain version; CUDA tensors
+    launch K19."""
     if cw.device.type == "cpu":
         return pair_reps_plain(cw, ec, pos_bits, seed_len)
     dev = cw.device

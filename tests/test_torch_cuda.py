@@ -67,6 +67,112 @@ def test_seed_keys_kernel_equals_plain(dev, weight):
         assert torch.equal(got.cpu(), ref)
 
 
+# K1's seeds on the card: every weight at rank 0, every rank at weights
+# 15 and 21, and the solid 32 that get_seed returns above weight 31
+K1_SEEDS = sorted({seeds.get_seed(w) for w in range(5, 32)}
+                  | {seeds.get_seed(w, r) for w in (15, 21) for r in range(5)}
+                  | {seeds.get_seed(32)})
+# windows a call: one, a tile (4,096) -1/0/+1, three tiles -1/0/+1
+K1_WINDOWS = (1, 4095, 4096, 4097, 3 * 4096 - 1, 3 * 4096, 3 * 4096 + 1)
+
+
+@pytest.mark.parametrize("seed", K1_SEEDS, ids=lambda s: f"{s:#x}")
+def test_seed_keys_kernel_tiles_equal_plain(dev, seed):
+    """K1 against its plain version at every window count around its
+    tile edges, with flag runs crossing the tile edges and a run over the
+    last bases, with no mask, and on codes one byte into their buffer
+    (no 16-byte load there)."""
+    length = seeds.seed_length(seed)
+    rng = np.random.default_rng(seed % 10_007)
+    for n in K1_WINDOWS:
+        L = n + length - 1
+        codes = torch.from_numpy(rng.integers(0, 4, L + 1).astype(np.uint8))
+        amb = np.zeros(L + 1, bool)
+        for edge in range(4096, L + 1, 4096):
+            amb[max(edge - length // 2 - 1, 0):edge + 2] = True
+        amb[rng.integers(0, L + 1, 3)] = True
+        amb[L - 1:] = True
+        ambig = torch.from_numpy(amb)
+        for c, a in ((codes[:L], ambig[:L]), (codes[:L], None),
+                     (codes[1:], ambig[1:])):
+            got = mers.canonical_seed_keys(c.to(dev), seed,
+                                           None if a is None else a.to(dev))
+            ref = mers.canonical_seed_keys_plain(c, seed, a)
+            assert got.numel() == n
+            assert torch.equal(got.cpu(), ref), (n, a is None)
+
+
+def _trace(call):
+    """(kernel names, device-to-host copies) of one call traced by
+    torch.profiler on the card, after an untraced call.  The call starts
+    0.2 s into the session: a kernel launched right at a session's start
+    was seen missing from its trace."""
+    import json
+    import re
+    import tempfile
+    import time
+    call()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.2)
+        call()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = [e for e in json.load(fh)["traceEvents"]
+                      if e.get("cat") in ("kernel", "gpu_memcpy")]
+    kernels = [[re.search(r"(\w+)(?:<[^()]*>)?\(", e["name"]).group(1),
+                e["name"]] for e in events if e["cat"] == "kernel"]
+    d2h = sum(e["cat"] == "gpu_memcpy" and "DtoH" in e["name"]
+              for e in events)
+    return kernels, d2h
+
+
+def _traced_in_process(fn_name):
+    """The result of this module's `fn_name()` run in a fresh Python
+    process.  Profiler sessions taken late in a long test process were
+    seen to trace the launches but none of their kernels, and a session
+    disturbed the ones after it; a fresh process gives each trace the
+    state its first session has."""
+    import json
+    import subprocess
+    import sys
+    here = os.path.abspath(__file__)
+    code = ("import importlib.util, json\n"
+            f"spec = importlib.util.spec_from_file_location('t', {here!r})\n"
+            "m = importlib.util.module_from_spec(spec)\n"
+            "spec.loader.exec_module(m)\n"
+            f"print(json.dumps(m.{fn_name}()))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600,
+                         cwd=os.path.dirname(os.path.dirname(here)))
+    assert out.returncode == 0, out.stderr[-3000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def _k1_traces():
+    """K1's traces with and without a mask (run by _traced_in_process)."""
+    seed = seeds.get_seed(15)
+    rng = np.random.default_rng(4)
+    dev = torch.device("cuda", 0)
+    codes = torch.from_numpy(rng.integers(0, 4, 50_000).astype(np.uint8)
+                             ).to(dev)
+    ambig = torch.from_numpy(rng.random(50_000) < 0.01).to(dev)
+    return [_trace(lambda: mers.canonical_seed_keys(codes, seed, a))
+            for a in (ambig, None)]
+
+
+def test_seed_keys_trace_one_kernel(dev):
+    """One call of K1's wrapper, with and without a mask, traced by
+    torch.profiler: one kernel, no copy."""
+    for kernels, d2h in _traced_in_process("_k1_traces"):
+        assert [k for k, _ in kernels] == ["seed_keys_kernel"], kernels
+        assert d2h == 0
+
+
 def test_extend_kernel_equals_plain(dev):
     seed = seeds.get_seed(15)
     seed_len = seeds.seed_length(seed)
@@ -1307,6 +1413,112 @@ def test_pair_cluster_words_kernel_equals_plain(dev, weight, n):
                                          smls[1].keys.to(dev), pb, sent)
     assert got_n == ref_n > 2
     assert torch.equal(got.cpu(), ref)
+
+
+def _run_keys(runs, rng):
+    """keys_a, keys_b (int64, position order) whose sorted seed words are
+    the content runs `runs`: a run is a tuple of genome ids (content: its
+    index + 1) or a pair (content, tuple of genome ids).  Positions are
+    shuffled in each genome, strands drawn at random."""
+    ka, kb = [], []
+    for c, run in enumerate(runs):
+        content, gids = run if isinstance(run[-1], tuple) else (c + 1, run)
+        for g in gids:
+            (ka if g == 0 else kb).append((content << 1)
+                                          | int(rng.integers(0, 2)))
+    ka, kb = np.array(ka, np.int64), np.array(kb, np.int64)
+    return (torch.from_numpy(ka[rng.permutation(len(ka))]),
+            torch.from_numpy(kb[rng.permutation(len(kb))]))
+
+
+EDGE_SENT = 0x40000000   # the sentinel content of _edge_runs' table
+
+
+def _edge_runs():
+    """Seven candidate runs of 2 (genome 0 then 1) among singletons and
+    genome-1 runs of 2: at three tile edges e, one on rows e - 2 and
+    e - 1 (a tile's last two rows) and one on e + 4095 and e + 4096
+    (across the next edge), then a run of 3 across the edge after (no
+    candidate); a pair of the sentinel content (no candidate); a pair as
+    the table's last two rows."""
+    runs, rows = [], 0
+
+    def fill(to):
+        nonlocal rows
+        while rows < to:
+            runs.append((rows % 2,) if rows + 2 > to or rows % 5 else (1, 1))
+            rows += len(runs[-1])
+
+    def put(run):
+        nonlocal rows
+        runs.append(run)
+        rows += len(run)
+    for e in (4096, 4 * 4096, 7 * 4096):
+        fill(e - 2)
+        put((0, 1))
+        fill(e + 4095)
+        put((0, 1))
+        fill(e + 2 * 4096 - 1)
+        put((0, 0, 1))
+    fill(rows + 50)
+    runs += [(EDGE_SENT, (0, 1)), (0x7FFFFFFF, (0, 1))]
+    return runs
+
+
+@pytest.mark.parametrize("case", ["tile_edges", "no_candidate",
+                                  "every_run_a_pair", "10M_rows"])
+def test_pair_cluster_words_kernel_cases_equal_plain(dev, case):
+    """K18 against its plain version on built tables: candidate runs at
+    and across tile edges, none at all, every run a pair, and 10 M rows
+    of random contents; the words kept are the candidates', in table
+    order."""
+    from libmems_tpu_torch.ops import pair
+    rng = np.random.default_rng(46)
+    sent = EDGE_SENT
+    if case == "tile_edges":
+        ka, kb = _run_keys(_edge_runs(), rng)
+    elif case == "no_candidate":
+        ka, kb = _run_keys([(g,) if c % 3 else (g, g)
+                            for c, g in enumerate([0, 1] * 6_000)], rng)
+    elif case == "every_run_a_pair":
+        ka, kb = _run_keys([(0, 1)] * 6_000, rng)
+    else:
+        a = rng.integers(1, 1 << 23, size=5_000_000)
+        b = np.where(rng.random(5_000_000) < 0.5,
+                     a[rng.permutation(5_000_000)],
+                     rng.integers(1, 1 << 23, size=5_000_000))
+        ka = torch.from_numpy((a << 1) | rng.integers(0, 2, a.shape[0]))
+        kb = torch.from_numpy((b << 1) | rng.integers(0, 2, b.shape[0]))
+    pb = max(max(ka.shape[0], kb.shape[0]).bit_length(), 8)
+    ka, kb = ka.to(dev), kb.to(dev)
+    ref, ref_n = pair.pair_cluster_words_plain(ka, kb, pb, sent)
+    got, got_n = pair.pair_cluster_words(ka, kb, pb, sent)
+    assert got_n == ref_n == got.numel()
+    assert torch.equal(got, ref)
+    want = {"tile_edges": 7, "no_candidate": 0,
+            "every_run_a_pair": 6_000}.get(case)
+    assert ref_n == want if want is not None else ref_n > 100_000
+
+
+def _k18_trace():
+    """K18's trace on a pair's keys (run by _traced_in_process)."""
+    from libmems_tpu_torch.ops import pair
+    dev = torch.device("cuda", 0)
+    smls, seed, pb = _pair_keys(15, 60_000, 43)
+    args = (smls[0].keys.to(dev), smls[1].keys.to(dev), pb,
+            mers.sentinel_content(seed))
+    return _trace(lambda: pair.pair_cluster_words(*args))
+
+
+def test_pair_cluster_words_trace_two_kernels(dev):
+    """One call of K18's wrapper traced by torch.profiler: the pack and
+    the flag pass, the library sort between them (no other kernel), and
+    one copy to the host (the candidates' count)."""
+    kernels, d2h = _traced_in_process("_k18_trace")
+    ours = [k for k, full in kernels
+            if "at::" not in full and "cub::" not in full]
+    assert ours == ["pair_pack_kernel", "pair_cluster_words_kernel"], kernels
+    assert d2h == 1
 
 
 def test_pair_reps_kernel_equals_plain(dev):

@@ -159,8 +159,11 @@ def test_fused_pair_pipeline_outputs_equal_jax(rng_seed):
 
 def test_fused_pair_pipeline_last_table_rows_survive():
     """The largest seed content of the table is an exact pair, so the
-    last two rows of the sorted word table survive: the fills past the
-    table's end decide the flag."""
+    last two rows of the sorted word table are a candidate: the fills
+    past the table's end decide the flag.  K18 keeps only the candidates'
+    cluster words, in table order, so the last of them is the top
+    content's pair (forward, on diagonal 0, at its position in genome
+    a)."""
     rng = np.random.default_rng(23)
     n = 3_000
     a = rng.integers(0, 4, size=n).astype(np.uint8)
@@ -175,8 +178,30 @@ def test_fused_pair_pipeline_last_table_rows_survive():
     pb = matchfind._pair_pos_bits(max(s.n_windows for s in smls))
     cw, n_cands = ops_pair.pair_cluster_words_plain(
         smls[0].keys, smls[1].keys, pb, sentinel_content(seed))
-    assert int(cw[-2]) != -1 and int(cw[-1]) == -1 and n_cands > 5
+    top_pair = (1 << (2 * pb + 2)) | ((1 << pb) << pb) | top
+    assert int(cw[-1]) == top_pair and n_cands == cw.numel() > 5
+    assert not bool((cw == -1).any())
     _assert_device_outputs_equal(got, want)
+
+
+def test_fused_pair_pipeline_without_candidates():
+    """Two unrelated genomes share no weight-21 seed: K18 keeps no
+    cluster word, and both packages find no MUM."""
+    rng = np.random.default_rng(26)
+    a_asc, b_asc = (generate._LUT[rng.integers(0, 4, size=2_000).astype(
+        np.uint8)] for _ in range(2))
+    seed = jseeds.get_seed(21)
+    smls, got, want = _device_outputs(a_asc, b_asc, seed)
+    pb = matchfind._pair_pos_bits(max(s.n_windows for s in smls))
+    cw, n_cands = ops_pair.pair_cluster_words_plain(
+        smls[0].keys, smls[1].keys, pb, sentinel_content(seed))
+    assert n_cands == cw.numel() == 0
+    assert int(want[3]) == 0 and not bool(np.asarray(want[2]).any())
+    _assert_device_outputs_equal(got, want)
+    port, ref = _both(a_asc, b_asc)
+    mums = find_mums(port, seed=seed, device="cpu")
+    assert len(mums) == 0
+    _assert_same(mums, jax_find_mums(ref, seed=seed))
 
 
 def test_fused_pair_pipeline_capacity_retry():
