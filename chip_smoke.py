@@ -211,6 +211,12 @@ seedwords - (named runs only) K1 at 1, 4.6 and 8.7 Mbp with and without
              the seed-word and cluster-word sorts beside them, by events,
              on the card and on the host (phase_seedwords); it times an
              older tree's archive as well.
+reps     - (named runs only) K15 on the trio's sorted signature rows (the
+             call at the first capacity guess and the main path's whole
+             step), K19 on the pair's sorted cluster words and K7 on the
+             9 x 1 Mbp family's, through the wrappers and each launch
+             alone, by events, on the card and on the host (phase_reps);
+             it times an older tree's archive as well.
 
 The inputs of phases 7-9 are recorded one layer above the kernel
 wrappers (align_profile_batch, profile_scores_batch, predict_homologous,
@@ -389,7 +395,7 @@ PHASES = ("kernels", "seeder", "seedocc", "goldens", "main", "trio",
 # phases only a named run takes: their checks are part of the full run's
 # phases already
 LIGHT_PHASES = ("fullwidth", "wide", "hmm", "hmmstage", "runflags",
-                "seedwords")
+                "seedwords", "reps")
 # the HMM calls phase hmm records for phase hmmstage
 HMM_CALLS = os.path.join(ROOT, "build", "chip_smoke_hmm", "calls.npz")
 
@@ -964,8 +970,14 @@ def pair_kernels_vs_plain(torch, smls, seed, pb, EC, timed):
             timed_ms(lambda: pair.pair_reps(*rargs), 10, torch),
             timed_ms(lambda: pair.pair_reps_plain(*rargs), 3, torch,
                      warmup=False),
-            # its input is K18's n_cands words
-            work(nbytes(cw, got_r[:-1]), 10 * cw.numel()))
+            # its input is K18's n_cands words, a word index out a
+            # representative, then the [EC] rows
+            work(nbytes(cw, got_r[:-1]) + 4 * got_r.n_reps,
+                 10 * cw.numel()))
+        res["pair_reps"]["card_ms"] = device_ms(
+            lambda: pair.pair_reps(*rargs), 10, torch)
+        log(f"# K19 {res['pair_reps']['ms']:.4f} ms by events, "
+            f"{res['pair_reps']['card_ms']:.4f} on the card")
         sort_ms = timed_ms(lambda: pairwise.usort(got_w), 10, torch)
         log(f"# torch.sort of the {got_n} cluster words (K19's input): "
             f"{sort_ms:.3f} ms")
@@ -1776,13 +1788,185 @@ def phase_seedwords(torch, lt, dev):
     log(json.dumps({"seedwords": out}))
 
 
+def k15_step(mums, words, posref, ec0, G, pos_bits, seed_len):
+    """K15 as the trio's main path runs it from the first capacity guess
+    ec0: on a tree with K15's scan, the scan, the capacity from its count
+    and the decode; on an older tree the call at ec0 and, where the
+    representatives do not fit, the call again at the next power of two
+    above their count."""
+    if hasattr(mums, "mum_rep_index"):
+        idx = mums.mum_rep_index(words, posref, G, pos_bits, seed_len)
+        ec = ec0 if idx.n_reps <= ec0 else 1 << (idx.n_reps - 1).bit_length()
+        return mums.mum_decode_reps(words, posref, idx, ec, G, pos_bits)
+    r = mums.mum_reps(words, posref, ec0, G, pos_bits, seed_len)
+    if r.n_reps > ec0:
+        r = mums.mum_reps(words, posref, 1 << (r.n_reps - 1).bit_length(),
+                          G, pos_bits, seed_len)
+    return r
+
+
+def rep_passes(torch, lib, stream, kind, *args):
+    """{"scan": fn, "decode": fn, and the buffers they launch on}: the
+    scan and the decode of K15 ("mum") or K19 ("pair") launched alone
+    through the library, as their wrappers launch them but with no host
+    read between (the decode reads the index of the scan's last run); {}
+    on a tree without those launches.  args: K15's (words, posref, G,
+    pos_bits, seed_len, n_reps, ec), K19's (cw, pos_bits, seed_len,
+    n_reps, ec)."""
+    from libmems_tpu_torch.ops import pairwise
+    if not hasattr(lib, f"lm_{kind}_rep_index"):
+        return {}
+    dev = args[0].device
+    m = args[1].shape[0] if kind == "mum" else args[0].shape[0]
+    index = torch.empty(max(m, 1), dtype=torch.int32, device=dev)
+    scratch = pairwise.scan_scratch(m, dev)
+    if kind == "mum":
+        words, posref, G, pb, seed_len, n_reps, ec = args
+        outs = [torch.empty((ec, G), dtype=dt, device=dev)
+                for dt in (torch.int32, torch.uint8, torch.uint8)]
+        return {"scan": lambda: lib.lm_mum_rep_index(
+                    words.data_ptr(), posref.data_ptr(), m, G,
+                    words.shape[0], seed_len, index.data_ptr(),
+                    scratch.data_ptr(), stream),
+                "decode": lambda: lib.lm_mum_decode_reps(
+                    words.data_ptr(), posref.data_ptr(), index.data_ptr(),
+                    m, min(n_reps, ec), ec, G, pb,
+                    *[o.data_ptr() for o in outs], stream),
+                "outs": outs, "index": index, "scratch": scratch}
+    cw, pb, seed_len, n_reps, ec = args
+    outs = [torch.empty(shape, dtype=dt, device=dev)
+            for shape, dt in (((ec, 2), torch.int32), ((ec, 2), torch.uint8),
+                              ((ec, 2), torch.uint8), ((ec,), torch.int32))]
+    counts = scratch[1:3]
+    return {"scan": lambda: lib.lm_pair_rep_index(
+                cw.data_ptr(), m, pb, seed_len, index.data_ptr(),
+                scratch.data_ptr(), stream),
+            "decode": lambda: lib.lm_pair_reps(
+                cw.data_ptr(), index.data_ptr(), counts.data_ptr(),
+                min(n_reps, ec), ec, pb, seed_len,
+                *[o.data_ptr() for o in outs], stream),
+            "outs": outs, "index": index, "scratch": scratch}
+
+
+def phase_reps(torch, lt, dev):
+    """K15, K19 and K7 alone at the paths' shapes: K15 on the first
+    trio's sorted signature rows, the call at the first capacity guess
+    and the main path's whole step (k15_step); K19 on the 4.6 Mbp pair's
+    sorted cluster words at the pair path's capacity; K7's scan and
+    decode on the 9 x 1 Mbp family's sorted words.  Each is equal to its
+    plain version, then timed by CUDA events, on the card (device_ms) and
+    on the host clock (host_ms), 20 runs each, median; where the tree
+    has them, the scans and decodes of K15 and K19 are timed alone too
+    (rep_passes).  It calls only the wrappers, their plain versions, the
+    paths' table builders and the launchers rep_passes finds, so this
+    script copied into an older tree's archive times that tree the same
+    way.  Prints one JSON line {"reps": {label: {rows, events_ms,
+    card_ms, host_ms}}}."""
+    from libmems_tpu_torch import cuda, matchfind
+    from libmems_tpu_torch.matchfind import _seed_table
+    from libmems_tpu_torch.ops import mums, pair, pairwise
+    from libmems_tpu_torch.ops.mers import sentinel_content
+    from libmems_tpu_torch.sml import create_smls
+    lib = cuda.library()
+    out = {}
+
+    def timings(label, rows, fn):
+        out[label] = {"rows": rows,
+                      "events_ms": timed_ms(fn, 20, torch),
+                      "card_ms": device_ms(fn, 20, torch),
+                      "host_ms": host_ms(fn, 20, torch)}
+        e = out[label]
+        log(f"# {label}: {rows} rows; {e['events_ms']:.4f} ms by events, "
+            f"{e['card_ms']:.4f} card, {e['host_ms']:.4f} on the host")
+
+    def same(a, b):
+        return a.n_reps == b.n_reps and all(
+            torch.equal(x, y) for x, y in zip(a[:-1], b[:-1]))
+
+    def passes(label, rows, kind, *args):
+        fns = rep_passes(torch, lib, cuda.stream(args[0]), kind, *args)
+        for name in ("scan", "decode") if fns else ():
+            timings(f"{label} {name} alone", rows,
+                    lambda f=fns[name], n=name: cuda.check(f(), n))
+
+    smls, seed = create_smls(family_trio(lt, 0), device=dev)
+    G, seed_len = len(smls), smls[0].seed_length
+    keys, seg_off, content, src = _seed_table(smls)
+    flags = mums.mum_seed_flags(content, src, keys, seg_off, 0, 1000,
+                                sentinel_content(seed))
+    pos_bits = keys.numel().bit_length()
+    words, posref = trio_signature_rows(
+        torch, mums.mum_candidates(flags, G, 0, pos_bits))
+    m = posref.numel()
+    ec0 = min(1 << 14, 1 << (flags.n_rows - 1).bit_length())
+    del keys, seg_off, content, src, flags
+    got = k15_step(mums, words, posref, ec0, G, pos_bits, seed_len)
+    ec = got.lefts.shape[0]
+    require(same(got, mums.mum_reps_plain(words, posref, ec, G, pos_bits,
+                                          seed_len)),
+            "K15's step differs from its plain version")
+    log(f"# K15 on the trio: {m} rows of {words.shape[0]} words, "
+        f"{got.n_reps} reps, EC {ec0} -> {ec}")
+    timings("K15 at the first guess", m,
+            lambda: mums.mum_reps(words, posref, ec0, G, pos_bits, seed_len))
+    timings("K15 step", m,
+            lambda: k15_step(mums, words, posref, ec0, G, pos_bits,
+                             seed_len))
+    passes("K15", m, "mum", words, posref, G, pos_bits, seed_len,
+           got.n_reps, ec)
+    out["K15 counts"] = {"rows": m, "n_words": words.shape[0],
+                         "n_reps": got.n_reps, "ec0": ec0, "ec": ec}
+    del words, posref, got
+
+    smls, seed = create_smls(genome_pair(lt, 0), device=dev)
+    pb = matchfind._pair_pos_bits(max(s.n_windows for s in smls))
+    total = sum(s.n_windows for s in smls)
+    ec = min(1 << 14, 1 << max((total - 1).bit_length() - 1, 1))
+    cw, _ = pair.pair_cluster_words(smls[0].keys, smls[1].keys, pb,
+                                    sentinel_content(seed))
+    cw = pairwise.usort(cw)
+    rargs = (cw, ec, pb, smls[0].seed_length)
+    got = pair.pair_reps(*rargs)
+    require(same(got, pair.pair_reps_plain(*rargs)),
+            "K19 differs from its plain version")
+    timings("K19", cw.numel(), lambda: pair.pair_reps(*rargs))
+    passes("K19", cw.numel(), "pair", cw, pb, smls[0].seed_length,
+           got.n_reps, ec)
+    out["K19 counts"] = {"words": cw.numel(), "n_reps": got.n_reps,
+                         "ec": ec}
+    del smls, cw, got
+
+    t = seeder_table(torch, lt, dev, family_nine(lt, 0))
+    G, pb, seed_len = t["G"], t["pos_bits"], t["seed_len"]
+    cw = pairwise.usort(pairwise.cluster_words(t["flags"], G, pb))
+    idx = pairwise.rep_index(cw, pb, seed_len)
+    ec0 = min(1 << 14, 1 << (max(t["rows"], 2) - 1).bit_length())
+    ec = ec0 if idx.n_reps <= ec0 else 1 << (idx.n_reps - 1).bit_length()
+    got = pairwise.decode_reps(cw, idx, ec, G, pb, seed_len, *t["gen"])
+    require(same(got, pairwise.cluster_reps_plain(cw, ec, G, pb, seed_len,
+                                                  *t["gen"])),
+            "K7 differs from its plain version")
+    n_valid = int(idx.counts[0])
+    index = torch.empty(cw.numel(), dtype=torch.int32, device=dev)
+    scratch = pairwise.scan_scratch(cw.numel(), dev)
+    timings("K7 scan", n_valid, lambda: pairwise.rep_index(cw, pb, seed_len))
+    timings("K7 scan alone", n_valid,
+            lambda: pairwise._rep_scan(cw, pb, seed_len, index, scratch))
+    timings("K7 decode", ec,
+            lambda: pairwise.decode_reps(cw, idx, ec, G, pb, seed_len,
+                                         *t["gen"]))
+    out["K7 counts"] = {"words": cw.numel(), "valid": n_valid,
+                        "n_reps": idx.n_reps, "ec": ec}
+    log(json.dumps({"reps": out}))
+
+
 def phase_mum_kernels(torch, lt, dev):
     """K13-K15 against their plain versions on the card, on the seed
     table of the first trio input (rng 0), and K2 on that input's
     extension rows; exact equality.  Returns ({name: entry}, K2's
     max_abs_err)."""
-    from libmems_tpu_torch.matchfind import _lexsort_rows, _seed_table
-    from libmems_tpu_torch.ops import extend, mums
+    from libmems_tpu_torch.matchfind import _seed_table
+    from libmems_tpu_torch.ops import extend, mums, pairwise
     from libmems_tpu_torch.ops.mers import key_sentinel, sentinel_content
     from libmems_tpu_torch.sml import create_smls
 
@@ -1837,14 +2021,17 @@ def phase_mum_kernels(torch, lt, dev):
     log(f"# K14 candidates: {n_rows} rows, {got_c.words.shape[0]} words "
         f"each, equal")
 
-    order = _lexsort_rows(list(got_c.words) + [got_c.posref])
-    words = torch.index_select(got_c.words, 1, order)
-    posref = got_c.posref[order]
-    ec = min(1 << 14, 1 << (n_rows - 1).bit_length())
-    got_r = mums.mum_reps(words, posref, ec, G, pos_bits, seed_len)
-    if got_r.n_reps > ec:       # the main path's capacity growth
-        ec = 1 << (got_r.n_reps - 1).bit_length()
-        got_r = mums.mum_reps(words, posref, ec, G, pos_bits, seed_len)
+    words, posref = trio_signature_rows(torch, got_c)
+    # the main path's capacity: its first guess, or the next power of two
+    # above the representatives' count, picked once from the scan's count
+    idx = mums.mum_rep_index(words, posref, G, pos_bits, seed_len)
+    ref_i = mums.mum_rep_index_plain(words, posref, G, pos_bits, seed_len)
+    require(idx.n_reps == ref_i.n_reps
+            and torch.equal(idx.index[:idx.n_reps], ref_i.index),
+            "K15's scan differs from its plain version")
+    ec0 = min(1 << 14, 1 << (n_rows - 1).bit_length())
+    ec = pairwise.rep_capacity(ec0, idx.n_reps)
+    got_r = mums.mum_decode_reps(words, posref, idx, ec, G, pos_bits)
     rargs = (words, posref, ec, G, pos_bits, seed_len)
     ref_r = mums.mum_reps_plain(*rargs)
     require(got_r.n_reps == ref_r.n_reps and same(got_r, ref_r),
@@ -1854,11 +2041,15 @@ def phase_mum_kernels(torch, lt, dev):
         timed_ms(lambda: mums.mum_reps(*rargs), 10, torch),
         timed_ms(lambda: mums.mum_reps_plain(*rargs), 3, torch,
                  warmup=False),
-        # sorted words and posref in, [EC, G] rows out; ~10 operations a
-        # row and field (unpack, compares)
-        work(nbytes(words, posref, tensors(got_r)),
+        # sorted words and posref in, a row index a representative, [EC,
+        # G] rows out; ~10 operations a row and field (unpack, compares)
+        work(nbytes(words, posref, tensors(got_r)) + 4 * idx.n_reps,
              10 * (G + 3) * posref.numel()))
-    log(f"# K15 representatives: {got_r.n_reps} reps in EC={ec} equal")
+    res["mum_reps"]["card_ms"] = device_ms(lambda: mums.mum_reps(*rargs),
+                                           10, torch)
+    log(f"# K15 representatives: {got_r.n_reps} reps in EC={ec} (first "
+        f"guess {ec0}) equal; {res['mum_reps']['ms']:.4f} ms by events, "
+        f"{res['mum_reps']['card_ms']:.4f} on the card")
 
     off = seg_off[:-1].to(torch.int32)[None].expand(ec, G).contiguous()
     cnt = (seg_off[1:] - seg_off[:-1]).to(torch.int32)[None].expand(
@@ -1877,6 +2068,14 @@ def phase_mum_kernels(torch, lt, dev):
         log(f"# {name}: kernel {e['ms']:.3f} ms, plain {e['plain_ms']:.3f} "
             f"ms, max_abs_err {e['err']}")
     return res, max_abs_err([(kl, rl), (kn, rn)])
+
+
+def trio_signature_rows(torch, cand):
+    """K14's candidate rows in the signature order K15 takes them, as the
+    main path sorts them: (words, posref)."""
+    from libmems_tpu_torch.matchfind import _lexsort_rows
+    order = _lexsort_rows(list(cand.words) + [cand.posref])
+    return torch.index_select(cand.words, 1, order), cand.posref[order]
 
 
 def write_outputs(lt, ivs, segs, n_genomes):
@@ -2049,7 +2248,7 @@ def phase_trio(torch, lt, dev):
                 "extend_matches": extend.extend_matches,
                 "mum_seed_flags": mums.mum_seed_flags,
                 "mum_candidates": mums.mum_candidates,
-                "mum_reps": mums.mum_reps,
+                "mum_reps": mums.mum_rep_index,
                 "profile_forward": profile.profile_forward,
                 "traceback_walk": gapped.traceback_walk,
                 "banded_forward_ptrs": profile.banded_forward_ptrs,
@@ -2061,7 +2260,7 @@ def phase_trio(torch, lt, dev):
     def run(rng_seed):
         genomes = family_trio(lt, rng_seed)
         trace.reset()
-        for w in wrappers.values():
+        for w in (*wrappers.values(), mums.mum_decode_reps):
             w.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2081,6 +2280,8 @@ def phase_trio(torch, lt, dev):
         for name, n in launches.items():
             require(n > 0 or name in printed_only,
                     f"{name}: no launch on the trio path")
+        require(mums.mum_decode_reps.launches == launches["mum_reps"],
+                "K15: a decode for each scan of the signature rows")
         check_partition(ivs, genomes)
         return genomes, launches, dt
 
@@ -5016,6 +5217,9 @@ def main(argv=None) -> int:
     if "seedwords" in phases:
         phase_seedwords(torch, lt, dev)
         lap("seedwords")
+    if "reps" in phases:
+        phase_reps(torch, lt, dev)
+        lap("reps")
     if "extend_matches" in res:
         res["extend_matches"]["err"] = max([res["extend_matches"]["err"]]
                                            + k2_errs)

@@ -43,18 +43,34 @@
 // any number of genomes: the words simply grow.
 //
 // K15, representatives, replaces :381-423 and _recover_starts (:314-332)
-// on the sorted signature rows: the starts are rebuilt from the words, a
-// row is a representative when it is valid and it is the first row, a
-// word changed or posref jumped by more than seed_len; representatives
-// are compacted to their cumsum rank (the JAX payload sort gives the same
-// rows in the same order) as K2's [EC, G] extension rows.
+// on the sorted signature rows, in two kernels around one host read:
+//  * mum_rep_index_kernel, one pass over the rows in tiles taken by ticket
+//    (scan.cuh): a row is a representative when it is valid (its invalid
+//    bit clear and a bit of its G-bit mask field set, read from the words
+//    alone) and it is the first row, a word differs from its
+//    predecessor's or posref jumps by more than seed_len.  The pass walks
+//    the word columns and posref one at a time, each lane holding one
+//    change bit and one mask bit an item, so any n_words fits in
+//    registers; each column's loads are coalesced, the predecessor comes
+//    from the lane before (lane 0 reads the row before the warp's span).
+//    The reps' row indices are stored at their rank in row order (the JAX
+//    payload sort gives the same rows in the same order), and the last
+//    tile leaves n_reps in the scratch;
+//  * the wrapper reads n_reps; the call site picks the capacity EC from
+//    it (the first guess where the reps fit, else the next power of two
+//    above their count), so the rows are scanned once a call;
+//  * mum_decode_reps_kernel, one thread a slot j < EC: row index[j]'s G
+//    starts rebuilt from its fields as K2's [EC, G] extension row; slots
+//    past min(n_reps, EC) write the absent row.
 //
 // Bound: memory traffic.  Each pass reads a few int32/int64 columns of
 // the table once, coalesced, and writes one or two (K13's gather of the
-// rows' strands aside); the sorts between the passes, and K15's cumsum,
-// stay library calls and cost more than the passes.
+// rows' strands aside); no library cumsum runs between them, and the
+// sorts between the passes stay library calls and cost more than the
+// passes.
 #include "common.cuh"
 #include "runs.cuh"
+#include "scan.cuh"
 
 namespace {
 
@@ -340,43 +356,93 @@ __global__ void mum_words_kernel(int* __restrict__ starts, int64_t n_rows,
   }
 }
 
-// K15 pass 1: representative flags of the sorted rows.
-__global__ void mum_rep_flags_kernel(const int64_t* __restrict__ words,
-                                     const int64_t* __restrict__ posref,
-                                     int64_t m, int G, int pos_bits,
-                                     int n_words, int seed_len,
-                                     int* __restrict__ rep) {
-  for (int64_t i = first_index(); i < m; i += grid_stride()) {
-    bool valid = false;
-    for (int g = 0; g < G && !valid; ++g) {
-      valid = recover_start(words, posref, m, i, G, pos_bits, g) != 0;
-    }
-    bool change = i == 0;
-    if (!change) {
-      for (int w = 0; w < n_words; ++w) {
-        if (words[w * m + i] != words[w * m + i - 1]) change = true;
+// K15's scan: rep r's row index to index[r]; the last tile leaves n_reps
+// in scratch word 1.
+__global__ void __launch_bounds__(lm::kScanThreads)
+    mum_rep_index_kernel(const int64_t* __restrict__ words,
+                         const int64_t* __restrict__ posref, int64_t m,
+                         int G, int n_words, int seed_len,
+                         int* __restrict__ index,
+                         unsigned long long* __restrict__ scratch) {
+  const int64_t tile = lm::take_tile(scratch);
+  const int lane = threadIdx.x & 31;
+  const int64_t wbase =
+      tile * lm::kScanTile + (threadIdx.x >> 5) * lm::kWarpSpan;
+  // bit j of each: item j's row changed against its predecessor, holds a
+  // mask bit, has its invalid bit set
+  unsigned change = 0, mask = 0, invalid = 0;
+  // the word columns, then posref (c == n_words)
+  for (int c = 0; c <= n_words; ++c) {
+    const int64_t* col = c < n_words ? words + (int64_t)c * m : posref;
+    // the mask field's bits [1, G + 1) that lie in word c
+    const int lo = c * kWordBits > 1 ? c * kWordBits : 1;
+    const int hi = (c + 1) * kWordBits < G + 1 ? (c + 1) * kWordBits : G + 1;
+    const uint64_t fmask =
+        c < n_words && lo < hi
+            ? (((uint64_t)1 << (hi - lo)) - 1) << ((c + 1) * kWordBits - hi)
+            : 0;
+    int64_t prev_lane0 = wbase > 0 && wbase <= m ? col[wbase - 1] : 0;
+#pragma unroll
+    for (int j = 0; j < lm::kScanItems; ++j) {
+      const int64_t i = wbase + j * 32 + lane;
+      const int64_t v = i < m ? col[i] : 0;
+      int64_t prev = __shfl_up_sync(0xffffffffu, v, 1);
+      if (lane == 0) prev = prev_lane0;
+      prev_lane0 = __shfl_sync(0xffffffffu, v, 31);
+      if (c < n_words) {
+        if (v != prev) change |= 1u << j;
+        if ((uint64_t)v & fmask) mask |= 1u << j;
+        if (c == 0 && (((uint64_t)v >> (kWordBits - 1)) & 1)) {
+          invalid |= 1u << j;
+        }
+      } else if (v - prev > seed_len) {
+        change |= 1u << j;
       }
-      if (posref[i] - posref[i - 1] > seed_len) change = true;
     }
-    rep[i] = (valid && change) ? 1 : 0;
+  }
+  unsigned ballot[lm::kScanItems];
+  unsigned count = 0;
+#pragma unroll
+  for (int j = 0; j < lm::kScanItems; ++j) {
+    const int64_t i = wbase + j * 32 + lane;
+    const bool valid = (((mask & ~invalid) >> j) & 1u) != 0;
+    const bool rep =
+        i < m && valid && (i == 0 || ((change >> j) & 1u) != 0);
+    ballot[j] = __ballot_sync(0xffffffffu, rep);
+    count += __popc(ballot[j]);
+  }
+  unsigned warp_off, total;
+  const unsigned long long off =
+      lm::block_offsets(scratch, tile, count, &warp_off, &total);
+  unsigned long long at = off + warp_off;
+#pragma unroll
+  for (int j = 0; j < lm::kScanItems; ++j) {
+    if ((ballot[j] >> lane) & 1) {
+      index[at + __popc(ballot[j] & lm::lanes_below())] =
+          (int)(wbase + j * 32 + lane);
+    }
+    at += __popc(ballot[j]);
+  }
+  if (tile == (int64_t)gridDim.x - 1 && threadIdx.x == 0) {
+    scratch[1] = off + total;
   }
 }
 
-// K15 pass 2: the representative of rank r (1-based, r <= ec) becomes
-// extension row r - 1; the rows were zeroed by the caller.
-__global__ void mum_reps_kernel(const int64_t* __restrict__ words,
-                                const int64_t* __restrict__ posref,
-                                const int* __restrict__ rep,
-                                const int* __restrict__ rank, int64_t m,
-                                int64_t ec, int G, int pos_bits,
-                                int* __restrict__ lefts,
-                                unsigned char* __restrict__ present,
-                                unsigned char* __restrict__ is_fwd) {
-  for (int64_t i = first_index(); i < m; i += grid_stride()) {
-    if (!rep[i] || rank[i] > ec) continue;
-    const int64_t j = rank[i] - 1;
+// K15's decode: slot j < n_valid = min(n_reps, EC) takes row index[j] as
+// extension row j; the slots after it are absent (zeros, not forward).
+__global__ void mum_decode_reps_kernel(const int64_t* __restrict__ words,
+                                       const int64_t* __restrict__ posref,
+                                       const int* __restrict__ index,
+                                       int64_t m, int64_t n_valid,
+                                       int64_t ec, int G, int pos_bits,
+                                       int* __restrict__ lefts,
+                                       unsigned char* __restrict__ present,
+                                       unsigned char* __restrict__ is_fwd) {
+  for (int64_t j = first_index(); j < ec; j += grid_stride()) {
+    const int64_t i = j < n_valid ? index[j] : -1;
     for (int g = 0; g < G; ++g) {
-      const int s = recover_start(words, posref, m, i, G, pos_bits, g);
+      const int s =
+          i >= 0 ? recover_start(words, posref, m, i, G, pos_bits, g) : 0;
       lefts[j * G + g] = s != 0 ? (s < 0 ? -s : s) - 1 : 0;
       present[j * G + g] = s != 0 ? 1 : 0;
       is_fwd[j * G + g] = s > 0 ? 1 : 0;
@@ -439,31 +505,38 @@ extern "C" int lm_mum_candidates(const void* kept_occ, const void* row_id,
   return (int)cudaGetLastError();
 }
 
-// K15, before the cumsum of rep: words int64[n_words, m] and posref
-// int64[m] in sorted order; rep int32[m].
-extern "C" int lm_mum_rep_flags(const void* words, const void* posref,
-                                int64_t m, int G, int pos_bits, int n_words,
-                                int seed_len, void* rep, void* stream) {
+// K15's scan: words int64[n_words, m] and posref int64[m] in sorted
+// order; index int32[m] (the first n_reps are written); scratch
+// int64[lm_scan_scratch_words(m)], zeroed here, word 1 n_reps after the
+// launch.
+extern "C" int lm_mum_rep_index(const void* words, const void* posref,
+                                int64_t m, int G, int n_words, int seed_len,
+                                void* index, void* scratch, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = cudaMemsetAsync(
+      scratch, 0, lm::scan_scratch_words(m) * sizeof(int64_t), s);
+  if (err != cudaSuccess) return (int)err;
   if (m > 0) {
-    LM_LAUNCH(mum_rep_flags_kernel, blocks_for(m), kThreads, 0,
-              (cudaStream_t)stream, (const int64_t*)words,
-              (const int64_t*)posref, m, G, pos_bits, n_words, seed_len,
-              (int*)rep);
+    LM_LAUNCH(mum_rep_index_kernel, (unsigned)lm::scan_tiles(m),
+              lm::kScanThreads, 0, s, (const int64_t*)words,
+              (const int64_t*)posref, m, G, n_words, seed_len, (int*)index,
+              (unsigned long long*)scratch);
   }
   return (int)cudaGetLastError();
 }
 
-// K15, after the cumsum: rank int32[m]; lefts int32[ec, G] and present,
-// is_fwd uint8[ec, G], zeroed by the caller.
-extern "C" int lm_mum_reps(const void* words, const void* posref,
-                           const void* rep, const void* rank, int64_t m,
-                           int64_t ec, int G, int pos_bits, void* lefts,
-                           void* present, void* is_fwd, void* stream) {
-  if (m > 0 && ec > 0) {
-    LM_LAUNCH(mum_reps_kernel, blocks_for(m), kThreads, 0,
+// K15's decode: index int32 of the scan; lefts int32[ec, G], present and
+// is_fwd uint8[ec, G], every slot written.  n_valid = min(n_reps, ec).
+extern "C" int lm_mum_decode_reps(const void* words, const void* posref,
+                                  const void* index, int64_t m,
+                                  int64_t n_valid, int64_t ec, int G,
+                                  int pos_bits, void* lefts, void* present,
+                                  void* is_fwd, void* stream) {
+  if (ec > 0) {
+    LM_LAUNCH(mum_decode_reps_kernel, blocks_for(ec), kThreads, 0,
               (cudaStream_t)stream, (const int64_t*)words,
-              (const int64_t*)posref, (const int*)rep, (const int*)rank, m,
-              ec, G, pos_bits, (int*)lefts, (unsigned char*)present,
+              (const int64_t*)posref, (const int*)index, m, n_valid, ec, G,
+              pos_bits, (int*)lefts, (unsigned char*)present,
               (unsigned char*)is_fwd);
   }
   return (int)cudaGetLastError();

@@ -18,25 +18,32 @@
 // candidate count (scratch word 1), which the wrapper reads once; no
 // atomic counts the candidates, and no -1 word is written.
 //
-// K19, representatives, replaces :546-594 on the sorted cluster words: the
-// representative flags (reps.cuh), their compaction to the
-// cumsum rank (the JAX binary search over the ranks picks the same rows in
-// the same order) and per representative the extension row K2 takes: both
-// left ends, the strand of genome 1, and a length seeded with the
-// cluster's extent.  A cluster's last member is the row before the next
-// representative, or the last candidate, so no thread walks a cluster.
-// Rows past the representative count are absent: zero left ends, forward,
-// length seed_len.
+// K19, representatives, replaces :546-594 on the sorted cluster words, in
+// two kernels around one host read:
+//  * K7's scan (repscan.cuh: the same head and posA test on the same word
+//    tail): each representative's word index stored in order at its rank
+//    (the JAX binary search over the cumsum ranks picks the same words),
+//    n_cands and n_reps left in the scan's scratch;
+//  * the wrapper reads n_reps;
+//  * pair_reps_kernel, one thread a slot j < EC: the representative's
+//    extension row K2 takes, both left ends, the strand of genome 1, and a
+//    length seeded with the cluster's extent.  A cluster's last member is
+//    the word before the next representative's, or at the last valid slot
+//    the last candidate (also when n_reps > EC, as the JAX next_src makes
+//    it), so no thread walks a cluster.  Slots past min(n_reps, EC) are
+//    absent: zero left ends, forward, length seed_len.
 //
 // Bound: memory traffic.  The pack reads one key and writes one word a
 // row (16 bytes), pass 2 reads one sorted word a row and writes one word
-// a candidate; the two sorts beside them cost more than the passes.
+// a candidate; K19's scan reads a word a candidate and writes an index a
+// representative, its decode writes 14 bytes a slot.  No library cumsum
+// runs between the passes; the two sorts beside them cost more.
 //
 // 64-bit words are int64 holding unsigned patterns (bit 63 is set when
 // 2 * weight + 3 + pos_bits reaches 64): shifts go through uint64, and
 // the -1 sentinel is all ones.
 #include "common.cuh"
-#include "reps.cuh"
+#include "repscan.cuh"
 #include "scan.cuh"
 
 namespace {
@@ -49,8 +56,6 @@ using lm::kScanItems;
 using lm::kScanThreads;
 using lm::kScanTile;
 using lm::kWarpSpan;
-using lm::rep_flags_kernel;
-using lm::rep_scatter_kernel;
 
 __device__ __forceinline__ uint64_t pack_word(uint64_t key, uint64_t gid,
                                               uint64_t pos, int pos_bits) {
@@ -177,12 +182,13 @@ __global__ void __launch_bounds__(kScanThreads)
   }
 }
 
-// K19 pass 3: per slot j < EC the representative's extension row
-// (matchfind.py:568-594).  Rows past n_valid are absent.
+// K19's decode: per slot j < EC the representative's extension row
+// (matchfind.py:568-594).  index: the scan's word indices; counts: its
+// n_cands and n_reps.  Slots past n_valid = min(n_reps, EC) are absent.
 __global__ void pair_reps_kernel(const int64_t* __restrict__ cw,
-                                 const int64_t* __restrict__ src,
+                                 const int* __restrict__ index,
                                  int64_t n_valid, int64_t ec,
-                                 const int64_t* __restrict__ n_cands,
+                                 const unsigned long long* __restrict__ counts,
                                  int pos_bits, int seed_len,
                                  int* __restrict__ lefts,
                                  unsigned char* __restrict__ present,
@@ -198,8 +204,9 @@ __global__ void pair_reps_kernel(const int64_t* __restrict__ cw,
       lengths0[j] = seed_len;
       continue;
     }
-    const int64_t w = cw[src[j]];
-    const int64_t end_row = (j + 1 < n_valid ? src[j + 1] : *n_cands) - 1;
+    const int64_t w = cw[index[j]];
+    const int64_t end_row =
+        (j + 1 < n_valid ? (int64_t)index[j + 1] : (int64_t)counts[0]) - 1;
     const uint64_t uw = (uint64_t)w;
     const int64_t pos_a = w & pmask;
     const int64_t delta =
@@ -252,38 +259,31 @@ extern "C" int lm_pair_cluster_words(const void* w, int64_t n, int pos_bits,
   return (int)cudaGetLastError();
 }
 
-// K19, before the cumsum of rep: cw int64[m] sorted (unsigned order); rep
-// int32[m]; n_cands int64[1], zeroed by the caller.
-extern "C" int lm_pair_rep_flags(const void* cw, int64_t m, int pos_bits,
-                                 int seed_len, void* rep, void* n_cands,
+// K19's scan: cw int64[m] sorted (unsigned order, -1 last); index
+// int32[m] (the first n_reps are written); scratch
+// int64[lm_scan_scratch_words(m)], words 1 and 2 n_cands and n_reps
+// after the launch.
+extern "C" int lm_pair_rep_index(const void* cw, int64_t m, int pos_bits,
+                                 int seed_len, void* index, void* scratch,
                                  void* stream) {
-  if (m > 0) {
-    LM_LAUNCH(rep_flags_kernel, blocks_for(m), kThreads, 0,
-              (cudaStream_t)stream, (const int64_t*)cw, m, pos_bits,
-              seed_len, (int*)rep, (int64_t*)n_cands);
-  }
-  return (int)cudaGetLastError();
+  return lm::launch_rep_index(cw, m, pos_bits, seed_len, index, scratch,
+                              (cudaStream_t)stream);
 }
 
-// K19, after the cumsum: rank int32[m]; src int64[EC] scratch; outputs
-// lefts int32[EC, 2], present and is_fwd uint8[EC, 2], lengths0 int32[EC].
-// n_valid = min(n_reps, EC).
-extern "C" int lm_pair_reps(const void* cw, const void* rep, const void* rank,
-                            int64_t m, int64_t ec, int64_t n_valid,
-                            const void* n_cands, int pos_bits, int seed_len,
-                            void* src, void* lefts, void* present,
-                            void* is_fwd, void* lengths0, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (m > 0) {
-    LM_LAUNCH(rep_scatter_kernel, blocks_for(m), kThreads, 0, s,
-              (const int*)rep, (const int*)rank, m, ec, (int64_t*)src);
-  }
+// K19's decode: index int32 and counts int64[2] (n_cands, n_reps; scratch
+// words 1-2) of the scan; outputs lefts int32[EC, 2], present and is_fwd
+// uint8[EC, 2], lengths0 int32[EC].  n_valid = min(n_reps, EC).
+extern "C" int lm_pair_reps(const void* cw, const void* index,
+                            const void* counts, int64_t n_valid, int64_t ec,
+                            int pos_bits, int seed_len, void* lefts,
+                            void* present, void* is_fwd, void* lengths0,
+                            void* stream) {
   if (ec > 0) {
-    LM_LAUNCH(pair_reps_kernel, blocks_for(ec), kThreads, 0, s,
-              (const int64_t*)cw, (const int64_t*)src, n_valid, ec,
-              (const int64_t*)n_cands, pos_bits, seed_len, (int*)lefts,
-              (unsigned char*)present, (unsigned char*)is_fwd,
-              (int*)lengths0);
+    LM_LAUNCH(pair_reps_kernel, blocks_for(ec), kThreads, 0,
+              (cudaStream_t)stream, (const int64_t*)cw, (const int*)index,
+              n_valid, ec, (const unsigned long long*)counts, pos_bits,
+              seed_len, (int*)lefts, (unsigned char*)present,
+              (unsigned char*)is_fwd, (int*)lengths0);
   }
   return (int)cudaGetLastError();
 }

@@ -46,12 +46,13 @@
 //
 // K7, representatives, replaces _pairwise_core :1163-1214, in two kernels
 // around one host read:
-//  * rep_index_kernel, one pass over the sorted cluster words (scan.cuh):
-//    each word's rep flag from its predecessor's head and posA, the reps'
-//    word indices stored in order at their rank (the JAX searchsorted over
-//    the monotone ranks gives the same), and n_cands and n_reps left in
-//    device memory.  The words sort -1 last, so a block whose tile starts
-//    at -1 reads nothing more: about 60% of the words are -1;
+//  * rep_index_kernel (repscan.cuh, shared with K19), one pass over the
+//    sorted cluster words (scan.cuh): each word's rep flag from its
+//    predecessor's head and posA, the reps' word indices stored in order
+//    at their rank (the JAX searchsorted over the monotone ranks gives the
+//    same), and n_cands and n_reps left in device memory.  The words sort
+//    -1 last, so a block whose tile starts at -1 reads nothing more:
+//    about 60% of the words are -1;
 //  * the wrapper reads n_reps, chooses the capacity EC and allocates;
 //  * reps_kernel, per slot j < EC the rep's decode into the compact
 //    [EC, 2] extension rows that K2 takes.  EC comes from n_reps, so the
@@ -65,6 +66,7 @@
 // 64-bit words are int64 holding unsigned patterns: right shifts go
 // through uint64, and the -1 sentinel is all ones.
 #include "common.cuh"
+#include "repscan.cuh"
 #include "runs.cuh"
 #include "scan.cuh"
 
@@ -276,80 +278,6 @@ __global__ void __launch_bounds__(kWordThreads)
   }
 }
 
-// K7 pass 1: a sorted word starts a representative when its (fwd, pair,
-// delta) head differs from the previous word's or its posA is more than
-// seed_len past the previous posA (matchfind.py:1163-1178); rep r's word
-// index goes to index[r].  The last valid word leaves n_cands (scratch
-// word 1) and n_reps (word 2).
-__global__ void __launch_bounds__(kScanThreads)
-    rep_index_kernel(const int64_t* __restrict__ cw, int64_t m, int pos_bits,
-                     int seed_len, int* __restrict__ index,
-                     unsigned long long* __restrict__ scratch) {
-  // the words sort -1 last, so a block whose own tile starts at -1 has
-  // nothing to do and takes no ticket: the tickets then number exactly
-  // the tiles that hold a valid word
-  if (cw[(int64_t)blockIdx.x * lm::kScanTile] == -1) return;
-  const int64_t tile = lm::take_tile(scratch);
-  const int64_t t0 = tile * lm::kScanTile;
-  const int lane = threadIdx.x & 31;
-  const int64_t wbase = t0 + (threadIdx.x >> 5) * kWarpSpan;
-  const int64_t pmask = ((int64_t)1 << pos_bits) - 1;
-  int64_t w[kScanItems];
-#pragma unroll
-  for (int j = 0; j < kScanItems; ++j) {
-    const int64_t i = wbase + j * 32 + lane;
-    w[j] = i < m ? cw[i] : -1;
-  }
-  // the words before lane 0's and after lane 31's first and last items
-  const int64_t before = wbase > 0 && wbase <= m ? cw[wbase - 1] : -1;
-  const int64_t after = wbase + kWarpSpan < m ? cw[wbase + kWarpSpan] : -1;
-  unsigned ballot[kScanItems];
-  unsigned last = 0;   // bit j: item j is the last valid word
-  unsigned count = 0;
-  int64_t prev_lane0 = before;
-#pragma unroll
-  for (int j = 0; j < kScanItems; ++j) {
-    const int64_t i = wbase + j * 32 + lane;
-    int64_t prev = __shfl_up_sync(0xffffffffu, w[j], 1);
-    if (lane == 0) prev = prev_lane0;
-    prev_lane0 = __shfl_sync(0xffffffffu, w[j], 31);
-    int64_t next = __shfl_down_sync(0xffffffffu, w[j], 1);
-    const int64_t next_lane31 =
-        j + 1 < kScanItems ? __shfl_sync(0xffffffffu, w[j + 1 < kScanItems
-                                                           ? j + 1 : j], 0)
-                           : after;
-    if (lane == 31) next = next_lane31;
-    const bool valid = w[j] != -1;
-    bool rep = false;
-    if (valid) {
-      const unsigned long long head = (unsigned long long)w[j] >> pos_bits;
-      const unsigned long long prev_head =
-          i == 0 ? ~0ull : (unsigned long long)prev >> pos_bits;
-      const int pos_a = (int)(w[j] & pmask);
-      const int prev_pos = i == 0 ? 0 : (int)(prev & pmask);
-      rep = head != prev_head || pos_a - prev_pos > seed_len;
-      if (i == m - 1 || next == -1) last |= 1u << j;
-    }
-    ballot[j] = __ballot_sync(0xffffffffu, rep);
-    count += __popc(ballot[j]);
-  }
-  unsigned warp_off, total;
-  const unsigned long long off =
-      lm::block_offsets(scratch, tile, count, &warp_off, &total);
-  unsigned long long at = off + warp_off;
-#pragma unroll
-  for (int j = 0; j < kScanItems; ++j) {
-    const unsigned long long rank =
-        at + __popc(ballot[j] & lm::lanes_below());
-    if ((ballot[j] >> lane) & 1) index[rank] = (int)(wbase + j * 32 + lane);
-    if ((last >> j) & 1) {
-      scratch[1] = wbase + j * 32 + lane + 1;
-      scratch[2] = rank + ((ballot[j] >> lane) & 1);
-    }
-    at += __popc(ballot[j]);
-  }
-}
-
 // K7 pass 2: per slot j < EC the rep's extension row in the compact pair
 // layout (matchfind.py:1180-1215).  Rows past n_valid = min(n_reps, EC)
 // are absent; the last valid row's cluster ends at n_cands.
@@ -510,16 +438,8 @@ extern "C" int lm_cluster_words(const void* rec, int64_t kept, int G,
 extern "C" int lm_rep_index(const void* cw, int64_t m, int pos_bits,
                             int seed_len, void* index, void* scratch,
                             void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = cudaMemsetAsync(
-      scratch, 0, lm::scan_scratch_words(m) * sizeof(int64_t), s);
-  if (err != cudaSuccess) return (int)err;
-  if (m > 0) {
-    LM_LAUNCH(rep_index_kernel, (unsigned)lm::scan_tiles(m), kScanThreads, 0,
-              s, (const int64_t*)cw, m, pos_bits, seed_len, (int*)index,
-              (unsigned long long*)scratch);
-  }
-  return (int)cudaGetLastError();
+  return lm::launch_rep_index(cw, m, pos_bits, seed_len, index, scratch,
+                              (cudaStream_t)stream);
 }
 
 // K7 pass 2: index int32 from pass 1; counts int64[2] (n_cands, n_reps;

@@ -78,15 +78,15 @@ _SIGNATURES = {
                           + [_P] * 8, _I),
     "lm_mum_candidates": ([_P] * 6 + [_L, _I, _L, _L, _I, _I] + [_P] * 4,
                           _I),
-    "lm_mum_rep_flags": ([_P, _P, _L, _I, _I, _I, _I, _P, _P], _I),
-    "lm_mum_reps": ([_P] * 4 + [_L, _L, _I, _I] + [_P] * 4, _I),
+    "lm_mum_rep_index": ([_P, _P, _L, _I, _I, _I, _P, _P, _P], _I),
+    "lm_mum_decode_reps": ([_P] * 3 + [_L, _L, _L, _I, _I] + [_P] * 4, _I),
     "lm_seed_tile_edges": ([_P, _L, _L, _P, _P], _I),
     "lm_seed_run_counts": ([_P] * 3 + [_L] * 4 + [_P, _P], _I),
     "lm_seed_smooth": ([_P, _L, _I, _P, _P], _I),
     "lm_pair_pack": ([_P, _L, _P, _L, _I, _P, _P], _I),
     "lm_pair_cluster_words": ([_P, _L, _I, _L, _P, _P, _P], _I),
-    "lm_pair_rep_flags": ([_P, _L, _I, _I, _P, _P, _P], _I),
-    "lm_pair_reps": ([_P, _P, _P, _L, _L, _L, _P, _I, _I] + [_P] * 6, _I),
+    "lm_pair_rep_index": ([_P, _L, _I, _I, _P, _P, _P], _I),
+    "lm_pair_reps": ([_P] * 3 + [_L, _L, _I, _I] + [_P] * 5, _I),
     "lm_hmm_scan_doubles": ([_I, _I, _I], _L),
     "lm_hmm_fb": ([_P, _P, _I, _I, _P, ctypes.c_double] + [_P] * 5, _I),
     "lm_hmm_fb_rows": ([_P, _P, _P, _I, _L, _P, ctypes.c_double] + [_P] * 5,

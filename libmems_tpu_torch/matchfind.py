@@ -89,8 +89,10 @@ def pair_candidates(seed_len: int, pos_bits: int, extend_capacity: int,
     """Stages before extension of the G=2 pipeline
     (libmems_tpu/matchfind.py:495-594): seed words, sort, exact-pair
     cluster words (K18, the n_cands candidates only), their sort, cluster
-    representatives as extension rows (K19).  Returns (lefts int32[EC, 2], present, is_fwd bool[EC, 2],
-    lengths int32[EC], n_cands, n_reps); rows past n_reps are absent."""
+    representatives as extension rows (K19: K7's compacting scan, one
+    host read of their count, a slot decode at EC).  Returns (lefts
+    int32[EC, 2], present, is_fwd bool[EC, 2], lengths int32[EC],
+    n_cands, n_reps); rows past n_reps are absent."""
     cw, n_cands = ops_pair.pair_cluster_words(keys_a, keys_b, pos_bits,
                                               sentinel_content(seed))
     reps = ops_pair.pair_reps(_usort(cw), extend_capacity, pos_bits,
@@ -155,7 +157,9 @@ def _fused_mum_pipeline(smls: list[SortedMerList], chunk: int,
     """Any-G unique-MUM pipeline (libmems_tpu/matchfind.py:336-442):
     sort -> K13 -> K14 -> signature sort -> K15 -> K2.  Returns (starts
     int32[EC, G], lengths int32[EC], valid bool[EC], n_rows, n_reps);
-    EC grows until every representative has an extension row."""
+    EC is the JAX package's growing capacity at its end, picked once from
+    the representatives' count, so every representative has an extension
+    row."""
     G = len(smls)
     seed = smls[0].seed
     seed_len = smls[0].seed_length
@@ -177,12 +181,11 @@ def _fused_mum_pipeline(smls: list[SortedMerList], chunk: int,
     words = torch.index_select(cand.words, 1, order)
     posref = cand.posref[order]
     del cand, order
-    ec = min(extend_capacity, 1 << (n_rows - 1).bit_length())
-    while True:
-        reps = ops_mums.mum_reps(words, posref, ec, G, pos_bits, seed_len)
-        if reps.n_reps <= ec:
-            break
-        ec = 1 << (reps.n_reps - 1).bit_length()
+    # K15 finds the representatives in one scan, the capacity follows
+    idx = ops_mums.mum_rep_index(words, posref, G, pos_bits, seed_len)
+    ec = ops_pairwise.rep_capacity(
+        min(extend_capacity, 1 << (n_rows - 1).bit_length()), idx.n_reps)
+    reps = ops_mums.mum_decode_reps(words, posref, idx, ec, G, pos_bits)
     gen_off = seg_off[:-1].to(torch.int32)
     gen_cnt = (seg_off[1:] - seg_off[:-1]).to(torch.int32)
     lefts, lengths = extend_matches(
@@ -736,13 +739,11 @@ def find_pairwise_mums(genomes_or_smls, seed: int | None = None,
     cw = _usort(ops_pairwise.cluster_words(flags, G, pos_bits))
     del flags
 
-    # K7 finds the representatives in one scan; the capacity is the JAX
-    # loop's last: the initial one if they fit, else the next power of
-    # two above their count
+    # K7 finds the representatives in one scan, the capacity follows
     idx = ops_pairwise.rep_index(cw, pos_bits, seed_len)
-    ec = min(extend_capacity, 1 << (max(total, 2) - 1).bit_length())
-    if idx.n_reps > ec:
-        ec = 1 << (idx.n_reps - 1).bit_length()
+    ec = ops_pairwise.rep_capacity(
+        min(extend_capacity, 1 << (max(total, 2) - 1).bit_length()),
+        idx.n_reps)
     reps = ops_pairwise.decode_reps(cw, idx, ec, G, pos_bits, seed_len,
                                     gen_off, gen_cnt)
     del cw, idx

@@ -18,9 +18,11 @@ libMems/MemHash.cpp:109-251):
 * ``mum_candidates`` (K14): the candidate scatter, the ``seq_mask``
   filter and ``_packed_diagonal_words``: starts int32[n_rows, G], the
   packed signature words int64[n_words, n_rows] and posref int64[n_rows];
-* ``mum_reps`` (K15): ``_recover_starts`` and the representative
-  compaction on the sorted signature rows, as K2's [EC, G] extension
-  rows.
+* ``mum_rep_index`` then ``mum_decode_reps`` (K15): the representatives
+  of the sorted signature rows, found in one scan (their row indices and
+  count, the count read once), then decoded by ``_recover_starts`` into
+  K2's [EC, G] extension rows at a capacity EC that the caller picks from
+  the count (``pairwise.rep_capacity``); ``mum_reps`` is the two in one call.
 
 Words are int64 tensors below 2^63 (63 payload bits a word), so their
 signed order is the JAX package's unsigned one.  The G-bit mask and sign
@@ -39,7 +41,8 @@ import torch
 from libmems_tpu_torch import cuda
 from libmems_tpu_torch.ops import pairwise
 from libmems_tpu_torch.ops.pairwise import (cumsum32, run_starts,
-                                            seed_table_meta, shr)
+                                            scan_scratch, seed_table_meta,
+                                            shr)
 
 WORD_BITS = 63      # payload bits of a signature word (matchfind._WORD_BITS)
 
@@ -350,6 +353,11 @@ class MumReps(NamedTuple):
     n_reps: int
 
 
+class MumRepIndex(NamedTuple):
+    index: torch.Tensor     # int32: entries [0, n_reps) the reps' rows
+    n_reps: int
+
+
 def recover_starts(words, posref, G: int, pos_bits: int) -> torch.Tensor:
     """matchfind._recover_starts: signed int32 starts [m, G] of signature
     rows."""
@@ -367,24 +375,43 @@ def recover_starts(words, posref, G: int, pos_bits: int) -> torch.Tensor:
     return torch.stack(cols, dim=1)
 
 
-def _rep_flags(words, posref, s_starts, seed_len: int) -> torch.Tensor:
+def rows_valid(words, G: int) -> torch.Tensor:
+    """Whether each signature row holds a start, from its fields alone:
+    its invalid bit (field bit 0) is clear and a bit of its G-bit mask
+    field (field bits [1, G + 1)) is set.  On K14's rows it equals
+    ``(recover_starts(...) != 0).any(1)``: a present genome's start is
+    its position + 1."""
+    valid = (shr(words[0], WORD_BITS - 1) & 1) == 0
+    present = torch.zeros_like(valid)
+    for w, lo, hi in _field_words(1, G + 1):
+        seg = shr(words[w], (w + 1) * WORD_BITS - hi) & ((1 << (hi - lo)) - 1)
+        present |= seg != 0
+    return valid & present
+
+
+def mum_rep_index_plain(words, posref, G: int, pos_bits: int,
+                        seed_len: int) -> MumRepIndex:
+    """Plain PyTorch version of K15's scan (matchfind.py:381-397): the
+    valid rows that are the first row, whose words differ from the row
+    before, or whose posref is more than seed_len past it."""
     m = posref.shape[0]
     change = torch.zeros(m, dtype=torch.bool, device=posref.device)
     change[:1] = True
     for w in words:
         change[1:] |= w[1:] != w[:-1]
     change[1:] |= posref[1:] - posref[:-1] > seed_len
-    return change & (s_starts != 0).any(dim=1)
+    index = torch.nonzero(change & rows_valid(words, G)).flatten()
+    return MumRepIndex(index.to(torch.int32), index.shape[0])
 
 
-def mum_reps_plain(words, posref, ec: int, G: int, pos_bits: int,
-                   seed_len: int) -> MumReps:
-    """Plain PyTorch version of K15."""
+def mum_decode_reps_plain(words, posref, idx: MumRepIndex, ec: int, G: int,
+                          pos_bits: int) -> MumReps:
+    """Plain PyTorch version of K15's decode (matchfind.py:399-423): the
+    first min(n_reps, EC) representatives' starts as [EC, G] extension
+    rows; the rows after them absent."""
     dev = posref.device
-    s_starts = recover_starts(words, posref, G, pos_bits)
-    rep = _rep_flags(words, posref, s_starts, seed_len)
-    n_reps = int(rep.sum())
-    e = s_starts[torch.nonzero(rep).flatten()[:ec]]
+    rows = idx.index[:min(idx.n_reps, ec)].to(torch.int64)
+    e = recover_starts(words[:, rows], posref[rows], G, pos_bits)
     lefts = torch.zeros((ec, G), dtype=torch.int32, device=dev)
     present = torch.zeros((ec, G), dtype=torch.bool, device=dev)
     is_fwd = torch.zeros((ec, G), dtype=torch.bool, device=dev)
@@ -392,41 +419,88 @@ def mum_reps_plain(words, posref, ec: int, G: int, pos_bits: int,
     present[:k] = e != 0
     lefts[:k] = torch.where(e != 0, e.abs() - 1, 0)
     is_fwd[:k] = e > 0
-    return MumReps(lefts, present, is_fwd, n_reps)
+    return MumReps(lefts, present, is_fwd, idx.n_reps)
+
+
+def mum_reps_plain(words, posref, ec: int, G: int, pos_bits: int,
+                   seed_len: int) -> MumReps:
+    """Plain PyTorch version of K15 in one call."""
+    return mum_decode_reps_plain(
+        words, posref, mum_rep_index_plain(words, posref, G, pos_bits,
+                                           seed_len), ec, G, pos_bits)
 
 
 @cuda.launcher
+def mum_rep_index(words, posref, G: int, pos_bits: int,
+                  seed_len: int) -> MumRepIndex:
+    """The representatives of the sorted signature rows: their row
+    indices in order and their count, read to the host.
+
+    words: int64[n_words, m], posref: int64[m], both in the rows' sorted
+    order.  CPU tensors take the plain version; CUDA tensors launch K15's
+    scan."""
+    if posref.device.type == "cpu":
+        return mum_rep_index_plain(words, posref, G, pos_bits, seed_len)
+    dev = posref.device
+    m = posref.shape[0]
+    cuda.require(words, "words", torch.int64, dev,
+                 (n_words_for(G, pos_bits), m))
+    cuda.require(posref, "posref", torch.int64, dev, (m,))
+    if m >= 1 << 31:
+        raise ValueError(f"K15 indexes rows with int32: {m} rows")
+    if m == 0:
+        return MumRepIndex(torch.zeros(0, dtype=torch.int32, device=dev), 0)
+    index = torch.empty(m, dtype=torch.int32, device=dev)
+    scratch = scan_scratch(m, dev)
+    cuda.check(cuda.library().lm_mum_rep_index(
+        words.data_ptr(), posref.data_ptr(), m, G, words.shape[0], seed_len,
+        index.data_ptr(), scratch.data_ptr(), cuda.stream(posref)),
+        "lm_mum_rep_index")
+    mum_rep_index.launches += 1
+    # the one host read: the representatives' count
+    return MumRepIndex(index, int(scratch[1]))
+
+
+mum_rep_index.launches = 0
+
+
+@cuda.launcher
+def mum_decode_reps(words, posref, idx: MumRepIndex, ec: int, G: int,
+                    pos_bits: int) -> MumReps:
+    """The first min(n_reps, EC) representatives of mum_rep_index as EC
+    compact [EC, G] extension rows (rows past them are absent).  CPU
+    tensors take the plain version; CUDA tensors launch K15's decode."""
+    if posref.device.type == "cpu":
+        return mum_decode_reps_plain(words, posref, idx, ec, G, pos_bits)
+    dev = posref.device
+    m = posref.shape[0]
+    cuda.require(words, "words", torch.int64, dev,
+                 (n_words_for(G, pos_bits), m))
+    cuda.require(posref, "posref", torch.int64, dev, (m,))
+    cuda.require(idx.index, "index", torch.int32, dev)
+    lefts = torch.empty((ec, G), dtype=torch.int32, device=dev)
+    present = torch.empty((ec, G), dtype=torch.bool, device=dev)
+    is_fwd = torch.empty((ec, G), dtype=torch.bool, device=dev)
+    if ec > 0:
+        cuda.check(cuda.library().lm_mum_decode_reps(
+            words.data_ptr(), posref.data_ptr(), idx.index.data_ptr(), m,
+            min(idx.n_reps, ec), ec, G, pos_bits, lefts.data_ptr(),
+            present.data_ptr(), is_fwd.data_ptr(), cuda.stream(posref)),
+            "lm_mum_decode_reps")
+        mum_decode_reps.launches += 1
+    return MumReps(lefts, present, is_fwd, idx.n_reps)
+
+
+mum_decode_reps.launches = 0
+
+
 def mum_reps(words, posref, ec: int, G: int, pos_bits: int,
              seed_len: int) -> MumReps:
     """Diagonal-cluster representatives of the sorted signature rows as
     EC compact [EC, G] extension rows (rows past min(n_reps, EC) are
-    absent).  words: int64[n_words, m], posref: int64[m], both in the
-    rows' sorted order.  CPU tensors take the plain version; CUDA tensors
-    launch K15."""
-    if posref.device.type == "cpu":
-        return mum_reps_plain(words, posref, ec, G, pos_bits, seed_len)
-    dev = posref.device
-    m = posref.shape[0]
-    n_words = n_words_for(G, pos_bits)
-    cuda.require(words, "words", torch.int64, dev, (n_words, m))
-    cuda.require(posref, "posref", torch.int64, dev, (m,))
-    lib = cuda.library()
-    stream = cuda.stream(posref)
-    rep = torch.empty(m, dtype=torch.int32, device=dev)
-    cuda.check(lib.lm_mum_rep_flags(
-        words.data_ptr(), posref.data_ptr(), m, G, pos_bits, n_words,
-        seed_len, rep.data_ptr(), stream), "lm_mum_rep_flags")
-    rank = torch.cumsum(rep, 0, dtype=torch.int32)
-    n_reps = int(rank[-1]) if m else 0
-    lefts = torch.zeros((ec, G), dtype=torch.int32, device=dev)
-    present = torch.zeros((ec, G), dtype=torch.bool, device=dev)
-    is_fwd = torch.zeros((ec, G), dtype=torch.bool, device=dev)
-    cuda.check(lib.lm_mum_reps(
-        words.data_ptr(), posref.data_ptr(), rep.data_ptr(), rank.data_ptr(),
-        m, ec, G, pos_bits, lefts.data_ptr(), present.data_ptr(),
-        is_fwd.data_ptr(), stream), "lm_mum_reps")
-    mum_reps.launches += 1
-    return MumReps(lefts, present, is_fwd, n_reps)
-
-
-mum_reps.launches = 0
+    absent): mum_rep_index then mum_decode_reps at EC.  words:
+    int64[n_words, m], posref: int64[m], both in the rows' sorted
+    order."""
+    return mum_decode_reps(words, posref,
+                           mum_rep_index(words, posref, G, pos_bits,
+                                         seed_len), ec, G, pos_bits)

@@ -9,8 +9,10 @@ between its two sorts (the G = 2 unique-MUM pipeline of ``find_mums``):
   cluster word ``fwd | biased diagonal | posA`` is kept, in the order of
   the sorted seed words; the candidate count;
 * ``pair_reps`` (K19): over the sorted cluster words, the diagonal
-  clusters' representatives as compact [EC, 2] extension rows for K2,
-  each seeded with its cluster's extent.
+  clusters' representatives found by K7's scan (``pairwise.rep_index``'s
+  test on the same word tail), their count read once, then decoded into
+  compact [EC, 2] extension rows for K2, each seeded with its cluster's
+  extent.
 
 64-bit words are int64 tensors holding unsigned patterns (right shifts
 mask the sign fill, sorts flip bit 63); -1 is the all-ones sentinel.
@@ -26,7 +28,8 @@ from typing import NamedTuple
 import torch
 
 from libmems_tpu_torch import cuda
-from libmems_tpu_torch.ops.pairwise import scan_scratch, shr, usort
+from libmems_tpu_torch.ops.pairwise import (RepIndex, rep_index_plain,
+                                            scan_scratch, shr, usort)
 
 
 def _nxt(x: torch.Tensor, k: int, fill: int) -> torch.Tensor:
@@ -123,60 +126,43 @@ class PairReps(NamedTuple):
     n_reps: int
 
 
-def pair_reps_plain(cw, ec: int, pos_bits: int, seed_len: int) -> PairReps:
-    """Plain PyTorch version of K19 (matchfind.py:546-594)."""
+def pair_decode_reps_plain(cw, idx: RepIndex, ec: int, pos_bits: int,
+                           seed_len: int) -> PairReps:
+    """Plain PyTorch version of K19's decode (matchfind.py:561-594): the
+    reps at word indices src, each cluster ending before word nxt (the
+    last valid slot's at the last candidate), in EC slots."""
     pb = pos_bits
     dev = cw.device
-    if cw.shape[0] == 0:
-        # no candidate: one invalid word gives the same absent rows
-        cw = torch.full((1,), -1, dtype=torch.int64, device=dev)
+    src = idx.index[:min(idx.n_reps, ec)].to(torch.int64)
+    nxt = torch.cat([src[1:], idx.counts[:1]])[:src.shape[0]]
+    n_valid = src.shape[0]
     pmask = (1 << pb) - 1
-    valid_c = cw != -1
-    s_posA = cw & pmask
-    head = shr(cw, pb)
-    prev_head = torch.cat([torch.full((1,), -1, dtype=cw.dtype, device=dev),
-                           head[:-1]])
-    prev_posA = torch.cat([torch.zeros(1, dtype=cw.dtype, device=dev),
-                           s_posA[:-1]])
-    rep = valid_c & ((head != prev_head) | (s_posA - prev_posA > seed_len))
-    n_cands = valid_c.sum()
-    n_reps = rep.sum()
-
-    # compact reps to EC slots: the row of the j-th rep is a binary
-    # search over the cumsum of the rep flags
-    rank = torch.cumsum(rep.to(torch.int64), 0)
-    src = torch.searchsorted(
-        rank, torch.arange(1, ec + 1, dtype=torch.int64, device=dev),
-        side="left")
-    e_valid = torch.arange(ec, device=dev) < n_reps
-    # cluster extent: the cluster's last member is the row before the
-    # next rep (or the last valid candidate row; taken before the clamp
-    # below, since the candidates may fill cw to its end)
-    next_src = torch.cat([src[1:], torch.full((1,), cw.shape[0],
-                                              dtype=src.dtype, device=dev)])
-    src = src.clamp(max=cw.shape[0] - 1)
-    rep_cw = cw[src]
-    r_posA = rep_cw & pmask
-    r_delta = shr(rep_cw, pb) & ((1 << (pb + 2)) - 1)
-    r_fwd = (shr(rep_cw, 2 * pb + 2) & 1) == 1
-
-    end_row = torch.minimum(next_src, n_cands) - 1
-    end_row = end_row.clamp(0, cw.shape[0] - 1)
-    last_posA = torch.maximum(cw[end_row] & pmask, r_posA)
-    span = last_posA - r_posA
-
-    lengths0 = torch.where(e_valid, span + seed_len, seed_len)
+    w = cw[src]
+    r_pos = w & pmask
+    r_delta = shr(w, pb) & ((1 << (pb + 2)) - 1)
+    r_fwd = (shr(w, 2 * pb + 2) & 1) == 1
+    last = torch.maximum(cw[nxt - 1] & pmask, r_pos)
     # genome-B left end of the cluster-covering match
-    posB_rep = torch.where(r_fwd, r_delta - (1 << pb) + r_posA,
-                           r_delta - r_posA)
-    leftB = torch.where(r_fwd, posB_rep, r_delta - last_posA).clamp(min=0)
+    left_b = torch.where(r_fwd, r_delta - (1 << pb) + r_pos,
+                         r_delta - last).clamp(min=0)
+    lefts = torch.zeros((ec, 2), dtype=torch.int32, device=dev)
+    present = torch.zeros((ec, 2), dtype=torch.bool, device=dev)
+    is_fwd = torch.ones((ec, 2), dtype=torch.bool, device=dev)
+    lengths0 = torch.full((ec,), seed_len, dtype=torch.int32, device=dev)
+    v = slice(0, n_valid)
+    lefts[v] = torch.stack([r_pos, left_b], 1).to(torch.int32)
+    present[v] = True
+    is_fwd[v, 1] = r_fwd
+    lengths0[v] = (last - r_pos + seed_len).to(torch.int32)
+    return PairReps(lefts, present, is_fwd, lengths0, idx.n_reps)
 
-    present = e_valid[:, None].expand(ec, 2).contiguous()
-    lefts = torch.stack([r_posA, leftB], dim=1)
-    lefts = torch.where(present, lefts, 0).to(torch.int32)
-    is_fwd = torch.stack([torch.ones_like(r_fwd), r_fwd], dim=1)
-    return PairReps(lefts, present, is_fwd, lengths0.to(torch.int32),
-                    int(n_reps))
+
+def pair_reps_plain(cw, ec: int, pos_bits: int, seed_len: int) -> PairReps:
+    """Plain PyTorch version of K19 (matchfind.py:546-594): K7's scan
+    plain version, then the decode's."""
+    return pair_decode_reps_plain(cw, rep_index_plain(cw, pos_bits,
+                                                      seed_len),
+                                  ec, pos_bits, seed_len)
 
 
 @cuda.launcher
@@ -187,30 +173,34 @@ def pair_reps(cw, ec: int, pos_bits: int, seed_len: int) -> PairReps:
 
     cw: int64[m] cluster words in unsigned order (K18's candidates; any
     -1 words last).  CPU tensors take the plain version; CUDA tensors
-    launch K19."""
+    launch K19: K7's scan, one host read of the representatives' count,
+    the decode."""
     if cw.device.type == "cpu":
         return pair_reps_plain(cw, ec, pos_bits, seed_len)
     dev = cw.device
     m = cw.shape[0]
     cuda.require(cw, "cw", torch.int64, dev, (m,))
+    if m >= 1 << 31:
+        raise ValueError(f"K19 indexes words with int32: {m} words")
     lib = cuda.library()
     stream = cuda.stream(cw)
-    rep = torch.empty(m, dtype=torch.int32, device=dev)
-    n_cands = torch.zeros(1, dtype=torch.int64, device=dev)
-    cuda.check(lib.lm_pair_rep_flags(cw.data_ptr(), m, pos_bits, seed_len,
-                                     rep.data_ptr(), n_cands.data_ptr(),
-                                     stream), "lm_pair_rep_flags")
-    rank = torch.cumsum(rep, 0, dtype=torch.int32)
-    n_reps = int(rank[-1]) if m else 0
-    src = torch.empty(max(ec, 1), dtype=torch.int64, device=dev)
+    index = torch.empty(max(m, 1), dtype=torch.int32, device=dev)
+    scratch = scan_scratch(m, dev)
+    cuda.check(lib.lm_pair_rep_index(cw.data_ptr(), m, pos_bits, seed_len,
+                                     index.data_ptr(), scratch.data_ptr(),
+                                     stream), "lm_pair_rep_index")
+    # the outputs' shapes do not wait for the count: allocated while the
+    # scan runs
     lefts = torch.empty((ec, 2), dtype=torch.int32, device=dev)
     present = torch.empty((ec, 2), dtype=torch.bool, device=dev)
     is_fwd = torch.empty((ec, 2), dtype=torch.bool, device=dev)
     lengths0 = torch.empty(ec, dtype=torch.int32, device=dev)
+    counts = scratch[1:3]
+    # the one host read: the representatives' count
+    n_reps = int(counts[1])
     cuda.check(lib.lm_pair_reps(
-        cw.data_ptr(), rep.data_ptr(), rank.data_ptr(), m, ec,
-        min(n_reps, ec), n_cands.data_ptr(), pos_bits, seed_len,
-        src.data_ptr(), lefts.data_ptr(), present.data_ptr(),
+        cw.data_ptr(), index.data_ptr(), counts.data_ptr(), min(n_reps, ec),
+        ec, pos_bits, seed_len, lefts.data_ptr(), present.data_ptr(),
         is_fwd.data_ptr(), lengths0.data_ptr(), stream), "lm_pair_reps")
     pair_reps.launches += 1
     return PairReps(lefts, present, is_fwd, lengths0, n_reps)

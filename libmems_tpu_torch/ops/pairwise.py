@@ -473,6 +473,14 @@ def rep_index_plain(cw, pos_bits: int, seed_len: int) -> RepIndex:
     return RepIndex(index, counts, index.shape[0])
 
 
+def rep_capacity(ec0: int, n_reps: int) -> int:
+    """The extension capacity of a call whose first guess is ec0: ec0
+    where the n_reps representatives fit, else the next power of two
+    above their count (the last capacity of the JAX package's growing
+    loop), so the representatives are found once a call."""
+    return ec0 if n_reps <= ec0 else 1 << (n_reps - 1).bit_length()
+
+
 def _rep_scan(cw, pos_bits: int, seed_len: int, index, scratch
               ) -> torch.Tensor:
     """K7's scan: the reps' word indices into index's first entries;

@@ -826,8 +826,25 @@ def _sorted_words(m, n_heads, pos_bits, rng_seed, invalid=0, top_bit=False):
     return torch.from_numpy(w.view(np.int64).copy())
 
 
-@pytest.mark.parametrize("case", ["bit63", "all_invalid", "empty", "single",
-                                  "tile_end", "no_invalid", "many_blocks"])
+REP_EDGES = ["bit63", "all_invalid", "empty", "single", "tile_end",
+             "no_invalid", "many_blocks"]
+
+
+def _edge_words(case, pos_bits):
+    """The sorted cluster words of a REP_EDGES case."""
+    return {"bit63": lambda: _sorted_words(9_000, 64, pos_bits, 71, 1_500,
+                                           top_bit=True),
+            "all_invalid": lambda: torch.full((5_000,), -1,
+                                              dtype=torch.int64),
+            "empty": lambda: torch.zeros(0, dtype=torch.int64),
+            "single": lambda: torch.tensor([5 << pos_bits | 7]),
+            "tile_end": lambda: _sorted_words(8_192, 8, pos_bits, 72, 2_048),
+            "no_invalid": lambda: _sorted_words(4_099, 8, pos_bits, 73),
+            "many_blocks": lambda: _sorted_words(8_000_000, 50, pos_bits, 74,
+                                                 3_000_001)}[case]()
+
+
+@pytest.mark.parametrize("case", REP_EDGES)
 def test_rep_index_and_decode_kernels_edges_equal_plain(dev, case):
     """K7's scan and decode against their plain versions, exact: words
     with bit 63 set, no valid word (n_reps = 0), no word, one word, the
@@ -835,15 +852,7 @@ def test_rep_index_and_decode_kernels_edges_equal_plain(dev, case):
     tiles; each decoded below, exactly at and above n_reps."""
     from libmems_tpu_torch.ops import pairwise
     G, pos_bits, seed_len = 9, 20, 15
-    cw = {"bit63": lambda: _sorted_words(9_000, 64, pos_bits, 71, 1_500,
-                                         top_bit=True),
-          "all_invalid": lambda: torch.full((5_000,), -1, dtype=torch.int64),
-          "empty": lambda: torch.zeros(0, dtype=torch.int64),
-          "single": lambda: torch.tensor([5 << pos_bits | 7]),
-          "tile_end": lambda: _sorted_words(8_192, 8, pos_bits, 72, 2_048),
-          "no_invalid": lambda: _sorted_words(4_099, 8, pos_bits, 73),
-          "many_blocks": lambda: _sorted_words(8_000_000, 50, pos_bits, 74,
-                                               3_000_001)}[case]()
+    cw = _edge_words(case, pos_bits)
     ref_i = pairwise.rep_index_plain(cw, pos_bits, seed_len)
     idx = pairwise.rep_index(cw.to(dev), pos_bits, seed_len)
     assert idx.n_reps == ref_i.n_reps
@@ -862,6 +871,179 @@ def test_rep_index_and_decode_kernels_edges_equal_plain(dev, case):
             assert torch.equal(g.cpu(), r)
     if case == "many_blocks":
         assert 0 < idx.n_reps < int(idx.counts[0]) < cw.shape[0]
+
+
+@pytest.mark.parametrize("case", REP_EDGES)
+def test_pair_reps_kernels_edges_equal_plain(dev, case):
+    """K19 (K7's scan, one read of n_reps, the pair decode) against its
+    plain version on K7's edge words, exact, with EC below, at and above
+    n_reps."""
+    from libmems_tpu_torch.ops import pair, pairwise
+    pos_bits, seed_len = 20, 15
+    cw = _edge_words(case, pos_bits)
+    n = pairwise.rep_index_plain(cw, pos_bits, seed_len).n_reps
+    for ec in sorted({8, max(n - 1, 1), max(n, 1), n + 5}):
+        ref = pair.pair_reps_plain(cw, ec, pos_bits, seed_len)
+        got = pair.pair_reps(cw.to(dev), ec, pos_bits, seed_len)
+        assert got.n_reps == ref.n_reps == n
+        for g, r in zip(got[:-1], ref[:-1]):
+            assert torch.equal(g.cpu(), r)
+
+
+def _signature_rows(G, pos_bits, runs, n_invalid=0, rng_seed=0):
+    """K14's signature words and posref of clusters in the given order:
+    cluster k holds runs[k] rows on one diagonal, posref one apart (its
+    first row its representative); then n_invalid rows that seq_mask
+    rejected (the invalid bit, posref 1 << 62), as they sort last."""
+    from libmems_tpu_torch.ops import mums
+    rng = np.random.default_rng(rng_seed)
+    k = len(runs)
+    runs = np.asarray(runs, dtype=np.int64)
+    of = np.repeat(np.arange(k), runs)
+    step = np.arange(len(of)) - np.repeat(np.cumsum(runs) - runs, runs)
+    lo = 1 << (pos_bits - 3)
+    off = rng.integers(lo, 2 * lo, (k, G))
+    sign = np.where(rng.random((k, G)) < 0.3, -1, 1)
+    present = rng.random((k, G)) < 0.8
+    # genomes 0 and 1 in every cluster: no two clusters share their words
+    sign[:, 0], present[:, :2] = 1, True
+    # a reverse genome's position falls as the reference's rises
+    pos = off[of] + sign[of] * step[:, None]
+    starts = np.where(present[of], sign[of] * (pos + 1), 0)
+    r, g = np.nonzero(starts)
+    v = starts[r, g]
+    t = torch.from_numpy
+    flags = mums.MumFlags(
+        torch.ones(len(v), dtype=torch.bool), t(r.astype(np.int32)),
+        torch.zeros(len(v), dtype=torch.uint8), len(of),
+        t(g.astype(np.int32)), t((np.abs(v) - 1).astype(np.int32)),
+        t((v < 0).astype(np.uint8)))
+    cand = mums.mum_candidates_plain(flags, G, 0, pos_bits)
+    bad = torch.zeros((cand.words.shape[0], n_invalid), dtype=torch.int64)
+    bad[0] = 1 << 62
+    return (torch.cat([cand.words, bad], 1),
+            torch.cat([cand.posref, torch.full((n_invalid,), 1 << 62)]))
+
+
+# (G, pos_bits, cluster lengths, invalid rows) of K15's edge cases; None
+# draws clusters of 1-50 rows up to the given row count
+K15_EDGES = {
+    "empty": (3, 20, [], 0),
+    "one": (3, 20, [1], 0),
+    "all_invalid": (3, 20, [], 5_000),
+    "every_row": (3, 20, [1] * 9_000, 0),
+    "tile_end": (3, 20, [4_095, 2], 0),
+    "past_tile_end": (3, 20, [4_096, 1], 0),
+    "one_word": (2, 20, None, 3_000),
+    "two_words": (3, 20, (None, 20_000), 1_000),
+    "wide": (64, 16, (None, 5_000), 300),
+    "many_tiles": (3, 20, (None, 3_000 * 4_096), 77),
+}
+
+
+@pytest.mark.parametrize("case", list(K15_EDGES))
+def test_mum_reps_kernels_edges_equal_plain(dev, case):
+    """K15's scan and decode against their plain versions, exact: no row,
+    one row, every row invalid (n_reps = 0), every row a representative,
+    the last representative at a tile's last row and one row past it,
+    signature rows of 1, 2 and 21 words, and several thousand tiles; each
+    decoded below, at and above n_reps."""
+    from libmems_tpu_torch.ops import mums
+    G, pos_bits, runs, n_invalid = K15_EDGES[case]
+    rng = np.random.default_rng(len(case))
+    if runs is None or isinstance(runs, tuple):
+        rows = 20_000 if runs is None else runs[1]
+        runs = rng.integers(1, 51, rows // 25 + 10)
+        runs = runs[:np.searchsorted(np.cumsum(runs), rows) + 1]
+        runs[-1] -= runs.sum() - rows
+        runs = runs[runs > 0]
+    words, posref = _signature_rows(G, pos_bits, runs, n_invalid,
+                                    rng_seed=len(case))
+    n_words = mums.n_words_for(G, pos_bits)
+    assert words.shape[0] == n_words
+    seed_len = 15
+    ref = mums.mum_rep_index_plain(words, posref, G, pos_bits, seed_len)
+    idx = mums.mum_rep_index(words.to(dev), posref.to(dev), G, pos_bits,
+                             seed_len)
+    n = idx.n_reps
+    assert n == ref.n_reps
+    assert torch.equal(idx.index[:n].cpu(), ref.index)
+    want = {"empty": [], "one": [0], "all_invalid": [],
+            "tile_end": [0, 4_095], "past_tile_end": [0, 4_096]}.get(case)
+    if want is not None:
+        assert ref.index.tolist() == want
+    if case == "every_row":
+        assert n == 9_000
+    if case in ("one_word", "wide", "many_tiles"):
+        assert n_words == {"one_word": 1, "wide": 21, "many_tiles": 2}[case]
+        assert n == len(runs)
+    for ec in sorted({1, max(n - 1, 1), max(n, 1), n + 5}):
+        r = mums.mum_decode_reps_plain(words, posref, ref, ec, G, pos_bits)
+        got = mums.mum_decode_reps(words.to(dev), posref.to(dev), idx, ec, G,
+                                   pos_bits)
+        assert got.n_reps == r.n_reps == n
+        for a, b in zip(got[:-1], r[:-1]):
+            assert torch.equal(a.cpu(), b)
+
+
+def _reps_traces():
+    """K15's and K19's traces (run by _traced_in_process): a mum_reps
+    call, a pair_reps call, and find_mums_device on three genomes with a
+    first capacity guess below their representative count."""
+    from libmems_tpu_torch.matchfind import find_mums_device
+    from libmems_tpu_torch.ops import mums, pair, pairwise
+    from libmems_tpu_torch.sml import create_smls
+    dev = torch.device("cuda", 0)
+    words, posref = _signature_rows(3, 20, [3, 1, 7] * 2_000, 50)
+    words, posref = words.to(dev), posref.to(dev)
+    smls, seed, pb = _pair_keys(15, 60_000, 44)
+    cw, _ = pair.pair_cluster_words_plain(smls[0].keys, smls[1].keys, pb,
+                                          mers.sentinel_content(seed))
+    cw = pairwise.usort(cw).to(dev)
+    seed_len = smls[0].seed_length
+    trio = create_smls(_family(3, 40_000, 38), device=dev)[0]
+    return [_trace(lambda: mums.mum_reps(words, posref, 1 << 12, 3, 20, 15)),
+            _trace(lambda: pair.pair_reps(cw, 1 << 12, pb, seed_len)),
+            _trace(lambda: find_mums_device(trio, extend_capacity=8))]
+
+
+def test_reps_traces_scan_and_decode(dev):
+    """One call of K15's and of K19's wrappers traced by torch.profiler:
+    the scan and the decode and no other kernel (no library cumsum), and
+    one copy to the host (the representatives' count); find_mums_device
+    on three genomes launches K15's scan and its decode once, though its
+    first capacity guess is below the representative count."""
+    (mk, m_d2h), (pk, p_d2h), (fk, _) = _traced_in_process("_reps_traces")
+    assert [k for k, _ in mk] == ["mum_rep_index_kernel",
+                                  "mum_decode_reps_kernel"], mk
+    assert m_d2h == 1
+    assert [k for k, _ in pk] == ["rep_index_kernel", "pair_reps_kernel"], pk
+    assert p_d2h == 1
+    names = [k for k, _ in fk]
+    assert names.count("mum_rep_index_kernel") == 1, names
+    assert names.count("mum_decode_reps_kernel") == 1, names
+
+
+def test_find_mums_device_scans_rows_once(dev):
+    """With a capacity below the representative count, find_mums_device
+    on three genomes on the card scans the signature rows once and
+    decodes once at the capacity their count asks for; its outputs equal
+    CPU tensors'."""
+    from libmems_tpu_torch.matchfind import find_mums_device
+    from libmems_tpu_torch.ops import mums
+    from libmems_tpu_torch.sml import create_smls
+    gs = _family(3, 40_000, 38)
+    ref = find_mums_device(create_smls(gs, device="cpu")[0],
+                           extend_capacity=8)
+    gpu = create_smls(gs, device=dev)[0]
+    mums.mum_rep_index.launches = mums.mum_decode_reps.launches = 0
+    got = find_mums_device(gpu, extend_capacity=8)
+    assert (mums.mum_rep_index.launches, mums.mum_decode_reps.launches) \
+        == (1, 1)
+    assert int(ref[4]) > 8
+    for a, b in zip(got[:3], ref[:3]):
+        assert torch.equal(a.cpu(), b)
+    assert (int(got[3]), int(got[4])) == (int(ref[3]), int(ref[4]))
 
 
 def test_find_pairwise_mums_scans_words_once(dev):

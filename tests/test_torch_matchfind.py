@@ -222,6 +222,88 @@ def test_fused_pair_pipeline_capacity_retry():
     np.testing.assert_array_equal(rows[0][1], rows[1][1])
 
 
+def _cumsum_pair_reps(cw, ec: int, pos_bits: int, seed_len: int):
+    """K19's rows by the JAX package's route (matchfind.py:546-594):
+    the rep flags, their cumsum ranks, the row of the j-th rep by a
+    binary search over the ranks, the cluster's last member before the
+    next rep's row or at the last candidate.  Returns (lefts, present,
+    is_fwd, lengths0, n_reps)."""
+    from libmems_tpu_torch.ops.pairwise import shr
+    pb = pos_bits
+    pmask = (1 << pb) - 1
+    valid_c = cw != -1
+    s_posA = cw & pmask
+    head = shr(cw, pb)
+    prev_head = torch.cat([torch.full((1,), -1, dtype=cw.dtype), head[:-1]])
+    prev_posA = torch.cat([torch.zeros(1, dtype=cw.dtype), s_posA[:-1]])
+    rep = valid_c & ((head != prev_head) | (s_posA - prev_posA > seed_len))
+    n_cands = valid_c.sum()
+    n_reps = rep.sum()
+    rank = torch.cumsum(rep.to(torch.int64), 0)
+    src = torch.searchsorted(rank, torch.arange(1, ec + 1), side="left")
+    e_valid = torch.arange(ec) < n_reps
+    next_src = torch.cat([src[1:], torch.full((1,), cw.shape[0])])
+    src = src.clamp(max=cw.shape[0] - 1)
+    rep_cw = cw[src]
+    r_posA = rep_cw & pmask
+    r_delta = shr(rep_cw, pb) & ((1 << (pb + 2)) - 1)
+    r_fwd = (shr(rep_cw, 2 * pb + 2) & 1) == 1
+    end_row = (torch.minimum(next_src, n_cands) - 1).clamp(0,
+                                                           cw.shape[0] - 1)
+    last_posA = torch.maximum(cw[end_row] & pmask, r_posA)
+    lengths0 = torch.where(e_valid, last_posA - r_posA + seed_len, seed_len)
+    posB_rep = torch.where(r_fwd, r_delta - (1 << pb) + r_posA,
+                           r_delta - r_posA)
+    leftB = torch.where(r_fwd, posB_rep, r_delta - last_posA).clamp(min=0)
+    present = e_valid[:, None].expand(ec, 2)
+    lefts = torch.where(present, torch.stack([r_posA, leftB], dim=1), 0)
+    is_fwd = torch.stack([torch.ones_like(r_fwd), r_fwd], dim=1)
+    return (lefts.to(torch.int32), present, is_fwd,
+            lengths0.to(torch.int32), int(n_reps))
+
+
+@pytest.mark.parametrize("invalid", [0, 100])
+def test_pair_reps_plain_equal_jax_route(invalid):
+    """K19's split plain versions (K7's scan, then the pair decode)
+    against the JAX package's cumsum and binary-search route, with and
+    without -1 words after the candidates, below, at and above the
+    representative count: the same rows, each cluster's last member at
+    the last candidate in the last valid slot also when EC < n_reps;
+    absent rows forward."""
+    from libmems_tpu_torch.ops import pairwise
+    a_asc, b_asc = _pair_ascii(24, n=20_000)
+    smls, seed = create_smls(_both(a_asc, b_asc)[0], device="cpu")
+    pb = matchfind._pair_pos_bits(max(s.n_windows for s in smls))
+    seed_len = smls[0].seed_length
+    cw, n_cands = ops_pair.pair_cluster_words_plain(
+        smls[0].keys, smls[1].keys, pb, sentinel_content(seed))
+    cw = torch.cat([pairwise.usort(cw),
+                    torch.full((invalid,), -1, dtype=torch.int64)])
+    idx = pairwise.rep_index_plain(cw, pb, seed_len)
+    n = idx.n_reps
+    assert int(idx.counts[0]) == n_cands > n > 8
+    for ec in (4, n - 1, n, n + 5):
+        got = ops_pair.pair_decode_reps_plain(cw, idx, ec, pb, seed_len)
+        composed = ops_pair.pair_reps_plain(cw, ec, pb, seed_len)
+        for g, c in zip(got, composed):
+            assert torch.equal(g, c) if isinstance(g, torch.Tensor) \
+                else g == c
+        lefts, present, is_fwd, lengths0, n_reps = _cumsum_pair_reps(
+            cw, ec, pb, seed_len)
+        assert got.n_reps == n_reps == n
+        assert torch.equal(got.lefts, lefts)
+        assert torch.equal(got.present, present)
+        assert torch.equal(got.lengths0, lengths0)
+        v = present[:, 0]
+        assert torch.equal(got.is_fwd[v], is_fwd[v])
+        assert bool(got.is_fwd[~v].all())
+        k = min(n, ec)
+        last = max(int(cw[n_cands - 1]) & ((1 << pb) - 1),
+                   int(got.lefts[k - 1, 0]))
+        assert int(got.lengths0[k - 1]) == last - int(got.lefts[k - 1, 0]) \
+            + seed_len
+
+
 def test_pair_words_with_bit_63_equal_jax():
     """A weight-25 seed on 1.5 kbp genomes packs 2 * 25 + 3 + 11 = 64
     bits: the seed words use bit 63 and the pair path still runs."""

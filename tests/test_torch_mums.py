@@ -16,9 +16,11 @@ from libmems_tpu.sequence import Genome as JaxGenome
 from libmems_tpu.sml import SortedMerList as JaxSML
 from libmems_tpu_torch import convert
 from libmems_tpu_torch.match import write_match_list
-from libmems_tpu_torch.matchfind import (_seed_table, find_mums,
+from libmems_tpu_torch.match import MatchArray
+from libmems_tpu_torch.matchfind import (_lexsort_rows, _seed_table,
+                                         find_mums, find_mums_device,
                                          find_pair_mums_np)
-from libmems_tpu_torch.ops import mums
+from libmems_tpu_torch.ops import mums, pairwise
 from libmems_tpu_torch.ops.mers import sentinel_content
 from libmems_tpu_torch.sequence import Genome
 from libmems_tpu_torch.sml import create_smls
@@ -173,12 +175,16 @@ def _np(x):
         else np.asarray(x)
 
 
-@pytest.mark.parametrize("tol,seq_mask", [(0, 0), (0, 0b110), (2, 0)])
-def test_plain_kernels_equal_jax_functions(tol, seq_mask):
-    """K13, K14 and K15's plain versions against _mum_seed_flags,
-    _packed_diagonal_words and _recover_starts (with the JAX pipeline's
-    scatter, seq_mask and representative glue) on one table."""
-    G = 3
+K15_CASES = [(0, 0), (0, 0b110), (2, 0)]
+
+
+def _jax_table(tol, seq_mask, G=3):
+    """One table through K13's and K14's plain versions and through
+    _mum_seed_flags and _packed_diagonal_words with the JAX pipeline's
+    scatter and seq_mask glue (matchfind.py:355-375), held equal on the
+    way; then K15's input, the rows in the JAX signature order.  Returns
+    (words, posref, the JAX recovered starts, the JAX representative
+    flags, pos_bits, seed_len)."""
     port, ref = _both(_family_ascii(G, n=30_000, rng_seed=9))
     smls, seed = create_smls(port, device="cpu")
     keys, seg_off, content, src = _seed_table(smls)
@@ -217,28 +223,122 @@ def test_plain_kernels_equal_jax_functions(tol, seq_mask):
         np.testing.assert_array_equal(cand.words[w].numpy(), _np(jw[w]))
     np.testing.assert_array_equal(cand.posref.numpy(), _np(jpr))
 
-    # K15 on the rows in signature order
+    # K15's input: the rows in signature order, the JAX representatives
     s = jax.lax.sort(tuple(jw) + (jpr,), num_keys=len(jw) + 1)
     s_words = np.stack([_np(x) for x in s[:-1]])
     s_posref = _np(s[-1]).copy()
     j_starts = np.asarray(jmf._recover_starts(s[:-1], s[-1], G, pos_bits))
-    tw, tp = torch.from_numpy(s_words), torch.from_numpy(s_posref)
-    np.testing.assert_array_equal(
-        mums.recover_starts(tw, tp, G, pos_bits).numpy(), j_starts)
     seed_len = smls[0].seed_length
     change = np.concatenate([[True], (s_words[:, 1:] != s_words[:, :-1]).any(0)
                              | (s_posref[1:] - s_posref[:-1] > seed_len)])
     rep = change & (j_starts != 0).any(axis=1)
+    return (torch.from_numpy(s_words), torch.from_numpy(s_posref), j_starts,
+            rep, pos_bits, seed_len)
+
+
+def _assert_jax_reps(reps, j_starts, rep, ec):
+    """reps holds the JAX package's first EC representatives' rows, and
+    absent rows (zeros, not forward) after them."""
+    e = j_starts[rep][:ec]
+    k = len(e)
+    np.testing.assert_array_equal(reps.present.numpy()[:k], e != 0)
+    np.testing.assert_array_equal(reps.lefts.numpy()[:k],
+                                  np.where(e != 0, np.abs(e) - 1, 0))
+    np.testing.assert_array_equal(reps.is_fwd.numpy()[:k], e > 0)
+    for t in reps[:-1]:
+        assert not t.numpy()[k:].any()
+
+
+@pytest.mark.parametrize("tol,seq_mask", K15_CASES)
+def test_plain_kernels_equal_jax_functions(tol, seq_mask):
+    """K13, K14 and K15's plain versions against _mum_seed_flags,
+    _packed_diagonal_words and _recover_starts (with the JAX pipeline's
+    scatter, seq_mask and representative glue) on one table."""
+    G = 3
+    tw, tp, j_starts, rep, pos_bits, seed_len = _jax_table(tol, seq_mask, G)
+    np.testing.assert_array_equal(
+        mums.recover_starts(tw, tp, G, pos_bits).numpy(), j_starts)
     for ec in (64, 1 << 14):
         reps = mums.mum_reps_plain(tw, tp, ec, G, pos_bits, seed_len)
         assert reps.n_reps == int(rep.sum()) > 64
-        e = j_starts[rep][:ec]
-        k = len(e)
-        np.testing.assert_array_equal(reps.present.numpy()[:k], e != 0)
-        np.testing.assert_array_equal(reps.lefts.numpy()[:k],
-                                      np.where(e != 0, np.abs(e) - 1, 0))
-        np.testing.assert_array_equal(reps.is_fwd.numpy()[:k], e > 0)
-        assert not reps.present.numpy()[k:].any()
+        _assert_jax_reps(reps, j_starts, rep, ec)
+
+
+@pytest.mark.parametrize("tol,seq_mask", K15_CASES)
+def test_rep_index_and_decode_plain_equal_jax_rows(tol, seq_mask):
+    """K15's scan and decode plain versions on the JAX signature rows: a
+    row's validity read from its fields alone is the JAX test (a
+    recovered start is nonzero; seq_mask's rejected rows are invalid),
+    the scan finds the JAX representatives in order, and the decode
+    below, at and above their count composes with it to mum_reps_plain
+    and gives the JAX rows."""
+    G = 3
+    tw, tp, j_starts, rep, pos_bits, seed_len = _jax_table(tol, seq_mask, G)
+    valid = mums.rows_valid(tw, G)
+    np.testing.assert_array_equal(valid.numpy(),
+                                  (j_starts != 0).any(axis=1))
+    np.testing.assert_array_equal(
+        valid, (mums.recover_starts(tw, tp, G, pos_bits) != 0).any(1))
+    assert valid.any() and bool(seq_mask) == (not valid.all())
+    idx = mums.mum_rep_index_plain(tw, tp, G, pos_bits, seed_len)
+    assert idx.index.dtype == torch.int32
+    np.testing.assert_array_equal(idx.index.numpy(), np.flatnonzero(rep))
+    n = idx.n_reps
+    assert n == int(rep.sum()) > 64
+    for ec in (n - 1, n, n + 7):
+        got = mums.mum_decode_reps_plain(tw, tp, idx, ec, G, pos_bits)
+        ref = mums.mum_reps_plain(tw, tp, ec, G, pos_bits, seed_len)
+        assert got.n_reps == ref.n_reps == n
+        for g, r in zip(got[:-1], ref[:-1]):
+            assert torch.equal(g, r)
+        _assert_jax_reps(got, j_starts, rep, ec)
+
+
+@pytest.mark.parametrize("extend_capacity", [8, 1 << 14])
+def test_find_mums_device_capacity_picked_once(extend_capacity):
+    """K15's capacity, picked once from the representatives' count, is
+    the last of the loop that called K15 until its representatives fit:
+    the first guess where they fit it, the next power of two above their
+    count where they do not; the matches at it are the JAX pipeline's at
+    that capacity."""
+    for ec0 in (1, 8, 64):
+        for n in range(200):
+            ec = ec0
+            while n > ec:
+                ec = 1 << (n - 1).bit_length()
+            assert pairwise.rep_capacity(ec0, n) == ec
+    G = 3
+    port, ref = _both(_family_ascii(G, n=30_000, rng_seed=9))
+    smls, seed = create_smls(port, device="cpu")
+    starts, lengths, valid, n_rows, n_reps = find_mums_device(
+        smls, extend_capacity=extend_capacity)
+    keys, seg_off, content, src = _seed_table(smls)
+    flags = mums.mum_seed_flags_plain(content, src, keys, seg_off, 0, 1000,
+                                      sentinel_content(seed))
+    pos_bits = keys.shape[0].bit_length()
+    cand = mums.mum_candidates_plain(flags, G, 0, pos_bits)
+    order = _lexsort_rows(list(cand.words) + [cand.posref])
+    words = torch.index_select(cand.words, 1, order)
+    posref = cand.posref[order]
+    ec0 = ec = min(extend_capacity, 1 << (n_rows - 1).bit_length())
+    while True:
+        reps = mums.mum_reps_plain(words, posref, ec, G, pos_bits,
+                                   smls[0].seed_length)
+        if reps.n_reps <= ec:
+            break
+        ec = 1 << (reps.n_reps - 1).bit_length()
+    assert (ec > ec0) == (extend_capacity == 8)
+    assert starts.shape == (ec, G) and valid.shape == (ec,)
+    assert n_reps == reps.n_reps == int(valid.sum())
+    jst, jlen, jvalid, _, jn_reps = jmf.find_mums_device(
+        [JaxSML.create(g, seed) for g in ref], extend_capacity=ec)
+    assert int(jn_reps) == n_reps
+    v, jv = valid.numpy(), np.asarray(jvalid)
+    got = MatchArray(starts.numpy()[v].astype(np.int64),
+                     lengths.numpy()[v].astype(np.int64)).dedup()
+    want = MatchArray(np.asarray(jst)[jv].astype(np.int64),
+                      np.asarray(jlen)[jv].astype(np.int64)).dedup()
+    _assert_same(got.canonical_sort(), want.canonical_sort())
 
 
 def _flags_of(starts: np.ndarray) -> mums.MumFlags:
@@ -286,8 +386,6 @@ def test_find_mums_device_above_64_genomes_equals_oracle():
     """66 genomes, where the mask and sign fields pass 64 bits: the
     device pipeline's matches (plain versions; chunk = seed length keeps
     the plain extension small) are the oracle's, and reach all 66."""
-    from libmems_tpu_torch.match import MatchArray
-    from libmems_tpu_torch.matchfind import find_mums_device
     rng = np.random.default_rng(66)
     core = rng.integers(0, 4, 150)
     seqs = []
