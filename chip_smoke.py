@@ -4,10 +4,10 @@
     python3 chip_smoke.py [--sweep] [phase ...]
 
 With no argument every phase runs but the light fullwidth, wide, hmm,
-hmmstage, runflags and seedwords; naming phases (kernels, seeder,
-seedocc, goldens, main, trio, progressive, large, profile_dp, decode,
-bounded, mesh, tiled, multihost, cards, fullwidth, wide, hmm, hmmstage,
-runflags, seedwords) runs only those, plus
+hmmstage, runflags, seedwords, reps and extend; naming phases (kernels,
+seeder, seedocc, goldens, main, trio, progressive, large, profile_dp,
+decode, bounded, mesh, tiled, multihost, cards, fullwidth, wide, hmm,
+hmmstage, runflags, seedwords, reps, extend) runs only those, plus
 the progressive run whose recorded inputs profile_dp, decode and hmm
 read (and the large run for hmm, the main, trio and progressive runs
 whose outputs mesh and cards are held to, the main run for tiled and
@@ -217,6 +217,11 @@ reps     - (named runs only) K15 on the trio's sorted signature rows (the
              9 x 1 Mbp family's, through the wrappers and each launch
              alone, by events, on the card and on the host (phase_reps);
              it times an older tree's archive as well.
+extend   - (named runs only) K2's call on the pair, trio, 9 x 1 Mbp and
+             3 x 8.7 Mbp paths and its wide route at 64 genomes, K14's on
+             the trio, recorded at their call sites, each alone by
+             events, on the card and on the host (phase_extend); it
+             times an older tree's archive as well.
 
 The inputs of phases 7-9 are recorded one layer above the kernel
 wrappers (align_profile_batch, profile_scores_batch, predict_homologous,
@@ -395,7 +400,7 @@ PHASES = ("kernels", "seeder", "seedocc", "goldens", "main", "trio",
 # phases only a named run takes: their checks are part of the full run's
 # phases already
 LIGHT_PHASES = ("fullwidth", "wide", "hmm", "hmmstage", "runflags",
-                "seedwords", "reps")
+                "seedwords", "reps", "extend")
 # the HMM calls phase hmm records for phase hmmstage
 HMM_CALLS = os.path.join(ROOT, "build", "chip_smoke_hmm", "calls.npz")
 
@@ -1113,27 +1118,25 @@ def phase_kernels(torch, lt, dev):
     cnt = torch.tensor([s.n_windows for s in smls], dtype=torch.int32,
                        device=dev)[None].expand(EC, 2).contiguous()
     fill = mers.key_sentinel(seed)
+    # the path launches the representatives' rows only
+    n_live = min(int(n_reps), EC)
     args = (keys, seed_len, chunk, off, cnt, lefts, present, is_fwd,
-            lengths0, fill)
+            lengths0, fill, False, n_live)
     kl, kn = extend.extend_matches(*args)
-    rl, rn = extend.extend_matches_plain(*args)
+    rl, rn = extend.extend_matches_plain(*args[:-2], n_live=n_live)
     require(torch.equal(kl, rl) and torch.equal(kn, rn),
             "K2 differs from its plain version")
-    # the keys of both genomes each probe reads (at least one chunk per
-    # side and live row, plus the extension beyond it), the rows' inputs
-    # and outputs
     live = int(present.any(dim=1).sum())
-    ext = 2 * chunk * live + int((kn.long() - lengths0.long()).clamp(
-        min=0).sum())
     res["extend_matches"] = entry(
         max_abs_err([(kl, rl), (kn, rn)]),
         timed_ms(lambda: extend.extend_matches(*args), 10, torch),
-        timed_ms(lambda: extend.extend_matches_plain(*args), 3, torch,
-                 warmup=False),
-        work(16 * ext + nbytes(off, cnt, lefts, present, is_fwd, lengths0,
-                               kl, kn), 4 * ext))
-    log(f"# K2 extension: rows={EC} live={int(n_reps)} "
-        f"max_len={int(kn.max())} equal")
+        timed_ms(lambda: extend.extend_matches_plain(*args[:-2],
+                                                     n_live=n_live), 3,
+                 torch, warmup=False),
+        k2_work(inspect.signature(extend.extend_matches).bind(
+            *args).arguments, (kl, kn)))
+    log(f"# K2 extension: rows={EC} launched={n_live} live={live} "
+        f"reps={int(n_reps)} max_len={int(kn.max())} equal")
 
     # K3/K4: the pair's inter-anchor window batch, launch by launch
     windows, packed = pair_launches(lt, genomes, smls, seed, dev)
@@ -1311,7 +1314,7 @@ def run_flag_launches(torch, args, span, label):
         out = mums.MumFlags(torch.empty(n, dtype=torch.bool, device=dev),
                             torch.empty(n, **i32), torch.empty(n, **u8), 0,
                             torch.empty(n, **i32), torch.empty(n, **i32),
-                            torch.empty(n, **u8))
+                            torch.empty(n, **u8), tol)
 
         def flag_pass():
             mums._flag_pass(content, src, keys, seg_off, tol, limit, sent,
@@ -1606,14 +1609,15 @@ def phase_seedocc_kernels(torch, lt, dev, genomes):
                        device=dev)[None].expand(EC, 2).contiguous()
     cnt = torch.tensor([s.n_windows for s in smls], dtype=torch.int32,
                        device=dev)[None].expand(EC, 2).contiguous()
+    n_live = min(reps.n_reps, EC)
     args = (keys, seed_len, max(seed_len, 256), off, cnt, reps.lefts,
             reps.present, reps.is_fwd, reps.lengths0,
             mers.key_sentinel(seed))
-    kl, kn = extend.extend_matches(*args)
-    rl, rn = extend.extend_matches_plain(*args)
+    kl, kn = extend.extend_matches(*args, n_live=n_live)
+    rl, rn = extend.extend_matches_plain(*args, n_live=n_live)
     require(torch.equal(kl, rl) and torch.equal(kn, rn),
             "K2 differs from its plain version at weight 17")
-    log(f"# K2 at weight 17: rows={EC} live={min(reps.n_reps, EC)} "
+    log(f"# K2 at weight 17: rows={EC} launched={n_live} "
         f"max_len={int(kn.max())} equal")
     del smls, keys
 
@@ -1960,6 +1964,157 @@ def phase_reps(torch, lt, dev):
     log(json.dumps({"reps": out}))
 
 
+def k2_work(c, out):
+    """K2's least work on one call's arguments c (bound by name) and its
+    output (lefts, lengths).  Each side of a live row reads, for each
+    present genome, the windows of its extension and then the seed_len
+    offsets past the chain's last match that show its end (a match
+    seed_len + 1 past it would not continue it), or fewer where a
+    sequence's edge comes first.  Bytes: each key that some row reads,
+    once (a key that several overlapping rows read is charged once; its
+    re-reads may come from L2), and the rows' inputs and outputs.
+    Operations: 4 a present genome a probed offset."""
+    import torch
+    s = c["seed_len"]
+    R, G = c["lefts"].shape
+    n = R if c.get("n_live") is None else c["n_live"]
+    lo_in, cnt = c["lefts"][:n].long(), c["gen_cnt"][:n].long()
+    lo_out = out[0][:n].long()
+    len_in, len_out = c["lengths"][:n].long(), out[1][:n].long()
+    pres, fwd = c["present"][:n], c["is_fwd"][:n]
+    end_in = lo_in + len_in[:, None] - s
+    end_out = lo_out + len_out[:, None] - s
+    # a side's reach: the back-moving genomes' left ends moved by it (side
+    # 0 moves the forward genomes back, side 1 the reverse ones)
+    ref = torch.argmax(pres.to(torch.int8), dim=1, keepdim=True)
+    moved = (lo_in - lo_out).gather(1, ref)[:, 0]
+    total = len_out - len_in
+    ref_fwd = fwd.gather(1, ref)[:, 0]
+    reach = [torch.where(ref_fwd, moved, total - moved)]
+    reach.append(total - reach[0])
+    big = 1 << 40
+    keys = torch.zeros(c["keys_concat"].shape[0] + 1, dtype=torch.int32,
+                       device=lo_in.device)
+    offs = c["gen_off"][:n].long()
+    probed = 0
+    for side in (0, 1):
+        back = fwd if side == 0 else ~fwd
+        room = torch.where(back, lo_out, cnt - 1 - end_out)
+        room = torch.where(pres, room, big).amin(dim=1)
+        probes = reach[side] + room.clamp(max=s)
+        probes = torch.where(pres.any(dim=1), probes, 0)
+        probed += int((probes * pres.sum(dim=1)).sum())
+        lo = torch.where(back, lo_in - probes[:, None], end_in + 1)
+        hi = torch.where(back, lo_in, end_in + 1 + probes[:, None])
+        lo, hi = lo.clamp(min=0), torch.minimum(hi, cnt)
+        use = pres & (hi > lo)
+        one = torch.ones(int(use.sum()), dtype=torch.int32,
+                         device=keys.device)
+        keys.index_add_(0, (offs + lo)[use], one)
+        keys.index_add_(0, (offs + hi)[use], -one)
+    distinct = int((keys.cumsum(0) > 0).sum())
+    return work(8 * distinct + nbytes(c["gen_off"], c["gen_cnt"], c["lefts"],
+                                      c["present"], c["is_fwd"],
+                                      c["lengths"], out), 4 * probed)
+
+
+def phase_extend(torch, lt, dev):
+    """K2 at the four default paths' shapes and K14 at the trio's, alone:
+    the calls the paths make, recorded at their call sites (matchfind's
+    extend_matches and mum_candidates) while the pair's and the trio's
+    find_mums_device and the 9 x 1 Mbp and 3 x 8.7 Mbp find_pairwise_mums
+    run, and K2's wide route on the 64-genome find_mums_device rows, in
+    shared memory and in global scratch.  Each call is held equal to its
+    plain version, then timed by CUDA events, on the card (device_ms) and
+    on the host clock (host_ms), 20 runs each, median.  It calls only
+    entry points and wrappers both trees share, so this script copied
+    into an older tree's archive times that tree's calls the same way.
+    Prints one JSON line {"extend": {label: {...}}}."""
+    from libmems_tpu_torch import matchfind
+    from libmems_tpu_torch.ops import extend, mums
+    from libmems_tpu_torch.sml import create_smls
+    out = {}
+    plain_names = list(inspect.signature(
+        extend.extend_matches_plain).parameters)
+
+    def timings(label, fn, info):
+        e = dict(info, events_ms=timed_ms(fn, 20, torch),
+                 card_ms=device_ms(fn, 20, torch),
+                 host_ms=host_ms(fn, 20, torch))
+        out[label] = e
+        log(f"# {label}: " + ", ".join(f"{k} {v}" for k, v in e.items()))
+
+    def k2(label, c, scratch=False):
+        got = extend.extend_matches(**dict(c, scratch=scratch))
+        ref = extend.extend_matches_plain(
+            **{k: c[k] for k in plain_names if k in c})
+        require(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
+                f"K2 differs from its plain version: {label}")
+        R, G = c["lefts"].shape
+        n_live = c.get("n_live")
+        bound_ms, bound_by = bound(k2_work(c, got))
+        timings(label, lambda: extend.extend_matches(
+            **dict(c, scratch=scratch)), {
+                "rows": R, "G": G,
+                "launched": R if n_live is None else n_live,
+                "live": int(c["present"].any(dim=1).sum()),
+                "max_len": int(got[1].max()), "bound_ms": bound_ms,
+                "bound_by": bound_by})
+
+    def recorded(fn, names):
+        with recording([(matchfind, n) for n in names]) as calls:
+            fn()
+        return calls
+
+    smls, _ = create_smls(genome_pair(lt, 0), device=dev)
+    c = recorded(lambda: matchfind.find_mums_device(smls),
+                 ["extend_matches"])["extend_matches"]
+    require(len(c) == 1, "the pair path made no single K2 call")
+    k2("K2 pair 2 x 4.6 Mbp", c[0])
+    del smls, c
+
+    smls, _ = create_smls(family_trio(lt, 0), device=dev)
+    calls = recorded(lambda: matchfind.find_mums_device(smls),
+                     ["extend_matches"])
+    k2("K2 trio 3 x 1.5 Mbp", calls["extend_matches"][0])
+    del calls
+    # K14 on the trio's flags, recorded where the fused pipeline calls it
+    with recording([(matchfind.ops_mums, "mum_candidates")]) as calls:
+        matchfind.find_mums_device(smls)
+    c = calls["mum_candidates"][0]
+    got = mums.mum_candidates(**c)
+    ref = mums.mum_candidates_plain(**c)
+    require(all(torch.equal(a, b) for a, b in zip(got, ref)),
+            "K14 differs from its plain version")
+    f = c["flags"]
+    n = f.kept_occ.numel()
+    bound_ms, bound_by = bound(work(
+        5 * n + 10 * int(f.kept_occ.sum()) + nbytes(got),
+        4 * n + 6 * (c["G"] + 3) * got.words.shape[0] * f.n_rows))
+    timings("K14 trio", lambda: mums.mum_candidates(**c), {
+        "table_rows": n, "candidates": f.n_rows,
+        "n_words": got.words.shape[0], "bound_ms": bound_ms,
+        "bound_by": bound_by})
+    del smls, calls, c, got, ref, f
+
+    for label, fam in (("K2 pairwise 9 x 1 Mbp", family_nine(lt, 0)),
+                       (f"K2 pairwise 3 x {LARGE_LEN} bp",
+                        family_large(lt))):
+        c = recorded(lambda: matchfind.find_pairwise_mums(fam, device=dev),
+                     ["extend_matches"])["extend_matches"]
+        require(len(c) == 1, f"{label}: not one K2 call")
+        k2(label, c[0])
+        del c
+
+    smls, _ = create_smls(wide_family(lt), device=dev)
+    c = recorded(lambda: matchfind.find_mums_device(smls),
+                 ["extend_matches"])["extend_matches"]
+    for scratch in (False, True):
+        k2(f"K2 wide route G = {WIDE_GENOMES}"
+           + (" in global scratch" if scratch else ""), c[0], scratch)
+    log(json.dumps({"extend": out}))
+
+
 def phase_mum_kernels(torch, lt, dev):
     """K13-K15 against their plain versions on the card, on the seed
     table of the first trio input (rng 0), and K2 on that input's
@@ -2014,9 +2169,11 @@ def phase_mum_kernels(torch, lt, dev):
                  torch),
         timed_ms(lambda: mums.mum_candidates_plain(ref, G, 0, pos_bits), 3,
                  torch, warmup=False),
-        # six per-row flag columns in, starts + words + posref out; per
-        # candidate row ~6 operations per field bit-placement and genome
-        work(nbytes(tensors(got), got_c),
+        # every row's kept flag and row id, the kept rows' genome,
+        # position and strand (and their reference strand), starts +
+        # words + posref out; per candidate row ~6 operations per field
+        # bit-placement and genome
+        work(5 * n + 10 * int(got.kept_occ.sum()) + nbytes(got_c),
              4 * n + 6 * (G + 3) * got_c.words.shape[0] * n_rows))
     log(f"# K14 candidates: {n_rows} rows, {got_c.words.shape[0]} words "
         f"each, equal")
@@ -2058,11 +2215,13 @@ def phase_mum_kernels(torch, lt, dev):
              got_r.present, got_r.is_fwd,
              torch.full((ec,), seed_len, dtype=torch.int32, device=dev),
              key_sentinel(seed))
-    kl, kn = extend.extend_matches(*kargs)
-    rl, rn = extend.extend_matches_plain(*kargs)
+    n_live = min(got_r.n_reps, ec)
+    kl, kn = extend.extend_matches(*kargs, n_live=n_live)
+    rl, rn = extend.extend_matches_plain(*kargs, n_live=n_live)
     require(torch.equal(kl, rl) and torch.equal(kn, rn),
             "K2 differs from its plain version on the trio's rows")
-    log(f"# K2 on the trio's {got_r.n_reps} rows at G = {G}: equal")
+    log(f"# K2 on the trio's rows at G = {G}: rows={ec} launched={n_live} "
+        f"max_len={int(kn.max())} equal")
     for name in MUM_KERNELS:
         e = res[name]
         log(f"# {name}: kernel {e['ms']:.3f} ms, plain {e['plain_ms']:.3f} "
@@ -5220,6 +5379,9 @@ def main(argv=None) -> int:
     if "reps" in phases:
         phase_reps(torch, lt, dev)
         lap("reps")
+    if "extend" in phases:
+        phase_extend(torch, lt, dev)
+        lap("extend")
     if "extend_matches" in res:
         res["extend_matches"]["err"] = max([res["extend_matches"]["err"]]
                                            + k2_errs)

@@ -1,43 +1,74 @@
-// K2: batched ungapped maximal extension, one thread block per candidate.
+// K2: batched ungapped maximal extension.
 //
 // Replaces libmems_tpu/ops/extend.py extend_matches (extend_core and
 // make_probe_round: XLA probe rounds over every candidate at once inside
 // a lax.while_loop, with a ROW_BLOCK lax.map and a 128-lane barrel-shift
 // span fetch laid out for the TPU's vector unit).
 //
-// Bound: latency of dependent probe rounds.  A round reads C contiguous
-// keys per genome (C = chunk, then 8*chunk) and reduces them with three
-// block scans; a row runs its rounds until its chain stops, so long
-// matches cost many rounds while short ones retire after one.  Design:
-// one block of 256 threads per row, each thread owning a contiguous run
-// of at most 32 probe offsets held as a bitmask, so a round is one pass
-// over the keys and four block scans (previous match, first bad gap,
-// reach, room left).  Rows never wait for each other: a row's own loop of
-// rounds gives exactly the result of the global while_loop, because rows are
-// independent and a finished row's state no longer changes there.  The
-// TPU-specific ROW_BLOCK map and barrel-shift fetch are not needed.
-//
 // Match rule per probe offset d (ops/extend.py:241-268): every present
 // genome's window key, XORed with its strand flag, equals the reference
-// genome's (first present genome); no key is the sentinel; every probe
-// position lies in [0, gen_cnt).  Reach and the continue test copy
-// ops/extend.py:270-293, including `room + reach > C`.  The round's three
-// steps are csrc/probe.cuh's, which K31 shares.
+// genome's (first present genome); no key is the sentinel (its low bit
+// may be either); every probe position lies in [0, gen_cnt).
 //
-// A row's per-genome state (left end, offset, count, presence, strand)
-// lives in dynamic shared memory sized 5 * G ints at launch, so a row
-// takes any number of genomes: up to about 11,600 in what a block may
-// opt into on Hopper (lm_extend_smem_limit), and beyond that in global
-// scratch the wrapper allocates
-// (5 * G ints a row).  The block's threads load, update and store the
-// state together, genome g on thread g mod 256; the reference genome (the
-// first present one) and the room left are block-wide min reductions.
+// What the result depends on.  A JAX probe round of width C reaches the
+// furthest match from the current end with gaps <= seed_len, and the row
+// goes on only while the round could not see the chain's end or the
+// sequence's edge (reach + seed_len > C and room + reach > C,
+// ops/extend.py:270-293).  So a side ends at its maximal chain: the last
+// match before the first run of seed_len offsets with no match (offset 0,
+// the current end, counts as a match), or before the sequence's edge,
+// whatever the round widths.  K2 picks its own; the CPU tests hold the
+// plain version's result equal at chunk = seed_len, 128, 256 and a chunk
+// wide enough for one round.
+//
+// Bound: latency of dependent probe steps on the longest rows; the keys
+// read are a few MB.  Two routes:
+//
+// Warp route (G <= kWarpGenomes): a warp a row, kRowWarps rows a block, launched over the
+// caller's live rows only.  Lane g holds genome g's state (left end,
+// offset, count, presence, strand) in registers; the reference genome is
+// the first set bit of a ballot of presence, and the offsets where every
+// present genome's window lies in its genome and in the table come from a
+// warp min/max.  A step probes u words of 32 consecutive offsets (u = 1,
+// 2, 4, then kMaxWords): for each present genome the lanes read 32
+// consecutive keys a word (one 256-byte read), and one __ballot_sync
+// gives a word's match bits.  The chain is followed on those words by bit
+// operations (chain_word): each lane tests whether its offset is a match
+// more than seed_len past the previous one (the highest set bit below it,
+// or the chain's end so far), and one ballot finds the first such break.
+// A step has no __syncthreads.  A row still going after kHandoff offsets
+// of a side is handed to the whole block once every warp is through its
+// own row: the block's warps probe kRowWarps consecutive segments of
+// kMaxWords words a step, each summarises its segment (first and last
+// match, a break inside), and every warp combines the summaries in order
+// after one barrier, so a long row advances 8x as far a step as one warp
+// takes it.
+//
+// Wide route (more genomes): one block of
+// 256 threads a row in rounds of C = chunk, then 8 * chunk, each thread
+// owning at most 32 consecutive probe offsets as a bitmask, a round one
+// pass over the keys and four block scans (csrc/probe.cuh, which K31
+// shares).  The row's state lives in dynamic shared memory sized 5 * G
+// ints at launch: up to about 11,600 genomes in what a block may opt into
+// on Hopper (lm_extend_smem_limit), and beyond that in global scratch the
+// wrapper allocates (5 * G ints a row); genome g is on thread g mod 256,
+// the reference genome and the room left are block-wide min reductions.
 #include "common.cuh"
 #include "probe.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr unsigned kFull = 0xffffffffu;
+// warp route: genomes a row at most (lane g holds genome g), rows a
+// block, ballot words a step at most, offsets a warp probes on a side
+// before the block takes the row
+constexpr int kWarpGenomes = 32;
+constexpr int kRowWarps = kThreads / 32;
+constexpr int kMaxWords = 8;
+constexpr int kHandoff = 2048;
+// the largest probe offset: below INT_MAX by more than a block's step
+constexpr int kMaxOffset = INT_MAX - 2 * kThreads * kMaxWords;
 
 // A probe key from the position-order table: genome g's window q, the
 // sentinel outside the table.
@@ -106,6 +137,259 @@ __global__ void __launch_bounds__(kThreads) extend_kernel(
   if (tid == 0) lengths[r] = len;
 }
 
+
+// The chain of one side followed over its ballot words, in offset order.
+struct Chain {
+  int p;      // the chain's last match (offset; 0 is the side's start)
+  int first;  // the first match taken (segment summaries)
+  bool have;  // p holds a match (offset 0 counts on a side's own walk)
+  bool brk;   // the chain ended at p
+};
+
+// Takes word w, whose bit i is the match bit of offset b + i + 1: the
+// first match more than seed_len past the one before it ends the chain.
+// Every lane of the warp calls it with the same arguments.
+__device__ __forceinline__ void chain_word(unsigned w, int b, int seed_len,
+                                           Chain& c) {
+  if (c.brk) return;
+  const int lane = threadIdx.x & 31;
+  const unsigned below = w & ((1u << lane) - 1u);
+  const int prev = below ? b + 32 - __clz(below) : c.p;
+  const bool bad = ((w >> lane) & 1u) && (below != 0u || c.have) &&
+                   b + lane + 1 - prev > seed_len;
+  const unsigned bw = __ballot_sync(kFull, bad);
+  unsigned upto = w;
+  if (bw) {
+    upto = w & ((1u << (__ffs(bw) - 1)) - 1u);
+    c.brk = true;
+  }
+  if (upto) {
+    if (!c.have) c.first = b + __ffs(upto);
+    c.have = true;
+    c.p = b + 32 - __clz(upto);
+  }
+}
+
+__device__ __forceinline__ long long min64(long long a, long long b) {
+  return a < b ? a : b;
+}
+
+__device__ __forceinline__ long long max64(long long a, long long b) {
+  return a > b ? a : b;
+}
+
+// Genome `lane` of a warp's row.
+struct RowLane {
+  int left, off, cnt;
+  bool pres, fwd;
+};
+
+// One side's probe geometry: this lane's genome's key at offset d is
+// keys[at + dir * d], XORed with flip; every present genome's window lies
+// in its genome and in the table exactly for d in [lo, hi] (the same in
+// every lane).
+struct SideGeom {
+  long long at, flip;
+  int dir, lo, hi;
+};
+
+__device__ __forceinline__ SideGeom side_geometry(const RowLane& s, int len,
+                                                  int side, int seed_len,
+                                                  int64_t n_keys) {
+  SideGeom sg;
+  const bool back = side == 0 ? s.fwd : !s.fwd;
+  const long long q0 = back ? s.left : (long long)s.left + len - seed_len;
+  sg.at = (long long)s.off + q0;
+  sg.dir = back ? -1 : 1;
+  sg.flip = s.fwd ? 1 : 0;
+  long long lo = 1, hi = kMaxOffset;
+  if (s.pres) {
+    // q = q0 + dir * d in [0, cnt) and at + dir * d in [0, n_keys)
+    if (back) {
+      lo = max64(lo, max64(q0 - s.cnt + 1, sg.at - n_keys + 1));
+      hi = min64(hi, min64(q0, sg.at));
+    } else {
+      lo = max64(lo, max64(-q0, -sg.at));
+      hi = min64(hi, min64(s.cnt - 1 - q0, n_keys - 1 - sg.at));
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    lo = max64(lo, __shfl_xor_sync(kFull, lo, o));
+    hi = min64(hi, __shfl_xor_sync(kFull, hi, o));
+  }
+  sg.lo = (int)min64(lo, kMaxOffset);
+  sg.hi = (int)max64(hi, 0);
+  return sg;
+}
+
+// Match words w[j] of offsets base + 32 j + lane + 1, j < u (zero for j
+// >= u): for each present genome (pmask, reference first) the lanes read
+// 32 consecutive keys a word.  Every lane of the warp calls it with the
+// same arguments.
+__device__ __forceinline__ void probe_words(
+    const long long* __restrict__ keys, long long fill, unsigned pmask,
+    const SideGeom& sg, int base, int u, unsigned (&w)[kMaxWords]) {
+  const int lane = threadIdx.x & 31;
+  const int ref = __ffs(pmask) - 1;
+  bool ok[kMaxWords];
+  long long rk[kMaxWords];
+#pragma unroll
+  for (int j = 0; j < kMaxWords; ++j) {
+    const int d = base + 32 * j + lane + 1;
+    ok[j] = j < u && d >= sg.lo && d <= sg.hi;
+    rk[j] = 0;
+  }
+  for (unsigned m = pmask; m; m &= m - 1) {
+    const int g = __ffs(m) - 1;
+    const long long at = __shfl_sync(kFull, sg.at, g);
+    const long long flip = __shfl_sync(kFull, sg.flip, g);
+    const int dir = __shfl_sync(kFull, sg.dir, g);
+#pragma unroll
+    for (int j = 0; j < kMaxWords; ++j) {
+      const int d = base + 32 * j + lane + 1;
+      const long long k = ok[j] ? keys[at + (long long)dir * d] : fill;
+      const bool live = ok[j] && (k | 1LL) != fill;
+      if (g == ref) {
+        rk[j] = k ^ flip;
+        ok[j] = live;
+      } else {
+        ok[j] = live && (k ^ flip) == rk[j];
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kMaxWords; ++j) w[j] = __ballot_sync(kFull, ok[j]);
+}
+
+// The side's moving genomes shift left by reach, the length grows by it
+// (ops/extend.py:281-286).
+__device__ __forceinline__ void advance(RowLane& s, int& len, int side,
+                                        int reach) {
+  const bool back = side == 0 ? s.fwd : !s.fwd;
+  if (s.pres && back) s.left -= reach;
+  len += reach;
+}
+
+// A segment's summary for the block's combine.
+struct Summary {
+  int p, first, have, brk;
+};
+
+__global__ void __launch_bounds__(kThreads) extend_warp_kernel(
+    const long long* __restrict__ keys, int64_t n_keys, long long fill,
+    int seed_len, int G, const int* __restrict__ gen_off,
+    const int* __restrict__ gen_cnt, int* __restrict__ lefts,
+    const uint8_t* __restrict__ present, const uint8_t* __restrict__ is_fwd,
+    int* __restrict__ lengths, int n_live) {
+  // rows handed to the block: their state, length and side (-1: none)
+  __shared__ int s_left[kRowWarps][32], s_off[kRowWarps][32],
+      s_cnt[kRowWarps][32], s_flags[kRowWarps][32];
+  __shared__ int s_len[kRowWarps], s_side[kRowWarps];
+  __shared__ Summary s_sum[2][kRowWarps];
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int r = blockIdx.x * kRowWarps + warp;
+  unsigned w[kMaxWords];
+  int handed = -1;
+  if (r < n_live) {
+    RowLane s{0, 0, 0, false, false};
+    if (lane < G) {
+      const int64_t k = (int64_t)r * G + lane;
+      s = RowLane{lefts[k], gen_off[k], gen_cnt[k], present[k] != 0,
+                  is_fwd[k] != 0};
+    }
+    const unsigned pmask = __ballot_sync(kFull, s.pres);
+    int len = lengths[r];
+    for (int side = 0; pmask && side < 2 && handed < 0; ++side) {
+      const SideGeom sg = side_geometry(s, len, side, seed_len, n_keys);
+      Chain c{0, 0, true, false};
+      int base = 0, u = 1;
+      while (true) {
+        probe_words(keys, fill, pmask, sg, base, u, w);
+#pragma unroll
+        for (int j = 0; j < kMaxWords; ++j) {
+          if (j < u) chain_word(w[j], base + 32 * j, seed_len, c);
+        }
+        base += 32 * u;
+        if (c.brk || base - c.p >= seed_len || base >= sg.hi) break;
+        if (base >= kHandoff) {
+          handed = side;
+          break;
+        }
+        u = min(2 * u, kMaxWords);
+      }
+      advance(s, len, side, c.p);
+    }
+    if (handed >= 0) {
+      s_left[warp][lane] = s.left;
+      s_off[warp][lane] = s.off;
+      s_cnt[warp][lane] = s.cnt;
+      s_flags[warp][lane] = (s.pres ? 1 : 0) | (s.fwd ? 2 : 0);
+      if (lane == 0) s_len[warp] = len;
+    } else if (pmask) {
+      if (s.pres) lefts[(int64_t)r * G + lane] = s.left;
+      if (lane == 0) lengths[r] = len;
+    }
+  }
+  if (lane == 0) s_side[warp] = handed;
+  __syncthreads();
+
+  // the handed rows, one after another, on every warp of the block
+  constexpr int kSeg = 32 * kMaxWords;
+  int buf = 0;
+  for (int v = 0; v < kRowWarps; ++v) {
+    const int first_side = s_side[v];
+    if (first_side < 0) continue;
+    const int fl = s_flags[v][lane];
+    RowLane s{s_left[v][lane], s_off[v][lane], s_cnt[v][lane],
+              (fl & 1) != 0, (fl & 2) != 0};
+    const unsigned pmask = __ballot_sync(kFull, s.pres);
+    int len = s_len[v];
+    for (int side = first_side; side < 2; ++side) {
+      const SideGeom sg = side_geometry(s, len, side, seed_len, n_keys);
+      int P = 0, base = 0;
+      bool ended = false;
+      while (!ended) {
+        const int seg = base + warp * kSeg;
+        probe_words(keys, fill, pmask, sg, seg, kMaxWords, w);
+        Chain c{0, 0, false, false};
+#pragma unroll
+        for (int j = 0; j < kMaxWords; ++j)
+          chain_word(w[j], seg + 32 * j, seed_len, c);
+        if (lane == 0) s_sum[buf][warp] = Summary{c.p, c.first, c.have, c.brk};
+        __syncthreads();
+        // the segments in order, from the chain's end so far (every warp
+        // the same); s_sum[buf] is rewritten two barriers later, after
+        // every warp has read it
+        for (int k = 0; k < kRowWarps && !ended; ++k) {
+          const Summary S = s_sum[buf][k];
+          const int end = base + (k + 1) * kSeg;
+          if (S.have) {
+            if (S.first - P > seed_len) {
+              ended = true;
+              break;
+            }
+            P = S.p;
+            ended = S.brk != 0;
+          }
+          ended = ended || end - P >= seed_len;
+        }
+        buf ^= 1;
+        base += kRowWarps * kSeg;
+        ended = ended || base >= sg.hi;
+      }
+      advance(s, len, side, P);
+    }
+    if (warp == v) {
+      const int rv = blockIdx.x * kRowWarps + v;
+      if (s.pres) lefts[(int64_t)rv * G + lane] = s.left;
+      if (lane == 0) lengths[rv] = len;
+    }
+  }
+}
+
 }  // namespace
 
 // Bytes of shared memory the row state of G genomes takes.
@@ -119,11 +403,17 @@ extern "C" int64_t lm_extend_smem_limit() {
   return lm::max_dyn_smem(extend_kernel);
 }
 
-// keys: int64[n_keys]; gen_off, gen_cnt, lefts: int32[R, G];
-// present, is_fwd: uint8[R, G]; lengths: int32[R]; rows: int32[R, 5, G]
-// global scratch for the row state, or null to keep it in shared memory
-// (at most lm_extend_smem_limit() bytes).  lefts and lengths are updated
-// in place.
+// Genomes a row at most that K2's warp route takes.
+extern "C" int lm_extend_warp_genomes() { return kWarpGenomes; }
+
+// keys: int64[n_keys]; gen_off, gen_cnt, lefts: int32[>= R, G];
+// present, is_fwd: uint8[>= R, G]; lengths: int32[>= R], of which the
+// first R rows are extended (rows after them are left as they are);
+// rows: int32[R, 5, G] global scratch for the wide route's row state, or
+// null.  Rows of at most lm_extend_warp_genomes() genomes take the warp
+// route (rows is not read); wider rows keep their state in shared memory
+// (at most lm_extend_smem_limit() bytes) or, given rows, in that
+// scratch.  lefts and lengths are updated in place.
 extern "C" int lm_extend(const void* keys, int64_t n_keys, int64_t fill,
                          int seed_len, int chunk, int big, int G, int R,
                          const void* gen_off, const void* gen_cnt,
@@ -131,6 +421,16 @@ extern "C" int lm_extend(const void* keys, int64_t n_keys, int64_t fill,
                          void* lengths, void* rows, void* stream) {
   if (G < 1 || big > 32 * kThreads || chunk > big)
     return (int)cudaErrorInvalidValue;
+  if (G <= kWarpGenomes) {
+    if (R > 0) {
+      LM_LAUNCH(extend_warp_kernel, (unsigned)((R + kRowWarps - 1) / kRowWarps),
+                kThreads, 0, (cudaStream_t)stream, (const long long*)keys,
+                n_keys, (long long)fill, seed_len, G, (const int*)gen_off,
+                (const int*)gen_cnt, (int*)lefts, (const uint8_t*)present,
+                (const uint8_t*)is_fwd, (int*)lengths, R);
+    }
+    return (int)cudaGetLastError();
+  }
   const int64_t smem = rows != nullptr ? 0 : lm_extend_row_bytes(G);
   const cudaError_t err = lm::allow_dyn_smem(extend_kernel, smem);
   if (err != cudaSuccess) return (int)err;

@@ -31,16 +31,24 @@
 //     the call's one host read.
 //
 // K14, candidates, replaces _fused_mum_pipeline :355-380 and
-// _packed_diagonal_words (:283-311): one thread per kept row scatters
-// sign * (pos + 1) into starts[row_id, gid]; then one thread per
-// candidate row applies seq_mask (bit G-1-g is genome g) and writes the
-// row's packed signature words invalid(1) | mask(G) | signs(G) | G biased
-// diagonals of pos_bits + 2 bits, 63 payload bits a word (MSB-first, so
-// the word tuple orders like the fields), and posref (1 << 62 when
-// invalid).  Every word is below 2^63: a signed int64 sort orders it.
-// The mask and sign fields are streamed a bit at a time (genome G-1
-// first, as the JAX package's G-bit integers place them), so a row takes
-// any number of genomes: the words simply grow.
+// _packed_diagonal_words (:283-311) in one pass, with no zero fill and no
+// scatter.  Its one caller takes K13's flags at repeat_tolerance 0, so a
+// kept run holds each genome at most once: every row of it is kept, and
+// a candidate's rows are one group of at most G consecutive table rows,
+// in gid order, from its run's start.  One thread a table row; the row
+// that starts a group (kept, and the first row, or its predecessor not
+// kept or of another row_id) builds the candidate from the group: it
+// applies seq_mask (bit G-1-g is genome g), writes the whole starts row,
+// zeros included, and the row's packed signature words invalid(1) |
+// mask(G) | signs(G) | G biased diagonals of pos_bits + 2 bits, 63
+// payload bits a word (MSB-first, so the word tuple orders like the
+// fields), columnar, so a warp's candidates store side by side, and
+// posref (1 << 62 when invalid).  Every word is below 2^63: a signed
+// int64 sort orders it.  The mask and sign fields are streamed a bit at a
+// time (genome G-1 first, as the JAX package's G-bit integers place
+// them), so a row takes any number of genomes: the words simply grow.
+// Bound: bytes: every table row's kept flag and row id, the kept rows'
+// genome, position and strand, the candidates' outputs.
 //
 // K15, representatives, replaces :381-423 and _recover_starts (:314-332)
 // on the sorted signature rows, in two kernels around one host read:
@@ -299,60 +307,119 @@ __global__ void __launch_bounds__(kThreads, lm::kRunMinBlocks)
   if (tile == t.tiles - 1 && threadIdx.x == 0) t.scan[1] = excl + total;
 }
 
-// K14 pass 1: the kept rows into the zeroed candidate table [n_rows, G].
-__global__ void mum_scatter_kernel(const unsigned char* __restrict__ kept_occ,
-                                   const int* __restrict__ row_id,
-                                   const int* __restrict__ gid,
-                                   const int* __restrict__ pos,
-                                   const unsigned char* __restrict__ strand,
-                                   const unsigned char* __restrict__ ref_strand,
-                                   int64_t n, int G, int* __restrict__ starts) {
-  for (int64_t i = first_index(); i < n; i += grid_stride()) {
-    if (!kept_occ[i]) continue;
-    const int sign = strand[i] == ref_strand[i] ? 1 : -1;
-    starts[(int64_t)row_id[i] * G + gid[i]] = sign * (pos[i] + 1);
-  }
+// Whether seq_mask wants genome g of G (bit G-1-g).
+__device__ __forceinline__ bool wanted(uint64_t seq_mask, int G, int g) {
+  const int b = G - 1 - g;
+  return b < 64 && ((seq_mask >> b) & 1);
 }
 
-// K14 pass 2: seq_mask (rejected rows are zeroed and invalid), then the
-// signature words [n_words, n_rows] and posref of every candidate row.
-__global__ void mum_words_kernel(int* __restrict__ starts, int64_t n_rows,
-                                 int G, int64_t seq_mask, int pos_bits,
-                                 int n_words, int64_t* __restrict__ words,
-                                 int64_t* __restrict__ posref) {
+// The K14 candidate whose group starts at table row i: its rows i ..
+// i + k - 1 (kept, one row_id, at most G, gid ascending) into starts,
+// words and posref at its row_id.
+__device__ __forceinline__ void build_candidate(
+    int64_t i, const unsigned char* __restrict__ kept_occ,
+    const int* __restrict__ row_id, const int* __restrict__ gid,
+    const int* __restrict__ pos, const unsigned char* __restrict__ strand,
+    const unsigned char* __restrict__ ref_strand, int64_t n, int G,
+    uint64_t seq_mask, int n_want, int pos_bits, int n_words, int64_t n_rows,
+    int* __restrict__ starts, int64_t* __restrict__ words,
+    int64_t* __restrict__ posref) {
+  const int rid = row_id[i];
+  int k = 1;
+  while (k < G && i + k < n && kept_occ[i + k] && row_id[i + k] == rid) ++k;
+  bool valid = true;
+  if (seq_mask) {
+    valid = k == n_want;
+    for (int t = 0; t < k && valid; ++t) valid = wanted(seq_mask, G, gid[i + t]);
+  }
+  const unsigned char rs = ref_strand[i];
+  const int64_t pos_ref = pos[i];  // the first present genome's
   const int64_t bias = (int64_t)1 << (pos_bits + 1);
-  const int dbits = pos_bits + 2;
-  for (int64_t j = first_index(); j < n_rows; j += grid_stride()) {
-    int* row = starts + j * G;
-    bool valid = true;
-    if (seq_mask) {
-      for (int g = 0; g < G; ++g) {
-        const bool want = (seq_mask >> (G - 1 - g)) & 1;
-        if ((row[g] != 0) != want) valid = false;
-      }
-      if (!valid) {
-        for (int g = 0; g < G; ++g) row[g] = 0;
-      }
+  // the whole starts row, zeros included, the group walked in gid order
+  // (t)
+  int* row = starts + (int64_t)rid * G;
+  for (int g = 0, t = 0; g < G; ++g) {
+    int v = 0;
+    if (valid && t < k && gid[i + t] == g) {
+      v = (strand[i + t] != rs ? -1 : 1) * (pos[i + t] + 1);
+      ++t;
     }
-    int64_t pos_ref = -1;  // the first present genome's position
-    for (int g = G - 1; g >= 0; --g) {
-      if (row[g] != 0) pos_ref = (int64_t)(row[g] < 0 ? -row[g] : row[g]) - 1;
+    row[g] = v;
+  }
+  // the mask and sign fields, genome G-1 first, a bit at a time; then the
+  // biased diagonals
+  WordWriter out(words + rid, n_rows);
+  out.put(valid ? 0 : 1, 1);
+  for (int g = G - 1, t = k - 1; g >= 0; --g) {
+    const bool here = valid && t >= 0 && gid[i + t] == g;
+    out.put(here, 1);
+    if (here) --t;
+  }
+  for (int g = G - 1, t = k - 1; g >= 0; --g) {
+    const bool here = valid && t >= 0 && gid[i + t] == g;
+    out.put(here && strand[i + t] != rs, 1);
+    if (here) --t;
+  }
+  for (int g = 0, t = 0; g < G; ++g) {
+    uint64_t db = 0;
+    if (valid && t < k && gid[i + t] == g) {
+      const int64_t p = pos[i + t];
+      db = (uint64_t)((strand[i + t] != rs ? p + pos_ref : p - pos_ref) +
+                      bias);
+      ++t;
     }
-    WordWriter out(words + j, n_rows);
-    out.put(valid ? 0 : 1, 1);
-    for (int g = G - 1; g >= 0; --g) out.put(row[g] != 0, 1);
-    for (int g = G - 1; g >= 0; --g) out.put(row[g] < 0, 1);
-    for (int g = 0; g < G; ++g) {
-      const int v = row[g];
-      uint64_t db = 0;
-      if (v != 0) {
-        const int64_t p = (int64_t)(v < 0 ? -v : v) - 1;
-        db = (uint64_t)((v < 0 ? p + pos_ref : p - pos_ref) + bias);
-      }
-      out.put(db, dbits);
+    out.put(db, pos_bits + 2);
+  }
+  out.finish(n_words);
+  posref[rid] = valid ? pos_ref : ((int64_t)1 << 62);
+}
+
+// K14 over tiles of kThreads * rows_per_thread table rows: each block
+// flags its tile's group starts (kept, and the first row, or the row
+// before not kept or of another row_id), gathers them in shared memory
+// (a warp's starts in row order, so neighbouring threads build
+// neighbouring candidates and store side by side), then builds one
+// candidate a thread: every thread busy, where a thread a table row
+// leaves the rows inside groups idle.
+constexpr int kCandRowsMax = 8;  // table rows a thread flags a tile at most
+
+__global__ void __launch_bounds__(kThreads) mum_candidates_kernel(
+    const unsigned char* __restrict__ kept_occ, const int* __restrict__ row_id,
+    const int* __restrict__ gid, const int* __restrict__ pos,
+    const unsigned char* __restrict__ strand,
+    const unsigned char* __restrict__ ref_strand, int64_t n, int G,
+    int64_t seq_mask, int pos_bits, int n_words, int64_t n_rows,
+    int rows_per_thread, int* __restrict__ starts,
+    int64_t* __restrict__ words, int64_t* __restrict__ posref) {
+  __shared__ int s_first[kThreads * kCandRowsMax];
+  __shared__ int s_count;
+  const int lane = threadIdx.x & 31;
+  const uint64_t sm = (uint64_t)seq_mask;
+  const int n_want = __popcll(G >= 64 ? sm : sm & ((1ull << G) - 1));
+  const int64_t tile = (int64_t)kThreads * rows_per_thread;
+  for (int64_t t0 = (int64_t)blockIdx.x * tile; t0 < n;
+       t0 += (int64_t)gridDim.x * tile) {
+    if (threadIdx.x == 0) s_count = 0;
+    __syncthreads();
+    for (int j = 0; j < rows_per_thread; ++j) {
+      const int64_t i = t0 + (int64_t)j * kThreads + threadIdx.x;
+      const bool first = i < n && kept_occ[i] &&
+                         (i == 0 || !kept_occ[i - 1] ||
+                          row_id[i - 1] != row_id[i]);
+      const unsigned b = __ballot_sync(0xffffffffu, first);
+      int at = 0;
+      if (lane == 0 && b) at = atomicAdd(&s_count, __popc(b));
+      at = __shfl_sync(0xffffffffu, at, 0);
+      if (first) s_first[at + __popc(b & ((1u << lane) - 1u))] = (int)(i - t0);
     }
-    out.finish(n_words);
-    posref[j] = valid ? pos_ref : ((int64_t)1 << 62);
+    __syncthreads();
+    const int count = s_count;
+    for (int c = threadIdx.x; c < count; c += kThreads) {
+      build_candidate(t0 + s_first[c], kept_occ, row_id, gid, pos, strand,
+                      ref_strand, n, G, sm, n_want, pos_bits, n_words, n_rows,
+                      starts, words, posref);
+    }
+    __syncthreads();
   }
 }
 
@@ -476,10 +543,10 @@ extern "C" int lm_mum_tile_flags(const void* content, const void* src,
   return (int)cudaGetLastError();
 }
 
-// K14: the flags of K13 (n rows), starts int32[n_rows, G] zeroed by the
-// caller and updated in place (seq_mask zeroes rejected rows); words
-// int64[n_words, n_rows]; posref int64[n_rows].  seq_mask 0 keeps every
-// row.
+// K14: the flags of K13 at repeat_tolerance 0 (n rows); starts
+// int32[n_rows, G], words int64[n_words, n_rows] and posref int64[n_rows]
+// written whole (seq_mask's rejected rows zero and invalid).  seq_mask 0
+// keeps every row.
 extern "C" int lm_mum_candidates(const void* kept_occ, const void* row_id,
                                  const void* gid, const void* pos,
                                  const void* strand, const void* ref_strand,
@@ -490,16 +557,18 @@ extern "C" int lm_mum_candidates(const void* kept_occ, const void* row_id,
   if (G < 1 || pos_bits + 2 > kWordBits ||
       n_words * kWordBits < 1 + G * (pos_bits + 4))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (n > 0) {
-    LM_LAUNCH(mum_scatter_kernel, blocks_for(n), kThreads, 0, s,
-              (const unsigned char*)kept_occ, (const int*)row_id,
-              (const int*)gid, (const int*)pos, (const unsigned char*)strand,
-              (const unsigned char*)ref_strand, n, G, (int*)starts);
-  }
-  if (n_rows > 0) {
-    LM_LAUNCH(mum_words_kernel, blocks_for(n_rows), kThreads, 0, s,
-              (int*)starts, n_rows, G, seq_mask, pos_bits, n_words,
+  if (n > 0 && n_rows > 0) {
+    // about a group's rows a thread, so a tile holds about a candidate a
+    // thread
+    const int per = G < kCandRowsMax ? G : kCandRowsMax;
+    const int64_t tile = (int64_t)kThreads * per;
+    int64_t tiles = (n + tile - 1) / tile;
+    if (tiles > 65535 * 8) tiles = 65535 * 8;
+    LM_LAUNCH(mum_candidates_kernel, (unsigned)tiles, kThreads, 0,
+              (cudaStream_t)stream, (const unsigned char*)kept_occ,
+              (const int*)row_id, (const int*)gid, (const int*)pos,
+              (const unsigned char*)strand, (const unsigned char*)ref_strand,
+              n, G, seq_mask, pos_bits, n_words, n_rows, per, (int*)starts,
               (int64_t*)words, (int64_t*)posref);
   }
   return (int)cudaGetLastError();

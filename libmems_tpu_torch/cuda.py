@@ -47,6 +47,7 @@ _SIGNATURES = {
     "lm_seed_keys": ([_P, _P, _L, _P, _L, _P, _P], _I),
     "lm_extend_row_bytes": ([_I], _L),
     "lm_extend_smem_limit": ([], _L),
+    "lm_extend_warp_genomes": ([], _I),
     "lm_extend": ([_P, _L, _L, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                    _P, _P], _I),
     "lm_profile_row_bytes": ([_I], _L),

@@ -113,11 +113,13 @@ def _fused_pair_pipeline(seed_len: int, chunk: int, pos_bits: int,
         seed_len, pos_bits, EC, keys_a, keys_b, seed)
     e_valid = present[:, 0]
     r_fwd = is_fwd[:, 1]
+    # the rows past the representatives are absent: only theirs launch
     lefts, lengths = extend_matches(
         keys_posorder, seed_len, chunk,
         gen_off[None, :].expand(EC, 2).contiguous(),
         gen_cnt[None, :].expand(EC, 2).contiguous(),
-        lefts, present, is_fwd, lengths0, key_sentinel(seed))
+        lefts, present, is_fwd, lengths0, key_sentinel(seed),
+        n_live=min(n_reps, EC))
     signB = torch.where(r_fwd, 1, -1).to(torch.int32)
     out_starts = torch.stack([
         torch.where(e_valid, lefts[:, 0] + 1, 0),
@@ -192,7 +194,8 @@ def _fused_mum_pipeline(smls: list[SortedMerList], chunk: int,
         keys, seed_len, chunk, gen_off[None].expand(ec, G).contiguous(),
         gen_cnt[None].expand(ec, G).contiguous(), reps.lefts, reps.present,
         reps.is_fwd, torch.full((ec,), seed_len, dtype=torch.int32,
-                                device=dev), key_sentinel(seed))
+                                device=dev), key_sentinel(seed),
+        n_live=min(reps.n_reps, ec))
     sign = torch.where(reps.is_fwd, 1, -1).to(torch.int32)
     starts = torch.where(reps.present, sign * (lefts + 1), 0)
     valid = torch.arange(ec, device=dev) < reps.n_reps

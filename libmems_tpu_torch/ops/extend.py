@@ -12,10 +12,14 @@ active.  Parity: with key = (content << 1 | strand), windows match iff
 ``key ^ is_fwd`` is equal across member genomes.
 
 Rows address genomes through per-row (offset, window-count) tables, so a
-row may be a dense G-genome match or a compact pair, of any width G: K2
-keeps a row's state (5 * G ints) in shared memory while the card lets a
-block opt into that much (lm_extend_smem_limit), and in a global scratch
-tensor above it or when the caller asks for it.
+row may be a dense G-genome match or a compact pair, of any width G.  A
+side ends at its maximal chain whatever the round widths (csrc/extend.cu
+says why), so K2 picks its own: up to WARP_GENOMES genomes a row runs on
+one warp with its state in registers; wider rows keep it (5 * G ints) in
+shared memory while the card lets a block opt into that much
+(lm_extend_smem_limit), and in a global scratch tensor above it or when
+the caller asks for it.  A caller whose rows after the first n_live are
+absent passes n_live, and only those rows are launched.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import torch
 from libmems_tpu_torch import cuda
 
 ESCALATE = 8       # long-match probe window = ESCALATE * chunk
+WARP_GENOMES = 32  # genomes a row on K2's warp route (lm_extend_warp_genomes)
 
 
 def _probe_round(keys, fill, seed_len, C, side, gen_off, gen_cnt, lefts,
@@ -97,19 +102,30 @@ def probe_advance(keys_g, fill, seed_len, C, side, gen_cnt, lefts, present,
     return lefts, lengths, active
 
 
+def _live_count(R: int, n_live: int | None) -> int:
+    """The leading rows to extend: n_live, all R where it is None."""
+    n = R if n_live is None else n_live
+    if not 0 <= n <= R:
+        raise ValueError(f"n_live = {n_live} outside [0, {R}]")
+    return n
+
+
 def extend_matches_plain(keys_concat, seed_len: int, chunk: int, gen_off,
                          gen_cnt, lefts, present, is_fwd, lengths,
-                         fill: int):
+                         fill: int, n_live: int | None = None):
     """Plain PyTorch version of K2: the probe rounds of the JAX module,
     run on the still-active rows only (a finished row no longer changes,
-    so the result equals the global while_loop)."""
+    so the result equals the global while_loop); the rows from n_live on
+    are left as they are."""
     if chunk < seed_len:
         raise ValueError("chunk must be >= seed_len")
     big = ESCALATE * chunk
     lefts = lefts.clone()
     lengths = lengths.clone()
+    live = torch.arange(lefts.shape[0], device=lefts.device) \
+        < _live_count(lefts.shape[0], n_live)
     for side in (0, 1):
-        active = present.any(dim=1)
+        active = present.any(dim=1) & live
         C = chunk
         while True:
             rows = torch.nonzero(active).flatten()
@@ -129,23 +145,27 @@ def extend_matches_plain(keys_concat, seed_len: int, chunk: int, gen_off,
 @cuda.launcher
 def extend_matches(keys_concat, seed_len: int, chunk: int, gen_off,
                    gen_cnt, lefts, present, is_fwd, lengths, fill: int,
-                   scratch: bool = False):
+                   scratch: bool = False, n_live: int | None = None):
     """Extend candidates to maximal matches. Returns (lefts, lengths).
 
     keys_concat: int64[Ntot] keys of all genomes; gen_off, gen_cnt,
     lefts: int32[R, G] (genome offset, window count, 0-based left end);
     present, is_fwd: bool[R, G]; lengths: int32[R]; fill: the sentinel
-    key.  CPU tensors take the plain version; CUDA tensors launch K2,
-    with the row state in global scratch when it exceeds the shared
-    memory a block may take or when `scratch` asks for it."""
+    key; n_live: the leading rows to extend (default all R), the rows
+    after them returned as they are.  CPU tensors take the plain
+    version; CUDA tensors launch K2 over the n_live rows (none where
+    n_live is 0): the warp route up to WARP_GENOMES genomes a row, the
+    wide route above, its row state in global scratch when it exceeds
+    the shared memory a block may take or when `scratch` asks for it."""
     if keys_concat.device.type == "cpu":
         return extend_matches_plain(keys_concat, seed_len, chunk, gen_off,
                                     gen_cnt, lefts, present, is_fwd,
-                                    lengths, fill)
+                                    lengths, fill, n_live)
     if chunk < seed_len:
         raise ValueError("chunk must be >= seed_len")
     dev = keys_concat.device
     R, G = lefts.shape
+    n = _live_count(R, n_live)
     if G < 1:
         raise ValueError("K2 needs at least one genome a row")
     cuda.require(keys_concat, "keys_concat", torch.int64, dev,
@@ -158,14 +178,18 @@ def extend_matches(keys_concat, seed_len: int, chunk: int, gen_off,
     cuda.require(lengths, "lengths", torch.int32, dev, (R,))
     lefts = lefts.clone()
     lengths = lengths.clone()
+    if n == 0:
+        return lefts, lengths
     lib = cuda.library()
     # held by name until the launch is queued (ground rule of cuda.py)
     rows = None
-    if scratch or lib.lm_extend_row_bytes(G) > lib.lm_extend_smem_limit():
-        rows = torch.empty((max(R, 1), 5, G), dtype=torch.int32, device=dev)
+    if G > WARP_GENOMES and (
+            scratch
+            or lib.lm_extend_row_bytes(G) > lib.lm_extend_smem_limit()):
+        rows = torch.empty((n, 5, G), dtype=torch.int32, device=dev)
     cuda.check(lib.lm_extend(
         keys_concat.data_ptr(), keys_concat.shape[0], fill, seed_len, chunk,
-        ESCALATE * chunk, G, R, gen_off.data_ptr(), gen_cnt.data_ptr(),
+        ESCALATE * chunk, G, n, gen_off.data_ptr(), gen_cnt.data_ptr(),
         lefts.data_ptr(), present.data_ptr(), is_fwd.data_ptr(),
         lengths.data_ptr(), rows.data_ptr() if rows is not None else None,
         cuda.stream(keys_concat)), "lm_extend")

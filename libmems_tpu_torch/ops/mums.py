@@ -15,9 +15,10 @@ libMems/MemHash.cpp:109-251):
   plain version (``pairwise.run_summaries_plain``,
   ``mum_flags_from_summaries_plain``) that compose to
   ``mum_seed_flags_plain``;
-* ``mum_candidates`` (K14): the candidate scatter, the ``seq_mask``
-  filter and ``_packed_diagonal_words``: starts int32[n_rows, G], the
-  packed signature words int64[n_words, n_rows] and posref int64[n_rows];
+* ``mum_candidates`` (K14): the candidate rows, the ``seq_mask`` filter
+  and ``_packed_diagonal_words`` in one pass over K13's flags at
+  repeat_tolerance 0: starts int32[n_rows, G], the packed signature
+  words int64[n_words, n_rows] and posref int64[n_rows];
 * ``mum_rep_index`` then ``mum_decode_reps`` (K15): the representatives
   of the sorted signature rows, found in one scan (their row indices and
   count, the count read once), then decoded by ``_recover_starts`` into
@@ -61,6 +62,7 @@ class MumFlags(NamedTuple):
     gid: torch.Tensor          # int32[n]
     pos: torch.Tensor          # int32[n]
     strand: torch.Tensor       # uint8[n]
+    repeat_tolerance: int      # the tolerance K13 flagged the runs at
 
 
 # ops/segments.py, in torch ----------------------------------------------
@@ -105,7 +107,8 @@ def mum_seed_flags_plain(content, src, keys, seg_off, repeat_tolerance: int,
     n = content.shape[0]
     if n == 0:
         e = torch.zeros(0, dtype=torch.int32, device=content.device)
-        return MumFlags(e.bool(), e, e.to(torch.uint8), 0, gid, pos, strand)
+        return MumFlags(e.bool(), e, e.to(torch.uint8), 0, gid, pos, strand,
+                        repeat_tolerance)
     sc = run_starts(content)
     scg = run_starts(content, gid)
     max_subrun = _segment_max_broadcast(_run_lengths(scg), sc)
@@ -119,7 +122,8 @@ def mum_seed_flags_plain(content, src, keys, seg_off, repeat_tolerance: int,
     row_id = rid_at_start[first]
     ref_strand = strand[first]
     n_rows = int(rid_at_start[-1]) + 1 if bool(keep_run.any()) else 0
-    return MumFlags(kept_occ, row_id, ref_strand, n_rows, gid, pos, strand)
+    return MumFlags(kept_occ, row_id, ref_strand, n_rows, gid, pos, strand,
+                    repeat_tolerance)
 
 
 def mum_flags_from_summaries_plain(content, src, keys, seg_off, words,
@@ -137,7 +141,8 @@ def mum_flags_from_summaries_plain(content, src, keys, seg_off, words,
     dev = content.device
     if n == 0:
         e = torch.zeros(0, dtype=torch.int32, device=dev)
-        return MumFlags(e.bool(), e, e.to(torch.uint8), 0, gid, pos, strand)
+        return MumFlags(e.bool(), e, e.to(torch.uint8), 0, gid, pos, strand,
+                        repeat_tolerance)
     sc = run_starts(content)
     scg = run_starts(content, gid)
     b = pairwise.tile_runs_plain(sc, words)
@@ -158,7 +163,7 @@ def mum_flags_from_summaries_plain(content, src, keys, seg_off, words,
     kept_start = sc & keep
     return MumFlags(scg & keep, pairwise.tile_ranks_plain(kept_start),
                     strand[b.start], int(kept_start.sum()), gid, pos,
-                    strand)
+                    strand, repeat_tolerance)
 
 
 def _flag_pass(content, src, keys, seg_off, repeat_tolerance: int,
@@ -207,7 +212,7 @@ def mum_seed_flags(content, src, keys, seg_off, repeat_tolerance: int,
     out = MumFlags(torch.empty(n, dtype=torch.bool, device=dev),
                    torch.empty(n, **i32), torch.empty(n, **u8), 0,
                    torch.empty(n, **i32), torch.empty(n, **i32),
-                   torch.empty(n, **u8))
+                   torch.empty(n, **u8), repeat_tolerance)
     if not n:
         return out
     scratch = pairwise.run_scratch(n, dev)
@@ -311,10 +316,17 @@ def mum_candidates(flags: MumFlags, G: int, seq_mask: int,
                    pos_bits: int) -> Candidates:
     """Candidate rows of the surviving runs, filtered by seq_mask (bit
     G-1-g is genome g; 0 keeps every row), with their packed diagonal
-    signatures.  CPU tensors take the plain version; CUDA tensors launch
-    K14."""
+    signatures.  The flags must be K13's at repeat_tolerance 0 (its one
+    caller's; anything else raises): a kept run then holds each genome at
+    most once and its rows are one group of at most G consecutive kept
+    table rows in gid order (the CPU tests hold the fused path's flags to
+    this).  CPU tensors take the plain version; CUDA tensors launch K14,
+    where the thread of a group's first row builds the candidate."""
     if G < 1:
         raise ValueError("the signature words need at least one genome")
+    if flags.repeat_tolerance != 0:
+        raise ValueError("mum_candidates takes K13's flags at "
+                         f"repeat_tolerance 0, not {flags.repeat_tolerance}")
     keep = flags.kept_occ
     if keep.device.type == "cpu":
         return mum_candidates_plain(flags, G, seq_mask, pos_bits)
@@ -329,7 +341,7 @@ def mum_candidates(flags: MumFlags, G: int, seq_mask: int,
         cuda.require(t, name, dt, dev, (n,))
     n_rows = flags.n_rows
     n_words = n_words_for(G, pos_bits)
-    starts = torch.zeros((n_rows, G), dtype=torch.int32, device=dev)
+    starts = torch.empty((n_rows, G), dtype=torch.int32, device=dev)
     words = torch.empty((n_words, n_rows), dtype=torch.int64, device=dev)
     posref = torch.empty(n_rows, dtype=torch.int64, device=dev)
     lib = cuda.library()

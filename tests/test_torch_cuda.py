@@ -37,6 +37,12 @@ _spec = importlib.util.spec_from_file_location(
         __file__)), "test_torch_run_tables.py"))
 run_tables = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(run_tables)
+# K2's rows with planted match gaps, loaded by path as well
+_spec = importlib.util.spec_from_file_location(
+    "extend_rows", os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "extend_rows.py"))
+extend_rows = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(extend_rows)
 # K3's and K9's test windows, loaded by path as well
 _spec = importlib.util.spec_from_file_location(
     "profile_windows", os.path.join(os.path.dirname(os.path.abspath(
@@ -102,9 +108,10 @@ def test_seed_keys_kernel_tiles_equal_plain(dev, seed):
             assert torch.equal(got.cpu(), ref), (n, a is None)
 
 
-def _trace(call):
+def _trace(call, grids=False):
     """(kernel names, device-to-host copies) of one call traced by
-    torch.profiler on the card, after an untraced call.  The call starts
+    torch.profiler on the card, after an untraced call (with grids, each
+    kernel's entry ends with its grid's blocks in x).  The call starts
     0.2 s into the session: a kernel launched right at a session's start
     was seen missing from its trace."""
     import json
@@ -125,7 +132,8 @@ def _trace(call):
             events = [e for e in json.load(fh)["traceEvents"]
                       if e.get("cat") in ("kernel", "gpu_memcpy")]
     kernels = [[re.search(r"(\w+)(?:<[^()]*>)?\(", e["name"]).group(1),
-                e["name"]] for e in events if e["cat"] == "kernel"]
+                e["name"]] + ([e["args"]["grid"][0]] if grids else [])
+               for e in events if e["cat"] == "kernel"]
     d2h = sum(e["cat"] == "gpu_memcpy" and "DtoH" in e["name"]
               for e in events)
     return kernels, d2h
@@ -204,6 +212,72 @@ def test_extend_kernel_equals_plain(dev):
     assert torch.equal(got[0].cpu(), ref[0])
     assert torch.equal(got[1].cpu(), ref[1])
     assert int(ref[1].max()) > 8 * 256
+
+
+def _extend_both(dev, rows, chunk, **kw):
+    """K2 on the card and its plain version on the CPU on the same rows
+    (numpy arrays of extend_rows): (card, plain, args)."""
+    keys, off, cnt, lefts, present, is_fwd, lengths = [
+        torch.from_numpy(np.ascontiguousarray(a)) for a in rows]
+    args = [keys, 21, chunk, off, cnt, lefts, present, is_fwd, lengths,
+            extend_rows.FILL]
+    ref = extend.extend_matches_plain(*args, n_live=kw.get("n_live"))
+    got = extend.extend_matches(*[x.to(dev) if isinstance(x, torch.Tensor)
+                                  else x for x in args], **kw)
+    return [t.cpu() for t in got], ref, args
+
+
+def test_extend_warp_width_matches_library(dev):
+    from libmems_tpu_torch import cuda
+    assert cuda.library().lm_extend_warp_genomes() == extend.WARP_GENOMES
+
+
+@pytest.mark.parametrize("G", range(1, extend.WARP_GENOMES + 2))
+def test_extend_kernel_every_width_equals_plain(dev, G):
+    """K2 at every width of its warp route and one above it (the wide
+    route), on copies with runs of mismatches, some genomes absent."""
+    rows = extend_rows.copies_rows(21, 256, G, 96, rng_seed=G)
+    got, ref, _ = _extend_both(dev, rows, 256)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert int(ref[1].max()) > 8 * 256
+
+
+@pytest.mark.parametrize("C,chunk,n_live,G,scratch", [
+    (128, 128, None, 2, False), (256, 256, None, 2, False),
+    (256, 256, 40, 2, False), (256, 256, 0, 2, False),
+    (256, 128, None, 33, False), (256, 128, None, 33, True),
+    (256, 256, 40, 33, True)])
+def test_extend_kernel_round_edges_equal_plain(dev, C, chunk, n_live, G,
+                                               scratch):
+    """K2 on rows with match gaps of seed_len and seed_len + 1 at the
+    JAX rounds' edges (C, C + 1, 8C, 9C), rows reaching a sequence's
+    first and last window and sentinel runs; only the first n_live rows
+    launched (the rest returned as given); the rows padded with absent
+    genomes to G = 33 take the wide route, its state in shared memory or
+    in global scratch."""
+    rows = extend_rows.widen(extend_rows.gap_rows(21, C), G)
+    got, ref, args = _extend_both(dev, rows, chunk, n_live=n_live,
+                                  scratch=scratch)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    n = ref[1].shape[0] if n_live is None else n_live
+    assert torch.equal(got[0][n:], args[5][n:])
+    assert torch.equal(got[1][n:], args[8][n:])
+    if n_live is None:
+        assert int(ref[1].max()) > 8 * 256 or C < 256
+
+
+@pytest.mark.parametrize("G", [2, extend.WARP_GENOMES + 1])
+def test_extend_kernel_no_live_rows_counts_no_launch(dev, G):
+    """K2 with n_live = 0 launches nothing and counts nothing: its rows
+    come back as given."""
+    rows = extend_rows.widen(extend_rows.gap_rows(21, 128), G)
+    before = extend.extend_matches.launches
+    got, ref, args = _extend_both(dev, rows, 128, n_live=0)
+    assert extend.extend_matches.launches == before
+    assert torch.equal(got[0], args[5]) and torch.equal(got[1], args[8])
+    assert torch.equal(ref[0], args[5]) and torch.equal(ref[1], args[8])
+    _extend_both(dev, rows, 128, n_live=1)
+    assert extend.extend_matches.launches == before + 1
 
 
 @pytest.mark.parametrize("M,N,smem", [(64, 64, True), (64, 1536, True),
@@ -917,7 +991,7 @@ def _signature_rows(G, pos_bits, runs, n_invalid=0, rng_seed=0):
         torch.ones(len(v), dtype=torch.bool), t(r.astype(np.int32)),
         torch.zeros(len(v), dtype=torch.uint8), len(of),
         t(g.astype(np.int32)), t((np.abs(v) - 1).astype(np.int32)),
-        t((v < 0).astype(np.uint8)))
+        t((v < 0).astype(np.uint8)), 0)
     cand = mums.mum_candidates_plain(flags, G, 0, pos_bits)
     bad = torch.zeros((cand.words.shape[0], n_invalid), dtype=torch.int64)
     bad[0] = 1 << 62
@@ -1209,7 +1283,10 @@ def test_pair_xmfa_golden_on_cuda(dev):
 @pytest.mark.parametrize("tol,seq_mask", [(0, 0), (0, 0b101), (2, 0)])
 def test_mum_kernels_equal_plain(dev, tol, seq_mask):
     """K13, K14 and K15 against their plain versions on one G = 3 table:
-    exact."""
+    exact.  K14 takes K13's flags at repeat_tolerance 0 only (its one
+    caller's; a kept run is then one group of consecutive rows) and
+    refuses the others, so at tol = 2 K15's input comes from K14's plain
+    version."""
     from libmems_tpu_torch.matchfind import _lexsort_rows, _seed_table
     from libmems_tpu_torch.ops import mums
     from libmems_tpu_torch.ops.mers import sentinel_content
@@ -1227,9 +1304,13 @@ def test_mum_kernels_equal_plain(dev, tol, seq_mask):
             assert torch.equal(g.cpu(), r)
     pos_bits = keys.shape[0].bit_length()
     ref_c = mums.mum_candidates_plain(ref, G, seq_mask, pos_bits)
-    got_c = mums.mum_candidates(got, G, seq_mask, pos_bits)
-    for r, g in zip(ref_c, got_c):
-        assert torch.equal(g.cpu(), r)
+    if tol == 0:
+        got_c = mums.mum_candidates(got, G, seq_mask, pos_bits)
+        for r, g in zip(ref_c, got_c):
+            assert torch.equal(g.cpu(), r)
+    else:
+        with pytest.raises(ValueError, match="repeat_tolerance 0"):
+            mums.mum_candidates(got, G, seq_mask, pos_bits)
     order = _lexsort_rows(list(ref_c.words) + [ref_c.posref])
     words = torch.index_select(ref_c.words, 1, order)
     posref = ref_c.posref[order]
@@ -1280,6 +1361,89 @@ def test_mum_kernels_wide_rows_equal_plain(dev, G):
     gpu = create_smls(_family(G, 3_000, 41), seed, device=dev)[0]
     for a, b in zip(find_mums_device(gpu)[:3], find_mums_device(smls)[:3]):
         assert torch.equal(a.cpu(), b)
+
+
+def _fused_flags(G, n, rng_seed):
+    """The fused path's K13 flags (plain version, repeat_tolerance 0) of
+    a G-genome family, with pos_bits."""
+    from libmems_tpu_torch.matchfind import _seed_table
+    from libmems_tpu_torch.ops import mums
+    from libmems_tpu_torch.ops.mers import sentinel_content
+    from libmems_tpu_torch.sml import create_smls
+    smls, seed = create_smls(_family(G, n, rng_seed), device="cpu")
+    keys, seg_off, content, src = _seed_table(smls)
+    flags = mums.mum_seed_flags_plain(content, src, keys, seg_off, 0, 1000,
+                                      sentinel_content(seed))
+    return flags, keys.shape[0].bit_length()
+
+
+@pytest.mark.parametrize("G,seq_mask", [
+    (2, 0), (2, 0b11), (3, 0), (3, 0b101), (9, 0), (9, (1 << 9) - 1),
+    (9, 0b101111111), (63, 0), (64, 0), (64, (1 << 64) - 1)])
+def test_mum_candidates_kernel_equals_plain(dev, G, seq_mask):
+    """K14 in one pass against its plain version on the flags of K13 at
+    repeat_tolerance 0 (its caller's), with and without seq_mask."""
+    from libmems_tpu_torch.ops import mums
+    n = {2: 60_000, 3: 60_000, 9: 20_000, 63: 3_000, 64: 3_000}[G]
+    flags, pos_bits = _fused_flags(G, n, 40 + G)
+    assert flags.n_rows > 100
+    ref = mums.mum_candidates_plain(flags, G, seq_mask, pos_bits)
+    got = mums.mum_candidates(
+        mums.MumFlags(*[x.to(dev) if isinstance(x, torch.Tensor) else x
+                        for x in flags]), G, seq_mask, pos_bits)
+    for r, g in zip(ref, got):
+        assert torch.equal(g.cpu(), r)
+    valid = ref.posref != 1 << 62
+    assert valid.any() and (seq_mask or valid.all())
+
+
+def test_mum_candidates_kernel_no_rows(dev):
+    """K14 where K13 kept no run: empty outputs, no launch needed."""
+    from libmems_tpu_torch.ops import mums
+    z = torch.zeros(7, dtype=torch.int32)
+    flags = mums.MumFlags(z.bool(), z, z.to(torch.uint8), 0, z, z,
+                          z.to(torch.uint8), 0)
+    for sm in (0, 0b101):
+        ref = mums.mum_candidates_plain(flags, 3, sm, 20)
+        got = mums.mum_candidates(
+            mums.MumFlags(*[x.to(dev) if isinstance(x, torch.Tensor) else x
+                            for x in flags]), 3, sm, 20)
+        for r, g in zip(ref, got):
+            assert g.shape == r.shape and torch.equal(g.cpu(), r)
+
+
+def _k2_k14_traces():
+    """K14's trace on the trio's flags, and the fused pair's and trio's
+    traces with their representatives' counts (run by
+    _traced_in_process)."""
+    from libmems_tpu_torch.matchfind import find_mums_device
+    from libmems_tpu_torch.ops import mums
+    from libmems_tpu_torch.sml import create_smls
+    dev = torch.device("cuda", 0)
+    flags, pos_bits = _fused_flags(3, 40_000, 38)
+    flags = mums.MumFlags(*[x.to(dev) if isinstance(x, torch.Tensor) else x
+                            for x in flags])
+    pair = create_smls(_family(2, 60_000, 42), device=dev)[0]
+    trio = create_smls(_family(3, 40_000, 38), device=dev)[0]
+    return [_trace(lambda: mums.mum_candidates(flags, 3, 0, pos_bits)),
+            _trace(lambda: find_mums_device(pair), grids=True),
+            find_mums_device(pair)[4],
+            _trace(lambda: find_mums_device(trio), grids=True),
+            find_mums_device(trio)[4]]
+
+
+def test_k14_one_kernel_and_k2_live_rows_only(dev):
+    """One call of K14's wrapper traced by torch.profiler: its one kernel
+    and no other (no zero fill), no copy to the host; the fused pair and
+    trio launch K2's warp route over their representatives only."""
+    (k14, d2h), (pk, _), p_reps, (tk, _), t_reps = _traced_in_process(
+        "_k2_k14_traces")
+    assert [k for k, _ in k14] == ["mum_candidates_kernel"], k14
+    assert d2h == 0
+    for kernels, n_reps in ((pk, p_reps), (tk, t_reps)):
+        grids = [g for k, _, g in kernels if k == "extend_warp_kernel"]
+        assert grids == [-(-n_reps // 8)], (grids, n_reps)
+        assert "extend_kernel" not in [k for k, _, _ in kernels]
 
 
 @pytest.mark.parametrize("G", [3, 9])
@@ -1475,7 +1639,8 @@ def test_run_flag_launches_tables_equal_plain(dev, case):
             out = mums.MumFlags(torch.empty(n, dtype=torch.bool, device=dev),
                                 torch.empty(n, **i32), torch.empty(n, **u8),
                                 0, torch.empty(n, **i32),
-                                torch.empty(n, **i32), torch.empty(n, **u8))
+                                torch.empty(n, **i32), torch.empty(n, **u8),
+                                tol)
             mums._flag_pass(c, s, k, so, tol, limit, sent, row_keys, scratch,
                             out)
             out = out._replace(n_rows=int(scratch[1]))

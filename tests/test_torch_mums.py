@@ -294,6 +294,74 @@ def test_rep_index_and_decode_plain_equal_jax_rows(tol, seq_mask):
         _assert_jax_reps(got, j_starts, rep, ec)
 
 
+@pytest.mark.parametrize("seq_mask", [0b101, 0b011, 0b111])
+def test_candidates_plain_equal_jax_rows_with_seq_mask(seq_mask):
+    """K14's plain version on the fused path's flags with seq_mask set:
+    its starts, signature words and posref are the JAX pipeline's rows
+    (_jax_table holds them equal: the rejected rows zero and invalid)."""
+    _, tp, j_starts, _, _, _ = _jax_table(0, seq_mask)
+    valid = (tp != 1 << 62).numpy()
+    assert valid.any() and (seq_mask == 0b111 or not valid.all())
+
+
+@pytest.mark.parametrize("G", [3, 9])
+def test_kept_runs_are_one_group_of_kept_rows(G):
+    """K14's precondition on its one caller's flags (K13 at
+    repeat_tolerance 0, as the fused path calls it), which its kernel
+    builds each candidate from: every kept run is one group of at most G
+    consecutive kept table rows, in ascending genome order, from its
+    run's start to its end; so the rows its kernel takes as a group's
+    first are one a candidate."""
+    port, _ = _both(_family_ascii(G, n=30_000))
+    smls, seed = create_smls(port, device="cpu")
+    keys, seg_off, content, src = _seed_table(smls)
+    f = mums.mum_seed_flags_plain(content, src, keys, seg_off, 0, 1000,
+                                  sentinel_content(seed))
+    kept, rid, gid = f.kept_occ.numpy(), f.row_id.numpy(), f.gid.numpy()
+    c = content.numpy()
+    n = len(c)
+    idx = np.flatnonzero(kept)
+    r = rid[idx]
+    assert f.n_rows > 1000 and (np.diff(r) >= 0).all()
+    ids, first, counts = np.unique(r, return_index=True, return_counts=True)
+    np.testing.assert_array_equal(ids, np.arange(f.n_rows))
+    lo = idx[first]
+    hi = idx[first + counts - 1]
+    np.testing.assert_array_equal(hi - lo + 1, counts)     # consecutive
+    assert counts.max() <= G and counts.min() >= 2
+    same = r[1:] == r[:-1]
+    assert (gid[idx][1:][same] > gid[idx][:-1][same]).all()
+    assert ((lo == 0) | (c[np.maximum(lo - 1, 0)] != c[lo])).all()
+    assert ((hi == n - 1) | (c[np.minimum(hi + 1, n - 1)] != c[hi])).all()
+    prev_same = np.concatenate([[False], kept[:-1] & (rid[:-1] == rid[1:])])
+    np.testing.assert_array_equal(np.flatnonzero(kept & ~prev_same), lo)
+
+
+@pytest.mark.parametrize("tol", [0, 1, 2])
+def test_candidates_take_tolerance_zero_flags_only(tol):
+    """K13's flags carry the tolerance they were flagged at, on both of
+    its plain routes; K14's wrapper takes those at 0 (its plain version
+    then) and refuses the others, whose kept runs need not be one group
+    of rows."""
+    port, _ = _both(_family_ascii(3, n=30_000))
+    smls, seed = create_smls(port, device="cpu")
+    keys, seg_off, content, src = _seed_table(smls)
+    args = (content, src, keys, seg_off, tol, 1000, sentinel_content(seed))
+    f = mums.mum_seed_flags_plain(*args)
+    words = pairwise.run_summaries_plain(content, src, seg_off, tol + 1)
+    f2 = mums.mum_flags_from_summaries_plain(*args[:4], words, *args[4:])
+    assert f.repeat_tolerance == f2.repeat_tolerance == tol
+    pos_bits = keys.shape[0].bit_length()
+    if tol:
+        with pytest.raises(ValueError, match="repeat_tolerance 0"):
+            mums.mum_candidates(f, 3, 0, pos_bits)
+    else:
+        assert f.n_rows > 100
+        for g, r in zip(mums.mum_candidates(f, 3, 0, pos_bits),
+                        mums.mum_candidates_plain(f, 3, 0, pos_bits)):
+            assert torch.equal(g, r)
+
+
 @pytest.mark.parametrize("extend_capacity", [8, 1 << 14])
 def test_find_mums_device_capacity_picked_once(extend_capacity):
     """K15's capacity, picked once from the representatives' count, is
@@ -351,7 +419,7 @@ def _flags_of(starts: np.ndarray) -> mums.MumFlags:
         torch.ones(len(s), dtype=torch.bool), t(r.astype(np.int32)),
         torch.zeros(len(s), dtype=torch.uint8), starts.shape[0],
         t(g.astype(np.int32)), t((np.abs(s) - 1).astype(np.int32)),
-        t((s < 0).astype(np.uint8)))
+        t((s < 0).astype(np.uint8)), 0)
 
 
 @pytest.mark.parametrize("G", [63, 64, 100])
