@@ -132,8 +132,10 @@ non-zero and prints no result line):
              viterbi_homologous (K20) on the first progressive run's HMM
              sequences and 2 iterations of baum_welch (K21) on them; K22,
              K23 and K20 exact against their plain versions, K21 within
-             1e-12, the walked masks scoring to the DP score; K2 at 64 and
-             1,000 slots a row, in shared memory and global scratch
+             1e-12, the walked masks scoring to the DP score (K22 by
+             events and on the card, beside its latency floor; with
+             --sweep also in every geometry of SWEEP_GEOMETRIES beside
+             span_cost's price); K2 at 64 and 1,000 slots a row, in shared memory and global scratch
              (find_mums on 64 genomes GPU == CPU tensors, find_repeats on a
              1,000-copy element family);
 10. bounded - the memory-bounded routes: K24 and K25 (batched and one
@@ -169,10 +171,13 @@ non-zero and prints no result line):
              all within 150 s;
 12. tiled  - the position-tiled extension with 4 shards on the card:
              K29-K31 exact against their plain versions at the pair's
-             first fetch, timed; sharded_find_mums_tiled of the rng-0
-             pair equals phase main's find_mums (K26-K31 launched; probe
-             rounds, fetches, each shard's S + halo resident keys against
-             the replicated table, the memory peak printed); within 90 s;
+             first fetch, timed (K31 on the card too, its bound its least
+             probe); sharded_find_mums_tiled of the rng-0 pair equals
+             phase main's find_mums (K26-K31 launched; probe rounds,
+             fetches, each shard's S + halo resident keys against the
+             replicated table, the memory peak printed); a second run
+             times every K29-K31 launch alone on the card (their Σ beside
+             their Σ bound); within 90 s;
 13. multihost - one NCCL rank a card, spawned after the build (one card:
              one process, a 4-shard mesh of its card), runs
              multihost_find_mums (default, pairwise, tiled) and
@@ -379,8 +384,9 @@ CKPT_CHECK_N, CKPT_CHECK_MP = 2_300, 2_304
 # (g, W) whose 2,305 columns span 2 blocks (K = 17, 3 strips a block) and
 # 10 blocks (K = 1, 8 strips a block)
 CKPT_CHECK_GEOMETRIES = (None, (0, 3), (7, 8))
-# bounded --sweep: forced geometries timed on the swapped locus's K24
-# launch and on its first K25 launch, for span_cost's fit
+# --sweep: forced geometries timed on the swapped locus's K24 launch and
+# on its first K25 launch (bounded), for span_cost's fit, and on phase
+# 9's K22 launch (decode)
 SWEEP_GEOMETRIES = ((0, 1), (0, 4), (0, 7), (1, 4), (2, 4), (3, 2),
                     (3, 4), (4, 2), (5, 1), (5, 2), (5, 4), (6, 1),
                     (6, 2), (6, 4), (7, 1), (7, 4), (7, 8), (1, 7))
@@ -3566,7 +3572,7 @@ def phase_hmmstage(torch, dev):
                     kernels.items(), key=lambda kv: -kv[1][1])}))
 
 
-def phase_decode(torch, lt, dev, hmm_calls):
+def phase_decode(torch, lt, dev, hmm_calls, sweep=False):
     """Decode and pairwise DP: the API that libMems ships but no path of
     it calls.  Counted run: align_pairs on the pair path's inter-anchor
     windows (every bucket walked on the card: K23 + K4) and on the mutant
@@ -3579,8 +3585,8 @@ def phase_decode(torch, lt, dev, hmm_calls):
     T <= HMM_CHECK_MAX_T and the longest one, and K2 at 64 and 1,000
     slots a row (find_mums on 64 genomes, GPU == CPU tensors; find_repeats
     on a 1,000-copy family), in shared memory and in global scratch.
-    Returns ({name: entry}, the counted run's launches, K2's
-    max_abs_err)."""
+    With `sweep`, gotoh_sweep on K22's launch.  Returns ({name: entry},
+    the counted run's launches, K2's max_abs_err)."""
     from libmems_tpu_torch import matchfind, repeats
     from libmems_tpu_torch.ops import extend, gapped, hmm
     from libmems_tpu_torch.sml import create_smls
@@ -3674,10 +3680,19 @@ def phase_decode(torch, lt, dev, hmm_calls):
                 f"version at {tuple(a.shape)} x {N}")
     ms22 = timed_ms(lambda: gapped.gotoh_forward(aj, bj, alj, blj, go, ge,
                                                  K), 3, torch)
-    res["gotoh_forward"] = entry(
-        max_abs_err(zip(got22, ref22)), ms22, p22,
-        work(nbytes(aj, bj, alj, blj, *got22),
-             GOTOH_CELL_OPS * B * Mp * (N + 1)))
+    card22 = device_ms(lambda: gapped.gotoh_forward(aj, bj, alj, blj, go,
+                                                    ge, K), 3, torch)
+    w22 = work(nbytes(aj, bj, alj, blj, *got22),
+               GOTOH_CELL_OPS * B * Mp * (N + 1))
+    w22["latency_ms"] = dp_latency_ms([Mp], [N])
+    res["gotoh_forward"] = entry(max_abs_err(zip(got22, ref22)), ms22, p22,
+                                 w22)
+    res["gotoh_forward"]["card_ms"] = card22
+    log(f"# K22 at {B} x {Mp} x {N + 1}: {ms22:.4f} ms events, "
+        f"{card22:.4f} ms card, plain {p22:.4f} ms; bound "
+        f"{bound(w22)[0]:.6f} ms, latency floor {w22['latency_ms']:.4f} ms")
+    if sweep:
+        gotoh_sweep(torch, aj, bj, alj, blj, K)
     nb = Mp // K
     k23 += [(got22[1][bi], got22[2][bi],
              aj[:, bi * K:(bi + 1) * K].contiguous(), bj, True)
@@ -4035,6 +4050,33 @@ def span_sweep(torch, c24, c25):
                 f"{ms:.3f} ms on the card, priced {d['cost_ns'] / 1e6:.3f}")
         log(f"# sweep {label} pick: "
             f"{profile.span_geometry(n_inst, rows, N, ptr)['geometry']}")
+
+
+def gotoh_sweep(torch, aj, bj, alj, blj, K):
+    """K22 on phase 9's launch (aj, bj, alj, blj, K) in the pick's
+    geometry and every geometry of SWEEP_GEOMETRIES that fits the card:
+    each output equal to the pick's, its time on the card alone beside
+    span_cost's price (K24's SPAN_COST, which K22's pick takes)."""
+    from libmems_tpu_torch.ops import gapped, profile
+    go, ge = gapped.GAP_OPEN, gapped.GAP_EXTEND
+    B, M, N = aj.shape[0], aj.shape[1], bj.shape[1]
+    fits = profile.span_fits("lm_gotoh_fits")[1]
+    pick = gapped.gotoh_geometry(B, M, N)["geometry"]
+    base = gapped.gotoh_forward(aj, bj, alj, blj, go, ge, K)
+    for geo in dict.fromkeys((pick,) + SWEEP_GEOMETRIES):
+        if fits.get(geo, 0) < 1:
+            log(f"# sweep K22 {geo}: does not fit")
+            continue
+        d = gapped.gotoh_geometry(B, M, N, geo)
+        out = gapped.gotoh_forward(aj, bj, alj, blj, go, ge, K, geometry=geo)
+        require(all(torch.equal(x, y) for x, y in zip(out, base)),
+                f"K22 in geometry {geo} differs from the pick's")
+        ms = device_ms(lambda: gapped.gotoh_forward(
+            aj, bj, alj, blj, go, ge, K, geometry=geo), 1, torch)
+        log(f"# sweep K22 K = {d['K']}, {d['warps']} strips a block "
+            f"({d['blocks']} blocks a pair, {d['blocks_per_sm']} an SM"
+            f"{', the pick' if geo == pick else ''}): {ms:.3f} ms on the "
+            f"card, priced {d['cost_ns'] / 1e6:.3f}")
 
 
 def phase_bounded(torch, lt, dev, sweep=False):
@@ -4659,6 +4701,98 @@ def span_union(offs, S, C):
     return int(gaps.sum()) + C
 
 
+def k31_work(c, before, after_len):
+    """K31's least work on one call: c its arguments (bound by name),
+    before (lefts[rows], lengths[rows]) ahead of the round, after_len
+    lengths[rows] after it.  Each answered span is read up to the round's
+    break: offsets 1 .. min(reach + seed_len, hi), hi <= C the row's last
+    offset whose probe positions all lie in their genomes; a row with a
+    dropped request (where -1) reads nothing.  Bytes: those keys once (8
+    each) and the rows' state: rows 8, where 8 G, lefts 4 G, present and
+    is_fwd 2 G, lengths read and written 8, active written 1, a moved
+    genome's left end written 4, gen_cnt 4 G once.  Operations: 4 a
+    present genome a probed offset."""
+    import torch
+    rows, where = c["rows"], c["where"]
+    side, C, s = c["side"], c["C"], c["seed_len"]
+    Rb, G = where.shape
+    l0, n0 = before[0].long(), before[1].long()
+    reach = after_len.long() - n0
+    pres, fwd = c["present"][rows], c["is_fwd"][rows]
+    back = fwd if side == 0 else ~fwd
+    q0 = torch.where(back, l0, l0 + n0[:, None] - s)
+    hi = torch.where(back, q0, c["gen_cnt"].long()[None] - 1 - q0)
+    hi = torch.where(pres, hi, C).amin(dim=1).clamp(0, C)
+    probes = torch.minimum(reach + s, hi)
+    probes = torch.where((pres & (where < 0)).any(dim=1), 0, probes)
+    keys = int((probes * pres.sum(dim=1)).sum())
+    moved = int((pres & back & (reach > 0)[:, None]).sum())
+    return work(8 * keys + Rb * (8 + 8 * G + 4 * G + 2 * G + 8 + 1)
+                + 4 * moved + 4 * G, 4 * keys)
+
+
+def k31_span_work(Rb, G, C, n_ans):
+    """K31's work counted as every answered span read whole (the older
+    count, logged beside k31_work's least probe): C keys a span, and the
+    rows' state."""
+    return work(Rb * 8 + Rb * G * 8 + Rb * G * 6 + Rb * 4 + G * 4
+                + n_ans * C * 8 + Rb * G * 4 + Rb * 5, 10 * Rb * G * C)
+
+
+def k31_early_rows(torch, dev, Rb, G, C, seed_len, fill):
+    """K31 on Rb rows of G genomes whose chains end within their first
+    ballot word: every genome moves left (side 0, forward strand), the
+    answered spans agree at offsets 1 .. d - 1 with d in [1, 32 -
+    seed_len] a row and differ past them, so a round reads 32 keys a
+    genome of C.  Held equal to the plain version; timed by events and
+    on the card.  Returns (events ms, card ms, least-probe work, whole
+    spans' work)."""
+    from libmems_tpu_torch.ops import tiled
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(31)
+    n = Rb * G
+    resp = torch.randint(0, 1 << 40, (n, C), generator=gen, device=dev)
+    resp = torch.where((resp | 1) == fill, resp ^ 4, resp)
+    d = torch.randint(1, 33 - seed_len, (Rb,), generator=gen, device=dev)
+    # offset e of a leftward genome is span[C - e]: copy the reference's
+    # keys of offsets below d into every genome's span
+    col = torch.arange(C, device=dev)
+    same = (C - col)[None, :] < d[:, None]
+    ref = resp.view(Rb, G, C)[:, :1]
+    resp = torch.where(same[:, None, :], ref, resp.view(Rb, G, C)).view(n, C)
+    where = torch.arange(n, device=dev).view(Rb, G)
+    rows = torch.arange(Rb, device=dev)
+    present = torch.ones((Rb, G), dtype=torch.bool, device=dev)
+    is_fwd = torch.ones((Rb, G), dtype=torch.bool, device=dev)
+    gen_cnt = torch.full((G,), 1 << 28, dtype=torch.int32, device=dev)
+
+    def state():
+        return (torch.full((Rb, G), 2 * C, dtype=torch.int32, device=dev),
+                torch.full((Rb,), seed_len, dtype=torch.int32, device=dev),
+                torch.ones(Rb, dtype=torch.bool, device=dev))
+
+    def args(st):
+        return (resp, where, rows, st[0], st[1], present, is_fwd, gen_cnt,
+                st[2], 0, C, seed_len, fill)
+    st_k, st_p = state(), state()
+    tiled.tiled_probe(*args(st_k))
+    tiled.tiled_probe_plain(*args(st_p))
+    for a, b in zip(st_k, st_p):
+        require(torch.equal(a, b), "K31 differs from its plain version on "
+                "rows that end within their first word")
+    require(torch.equal(st_p[1] - seed_len, d - 1) and not st_p[2].any(),
+            "K31's early rows did not end where planted")
+    fresh = [state() for _ in range(6)]
+    ms = timed_ms(lambda: tiled.tiled_probe(*args(fresh.pop())), 5, torch)
+    fresh = [state() for _ in range(6)]
+    card = device_ms(lambda: tiled.tiled_probe(*args(fresh.pop())), 5,
+                     torch)
+    names = list(inspect.signature(tiled.tiled_probe_plain).parameters)
+    st = state()
+    w = k31_work(dict(zip(names, args(st))), (st[0], st[1]), st_p[1])
+    return ms, card, w, k31_span_work(Rb, G, C, n)
+
+
 def tiled_kernels_vs_plain(torch, dev, smls):
     """K29, K30 and K31 against their plain versions on the card at the
     pair path's shapes (4 shards on one card): the first fetch of side 0
@@ -4746,13 +4880,30 @@ def tiled_kernels_vs_plain(torch, dev, smls):
     fresh = [state() for _ in range(6)]
     ms = timed_ms(lambda: tiled.tiled_probe(*k31_args(fresh.pop())), 5,
                   torch)
+    fresh = [state() for _ in range(6)]
+    card = device_ms(lambda: tiled.tiled_probe(*k31_args(fresh.pop())), 5,
+                     torch)
     fresh = [state() for _ in range(4)]
     plain_ms = timed_ms(lambda: tiled.tiled_probe_plain(
         *k31_args(fresh.pop())), 3, torch)
     n_ans = int((reqs[0].where >= 0).sum())
-    res["tiled_probe"] = entry(0.0, ms, plain_ms, work(
-        Rb * 8 + Rb * G * 8 + Rb * G * 6 + Rb * 4 + G * 4 + n_ans * C * 8
-        + Rb * G * 4 + Rb * 5, 10 * Rb * G * C))
+    names = list(inspect.signature(tiled.tiled_probe_plain).parameters)
+    w31 = k31_work(dict(zip(names, k31_args(state()))),
+                   (r.lefts[blk[0]], r.lengths[blk[0]]), st_p[1][blk[0]])
+    span_ms = bound(k31_span_work(Rb, G, C, n_ans))[0]
+    res["tiled_probe"] = entry(0.0, ms, plain_ms, w31)
+    res["tiled_probe"]["card_ms"] = card
+    log(f"# K31 first fetch: {ms:.4f} ms events, {card:.4f} ms card, "
+        f"plain {plain_ms:.4f} ms; bound {bound(w31)[0]:.6f} ms (least "
+        f"probe, {w31['bytes']} bytes), {span_ms:.6f} ms counting every "
+        f"answered span whole")
+    e_ms, e_card, e_w, e_span = k31_early_rows(torch, dev, Rb, 3, C,
+                                               seed_len, tiles.sentinel)
+    res["tiled_probe"]["early_card_ms"] = e_card
+    log(f"# K31 on {Rb} rows of 3 genomes ending within their first word "
+        f"(C = {C}): {e_ms:.4f} ms events, {e_card:.4f} ms card; bound "
+        f"{bound(e_w)[0]:.6f} ms (least probe), {bound(e_span)[0]:.6f} ms "
+        f"counting every span whole")
     shapes = (f"{n_dev} shards, tiles of S = {tiles.S} + halo {tiles.halo} "
               f"keys, C = {C}, req_cap {req_cap}, blocks of {block} rows; "
               f"shard 0: {r.lengths.shape[0]} candidate rows, a block of "
@@ -4762,12 +4913,70 @@ def tiled_kernels_vs_plain(torch, dev, smls):
     return res, shapes
 
 
+def tiled_sums(torch, tiled, psh, tiles, smls, mesh):
+    """K29, K30 and K31 over a second run of the tiled pair's path: each
+    launch timed alone on the card by CUDA events with a sleep kernel
+    ahead of it (device_ms's way; K29's events also hold its one host
+    read of the counts between its two passes) and its work: K29's and
+    K30's as tiled_kernels_vs_plain counts them, K31's least probe
+    (k31_work).  Returns {name: (Σ ms, launches, Σ work)}."""
+    names = {"tiled_probe": list(inspect.signature(
+        tiled.tiled_probe_plain).parameters),
+             "tiled_requests": list(inspect.signature(
+                 tiled.tiled_requests_plain).parameters),
+             "tiled_serve": list(inspect.signature(
+                 tiled.tiled_serve_plain).parameters)}
+    got = {name: ([], []) for name in names}
+
+    def work_of(name, c, before, out):
+        if name == "tiled_probe":
+            return k31_work(c, before, c["lengths"][c["rows"]])
+        if name == "tiled_requests":
+            Rb, G = out.where.shape
+            return work(Rb * 8 + Rb * G * 6 + Rb * 4 + G * 4
+                        + out.send.shape[0] * 8 + Rb * G * 8, 16 * Rb * G)
+        n, C = c["offs"].shape[0], c["C"]
+        return work(n * 8 + 8 * span_union(c["offs"].cpu().numpy(),
+                                           tiles.S, C) + n * C * 8,
+                    2 * n * C)
+
+    def timed(name, real):
+        def run(*args, **kw):
+            c = dict(zip(names[name], args), **kw)
+            before = (c["lefts"][c["rows"]], c["lengths"][c["rows"]]) \
+                if name == "tiled_probe" else None
+            n = real.launches
+            torch.cuda._sleep(SLEEP_CYCLES)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real(*args, **kw)
+            end.record()
+            if real.launches > n:
+                got[name][0].append((start, end))
+                got[name][1].append(work_of(name, c, before, out))
+            return out
+        return Patched(real, run)
+    reals = {name: getattr(tiled, name) for name in names}
+    for name, real in reals.items():
+        setattr(tiled, name, timed(name, real))
+    try:
+        psh.sharded_find_mums_tiled(smls, mesh)
+    finally:
+        for name, real in reals.items():
+            setattr(tiled, name, real)
+    torch.cuda.synchronize()
+    return {name: (sum(a.elapsed_time(b) for a, b in ev), len(ev),
+                   sum_work(ws)) for name, (ev, ws) in got.items()}
+
+
 def phase_tiled(torch, lt, dev, refs):
     """The position-tiled extension with MESH_SHARDS shards on one card.
     (1) K29-K31 against their plain versions at the pair's first fetch.
     (2) sharded_find_mums_tiled of the 2 x 4.6 Mbp pair (rng 0): its MUMs
     equal phase main's find_mums; launch counts of K26-K31 zeroed before
-    and read after, probe rounds and fetches printed.  (3) Each shard's
+    and read after, probe rounds and fetches printed; a second run times
+    K29-K31 launch by launch (tiled_sums).  (3) Each shard's
     resident keys (S + halo) against the replicated table of
     sharded_find_mums, and the run's device memory peak.  Within
     TILED_CAP_S.  Returns ({name: entry}, the path's launches, walls)."""
@@ -4805,6 +5014,16 @@ def phase_tiled(torch, lt, dev, refs):
             f"tiled MUMs ({len(ma)}) differ from phase main's find_mums "
             f"({len(want)})")
     tiles = psh._Tiles(smls, mesh, max(smls[0].seed_length, 512))
+    for name, (ms_sum, n, w) in tiled_sums(torch, tiled, psh, tiles, smls,
+                                           mesh).items():
+        e = res[name]
+        e["sum_card_ms"], e["sum_launches"] = ms_sum, n
+        e["sum_bound_ms"] = bound(w)[0]
+        log(f"# {name} over the tiled pair's path: Σ {ms_sum:.4f} ms of card "
+            f"in {n} launches (each timed alone, a sleep kernel ahead of "
+            f"it), Σ bound {e['sum_bound_ms']:.6f} ms ({w['bytes']} bytes)")
+        require(n == launches[name], f"{name} launched {n} times in the "
+                f"timed run, {launches[name]} in the counted one")
     n_keys = sum(s.n_windows for s in smls)
     for t in tiles.tiles:
         require(t.shape[0] == tiles.S + tiles.halo < n_keys,
@@ -5328,7 +5547,7 @@ def main(argv=None) -> int:
         lap("hmmstage")
     if "decode" in phases:
         dec_res, paths["decode"], err = phase_decode(
-            torch, lt, dev, calls["predict_homologous"])
+            torch, lt, dev, calls["predict_homologous"], sweep)
         res.update(dec_res)
         k2_errs.append(err)
         lap("decode")
@@ -5422,6 +5641,9 @@ def main(argv=None) -> int:
             kernels[-1]["latency_bound_ms"] = e["work"]["latency_ms"]
         if "card_ms" in e:   # the card's time apart from the host launch
             kernels[-1]["card_ms"] = e["card_ms"]
+        for key in ("sum_card_ms", "sum_launches", "sum_bound_ms"):
+            if key in e:     # every launch of the path (K31)
+                kernels[-1][key] = e[key]
     log(f"# card: {card}; " + "; ".join(walls))
     log(json.dumps({"kernels": kernels}))
     if phases != list(PHASES):

@@ -124,6 +124,11 @@ __device__ ScanResult<T> block_scan(T v, T identity, Op op, T* tmp) {
   return r;
 }
 
+// Ask L2 for the 128-byte line at p (no register held, no wait).
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+}
+
 // Dynamic shared memory a block of `kernel` may opt into on the current
 // device: the card's per-block opt-in limit less the kernel's static
 // shared memory, or -1 when the runtime cannot say.

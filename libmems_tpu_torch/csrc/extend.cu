@@ -33,7 +33,8 @@
 // 2, 4, then kMaxWords): for each present genome the lanes read 32
 // consecutive keys a word (one 256-byte read), and one __ballot_sync
 // gives a word's match bits.  The chain is followed on those words by bit
-// operations (chain_word): each lane tests whether its offset is a match
+// operations (chain_word, csrc/chain.cuh, which K31 shares with the
+// word reads of probe_words): each lane tests whether its offset is a match
 // more than seed_len past the previous one (the highest set bit below it,
 // or the chain's end so far), and one ballot finds the first such break.
 // A step has no __syncthreads.  A row still going after kHandoff offsets
@@ -53,19 +54,27 @@
 // on Hopper (lm_extend_smem_limit), and beyond that in global scratch the
 // wrapper allocates (5 * G ints a row); genome g is on thread g mod 256,
 // the reference genome and the room left are block-wide min reductions.
+#include "chain.cuh"
 #include "common.cuh"
 #include "probe.cuh"
 
 namespace {
 
+using lm_chain::Chain;
+using lm_chain::chain_word;
+using lm_chain::kFull;
+using lm_chain::kMaxWords;
+using lm_chain::kWarpGenomes;
+using lm_chain::max64;
+using lm_chain::min64;
+using lm_chain::probe_words;
+using lm_chain::SideGeom;
+
 constexpr int kThreads = 256;
-constexpr unsigned kFull = 0xffffffffu;
-// warp route: genomes a row at most (lane g holds genome g), rows a
-// block, ballot words a step at most, offsets a warp probes on a side
-// before the block takes the row
-constexpr int kWarpGenomes = 32;
+// warp route (lm_chain::kWarpGenomes genomes a row at most): rows a
+// block, offsets a warp probes on a side before the block takes the row
+// (lm_chain::kMaxWords ballot words a step at most)
 constexpr int kRowWarps = kThreads / 32;
-constexpr int kMaxWords = 8;
 constexpr int kHandoff = 2048;
 // the largest probe offset: below INT_MAX by more than a block's step
 constexpr int kMaxOffset = INT_MAX - 2 * kThreads * kMaxWords;
@@ -137,60 +146,10 @@ __global__ void __launch_bounds__(kThreads) extend_kernel(
   if (tid == 0) lengths[r] = len;
 }
 
-
-// The chain of one side followed over its ballot words, in offset order.
-struct Chain {
-  int p;      // the chain's last match (offset; 0 is the side's start)
-  int first;  // the first match taken (segment summaries)
-  bool have;  // p holds a match (offset 0 counts on a side's own walk)
-  bool brk;   // the chain ended at p
-};
-
-// Takes word w, whose bit i is the match bit of offset b + i + 1: the
-// first match more than seed_len past the one before it ends the chain.
-// Every lane of the warp calls it with the same arguments.
-__device__ __forceinline__ void chain_word(unsigned w, int b, int seed_len,
-                                           Chain& c) {
-  if (c.brk) return;
-  const int lane = threadIdx.x & 31;
-  const unsigned below = w & ((1u << lane) - 1u);
-  const int prev = below ? b + 32 - __clz(below) : c.p;
-  const bool bad = ((w >> lane) & 1u) && (below != 0u || c.have) &&
-                   b + lane + 1 - prev > seed_len;
-  const unsigned bw = __ballot_sync(kFull, bad);
-  unsigned upto = w;
-  if (bw) {
-    upto = w & ((1u << (__ffs(bw) - 1)) - 1u);
-    c.brk = true;
-  }
-  if (upto) {
-    if (!c.have) c.first = b + __ffs(upto);
-    c.have = true;
-    c.p = b + 32 - __clz(upto);
-  }
-}
-
-__device__ __forceinline__ long long min64(long long a, long long b) {
-  return a < b ? a : b;
-}
-
-__device__ __forceinline__ long long max64(long long a, long long b) {
-  return a > b ? a : b;
-}
-
 // Genome `lane` of a warp's row.
 struct RowLane {
   int left, off, cnt;
   bool pres, fwd;
-};
-
-// One side's probe geometry: this lane's genome's key at offset d is
-// keys[at + dir * d], XORed with flip; every present genome's window lies
-// in its genome and in the table exactly for d in [lo, hi] (the same in
-// every lane).
-struct SideGeom {
-  long long at, flip;
-  int dir, lo, hi;
 };
 
 __device__ __forceinline__ SideGeom side_geometry(const RowLane& s, int len,
@@ -221,45 +180,6 @@ __device__ __forceinline__ SideGeom side_geometry(const RowLane& s, int len,
   sg.lo = (int)min64(lo, kMaxOffset);
   sg.hi = (int)max64(hi, 0);
   return sg;
-}
-
-// Match words w[j] of offsets base + 32 j + lane + 1, j < u (zero for j
-// >= u): for each present genome (pmask, reference first) the lanes read
-// 32 consecutive keys a word.  Every lane of the warp calls it with the
-// same arguments.
-__device__ __forceinline__ void probe_words(
-    const long long* __restrict__ keys, long long fill, unsigned pmask,
-    const SideGeom& sg, int base, int u, unsigned (&w)[kMaxWords]) {
-  const int lane = threadIdx.x & 31;
-  const int ref = __ffs(pmask) - 1;
-  bool ok[kMaxWords];
-  long long rk[kMaxWords];
-#pragma unroll
-  for (int j = 0; j < kMaxWords; ++j) {
-    const int d = base + 32 * j + lane + 1;
-    ok[j] = j < u && d >= sg.lo && d <= sg.hi;
-    rk[j] = 0;
-  }
-  for (unsigned m = pmask; m; m &= m - 1) {
-    const int g = __ffs(m) - 1;
-    const long long at = __shfl_sync(kFull, sg.at, g);
-    const long long flip = __shfl_sync(kFull, sg.flip, g);
-    const int dir = __shfl_sync(kFull, sg.dir, g);
-#pragma unroll
-    for (int j = 0; j < kMaxWords; ++j) {
-      const int d = base + 32 * j + lane + 1;
-      const long long k = ok[j] ? keys[at + (long long)dir * d] : fill;
-      const bool live = ok[j] && (k | 1LL) != fill;
-      if (g == ref) {
-        rk[j] = k ^ flip;
-        ok[j] = live;
-      } else {
-        ok[j] = live && (k ^ flip) == rk[j];
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < kMaxWords; ++j) w[j] = __ballot_sync(kFull, ok[j]);
 }
 
 // The side's moving genomes shift left by reach, the length grows by it
@@ -403,7 +323,7 @@ extern "C" int64_t lm_extend_smem_limit() {
   return lm::max_dyn_smem(extend_kernel);
 }
 
-// Genomes a row at most that K2's warp route takes.
+// Genomes a row at most that the warp routes of K2 and K31 take.
 extern "C" int lm_extend_warp_genomes() { return kWarpGenomes; }
 
 // keys: int64[n_keys]; gen_off, gen_cnt, lefts: int32[>= R, G];

@@ -901,12 +901,12 @@ inline WideScratch wide_scratch(int B, int N, bool ptr, bool rows_global) {
 
 using lm_strip::kBatch;
 
-// The column widths a lane of K24/K25 may take; a geometry is an index
-// of this table and W, the strips a block.  Odd and even widths: at an
-// odd K a cell pair straddles two lanes, at an even K none does.
-constexpr int kSpanK[] = {17, 16, 13, 9, 8, 5, 3, 1};
-constexpr int kSpanGeometryCount = 8;
-constexpr int kSpanMaxW = 8;
+// The geometries (csrc/strip.cuh, shared with K22): kSpanK[g] columns a
+// lane, W strips a block.
+using lm_strip::kSpanGeometryCount;
+using lm_strip::kSpanK;
+using lm_strip::kSpanMaxW;
+using lm_strip::span_strips;
 
 struct SpanArgs {
   const float* p;          // [B, M, 5] the window's profile rows
@@ -930,10 +930,6 @@ struct SpanArgs {
   float gap_open, gap_extend;
   lm::W5 w5;
 };
-
-__host__ __device__ inline int span_strips(int N, int K) {
-  return (N + 1 + 32 * K - 1) / (32 * K);
-}
 
 // Bytes of a K25 strip's staging row (K >= 16): 16*K packed bytes and a
 // word of slack for store_stage's unaligned word reads.
@@ -1452,36 +1448,14 @@ extern "C" int64_t lm_span_scratch_bytes(int B, int G, int R, int N, int g,
 }
 
 // The fits of K24 (ptr 0) or K25 on the current card, for the host's
-// pick: out: int[1 + 8 + 8 * 8], the SM count, kSpanK, then at 9 + g*8 +
-// W-1 the blocks an SM holds of geometry g (kSpanK[g] columns a lane)
-// with W strips a block (0: the block does not fit the kernel's
-// registers).
-// The blocks' shared memory does not depend on the bucket, so one query
-// a card serves every launch.
+// pick (lm_strip::span_fits).
 extern "C" int lm_span_fits(int ptr, int* out) {
-  int n_sm = 0;
-  cudaError_t err = lm_strip::sm_count(&n_sm);
-  if (err != cudaSuccess) return (int)err;
-  out[0] = n_sm;
-  for (int g = 0; g < kSpanGeometryCount; ++g) out[1 + g] = kSpanK[g];
-  int* fits = out + 1 + kSpanGeometryCount;
-  for (int g = 0; g < kSpanGeometryCount; ++g) {
-    const void* fn = ptr ? span_kernel_of<true>(g) : span_kernel_of<false>(g);
-    cudaFuncAttributes attr;
-    err = cudaFuncGetAttributes(&attr, fn);
-    if (err != cudaSuccess) return (int)err;
-    for (int W = 1; W <= kSpanMaxW; ++W) {
-      const int threads = 32 * (W + 1);
-      int blocks = 0;
-      if (threads <= attr.maxThreadsPerBlock) {
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &blocks, fn, threads, span_smem_bytes(kSpanK[g], W, ptr != 0));
-        if (err != cudaSuccess) return (int)err;
-      }
-      fits[g * kSpanMaxW + W - 1] = blocks;
-    }
-  }
-  return 0;
+  return lm_strip::span_fits(
+      out,
+      [ptr](int g) {
+        return ptr ? span_kernel_of<true>(g) : span_kernel_of<false>(g);
+      },
+      [ptr](int g, int W) { return span_smem_bytes(kSpanK[g], W, ptr != 0); });
 }
 
 // K24.  p: f32[B, M, 5] (M a multiple of K), q: f32[B, N, 5]; p_len,

@@ -1,9 +1,10 @@
 // Pieces of the strip kernels shared by the banded profile DP (K10/K11,
-// csrc/banded.cu) and the full-width one (K3/K9 and K24/K25,
-// csrc/profile.cu): a window's columns are cut into strips of 32 lanes x
-// K columns, one warp a strip, and strips run the rows as a pipeline,
-// handing each other one row-tagged 64-bit word per value through a ring
-// in shared memory, or through global memory between blocks.
+// csrc/banded.cu), the full-width one (K3/K9 and K24/K25,
+// csrc/profile.cu) and the pairwise Gotoh forward (K22, csrc/gotoh.cu):
+// a window's columns are cut into strips of 32 lanes x K columns, one
+// warp a strip, and strips run the rows as a pipeline, handing each other
+// one row-tagged 64-bit word per value through a ring in shared memory,
+// or through global memory between blocks.
 #pragma once
 
 #include "common.cuh"
@@ -45,9 +46,24 @@ __device__ __forceinline__ float await_row_word(
   return __uint_as_float((unsigned)x);
 }
 
+// The int32 form (K22, csrc/gotoh.cu): the value's bits in the low word.
+__device__ __forceinline__ unsigned long long row_word(int v, int row) {
+  return ((unsigned long long)(unsigned)row << 32) | (unsigned)v;
+}
+
+__device__ __forceinline__ int await_row_int(
+    const volatile unsigned long long* w, int row) {
+  unsigned long long x;
+  do {
+    x = *w;
+  } while ((int)(x >> 32) != row);
+  return (int)(unsigned)x;
+}
+
 // ---------------------------------------------------------------------------
-// Strips over several blocks (K24/K25, csrc/profile.cu span_kernel).  A
-// window's S strips go W to a block, C = ceil(S / W) blocks a window.
+// Strips over several blocks (K24/K25, csrc/profile.cu span_kernel; K22,
+// csrc/gotoh.cu gotoh_span_kernel).  A window's S strips go W to a
+// block, C = ceil(S / W) blocks a window.
 // Inside a block the strips hand rows on through the shared ring as
 // above; at a block's edge the last strip writes the same row-tagged
 // words into a column in global memory, [rows][kWords] words an edge
@@ -115,6 +131,54 @@ inline cudaError_t sm_count(int* n_sm) {
   const cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   return cudaDeviceGetAttribute(n_sm, cudaDevAttrMultiProcessorCount, dev);
+}
+
+// The geometries of the span kernels (K24/K25 in csrc/profile.cu, K22 in
+// csrc/gotoh.cu), which the host prices alike (ops.profile.span_pick):
+// kSpanK[g] columns a lane, W <= kSpanMaxW strips a block.  Odd and even
+// widths: at an odd K a cell pair straddles two lanes, at an even K none
+// does.
+constexpr int kSpanK[] = {17, 16, 13, 9, 8, 5, 3, 1};
+constexpr int kSpanGeometryCount = 8;
+constexpr int kSpanMaxW = 8;
+
+// The strips of K columns a lane that cover an N-column bucket's N+1
+// columns.
+__host__ __device__ inline int span_strips(int N, int K) {
+  return (N + 1 + 32 * K - 1) / (32 * K);
+}
+
+// A span kernel's fits on the current card, for the host's pick: out:
+// int[1 + 8 + 8 * 8], the SM count, kSpanK, then at 9 + g*8 + W-1 the
+// blocks an SM holds of geometry g with W strips a block of W + 1 warps
+// (0: the block does not fit the kernel's registers).  kernel_of(g) is
+// geometry g's kernel, smem_of(g, W) its dynamic shared memory, which
+// does not depend on the bucket, so one query a card serves every launch.
+template <typename KernelOf, typename SmemOf>
+int span_fits(int* out, KernelOf kernel_of, SmemOf smem_of) {
+  int n_sm = 0;
+  cudaError_t err = sm_count(&n_sm);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = n_sm;
+  for (int g = 0; g < kSpanGeometryCount; ++g) out[1 + g] = kSpanK[g];
+  int* fits = out + 1 + kSpanGeometryCount;
+  for (int g = 0; g < kSpanGeometryCount; ++g) {
+    const void* fn = kernel_of(g);
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, fn);
+    if (err != cudaSuccess) return (int)err;
+    for (int W = 1; W <= kSpanMaxW; ++W) {
+      const int threads = 32 * (W + 1);
+      int blocks = 0;
+      if (threads <= attr.maxThreadsPerBlock) {
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &blocks, fn, threads, (size_t)smem_of(g, W));
+        if (err != cudaSuccess) return (int)err;
+      }
+      fits[g * kSpanMaxW + W - 1] = blocks;
+    }
+  }
+  return 0;
 }
 
 }  // namespace lm_strip

@@ -31,18 +31,61 @@
 // threads copy consecutive keys of a span.
 //
 // K31 (lm_tiled_probe): the probe round of ops/extend.py:241-294 on the
-// fetched spans, one block of 256 threads a row: csrc/probe.cuh's match
-// bits (the key of a backward genome at offset d is span[C - d], of an
-// ahead genome span[d - 1]; a dropped request reads the sentinel), reach
-// and advance, which K2 shares.  Bound: latency of the block scans, like
-// K2's round.
+// fetched spans (the key of a backward genome at offset d is span[C - d],
+// of an ahead genome span[d - 1]; a dropped request reads the sentinel,
+// so its row matches at no offset), updating each row's left ends,
+// length and activity in place.  Two routes, picked by G alone as K2's:
+//
+// Warp route (G <= lm_chain::kWarpGenomes): a warp a row, kRowWarps rows a block.
+// Lane g holds genome g's state in registers (left end, window count,
+// presence, strand, its span's row of resp); the reference genome is the
+// first set bit of a ballot of presence.  The test that a probe position
+// lies in [0, count) is one offset range [lo, hi] (a warp min/max, hi <=
+// C; empty for a dropped request).  A step reads u ballot words of 32
+// offsets (u = 1, 2, 4, then lm_chain::kMaxWords): for each present genome
+// the lanes read 32 consecutive keys of its span (one 256-byte load,
+// descending for a genome that moves left), and chain_word follows the
+// chain on the words (csrc/chain.cuh, shared with K2); reading stops at
+// the chain's break, at seed_len offsets past its last match, or at hi.
+// Then the advance and the room by a warp min: no __syncthreads and no
+// block scan.  A row that breaks within its first word reads 32 keys a
+// genome rather than C.  But on the tiled pair most rows of a round read
+// all of C (the least probe is 89% of the whole spans), so a row's time
+// is its chain of dependent loads, five steps a genome at C = 512: a row
+// whose chain outlives its first word therefore asks L2 for the rest of
+// its spans up to hi at once (prefetch.global.L2, a line a lane, no
+// register held), and the later steps hit L2.
+//
+// Block route (more genomes): one block of 256 threads a row over
+// csrc/probe.cuh (K2's wide route shares it), the row state in dynamic
+// shared memory: match bits of every offset 1..C, then block scans for
+// the reference genome, the reach and the room.
+//
+// Bound: bytes, the keys a round must read (each answered span's up to
+// the round's break: its last match plus seed_len offsets, or the span's
+// valid offsets where fewer) and the rows' state; the warp route's time
+// is its rows' chains of dependent word steps.
+#include "chain.cuh"
 #include "common.cuh"
 #include "probe.cuh"
 
 namespace {
 
+using lm_chain::Chain;
+using lm_chain::chain_word;
+using lm_chain::kFull;
+using lm_chain::kMaxWords;
+using lm_chain::kWarpGenomes;
+using lm_chain::max64;
+using lm_chain::min64;
+using lm_chain::probe_words;
+using lm_chain::SideGeom;
+
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+// K31's warp route (lm_chain::kWarpGenomes genomes a row at most): rows a
+// block, a warp each
+constexpr int kRowWarps = kWarps;
 
 // Owner of request i = (row rows[i / G], genome i % G) and its tile-local
 // span start; owner -1 where the genome is absent from the row.
@@ -165,7 +208,124 @@ struct SpanFetch {
   }
 };
 
-// K31: one probe round of block row b = blockIdx.x (row rows[b], active).
+// Asks L2 for the keys of offsets base + 1 .. sg.hi of every present
+// genome's span (pmask), a 128-byte line a lane, so that the chain's later
+// word steps find them there.  Every lane of the warp calls it.
+__device__ __forceinline__ void prefetch_spans(const long long* resp,
+                                               unsigned pmask,
+                                               const SideGeom& sg, int base) {
+  const int lane = threadIdx.x & 31;
+  for (unsigned m = pmask; m; m &= m - 1) {
+    const int g = __ffs(m) - 1;
+    const long long at = __shfl_sync(kFull, sg.at, g);
+    const int dir = __shfl_sync(kFull, sg.dir, g);
+    const long long i0 = at + (long long)dir * (base + 1);
+    const long long i1 = at + (long long)dir * sg.hi;
+    const uintptr_t a0 =
+        reinterpret_cast<uintptr_t>(resp + min64(i0, i1)) & ~(uintptr_t)127;
+    const uintptr_t a1 = reinterpret_cast<uintptr_t>(resp + max64(i0, i1));
+    for (uintptr_t p = a0 + 128 * (uintptr_t)lane; p <= a1; p += 32 * 128) {
+      lm::prefetch_l2(reinterpret_cast<const void*>(p));
+    }
+  }
+}
+
+// K31's warp route: one probe round of block row b = blockIdx.x *
+// kRowWarps + warp (row rows[b], active), genome g on lane g.
+__global__ void __launch_bounds__(kThreads) tiled_probe_warp_kernel(
+    const long long* __restrict__ resp, const int64_t* __restrict__ where,
+    const int64_t* __restrict__ rows, int64_t Rb, int G,
+    int* __restrict__ lefts, int* __restrict__ lengths,
+    const uint8_t* __restrict__ present, const uint8_t* __restrict__ is_fwd,
+    const int* __restrict__ gen_cnt, uint8_t* __restrict__ active, int side,
+    int C, int seed_len, long long fill) {
+  const int lane = threadIdx.x & 31;
+  const int64_t b = (int64_t)blockIdx.x * kRowWarps + (threadIdx.x >> 5);
+  if (b >= Rb) return;   // the whole warp
+  const int64_t r = rows[b];
+  const int64_t k = r * G + lane;
+  bool pres = false, fwd = false;
+  int left = 0, cnt = 0;
+  int64_t wh = -1;
+  if (lane < G) {
+    pres = present[k] != 0;
+    fwd = is_fwd[k] != 0;
+    left = lefts[k];
+    cnt = gen_cnt[lane];
+    wh = where[b * G + lane];
+  }
+  const unsigned pmask = __ballot_sync(kFull, pres);
+  if (!pmask) {
+    if (lane == 0) active[r] = 0;
+    return;
+  }
+  int len = lengths[r];
+  // the span's geometry: key at offset d is resp[at + dir * d]; the probe
+  // position q = q0 + dir * d lies in [0, cnt) exactly for d in [lo, hi]
+  const bool back = side == 0 ? fwd : !fwd;
+  const long long q0 = back ? left : (long long)left + len - seed_len;
+  SideGeom sg;
+  sg.at = (long long)wh * C + (back ? C : -1);
+  sg.dir = back ? -1 : 1;
+  sg.flip = fwd ? 1 : 0;
+  long long lo = 1, hi = C;
+  if (pres) {
+    if (wh < 0) {
+      hi = 0;   // no span answered: sentinel keys, a match nowhere
+    } else if (back) {
+      lo = max64(lo, q0 - cnt + 1);
+      hi = min64(hi, q0);
+    } else {
+      lo = max64(lo, -q0);
+      hi = min64(hi, cnt - 1 - q0);
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    lo = max64(lo, __shfl_xor_sync(kFull, lo, o));
+    hi = min64(hi, __shfl_xor_sync(kFull, hi, o));
+  }
+  sg.lo = (int)min64(lo, (long long)C + 1);
+  sg.hi = (int)max64(hi, 0);
+
+  // the chain over words of 32 offsets, 1, 2, 4, then kMaxWords a step,
+  // until it breaks or no later offset can continue it; a row that
+  // outlives its first word asks L2 for the rest of its spans at once
+  unsigned w[kMaxWords];
+  Chain c{0, 0, true, false};
+  int base = 0, u = 1;
+  while (base < sg.hi) {
+    probe_words(resp, fill, pmask, sg, base, u, w);
+#pragma unroll
+    for (int j = 0; j < kMaxWords; ++j) {
+      if (j < u) chain_word(w[j], base + 32 * j, seed_len, c);
+    }
+    base += 32 * u;
+    if (c.brk || base - c.p >= seed_len) break;
+    if (u == 1) prefetch_spans(resp, pmask, sg, base);
+    u = min(2 * u, kMaxWords);
+  }
+
+  // the advance (ops/extend.py:281-293): the moving genomes' left ends,
+  // the length, and the least room left
+  const int reach = c.p;
+  if (pres && back) left -= reach;
+  len += reach;
+  int room = 1 << 30;
+  if (pres) room = back ? left : (cnt - 1) - (left + len - seed_len);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    room = min(room, __shfl_xor_sync(kFull, room, o));
+  }
+  if (pres && back) lefts[k] = left;
+  if (lane == 0) {
+    lengths[r] = len;
+    active[r] = (reach + seed_len > C) && (room + reach > C) ? 1 : 0;
+  }
+}
+
+// K31's block route: one probe round of block row b = blockIdx.x (row
+// rows[b], active).
 __global__ void __launch_bounds__(kThreads) tiled_probe_kernel(
     const long long* __restrict__ resp, const int64_t* __restrict__ where,
     const int64_t* __restrict__ rows, int G, int* __restrict__ lefts,
@@ -283,8 +443,9 @@ extern "C" int lm_tiled_serve(const void* tile, int64_t S, const void* offs,
   return (int)cudaGetLastError();
 }
 
-// Bytes of shared memory K31's row state of G genomes takes, and what the
-// card lets a block of it opt into.
+// Bytes of shared memory the row state of G genomes takes on K31's block
+// route (more than lm_extend_warp_genomes() genomes), and what the card
+// lets a block of it opt into.
 extern "C" int64_t lm_tiled_probe_row_bytes(int G) {
   return (int64_t)4 * G * (int64_t)sizeof(int);
 }
@@ -296,7 +457,9 @@ extern "C" int64_t lm_tiled_probe_smem_limit() {
 // K31.  resp: int64[n_resp, C]; where: int64[Rb, G]; rows: int64[Rb];
 // lefts: int32[R, G], lengths: int32[R], active: uint8[R] updated in
 // place for the block's rows; present, is_fwd: uint8[R, G]; gen_cnt:
-// int32[G].  C <= 32 * 256.
+// int32[G].  C <= 32 * 256.  Rows of at most lm_extend_warp_genomes()
+// genomes take the warp route, wider rows the block route (row state in
+// shared memory, at most lm_tiled_probe_smem_limit() bytes).
 extern "C" int lm_tiled_probe(const void* resp, const void* where,
                               const void* rows, int64_t Rb, int G,
                               void* lefts, void* lengths, const void* present,
@@ -304,7 +467,15 @@ extern "C" int lm_tiled_probe(const void* resp, const void* where,
                               void* active, int side, int C, int seed_len,
                               int64_t fill, void* stream) {
   if (G < 1 || C < 1 || C > 32 * kThreads) return (int)cudaErrorInvalidValue;
-  if (Rb > 0) {
+  if (Rb > 0 && G <= kWarpGenomes) {
+    LM_LAUNCH(tiled_probe_warp_kernel,
+              (unsigned)((Rb + kRowWarps - 1) / kRowWarps), kThreads, 0,
+              (cudaStream_t)stream, (const long long*)resp,
+              (const int64_t*)where, (const int64_t*)rows, Rb, G, (int*)lefts,
+              (int*)lengths, (const uint8_t*)present, (const uint8_t*)is_fwd,
+              (const int*)gen_cnt, (uint8_t*)active, side, C, seed_len,
+              (long long)fill);
+  } else if (Rb > 0) {
     const int64_t smem = lm_tiled_probe_row_bytes(G);
     const cudaError_t err = lm::allow_dyn_smem(tiled_probe_kernel, smem);
     if (err != cudaSuccess) return (int)err;

@@ -97,7 +97,10 @@ _SIGNATURES = {
     "lm_hmm_bw": ([_P, _P, _I, _I, _P] + [_P] * 5, _I),
     "lm_gotoh_row_bytes": ([_I], _L),
     "lm_gotoh_smem_limit": ([], _L),
-    "lm_gotoh_fwd": ([_P, _P, _P, _P] + [_I] * 6 + [_P] * 6, _I),
+    "lm_gotoh_scratch_bytes": ([_I] * 5, _L),
+    "lm_gotoh_fits": ([_P], _I),
+    "lm_gotoh_fwd": ([_P, _P, _P, _P] + [_I] * 8 + [_P] * 9 + [_I, _I, _P],
+                     _I),
     "lm_gotoh_ptrs": ([_P] * 4 + [_I] * 5 + [_P, _I, _P, _P, _P], _I),
     "lm_route_buckets": ([_P, _L, _L, _I, _I, _P, _P, _P], _I),
     "lm_route_fill": ([_P] * 4 + [_L, _L, _I, _L] + [_P] * 4, _I),

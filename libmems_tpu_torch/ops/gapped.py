@@ -1,6 +1,7 @@
 """Batched pairwise global alignment with affine gaps (Gotoh DP): kernels
-K22 (forward with checkpoints) and K23 (pointer bytes of a block of rows)
-in csrc/gotoh.cu, and the traceback walk K4 (csrc/gapped.cu).
+K22 (forward with checkpoints, strips over several blocks) and K23
+(pointer bytes of a block of rows) in csrc/gotoh.cu, and the traceback
+walk K4 (csrc/gapped.cu).
 
 Port of libmems_tpu/ops/gapped.py, the replacement for the reference's
 in-process MUSCLE calls on inter-anchor gap regions
@@ -354,9 +355,37 @@ def _gotoh_sub() -> ctypes.Array:
     return (ctypes.c_int * 16)(*HOXD70.reshape(-1).tolist())
 
 
+def gotoh_geometry(B: int, M: int, N: int, geometry=None) -> dict:
+    """K22's launch geometry for B pairs of M rows in an N-column bucket
+    on the current card: `geometry` (g, W) or the pick, K24's
+    (ops.profile.span_geometry on K22's fits: K22 hands on two words a row
+    as K24 does, and is priced by K24's SPAN_COST).  Its keys, and "rows"
+    (gotoh_band_rows)."""
+    from libmems_tpu_torch.ops import profile   # profile imports this module
+    geo = profile.span_geometry(B, M, N, False, geometry,
+                                profile.span_fits("lm_gotoh_fits"))
+    if geo["blocks_per_sm"] < 1:
+        raise ValueError(f"K22 geometry {geo['geometry']} does not fit the "
+                         f"card")
+    geo["rows"] = gotoh_band_rows(B, M, geo["blocks"])
+    return geo
+
+
+def gotoh_band_rows(B: int, M: int, C: int) -> int:
+    """The rows a K22 launch of B pairs of C blocks takes: all M where its
+    hand-off columns (16 bytes a row at each of a pair's C - 1 block
+    edges) fit the span kernels' cap, PTR_BUDGET / SPAN_EDGE_SHARE bytes,
+    else the most that do (at least one); the rest follow in launches of
+    as many rows."""
+    from libmems_tpu_torch.ops import profile
+    per_row = 16 * B * (C - 1)
+    cap = profile.PTR_BUDGET // profile.SPAN_EDGE_SHARE
+    return M if per_row * M <= cap else max(1, min(M, cap // per_row))
+
+
 def _gotoh_rows_scratch(B: int, N: int, device, scratch: bool):
     """Global (H, F) row scratch when asked for or when the rows exceed
-    the shared memory a K22/K23 block may take, else None."""
+    the shared memory a K23 block may take, else None."""
     lib = cuda.library()
     if not scratch and lib.lm_gotoh_row_bytes(N) <= lib.lm_gotoh_smem_limit():
         return None
@@ -367,16 +396,22 @@ def _gotoh_rows_scratch(B: int, N: int, device, scratch: bool):
 @cuda.launcher
 def gotoh_forward(a, b, a_len, b_len, gap_open: int = GAP_OPEN,
                   gap_extend: int = GAP_EXTEND, K: int = CKPT_ROWS,
-                  carries: bool = True, scratch: bool = False):
+                  carries: bool = True, *, geometry=None):
     """Checkpointed forward DP of many pairs.
 
     a: uint8[B, M] with M a multiple of K; b: uint8[B, N]; a_len, b_len:
     int32[B].  Returns (score int32[B], the H at (a_len, b_len); ck_h,
     ck_f int32[M/K, B, N+1], the (H, F) carries at the top of each K-row
     block, or None when not `carries`).  CPU tensors take the plain
-    version; CUDA tensors launch K22, with the (H, F) rows in global
-    scratch when they exceed the shared memory a block may take or when
-    `scratch` asks for it."""
+    version; CUDA tensors launch K22, strips over several blocks in the
+    pick of gotoh_geometry or in `geometry` (g, W).
+
+    Besides its outputs K22 takes B (C - 1) R 16 bytes of hand-off
+    columns for a launch of R rows (C: the blocks a pair, gotoh_geometry),
+    zeroed before each launch, score only too.  R is M up to the cap of
+    gotoh_band_rows, 64 MiB; above it the rows run as bands of R rows,
+    each launch starting from the (H, F) row the one before it wrote
+    (another 16 B (N+1) bytes), so the scratch stays at the cap."""
     if b.device.type == "cpu":
         return gotoh_forward_plain(a, b, a_len, b_len, gap_open, gap_extend,
                                    K, carries)
@@ -394,16 +429,30 @@ def gotoh_forward(a, b, a_len, b_len, gap_open: int = GAP_OPEN,
     if carries:
         ck_h = torch.empty((M // K, B, N + 1), dtype=torch.int32, device=dev)
         ck_f = torch.empty_like(ck_h)
-    rows = _gotoh_rows_scratch(B, N, dev, scratch)
+    geo = gotoh_geometry(B, M, N, geometry)
+    rows = geo["rows"]
     lib = cuda.library()
-    cuda.check(lib.lm_gotoh_fwd(
-        a.data_ptr(), b.data_ptr(), a_len.data_ptr(), b_len.data_ptr(), B, M,
-        N, K, gap_open, gap_extend, _gotoh_sub(), score.data_ptr(),
-        ck_h.data_ptr() if carries else None,
-        ck_f.data_ptr() if carries else None,
-        rows.data_ptr() if rows is not None else None, cuda.stream(b)),
-        "lm_gotoh_fwd")
-    gotoh_forward.launches += 1
+    # held by name until the launches are queued (ground rule of cuda.py)
+    work = torch.empty((lib.lm_gotoh_scratch_bytes(B, rows, N,
+                                                   *geo["geometry"]),),
+                       dtype=torch.uint8, device=dev)
+    # the (H, F) row between bands, [band parity, H or F, B, N+1]
+    edge = torch.empty((2, 2, B, N + 1), dtype=torch.int32, device=dev) \
+        if rows < M else None
+    for k, r0 in enumerate(range(0, M, rows) if M else [0]):
+        R = min(rows, M - r0)
+        h_in = edge[(k - 1) % 2] if r0 else (None, None)
+        h_out = edge[k % 2] if r0 + R < M else (None, None)
+        cuda.check(lib.lm_gotoh_fwd(
+            a.data_ptr(), b.data_ptr(), a_len.data_ptr(), b_len.data_ptr(),
+            B, M, N, K, r0, R, gap_open, gap_extend, _gotoh_sub(),
+            score.data_ptr(), ck_h.data_ptr() if carries else None,
+            ck_f.data_ptr() if carries else None,
+            *(x.data_ptr() if x is not None else None
+              for x in (*h_in, *h_out)),
+            work.data_ptr(), *geo["geometry"], cuda.stream(b)),
+            "lm_gotoh_fwd")
+        gotoh_forward.launches += 1
     return score, ck_h, ck_f
 
 
@@ -450,7 +499,8 @@ def gotoh_block_ptrs(ck_h, ck_f, a_blk, b, gap_open: int = GAP_OPEN,
     block's symbols; b: uint8[B, N].  Returns uint8[B, R, N+1] in the
     layout of ops/gapped.py:124-136, or with `packed` uint8[B, R,
     ceil((N+1)/2)], two cells a byte.  CPU tensors take the plain
-    version; CUDA tensors launch K23 (`scratch` as for gotoh_forward)."""
+    version; CUDA tensors launch K23, its (H, F) rows in shared memory,
+    or in global memory where they do not fit or with `scratch`."""
     if b.device.type == "cpu":
         return gotoh_block_ptrs_plain(ck_h, ck_f, a_blk, b, gap_open,
                                       gap_extend, packed)

@@ -410,9 +410,9 @@ def profile_forward_ckpt_plain(p, q, p_len, q_len, gap_open: int = GAP_OPEN,
     return score, ck_h, ck_f
 
 
-# K24's and K25's geometry: SPAN_K[g] columns a lane (csrc/profile.cu
-# kSpanK), W strips a block of W + 1 warps (warp 0 the receiver),
-# W <= SPAN_MAX_W
+# The span kernels' geometry (K24, K25 and K22): SPAN_K[g] columns a lane
+# (csrc/strip.cuh kSpanK), W strips a block of W + 1 warps (warp 0 the
+# receiver), W <= SPAN_MAX_W
 SPAN_K = (17, 16, 13, 9, 8, 5, 3, 1)
 SPAN_MAX_W = 8
 # The price of a span launch, in ns (span_cost): a row of a strip costs
@@ -432,7 +432,8 @@ SPAN_EDGE_SHARE = 16
 # K25's launches on the checkpointed route hold at most this share of
 # PTR_BUDGET in packed pointers (block_batch)
 PTR_BATCH_SHARE = 8
-# the card's fits of K24 (False) and K25 (True), by device index
+# the card's fits of the span kernels, by (device index, C entry, its
+# arguments)
 _SPAN_FITS = {}
 
 
@@ -472,17 +473,18 @@ def span_edge_bytes(n_inst: int, R: int, N: int, ptr: bool, g: int,
     return n_inst * (C - 1) * R * (24 if ptr else 16)
 
 
-def _span_fits(ptr: bool):
-    """(n_sm, {(g, W): blocks an SM}) of K24 (ptr False) or K25 on the
-    current card, asked of the runtime once a card."""
-    key = (torch.cuda.current_device(), ptr)
+def span_fits(entry: str, *args):
+    """(n_sm, {(g, W): blocks an SM}) of a span kernel on the current
+    card, from its C entry (lm_span_fits with ptr 0 for K24 and 1 for
+    K25, lm_gotoh_fits for K22), asked of the runtime once a card."""
+    key = (torch.cuda.current_device(), entry, args)
     fits = _SPAN_FITS.get(key)
     if fits is None:
         nk = len(SPAN_K)
         out = (ctypes.c_int * (1 + nk + nk * SPAN_MAX_W))()
-        cuda.check(cuda.library().lm_span_fits(int(ptr), out), "lm_span_fits")
+        cuda.check(getattr(cuda.library(), entry)(*args, out), entry)
         if tuple(out[1:1 + nk]) != SPAN_K:
-            raise RuntimeError(f"csrc/profile.cu's kSpanK {out[1:1 + nk]} "
+            raise RuntimeError(f"csrc/strip.cuh's kSpanK {out[1:1 + nk]} "
                                f"is not SPAN_K {SPAN_K}")
         fits = _SPAN_FITS.setdefault(key, (out[0], {
             (g, W): out[1 + nk + g * SPAN_MAX_W + W - 1]
@@ -511,13 +513,15 @@ def span_pick(n_inst: int, R: int, N: int, ptr: bool, n_sm: int,
 
 
 def span_geometry(n_inst: int, R: int, N: int, ptr: bool,
-                  geometry=None) -> dict:
+                  geometry=None, fits=None) -> dict:
     """The launch geometry of K24 (ptr False; n_inst = B, R = M) or K25
     (n_inst = G*B row blocks of R rows) on the current card: `geometry`
-    (g, W) or the pick.  {"K" (columns a lane), "warps" (strips a block),
+    (g, W) or the pick.  `fits` (span_fits) are the launched kernel's
+    when it is another span kernel priced as these (K22, ptr False).
+    {"geometry", "K" (columns a lane), "warps" (strips a block),
     "strips" (a window's), "blocks" (an instance's), "blocks_per_sm",
     "waves", "cost_ns"}."""
-    n_sm, fits = _span_fits(ptr)
+    n_sm, fits = fits or span_fits("lm_span_fits", int(ptr))
     g, W = span_pick(n_inst, R, N, ptr, n_sm, fits) if geometry is None \
         else geometry
     S, C = span_plan(N, SPAN_K[g], W)

@@ -16,7 +16,10 @@ each span start for its C keys:
 * ``tiled_serve`` (K30): the owner's copy of tile[s : s + C] for each
   received start s, the sentinel row for a start outside its tile;
 * ``tiled_probe`` (K31): the round on the spans (reversed for genomes
-  moving left), updating the rows' left ends, lengths and activity.
+  moving left), updating the rows' left ends, lengths and activity: up
+  to WARP_GENOMES genomes a row a warp a row over ballot words of the
+  spans, reading no further than the chain's break; wider rows a block
+  a row.
 
 Each wrapper takes its plain PyTorch version for CPU tensors and launches
 its kernel for CUDA tensors; a count of launches sits on each.
@@ -29,7 +32,7 @@ from typing import NamedTuple
 import torch
 
 from libmems_tpu_torch import cuda
-from libmems_tpu_torch.ops.extend import probe_advance
+from libmems_tpu_torch.ops.extend import WARP_GENOMES, probe_advance
 
 _TILE = 256     # requests a tile of K29 (one thread block)
 
@@ -218,9 +221,11 @@ def tiled_probe(resp, where, rows, lefts, lengths, present, is_fwd, gen_cnt,
     G] each request's row of resp (-1: none, read as sentinel keys); rows:
     int64[Rb] the block's rows of lefts int32[R, G], lengths int32[R] and
     active bool[R], updated in place; present, is_fwd: bool[R, G];
-    gen_cnt: int32[G] window counts.  CPU tensors take the plain version;
-    CUDA tensors launch K31 (one block a row), except for an empty block
-    (nothing launched)."""
+    gen_cnt: int32[G] window counts; every row of the block has a
+    present genome (active rows start from present.any).  CPU tensors
+    take the plain version; CUDA tensors launch K31, except for an empty
+    block (nothing launched): a warp a row up to WARP_GENOMES genomes,
+    else a block a row with its state in shared memory."""
     if rows.shape[0] == 0:
         return
     if lefts.device.type == "cpu":
@@ -240,7 +245,8 @@ def tiled_probe(resp, where, rows, lefts, lengths, present, is_fwd, gen_cnt,
     cuda.require(gen_cnt, "gen_cnt", torch.int32, dev, (G,))
     cuda.require(active, "active", torch.bool, dev, (R,))
     lib = cuda.library()
-    if lib.lm_tiled_probe_row_bytes(G) > lib.lm_tiled_probe_smem_limit():
+    if G > WARP_GENOMES and \
+            lib.lm_tiled_probe_row_bytes(G) > lib.lm_tiled_probe_smem_limit():
         raise ValueError(f"K31: {G} genomes a row exceed the shared memory "
                          "a block may take")
     cuda.check(lib.lm_tiled_probe(

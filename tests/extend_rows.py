@@ -142,3 +142,119 @@ def widen(rows, G: int):
         return np.concatenate([a, np.full((R, G - g0), v, a.dtype)], 1)
     return (keys, pad(off, 0), pad(cnt, 1), pad(lefts, 0),
             pad(present, False), pad(is_fwd, True), lengths)
+
+
+def span_rows(seed_len: int, C: int, G: int, side: int, rng_seed: int = 0):
+    """One probe round's rows on answered spans, for K31's tests (its
+    plain version against the JAX make_probe_round on the CPU, the kernel
+    against the plain version on the card).  Rows have planted match gaps
+    of seed_len (the chain goes on) and seed_len + 1 (it ends) whose later
+    match falls at offsets 31-33, 63-65, C - seed_len and C (ballot-word
+    edges and the round's last offsets), with the chain's far end left
+    open or closed a few offsets on; probe positions that leave [0,
+    count) past such an offset (a genome moving left whose left end is
+    that offset, one moving ahead that reaches its genome's last window)
+    or before it; sentinel keys (both low bits); absent genomes; present
+    genomes whose request was dropped (where -1); rows of one present
+    genome; every genome on either strand.  Keys are below 2^30, so that
+    the JAX test can hold them as uint32.
+
+    Returns (resp int64[n, C] the answered spans, where int64[Rb, G],
+    rows int64[Rb], lefts int32[R, G], lengths int32[R], present, is_fwd
+    bool[R, G], gen_cnt int32[G], active bool[R]) as numpy arrays.  The
+    block's rows are every row with a present genome, in a shuffled
+    order; one row with no genome and one other row stay out of it (and
+    out of active), so a round must leave them as they are."""
+    rng = np.random.default_rng(rng_seed)
+    cnt = np.array([4 * C + 1000 + 3 * g for g in range(G)], np.int32)
+    edges = sorted({d for d in (31, 32, 33, 63, 64, 65, C - seed_len, C)
+                    if 1 <= d <= C})
+    rows = []   # (lefts, length, present, is_fwd, raw keys [G, C], drop)
+
+    def add(miss=(), sentinel=(), cut=None, absent=(), drop=(), one=False):
+        """miss: offsets where one present genome's key differs;
+        sentinel: offsets where one present genome's key is the
+        sentinel; cut: (genome, offset, above) the probe positions of
+        that genome leave [0, count) past (above) or up to that offset."""
+        fwd = rng.random(G) < 0.5
+        pres = np.ones(G, bool)
+        pres[list(absent)] = False
+        if one:
+            pres[:] = False
+            pres[int(rng.integers(0, G))] = True
+        n = seed_len + int(rng.integers(0, 20))
+        lefts = rng.integers(2 * C, 2 * C + 100, G).astype(np.int64)
+        back = fwd if side == 0 else ~fwd
+        if cut is not None:
+            g, x, above = cut
+            ahead_shift = n - seed_len
+            if above:       # offsets past x leave the genome
+                lefts[g] = x if back[g] else cnt[g] - 1 - x - ahead_shift
+            else:           # offsets up to x lie before or past it
+                lefts[g] = cnt[g] + x if back[g] else -(x + 1) - ahead_shift
+        flipped = np.broadcast_to(
+            rng.integers(0, 1 << 30, C + 1, dtype=np.int64), (G, C + 1)
+        ).copy()            # column d: offset d (column 0 unused)
+        live = np.flatnonzero(pres)
+        odd = int(rng.choice(live))
+        for d in [d for d in miss if 1 <= d <= C]:
+            flipped[odd, d] = (flipped[odd, d] + 1 + int(
+                rng.integers(0, 1 << 20))) % (1 << 30)
+        raw = flipped ^ fwd[:, None].astype(np.int64)
+        for d in [d for d in sentinel if 1 <= d <= C]:
+            raw[odd, d] = FILL if d % 2 else FILL ^ 1
+        for g in np.flatnonzero(~pres):
+            raw[g] = rng.integers(0, 1 << 30, C + 1)   # never compared
+        rows.append((lefts, n, pres, fwd, raw[:, 1:], set(drop)))
+
+    for gap in (seed_len, seed_len + 1):
+        for at in edges:
+            if at - gap < 0:
+                continue
+            miss = list(range(at - gap + 1, at))
+            add(miss=miss)
+            # the chain's far end: seed_len + 1 misses a few offsets on
+            stop = at + 1 + int(rng.integers(0, 5))
+            add(miss=miss + list(range(stop, stop + seed_len + 1)))
+    for x in edges:
+        for above in (True, False):
+            add(cut=(int(rng.integers(0, G)), x, above))
+    run = min(9, C)
+    add(sentinel=range(run, min(run + seed_len + 1, C + 1)))
+    add(sentinel=[run, min(run + 1, C)])
+    add(absent=[g for g in range(1, G) if rng.random() < 0.5])
+    add(absent=range(1, G), miss=range(5, 5 + seed_len + 1))
+    add(drop=[int(rng.integers(0, G))])
+    add(one=True)
+    add(one=True, sentinel=range(2, 2 + seed_len + 1))
+    if G > 1:
+        add(absent=[0])
+    # rows outside the block: one with no genome, one inactive
+    rows.insert(0, rows[0][:2] + (np.zeros(G, bool),) + rows[0][3:])
+    rows.insert(1, rows[2])
+    R = len(rows)
+    lefts = np.stack([r[0] for r in rows]).astype(np.int32)
+    lengths = np.array([r[1] for r in rows], np.int32)
+    present = np.stack([r[2] for r in rows])
+    is_fwd = np.stack([r[3] for r in rows])
+    active = present.any(axis=1)
+    active[1] = False
+    block = np.flatnonzero(active)
+    rng.shuffle(block)
+    back = is_fwd if side == 0 else ~is_fwd
+    spans, where = [], np.full((len(block), G), -1, np.int64)
+    for b, r in enumerate(block):
+        raw, drop = rows[r][4], rows[r][5]
+        for g in np.flatnonzero(present[r]):
+            if g in drop:
+                continue
+            where[b, g] = len(spans)
+            # offset d: span[C - d] moving left, span[d - 1] ahead
+            spans.append(raw[g][::-1] if back[r, g] else raw[g])
+    order = rng.permutation(len(spans))
+    resp = np.stack(spans)[order] if spans else np.zeros((0, C), np.int64)
+    inv = np.empty_like(order)
+    inv[order] = np.arange(len(order))
+    where = np.where(where >= 0, inv[np.maximum(where, 0)], -1)
+    return (resp.astype(np.int64), where, block.astype(np.int64), lefts,
+            lengths, present, is_fwd, cnt, active)

@@ -2020,19 +2020,18 @@ def _gotoh_batch(B, M, N, rng_seed):
 def test_gotoh_kernels_equal_plain(dev, B, M, N, scratch):
     """K22 (score, carries; score only) and K23 (from the first row and
     from a carry, unpacked and packed) against their plain versions:
-    exact.  N = 2047 runs two tiles a row; `scratch` keeps the rows in
-    global memory."""
+    exact.  N = 2047 runs two of K23's tiles a row; `scratch` keeps K23's
+    rows in global memory."""
     from libmems_tpu_torch.ops import gapped as gp
     K = 128
     t = _gotoh_batch(B, M, N, M + N)
     td = [x.to(dev) for x in t]
     ref = gp.gotoh_forward_plain(*t, gp.GAP_OPEN, gp.GAP_EXTEND, K)
-    got = gp.gotoh_forward(*td, gp.GAP_OPEN, gp.GAP_EXTEND, K,
-                           scratch=scratch)
+    got = gp.gotoh_forward(*td, gp.GAP_OPEN, gp.GAP_EXTEND, K)
     for g, r in zip(got, ref):
         assert torch.equal(g.cpu(), r)
     s_only = gp.gotoh_forward(*td, gp.GAP_OPEN, gp.GAP_EXTEND, K,
-                              carries=False, scratch=scratch)[0]
+                              carries=False)[0]
     assert torch.equal(s_only.cpu(), ref[0])
     for packed in (False, True):
         r0 = gp.gotoh_block_ptrs_plain(None, None, t[0], t[1], gp.GAP_OPEN,
@@ -2047,6 +2046,96 @@ def test_gotoh_kernels_equal_plain(dev, B, M, N, scratch):
         g1 = gp.gotoh_block_ptrs(got[1][bi], got[2][bi], blk.to(dev), td[1],
                                  packed=packed, scratch=scratch)
         assert torch.equal(g1.cpu(), r1)
+
+
+def _gotoh_edge_batch(B, M, N, rng_seed):
+    """_gotoh_batch with an empty a in pair 1 and an empty b in pair 2."""
+    t = _gotoh_batch(B, M, N, rng_seed)
+    if B > 2:
+        t[0][1] = 0
+        t[2][1] = 0
+        t[1][2] = 0
+        t[3][2] = 0
+    return t
+
+
+@pytest.mark.parametrize("B,M,N,K,geometry", [
+    (3, 128, 130, 128, None),        # the pick
+    (3, 128, 70, 128, (0, 1)),       # N + 1 inside one strip
+    (3, 256, 300, 128, (5, 1)),      # one strip a block, two blocks
+    (2, 256, 2047, 128, (1, 4)),     # four strips of one block
+    (4, 128, 1500, 128, (5, 2)),     # ten strips over five blocks
+    (2, 256, 2047, 128, (7, 8)),     # 64 strips over eight blocks
+    (3, 128, 900, 128, (3, 1)),
+    (3, 128, 900, 128, (4, 2)),
+    (3, 384, 900, 128, (6, 8)),
+    (8, 128, 16_384, 128, None),     # phase 9's width, the pick
+    (8, 256, 16_384, 128, (2, 3)),   # 40 strips over 14 blocks
+])
+def test_gotoh_forward_strips_equal_plain(dev, B, M, N, K, geometry):
+    """K22's strips (score and carries; score only) against the plain
+    version, exact: N + 1 inside one strip, across the strips of one
+    block and across several blocks, up to 16,385 columns and 8 pairs,
+    with an empty a and an empty b; M = K has one carry."""
+    from libmems_tpu_torch.ops import gapped as gp
+    t = _gotoh_edge_batch(B, M, N, B + M + N)
+    td = [x.to(dev) for x in t]
+    ref = gp.gotoh_forward_plain(*td, gp.GAP_OPEN, gp.GAP_EXTEND, K)
+    n = gp.gotoh_forward.launches
+    got = gp.gotoh_forward(*td, gp.GAP_OPEN, gp.GAP_EXTEND, K,
+                           geometry=geometry)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    s_only = gp.gotoh_forward(*td, gp.GAP_OPEN, gp.GAP_EXTEND, K,
+                              carries=False, geometry=geometry)[0]
+    assert torch.equal(s_only, ref[0])
+    assert gp.gotoh_forward.launches == n + 2
+    geo = gp.gotoh_geometry(B, M, N, geometry)
+    if geometry is not None:
+        assert geo["geometry"] == geometry
+    assert geo["blocks_per_sm"] > 0
+
+
+@pytest.mark.parametrize("rows,geometry", [(100, (5, 2)), (128, (0, 1)),
+                                           (1, (3, 1))])
+def test_gotoh_forward_bands_equal_plain(dev, monkeypatch, rows, geometry):
+    """K22 in bands of `rows` rows, each launch starting from the (H, F)
+    row the one before it wrote, as gotoh_band_rows cuts a launch whose
+    hand-off columns pass the cap (lowered here to `rows` rows): scores
+    and carries (score only too) equal the plain version's, with a_len at
+    a band's edge, 0 and M, and an empty b; one launch a band."""
+    from libmems_tpu_torch.ops import gapped as gp
+    from libmems_tpu_torch.ops import profile
+    B, M, N, K = 4, 384, 900, 128
+    t = _gotoh_edge_batch(B, M, N, 77)
+    t[2][3] = 200
+    td = [x.to(dev) for x in t]
+    ref = gp.gotoh_forward_plain(*td, gp.GAP_OPEN, gp.GAP_EXTEND, K)
+    C = gp.gotoh_geometry(B, M, N, geometry)["blocks"]
+    monkeypatch.setattr(profile, "SPAN_EDGE_SHARE",
+                        profile.PTR_BUDGET // (16 * B * (C - 1) * rows))
+    assert gp.gotoh_geometry(B, M, N, geometry)["rows"] == rows
+    n = gp.gotoh_forward.launches
+    got = gp.gotoh_forward(*td, gp.GAP_OPEN, gp.GAP_EXTEND, K,
+                           geometry=geometry)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    s_only = gp.gotoh_forward(*td, gp.GAP_OPEN, gp.GAP_EXTEND, K,
+                              carries=False, geometry=geometry)[0]
+    assert torch.equal(s_only, ref[0])
+    assert gp.gotoh_forward.launches == n + 2 * -(-M // rows)
+
+
+def test_gotoh_forward_one_row_block(dev):
+    """M = K: the strips store one carry (row 0) and the score."""
+    from libmems_tpu_torch.ops import gapped as gp
+    t = _gotoh_edge_batch(3, 128, 700, 5)
+    td = [x.to(dev) for x in t]
+    ref = gp.gotoh_forward_plain(*td, gp.GAP_OPEN, gp.GAP_EXTEND, 128)
+    got = gp.gotoh_forward(*td, gp.GAP_OPEN, gp.GAP_EXTEND, 128)
+    assert got[1].shape[0] == 1
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
 
 
 def test_align_pairs_on_cuda_equals_cpu(dev, monkeypatch):
@@ -2502,6 +2591,42 @@ def test_tiled_request_and_serve_kernels_equal_plain(dev, G, n_dev, req_cap):
     ref = tiled.tiled_serve_plain(tile, S, offs, C, -1)
     assert torch.equal(tiled.tiled_serve(tile.to(dev), S, offs.to(dev), C,
                                          -1).cpu(), ref)
+
+
+# K31's span rows: (seed_len, C) as the CPU tests take them
+SPAN_SHAPES = [(15, 15), (15, 33), (15, 512), (15, 520), (21, 21), (21, 33),
+               (21, 512), (21, 520), (40, 40), (40, 512), (40, 520)]
+
+
+@pytest.mark.parametrize("side", [0, 1])
+@pytest.mark.parametrize("G", [2, 3, 32, 33])
+def test_tiled_probe_kernel_span_rows_equal_plain(dev, G, side):
+    """K31 against its plain version, bit for bit, on extend_rows'
+    span_rows: planted gaps at ballot-word edges and the round's last
+    offsets, probe positions leaving their genome, sentinels, absent
+    genomes and dropped requests.  G = 32 is the warp route's widest row,
+    G = 33 the block route's narrowest; rows outside the block stay as
+    they are; one launch a call."""
+    from libmems_tpu_torch.ops import tiled
+    for seed_len, C in SPAN_SHAPES:
+        resp, where, rows, *state = (torch.from_numpy(x) for x in
+                                     extend_rows.span_rows(
+                                         seed_len, C, G, side,
+                                         seed_len + C + G))
+        ref = [x.clone() for x in state]
+        tiled.tiled_probe_plain(resp, where, rows, ref[0], ref[1], ref[2],
+                                ref[3], ref[4], ref[5], side, C, seed_len,
+                                -1)
+        got = [x.to(dev) for x in state]
+        n = tiled.tiled_probe.launches
+        tiled.tiled_probe(resp.to(dev), where.to(dev), rows.to(dev), got[0],
+                          got[1], got[2], got[3], got[4], got[5], side, C,
+                          seed_len, -1)
+        assert tiled.tiled_probe.launches == n + 1
+        for g, r, name in zip(got, ref, ("lefts", "lengths", "present",
+                                         "is_fwd", "gen_cnt", "active")):
+            assert torch.equal(g.cpu(), r), (seed_len, C, name)
+        assert ref[5].any() and not ref[5].all()
 
 
 def _tiled_genomes(rng_seed, n=60_000):

@@ -156,6 +156,56 @@ def test_carries_and_pointer_bytes_equal_jax():
             jg.unpack_ptrs(want_p, N + 1))
 
 
+@pytest.mark.parametrize("B,M,N,K", [(3, 32, 70, 32), (4, 48, 100, 16),
+                                     (3, 16, 543, 16), (2, 64, 33, 64),
+                                     (3, 24, 0, 8)])
+def test_forward_carries_at_strip_edges_equal_jax(B, M, N, K):
+    """K22's plain version against _gotoh_forward_ckpt at the shapes K22's
+    strips cut unevenly: N + 1 no multiple of 32 x K columns (71, 101)
+    and one that is (544 = 32 x 17), M = K (one carry), no b at all (N =
+    0); pair 1 has no a (a_len 0) and pair 2 no b (b_len 0).  Scores and
+    carries equal, with carries and without."""
+    rng = np.random.default_rng(B * M + N)
+    a = rng.integers(0, 4, (B, M)).astype(np.uint8)
+    b = rng.integers(0, 4, (B, N)).astype(np.uint8)
+    a_len = rng.integers(0, M + 1, B).astype(np.int32)
+    b_len = rng.integers(0, N + 1, B).astype(np.int32)
+    a_len[0], b_len[0] = M, N
+    a_len[1] = 0
+    b_len[2 % B] = 0
+    go, ge = jg.GAP_OPEN, jg.GAP_EXTEND
+    want = [np.asarray(x) for x in jg._gotoh_forward_ckpt(
+        jnp.asarray(a), jnp.asarray(b), jnp.asarray(a_len),
+        jnp.asarray(b_len), go, ge, K)]
+    t = [torch.from_numpy(x) for x in (a, b, a_len, b_len)]
+    got = gapped.gotoh_forward(*t, go, ge, K)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w)
+    assert got[1].shape == (M // K, B, N + 1)
+    score = gapped.gotoh_forward(*t, go, ge, K, carries=False)[0]
+    np.testing.assert_array_equal(score.numpy(), want[0])
+
+
+@pytest.mark.parametrize("B,M,C", [(8, 16_384, 26), (8, 65_536, 16),
+                                   (1, 1 << 20, 241), (3, 384, 1),
+                                   (8, 256, 1 << 20)])
+def test_gotoh_band_rows_hold_the_cap(B, M, C):
+    """K22's rows a launch: all M where B pairs' hand-off columns (16
+    bytes a row at each of C - 1 block edges) fit the span kernels' cap
+    (phase 9's 8 x 16,384 rows in 26 blocks, one block a pair), else the
+    most rows that do, at least one (a 1 Mbp pair, 8 pairs of 64 kbp)."""
+    from libmems_tpu_torch.ops import profile
+    cap = profile.PTR_BUDGET // profile.SPAN_EDGE_SHARE
+    per_row = 16 * B * (C - 1)
+    rows = gapped.gotoh_band_rows(B, M, C)
+    assert 1 <= rows <= M
+    if per_row * M <= cap:
+        assert rows == M
+    else:
+        assert per_row * rows <= cap or rows == 1
+        assert per_row * (rows + 1) > cap
+
+
 def test_read_substitution_matrix_equals_jax():
     txt = ("#example matrix\n"
            "A C G T N\n"

@@ -5,6 +5,9 @@ make_probe_round and sharded_find_mums_tiled.  Shards run on
 (tests/conftest.py).  Exact throughout: tiles, row states and match rows
 equal."""
 
+import importlib.util
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,12 +20,20 @@ from libmems_tpu.sml import SortedMerList as JaxSML
 from libmems_tpu_torch.matchfind import find_mums
 from libmems_tpu_torch.ops import mums as ops_mums
 from libmems_tpu_torch.ops import shard as ops_shard
+from libmems_tpu_torch.ops import tiled as ops_tiled
 from libmems_tpu_torch.ops.mers import sentinel_content
 from libmems_tpu_torch.parallel import shard as psh
 from libmems_tpu_torch.sml import SortedMerList
 
 CPU = torch.device("cpu")
 SEED = jseeds.get_seed(9, 0)
+# the span rows with planted match gaps (no JAX; loaded by path, as the
+# card's tests load it)
+_spec = importlib.util.spec_from_file_location(
+    "extend_rows", os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "extend_rows.py"))
+extend_rows = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(extend_rows)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -143,6 +154,52 @@ def test_probe_round_equals_jax(pair, side):
                                 blk, s, 1 << 20) == 0
     for got, w in zip((lefts, lengths, active), want):
         np.testing.assert_array_equal(torch.cat(got).numpy(), w)
+
+
+@pytest.mark.parametrize("side", [0, 1])
+@pytest.mark.parametrize("seed_len,C,G", [
+    (15, 15, 2), (15, 33, 3), (15, 512, 2), (15, 520, 3), (21, 21, 3),
+    (21, 33, 2), (21, 512, 3), (21, 520, 2), (40, 40, 2), (40, 512, 3),
+    (40, 520, 2)])
+def test_probe_round_on_span_rows_equals_jax(seed_len, C, G, side):
+    """K31's plain version on extend_rows.span_rows (planted gaps of
+    seed_len and seed_len + 1 ending at offsets 31-33, 63-65, C - seed_len
+    and C, probe positions leaving the genome, sentinels, absent genomes,
+    dropped requests) equals the JAX make_probe_round on the same spans
+    (uint32 keys; the sentinels' low bits kept): left ends, lengths and
+    activity of the block's rows; the rows outside it unchanged."""
+    resp, where, rows, lefts, lengths, present, is_fwd, cnt, active = \
+        extend_rows.span_rows(seed_len, C, G, side, seed_len + C + G)
+    state = [torch.from_numpy(x.copy()) for x in (lefts, lengths, active)]
+    ops_tiled.tiled_probe_plain(
+        torch.from_numpy(resp), torch.from_numpy(where),
+        torch.from_numpy(rows), state[0], state[1], torch.from_numpy(present),
+        torch.from_numpy(is_fwd), torch.from_numpy(cnt), state[2], side, C,
+        seed_len, -1)
+    # the JAX round on the block's rows, its fetch handing each genome's
+    # spans in turn (the sentinel row where no span was answered)
+    spans = np.where((where >= 0)[..., None], resp[np.maximum(where, 0)],
+                     -1).astype(np.uint32)
+    Rb = len(rows)
+    calls = iter(range(G))
+
+    def fetch(span_start, C_, aux):
+        return jnp.asarray(spans[:, next(calls)]), aux
+
+    pr = make_probe_round(
+        fetch, jnp.uint32, seed_len, 0, jnp.zeros((Rb, G), jnp.int32),
+        jnp.asarray(np.broadcast_to(cnt, (Rb, G))),
+        jnp.asarray(present[rows]), jnp.asarray(is_fwd[rows]))
+    l, n, a, _ = pr(side, C, jnp.asarray(lefts[rows]),
+                    jnp.asarray(lengths[rows]), jnp.asarray(active[rows]),
+                    jnp.int32(0))
+    for got, want, before in zip(state, (l, n, a), (lefts, lengths, active)):
+        np.testing.assert_array_equal(got.numpy()[rows], np.asarray(want))
+        out = np.setdiff1d(np.arange(len(before)), rows)
+        np.testing.assert_array_equal(got.numpy()[out], before[out])
+    a = np.asarray(a)
+    assert a.any() and not a.all()
+    assert (np.asarray(n) > lengths[rows]).any()
 
 
 def test_sharded_find_mums_tiled_equals_jax(pair):
