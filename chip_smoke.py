@@ -128,14 +128,16 @@ non-zero and prints no result line):
 9. decode  - decode and pairwise DP, the API no path calls: align_pairs
              on the pair path's inter-anchor windows (K23 + K4 on the
              card) and on 8 mutant pairs of 10 kbp (over the pointer
-             budget: K22, packed K23 blocks, the host walk),
+             budget: K22, packed K23 blocks a launch, the host walk),
              viterbi_homologous (K20) on the first progressive run's HMM
              sequences and 2 iterations of baum_welch (K21) on them; K22,
-             K23 and K20 exact against their plain versions, K21 within
-             1e-12, the walked masks scoring to the DP score (K22 by
-             events and on the card, beside its latency floor; with
-             --sweep also in every geometry of SWEEP_GEOMETRIES beside
-             span_cost's price); K2 at 64 and 1,000 slots a row, in shared memory and global scratch
+             K20 and every K23 call of the run (recorded, replayed) exact
+             against their plain versions, K21 within 1e-12, the walked
+             masks scoring to the DP score (K22, and K23's Σ, by events
+             and on the card, beside their latency floors; with --sweep
+             also K22 and K23's largest call in every geometry of
+             SWEEP_GEOMETRIES beside span_cost's price); K2 at 64 and
+             1,000 slots a row, in shared memory and global scratch
              (find_mums on 64 genomes GPU == CPU tensors, find_repeats on a
              1,000-copy element family);
 10. bounded - the memory-bounded routes: K24 and K25 (batched and one
@@ -171,8 +173,9 @@ non-zero and prints no result line):
              all within 150 s;
 12. tiled  - the position-tiled extension with 4 shards on the card:
              K29-K31 exact against their plain versions at the pair's
-             first fetch, timed (K31 on the card too, its bound its least
-             probe); sharded_find_mums_tiled of the rng-0 pair equals
+             first fetch, timed (K30 and K31 on the card too, K31's bound
+             its least probe);
+             sharded_find_mums_tiled of the rng-0 pair equals
              phase main's find_mums (K26-K31 launched; probe rounds,
              fetches, each shard's S + halo resident keys against the
              replicated table, the memory peak printed); a second run
@@ -372,6 +375,7 @@ BW_COLUMN_OPS = 100   # per column (K21): K8's two passes, 6 exps and the
                       # count sums
 DECODE_KERNELS = ("gotoh_forward", "gotoh_block_ptrs", "viterbi_path",
                   "bw_counts")
+K23_WRAPPERS = ("gotoh_block_ptrs", "gotoh_block_ptrs_batch")
 MUTANT_PAIRS, MUTANT_PAIR_LEN = 8, 10_000
 REPEAT_LEN, REPEAT_COPIES, REPEAT_ELEM = 2_000_000, 1_000, 500
 WIDE_GENOMES, WIDE_LEN = 64, 20_000
@@ -3579,14 +3583,16 @@ def phase_decode(torch, lt, dev, hmm_calls, sweep=False):
     pairs (over DEVICE_TB_BUDGET: K22, packed K23 blocks, the host walk),
     viterbi_homologous on the sequences of the first progressive run's
     predict_homologous calls and 2 iterations of baum_welch on all of
-    them.  Then K22 and K23 against their plain versions (exact: scores,
-    carries, pointer bytes, the walked masks, which score to the DP
-    score), K20 (exact) and K21 (1e-12 relative) on the HMM batches of
-    T <= HMM_CHECK_MAX_T and the longest one, and K2 at 64 and 1,000
-    slots a row (find_mums on 64 genomes, GPU == CPU tensors; find_repeats
-    on a 1,000-copy family), in shared memory and in global scratch.
-    With `sweep`, gotoh_sweep on K22's launch.  Returns ({name: entry},
-    the counted run's launches, K2's max_abs_err)."""
+    them.  Then K22 and every K23 call of that run (replayed from their
+    recorded arguments) against their plain versions (exact: scores,
+    carries, pointer bytes, the masks walked over the plain blocks, which
+    score to the DP score), K20 (exact) and K21 (1e-12 relative) on the
+    HMM batches of T <= HMM_CHECK_MAX_T and the longest one, and K2 at 64
+    and 1,000 slots a row (find_mums on 64 genomes, GPU == CPU tensors;
+    find_repeats on a 1,000-copy family), in shared memory and in global
+    scratch.  With `sweep`, gotoh_sweep on K22's launch and K23's largest
+    call.  Returns ({name: entry}, the counted run's launches, K2's
+    max_abs_err)."""
     from libmems_tpu_torch import matchfind, repeats
     from libmems_tpu_torch.ops import extend, gapped, hmm
     from libmems_tpu_torch.sml import create_smls
@@ -3614,11 +3620,15 @@ def phase_decode(torch, lt, dev, hmm_calls, sweep=False):
     for w in wrappers.values():
         w.launches = 0
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    win_masks = gapped.align_pairs(win_pairs, device=dev)
-    t1 = time.perf_counter()
-    mut_masks = gapped.align_pairs(mut_pairs, device=dev)
-    t2 = time.perf_counter()
+    # K23's calls, by the wrapper the route calls (an older tree's copy
+    # has no batch wrapper: it fetches a block a launch)
+    with recording([(gapped, n) for n in K23_WRAPPERS
+                    if hasattr(gapped, n)]) as rec23:
+        t0 = time.perf_counter()
+        win_masks = gapped.align_pairs(win_pairs, device=dev)
+        t1 = time.perf_counter()
+        mut_masks = gapped.align_pairs(mut_pairs, device=dev)
+        t2 = time.perf_counter()
     for seqs, params in by_call:
         hmm.viterbi_homologous(seqs, params, device=dev)
     t3 = time.perf_counter()
@@ -3649,10 +3659,8 @@ def phase_decode(torch, lt, dev, hmm_calls, sweep=False):
 
     # the full route: K23 from the first row, the walked masks score to
     # the DP score, and equal the CPU tensors' masks
-    k23, errs23 = [], []
     for idxs, a, b, al, bl, K, _ in win_plan:
         aj, bj = put(a), put(b)
-        k23.append((None, None, aj, bj, False))
         score = gapped.gotoh_forward(aj, bj, put(al), put(bl), go, ge, K,
                                      carries=False)[0].cpu().numpy()
         for row, idx in enumerate(idxs):
@@ -3691,26 +3699,48 @@ def phase_decode(torch, lt, dev, hmm_calls, sweep=False):
     log(f"# K22 at {B} x {Mp} x {N + 1}: {ms22:.4f} ms events, "
         f"{card22:.4f} ms card, plain {p22:.4f} ms; bound "
         f"{bound(w22)[0]:.6f} ms, latency floor {w22['latency_ms']:.4f} ms")
+    # K23: every call of the counted run replayed through its wrapper,
+    # each held to its plain version, then timed together
+    calls23 = [(name, c) for name, cs in rec23.items() for c in cs]
+    n0 = gapped.gotoh_block_ptrs.launches
+    got23 = [k23_run(gapped, *x) for x in calls23]
+    require(gapped.gotoh_block_ptrs.launches - n0
+            == launches["gotoh_block_ptrs"],
+            f"K23: {gapped.gotoh_block_ptrs.launches - n0} launches "
+            f"replayed, the decode run made {launches['gotoh_block_ptrs']}")
+    ref23, p23 = timed_once(lambda: [k23_plain(gapped, *x)
+                                     for x in calls23], torch)
+    for (name, c), g, r in zip(calls23, got23, ref23):
+        require(torch.equal(g, r), f"K23 ({name}) differs from its plain "
+                f"version at {tuple(g.shape)} (packed {c['packed']})")
+    ms23 = timed_ms(lambda: [k23_run(gapped, *x) for x in calls23], 3,
+                    torch)
+    card23 = device_ms(lambda: [k23_run(gapped, *x) for x in calls23], 3,
+                       torch)
+    w23 = sum_work(k23_work(*x, g) for x, g in zip(calls23, got23))
+    res["gotoh_block_ptrs"] = entry(max_abs_err(zip(got23, ref23)), ms23,
+                                    p23, w23)
+    res["gotoh_block_ptrs"]["card_ms"] = card23
     if sweep:
-        gotoh_sweep(torch, aj, bj, alj, blj, K)
+        gotoh_sweep(torch, aj, bj, alj, blj, K, [
+            c for name, c in calls23 if name == "gotoh_block_ptrs_batch"])
+    # the walk over the plain blocks: the batch calls' by block index
+    # (an older tree's single blocks are made again as the walk asks)
     nb = Mp // K
-    k23 += [(got22[1][bi], got22[2][bi],
-             aj[:, bi * K:(bi + 1) * K].contiguous(), bj, True)
-            for bi in range(nb)]
-    got23 = [gapped.gotoh_block_ptrs(h, f, x, y, go, ge, packed=pk)
-             for h, f, x, y, pk in k23]
-    ref23 = [gapped.gotoh_block_ptrs_plain(h, f, x, y, go, ge, pk)
-             for h, f, x, y, pk in k23]
-    for (_, _, x, _, pk), g, r in zip(k23, got23, ref23):
-        require(torch.equal(g, r), f"K23 differs from its plain version "
-                f"at {tuple(x.shape)} (packed {pk})")
-        errs23.append((g, r))
-    fetched = []   # the blocks the walk reads: the counted run's launches
+    blocks = {}
+    for (name, c), r in zip(calls23, ref23):
+        if name == "gotoh_block_ptrs_batch":
+            blocks.update((c["first"] + k, r[k]) for k in range(c["G"]))
+    del got23, ref23
+    fetched = []
 
     def fetch(bi):
         fetched.append(bi)
-        return gapped.unpack_ptrs(ref23[len(win_plan) + bi].cpu().numpy(),
-                                  N + 1)
+        if bi not in blocks:
+            blocks[bi] = gapped.gotoh_block_ptrs_plain(
+                got22[1][bi], got22[2][bi],
+                aj[:, bi * K:(bi + 1) * K].contiguous(), bj, go, ge, True)
+        return gapped.unpack_ptrs(blocks[bi].cpu().numpy(), N + 1)
     walked = gapped.traceback_blocks(fetch, nb, K, al, bl)
     dp = ref22[0].cpu().numpy()
     for row, idx in enumerate(idxs):
@@ -3721,28 +3751,16 @@ def phase_decode(torch, lt, dev, hmm_calls, sweep=False):
         require(affine_score(x, y, ga, gb, go, ge, gapped.HOXD70)
                 == dp[row], f"mutant pair {idx}: the walk's score differs "
                 f"from the DP score")
-    # time and bound the launches the counted run made: every window
-    # bucket and the blocks the walk fetched (the comparison covers all)
-    run23 = list(range(len(win_plan))) + [len(win_plan) + bi
-                                          for bi in fetched]
-    require(len(run23) == launches["gotoh_block_ptrs"],
-            f"K23: {len(run23)} launches rebuilt, the decode run made "
-            f"{launches['gotoh_block_ptrs']}")
-    p23 = timed_once(lambda: [gapped.gotoh_block_ptrs_plain(
-        *k23[i][:4], go, ge, k23[i][4]) for i in run23], torch)[1]
-    ms23 = timed_ms(lambda: [gapped.gotoh_block_ptrs(
-        *k23[i][:4], go, ge, packed=k23[i][4]) for i in run23], 3, torch)
-    cells = sum(k23[i][2].shape[0] * k23[i][2].shape[1]
-                * (k23[i][3].shape[1] + 1) for i in run23)
-    res["gotoh_block_ptrs"] = entry(
-        max_abs_err(errs23), ms23, p23,
-        work(sum(nbytes(*k23[i][:4], got23[i]) for i in run23),
-             GOTOH_PTR_CELL_OPS * cells))
-    del got23, ref23, got22, ref22
-    log(f"# checkpointed route: K22 and {nb} packed K23 blocks equal the "
-        f"plain versions; masks equal, scores {dp[:len(idxs)].tolist()}; "
-        f"K23 timed on the {len(run23)} launches of the decode run "
-        f"({len(fetched)} blocks fetched)")
+    del blocks, got22, ref22
+    log(f"# checkpointed route: K22 equals its plain version; the walk over "
+        f"the plain blocks gives the run's masks ({len(fetched)} blocks "
+        f"fetched), scores {dp[:len(idxs)].tolist()}")
+    log(f"# K23 over the decode run: {launches['gotoh_block_ptrs']} launches "
+        f"in {len(calls23)} calls "
+        f"({', '.join(k23_shape(*x) for x in calls23)}), each equal to its "
+        f"plain version; Σ {ms23:.4f} ms events, {card23:.4f} ms card, "
+        f"plain {p23:.4f} ms; Σ bound {bound(w23)[0]:.6f} ms, Σ latency "
+        f"floor {w23['latency_ms']:.4f} ms")
 
     # K20 and K21 on the HMM batches up to HMM_CHECK_MAX_T and the longest
     batches = []
@@ -4052,15 +4070,88 @@ def span_sweep(torch, c24, c25):
             f"{profile.span_geometry(n_inst, rows, N, ptr)['geometry']}")
 
 
-def gotoh_sweep(torch, aj, bj, alj, blj, K):
-    """K22 on phase 9's launch (aj, bj, alj, blj, K) in the pick's
-    geometry and every geometry of SWEEP_GEOMETRIES that fits the card:
-    each output equal to the pick's, its time on the card alone beside
-    span_cost's price (K24's SPAN_COST, which K22's pick takes)."""
+def k23_run(gapped, name, c):
+    """A recorded K23 call replayed through its wrapper."""
+    return getattr(gapped, name)(**c)
+
+
+def k23_plain(gapped, name, c):
+    """The plain version of a recorded K23 call."""
+    if name == "gotoh_block_ptrs_batch":
+        return gapped.gotoh_block_ptrs_batch_plain(
+            c["ck_h"], c["ck_f"], c["a"], c["b"], c["first"], c["G"],
+            c["gap_open"], c["gap_extend"], c["packed"])
+    return gapped.gotoh_block_ptrs_plain(c["ck_h"], c["ck_f"], c["a_blk"],
+                                         c["b"], c["gap_open"],
+                                         c["gap_extend"], c["packed"])
+
+
+def k23_rows(name, c):
+    """(row blocks, rows a block, carries read) of a recorded K23 call:
+    the batch's G blocks (block 0 made from the DP's first row) or one
+    block from its carry or from the first row."""
+    if name == "gotoh_block_ptrs_batch":
+        R = c["a"].shape[1] // c["ck_h"].shape[0]
+        return c["G"], R, c["G"] - (c["first"] == 0)
+    return 1, c["a_blk"].shape[1], int(c["ck_h"] is not None)
+
+
+def k23_shape(name, c):
+    G, R, _ = k23_rows(name, c)
+    return f"{G} x {c['b'].shape[0]} x {R} x {c['b'].shape[1] + 1}"
+
+
+def k23_work(name, c, out):
+    """Work of one K23 call: every cell of its G blocks of B x R rows, the
+    carries it reads (8 bytes a column a pair), a's rows, b and the
+    pointer bytes written once each; its latency floor is R dependent
+    rows of N+1 columns (the blocks run side by side)."""
+    G, R, carried = k23_rows(name, c)
+    B, N = c["b"].shape
+    w = work(8 * carried * B * (N + 1) + G * B * R + B * N + nbytes(out),
+             GOTOH_PTR_CELL_OPS * G * B * R * (N + 1))
+    w["latency_ms"] = dp_latency_ms([R], [N])
+    return w
+
+
+def gotoh_sweep(torch, aj, bj, alj, blj, K, calls23=()):
+    """K22 on phase 9's launch (aj, bj, alj, blj, K) and K23 on its
+    largest batched call (calls23: the decode run's recorded
+    gotoh_block_ptrs_batch calls) in the pick's geometry and every
+    geometry of SWEEP_GEOMETRIES that fits the card: each output equal to
+    the pick's, its time on the card alone beside span_cost's price
+    (K24's and K25's SPAN_COST, which K22's and K23's picks take), and
+    the pick's time over the best's."""
     from libmems_tpu_torch.ops import gapped, profile
     go, ge = gapped.GAP_OPEN, gapped.GAP_EXTEND
     B, M, N = aj.shape[0], aj.shape[1], bj.shape[1]
-    fits = profile.span_fits("lm_gotoh_fits")[1]
+    if calls23:
+        c = max(calls23, key=lambda c: c["G"])
+        R = c["a"].shape[1] // c["ck_h"].shape[0]
+        fits = profile.span_fits("lm_gotoh_fits", 1)[1]
+        pick = gapped.gotoh_geometry(c["G"] * B, R, N, ptr=True)["geometry"]
+        base = gapped.gotoh_block_ptrs_batch(**c)
+        times = {}
+        for geo in dict.fromkeys((pick,) + SWEEP_GEOMETRIES):
+            if fits.get(geo, 0) < 1:
+                log(f"# sweep K23 {geo}: does not fit")
+                continue
+            d = gapped.gotoh_geometry(c["G"] * B, R, N, geo, ptr=True)
+            kw = dict(c, geometry=geo)
+            require(torch.equal(gapped.gotoh_block_ptrs_batch(**kw), base),
+                    f"K23 in geometry {geo} differs from the pick's")
+            times[geo] = device_ms(
+                lambda: gapped.gotoh_block_ptrs_batch(**kw), 1, torch)
+            log(f"# sweep K23 {c['G']} x {B} blocks, K = {d['K']}, "
+                f"{d['warps']} strips a block ({d['blocks']} blocks a "
+                f"row block, {d['blocks_per_sm']} an SM"
+                f"{', the pick' if geo == pick else ''}): "
+                f"{times[geo]:.3f} ms on the card, priced "
+                f"{d['cost_ns'] / 1e6:.3f}")
+        best = min(times, key=times.get)
+        log(f"# sweep K23 pick {pick} {times[pick]:.3f} ms, best {best} "
+            f"{times[best]:.3f} ms: {times[pick] / times[best]:.3f}x")
+    fits = profile.span_fits("lm_gotoh_fits", 0)[1]
     pick = gapped.gotoh_geometry(B, M, N)["geometry"]
     base = gapped.gotoh_forward(aj, bj, alj, blj, go, ge, K)
     for geo in dict.fromkeys((pick,) + SWEEP_GEOMETRIES):
@@ -4848,11 +4939,26 @@ def tiled_kernels_vs_plain(torch, dev, smls):
     require(torch.equal(got, ref), "K30 differs from its plain version")
     del ref
     ms = timed_ms(lambda: tiled.tiled_serve(*targs), 5, torch)
+    card = device_ms(lambda: tiled.tiled_serve(*targs), 5, torch)
     plain_ms = timed_ms(lambda: tiled.tiled_serve_plain(*targs), 3, torch)
     n_recv = offs.shape[0]
-    res["tiled_serve"] = entry(0.0, ms, plain_ms, work(
-        n_recv * 8 + 8 * span_union(offs.cpu().numpy(), tiles.S, C)
-        + n_recv * C * 8, 2 * n_recv * C))
+    w30 = work(n_recv * 8 + 8 * span_union(offs.cpu().numpy(), tiles.S, C)
+               + n_recv * C * 8, 2 * n_recv * C)
+    res["tiled_serve"] = entry(0.0, ms, plain_ms, w30)
+    res["tiled_serve"]["card_ms"] = card
+    log(f"# K30 first fetch ({n_recv} spans of {C} keys, "
+        f"{n_recv * C * 8} bytes out): {ms:.4f} ms events, {card:.4f} ms "
+        f"card, plain {plain_ms:.4f} ms; bound {bound(w30)[0]:.6f} ms")
+    # beside it the card's own write of the answer's bytes (fill_) and
+    # K30 on the same starts in sorted order, where neighbouring warps
+    # share tile lines
+    sargs = (targs[0], targs[1], torch.sort(offs)[0], *targs[3:])
+    log(f"# K30 on the first fetch's starts sorted: "
+        f"{device_ms(lambda: tiled.tiled_serve(*sargs), 5, torch):.4f} ms "
+        f"card; fill_ of its answer's {nbytes(got)} bytes "
+        f"{device_ms(lambda: got.fill_(tiles.sentinel), 5, torch):.4f} ms "
+        f"card")
+    del got, sargs
 
     # the answers' return; K31 on shard 0's block
     answers = []

@@ -27,8 +27,25 @@
 //
 // K30 (lm_tiled_serve): the owner copies tile[s : s + C] for each received
 // tile-local offset s, a sentinel row for an offset outside its tile
-// (parallel/shard.py:572-577).  A gather bound by bytes: consecutive
-// threads copy consecutive keys of a span.
+// (parallel/shard.py:572-577).  Bound: the answer's bytes written (about
+// 1 GB at the tiled pair's first fetch); a shard's tile (S + halo keys,
+// about 18 MB there) stays in the 50 MB L2 for the spans that requests
+// share.  A warp owns whole spans, 8 warps a block, a grid stride over
+// the requests sized to the card's resident blocks: one lane reads the
+// start and a shuffle shares it, the in-tile test is made once a span,
+// and the span index is the loop variable, so no 64-bit division is
+// left.  Every store carries the evict-first hint (st.global.cs): the
+// answer is read again only by the exchange, and the tile keeps L2.  The
+// loop is unrolled so that a lane has four stores in flight, a key a
+// store: two keys a 16-byte store (pairs from the row's first 16-byte
+// boundary) took 0.6-1.0% more card time at the tiled pair's first fetch
+// on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md row 15d-2).  The
+// time is the tile's reads through L2 beside the writes: the same starts
+// sorted, so that neighbouring warps share tile lines, run about a fifth
+// faster.
+// No TMA or cp.async.bulk: a span starts at any key, so its source is
+// 16-byte aligned only for half the starts, and bulk copies need 16-byte
+// aligned addresses and sizes.
 //
 // K31 (lm_tiled_probe): the probe round of ops/extend.py:241-294 on the
 // fetched spans (the key of a backward genome at offset d is span[C - d],
@@ -181,18 +198,45 @@ __global__ void __launch_bounds__(kThreads) tiled_requests_kernel(
   where[i] = at;
 }
 
-// K30: out[j, c] = tile[offs[j] + c] for 0 <= offs[j] < S, else fill.
+// K30: out[j, c] = tile[offs[j] + c] for 0 <= offs[j] < S, else fill; a
+// warp a span j.
 __global__ void __launch_bounds__(kThreads) tiled_serve_kernel(
     const long long* __restrict__ tile, int64_t S,
     const int64_t* __restrict__ offs, int64_t n, int C, long long fill,
     long long* __restrict__ out) {
-  const int64_t total = n * C;
-  for (int64_t e = lm::first_index(); e < total; e += lm::grid_stride()) {
-    const int64_t j = e / C;
-    const int c = (int)(e - j * C);
-    const int64_t s = offs[j];
-    out[e] = (s >= 0 && s < S) ? tile[s + c] : fill;
+  const int lane = threadIdx.x & 31;
+  const int64_t step = (int64_t)gridDim.x * kWarps;
+  for (int64_t j = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5); j < n;
+       j += step) {
+    int64_t s = 0;
+    if (lane == 0) s = offs[j];
+    s = __shfl_sync(kFull, s, 0);
+    const bool in = s >= 0 && s < S;
+    const long long* src = tile + (in ? s : 0);
+    long long* row = out + j * C;
+#pragma unroll 4
+    for (int c = lane; c < C; c += 32) __stcs(row + c, in ? src[c] : fill);
   }
+}
+
+// K30's grid: the blocks the card holds at once, at most one warp a span.
+cudaError_t serve_grid(int64_t n, unsigned* grid) {
+  static int resident = 0;
+  if (resident == 0) {
+    int dev = 0, n_sm = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
+                                   dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, tiled_serve_kernel, kThreads, 0);
+    if (err != cudaSuccess) return err;
+    resident = n_sm * (per_sm > 0 ? per_sm : 1);
+  }
+  const int64_t need = (n + kWarps - 1) / kWarps;
+  *grid = (unsigned)(need < resident ? need : resident);
+  return cudaSuccess;
 }
 
 // A probe key from a fetched span: genome g's span of the block row b.
@@ -436,9 +480,12 @@ extern "C" int lm_tiled_serve(const void* tile, int64_t S, const void* offs,
                               int64_t n, int C, int64_t fill, void* out,
                               void* stream) {
   if (n > 0 && C > 0) {
-    LM_LAUNCH(tiled_serve_kernel, lm::blocks_for(n * C), kThreads, 0,
-              (cudaStream_t)stream, (const long long*)tile, S,
-              (const int64_t*)offs, n, C, (long long)fill, (long long*)out);
+    unsigned grid = 0;
+    const cudaError_t err = serve_grid(n, &grid);
+    if (err != cudaSuccess) return (int)err;
+    LM_LAUNCH(tiled_serve_kernel, grid, kThreads, 0, (cudaStream_t)stream,
+              (const long long*)tile, S, (const int64_t*)offs, n, C,
+              (long long)fill, (long long*)out);
   }
   return (int)cudaGetLastError();
 }

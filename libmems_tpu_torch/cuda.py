@@ -95,13 +95,12 @@ _SIGNATURES = {
     "lm_hmm_step_cycles": ([_P, _I, _L, _P, _P, _P, _P], _I),
     "lm_hmm_viterbi": ([_P, _P, _I, _I, _P, _P, _P, _P], _I),
     "lm_hmm_bw": ([_P, _P, _I, _I, _P] + [_P] * 5, _I),
-    "lm_gotoh_row_bytes": ([_I], _L),
-    "lm_gotoh_smem_limit": ([], _L),
-    "lm_gotoh_scratch_bytes": ([_I] * 5, _L),
-    "lm_gotoh_fits": ([_P], _I),
+    "lm_gotoh_scratch_bytes": ([_I] * 6, _L),
+    "lm_gotoh_fits": ([_I, _P], _I),
     "lm_gotoh_fwd": ([_P, _P, _P, _P] + [_I] * 8 + [_P] * 9 + [_I, _I, _P],
                      _I),
-    "lm_gotoh_ptrs": ([_P] * 4 + [_I] * 5 + [_P, _I, _P, _P, _P], _I),
+    "lm_gotoh_block_ptrs": ([_P, _P] + [_I] * 8 + [_P] * 4
+                            + [_I, _I, _P, _I, _P, _L, _P, _I, _I, _P], _I),
     "lm_route_buckets": ([_P, _L, _L, _I, _I, _P, _P, _P], _I),
     "lm_route_fill": ([_P] * 4 + [_L, _L, _I, _L] + [_P] * 4, _I),
     "lm_shard_candidates": ([_P] * 6 + [_L, _L, _I] + [_P] * 5, _I),

@@ -1,7 +1,7 @@
 """Batched pairwise global alignment with affine gaps (Gotoh DP): kernels
-K22 (forward with checkpoints, strips over several blocks) and K23
-(pointer bytes of a block of rows) in csrc/gotoh.cu, and the traceback
-walk K4 (csrc/gapped.cu).
+K22 (forward with checkpoints) and K23 (pointer bytes of row blocks,
+many a launch), both strips over several blocks in csrc/gotoh.cu, and
+the traceback walk K4 (csrc/gapped.cu).
 
 Port of libmems_tpu/ops/gapped.py, the replacement for the reference's
 in-process MUSCLE calls on inter-anchor gap regions
@@ -15,9 +15,10 @@ is the max-plus prefix E[j] = ext*j + cummax_{k<j}(G'[k] + open - ext*k).
 module does: when the bucket's full pointer tensor fits DEVICE_TB_BUDGET
 bytes, K23 derives every row's pointers from the first row and K4 walks
 them on the device; otherwise K22 keeps the (H, F) carry every
-CKPT_ROWS rows and the host walk ``traceback_blocks`` fetches each
-block's pointers from K23, nibble-packed.  The profile aligner uses K4
-and the pointer layout too.
+CKPT_ROWS rows and the host walk ``traceback_blocks`` fetches the
+blocks' pointers from K23, nibble-packed, the G blocks below the one it
+asks for in one launch and one copy.  The profile aligner uses K4 and
+the pointer layout too.
 """
 
 from __future__ import annotations
@@ -355,42 +356,34 @@ def _gotoh_sub() -> ctypes.Array:
     return (ctypes.c_int * 16)(*HOXD70.reshape(-1).tolist())
 
 
-def gotoh_geometry(B: int, M: int, N: int, geometry=None) -> dict:
-    """K22's launch geometry for B pairs of M rows in an N-column bucket
-    on the current card: `geometry` (g, W) or the pick, K24's
-    (ops.profile.span_geometry on K22's fits: K22 hands on two words a row
-    as K24 does, and is priced by K24's SPAN_COST).  Its keys, and "rows"
-    (gotoh_band_rows)."""
+def gotoh_geometry(n_inst: int, M: int, N: int, geometry=None,
+                   ptr: bool = False) -> dict:
+    """The launch geometry of K22 (n_inst = B pairs of M rows) or, with
+    `ptr`, K23 (n_inst = G x B row blocks of M rows) in an N-column
+    bucket on the current card: `geometry` (g, W) or the pick, K24's or
+    K25's (ops.profile.span_geometry on K22's or K23's fits: they hand on
+    two and three words a row as K24 and K25 do, and are priced by their
+    SPAN_COST).  Its keys, and "rows" (gotoh_band_rows)."""
     from libmems_tpu_torch.ops import profile   # profile imports this module
-    geo = profile.span_geometry(B, M, N, False, geometry,
-                                profile.span_fits("lm_gotoh_fits"))
+    geo = profile.span_geometry(n_inst, M, N, ptr, geometry,
+                                profile.span_fits("lm_gotoh_fits", int(ptr)))
     if geo["blocks_per_sm"] < 1:
-        raise ValueError(f"K22 geometry {geo['geometry']} does not fit the "
-                         f"card")
-    geo["rows"] = gotoh_band_rows(B, M, geo["blocks"])
+        raise ValueError(f"K{23 if ptr else 22} geometry {geo['geometry']} "
+                         f"does not fit the card")
+    geo["rows"] = gotoh_band_rows(n_inst, M, geo["blocks"], ptr)
     return geo
 
 
-def gotoh_band_rows(B: int, M: int, C: int) -> int:
-    """The rows a K22 launch of B pairs of C blocks takes: all M where its
-    hand-off columns (16 bytes a row at each of a pair's C - 1 block
-    edges) fit the span kernels' cap, PTR_BUDGET / SPAN_EDGE_SHARE bytes,
-    else the most that do (at least one); the rest follow in launches of
-    as many rows."""
+def gotoh_band_rows(n_inst: int, M: int, C: int, ptr: bool = False) -> int:
+    """The rows a K22 (K23 with `ptr`) launch of n_inst instances of C
+    blocks takes: all M where its hand-off columns (16 bytes a row, 24
+    for K23, at each of an instance's C - 1 block edges) fit the span
+    kernels' cap, PTR_BUDGET / SPAN_EDGE_SHARE bytes, else the most that
+    do (at least one); the rest follow in launches of as many rows."""
     from libmems_tpu_torch.ops import profile
-    per_row = 16 * B * (C - 1)
+    per_row = (24 if ptr else 16) * n_inst * (C - 1)
     cap = profile.PTR_BUDGET // profile.SPAN_EDGE_SHARE
     return M if per_row * M <= cap else max(1, min(M, cap // per_row))
-
-
-def _gotoh_rows_scratch(B: int, N: int, device, scratch: bool):
-    """Global (H, F) row scratch when asked for or when the rows exceed
-    the shared memory a K23 block may take, else None."""
-    lib = cuda.library()
-    if not scratch and lib.lm_gotoh_row_bytes(N) <= lib.lm_gotoh_smem_limit():
-        return None
-    return torch.empty((max(B, 1), 2, N + 1), dtype=torch.int32,
-                       device=device)
 
 
 @cuda.launcher
@@ -434,7 +427,7 @@ def gotoh_forward(a, b, a_len, b_len, gap_open: int = GAP_OPEN,
     lib = cuda.library()
     # held by name until the launches are queued (ground rule of cuda.py)
     work = torch.empty((lib.lm_gotoh_scratch_bytes(B, rows, N,
-                                                   *geo["geometry"]),),
+                                                   *geo["geometry"], 0),),
                        dtype=torch.uint8, device=dev)
     # the (H, F) row between bands, [band parity, H or F, B, N+1]
     edge = torch.empty((2, 2, B, N + 1), dtype=torch.int32, device=dev) \
@@ -488,19 +481,115 @@ def gotoh_block_ptrs_plain(ck_h, ck_f, a_blk, b, gap_open: int,
     return pack_ptrs_plain(p) if packed else p
 
 
+def gotoh_block_ptrs_batch_plain(ck_h, ck_f, a, b, first: int, G: int,
+                                 gap_open: int = GAP_OPEN,
+                                 gap_extend: int = GAP_EXTEND,
+                                 packed: bool = True):
+    """Plain PyTorch version of the batched K23: gotoh_block_ptrs_plain of
+    row blocks first .. first+G-1, stacked (block 0 from the DP's first
+    row, as the kernel makes it)."""
+    R = a.shape[1] // ck_h.shape[0]
+    return torch.stack([gotoh_block_ptrs_plain(
+        ck_h[bi] if bi else None, ck_f[bi] if bi else None,
+        a[:, bi * R:(bi + 1) * R].contiguous(), b, gap_open, gap_extend,
+        packed) for bi in range(first, first + G)])
+
+
+def _ptr_launches(a, b, h_in, f_in, r0: int, R: int, G: int,
+                  from_top: bool, out, gap_open: int, gap_extend: int,
+                  geometry) -> None:
+    """K23's launches: row blocks k < G of every pair, rows r0 + k R + 1
+    .. r0 + (k + 1) R of a[B, M], from the (H, F) rows h_in, f_in [G, B,
+    N+1] (None: block 0 from the DP's first row, G = 1; with from_top
+    block 0 starts there whatever h_in holds), into out [G, B, R, width]
+    (width N+1, or ceil((N+1)/2) packed).  The rows run in bands of
+    gotoh_band_rows where the hand-off columns pass the cap, each band
+    from the rows the one before it wrote; one count a launch on
+    gotoh_block_ptrs.launches."""
+    dev = b.device
+    B, M = a.shape
+    N = b.shape[1]
+    width = out.shape[-1]
+    geo = gotoh_geometry(G * B, R, N, geometry, ptr=True)
+    rows = geo["rows"]
+    lib = cuda.library()
+    # held by name until the launches are queued (ground rule of cuda.py)
+    work = torch.empty((lib.lm_gotoh_scratch_bytes(G * B, rows, N,
+                                                   *geo["geometry"], 1),),
+                       dtype=torch.uint8, device=dev)
+    # the (H, F) rows between bands, [band parity, H or F, G, B, N+1]
+    edge = torch.empty((2, 2, G, B, N + 1), dtype=torch.int32, device=dev) \
+        if rows < R else None
+    sub = _gotoh_sub()
+    for k, lo in enumerate(range(0, R, rows)):
+        n = min(rows, R - lo)
+        h = (h_in, f_in) if lo == 0 else edge[(k - 1) % 2]
+        o = edge[k % 2] if lo + n < R else (None, None)
+        cuda.check(lib.lm_gotoh_block_ptrs(
+            a.data_ptr(), b.data_ptr(), B, M, N, r0 + lo, R, n, G,
+            int(from_top and lo == 0),
+            *(x.data_ptr() if x is not None else None for x in (*h, *o)),
+            gap_open, gap_extend, sub, int(width != N + 1),
+            out.data_ptr() + lo * width, R, work.data_ptr(),
+            *geo["geometry"], cuda.stream(b)), "lm_gotoh_block_ptrs")
+        gotoh_block_ptrs.launches += 1
+
+
+@cuda.launcher
+def gotoh_block_ptrs_batch(ck_h, ck_f, a, b, first: int, G: int,
+                           gap_open: int = GAP_OPEN,
+                           gap_extend: int = GAP_EXTEND,
+                           packed: bool = True, *, geometry=None):
+    """Pointer bytes of G row blocks of a batch of pairs at once, each
+    re-derived from its carry.
+
+    ck_h, ck_f: int32[nb, B, N+1], the carries at the top of every R-row
+    block (gotoh_forward's); a: uint8[B, nb*R]; b: uint8[B, N].  Returns
+    uint8[G, B, R, ceil((N+1)/2)] (two cells a byte, cell 2k in the low
+    nibble; unpack_ptrs restores a block's uint8[B, R, N+1]), or without
+    `packed` uint8[G, B, R, N+1]: blocks first .. first+G-1 in the layout
+    of ops/gapped.py:124-136, every row and column written, block 0 from
+    the DP's first row.  CPU tensors take the plain version; CUDA tensors
+    launch K23 (its launches are counted on gotoh_block_ptrs), every row
+    block side by side, in the pick of gotoh_geometry or in `geometry`
+    (g, W)."""
+    if b.device.type == "cpu":
+        return gotoh_block_ptrs_batch_plain(ck_h, ck_f, a, b, first, G,
+                                            gap_open, gap_extend, packed)
+    dev = b.device
+    nb, B = ck_h.shape[:2]
+    M, N = a.shape[1], b.shape[1]
+    R = M // max(nb, 1)
+    if nb < 1 or R < 1 or R * nb != M or first < 0 or G < 1 or \
+            first + G > nb:
+        raise ValueError(f"blocks {first}..{first + G - 1} of {nb} over "
+                         f"{M} rows")
+    cuda.require(a, "a", torch.uint8, dev, (B, M))
+    cuda.require(b, "b", torch.uint8, dev, (B, N))
+    cuda.require(ck_h, "ck_h", torch.int32, dev, (nb, B, N + 1))
+    cuda.require(ck_f, "ck_f", torch.int32, dev, (nb, B, N + 1))
+    width = (N + 2) // 2 if packed else N + 1
+    ptr = torch.empty((G, B, R, width), dtype=torch.uint8, device=dev)
+    _ptr_launches(a, b, ck_h[first], ck_f[first], first * R, R, G,
+                  first == 0, ptr, gap_open, gap_extend, geometry)
+    return ptr
+
+
 @cuda.launcher
 def gotoh_block_ptrs(ck_h, ck_f, a_blk, b, gap_open: int = GAP_OPEN,
-                     gap_extend: int = GAP_EXTEND, packed: bool = False,
-                     scratch: bool = False):
-    """Pointer bytes of a block of DP rows, re-derived from its carry.
+                     gap_extend: int = GAP_EXTEND, packed: bool = False, *,
+                     geometry=None):
+    """Pointer bytes of a block of DP rows, re-derived from its carry: the
+    batched K23 of one block (G = 1), or from the DP's first row.
 
     ck_h, ck_f: int32[B, N+1], the (H, F) carry at the block's top, or
-    both None to start from the DP's first row; a_blk: uint8[B, R] the
-    block's symbols; b: uint8[B, N].  Returns uint8[B, R, N+1] in the
-    layout of ops/gapped.py:124-136, or with `packed` uint8[B, R,
-    ceil((N+1)/2)], two cells a byte.  CPU tensors take the plain
-    version; CUDA tensors launch K23, its (H, F) rows in shared memory,
-    or in global memory where they do not fit or with `scratch`."""
+    both None to start from the DP's first row (align_pairs' full route:
+    every row of a bucket); a_blk: uint8[B, R] the block's symbols; b:
+    uint8[B, N].  Returns uint8[B, R, N+1] in the layout of
+    ops/gapped.py:124-136, or with `packed` uint8[B, R, ceil((N+1)/2)],
+    two cells a byte.  CPU tensors take the plain version; CUDA tensors
+    launch K23 in the pick of gotoh_geometry or in `geometry` (g, W), in
+    bands of rows where its hand-off columns pass the cap."""
     if b.device.type == "cpu":
         return gotoh_block_ptrs_plain(ck_h, ck_f, a_blk, b, gap_open,
                                       gap_extend, packed)
@@ -516,15 +605,9 @@ def gotoh_block_ptrs(ck_h, ck_f, a_blk, b, gap_open: int = GAP_OPEN,
         cuda.require(ck_f, "ck_f", torch.int32, dev, (B, N + 1))
     width = (N + 2) // 2 if packed else N + 1
     ptr = torch.empty((B, R, width), dtype=torch.uint8, device=dev)
-    rows = _gotoh_rows_scratch(B, N, dev, scratch)
-    lib = cuda.library()
-    cuda.check(lib.lm_gotoh_ptrs(
-        a_blk.data_ptr(), ck_h.data_ptr() if ck_h is not None else None,
-        ck_f.data_ptr() if ck_f is not None else None, b.data_ptr(), B, R, N,
-        gap_open, gap_extend, _gotoh_sub(), int(packed), ptr.data_ptr(),
-        rows.data_ptr() if rows is not None else None, cuda.stream(b)),
-        "lm_gotoh_ptrs")
-    gotoh_block_ptrs.launches += 1
+    if R:
+        _ptr_launches(a_blk, b, ck_h, ck_f, 0, R, 1, ck_h is None, ptr,
+                      gap_open, gap_extend, geometry)
     return ptr
 
 
@@ -660,6 +743,28 @@ def plan_pairs(pairs: list[tuple[np.ndarray, np.ndarray]]):
                Bpad * Mp * (N + 1) <= DEVICE_TB_BUDGET)
 
 
+def _block_fetch(ck_h, ck_f, a, b, gap_open: int, gap_extend: int):
+    """traceback_blocks' fetch on the checkpointed route: asked for block
+    bi, one K23 launch computes the G blocks bi - G + 1 .. bi
+    (ops.profile.block_batch) side by side, one copy brings them to the
+    host packed, and each is unpacked when the walk reaches it."""
+    from libmems_tpu_torch.ops import profile
+    nb, B, N1 = ck_h.shape
+    G = profile.block_batch(B, a.shape[1] // nb, N1 - 1, nb)
+    held = {}   # the latest launch's blocks, packed
+
+    def fetch(bi):
+        if bi not in held:
+            held.clear()
+            lo = max(0, bi - G + 1)
+            packed = gotoh_block_ptrs_batch(
+                ck_h, ck_f, a, b, lo, bi + 1 - lo, gap_open,
+                gap_extend).cpu().numpy()
+            held.update((lo + k, packed[k]) for k in range(len(packed)))
+        return unpack_ptrs(held[bi], N1)
+    return fetch
+
+
 @cuda.entry(cuda.device_arg)
 def align_pairs(pairs: list[tuple[np.ndarray, np.ndarray]],
                 gap_open: int = GAP_OPEN, gap_extend: int = GAP_EXTEND,
@@ -690,14 +795,9 @@ def align_pairs(pairs: list[tuple[np.ndarray, np.ndarray]],
         else:
             _, ck_h, ck_f = gotoh_forward(aj, bj, alj, blj, gap_open,
                                           gap_extend, K)
-
-            def fetch(bi, aj=aj, bj=bj, ck_h=ck_h, ck_f=ck_f, K=K, N=N):
-                return unpack_ptrs(gotoh_block_ptrs(
-                    ck_h[bi], ck_f[bi],
-                    aj[:, bi * K:(bi + 1) * K].contiguous(), bj, gap_open,
-                    gap_extend, packed=True).cpu().numpy(), N + 1)
-
-            tb = traceback_blocks(fetch, Mp // K, K, a_len, b_len)
+            tb = traceback_blocks(
+                _block_fetch(ck_h, ck_f, aj, bj, gap_open, gap_extend),
+                Mp // K, K, a_len, b_len)
         for row, idx in enumerate(idxs):
             results[idx] = tb[row]
     return results

@@ -410,9 +410,9 @@ def profile_forward_ckpt_plain(p, q, p_len, q_len, gap_open: int = GAP_OPEN,
     return score, ck_h, ck_f
 
 
-# The span kernels' geometry (K24, K25 and K22): SPAN_K[g] columns a lane
-# (csrc/strip.cuh kSpanK), W strips a block of W + 1 warps (warp 0 the
-# receiver), W <= SPAN_MAX_W
+# The span kernels' geometry (K24, K25, K22 and K23): SPAN_K[g] columns
+# a lane (csrc/strip.cuh kSpanK), W strips a block of W + 1 warps (warp 0
+# the receiver), W <= SPAN_MAX_W
 SPAN_K = (17, 16, 13, 9, 8, 5, 3, 1)
 SPAN_MAX_W = 8
 # The price of a span launch, in ns (span_cost): a row of a strip costs
@@ -429,8 +429,8 @@ SPAN_COST = {False: (350, 20, 20, 200, 5_000),
 # a launch's hand-off columns hold at most PTR_BUDGET / SPAN_EDGE_SHARE
 # bytes: span_pick leaves out the geometries of more blocks
 SPAN_EDGE_SHARE = 16
-# K25's launches on the checkpointed route hold at most this share of
-# PTR_BUDGET in packed pointers (block_batch)
+# K25's and K23's launches on the checkpointed routes hold at most this
+# share of PTR_BUDGET in packed pointers (block_batch)
 PTR_BATCH_SHARE = 8
 # the card's fits of the span kernels, by (device index, C entry, its
 # arguments)
@@ -475,8 +475,9 @@ def span_edge_bytes(n_inst: int, R: int, N: int, ptr: bool, g: int,
 
 def span_fits(entry: str, *args):
     """(n_sm, {(g, W): blocks an SM}) of a span kernel on the current
-    card, from its C entry (lm_span_fits with ptr 0 for K24 and 1 for
-    K25, lm_gotoh_fits for K22), asked of the runtime once a card."""
+    card, from its C entry (lm_span_fits or lm_gotoh_fits, with ptr 0
+    for K24 and K22, 1 for K25 and K23), asked of the runtime once a
+    card."""
     key = (torch.cuda.current_device(), entry, args)
     fits = _SPAN_FITS.get(key)
     if fits is None:

@@ -14,7 +14,8 @@ each span start for its C keys:
   that owner in (row, genome) order; the send buffer of tile-local starts
   grouped by owner, and the requests past req_cap counted;
 * ``tiled_serve`` (K30): the owner's copy of tile[s : s + C] for each
-  received start s, the sentinel row for a start outside its tile;
+  received start s, the sentinel row for a start outside its tile, a
+  warp a span with evict-first stores;
 * ``tiled_probe`` (K31): the round on the spans (reversed for genomes
   moving left), updating the rows' left ends, lengths and activity: up
   to WARP_GENOMES genomes a row a warp a row over ballot words of the
@@ -158,8 +159,8 @@ def tiled_serve(tile, S: int, offs, C: int, fill: int):
     """An owner's answer to span requests: int64[n, C] rows tile[s : s +
     C] for each tile-local start s of offs int64[n], the sentinel row
     `fill` where s lies outside [0, S).  tile: int64[S + halo], halo >=
-    C.  CPU tensors take the plain version; CUDA tensors launch K30,
-    except for no requests (nothing launched)."""
+    C.  CPU tensors take the plain version; CUDA tensors launch K30 (a
+    warp a span), except for no requests (nothing launched)."""
     if tile.device.type == "cpu":
         return tiled_serve_plain(tile, S, offs, C, fill)
     dev = tile.device

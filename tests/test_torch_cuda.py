@@ -2014,14 +2014,12 @@ def _gotoh_batch(B, M, N, rng_seed):
     return [torch.from_numpy(x) for x in (a, b, a_len, b_len)]
 
 
-@pytest.mark.parametrize("B,M,N,scratch", [(3, 128, 130, False),
-                                           (2, 256, 2047, False),
-                                           (2, 128, 1500, True)])
-def test_gotoh_kernels_equal_plain(dev, B, M, N, scratch):
+@pytest.mark.parametrize("B,M,N", [(3, 128, 130), (2, 256, 2047),
+                                   (2, 128, 1500)])
+def test_gotoh_kernels_equal_plain(dev, B, M, N):
     """K22 (score, carries; score only) and K23 (from the first row and
     from a carry, unpacked and packed) against their plain versions:
-    exact.  N = 2047 runs two of K23's tiles a row; `scratch` keeps K23's
-    rows in global memory."""
+    exact, in the launchers' picks."""
     from libmems_tpu_torch.ops import gapped as gp
     K = 128
     t = _gotoh_batch(B, M, N, M + N)
@@ -2036,15 +2034,14 @@ def test_gotoh_kernels_equal_plain(dev, B, M, N, scratch):
     for packed in (False, True):
         r0 = gp.gotoh_block_ptrs_plain(None, None, t[0], t[1], gp.GAP_OPEN,
                                        gp.GAP_EXTEND, packed)
-        g0 = gp.gotoh_block_ptrs(None, None, td[0], td[1], packed=packed,
-                                 scratch=scratch)
+        g0 = gp.gotoh_block_ptrs(None, None, td[0], td[1], packed=packed)
         assert torch.equal(g0.cpu(), r0)
         bi = M // K - 1
         blk = t[0][:, bi * K:(bi + 1) * K].contiguous()
         r1 = gp.gotoh_block_ptrs_plain(ref[1][bi], ref[2][bi], blk, t[1],
                                        gp.GAP_OPEN, gp.GAP_EXTEND, packed)
         g1 = gp.gotoh_block_ptrs(got[1][bi], got[2][bi], blk.to(dev), td[1],
-                                 packed=packed, scratch=scratch)
+                                 packed=packed)
         assert torch.equal(g1.cpu(), r1)
 
 
@@ -2124,6 +2121,89 @@ def test_gotoh_forward_bands_equal_plain(dev, monkeypatch, rows, geometry):
                               carries=False, geometry=geometry)[0]
     assert torch.equal(s_only, ref[0])
     assert gp.gotoh_forward.launches == n + 2 * -(-M // rows)
+
+
+def _gotoh_geometries(N, ptr):
+    """Every span geometry (g, W) K22 (K23 with `ptr`) fits on the card
+    with no more strips a block than an N-column bucket has."""
+    from libmems_tpu_torch.ops import profile
+    fits = profile.span_fits("lm_gotoh_fits", int(ptr))[1]
+    return [(g, W) for (g, W), n in sorted(fits.items())
+            if n > 0 and W <= profile.span_plan(N, profile.SPAN_K[g], 1)[0]]
+
+
+@pytest.mark.parametrize("N", [130, 1500, 2047])
+def test_gotoh_block_ptrs_geometries_equal_plain(dev, N):
+    """K23 in every geometry that fits the card against its plain
+    versions, exact: the batch of G row blocks (all four from the DP's
+    top, two from a checkpoint, the last alone), the single block from a
+    carry, and the full route from the first row, packed and unpacked,
+    with an empty a and an empty b; one launch a call."""
+    from libmems_tpu_torch.ops import gapped as gp
+    B, M, K = 3, 512, 128
+    nb = M // K
+    t = _gotoh_edge_batch(B, M, N, N + 3)
+    td = [x.to(dev) for x in t]
+    _, ck_h, ck_f = gp.gotoh_forward(*td, gp.GAP_OPEN, gp.GAP_EXTEND, K)
+    refs = {pk: (gp.gotoh_block_ptrs_batch_plain(ck_h, ck_f, td[0], td[1],
+                                                 0, nb, packed=pk),
+                 gp.gotoh_block_ptrs_plain(None, None, td[0], td[1],
+                                           gp.GAP_OPEN, gp.GAP_EXTEND, pk))
+            for pk in (False, True)}
+    geos = _gotoh_geometries(N, True)
+    assert geos
+    for geo in geos:
+        for pk, (blocks, full) in refs.items():
+            n = gp.gotoh_block_ptrs.launches
+            for first, G in ((0, nb), (1, 2), (nb - 1, 1)):
+                got = gp.gotoh_block_ptrs_batch(ck_h, ck_f, td[0], td[1],
+                                                first, G, packed=pk,
+                                                geometry=geo)
+                assert torch.equal(got, blocks[first:first + G]), \
+                    (geo, pk, first, G)
+            one = gp.gotoh_block_ptrs(ck_h[2], ck_f[2],
+                                      td[0][:, 2 * K:3 * K].contiguous(),
+                                      td[1], packed=pk, geometry=geo)
+            assert torch.equal(one, blocks[2]), (geo, pk)
+            got = gp.gotoh_block_ptrs(None, None, td[0], td[1], packed=pk,
+                                      geometry=geo)
+            assert torch.equal(got, full), (geo, pk)
+            assert gp.gotoh_block_ptrs.launches == n + 5
+
+
+@pytest.mark.parametrize("rows,geometry", [(100, (5, 2)), (1, (3, 1)),
+                                           (128, (0, 1))])
+def test_gotoh_block_ptrs_bands_equal_plain(dev, monkeypatch, rows,
+                                            geometry):
+    """K23 in bands of `rows` rows, each launch starting from the (H, F)
+    rows the one before it wrote, as gotoh_band_rows cuts a launch whose
+    hand-off columns pass the cap (lowered here): the full route of 384
+    rows and a batch of three 128-row blocks equal their plain versions,
+    one launch a band."""
+    from libmems_tpu_torch.ops import gapped as gp
+    from libmems_tpu_torch.ops import profile
+    B, M, N, K = 4, 384, 900, 128
+    t = _gotoh_edge_batch(B, M, N, 78)
+    td = [x.to(dev) for x in t]
+    _, ck_h, ck_f = gp.gotoh_forward(*td, gp.GAP_OPEN, gp.GAP_EXTEND, K)
+    full = gp.gotoh_block_ptrs_plain(None, None, td[0], td[1], gp.GAP_OPEN,
+                                     gp.GAP_EXTEND)
+    blocks = gp.gotoh_block_ptrs_batch_plain(ck_h, ck_f, td[0], td[1], 0,
+                                             M // K)
+    for n_inst, R, call, want in (
+            (B, M, lambda: gp.gotoh_block_ptrs(None, None, td[0], td[1],
+                                               geometry=geometry), full),
+            (3 * B, K, lambda: gp.gotoh_block_ptrs_batch(
+                ck_h, ck_f, td[0], td[1], 0, 3, geometry=geometry),
+             blocks)):
+        C = gp.gotoh_geometry(n_inst, R, N, geometry, ptr=True)["blocks"]
+        monkeypatch.setattr(profile, "SPAN_EDGE_SHARE", profile.PTR_BUDGET
+                            // (24 * n_inst * (C - 1) * rows))
+        assert gp.gotoh_geometry(n_inst, R, N, geometry,
+                                 ptr=True)["rows"] == min(rows, R)
+        n = gp.gotoh_block_ptrs.launches
+        assert torch.equal(call(), want)
+        assert gp.gotoh_block_ptrs.launches == n + -(-R // rows)
 
 
 def test_gotoh_forward_one_row_block(dev):
@@ -2591,6 +2671,27 @@ def test_tiled_request_and_serve_kernels_equal_plain(dev, G, n_dev, req_cap):
     ref = tiled.tiled_serve_plain(tile, S, offs, C, -1)
     assert torch.equal(tiled.tiled_serve(tile.to(dev), S, offs.to(dev), C,
                                          -1).cpu(), ref)
+
+
+@pytest.mark.parametrize("C", [15, 33, 512, 520])
+def test_tiled_serve_kernel_equals_plain(dev, C):
+    """K30, a warp a span, against its plain version, exact: odd and even
+    starts, the tile's first and last starts, starts outside it, a tile
+    view 8 bytes off a 16-byte boundary, odd C, one request and none; one
+    launch a call, none for no requests."""
+    from libmems_tpu_torch.ops import tiled
+    rng = np.random.default_rng(C)
+    S = 1 << 14
+    big = torch.from_numpy(rng.integers(-2**62, 2**62, S + C + 129)).to(dev)
+    for tile in (big[:-1], big[1:]):
+        for n in (0, 1, 20_001):
+            offs = torch.from_numpy(rng.integers(-40, S + 40, n))
+            offs[:4] = torch.tensor([0, 1, S - 1, S])[:n]
+            ref = tiled.tiled_serve_plain(tile.cpu(), S, offs, C, -1)
+            k = tiled.tiled_serve.launches
+            got = tiled.tiled_serve(tile, S, offs.to(dev), C, -1)
+            assert torch.equal(got.cpu(), ref)
+            assert tiled.tiled_serve.launches == k + (n > 0)
 
 
 # K31's span rows: (seed_len, C) as the CPU tests take them

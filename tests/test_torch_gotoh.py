@@ -156,6 +156,114 @@ def test_carries_and_pointer_bytes_equal_jax():
             jg.unpack_ptrs(want_p, N + 1))
 
 
+def _padded_batch(B, n_pairs, M, N, rng_seed):
+    """B rows of which the first n_pairs hold related pairs (pair 1 with
+    an empty a, pair 2 with an empty b) and the rest are padding pairs
+    (no a, no b), as plan_pairs pads a bucket."""
+    rng = np.random.default_rng(rng_seed)
+    a = np.zeros((B, M), np.uint8)
+    b = np.zeros((B, N), np.uint8)
+    a_len = np.zeros(B, np.int32)
+    b_len = np.zeros(B, np.int32)
+    for r in range(n_pairs):
+        la = 0 if r == 1 else (M if r == 0 else int(rng.integers(1, M + 1)))
+        lb = 0 if r == 2 else (N if r == 0 else int(rng.integers(1, N + 1)))
+        x = rng.integers(0, 4, max(la, lb)).astype(np.uint8)
+        y = x.copy()
+        y[rng.random(len(y)) < 0.05] = rng.integers(0, 4)
+        a[r, :la] = x[:la]
+        b[r, :lb] = np.concatenate([y[:10], y[14:], y[:4]])[:lb]
+        a_len[r], b_len[r] = la, lb
+    return a, b, a_len, b_len
+
+
+@pytest.mark.parametrize("N", [40, 33])
+@pytest.mark.parametrize("first,G", [(0, 1), (2, 1), (0, 3), (1, 3),
+                                     (0, 4)])
+def test_block_ptrs_batch_equal_jax(first, G, N):
+    """The batched K23's plain version against _gotoh_block_ptrs and
+    pack_ptrs block by block: G = 1, 3 and all 4 blocks, from the first
+    row (block 0, made from _gotoh_h0f0's row) and from checkpoints, with
+    padding pairs, an empty a and an empty b; N + 1 odd (41) and even
+    (34); packed and unpacked, every row and column."""
+    B, M, K = 8, 64, 16
+    a, b, a_len, b_len = _padded_batch(B, 4, M, N, 7 * N + first + G)
+    go, ge = jg.GAP_OPEN, jg.GAP_EXTEND
+    _, jh, jf = (np.asarray(x) for x in jg._gotoh_forward_ckpt(
+        jnp.asarray(a), jnp.asarray(b), jnp.asarray(a_len),
+        jnp.asarray(b_len), go, ge, K))
+    t = [torch.from_numpy(x) for x in (a, b, a_len, b_len)]
+    _, ck_h, ck_f = gapped.gotoh_forward(*t, go, ge, K)
+    packed = gapped.gotoh_block_ptrs_batch(ck_h, ck_f, t[0], t[1], first, G,
+                                           go, ge)
+    full = gapped.gotoh_block_ptrs_batch(ck_h, ck_f, t[0], t[1], first, G,
+                                         go, ge, packed=False)
+    assert packed.shape == (G, B, K, (N + 2) // 2)
+    assert full.shape == (G, B, K, N + 1)
+    for k, bi in enumerate(range(first, first + G)):
+        want = np.asarray(jg._gotoh_block_ptrs(
+            jnp.asarray(jh[bi]), jnp.asarray(jf[bi]),
+            jnp.asarray(a[:, bi * K:(bi + 1) * K]), jnp.asarray(b),
+            jnp.asarray(b_len), go, ge))
+        np.testing.assert_array_equal(full[k].numpy(), want)
+        np.testing.assert_array_equal(packed[k].numpy(),
+                                      np.asarray(jg.pack_ptrs(want)))
+
+
+@pytest.mark.parametrize("share", [None, 1800])
+def test_align_pairs_batched_fetch_equal_jax(monkeypatch, share):
+    """align_pairs' checkpointed route with the batched fetch (the port's
+    DEVICE_TB_BUDGET lowered to 0; the JAX package keeps its own): masks
+    equal the JAX package's.  With PTR_BATCH_SHARE raised, a launch
+    holds two blocks and the walk takes several; by default one launch
+    holds every block the walk reads."""
+    from libmems_tpu_torch.ops import profile
+    monkeypatch.setattr(gapped, "DEVICE_TB_BUDGET", 0)
+    if share is not None:
+        monkeypatch.setattr(profile, "PTR_BATCH_SHARE", share)
+    calls = []
+    real = gapped.gotoh_block_ptrs_batch
+
+    def counted(*args, **kw):
+        calls.append(args[4:6])
+        return real(*args, **kw)
+    monkeypatch.setattr(gapped, "gotoh_block_ptrs_batch", counted)
+    rng = np.random.default_rng(31)
+    x = rng.integers(0, 4, 460).astype(np.uint8)
+    y = x.copy()
+    y[rng.random(460) < 0.04] = rng.integers(0, 4)
+    # one bucket of 512 rows (four blocks of 128), the longest a in block 3
+    pairs = [(x, np.concatenate([y[:100], y[112:]])), (x[:290], y[5:]),
+             (x[:260], x[:270])] + _pairs(12, 3, 260, 500)
+    got = gapped.align_pairs(pairs, device="cpu")
+    want = jg.align_pairs(pairs)
+    for (ga, gb), (wa, wb) in zip(got, want):
+        np.testing.assert_array_equal(ga, wa)
+        np.testing.assert_array_equal(gb, wb)
+    if share is None:
+        assert calls == [(0, 4)]
+    else:
+        assert calls == [(2, 2), (0, 2)]
+
+
+@pytest.mark.parametrize("B,M,C", [(8, 128, 26), (120, 128, 26),
+                                   (8, 16_384, 26), (8, 1 << 20, 241)])
+def test_gotoh_band_rows_hold_the_cap_with_pointers(B, M, C):
+    """K23's rows a launch: 24 bytes a row at each of C - 1 block edges
+    (three hand-off words), all M rows where they fit the cap, else the
+    most that do, at least one."""
+    from libmems_tpu_torch.ops import profile
+    cap = profile.PTR_BUDGET // profile.SPAN_EDGE_SHARE
+    per_row = 24 * B * (C - 1)
+    rows = gapped.gotoh_band_rows(B, M, C, ptr=True)
+    assert 1 <= rows <= M
+    if per_row * M <= cap:
+        assert rows == M
+    else:
+        assert per_row * rows <= cap or rows == 1
+        assert per_row * (rows + 1) > cap
+
+
 @pytest.mark.parametrize("B,M,N,K", [(3, 32, 70, 32), (4, 48, 100, 16),
                                      (3, 16, 543, 16), (2, 64, 33, 64),
                                      (3, 24, 0, 8)])

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from libmems_tpu import seeds as jseeds
+from libmems_tpu.ops import extend as jextend
 from libmems_tpu.ops.extend import _fetch_spans, make_probe_round
 from libmems_tpu.parallel import shard as jsh
 from libmems_tpu.sml import SortedMerList as JaxSML
@@ -108,6 +109,37 @@ def _shard_rows(mesh, tiles):
                                     row_keys=True)
         rows.append(ops_shard.shard_candidates(f, 2, 2048, tiles.seed_len))
     return rows
+
+
+@pytest.mark.parametrize("C", [15, 33, 512, 520])
+@pytest.mark.parametrize("n", [0, 1, 300])
+def test_tiled_serve_equals_jax(monkeypatch, C, n):
+    """K30's plain version against the owner's answer in
+    parallel/shard.py:572-577 (ops/extend.py's _fetch_spans on the served
+    starts, the sentinel row where a start lies outside [0, S)): odd and
+    even starts, the tile's first and last, starts outside it on both
+    sides, and no requests.  _fetch_spans takes its "slice" strategy, a
+    dynamic_slice a row: its "rows" strategy reads C // 128 + 1 rows of
+    128 keys, which hold a span only where start % 128 + C fits them.
+    Exact."""
+    monkeypatch.setattr(jextend, "FETCH", "slice")
+    rng = np.random.default_rng(C + n)
+    S = 1024
+    size = S + C + 128
+    tile = rng.integers(-2**62, 2**62, size)
+    offs = rng.integers(-40, S + 40, n)
+    offs[:4] = [0, 1, S - 1, S][:n]
+    want = np.zeros((n, C), np.int64)
+    if n:
+        junk = (offs < 0) | (offs >= S)
+        served = np.asarray(_fetch_spans(
+            jnp.asarray(tile), jnp.asarray(np.where(junk, 0, offs),
+                                           jnp.int32), C))
+        want = np.where(junk[:, None], np.int64(-1), served)
+    got = ops_tiled.tiled_serve(torch.from_numpy(tile), S,
+                                torch.from_numpy(offs), C, -1)
+    assert got.shape == (n, C) and got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("side", [0, 1])
