@@ -4,10 +4,11 @@
     python3 chip_smoke.py [--sweep] [phase ...]
 
 With no argument every phase runs but the light fullwidth, wide, hmm,
-hmmstage, runflags, seedwords, reps and extend; naming phases (kernels,
-seeder, seedocc, goldens, main, trio, progressive, large, profile_dp,
-decode, bounded, mesh, tiled, multihost, cards, fullwidth, wide, hmm,
-hmmstage, runflags, seedwords, reps, extend) runs only those, plus
+hmmstage, runflags, seedwords, reps, extend, viterbi and requests;
+naming phases (kernels, seeder, seedocc, goldens, main, trio,
+progressive, large, profile_dp, decode, bounded, mesh, tiled, multihost,
+cards, fullwidth, wide, hmm, hmmstage, runflags, seedwords, reps, extend,
+viterbi, requests) runs only those, plus
 the progressive run whose recorded inputs profile_dp, decode and hmm
 read (and the large run for hmm, the main, trio and progressive runs
 whose outputs mesh and cards are held to, the main run for tiled and
@@ -129,10 +130,14 @@ non-zero and prints no result line):
              on the pair path's inter-anchor windows (K23 + K4 on the
              card) and on 8 mutant pairs of 10 kbp (over the pointer
              budget: K22, packed K23 blocks a launch, the host walk),
-             viterbi_homologous (K20) on the first progressive run's HMM
-             sequences and 2 iterations of baum_welch (K21) on them; K22,
-             K20 and every K23 call of the run (recorded, replayed) exact
-             against their plain versions, K21 within 1e-12, the walked
+             viterbi_homologous (K20, one ragged launch a call) on the
+             first progressive run's HMM sequences (written to
+             DECODE_CALLS) and 2 iterations of baum_welch (K21) on them;
+             K22, K20 (the run's ragged launches and the padded batches
+             up to HMM_CHECK_MAX_T and the longest, through viterbi_path)
+             and every K23 call of the run (recorded, replayed) exact
+             against their plain versions, K20's step cycles (clock64)
+             and each launch's latency floor, K21 within 1e-12, the walked
              masks scoring to the DP score (K22, and K23's Σ, by events
              and on the card, beside their latency floors; with --sweep
              also K22 and K23's largest call in every geometry of
@@ -173,14 +178,17 @@ non-zero and prints no result line):
              all within 150 s;
 12. tiled  - the position-tiled extension with 4 shards on the card:
              K29-K31 exact against their plain versions at the pair's
-             first fetch, timed (K30 and K31 on the card too, K31's bound
-             its least probe);
+             first fetch, timed (K29 with its tally's read, K29-K31 on
+             the card too, K31's bound its least probe);
              sharded_find_mums_tiled of the rng-0 pair equals
              phase main's find_mums (K26-K31 launched; probe rounds,
              fetches, each shard's S + halo resident keys against the
              replicated table, the memory peak printed); a second run
-             times every K29-K31 launch alone on the card (their Σ beside
-             their Σ bound); within 90 s;
+             times every K30 and K31 launch alone on the card and each
+             fetch's request stage (every shard's K29 and the counts'
+             read), their Σ beside their Σ bound, and the concatenation
+             of each shard's returned answers; a third counts the
+             synchronising operations a fetch; within 90 s;
 13. multihost - one NCCL rank a card, spawned after the build (one card:
              one process, a 4-shard mesh of its card), runs
              multihost_find_mums (default, pairwise, tiled) and
@@ -229,6 +237,17 @@ extend   - (named runs only) K2's call on the pair, trio, 9 x 1 Mbp and
              3 x 8.7 Mbp paths and its wide route at 64 genomes, K14's on
              the trio, recorded at their call sites, each alone by
              events, on the card and on the host (phase_extend); it
+             times an older tree's archive as well.
+viterbi  - (named runs only) the decode run's viterbi_homologous calls,
+             read back from DECODE_CALLS: their wall, launches, K20's
+             card time (torch.profiler) and the chosen padded batches
+             through viterbi_path (phase_viterbi); copied with
+             DECODE_CALLS into an older tree's archive it times that
+             tree as well.
+requests - (named runs only) K29 at the tiled pair's first fetch with
+             its counts' host reads, each fetch's request stage over a
+             run, the synchronising operations a fetch, K29's card time
+             (torch.profiler) and the seeding wall (phase_requests); it
              times an older tree's archive as well.
 
 The inputs of phases 7-9 are recorded one layer above the kernel
@@ -319,8 +338,8 @@ SOURCES = {
                       "libmems_tpu/ops/gapped.py:151"),
     "gotoh_block_ptrs": ("libmems_tpu_torch/csrc/gotoh.cu",
                          "libmems_tpu/ops/gapped.py:178"),
-    "viterbi_path": ("libmems_tpu_torch/csrc/hmm.cu",
-                     "libmems_tpu/ops/hmm.py:531"),
+    "viterbi_ragged": ("libmems_tpu_torch/csrc/hmm.cu",
+                       "libmems_tpu/ops/hmm.py:531"),
     "bw_counts": ("libmems_tpu_torch/csrc/hmm.cu",
                   "libmems_tpu/ops/hmm.py:603"),
     "profile_forward_ckpt": ("libmems_tpu_torch/csrc/profile.cu",
@@ -373,7 +392,7 @@ VITERBI_COLUMN_OPS = 10  # per column (K20): 4 adds, 2 compares, 2 selects,
                          # a step of the walk
 BW_COLUMN_OPS = 100   # per column (K21): K8's two passes, 6 exps and the
                       # count sums
-DECODE_KERNELS = ("gotoh_forward", "gotoh_block_ptrs", "viterbi_path",
+DECODE_KERNELS = ("gotoh_forward", "gotoh_block_ptrs", "viterbi_ragged",
                   "bw_counts")
 K23_WRAPPERS = ("gotoh_block_ptrs", "gotoh_block_ptrs_batch")
 MUTANT_PAIRS, MUTANT_PAIR_LEN = 8, 10_000
@@ -410,9 +429,12 @@ PHASES = ("kernels", "seeder", "seedocc", "goldens", "main", "trio",
 # phases only a named run takes: their checks are part of the full run's
 # phases already
 LIGHT_PHASES = ("fullwidth", "wide", "hmm", "hmmstage", "runflags",
-                "seedwords", "reps", "extend")
+                "seedwords", "reps", "extend", "viterbi", "requests")
 # the HMM calls phase hmm records for phase hmmstage
 HMM_CALLS = os.path.join(ROOT, "build", "chip_smoke_hmm", "calls.npz")
+# the predict_homologous calls phase decode runs viterbi_homologous on,
+# for phase viterbi
+DECODE_CALLS = os.path.join(ROOT, "build", "chip_smoke_decode", "calls.npz")
 
 
 class SmokeFailure(RuntimeError):
@@ -3476,9 +3498,9 @@ _HMM_PARAMS = ("start_homologous", "go_homologous", "go_unrelated",
                "go_stop_from_homologous", "go_stop_from_unrelated")
 
 
-def save_hmm_calls(paths):
+def save_hmm_calls(paths, path=HMM_CALLS):
     """Write each path's recorded predict_homologous calls (sequences,
-    params, threshold) to HMM_CALLS."""
+    params, threshold) to `path`."""
     from libmems_tpu_torch.ops import hmm
     out = {}
     for label, calls in paths.items():
@@ -3495,17 +3517,18 @@ def save_hmm_calls(paths):
         out[label + ":emit"] = np.array(
             [np.concatenate([q.emit_homologous, q.emit_unrelated])
              for q in pars])
-    os.makedirs(os.path.dirname(HMM_CALLS), exist_ok=True)
-    np.savez(HMM_CALLS, **out)
-    log(f"# HMM calls of {sorted(paths)} written to {HMM_CALLS}")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.savez(path, **out)
+    log(f"# HMM calls of {sorted(paths)} written to {path}")
 
 
-def load_hmm_calls():
-    """{label: [(sequences, HmmParams, threshold), ...]} from HMM_CALLS."""
+def load_hmm_calls(path=HMM_CALLS):
+    """{label: [(sequences, HmmParams, threshold), ...]} from `path`."""
     from libmems_tpu_torch.ops import hmm
-    require(os.path.exists(HMM_CALLS), f"{HMM_CALLS} is missing: run "
-            f"`chip_smoke.py hmm` first")
-    z = np.load(HMM_CALLS)
+    require(os.path.exists(path), f"{path} is missing: run "
+            f"`chip_smoke.py {'hmm' if path == HMM_CALLS else 'decode'}` "
+            f"first")
+    z = np.load(path)
     out = {}
     for label in sorted({k.split(":")[0] for k in z.files}):
         seqs = np.split(z[label + ":seqs"], np.cumsum(z[label + ":lens"])[:-1])
@@ -3576,18 +3599,167 @@ def phase_hmmstage(torch, dev):
                     kernels.items(), key=lambda kv: -kv[1][1])}))
 
 
+def decode_batches(torch, hmm, by_call, dev):
+    """The padded batches (hmm.pack_batches, with their call's log
+    matrices) of the decode run's viterbi_homologous calls ((sequences,
+    params) each), and those K20 and K21 are held to their plain
+    versions on: T <= HMM_CHECK_MAX_T and the longest.  Through names
+    older trees share.  Returns (batches, chosen)."""
+    batches = []
+    for seqs, params in by_call:
+        mats = hmm.log_matrices(params, dev)
+        for _, obs, lens in hmm.pack_batches(seqs):
+            batches.append((torch.from_numpy(obs).to(dev),
+                            torch.from_numpy(lens).to(dev), mats))
+    longest = max(range(len(batches)),
+                  key=lambda i: int(batches[i][1].max()))
+    return batches, [t for i, t in enumerate(batches)
+                     if t[0].shape[1] <= HMM_CHECK_MAX_T or i == longest]
+
+
+def viterbi_timings(torch, hmm, by_call, chosen, dev):
+    """K20 timed through names older trees share: the decode run's
+    viterbi_homologous calls ((sequences, params) each), their wall
+    (host clock, synchronised, median of 3 after a warm-up), the launches
+    they make, the card time of K20's kernels (names with viterbi) in a
+    profiled run; and the chosen padded batches through viterbi_path (Σ
+    by events and on the card).  Returns a dict of them."""
+    def run():
+        for seqs, params in by_call:
+            hmm.viterbi_homologous(seqs, params, device=dev)
+    wrappers = [w for w in (getattr(hmm, "viterbi_ragged", None),
+                            hmm.viterbi_path) if w is not None]
+    run()
+    for w in wrappers:
+        w.launches = 0
+    wall = host_ms(run, 3, torch)
+    launches = {w.__name__: w.launches // 4 for w in wrappers}
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    path = os.path.join(OUT_DIR, "viterbi_trace.json")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    prof.export_chrome_trace(path)
+    kernels = trace_kernels(path)
+
+    def chosen_run():
+        return [hmm.viterbi_path(*t) for t in chosen]
+    return {"calls": len(by_call),
+            "sequences": sum(len(c[0]) for c in by_call),
+            "columns": sum(len(x) for c in by_call for x in c[0]),
+            "wall_ms": wall, "launches": launches,
+            "card_ms": sum(ms for k, (_, ms) in kernels.items()
+                           if "viterbi" in k),
+            "trace": {k: [n, round(ms, 4)] for k, (n, ms) in kernels.items()},
+            "chosen_launches": len(chosen),
+            "chosen_events_ms": timed_ms(chosen_run, 3, torch),
+            "chosen_card_ms": device_ms(chosen_run, 3, torch)}
+
+
+def viterbi_floor_ms(n_cols, cycles):
+    """K20's latency floor for a launch whose longest row has n_cols
+    columns: its forward and walk steps (clock64 cycles a column, one
+    thread) at SM_CLOCK_HZ."""
+    return n_cols * (cycles[0] + cycles[1]) / SM_CLOCK_HZ * 1e3
+
+
+def viterbi_checks(torch, hmm, chosen, rec20, by_call, dev):
+    """K20 on the card against its plain version, exact: on the chosen
+    padded batches through viterbi_path (rows at offsets r x T) and on
+    every ragged launch of the decode run's viterbi_homologous calls
+    (recorded, replayed through viterbi_ragged), the ragged launches
+    timed by events and on the card; one column's forward and walk
+    steps by clock64 on the corpus's longest row, each launch's latency
+    floor from them, and one launch on 1, 32, 128 and 256 copies of that
+    row (how a row's column time grows with the rows beside it); then
+    viterbi_timings.  Returns K20's entry: the decode run's ragged
+    launches (their Σ, plain Σ and work, latency floor the Σ of their
+    floors)."""
+    got = [hmm.viterbi_path(*t) for t in chosen]
+    ref, p_chosen = timed_once(lambda: [hmm.viterbi_path_plain(*t)
+                                        for t in chosen], torch)
+    for (o, _, _), g, r in zip(chosen, got, ref):
+        require(torch.equal(g, r), f"K20 differs from its plain version "
+                f"at {tuple(o.shape)} (viterbi_path)")
+    err_chosen = max_abs_err(zip(got, ref))
+    del got, ref
+    calls = [(c["obs"], c["offsets"], c["lengths"], c["mats"])
+             for c in rec20["viterbi_ragged"]]
+    got = [hmm.viterbi_ragged(*a) for a in calls]
+    ref, p_rag = timed_once(lambda: [hmm.viterbi_ragged_plain(*a)
+                                     for a in calls], torch)
+    for (o, _, n, _), g, r in zip(calls, got, ref):
+        require(torch.equal(g, r), f"K20 differs from its plain version "
+                f"on a ragged launch of {n.shape[0]} rows, {o.shape[0]} "
+                f"columns")
+    err = max(err_chosen, max_abs_err(zip(got, ref)))
+    del got, ref
+    ms_rag = timed_ms(lambda: [hmm.viterbi_ragged(*a) for a in calls], 3,
+                      torch)
+    card_rag = device_ms(lambda: [hmm.viterbi_ragged(*a) for a in calls], 3,
+                         torch)
+    longest = max((x for c in by_call for x in c[0]), key=len)
+    row = torch.from_numpy(np.ascontiguousarray(longest)).to(dev)
+    hmm.viterbi_step_cycles(row, calls[0][3])
+    cycles = hmm.viterbi_step_cycles(row, calls[0][3])
+    floors = [viterbi_floor_ms(int(a[2].max()), cycles) for a in calls]
+    card_each = [device_ms(lambda a=a: hmm.viterbi_ragged(*a), 3, torch)
+                 for a in calls]
+    copies = {}
+    for n in (1, 32, 128, 256):
+        batch, = hmm.pack_ragged([longest] * n, list(range(n)))
+        t = batch.tensors(dev)
+        ms = device_ms(lambda: hmm.viterbi_ragged(*t, calls[0][3]), 3, torch)
+        copies[n] = [round(ms, 4),
+                     round(ms * 1e-3 * SM_CLOCK_HZ / len(longest), 2)]
+    del t
+    cols = sum(int(a[2].sum()) for a in calls)
+    w = work(sum(2 * a[0].shape[0] + 12 * a[2].shape[0] for a in calls),
+             VITERBI_COLUMN_OPS * cols, F64_OPS_PER_S)
+    w["latency_ms"] = sum(floors)
+    e = entry(err, ms_rag, p_rag, w)
+    e["card_ms"] = card_rag
+    tm = viterbi_timings(torch, hmm, by_call, chosen, dev)
+    chosen_floor = sum(viterbi_floor_ms(int(t[1].max()), cycles)
+                       for t in chosen)
+    log(f"# K20 step on the corpus's longest row ({len(longest)} columns, "
+        f"clock64, one thread): forward {cycles[0]:.2f} cycles a column, "
+        f"walk {cycles[1]:.2f}; one launch on n copies of it, {{n: [ms "
+        f"card, cycles a column at {SM_CLOCK_HZ / 1e9} GHz]}}: "
+        f"{json.dumps(copies)}")
+    log(f"# K20 on the chosen batches ({len(chosen)} launches of "
+        f"viterbi_path): Σ {tm['chosen_events_ms']:.4f} ms events, "
+        f"{tm['chosen_card_ms']:.4f} ms card, plain {p_chosen:.4f} ms; Σ "
+        f"latency floor {chosen_floor:.4f} ms; equal")
+    log(f"# K20 over the decode run's viterbi_homologous calls: "
+        f"{len(calls)} ragged launches of "
+        f"{[int(a[2].shape[0]) for a in calls]} rows, {cols} columns; Σ "
+        f"{ms_rag:.4f} ms events, {card_rag:.4f} ms card, plain "
+        f"{p_rag:.4f} ms; each launch on the card "
+        f"{[round(c, 4) for c in card_each]} ms against its floor "
+        f"{[round(f, 4) for f in floors]} ms (ratio "
+        f"{[round(c / f, 3) for c, f in zip(card_each, floors)]}); equal; "
+        f"the calls' wall {tm['wall_ms']:.4f} ms, launches "
+        f"{tm['launches']}, K20's card time by the profiler "
+        f"{tm['card_ms']:.4f} ms")
+    return e
+
+
 def phase_decode(torch, lt, dev, hmm_calls, sweep=False):
     """Decode and pairwise DP: the API that libMems ships but no path of
     it calls.  Counted run: align_pairs on the pair path's inter-anchor
     windows (every bucket walked on the card: K23 + K4) and on the mutant
     pairs (over DEVICE_TB_BUDGET: K22, packed K23 blocks, the host walk),
     viterbi_homologous on the sequences of the first progressive run's
-    predict_homologous calls and 2 iterations of baum_welch on all of
-    them.  Then K22 and every K23 call of that run (replayed from their
-    recorded arguments) against their plain versions (exact: scores,
-    carries, pointer bytes, the masks walked over the plain blocks, which
-    score to the DP score), K20 (exact) and K21 (1e-12 relative) on the
-    HMM batches of T <= HMM_CHECK_MAX_T and the longest one, and K2 at 64
+    predict_homologous calls (written to DECODE_CALLS) and 2 iterations
+    of baum_welch on all of them.  Then K22 and every K23 call of that
+    run (replayed from their recorded arguments) against their plain
+    versions (exact: scores, carries, pointer bytes, the masks walked
+    over the plain blocks, which score to the DP score), K20 (exact, on
+    the run's ragged launches and, through viterbi_path, on the HMM
+    batches of T <= HMM_CHECK_MAX_T and the longest one: viterbi_checks)
+    and K21 (1e-12 relative) on those batches, and K2 at 64
     and 1,000 slots a row (find_mums on 64 genomes, GPU == CPU tensors;
     find_repeats on a 1,000-copy family), in shared memory and in global
     scratch.  With `sweep`, gotoh_sweep on K22's launch and K23's largest
@@ -3599,7 +3771,7 @@ def phase_decode(torch, lt, dev, hmm_calls, sweep=False):
     wrappers = {"gotoh_forward": gapped.gotoh_forward,
                 "gotoh_block_ptrs": gapped.gotoh_block_ptrs,
                 "traceback_walk": gapped.traceback_walk,
-                "viterbi_path": hmm.viterbi_path,
+                "viterbi_ragged": hmm.viterbi_ragged,
                 "bw_counts": hmm.bw_counts}
     go, ge = gapped.GAP_OPEN, gapped.GAP_EXTEND
 
@@ -3629,8 +3801,9 @@ def phase_decode(torch, lt, dev, hmm_calls, sweep=False):
         t1 = time.perf_counter()
         mut_masks = gapped.align_pairs(mut_pairs, device=dev)
         t2 = time.perf_counter()
-    for seqs, params in by_call:
-        hmm.viterbi_homologous(seqs, params, device=dev)
+    with recording([(hmm, "viterbi_ragged")]) as rec20:
+        for seqs, params in by_call:
+            hmm.viterbi_homologous(seqs, params, device=dev)
     t3 = time.perf_counter()
     _, lls = hmm.baum_welch(corpus, by_call[0][1], iterations=2, device=dev)
     torch.cuda.synchronize()
@@ -3643,6 +3816,7 @@ def phase_decode(torch, lt, dev, hmm_calls, sweep=False):
         f"{t4 - t3:.3f} s, log-likelihoods {lls}; launches {launches}")
     for name, n in launches.items():
         require(n > 0, f"{name}: no launch on the decode run")
+    save_hmm_calls({"decode": hmm_calls}, DECODE_CALLS)
     require(len(lls) == 2 and all(np.isfinite(lls)),
             "baum_welch log-likelihoods")
     win_plan = list(gapped.plan_pairs(win_pairs))
@@ -3763,15 +3937,7 @@ def phase_decode(torch, lt, dev, hmm_calls, sweep=False):
         f"floor {w23['latency_ms']:.4f} ms")
 
     # K20 and K21 on the HMM batches up to HMM_CHECK_MAX_T and the longest
-    batches = []
-    for seqs, params in by_call:
-        mats = hmm.log_matrices(params, dev)
-        for _, obs, lens in hmm.pack_batches(seqs):
-            batches.append((put(obs), put(lens), mats))
-    longest = max(range(len(batches)),
-                  key=lambda i: int(batches[i][1].max()))
-    chosen = [t for i, t in enumerate(batches)
-              if t[0].shape[1] <= HMM_CHECK_MAX_T or i == longest]
+    batches, chosen = decode_batches(torch, hmm, by_call, dev)
     require(any(t[0].shape[1] >= hmm.FB_SCAN_MIN_T for t in chosen),
             "no K21 batch of the chunked route's widths")
     cols = sum(int(n.sum()) for _, n, _ in chosen)
@@ -3779,17 +3945,8 @@ def phase_decode(torch, lt, dev, hmm_calls, sweep=False):
     log(f"# K20/K21 batches (B x T) compared: "
         f"{sorted(tuple(o.shape) for o, _, _ in chosen)} of "
         f"{len(batches)}, {cols} columns")
-    got20 = [hmm.viterbi_path(*t) for t in chosen]
-    ref20, p20 = timed_once(lambda: [hmm.viterbi_path_plain(*t)
-                                     for t in chosen], torch)
-    for (o, _, _), g, r in zip(chosen, got20, ref20):
-        require(torch.equal(g, r), f"K20 differs from its plain version "
-                f"at {tuple(o.shape)}")
-    res["viterbi_path"] = entry(
-        max_abs_err(zip(got20, ref20)),
-        timed_ms(lambda: [hmm.viterbi_path(*t) for t in chosen], 3, torch),
-        p20, work(2 * cols + 4 * rows, VITERBI_COLUMN_OPS * cols,
-                  F64_OPS_PER_S))
+    res["viterbi_ragged"] = viterbi_checks(torch, hmm, chosen, rec20,
+                                           by_call, dev)
     got21 = [hmm.bw_counts(*t) for t in chosen]
     ref21, p21 = timed_once(lambda: [hmm.bw_counts_plain(*t)
                                      for t in chosen], torch)
@@ -3813,7 +3970,7 @@ def phase_decode(torch, lt, dev, hmm_calls, sweep=False):
     step = max(hmm.chain_step_cycles(o[r, :int(n[r])], m))
     res["bw_counts"]["work"]["latency_ms"] = sum(
         int(t[1].max()) for t in seq21) * step / SM_CLOCK_HZ * 1e3
-    log(f"# K20 equal; K21 within {rel} relative; K21's sequential "
+    log(f"# K21 within {rel} relative; K21's sequential "
         f"launches' latency floor {res['bw_counts']['work']['latency_ms']:.4f}"
         f" ms at K8's step of {step:.1f} cycles")
 
@@ -4862,9 +5019,11 @@ def k31_early_rows(torch, dev, Rb, G, C, seed_len, fill):
                 torch.full((Rb,), seed_len, dtype=torch.int32, device=dev),
                 torch.ones(Rb, dtype=torch.bool, device=dev))
 
+    one_owner = torch.zeros(1, dtype=torch.int64, device=dev)
+
     def args(st):
         return (resp, where, rows, st[0], st[1], present, is_fwd, gen_cnt,
-                st[2], 0, C, seed_len, fill)
+                st[2], 0, C, seed_len, fill, one_owner)
     st_k, st_p = state(), state()
     tiled.tiled_probe(*args(st_k))
     tiled.tiled_probe_plain(*args(st_p))
@@ -4884,15 +5043,20 @@ def k31_early_rows(torch, dev, Rb, G, C, seed_len, fill):
     return ms, card, w, k31_span_work(Rb, G, C, n)
 
 
-def tiled_kernels_vs_plain(torch, dev, smls):
-    """K29, K30 and K31 against their plain versions on the card at the
-    pair path's shapes (4 shards on one card): the first fetch of side 0
-    (every shard's first block of active rows), K29 on each shard's
-    block, K30 on shard 0's received starts, K31 on shard 0's answered
-    spans.  Exact; each timed, kernel and plain, with CUDA events.
-    Returns ({name: entry}, the shapes)."""
-    from libmems_tpu_torch.ops import tiled
-    from libmems_tpu_torch.parallel import shard as psh
+def k29_work(Rb, G, n_dev, n_sent):
+    """K29's bytes on a block of Rb rows x G genomes: the rows (8 a row),
+    present and is_fwd (2 a request), lefts (4), lengths (4 a row),
+    gen_off (4 G), the n_sent starts sent (8 each), where (8 a request)
+    and the tally (8 (2 n_dev + 1)); 16 operations a request."""
+    return work(Rb * 8 + Rb * G * 6 + Rb * 4 + G * 4 + n_sent * 8
+                + Rb * G * 8 + 8 * (2 * n_dev + 1), 16 * Rb * G)
+
+
+def first_fetch(torch, psh, smls, dev):
+    """The tiled pair path's first fetch of side 0 (MESH_SHARDS shards on
+    one card), through names older trees share: (the mesh, its tiles,
+    each shard's candidate rows, K29's arguments on each shard's first
+    block of active rows (the block first), the block's size in rows)."""
     mesh = psh.Mesh([dev] * MESH_SHARDS)
     n_dev, G = mesh.size, len(smls)
     seed_len = smls[0].seed_length
@@ -4904,35 +5068,88 @@ def tiled_kernels_vs_plain(torch, dev, smls):
     req_cap = max(128, 4 * (-(-capacity // n_dev)))
     rows = _pair_rows(tiles, mesh, route_cap, capacity)
     block = max(1, psh.FETCH_BYTES // (G * C * 8))
-    blk = [torch.nonzero(r.present.any(dim=1)).flatten()[:block]
-           for r in rows]
+    args = [(torch.nonzero(r.present.any(dim=1)).flatten()[:block],
+             r.lefts, r.lengths, r.present, r.is_fwd, tiles.gen_off[dev], 0,
+             C, seed_len, tiles.big, tiles.S, n_dev, req_cap) for r in rows]
+    return mesh, tiles, rows, args, block
+
+
+def k29_first_fetch(torch, tiled, args):
+    """K29 at the tiled pair's first fetch on one shard's block, through
+    names older trees share: events with the counts' read to the host
+    (the tally's one read; an older launcher reads its counts itself,
+    twice), the card alone (device_ms), its kernels' card time and count
+    in a profiled call (k29_kernel_ms), the wall of a call among 50
+    back to back, and the host functions that take a call's time
+    (host_profile).  Returns a dict of them."""
+    def fetch():
+        q = tiled.tiled_requests(*args)
+        return q.tally.tolist() if hasattr(q, "tally") else q.counts
+
+    def call():
+        tiled.tiled_requests(*args)
+    events = timed_ms(fetch, 9, torch)
+    card = device_ms(call, 5, torch)
+    kernels_ms, n, trace = k29_kernel_ms(torch, fetch, "k29_fetch_trace")
+    n_calls = 50
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_calls):
+        call()
+    torch.cuda.synchronize()
+    return {"events_ms": events, "card_ms": card,
+            "kernels_card_ms": kernels_ms, "kernels": n, "trace": trace,
+            "call_wall_ms": (time.perf_counter() - t0) * 1e3 / n_calls,
+            "call_host_split_ms": host_profile(call, 200)}
+
+
+def tiled_kernels_vs_plain(torch, dev, smls):
+    """K29, K30 and K31 against their plain versions on the card at the
+    pair path's shapes (4 shards on one card): the first fetch of side 0
+    (every shard's first block of active rows), K29 on each shard's
+    block, K30 on shard 0's received starts, K31 on shard 0's answered
+    spans.  Exact; each timed, kernel and plain, with CUDA events (K29
+    by k29_first_fetch).  Returns ({name: entry}, the shapes)."""
+    from libmems_tpu_torch.ops import tiled
+    from libmems_tpu_torch.parallel import shard as psh
+    mesh, tiles, rows, args, block = first_fetch(torch, psh, smls, dev)
+    n_dev, G = mesh.size, len(smls)
+    seed_len, C, req_cap = args[0][8], args[0][7], args[0][12]
+    blk = [a[0] for a in args]
     res = {}
 
     # K29 on every shard's block; timed on shard 0's
-    reqs = []
-    for i, r in enumerate(rows):
-        args = (blk[i], r.lefts, r.lengths, r.present, r.is_fwd,
-                tiles.gen_off[dev], 0, C, seed_len, tiles.big, tiles.S, n_dev,
-                req_cap)
-        got, ref = tiled.tiled_requests(*args), tiled.tiled_requests_plain(
-            *args)
-        require(torch.equal(got.send, ref.send) and got.counts == ref.counts
+    reqs, counts = [], []
+    for i, a in enumerate(args):
+        got, ref = tiled.tiled_requests(*a), tiled.tiled_requests_plain(*a)
+        sent, dropped = tiled.tally_counts(got.tally.tolist(), n_dev)
+        require(torch.equal(got.tally, ref.tally)
                 and torch.equal(got.where, ref.where)
-                and got.dropped == ref.dropped == 0,
+                and got.send.shape == ref.send.shape
+                and all(torch.equal(got.send[o, :c], ref.send[o, :c])
+                        for o, c in enumerate(sent))
+                and dropped == 0,
                 f"K29 differs from its plain version on shard {i}")
         reqs.append(got)
-        if i == 0:
-            args0 = args
-    ms = timed_ms(lambda: tiled.tiled_requests(*args0), 5, torch)
-    plain_ms = timed_ms(lambda: tiled.tiled_requests_plain(*args0), 3, torch)
-    Rb, n_sent = blk[0].shape[0], reqs[0].send.shape[0]
-    res["tiled_requests"] = entry(0.0, ms, plain_ms, work(
-        Rb * 8 + Rb * G * 6 + Rb * 4 + G * 4 + n_sent * 8 + Rb * G * 8,
-        16 * Rb * G))
+        counts.append(sent)
+    one = k29_first_fetch(torch, tiled, args[0])
+    plain_ms = timed_ms(lambda: tiled.tiled_requests_plain(*args[0]), 3,
+                        torch)
+    Rb, n_sent = blk[0].shape[0], sum(counts[0])
+    w29 = k29_work(Rb, G, n_dev, n_sent)
+    res["tiled_requests"] = entry(0.0, one["events_ms"], plain_ms, w29)
+    res["tiled_requests"]["card_ms"] = one["card_ms"]
+    log(f"# K29 first fetch ({Rb} rows x {G} genomes, {n_sent} requests): "
+        f"{one['events_ms']:.4f} ms events with the tally's read, "
+        f"{one['card_ms']:.4f} ms card ({one['kernels_card_ms']:.4f} ms in "
+        f"{one['kernels']} kernel by the profiler), plain {plain_ms:.4f} "
+        f"ms; bound {bound(w29)[0]:.6f} ms; a call among 50 back to back "
+        f"{one['call_wall_ms']:.4f} ms of wall, its host by function "
+        f"{json.dumps(one['call_host_split_ms'])}")
 
     # the exchange; K30 on shard 0's received starts
-    recv = psh._exchange([list(torch.split(q.send, q.counts)) for q in reqs],
-                         mesh)
+    recv = psh._exchange([[q.send[o, :c] for o, c in enumerate(t)]
+                          for q, t in zip(reqs, counts)], mesh)
     offs = torch.cat(recv[0])
     targs = (tiles.tiles[0], tiles.S, offs, C, tiles.sentinel)
     got, ref = tiled.tiled_serve(*targs), tiled.tiled_serve_plain(*targs)
@@ -4977,7 +5194,7 @@ def tiled_kernels_vs_plain(torch, dev, smls):
     def k31_args(st):
         return (resp, reqs[0].where, blk[0], st[0], st[1], r.present,
                 r.is_fwd, tiles.gen_cnt[dev], st[2], 0, C, seed_len,
-                tiles.sentinel)
+                tiles.sentinel, reqs[0].offsets)
     st_k, st_p = state(), state()
     tiled.tiled_probe(*k31_args(st_k))
     tiled.tiled_probe_plain(*k31_args(st_p))
@@ -5020,27 +5237,31 @@ def tiled_kernels_vs_plain(torch, dev, smls):
 
 
 def tiled_sums(torch, tiled, psh, tiles, smls, mesh):
-    """K29, K30 and K31 over a second run of the tiled pair's path: each
-    launch timed alone on the card by CUDA events with a sleep kernel
-    ahead of it (device_ms's way; K29's events also hold its one host
-    read of the counts between its two passes) and its work: K29's and
-    K30's as tiled_kernels_vs_plain counts them, K31's least probe
-    (k31_work).  Returns {name: (Σ ms, launches, Σ work)}."""
+    """K29, K30 and K31 over a run of the tiled pair's path, through names
+    older trees share: each launch timed alone on the card by CUDA events
+    with a sleep kernel ahead of it (device_ms's way; an older K29's
+    events also hold its host reads of the counts, two a shard) and its
+    work: K29's k29_work, K30's as tiled_kernels_vs_plain counts it,
+    K31's least probe (k31_work); and each torch.cat of a shard's
+    returned answers (the argument of its K31) once more, timed alone on
+    the card.  Returns ({name: (Σ ms, launches, Σ work)}, (Σ cat ms,
+    cats, Σ cat bytes))."""
     names = {"tiled_probe": list(inspect.signature(
         tiled.tiled_probe_plain).parameters),
-             "tiled_requests": list(inspect.signature(
-                 tiled.tiled_requests_plain).parameters),
              "tiled_serve": list(inspect.signature(
-                 tiled.tiled_serve_plain).parameters)}
+                 tiled.tiled_serve_plain).parameters),
+             "tiled_requests": list(inspect.signature(
+                 tiled.tiled_requests_plain).parameters)}
     got = {name: ([], []) for name in names}
+    n_dev = mesh.size
+    cats = []
+    state = {"exchanges": 0}
 
     def work_of(name, c, before, out):
         if name == "tiled_probe":
             return k31_work(c, before, c["lengths"][c["rows"]])
-        if name == "tiled_requests":
-            Rb, G = out.where.shape
-            return work(Rb * 8 + Rb * G * 6 + Rb * 4 + G * 4
-                        + out.send.shape[0] * 8 + Rb * G * 8, 16 * Rb * G)
+        if name == "tiled_requests":    # its counts read after the run
+            return (c["rows"].shape[0], c["lefts"].shape[1], out)
         n, C = c["offs"].shape[0], c["C"]
         return work(n * 8 + 8 * span_union(c["offs"].cpu().numpy(),
                                            tiles.S, C) + n * C * 8,
@@ -5063,17 +5284,158 @@ def tiled_sums(torch, tiled, psh, tiles, smls, mesh):
                 got[name][1].append(work_of(name, c, before, out))
             return out
         return Patched(real, run)
+
+    real_x = psh._exchange
+
+    def exchange(parts, mesh_):
+        out = real_x(parts, mesh_)
+        state["exchanges"] += 1
+        if state["exchanges"] % 2 == 0:   # the answers' return
+            for back in out:
+                torch.cuda._sleep(SLEEP_CYCLES)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                cat = torch.cat(back)
+                end.record()
+                cats.append((start, end, cat.numel() * cat.element_size()))
+        return out
     reals = {name: getattr(tiled, name) for name in names}
     for name, real in reals.items():
         setattr(tiled, name, timed(name, real))
+    psh._exchange = exchange
     try:
         psh.sharded_find_mums_tiled(smls, mesh)
     finally:
         for name, real in reals.items():
             setattr(tiled, name, real)
+        psh._exchange = real_x
     torch.cuda.synchronize()
-    return {name: (sum(a.elapsed_time(b) for a, b in ev), len(ev),
-                   sum_work(ws)) for name, (ev, ws) in got.items()}
+    w29 = []
+    for Rb, G, q in got["tiled_requests"][1]:
+        sent = q.counts if hasattr(q, "counts") else \
+            tiled.tally_counts(q.tally.tolist(), n_dev)[0]
+        w29.append(k29_work(Rb, G, n_dev, sum(sent)))
+    got["tiled_requests"] = (got["tiled_requests"][0], w29)
+    return ({name: (sum(a.elapsed_time(b) for a, b in ev), len(ws),
+                    sum_work(ws)) for name, (ev, ws) in got.items()},
+            (sum(a.elapsed_time(b) for a, b, _ in cats), len(cats),
+             sum(n for _, _, n in cats)))
+
+
+@contextlib.contextmanager
+def fetch_stages(tiled, psh, opened, closed):
+    """Patches K29's wrapper and the exchange for a run of the tiled
+    path: at a fetch's first K29 call, mark = opened(); at the first
+    exchange after it, closed(mark).  The request stage between them
+    holds every local shard's K29 and the host reads of their counts.
+    Through names older trees share."""
+    state = {"mark": None}
+    real29, real_x = tiled.tiled_requests, psh._exchange
+
+    def requests(*args, **kw):
+        if state["mark"] is None:
+            state["mark"] = opened()
+        return real29(*args, **kw)
+
+    def exchange(parts, mesh_):
+        if state["mark"] is not None:
+            closed(state["mark"])
+            state["mark"] = None
+        return real_x(parts, mesh_)
+    tiled.tiled_requests = Patched(real29, requests)
+    psh._exchange = exchange
+    try:
+        yield
+    finally:
+        tiled.tiled_requests = real29
+        psh._exchange = real_x
+
+
+def request_stages(torch, tiled, psh, smls, mesh):
+    """Each fetch's request stage over a run of the tiled pair's path,
+    from an idle card (a synchronize before its first K29 call), by CUDA
+    events and on the host clock: the stage's whole cost on the path,
+    every shard's K29 and the reads of their counts (one a fetch, two a
+    shard in an older tree).  Returns (Σ events ms, Σ host ms, stages)."""
+    stages = []
+
+    def opened():
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        return start, time.perf_counter()
+
+    def closed(mark):
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        torch.cuda.synchronize()
+        stages.append((mark[0].elapsed_time(end),
+                       (time.perf_counter() - mark[1]) * 1e3))
+    with fetch_stages(tiled, psh, opened, closed):
+        psh.sharded_find_mums_tiled(smls, mesh)
+    return (sum(e for e, _ in stages), sum(h for _, h in stages),
+            len(stages))
+
+
+def tiled_syncs(torch, tiled, psh, smls, mesh):
+    """A run of the tiled pair's path under torch's sync debug mode: the
+    synchronising operations it makes (host reads of the card's tensors
+    among them), all and those of the fetches' request stages.  Returns
+    (all, in request stages, fetches)."""
+    import warnings
+    in_stages = []
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+
+        def n_sync():
+            return sum("synchroniz" in str(w.message) for w in seen)
+        with fetch_stages(tiled, psh, n_sync,
+                          lambda mark: in_stages.append(n_sync() - mark)):
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                psh.sharded_find_mums_tiled(smls, mesh)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        n_all = n_sync()
+    return n_all, sum(in_stages), psh.TILED_STATS["fetches"]
+
+
+def tiled_timings(torch, tiled, psh, smls, mesh, tiles):
+    """The tiled pair's path timed through names older trees share: its
+    seeding wall (host clock, synchronised, 3 runs after a warm-up),
+    K29-K31 launch by launch and the answers' torch.cat (tiled_sums),
+    each fetch's request stage (request_stages), the synchronising
+    operations (tiled_syncs) and K29's kernels' card time over a
+    profiled run (k29_kernel_ms).  Returns a dict of them."""
+    psh.sharded_find_mums_tiled(smls, mesh)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        psh.sharded_find_mums_tiled(smls, mesh)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    sums, (cat_ms, n_cat, cat_bytes) = tiled_sums(torch, tiled, psh, tiles,
+                                                 smls, mesh)
+    stage_ms, stage_host, stages = request_stages(torch, tiled, psh, smls,
+                                                  mesh)
+    n_sync, stage_sync, fetches = tiled_syncs(torch, tiled, psh, smls, mesh)
+    card, n, _ = k29_kernel_ms(
+        torch, lambda: psh.sharded_find_mums_tiled(smls, mesh),
+        "k29_path_trace")
+    require(stages == fetches, f"{stages} request stages, {fetches} "
+            f"fetches")
+    return {"seeding_wall_s": walls,
+            "sums": {name: {"card_ms": ms, "launches": k,
+                            "bound_ms": bound(w)[0], "bytes": w["bytes"]}
+                     for name, (ms, k, w) in sums.items()},
+            "cat": {"card_ms": cat_ms, "copies": n_cat, "bytes": cat_bytes},
+            "fetches": fetches, "stage_events_ms": stage_ms,
+            "stage_host_ms": stage_host,
+            "syncs_a_fetch_in_stages": stage_sync / fetches,
+            "syncs_a_fetch": n_sync / fetches,
+            "k29_kernels_card_ms": card, "k29_kernels": n}
 
 
 def phase_tiled(torch, lt, dev, refs):
@@ -5081,11 +5443,11 @@ def phase_tiled(torch, lt, dev, refs):
     (1) K29-K31 against their plain versions at the pair's first fetch.
     (2) sharded_find_mums_tiled of the 2 x 4.6 Mbp pair (rng 0): its MUMs
     equal phase main's find_mums; launch counts of K26-K31 zeroed before
-    and read after, probe rounds and fetches printed; a second run times
-    K29-K31 launch by launch (tiled_sums).  (3) Each shard's
-    resident keys (S + halo) against the replicated table of
-    sharded_find_mums, and the run's device memory peak.  Within
-    TILED_CAP_S.  Returns ({name: entry}, the path's launches, walls)."""
+    and read after, probe rounds and fetches printed; then the path timed
+    (tiled_timings).  (3) Each shard's resident keys (S + halo) against
+    the replicated table of sharded_find_mums, and the run's device
+    memory peak.  Within TILED_CAP_S.  Returns ({name: entry}, the path's
+    launches, walls)."""
     from libmems_tpu_torch.ops import mums, shard, tiled
     from libmems_tpu_torch.parallel import shard as psh
     t_phase = time.perf_counter()
@@ -5120,16 +5482,32 @@ def phase_tiled(torch, lt, dev, refs):
             f"tiled MUMs ({len(ma)}) differ from phase main's find_mums "
             f"({len(want)})")
     tiles = psh._Tiles(smls, mesh, max(smls[0].seed_length, 512))
-    for name, (ms_sum, n, w) in tiled_sums(torch, tiled, psh, tiles, smls,
-                                           mesh).items():
+    tm = tiled_timings(torch, tiled, psh, smls, mesh, tiles)
+    for name, s_ in tm["sums"].items():
         e = res[name]
-        e["sum_card_ms"], e["sum_launches"] = ms_sum, n
-        e["sum_bound_ms"] = bound(w)[0]
-        log(f"# {name} over the tiled pair's path: Σ {ms_sum:.4f} ms of card "
-            f"in {n} launches (each timed alone, a sleep kernel ahead of "
-            f"it), Σ bound {e['sum_bound_ms']:.6f} ms ({w['bytes']} bytes)")
-        require(n == launches[name], f"{name} launched {n} times in the "
-                f"timed run, {launches[name]} in the counted one")
+        e["sum_card_ms"], e["sum_launches"] = s_["card_ms"], s_["launches"]
+        e["sum_bound_ms"] = s_["bound_ms"]
+        log(f"# {name} over the tiled pair's path: Σ {s_['card_ms']:.4f} ms "
+            f"of card in {s_['launches']} launches (each timed alone, a "
+            f"sleep kernel ahead of it), Σ bound {s_['bound_ms']:.6f} ms "
+            f"({s_['bytes']} bytes)")
+        require(s_["launches"] == launches[name], f"{name} launched "
+                f"{s_['launches']} times in the timed run, {launches[name]} "
+                f"in the counted one")
+    e = res["tiled_requests"]
+    e["sum_stage_ms"] = tm["stage_events_ms"]
+    e["syncs_a_fetch"] = tm["syncs_a_fetch_in_stages"]
+    log(f"# tiled pair's request stages from an idle card (every shard's "
+        f"K29 and the counts' reads): Σ {tm['stage_events_ms']:.4f} ms by "
+        f"events, {tm['stage_host_ms']:.4f} ms on the host clock over "
+        f"{tm['fetches']} fetches; K29's kernels Σ "
+        f"{tm['k29_kernels_card_ms']:.4f} ms of card by the profiler; "
+        f"synchronising operations {tm['syncs_a_fetch_in_stages']:.3f} a "
+        f"fetch in the request stages, {tm['syncs_a_fetch']:.3f} a fetch in "
+        f"the run; torch.cat of the returned answers Σ "
+        f"{tm['cat']['card_ms']:.4f} ms of card in {tm['cat']['copies']} "
+        f"copies, {tm['cat']['bytes']} bytes; seeding walls "
+        f"{[round(x, 4) for x in tm['seeding_wall_s']]} s")
     n_keys = sum(s.n_windows for s in smls)
     for t in tiles.tiles:
         require(t.shape[0] == tiles.S + tiles.halo < n_keys,
@@ -5148,6 +5526,73 @@ def phase_tiled(torch, lt, dev, refs):
             f"{TILED_CAP_S} s cap")
     return res, launches, (f"tiled pair seeding {dt:.3f} s ({MESH_SHARDS} "
                            f"shards on one card, peak {peak} B)")
+
+
+def k29_kernel_ms(torch, fn, name):
+    """Card ms and count of K29's kernels (names with tiled_request or
+    tiled_count) in one traced run of fn, and every kernel's, memcpy's
+    and memset's {name: [events, ms]} of that run (its trace kept as
+    OUT_DIR/name.json)."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    path = os.path.join(OUT_DIR, name + ".json")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    prof.export_chrome_trace(path)
+    kernels = trace_kernels(path)
+    mine = [v for k, v in kernels.items()
+            if "tiled_request" in k or "tiled_count" in k]
+    return (sum(ms for _, ms in mine), sum(n for n, _ in mine),
+            {k: [n, round(ms, 4)] for k, (n, ms) in kernels.items()})
+
+
+def host_profile(fn, reps, top=12):
+    """{function: ms a call of fn} of the functions that take the most
+    host time of its own (cProfile's tottime) over reps calls."""
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(reps):
+        fn()
+    prof.disable()
+    stats = pstats.Stats(prof).stats
+    rows = sorted(stats.items(), key=lambda kv: -kv[1][2])[:top]
+    return {f"{os.path.basename(f)}:{line}:{name}": round(v[2] * 1e3 / reps,
+                                                          5)
+            for (f, line, name), v in rows}
+
+
+def phase_requests(torch, lt, dev):
+    """(named runs only) Phase tiled's timings without its checks: K29 at
+    the first fetch on shard 0's block (k29_first_fetch) and the tiled
+    pair's path (tiled_timings), through names older trees share, so
+    that copied into an older tree's archive it times that tree the same
+    way."""
+    from libmems_tpu_torch.ops import tiled
+    from libmems_tpu_torch.parallel import shard as psh
+    smls, _ = lt.create_smls(genome_pair(lt, 0), device=dev)
+    mesh, tiles, rows, args, _ = first_fetch(torch, psh, smls, dev)
+    one = k29_first_fetch(torch, tiled, args[0])
+    del rows, args
+    log(json.dumps({"requests": {
+        "first_fetch": one,
+        "path": tiled_timings(torch, tiled, psh, smls, mesh, tiles)}}))
+
+
+def phase_viterbi(torch, dev):
+    """(named runs only) Phase decode's K20 timings without its checks
+    (viterbi_timings) on the predict_homologous calls it ran
+    viterbi_homologous on (DECODE_CALLS), through names older trees
+    share, so that copied with DECODE_CALLS into an older tree's archive
+    it times that tree the same way."""
+    from libmems_tpu_torch.ops import hmm
+    by_call = [(seqs, params) for seqs, params, _ in
+               load_hmm_calls(DECODE_CALLS)["decode"]]
+    _, chosen = decode_batches(torch, hmm, by_call, dev)
+    log(json.dumps({"viterbi": viterbi_timings(torch, hmm, by_call, chosen,
+                                               dev)}))
 
 
 def spawn_ranks(world, jobs, cap_s):
@@ -5707,6 +6152,12 @@ def main(argv=None) -> int:
     if "extend" in phases:
         phase_extend(torch, lt, dev)
         lap("extend")
+    if "requests" in phases:
+        phase_requests(torch, lt, dev)
+        lap("requests")
+    if "viterbi" in phases:
+        phase_viterbi(torch, dev)
+        lap("viterbi")
     if "extend_matches" in res:
         res["extend_matches"]["err"] = max([res["extend_matches"]["err"]]
                                            + k2_errs)
@@ -5747,7 +6198,8 @@ def main(argv=None) -> int:
             kernels[-1]["latency_bound_ms"] = e["work"]["latency_ms"]
         if "card_ms" in e:   # the card's time apart from the host launch
             kernels[-1]["card_ms"] = e["card_ms"]
-        for key in ("sum_card_ms", "sum_launches", "sum_bound_ms"):
+        for key in ("sum_card_ms", "sum_launches", "sum_bound_ms",
+                    "sum_stage_ms", "syncs_a_fetch"):
             if key in e:     # every launch of the path (K31)
                 kernels[-1][key] = e[key]
     log(f"# card: {card}; " + "; ".join(walls))

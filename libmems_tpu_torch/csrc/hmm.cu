@@ -75,16 +75,36 @@
 // (1.5e-10 against an 80-bit run at 2^17 + 5 columns, where the
 // sequential walk is off by 3.3e-7).
 //
-// K20 (viterbi_kernel) replaces _viterbi_path (ops/hmm.py:531) and K21
-// replaces _bw_counts (ops/hmm.py:603).  K20 takes K8's sequential shape
-// at every length: one thread a sequence, f64, the same HmmMats, bound by
-// the latency of the column recurrence.
-//   K20: for each state `to`, cand[k] = v[k] + lt[k][to], ptr = the first
-//        argmax, v[to] = max + le[to][o_i]; the two pointer bits of a
-//        column go to a byte of scratch; the end state is the first argmax
-//        of v + lstop and the walk back writes True (homologous) where the
-//        state is 0.  Columns at or past the length stay as the caller
-//        zero-filled them.
+// K20 (viterbi_rows_kernel) replaces _viterbi_path (ops/hmm.py:531) and
+// K21 replaces _bw_counts (ops/hmm.py:603).
+//   K20: one ragged launch a call over fb_ragged's layout (rows at 16-byte
+//        aligned offsets, longest first, so a warp holds rows of like
+//        length), a thread a row, f64 at every length: max-plus has no
+//        exp or log, so no precision tier (R15, R16).  Bound: latency,
+//        the longest row's column chain, forward then walk.  Forward, for
+//        each state `to`: cand[k] = v[k] + lt[k][to], ptr = the first
+//        argmax (cand[1] > cand[0]), v[to] = max + le[to][o_i]; both
+//        candidates take le beside the compare, which then picks a sum
+//        (the same bits), so a column's chain is an add, a compare and a
+//        select.  A pair of lanes a row (a state a lane, the other's value
+//        by shuffle) measured about twice one thread's step, so one thread
+//        it is (PERF.md row 14b).  The
+//        symbols come 16 bytes at a time a group ahead, a column's
+//        emission pair from shared memory a column ahead.  A column's two
+//        pointer bits are packed 16 columns to a 32-bit word in a register
+//        and stored once a word: 1/4 byte a column of scratch (the parent
+//        kept a byte a column).  Row r's words lie at word offsets[r] / 16,
+//        inside its own extent: words interleaved across a warp's rows
+//        would need each warp's base, a prefix over the warps' longest
+//        rows that the ragged layout does not carry.  The end state is the
+//        first argmax of v + lstop; the walk back reads kWalkAhead words
+//        ahead into a ring whose slots are reloaded in place, follows the
+//        state by a shift and a mask a column with no branch (R17), and
+//        writes the path (1 where the state is 0) 16 bytes at a time,
+//        every byte of the row's extent up to the next row's offset, zeros
+//        past its length: no zero fill and no bool copy, and obs and path
+//        are __restrict__, so no load waits behind a store.
+//        viterbi_path's padded batches are this launch with offsets r x S.
 //   K21: K8's two routes.  Sequential (bw_kernel): the forward (kept in
 //        scratch, as K8), the backward (kept in scratch too), logP; then,
 //        in column order, the expected counts:
@@ -115,41 +135,6 @@ __device__ __forceinline__ double lse2(double a, double b) {
   double m = a > b ? a : b;
   if (!isfinite(m)) m = 0.0;
   return log(exp(a - m) + exp(b - m)) + m;
-}
-
-__global__ void viterbi_kernel(const unsigned char* __restrict__ obs,
-                               const int* __restrict__ lengths, int B, int T,
-                               HmmMats mt, unsigned char* __restrict__ ptr,
-                               unsigned char* __restrict__ path) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const int L = lengths[b];
-  if (L <= 0) return;
-  const unsigned char* o = obs + (int64_t)b * T;
-  unsigned char* P = ptr + (int64_t)b * T;
-  unsigned char* out = path + (int64_t)b * T;
-
-  int sym = o[0];
-  double v0 = mt.ls[0] + mt.le[sym];
-  double v1 = mt.ls[1] + mt.le[8 + sym];
-  for (int i = 1; i < L; ++i) {
-    sym = o[i];
-    const double c00 = v0 + mt.lt[0];
-    const double c10 = v1 + mt.lt[2];
-    const double c01 = v0 + mt.lt[1];
-    const double c11 = v1 + mt.lt[3];
-    const int p0 = c10 > c00 ? 1 : 0;
-    const int p1 = c11 > c01 ? 1 : 0;
-    v0 = (p0 ? c10 : c00) + mt.le[sym];
-    v1 = (p1 ? c11 : c01) + mt.le[8 + sym];
-    P[i] = (unsigned char)(p0 | (p1 << 1));
-  }
-  int s = (v1 + mt.lstop[1]) > (v0 + mt.lstop[0]) ? 1 : 0;
-  out[L - 1] = s == 0;
-  for (int i = L - 1; i >= 1; --i) {
-    s = (P[i] >> s) & 1;
-    out[i - 1] = s == 0;
-  }
 }
 
 constexpr int kBwCounts = 23;  // start[2], trans[4], emit[16], logP
@@ -808,6 +793,182 @@ __global__ void fb_step_cycles_kernel(const unsigned char* __restrict__ o,
   }
 }
 
+// ---------------------------------------------------------------------
+// K20: Viterbi decoding, one ragged launch a call, a thread a row.
+// ---------------------------------------------------------------------
+
+constexpr int kViterbiRows = 32;   // rows a block (one warp)
+constexpr int kWalkAhead = 8;      // pointer words the walk loads ahead
+
+// One column of the max-plus recurrence from (v0, v1) with the column's
+// emission pair e: the new values and the column's pointer pair (p0 | p1
+// << 1), the first argmax of each state's two candidates.  Both
+// candidates take e beside the compare and the compare picks one sum:
+// the picked candidate plus e, the same bits, with the chain an add, the
+// compare and a select.
+__device__ __forceinline__ unsigned viterbi_step(double& v0, double& v1,
+                                                 const HmmMats& mt,
+                                                 const double2& e) {
+  const double c00 = __dadd_rn(v0, mt.lt[0]);
+  const double c10 = __dadd_rn(v1, mt.lt[2]);
+  const double c01 = __dadd_rn(v0, mt.lt[1]);
+  const double c11 = __dadd_rn(v1, mt.lt[3]);
+  const bool p0 = c10 > c00;
+  const bool p1 = c11 > c01;
+  const double s00 = __dadd_rn(c00, e.x);
+  const double s10 = __dadd_rn(c10, e.x);
+  const double s01 = __dadd_rn(c01, e.y);
+  const double s11 = __dadd_rn(c11, e.y);
+  v0 = p0 ? s10 : s00;
+  v1 = p1 ? s11 : s01;
+  return (p0 ? 1u : 0u) | (p1 ? 2u : 0u);
+}
+
+// A row's forward pass over its L >= 1 columns (symbols o, 16-byte
+// aligned, readable up to the next multiple of 16): pointer word g
+// (columns 16g..16g+15, two bits a column, column 0 the identity pair
+// 0b10) stored to P[g].  A group of symbols is loaded a group ahead and a
+// column's emission pair a column ahead; the groups after the first that
+// the row fills run with no test a column.  Returns the end state, the
+// first argmax of v + lstop.
+__device__ __forceinline__ int viterbi_forward(
+    const unsigned char* __restrict__ o, int L, const HmmMats& mt,
+    const double2* le, unsigned* __restrict__ P) {
+  const uint4* o4 = reinterpret_cast<const uint4*>(o);
+  const int groups = (L + 15) >> 4;
+  uint4 v = o4[0];
+  uint4 nv = groups > 1 ? o4[1] : v;
+  double2 e = emission(le, v, 0);
+  double v0 = __dadd_rn(mt.ls[0], e.x);
+  double v1 = __dadd_rn(mt.ls[1], e.y);
+  unsigned word = 2u;
+  for (int g = 0;;) {
+    if (g > 0 && 16 * g + 16 <= L) {
+#pragma unroll
+      for (int k = 0; k < 16; ++k) {
+        const double2 en = k < 15 ? emission(le, v, k + 1)
+                                  : emission(le, nv, 0);
+        word |= viterbi_step(v0, v1, mt, e) << (2 * k);
+        e = en;
+      }
+    } else {
+      // e holds column 16g + k's pair at step k (column 0's pair is
+      // spent on v's start)
+#pragma unroll
+      for (int k = 0; k < 16; ++k) {
+        const double2 en = k < 15 ? emission(le, v, k + 1)
+                                  : emission(le, nv, 0);
+        if ((g > 0 || k > 0) && 16 * g + k < L) {
+          word |= viterbi_step(v0, v1, mt, e) << (2 * k);
+        }
+        e = en;
+      }
+    }
+    P[g] = word;
+    word = 0u;
+    if (++g == groups) break;
+    v = nv;
+    nv = g + 1 < groups ? o4[g + 1] : v;
+  }
+  return __dadd_rn(v1, mt.lstop[1]) > __dadd_rn(v0, mt.lstop[0]) ? 1 : 0;
+}
+
+// The path bytes of one group of 16 columns (1 where the state is 0),
+// from state s at its column k = n - 1 down to column 0 over its pointer
+// word w: a shift and a mask a column to the column before, no branch.
+// Returns the bytes and leaves s at the column before the group.
+__device__ __forceinline__ uint4 walk_group(unsigned w, int n, int& s) {
+  unsigned b[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int k = 15; k >= 0; --k) {
+    if (k < n) {
+      b[k >> 2] |= (unsigned)(s ^ 1) << (8 * (k & 3));
+      s = (int)(((w >> (2 * k)) >> s) & 1u);
+    }
+  }
+  return make_uint4(b[0], b[1], b[2], b[3]);
+}
+
+// The walk back of a row of L >= 1 columns from state s at column L - 1
+// over its pointer words P: path bytes written 16 at a time to out for
+// every group of the row, zeros past L.  The row's last group first
+// (the only one it may not fill), then the full groups kWalkAhead at a
+// time: slot j of the word ring holds the word of the group j below the
+// round's first and is reloaded in place with the word kWalkAhead
+// groups further down, so no register waits on a load issued a group
+// earlier.  P was written in this launch, so it is read by plain
+// (coherent) loads, not through the read-only path a const __restrict__
+// pointer may take.
+__device__ __forceinline__ void viterbi_walk(const unsigned* P, int L, int s,
+                                             unsigned char* __restrict__ out) {
+  const int last = (L - 1) >> 4;
+  uint4* out4 = reinterpret_cast<uint4*>(out);
+  unsigned q[kWalkAhead];
+#pragma unroll
+  for (int j = 0; j < kWalkAhead; ++j) {
+    q[j] = last - 1 - j >= 0 ? P[last - 1 - j] : 0u;
+  }
+  out4[last] = walk_group(P[last], L - 16 * last, s);
+  for (int g = last - 1; g >= 0; g -= kWalkAhead) {
+#pragma unroll
+    for (int j = 0; j < kWalkAhead; ++j) {
+      if (g - j >= 0) {
+        const unsigned w = q[j];
+        q[j] = g - j - kWalkAhead >= 0 ? P[g - j - kWalkAhead] : 0u;
+        out4[g - j] = walk_group(w, 16, s);
+      }
+    }
+  }
+}
+
+// K20: row r = blockIdx.x * kViterbiRows + threadIdx.x of the ragged
+// layout (offsets ascending, each row's extent up to the next row's
+// offset, the last row's up to total); every byte of the extent written.
+__global__ void __launch_bounds__(kViterbiRows)
+    viterbi_rows_kernel(const unsigned char* __restrict__ obs,
+                        const int64_t* __restrict__ offsets,
+                        const int* __restrict__ lengths, int N,
+                        int64_t total, HmmMats mt,
+                        unsigned* __restrict__ ptr,
+                        unsigned char* __restrict__ path) {
+  __shared__ double2 le[8];
+  fill_emissions(mt, le);
+  const int r = blockIdx.x * kViterbiRows + threadIdx.x;
+  if (r >= N) return;
+  const int64_t off = offsets[r];
+  const int64_t end = r + 1 < N ? offsets[r + 1] : total;
+  const int L = lengths[r];
+  const int groups = L > 0 ? (L + 15) >> 4 : 0;
+  uint4* out4 = reinterpret_cast<uint4*>(path + off);
+  for (int64_t g = groups; g < ((end - off) >> 4); ++g) {
+    out4[g] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  if (L <= 0) return;
+  unsigned* P = ptr + (off >> 4);
+  const int s = viterbi_forward(obs + off, L, mt, le, P);
+  viterbi_walk(P, L, s, path + off);
+}
+
+// K20's step measured on one row: clock64 around its forward pass on one
+// thread and around its walk.
+__global__ void viterbi_step_cycles_kernel(const unsigned char* __restrict__ o,
+                                           int L, HmmMats mt,
+                                           unsigned* __restrict__ P,
+                                           unsigned char* __restrict__ out,
+                                           long long* __restrict__ cycles) {
+  __shared__ double2 le[8];
+  fill_emissions(mt, le);
+  if (threadIdx.x == 0) {
+    const long long t0 = clock64();
+    const int s = viterbi_forward(o, L, mt, le, P);
+    const long long t1 = clock64();
+    viterbi_walk(P, L, s, out);
+    const long long t2 = clock64();
+    cycles[0] = t1 - t0;
+    cycles[1] = t2 - t1;
+  }
+}
+
 HmmMats make_mats(const double* mats) {
   HmmMats mt;
   for (int k = 0; k < 2; ++k) mt.ls[k] = mats[k];
@@ -911,18 +1072,40 @@ extern "C" int lm_hmm_step_cycles(const void* obs, int L, int64_t stride,
   return (int)cudaGetLastError();
 }
 
-// K20.  obs, lengths, mats as for lm_hmm_fb, at any T; ptr: uint8[B, T]
-// scratch; path: uint8[B, T], zero-filled by the caller (1 =
-// homologous).
-extern "C" int lm_hmm_viterbi(const void* obs, const void* lengths, int B,
-                              int T, const double* mats, void* ptr,
-                              void* path, void* stream) {
-  if (B > 0) {
-    LM_LAUNCH(viterbi_kernel, hmm_blocks(B), kHmmThreads, 0,
-              (cudaStream_t)stream, (const unsigned char*)obs,
-              (const int*)lengths, B, T, make_mats(mats),
-              (unsigned char*)ptr, (unsigned char*)path);
+// K20, N rows in one launch.  obs: uint8 symbols 0..7, row r at obs +
+// offsets[r] (int64, ascending, multiples of 16 from a 16-byte aligned
+// obs) with lengths[r] (int32, 0 allowed) columns, readable up to the
+// next multiple of 16; each row's extent, its columns rounded up to 16,
+// lies below the next row's offset, the last row's below total (a
+// multiple of 16).  mats as for lm_hmm_fb; ptr: uint32[total / 16]
+// scratch; path: uint8[total], every byte of the rows' extents written
+// (1 = homologous, 0 past a row's length).
+extern "C" int lm_hmm_viterbi_rows(const void* obs, const void* offsets,
+                                   const void* lengths, int N, int64_t total,
+                                   const double* mats, void* ptr, void* path,
+                                   void* stream) {
+  if (N > 0) {
+    LM_LAUNCH(viterbi_rows_kernel,
+              (unsigned)((N + kViterbiRows - 1) / kViterbiRows),
+              kViterbiRows, 0, (cudaStream_t)stream,
+              (const unsigned char*)obs, (const int64_t*)offsets,
+              (const int*)lengths, N, total, make_mats(mats),
+              (unsigned*)ptr, (unsigned char*)path);
   }
+  return (int)cudaGetLastError();
+}
+
+// K20's step on one row: obs a row of L >= 2 symbols as
+// lm_hmm_viterbi_rows reads one; ptr: uint32[ceil(L / 16)] and path:
+// uint8[16 ceil(L / 16)] scratch; cycles: int64[2], the forward pass and
+// the walk on one thread (L - 1 steps each).
+extern "C" int lm_hmm_viterbi_step_cycles(const void* obs, int L,
+                                          const double* mats, void* ptr,
+                                          void* path, void* cycles,
+                                          void* stream) {
+  LM_LAUNCH(viterbi_step_cycles_kernel, 1, 1, 0, (cudaStream_t)stream,
+            (const unsigned char*)obs, L, make_mats(mats), (unsigned*)ptr,
+            (unsigned char*)path, (long long*)cycles);
   return (int)cudaGetLastError();
 }
 

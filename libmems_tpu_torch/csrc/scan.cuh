@@ -59,16 +59,19 @@ __device__ __forceinline__ int64_t take_tile(unsigned long long* scratch) {
 
 // Exclusive offset of `tile`, whose own count is `count`, from the
 // tiles before it; publishes the tile's inclusive prefix.  Called by all
-// 32 lanes of one warp; every lane returns the offset.
+// 32 lanes of one warp; every lane returns the offset.  Several counts
+// a tile scan side by side with `stride` status words a tile: count
+// `slot`'s status word of tile t is stride * t + slot.
 __device__ inline unsigned long long tile_lookback(
-    unsigned long long* scratch, int64_t tile, unsigned long long count) {
-  volatile unsigned long long* status = scratch + kScanHeader;
+    unsigned long long* scratch, int64_t tile, unsigned long long count,
+    int64_t stride = 1, int64_t slot = 0) {
+  volatile unsigned long long* status = scratch + kScanHeader + slot;
   const int lane = threadIdx.x & 31;
   if (tile == 0) {
     if (lane == 0) status[0] = kTileInclusive | count;
     return 0;
   }
-  if (lane == 0) status[tile] = kTileOwn | count;
+  if (lane == 0) status[stride * tile] = kTileOwn | count;
   unsigned long long excl = 0;
   for (int64_t top = tile - 1;; top -= 32) {
     // lane l reads tile top - l; before tile 0 the prefix is 0
@@ -76,7 +79,7 @@ __device__ inline unsigned long long tile_lookback(
     unsigned long long s = kTileInclusive;
     if (t >= 0) {
       do {
-        s = status[t];
+        s = status[stride * t];
       } while ((s >> 62) == 0);
     }
     const unsigned incl = __ballot_sync(0xffffffffu, (s >> 62) == 2);
@@ -89,7 +92,7 @@ __device__ inline unsigned long long tile_lookback(
     excl += v;
     if (incl) break;
   }
-  if (lane == 0) status[tile] = kTileInclusive | (excl + count);
+  if (lane == 0) status[stride * tile] = kTileInclusive | (excl + count);
   return excl;
 }
 

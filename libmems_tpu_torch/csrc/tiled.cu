@@ -14,17 +14,30 @@
 // buffers hold the real counts, and the caller cuts the rows into blocks
 // whose responses stay under a bound.
 //
-// K29 (lm_tiled_count + lm_tiled_requests): each request's span start in
-// the padded global space (ops/extend.py:235-239), its owner clip(start /
-// S, 0, n_dev - 1) and its slot, the rank among the requests to that owner
-// in (row, genome) order.  Bound: bytes (the rows' state read, the send
-// buffer written); the ranks make it two passes around a cumsum of the
-// per-tile counts: a tile of 256 requests counts its requests per owner
-// (pass 1), then ranks them within the tile with __match_any_sync and the
-// warps' counts (pass 2), so the rank is deterministic and no sort runs.
-// Requests past req_cap for one owner are not sent (the caller counts
-// them for a retry).
-//
+// K29 (lm_tiled_requests): each request's span start in the padded
+// global space (ops/extend.py:235-239), its owner clip(floor(start / S),
+// 0, n_dev - 1) and its slot, the rank among the requests to that owner
+// in (row, genome) order, in one pass.  Bound: bytes (the rows' state
+// read, the send buffer, `where` and the tally written).  The parent ran
+// two passes around a library cumsum of per-tile counts and read the
+// counts to the host between them and again after, per shard: two
+// stream syncs a shard a fetch.  Here a block takes a tile of kReqTile
+// requests by ticket, computes each request's owner and tile-local start
+// once (the owner from a reciprocal of S and one correction each way, no
+// 64-bit division), ranks them within the tile with __match_any_sync and
+// the warps' counts, and takes each owner's base from the earlier tiles
+// by a decoupled look-back over the n_dev per-owner counts
+// (csrc/scan.cuh, a warp an owner), so no pass waits on the host.  As
+// each owner's base is known before the totals of all owners, the send
+// buffer is owner-major, [n_dev, cap] with cap = min(req_cap, Rb * G)
+// (the JAX fetch's [n_dev, req_cap] buffer, bounded by the block's
+// requests); `where` holds (owner << 32) | slot.  The last tile writes
+// the tally: each owner's count (clamped to req_cap), the exclusive
+// offsets of those counts (where each owner's answer starts in the
+// concatenated answer, which K31 reads) and the requests past req_cap,
+// so one read of the tally a fetch serves the exchange, the owners'
+// answers and the retry.
+
 // K30 (lm_tiled_serve): the owner copies tile[s : s + C] for each received
 // tile-local offset s, a sentinel row for an offset outside its tile
 // (parallel/shard.py:572-577).  Bound: the answer's bytes written (about
@@ -85,6 +98,7 @@
 #include "chain.cuh"
 #include "common.cuh"
 #include "probe.cuh"
+#include "scan.cuh"
 
 namespace {
 
@@ -104,98 +118,139 @@ constexpr int kWarps = kThreads / 32;
 // block, a warp each
 constexpr int kRowWarps = kWarps;
 
+// K29's tile: kReqItems requests a thread, warp w of a tile owning
+// kReqWarpSpan consecutive requests, item j of lane l the request base +
+// 32 j + l (coalesced loads, one __match_any_sync a load, item order).
+constexpr int kReqItems = 8;
+constexpr int kReqWarpSpan = 32 * kReqItems;
+constexpr int kReqTile = kThreads * kReqItems;
+
 // Owner of request i = (row rows[i / G], genome i % G) and its tile-local
-// span start; owner -1 where the genome is absent from the row.
+// span start; owner -1 where the genome is absent from the row.  inv_S =
+// 1 / S rounded: the owner's estimate is off by at most one either way
+// for |start| below 2^52, and the corrections make it exact.
 struct Request {
   int owner;
   int64_t local;
 };
 
 __device__ __forceinline__ Request request_of(
-    int64_t i, int G, const int64_t* rows, const int* lefts,
+    unsigned i, int G, const int64_t* rows, const int* lefts,
     const int* lengths, const uint8_t* present, const uint8_t* is_fwd,
     const int* gen_off, int side, int C, int seed_len, int64_t big,
-    int64_t S, int n_dev) {
-  const int64_t r = rows[i / G];
-  const int g = (int)(i % G);
+    int64_t S, double inv_S, int n_dev) {
+  const unsigned q = i / (unsigned)G;
+  const int g = (int)(i - q * (unsigned)G);
+  const int64_t r = rows[q];
   const int64_t k = r * G + g;
-  Request q{-1, 0};
-  if (!present[k]) return q;
+  Request out{-1, 0};
+  if (!present[k]) return out;
   const bool back = side == 0 ? is_fwd[k] != 0 : is_fwd[k] == 0;
   const int64_t l = lefts[k];
   const int64_t start =
       (back ? l - C : l + lengths[r] - seed_len + 1) + gen_off[g] + big;
-  int64_t o = start >= 0 ? start / S : -((-start + S - 1) / S);
+  int64_t o = (int64_t)floor((double)start * inv_S);
+  if (o * S > start) --o;
+  if ((o + 1) * S <= start) ++o;
   o = o < 0 ? 0 : (o > n_dev - 1 ? n_dev - 1 : o);
-  q.owner = (int)o;
-  q.local = start - o * S;
-  return q;
+  out.owner = (int)o;
+  out.local = start - o * S;
+  return out;
 }
 
-// Pass 1: requests per owner of each tile of kThreads requests.
-__global__ void __launch_bounds__(kThreads) tiled_count_kernel(
-    int64_t n, int G, const int64_t* __restrict__ rows,
-    const int* __restrict__ lefts, const int* __restrict__ lengths,
-    const uint8_t* __restrict__ present, const uint8_t* __restrict__ is_fwd,
-    const int* __restrict__ gen_off, int side, int C, int seed_len,
-    int64_t big, int64_t S, int n_dev, int* __restrict__ tile_counts) {
-  extern __shared__ int s_cnt[];
-  for (int o = threadIdx.x; o < n_dev; o += blockDim.x) s_cnt[o] = 0;
-  __syncthreads();
-  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (i < n) {
-    const Request q = request_of(i, G, rows, lefts, lengths, present, is_fwd,
-                                 gen_off, side, C, seed_len, big, S, n_dev);
-    if (q.owner >= 0) atomicAdd(&s_cnt[q.owner], 1);
-  }
-  __syncthreads();
-  for (int o = threadIdx.x; o < n_dev; o += blockDim.x) {
-    tile_counts[(int64_t)blockIdx.x * n_dev + o] = s_cnt[o];
-  }
-}
-
-// Pass 2: slot = the tile's base for the owner (requests to it in earlier
-// tiles) + the rank within the tile; slots below req_cap are written to
-// the owner's segment of the send buffer (send_off[owner] + slot), and
-// where[i] points there; -1 for an absent genome or a request past
-// req_cap.
+// K29: a tile of kReqTile requests a block.  Dynamic shared memory:
+// int64 base[n_dev] (the tile's first slot for each owner) and int
+// count[kWarps][n_dev] (each warp's requests to each owner).  scratch:
+// lm::kScanHeader + tiles * n_dev words, zeroed before the launch (the
+// ticket, then a status word a (tile, owner)).  tally: int64[2 n_dev +
+// 1], written by the last tile: min(total_o, req_cap) for each owner o,
+// their exclusive prefix, and the requests past req_cap.
 __global__ void __launch_bounds__(kThreads) tiled_requests_kernel(
-    int64_t n, int G, const int64_t* __restrict__ rows,
+    unsigned n, int G, const int64_t* __restrict__ rows,
     const int* __restrict__ lefts, const int* __restrict__ lengths,
     const uint8_t* __restrict__ present, const uint8_t* __restrict__ is_fwd,
     const int* __restrict__ gen_off, int side, int C, int seed_len,
-    int64_t big, int64_t S, int n_dev, const int64_t* __restrict__ tile_base,
-    const int64_t* __restrict__ send_off, int64_t req_cap,
-    int64_t* __restrict__ send, int64_t* __restrict__ where) {
-  extern __shared__ int s_warp[];  // [kWarps][n_dev]
-  for (int k = threadIdx.x; k < kWarps * n_dev; k += blockDim.x) s_warp[k] = 0;
-  __syncthreads();
-  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  Request q{-1, 0};
-  if (i < n) {
-    q = request_of(i, G, rows, lefts, lengths, present, is_fwd, gen_off, side,
-                   C, seed_len, big, S, n_dev);
-  }
+    int64_t big, int64_t S, double inv_S, int n_dev, int64_t req_cap,
+    int64_t cap, int64_t* __restrict__ send, int64_t* __restrict__ where,
+    unsigned long long* __restrict__ scratch, int64_t* __restrict__ tally) {
+  extern __shared__ int64_t s_base[];
+  int* s_cnt = reinterpret_cast<int*>(s_base + n_dev);  // [kWarps][n_dev]
+  for (int k = threadIdx.x; k < kWarps * n_dev; k += kThreads) s_cnt[k] = 0;
+  // the ticket's barrier also publishes the zeroed counts
+  const int64_t tile = lm::take_tile(scratch);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const unsigned same = __match_any_sync(0xffffffffu, q.owner);
-  const int in_warp = __popc(same & ((1u << lane) - 1u));
-  if (q.owner >= 0 && in_warp == 0) s_warp[warp * n_dev + q.owner] = __popc(same);
+  int* cnt = s_cnt + warp * n_dev;
+  const int64_t first = tile * kReqTile + (int64_t)warp * kReqWarpSpan + lane;
+  int owner[kReqItems];
+  int64_t local[kReqItems];
+  int rank[kReqItems];
+  // every item's loads first, all in flight together
+#pragma unroll
+  for (int j = 0; j < kReqItems; ++j) {
+    const int64_t i = first + 32 * j;
+    Request q{-1, 0};
+    if (i < n) {
+      q = request_of((unsigned)i, G, rows, lefts, lengths, present, is_fwd,
+                     gen_off, side, C, seed_len, big, S, inv_S, n_dev);
+    }
+    owner[j] = q.owner;
+    local[j] = q.local;
+  }
+  // the rank among this warp's requests to the owner so far: its earlier
+  // loads' count, then the lanes below in this one
+#pragma unroll
+  for (int j = 0; j < kReqItems; ++j) {
+    const int o = owner[j];
+    const unsigned same = __match_any_sync(lm_chain::kFull, o);
+    const int below = __popc(same & lm::lanes_below());
+    rank[j] = (o >= 0 ? cnt[o] : 0) + below;
+    __syncwarp();
+    if (o >= 0 && below == 0) cnt[o] += __popc(same);
+    __syncwarp();
+  }
   __syncthreads();
-  if (i >= n) return;
-  if (q.owner < 0) {
-    where[i] = -1;
-    return;
+  // each owner's base from the earlier tiles, a warp an owner
+  const int64_t tiles = ((int64_t)n + kReqTile - 1) / kReqTile;
+  for (int o = warp; o < n_dev; o += kWarps) {
+    unsigned long long own = 0;
+    for (int w = 0; w < kWarps; ++w) own += s_cnt[w * n_dev + o];
+    const unsigned long long excl =
+        lm::tile_lookback(scratch, tile, own, n_dev, o);
+    if (lane == 0) {
+      s_base[o] = (int64_t)excl;
+      if (tile == tiles - 1) tally[o] = (int64_t)(excl + own);
+    }
   }
-  int64_t slot = tile_base[(int64_t)blockIdx.x * n_dev + q.owner] + in_warp;
-  for (int w = 0; w < warp; ++w) slot += s_warp[w * n_dev + q.owner];
-  if (slot >= req_cap) {
-    where[i] = -1;
-    return;
+  __syncthreads();
+  if (tile == tiles - 1 && threadIdx.x == 0) {
+    int64_t off = 0, over = 0;
+    for (int o = 0; o < n_dev; ++o) {
+      const int64_t total = tally[o];
+      const int64_t sent = total < req_cap ? total : req_cap;
+      tally[o] = sent;
+      tally[n_dev + o] = off;
+      off += sent;
+      over += total - sent;
+    }
+    tally[2 * n_dev] = over;
   }
-  const int64_t at = send_off[q.owner] + slot;
-  send[at] = q.local;
-  where[i] = at;
+#pragma unroll
+  for (int j = 0; j < kReqItems; ++j) {
+    const int64_t i = first + 32 * j;
+    if (i >= n) break;
+    const int o = owner[j];
+    int64_t w = -1;
+    if (o >= 0) {
+      int64_t slot = s_base[o] + rank[j];
+      for (int v = 0; v < warp; ++v) slot += s_cnt[v * n_dev + o];
+      if (slot < req_cap) {
+        send[o * cap + slot] = local[j];
+        w = ((int64_t)o << 32) | slot;
+      }
+    }
+    where[i] = w;
+  }
 }
 
 // K30: out[j, c] = tile[offs[j] + c] for 0 <= offs[j] < S, else fill; a
@@ -239,14 +294,23 @@ cudaError_t serve_grid(int64_t n, unsigned* grid) {
   return cudaSuccess;
 }
 
+// A request's row of resp: resp_off[owner] + slot of w = (owner << 32) |
+// slot (K29's layout); -1 stays -1.
+__device__ __forceinline__ int64_t answer_row(int64_t w,
+                                              const int64_t* resp_off) {
+  if (w < 0) return w;
+  return resp_off[w >> 32] + (w & 0xffffffffll);
+}
+
 // A probe key from a fetched span: genome g's span of the block row b.
 struct SpanFetch {
   const long long* resp;
-  const int64_t* where;  // the row's [G] indices into resp, -1: none
+  const int64_t* where;  // the row's [G] requests, -1: none
+  const int64_t* resp_off;
   int C;
   long long fill;
   __device__ long long operator()(int g, int, int d, bool back) const {
-    const int64_t w = where[g];
+    const int64_t w = answer_row(where[g], resp_off);
     if (w < 0) return fill;
     return resp[w * C + (back ? C - d : d - 1)];
   }
@@ -278,7 +342,8 @@ __device__ __forceinline__ void prefetch_spans(const long long* resp,
 // kRowWarps + warp (row rows[b], active), genome g on lane g.
 __global__ void __launch_bounds__(kThreads) tiled_probe_warp_kernel(
     const long long* __restrict__ resp, const int64_t* __restrict__ where,
-    const int64_t* __restrict__ rows, int64_t Rb, int G,
+    const int64_t* __restrict__ resp_off, const int64_t* __restrict__ rows,
+    int64_t Rb, int G,
     int* __restrict__ lefts, int* __restrict__ lengths,
     const uint8_t* __restrict__ present, const uint8_t* __restrict__ is_fwd,
     const int* __restrict__ gen_cnt, uint8_t* __restrict__ active, int side,
@@ -296,7 +361,7 @@ __global__ void __launch_bounds__(kThreads) tiled_probe_warp_kernel(
     fwd = is_fwd[k] != 0;
     left = lefts[k];
     cnt = gen_cnt[lane];
-    wh = where[b * G + lane];
+    wh = answer_row(where[b * G + lane], resp_off);
   }
   const unsigned pmask = __ballot_sync(kFull, pres);
   if (!pmask) {
@@ -372,7 +437,8 @@ __global__ void __launch_bounds__(kThreads) tiled_probe_warp_kernel(
 // rows[b], active).
 __global__ void __launch_bounds__(kThreads) tiled_probe_kernel(
     const long long* __restrict__ resp, const int64_t* __restrict__ where,
-    const int64_t* __restrict__ rows, int G, int* __restrict__ lefts,
+    const int64_t* __restrict__ resp_off, const int64_t* __restrict__ rows,
+    int G, int* __restrict__ lefts,
     int* __restrict__ lengths, const uint8_t* __restrict__ present,
     const uint8_t* __restrict__ is_fwd, const int* __restrict__ gen_cnt,
     uint8_t* __restrict__ active, int side, int C, int seed_len,
@@ -407,7 +473,7 @@ __global__ void __launch_bounds__(kThreads) tiled_probe_kernel(
   const int d0 = tid * per + 1;
   const unsigned mbits = lm::probe_bits(
       d0, per, C, G, ref, side, len, seed_len, s_left, s_cnt, s_pres, s_fwd,
-      fill, SpanFetch{resp, where + (int64_t)b * G, C, fill});
+      fill, SpanFetch{resp, where + (int64_t)b * G, resp_off, C, fill});
   const int reach = lm::probe_reach(mbits, d0, per, seed_len, s_tmp);
   const bool more = lm::probe_advance(reach, len, C, G, side, seed_len,
                                       s_left, s_cnt, s_pres, s_fwd, s_tmp);
@@ -420,58 +486,49 @@ __global__ void __launch_bounds__(kThreads) tiled_probe_kernel(
 
 }  // namespace
 
-// K29 pass 1.  rows: int64[Rb] rows of the block (into lefts etc.);
-// lefts: int32[R, G]; lengths: int32[R]; present, is_fwd: uint8[R, G];
-// gen_off: int32[G]; tile_counts: int32[ceil(Rb * G / 256), n_dev].
-extern "C" int lm_tiled_count(const void* rows, int64_t Rb, int G,
-                              const void* lefts, const void* lengths,
-                              const void* present, const void* is_fwd,
-                              const void* gen_off, int side, int C,
-                              int seed_len, int64_t big, int64_t S, int n_dev,
-                              void* tile_counts, void* stream) {
-  const int64_t n = Rb * G;
-  if (G < 1 || n_dev < 1 || S < 1) return (int)cudaErrorInvalidValue;
-  if (n > 0) {
-    const size_t smem = (size_t)n_dev * sizeof(int);
-    const cudaError_t err = lm::allow_dyn_smem(tiled_count_kernel, smem);
-    if (err != cudaSuccess) return (int)err;
-    LM_LAUNCH(tiled_count_kernel, (unsigned)((n + kThreads - 1) / kThreads),
-              kThreads, smem, (cudaStream_t)stream, n, G,
-              (const int64_t*)rows, (const int*)lefts, (const int*)lengths,
-              (const uint8_t*)present, (const uint8_t*)is_fwd,
-              (const int*)gen_off, side, C, seed_len, big, S, n_dev,
-              (int*)tile_counts);
-  }
-  return (int)cudaGetLastError();
+// int64 words of K29's scratch for Rb * G = n requests to n_dev owners.
+extern "C" int64_t lm_tiled_request_scratch_words(int64_t n, int n_dev) {
+  return lm::kScanHeader + (n + kReqTile - 1) / kReqTile * n_dev;
 }
 
-// K29 pass 2.  tile_base: int64[tiles, n_dev] exclusive prefix over tiles
-// of tile_counts; send_off: int64[n_dev] each owner's first slot in send
-// (exclusive prefix of min(count, req_cap)); send: int64[sum of those];
-// where: int64[Rb, G].
+// K29.  rows: int64[Rb] rows of the block (into lefts etc.); lefts:
+// int32[R, G]; lengths: int32[R]; present, is_fwd: uint8[R, G]; gen_off:
+// int32[G]; send: int64[n_dev, cap], cap = min(req_cap, Rb * G), owner
+// o's first tally[o] entries written; where: int64[Rb, G], (owner << 32)
+// | slot, -1 for an absent genome or a request past req_cap; scratch:
+// int64[lm_tiled_request_scratch_words(Rb * G, n_dev)], zeroed here;
+// tally: int64[2 n_dev + 1] (counts, their exclusive offsets, the
+// requests past req_cap).  Rb * G below 2^31, Rb > 0.
 extern "C" int lm_tiled_requests(const void* rows, int64_t Rb, int G,
                                  const void* lefts, const void* lengths,
                                  const void* present, const void* is_fwd,
                                  const void* gen_off, int side, int C,
                                  int seed_len, int64_t big, int64_t S,
-                                 int n_dev, const void* tile_base,
-                                 const void* send_off, int64_t req_cap,
-                                 void* send, void* where, void* stream) {
+                                 int n_dev, int64_t req_cap, int64_t cap,
+                                 void* send, void* where, void* scratch,
+                                 void* tally, void* stream) {
   const int64_t n = Rb * G;
-  if (G < 1 || n_dev < 1 || S < 1) return (int)cudaErrorInvalidValue;
-  if (n > 0) {
-    const size_t smem = (size_t)kWarps * n_dev * sizeof(int);
-    const cudaError_t err = lm::allow_dyn_smem(tiled_requests_kernel, smem);
-    if (err != cudaSuccess) return (int)err;
-    LM_LAUNCH(tiled_requests_kernel,
-              (unsigned)((n + kThreads - 1) / kThreads), kThreads, smem,
-              (cudaStream_t)stream, n, G, (const int64_t*)rows,
-              (const int*)lefts, (const int*)lengths, (const uint8_t*)present,
-              (const uint8_t*)is_fwd, (const int*)gen_off, side, C, seed_len,
-              big, S, n_dev, (const int64_t*)tile_base,
-              (const int64_t*)send_off, req_cap, (int64_t*)send,
-              (int64_t*)where);
+  if (G < 1 || n_dev < 1 || S < 1 || n < 1 || n > INT_MAX || req_cap < 0 ||
+      cap < (n < req_cap ? n : req_cap)) {
+    return (int)cudaErrorInvalidValue;
   }
+  const size_t smem = (size_t)n_dev * (sizeof(int64_t) + kWarps * sizeof(int));
+  cudaError_t err = cudaSuccess;
+  // past the 48 KB a block takes without asking (n_dev above 1,200)
+  if (smem > 48 * 1024) err = lm::allow_dyn_smem(tiled_requests_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaMemsetAsync(
+      scratch, 0,
+      (size_t)lm_tiled_request_scratch_words(n, n_dev) * sizeof(int64_t),
+      (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  LM_LAUNCH(tiled_requests_kernel, (unsigned)((n + kReqTile - 1) / kReqTile),
+            kThreads, smem, (cudaStream_t)stream, (unsigned)n, G,
+            (const int64_t*)rows, (const int*)lefts, (const int*)lengths,
+            (const uint8_t*)present, (const uint8_t*)is_fwd,
+            (const int*)gen_off, side, C, seed_len, big, S, 1.0 / (double)S,
+            n_dev, req_cap, cap, (int64_t*)send, (int64_t*)where,
+            (unsigned long long*)scratch, (int64_t*)tally);
   return (int)cudaGetLastError();
 }
 
@@ -501,14 +558,17 @@ extern "C" int64_t lm_tiled_probe_smem_limit() {
   return lm::max_dyn_smem(tiled_probe_kernel);
 }
 
-// K31.  resp: int64[n_resp, C]; where: int64[Rb, G]; rows: int64[Rb];
+// K31.  resp: int64[n_resp, C]; where: int64[Rb, G], a request's row of
+// resp resp_off[where >> 32] + (where & 0xffffffff) (K29's layout), -1
+// for none; resp_off: int64[n_dev]; rows: int64[Rb];
 // lefts: int32[R, G], lengths: int32[R], active: uint8[R] updated in
 // place for the block's rows; present, is_fwd: uint8[R, G]; gen_cnt:
 // int32[G].  C <= 32 * 256.  Rows of at most lm_extend_warp_genomes()
 // genomes take the warp route, wider rows the block route (row state in
 // shared memory, at most lm_tiled_probe_smem_limit() bytes).
 extern "C" int lm_tiled_probe(const void* resp, const void* where,
-                              const void* rows, int64_t Rb, int G,
+                              const void* resp_off, const void* rows,
+                              int64_t Rb, int G,
                               void* lefts, void* lengths, const void* present,
                               const void* is_fwd, const void* gen_cnt,
                               void* active, int side, int C, int seed_len,
@@ -518,7 +578,8 @@ extern "C" int lm_tiled_probe(const void* resp, const void* where,
     LM_LAUNCH(tiled_probe_warp_kernel,
               (unsigned)((Rb + kRowWarps - 1) / kRowWarps), kThreads, 0,
               (cudaStream_t)stream, (const long long*)resp,
-              (const int64_t*)where, (const int64_t*)rows, Rb, G, (int*)lefts,
+              (const int64_t*)where, (const int64_t*)resp_off,
+              (const int64_t*)rows, Rb, G, (int*)lefts,
               (int*)lengths, (const uint8_t*)present, (const uint8_t*)is_fwd,
               (const int*)gen_cnt, (uint8_t*)active, side, C, seed_len,
               (long long)fill);
@@ -528,7 +589,8 @@ extern "C" int lm_tiled_probe(const void* resp, const void* where,
     if (err != cudaSuccess) return (int)err;
     LM_LAUNCH(tiled_probe_kernel, (unsigned)Rb, kThreads, (size_t)smem,
               (cudaStream_t)stream, (const long long*)resp,
-              (const int64_t*)where, (const int64_t*)rows, G, (int*)lefts,
+              (const int64_t*)where, (const int64_t*)resp_off,
+              (const int64_t*)rows, G, (int*)lefts,
               (int*)lengths, (const uint8_t*)present, (const uint8_t*)is_fwd,
               (const int*)gen_cnt, (uint8_t*)active, side, C, seed_len,
               (long long)fill);

@@ -93,7 +93,8 @@ _SIGNATURES = {
     "lm_hmm_fb_rows": ([_P, _P, _P, _I, _L, _P, ctypes.c_double] + [_P] * 5,
                        _I),
     "lm_hmm_step_cycles": ([_P, _I, _L, _P, _P, _P, _P], _I),
-    "lm_hmm_viterbi": ([_P, _P, _I, _I, _P, _P, _P, _P], _I),
+    "lm_hmm_viterbi_rows": ([_P, _P, _P, _I, _L] + [_P] * 4, _I),
+    "lm_hmm_viterbi_step_cycles": ([_P, _I] + [_P] * 5, _I),
     "lm_hmm_bw": ([_P, _P, _I, _I, _P] + [_P] * 5, _I),
     "lm_gotoh_scratch_bytes": ([_I] * 6, _L),
     "lm_gotoh_fits": ([_I, _P], _I),
@@ -106,16 +107,15 @@ _SIGNATURES = {
     "lm_shard_candidates": ([_P] * 6 + [_L, _L, _I] + [_P] * 5, _I),
     "lm_dedup_starts": ([_P] * 3 + [_L, _I, _P, _P], _I),
     "lm_dedup_flags": ([_P] * 4 + [_L, _I] + [_P] * 4, _I),
-    "lm_tiled_count": ([_P, _L, _I] + [_P] * 5 + [_I, _I, _I, _L, _L, _I,
-                                                   _P, _P], _I),
+    "lm_tiled_request_scratch_words": ([_L, _I], _L),
     "lm_tiled_requests": ([_P, _L, _I] + [_P] * 5 + [_I, _I, _I, _L, _L, _I,
-                                                      _P, _P, _L, _P, _P,
-                                                      _P], _I),
+                                                      _L, _L] + [_P] * 5,
+                          _I),
     "lm_tiled_serve": ([_P, _L, _P, _L, _I, _L, _P, _P], _I),
     "lm_tiled_probe_row_bytes": ([_I], _L),
     "lm_tiled_probe_smem_limit": ([], _L),
-    "lm_tiled_probe": ([_P, _P, _P, _L, _I] + [_P] * 6 + [_I, _I, _I, _L,
-                                                         _P], _I),
+    "lm_tiled_probe": ([_P, _P, _P, _P, _L, _I] + [_P] * 6 + [_I, _I, _I,
+                                                             _L, _P], _I),
     "lm_error_string": ([_I], ctypes.c_char_p),
 }
 

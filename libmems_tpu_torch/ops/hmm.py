@@ -42,9 +42,11 @@ its route and its arithmetic depend on its own length alone.  A launch
 holds at most FB_MAX_ELEMS columns: the sequential route splits its
 rows, longest first, and pack_batches each padded bucket.
 ``viterbi_homologous`` and ``baum_welch`` (the HMMoC Viterbi and
-Baum-Welch API, which libMems ships but never calls) run K20 (sequential
-at every length) and K21 (both routes) on pack_batches' padded batches,
-in f64.  Baum-Welch sums each sequence's expected counts in column
+Baum-Welch API, which libMems ships but never calls) run K20 and K21 in
+f64: K20 sequential at every length, one ragged launch a call
+(pack_ragged's layout, viterbi_ragged; max-plus needs no precision tier),
+K21 on both routes over pack_batches' padded batches.  Baum-Welch sums
+each sequence's expected counts in column
 order on the device (on the chunked route: per chunk in column order,
 then over the chunks in chunk order) and the sequences' sums in index
 order on the host, so the kernel and its plain version add in the same
@@ -845,32 +847,128 @@ def viterbi_path_plain(obs, lengths, mats):
     return path
 
 
+def viterbi_ragged_plain(obs, offsets, lengths, mats):
+    """Plain PyTorch version of K20 on a ragged batch (viterbi_ragged's
+    layout): the rows grouped by padded width, each group through
+    viterbi_path_plain.  Returns bool[total], False outside the rows and
+    past each row's length."""
+    total = obs.shape[0]
+    dev = obs.device
+    path = torch.zeros(total, dtype=torch.bool, device=dev)
+    groups: dict[int, list[int]] = {}
+    for r, n in enumerate(lengths.tolist()):
+        if n > 0:
+            groups.setdefault(padded_width(n), []).append(r)
+    for T, rows in groups.items():
+        rows = torch.tensor(rows, dtype=torch.int64, device=dev)
+        n = lengths[rows]
+        cols = torch.arange(T, device=dev)
+        valid = cols[None] < n[:, None].to(torch.int64)
+        idx = offsets[rows][:, None] + cols[None]
+        o = torch.where(valid, obs[idx.clamp(max=total - 1)], 0)
+        p = viterbi_path_plain(o.to(torch.uint8), n, mats)
+        path[idx[valid]] = p[valid]
+    return path
+
+
+def _launch_viterbi(obs, offsets, lengths, mats):
+    """K20 on the card over viterbi_ragged's layout (lm_hmm_viterbi_rows).
+    Returns bool[total]."""
+    total = obs.shape[0]
+    if obs.data_ptr() % FB_ROW_ALIGN or total % FB_ROW_ALIGN:
+        raise ValueError(f"obs must be {FB_ROW_ALIGN}-byte aligned and a "
+                         f"multiple of {FB_ROW_ALIGN} long")
+    ptr = torch.empty(total // 16, dtype=torch.int32, device=obs.device)
+    path = torch.empty(total, dtype=torch.uint8, device=obs.device)
+    cuda.check(cuda.library().lm_hmm_viterbi_rows(
+        obs.data_ptr(), offsets.data_ptr(), lengths.data_ptr(),
+        lengths.shape[0], total, _host_mats(mats), ptr.data_ptr(),
+        path.data_ptr(), cuda.stream(obs)), "lm_hmm_viterbi_rows")
+    return path.view(torch.bool)
+
+
+@cuda.launcher
+def viterbi_ragged(obs, offsets, lengths, mats):
+    """Most likely state per column of a ragged batch (K20 over
+    fb_ragged's layout, in one launch).
+
+    obs: uint8[total] symbols 0..7, 16-byte aligned, total a multiple of
+    FB_ROW_ALIGN; offsets: int64[N], ascending multiples of FB_ROW_ALIGN,
+    row r's symbols at obs[offsets[r]:offsets[r] + lengths[r]] and its
+    span (the length rounded up to FB_ROW_ALIGN) below the next row's
+    offset (the last row's below total); lengths: int32[N]; mats as for
+    fb_posterior.  Rows longest first keep a warp's rows alike (the
+    launch lasts as long as its longest row).  Returns bool[total], True
+    = homologous, False past each row's length and between rows.  CPU
+    tensors take the plain version; CUDA tensors launch K20 (a thread a
+    row, every byte of the layout written)."""
+    if obs.device.type == "cpu":
+        return viterbi_ragged_plain(obs, offsets, lengths, mats)
+    dev = obs.device
+    N = lengths.shape[0]
+    cuda.require(obs, "obs", torch.uint8, dev, (obs.shape[0],))
+    cuda.require(offsets, "offsets", torch.int64, dev, (N,))
+    cuda.require(lengths, "lengths", torch.int32, dev, (N,))
+    path = _launch_viterbi(obs, offsets, lengths, mats)
+    viterbi_ragged.launches += 1
+    return path
+
+
+viterbi_ragged.launches = 0
+
+
 @cuda.launcher
 def viterbi_path(obs, lengths, mats):
     """Most likely state per column of a padded batch.
 
-    obs: uint8[B, T] symbols 0..7; lengths: int32[B] (1..T); mats as for
+    obs: uint8[B, T] symbols 0..7; lengths: int32[B] (0..T); mats as for
     fb_posterior.  Returns bool[B, T], True = homologous, False at or
     past each row's length.  CPU tensors take the plain version; CUDA
-    tensors launch K20."""
+    tensors launch K20 as viterbi_ragged does, the rows at offsets r x S
+    (S = T rounded up to FB_ROW_ALIGN; the rows are copied to that
+    stride only where T or obs's address is not aligned)."""
     if obs.device.type == "cpu":
         return viterbi_path_plain(obs, lengths, mats)
     dev = obs.device
     B, T = obs.shape
     cuda.require(obs, "obs", torch.uint8, dev, (B, T))
     cuda.require(lengths, "lengths", torch.int32, dev, (B,))
-    host = _host_mats(mats)
-    ptr = torch.empty((B, T), dtype=torch.uint8, device=dev)
-    path = torch.zeros((B, T), dtype=torch.uint8, device=dev)
-    lib = cuda.library()
-    cuda.check(lib.lm_hmm_viterbi(
-        obs.data_ptr(), lengths.data_ptr(), B, T, host, ptr.data_ptr(),
-        path.data_ptr(), cuda.stream(obs)), "lm_hmm_viterbi")
+    S = _round_up(T, FB_ROW_ALIGN)
+    rows = obs
+    if S != T or obs.data_ptr() % FB_ROW_ALIGN:
+        rows = torch.zeros((B, S), dtype=torch.uint8, device=dev)
+        rows[:, :T] = obs
+    offsets = torch.arange(B, dtype=torch.int64, device=dev) * S
+    path = _launch_viterbi(rows.reshape(-1), offsets, lengths,
+                           mats).view(B, S)
     viterbi_path.launches += 1
-    return path.to(torch.bool)
+    return path if S == T else path[:, :T].contiguous()
 
 
 viterbi_path.launches = 0
+
+
+@cuda.launcher
+def viterbi_step_cycles(row, mats):
+    """A measurement on the card, no path's: the cycles of one column of
+    K20 on `row` (uint8[L] symbols on the card, L >= 2), by clock64:
+    (the forward pass, the walk back), each a step."""
+    if row.device.type != "cuda":
+        raise ValueError("viterbi_step_cycles measures the card")
+    dev = row.device
+    L = row.shape[0]
+    if L < 2:
+        raise ValueError("viterbi_step_cycles needs two columns or more")
+    S = _round_up(L, FB_ROW_ALIGN)
+    obs = torch.zeros(S, dtype=torch.uint8, device=dev)
+    obs[:L] = row
+    ptr = torch.empty(S // 16, dtype=torch.int32, device=dev)
+    path = torch.empty(S, dtype=torch.uint8, device=dev)
+    cycles = torch.zeros(2, dtype=torch.int64, device=dev)
+    cuda.check(cuda.library().lm_hmm_viterbi_step_cycles(
+        obs.data_ptr(), L, _host_mats(mats), ptr.data_ptr(), path.data_ptr(),
+        cycles.data_ptr(), cuda.stream(obs)), "lm_hmm_viterbi_step_cycles")
+    return tuple(c / (L - 1) for c in cycles.tolist())
 
 
 @cuda.entry(cuda.device_arg)
@@ -879,18 +977,19 @@ def viterbi_homologous(sequences: list[np.ndarray],
                        device="cuda") -> list[np.ndarray]:
     """Most-likely state path per column (True = homologous) for a batch
     of encoded symbol sequences, on `device`: the Viterbi analog of
-    predict_homologous, bucketed by the JAX package's padded lengths."""
+    predict_homologous, every non-empty sequence in pack_ragged's
+    launches (one unless the call passes FB_MAX_ELEMS columns), one
+    upload and one download each."""
     dev = cuda.resolve_device(device)
     if params is None:
         params = hoxd_params()
     mats = log_matrices(params, dev)
     out: list = [np.zeros(0, dtype=bool)] * len(sequences)
-    for part, obs, lens in pack_batches(sequences):
-        path = viterbi_path(torch.from_numpy(obs).to(dev),
-                            torch.from_numpy(lens).to(dev), mats)
-        path = path.cpu().numpy()
-        for r, i in enumerate(part):
-            out[i] = path[r, :len(sequences[i])]
+    idxs = [i for i, s in enumerate(sequences) if len(s)]
+    for batch in pack_ragged(sequences, idxs):
+        path = viterbi_ragged(*batch.tensors(dev), mats).cpu().numpy()
+        for i, o in zip(batch.rows, batch.offsets.tolist()):
+            out[i] = path[o:o + len(sequences[i])]
     return out
 
 

@@ -11,8 +11,10 @@ each span start for its C keys:
 * ``tiled_requests`` (K29): for each present genome of each row of a
   block of active rows, the span start in the padded global space, its
   owner clip(start // S, 0, n_dev - 1) and its slot among the requests to
-  that owner in (row, genome) order; the send buffer of tile-local starts
-  grouped by owner, and the requests past req_cap counted;
+  that owner in (row, genome) order, in one launch with no host read; the
+  send buffer of tile-local starts, owner-major; the tally of each
+  owner's count, where its answer starts in the concatenated answer, and
+  the requests past req_cap, which the caller reads once a fetch;
 * ``tiled_serve`` (K30): the owner's copy of tile[s : s + C] for each
   received start s, the sentinel row for a start outside its tile, a
   warp a span with evict-first stores;
@@ -35,14 +37,35 @@ import torch
 from libmems_tpu_torch import cuda
 from libmems_tpu_torch.ops.extend import WARP_GENOMES, probe_advance
 
-_TILE = 256     # requests a tile of K29 (one thread block)
-
-
 class Requests(NamedTuple):
-    send: torch.Tensor      # int64[n_sent] tile-local starts, by owner
-    counts: list            # requests sent to each owner (n_dev ints)
-    where: torch.Tensor     # int64[Rb, G] index into send, -1: none
-    dropped: int            # requests past req_cap
+    """K29's output.  send: int64[n_dev, cap] tile-local starts, owner o's
+    first tally[o] filled in (row, genome) order; where: int64[Rb, G]
+    (owner << 32) | slot, -1 for none; tally: int64[2 n_dev + 1], each
+    owner's count (clamped to req_cap), their exclusive offsets, and the
+    requests past req_cap."""
+
+    send: torch.Tensor
+    where: torch.Tensor
+    tally: torch.Tensor
+
+    @property
+    def offsets(self) -> torch.Tensor:
+        """int64[n_dev]: where each owner's answer starts in the
+        concatenation of the answers in owner order (K31's resp_off)."""
+        n_dev = self.send.shape[0]
+        return self.tally[n_dev:2 * n_dev]
+
+
+def tally_rows(n: int, n_dev: int, device) -> torch.Tensor:
+    """int64[n, 2 n_dev + 1] on `device`, uninitialised: a tally row for
+    each of n launches of K29 (a buffer read to the host with one copy)."""
+    return torch.empty((n, 2 * n_dev + 1), dtype=torch.int64, device=device)
+
+
+def tally_counts(tally: list, n_dev: int):
+    """(counts to each owner, requests past req_cap) from a tally read to
+    the host."""
+    return tally[:n_dev], tally[2 * n_dev]
 
 
 def _span_starts(rows, lefts, lengths, present, is_fwd, gen_off, side: int,
@@ -60,8 +83,10 @@ def _span_starts(rows, lefts, lengths, present, is_fwd, gen_off, side: int,
 
 def tiled_requests_plain(rows, lefts, lengths, present, is_fwd, gen_off,
                          side: int, C: int, seed_len: int, big: int, S: int,
-                         n_dev: int, req_cap: int) -> Requests:
-    """Plain PyTorch version of K29: the slots by a per-owner cumsum."""
+                         n_dev: int, req_cap: int,
+                         tally=None) -> Requests:
+    """Plain PyTorch version of K29: the slots by a per-owner cumsum, the
+    layout of the kernel's (`tally`, if given, is filled too)."""
     dev = lefts.device
     start, asks = _span_starts(rows, lefts, lengths, present, is_fwd,
                                gen_off, side, C, seed_len, big)
@@ -70,23 +95,28 @@ def tiled_requests_plain(rows, lefts, lengths, present, is_fwd, gen_off,
     local = (start - owner * S).flatten()
     owner = torch.where(asks, owner, n_dev).flatten()
     hot = torch.nn.functional.one_hot(owner, n_dev + 1)[:, :n_dev]
-    rank = (torch.cumsum(hot, 0) - hot).gather(
+    slot = (torch.cumsum(hot, 0) - hot).gather(
         1, owner.clamp(max=n_dev - 1)[:, None]).squeeze(1)
     totals = hot.sum(0)
     sent = totals.clamp(max=req_cap)
-    send_off = torch.cumsum(sent, 0) - sent
-    ok = (owner < n_dev) & (rank < req_cap)
-    where = torch.where(ok, send_off[owner.clamp(max=n_dev - 1)] + rank, -1)
-    send = torch.empty(int(sent.sum()), dtype=torch.int64, device=dev)
-    send[where[ok]] = local[ok]
-    return Requests(send, sent.tolist(), where.view(start.shape),
-                    int((totals - sent).sum()))
+    ok = (owner < n_dev) & (slot < req_cap)
+    cap = min(req_cap, owner.shape[0])
+    send = torch.empty((n_dev, cap), dtype=torch.int64, device=dev)
+    send[owner[ok], slot[ok]] = local[ok]
+    where = torch.where(ok, owner * (1 << 32) + slot, -1)
+    t = torch.cat([sent, torch.cumsum(sent, 0) - sent,
+                   (totals - sent).sum().view(1)])
+    if tally is None:
+        tally = t
+    else:
+        tally.copy_(t)
+    return Requests(send, where.view(start.shape), tally)
 
 
 @cuda.launcher
 def tiled_requests(rows, lefts, lengths, present, is_fwd, gen_off,
                    side: int, C: int, seed_len: int, big: int, S: int,
-                   n_dev: int, req_cap: int) -> Requests:
+                   n_dev: int, req_cap: int, tally=None) -> Requests:
     """Span requests of a block of rows, grouped by the owner of their
     start.
 
@@ -94,16 +124,21 @@ def tiled_requests(rows, lefts, lengths, present, is_fwd, gen_off,
     lengths int32[R], present and is_fwd bool[R, G]; gen_off int32[G] the
     genomes' offsets in the table; side 0 or 1; C the probe width; big the
     sentinel padding before the table; S the tile size; req_cap the
-    requests one owner takes.  Returns the tile-local starts sent to each
-    owner in (row, genome) order, their counts, each request's index into
-    the send buffer (-1 for an absent genome or a request past req_cap)
-    and the number past req_cap.  CPU tensors take the plain version;
-    CUDA tensors launch K29 (two passes around a cumsum of its tiles'
-    counts), except for an empty block (nothing launched)."""
+    requests one owner takes; tally: int64[2 n_dev + 1] on the device to
+    write the tally into (a row of `tally_rows`, which the caller reads
+    once for every shard), or None for a new one.  Returns the tile-local starts
+    sent to each owner in (row, genome) order, owner-major
+    (int64[n_dev, min(req_cap, Rb * G)]), each request's (owner << 32) |
+    slot (-1 for an absent genome or a request past req_cap), and the
+    tally: each owner's count, their exclusive offsets and the requests
+    past req_cap.  Nothing is read to the host.  CPU tensors take the
+    plain version; CUDA tensors launch K29 (one pass, a decoupled
+    look-back between its tiles), except for an empty block (nothing
+    launched, a zero tally)."""
     if lefts.device.type == "cpu":
         return tiled_requests_plain(rows, lefts, lengths, present, is_fwd,
                                     gen_off, side, C, seed_len, big, S,
-                                    n_dev, req_cap)
+                                    n_dev, req_cap, tally)
     dev = lefts.device
     R, G = lefts.shape
     Rb = rows.shape[0]
@@ -113,34 +148,29 @@ def tiled_requests(rows, lefts, lengths, present, is_fwd, gen_off,
     cuda.require(present, "present", torch.bool, dev, (R, G))
     cuda.require(is_fwd, "is_fwd", torch.bool, dev, (R, G))
     cuda.require(gen_off, "gen_off", torch.int32, dev, (G,))
+    if tally is None:
+        tally = tally_rows(1, n_dev, dev)[0]
+    cuda.require(tally, "tally", torch.int64, dev, (2 * n_dev + 1,))
+    n = Rb * G
+    cap = min(req_cap, n)
+    send = torch.empty((n_dev, cap), dtype=torch.int64, device=dev)
     where = torch.empty((Rb, G), dtype=torch.int64, device=dev)
     if Rb == 0:
-        return Requests(torch.empty(0, dtype=torch.int64, device=dev),
-                        [0] * n_dev, where, 0)
+        tally.zero_()
+        return Requests(send, where, tally)
+    if n >= 1 << 31:
+        raise ValueError(f"K29: {n} requests a block exceed 2^31 - 1")
     lib = cuda.library()
-    stream = cuda.stream(lefts)
-    tiles = -(-(Rb * G) // _TILE)
-    tile_counts = torch.empty((tiles, n_dev), dtype=torch.int32, device=dev)
-    cuda.check(lib.lm_tiled_count(
-        rows.data_ptr(), Rb, G, lefts.data_ptr(), lengths.data_ptr(),
-        present.data_ptr(), is_fwd.data_ptr(), gen_off.data_ptr(), side, C,
-        seed_len, big, S, n_dev, tile_counts.data_ptr(), stream),
-        "lm_tiled_count")
-    tc = tile_counts.to(torch.int64)
-    tile_base = torch.cumsum(tc, 0) - tc
-    totals = tc.sum(0)
-    sent = totals.clamp(max=req_cap)
-    send_off = torch.cumsum(sent, 0) - sent
-    counts = sent.tolist()
-    send = torch.empty(sum(counts), dtype=torch.int64, device=dev)
+    scratch = torch.empty(lib.lm_tiled_request_scratch_words(n, n_dev),
+                          dtype=torch.int64, device=dev)
     cuda.check(lib.lm_tiled_requests(
         rows.data_ptr(), Rb, G, lefts.data_ptr(), lengths.data_ptr(),
         present.data_ptr(), is_fwd.data_ptr(), gen_off.data_ptr(), side, C,
-        seed_len, big, S, n_dev, tile_base.data_ptr(), send_off.data_ptr(),
-        req_cap, send.data_ptr(), where.data_ptr(), stream),
-        "lm_tiled_requests")
+        seed_len, big, S, n_dev, req_cap, cap, send.data_ptr(),
+        where.data_ptr(), scratch.data_ptr(), tally.data_ptr(),
+        cuda.stream(lefts)), "lm_tiled_requests")
     tiled_requests.launches += 1
-    return Requests(send, counts, where, int((totals - sent).sum()))
+    return Requests(send, where, tally)
 
 
 tiled_requests.launches = 0
@@ -182,26 +212,27 @@ def tiled_serve(tile, S: int, offs, C: int, fill: int):
 tiled_serve.launches = 0
 
 
-def _spans(resp, where, C: int, fill: int):
+def _spans(resp, where, C: int, fill: int, resp_off):
     """int64[Rb, G, C] span of each request, the sentinel row where none
     was answered."""
     if resp.shape[0] == 0:
         return torch.full((*where.shape, C), fill, dtype=torch.int64,
                           device=where.device)
-    got = resp[where.clamp(min=0)]
+    w = where.clamp(min=0)
+    got = resp[resp_off[w >> 32] + (w & 0xFFFFFFFF)]
     return torch.where((where >= 0)[..., None], got, torch.full_like(got,
                                                                      fill))
 
 
 def tiled_probe_plain(resp, where, rows, lefts, lengths, present, is_fwd,
                       gen_cnt, active, side: int, C: int, seed_len: int,
-                      fill: int) -> None:
+                      fill: int, resp_off) -> None:
     """Plain PyTorch version of K31: ops.extend.probe_advance on the
     spans."""
     Rb, G = where.shape
     f = is_fwd[rows]
     back = f if side == 0 else ~f
-    spans = _spans(resp, where, C, fill)
+    spans = _spans(resp, where, C, fill, resp_off)
     keys_g = [torch.where(back[:, g:g + 1], spans[:, g].flip(1), spans[:, g])
               for g in range(G)]
     l2, n2, a2 = probe_advance(
@@ -215,11 +246,15 @@ def tiled_probe_plain(resp, where, rows, lefts, lengths, present, is_fwd,
 
 @cuda.launcher
 def tiled_probe(resp, where, rows, lefts, lengths, present, is_fwd, gen_cnt,
-                active, side: int, C: int, seed_len: int, fill: int) -> None:
+                active, side: int, C: int, seed_len: int, fill: int,
+                resp_off) -> None:
     """One probe round of a block of active rows on their fetched spans.
 
-    resp: int64[n, C] the answered spans in send order; where: int64[Rb,
-    G] each request's row of resp (-1: none, read as sentinel keys); rows:
+    resp: int64[n, C] the answered spans, the owners' answers one after
+    another; where: int64[Rb, G] each request's (owner << 32) | slot, its
+    row of resp resp_off[owner] + slot (K29's layout; -1: none, read as
+    sentinel keys); resp_off: int64[n_dev], where each owner's answer
+    starts in resp (K29's Requests.offsets); rows:
     int64[Rb] the block's rows of lefts int32[R, G], lengths int32[R] and
     active bool[R], updated in place; present, is_fwd: bool[R, G];
     gen_cnt: int32[G] window counts; every row of the block has a
@@ -232,7 +267,7 @@ def tiled_probe(resp, where, rows, lefts, lengths, present, is_fwd, gen_cnt,
     if lefts.device.type == "cpu":
         return tiled_probe_plain(resp, where, rows, lefts, lengths, present,
                                  is_fwd, gen_cnt, active, side, C, seed_len,
-                                 fill)
+                                 fill, resp_off)
     dev = lefts.device
     R, G = lefts.shape
     Rb = rows.shape[0]
@@ -245,13 +280,16 @@ def tiled_probe(resp, where, rows, lefts, lengths, present, is_fwd, gen_cnt,
     cuda.require(is_fwd, "is_fwd", torch.bool, dev, (R, G))
     cuda.require(gen_cnt, "gen_cnt", torch.int32, dev, (G,))
     cuda.require(active, "active", torch.bool, dev, (R,))
+    cuda.require(resp_off, "resp_off", torch.int64, dev,
+                 (resp_off.shape[0],))
     lib = cuda.library()
     if G > WARP_GENOMES and \
             lib.lm_tiled_probe_row_bytes(G) > lib.lm_tiled_probe_smem_limit():
         raise ValueError(f"K31: {G} genomes a row exceed the shared memory "
                          "a block may take")
     cuda.check(lib.lm_tiled_probe(
-        resp.data_ptr(), where.data_ptr(), rows.data_ptr(), Rb, G,
+        resp.data_ptr(), where.data_ptr(), resp_off.data_ptr(),
+        rows.data_ptr(), Rb, G,
         lefts.data_ptr(), lengths.data_ptr(), present.data_ptr(),
         is_fwd.data_ptr(), gen_cnt.data_ptr(), active.data_ptr(), side, C,
         seed_len, fill, cuda.stream(lefts)), "lm_tiled_probe")

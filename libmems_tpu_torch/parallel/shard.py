@@ -868,21 +868,32 @@ def _sharded_tiled_once(tiles: _Tiles, mesh: Mesh, capacity: int,
 def _probe_block(tiles: _Tiles, mesh: Mesh, rows, lefts, lengths, active,
                  blk, side: int, req_cap: int) -> int:
     """One fetch and probe round of a block of each local shard's active
-    rows (blk: their indices): requests (K29), the exchange of the
-    counts and the tile-local starts, the owners' spans (K30), their
+    rows (blk: their indices): requests (K29, every local shard's first),
+    one read of their tallies to the host (a copy a card), the exchange of
+    the counts and the tile-local starts, the owners' spans (K30), their
     return, and the round on them (K31), which updates lefts, lengths and
     active in place.  Returns this process's requests past req_cap."""
     n_dev, C, seed_len = mesh.size, tiles.C, tiles.seed_len
     devs = mesh.local_devices()
+    # the local shards' tallies, a row each, one buffer a card
+    on_card = {d: [i for i, x in enumerate(devs) if x == d]
+               for d in dict.fromkeys(devs)}
+    buf = {d: ops_tiled.tally_rows(len(ix), n_dev, d)
+           for d, ix in on_card.items()}
     reqs = []
     for i, dev in enumerate(devs):
         with cuda.on(dev):
             reqs.append(ops_tiled.tiled_requests(
                 blk[i], lefts[i], lengths[i], rows[i].present,
                 rows[i].is_fwd, tiles.gen_off[dev], side, C, seed_len,
-                tiles.big, tiles.S, n_dev, req_cap))
-    recv = _exchange([list(torch.split(q.send, q.counts)) for q in reqs],
-                     mesh)
+                tiles.big, tiles.S, n_dev, req_cap,
+                tally=buf[dev][on_card[dev].index(i)]))
+    tally = [None] * len(devs)
+    for d, ix in on_card.items():
+        for i, t in zip(ix, buf[d].cpu().tolist()):
+            tally[i] = ops_tiled.tally_counts(t, n_dev)
+    recv = _exchange([[q.send[o, :n] for o, n in enumerate(t[0])]
+                      for q, t in zip(reqs, tally)], mesh)
     answers = []
     for tile, got, dev in zip(tiles.tiles, recv, devs):
         with cuda.on(dev):
@@ -896,5 +907,5 @@ def _probe_block(tiles: _Tiles, mesh: Mesh, rows, lefts, lengths, active,
                 torch.cat(back[i]), reqs[i].where, blk[i], lefts[i],
                 lengths[i], rows[i].present, rows[i].is_fwd,
                 tiles.gen_cnt[dev], active[i], side, C, seed_len,
-                tiles.sentinel)
-    return sum(q.dropped for q in reqs)
+                tiles.sentinel, reqs[i].offsets)
+    return sum(t[1] for t in tally)

@@ -258,3 +258,30 @@ def span_rows(seed_len: int, C: int, G: int, side: int, rng_seed: int = 0):
     where = np.where(where >= 0, inv[np.maximum(where, 0)], -1)
     return (resp.astype(np.int64), where, block.astype(np.int64), lefts,
             lengths, present, is_fwd, cnt, active)
+
+
+def owner_major(resp, where, owners, rng_seed: int = 0):
+    """span_rows' answered spans regrouped as a fetch hands them to K31:
+    each answered request goes to one of `owners` (an int array of owner
+    indices to pick from, so that owners left out answer nothing), its
+    slot its rank among that owner's requests in (row, genome) order; the
+    owners' answers are concatenated in owner order.  Returns (resp
+    int64[n, C], where int64[Rb, G] (owner << 32) | slot or -1, resp_off
+    int64[n_dev] each owner's first row in resp) as numpy arrays, n_dev =
+    max(owners) + 1."""
+    rng = np.random.default_rng(rng_seed)
+    n_dev = int(np.max(owners)) + 1
+    flat = where.reshape(-1)
+    asked = np.flatnonzero(flat >= 0)
+    owner = rng.choice(owners, asked.shape[0])
+    slot = np.zeros_like(owner)
+    counts = np.zeros(n_dev, np.int64)
+    for k, o in enumerate(owner):
+        slot[k] = counts[o]
+        counts[o] += 1
+    resp_off = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int64)
+    out = np.empty_like(resp)
+    out[resp_off[owner] + slot] = resp[flat[asked]]
+    new = np.full(flat.shape, -1, np.int64)
+    new[asked] = (owner.astype(np.int64) << 32) | slot
+    return out, new.reshape(where.shape), resp_off

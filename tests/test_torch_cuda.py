@@ -2277,6 +2277,63 @@ def test_hmm_decode_kernels_equal_plain(dev, T):
                                rtol=1e-12, atol=0)
 
 
+def test_viterbi_ragged_kernel_equals_plain(dev):
+    """K20 over pack_ragged's layout against its plain version, exact:
+    rows of lengths 1, 15-17, 63-65 and longer, a row of a repeating
+    four-symbol unit, identity and gap-extend runs, a mixed row, and one
+    row of 2^17 + 5 columns; under GC-adapted parameters and under
+    parameters whose candidates all tie (the first argmax decides).  One
+    launch for the batch; viterbi_path on the same rows padded (T = 2^18,
+    and T = 1,000 for the short ones: a width the kernel's stride rounds
+    up) equals the plain version; viterbi_homologous on the card equals
+    CPU tensors."""
+    from libmems_tpu_torch.ops import hmm
+    rng = np.random.default_rng(20)
+    p = hmm.adapted_hoxd_params(0.45)
+    seqs = [rng.integers(0, 8, n).astype(np.uint8)
+            for n in (1, 15, 16, 17, 63, 64, 65, 200, 1000)]
+    seqs.append(np.tile(np.array([0, 6, 7, 2], np.uint8), 50))
+    seqs += [np.zeros(200, np.uint8), np.full(200, 7, np.uint8)]
+    seqs.append(np.concatenate([rng.integers(0, 2, 150),
+                                rng.choice(8, 120, p=p.emit_unrelated),
+                                rng.integers(0, 2, 90)]).astype(np.uint8))
+    n_long = (1 << 17) + 5
+    blocks = np.repeat(rng.random(n_long // 512 + 1) < 0.5, 512)[:n_long]
+    seqs.append(np.where(blocks, rng.integers(0, 2, n_long),
+                         rng.integers(0, 8, n_long)).astype(np.uint8))
+    tied = hmm.HmmParams(0.5, 0.25, 0.25, 0.5, 0.5, np.full(8, 1 / 8),
+                         np.full(8, 1 / 8))
+    batch, = hmm.pack_ragged(seqs, list(range(len(seqs))))
+    inside = torch.zeros(batch.total, dtype=torch.bool)
+    for r, o in enumerate(batch.offsets.tolist()):
+        inside[o:o + int(batch.lengths[r])] = True
+    for params in (p, tied):
+        mats = hmm.log_matrices(params, "cpu")
+        md = hmm.log_matrices(params, dev)
+        ref = hmm.viterbi_ragged(*batch.tensors("cpu"), mats)
+        n = hmm.viterbi_ragged.launches
+        got = hmm.viterbi_ragged(*batch.tensors(dev), md)
+        assert hmm.viterbi_ragged.launches == n + 1
+        assert torch.equal(got.cpu(), ref)
+        assert not ref[~inside].any()
+        assert bool(ref[inside].all()) == (params is tied)
+    mats = hmm.log_matrices(p, "cpu")
+    md = hmm.log_matrices(p, dev)
+    for T, rows in ((1 << 18, [len(seqs) - 1, 0, 5]),
+                    (1000, list(range(len(seqs) - 1)))):
+        obs = np.zeros((len(rows), T), np.uint8)
+        lens = np.array([len(seqs[i]) for i in rows], np.int32)
+        for r, i in enumerate(rows):
+            obs[r, :lens[r]] = seqs[i]
+        o, ln = torch.from_numpy(obs), torch.from_numpy(lens)
+        want = hmm.viterbi_path(o, ln, mats)
+        assert torch.equal(hmm.viterbi_path(o.to(dev), ln.to(dev),
+                                            md).cpu(), want)
+    for g, r in zip(hmm.viterbi_homologous(seqs, p, device=dev),
+                    hmm.viterbi_homologous(seqs, p, device="cpu")):
+        np.testing.assert_array_equal(g, r)
+
+
 @pytest.mark.parametrize("n", [(1 << 17) + 5, (1 << 20) + 3])
 def test_hmm_scan_kernels_equal_plain(dev, n):
     """K8 and K21 on the chunked route (padded widths from FB_SCAN_MIN_T
@@ -2660,12 +2717,17 @@ def test_tiled_request_and_serve_kernels_equal_plain(dev, G, n_dev, req_cap):
         args = [rows, lefts, lengths, present, is_fwd, gen_off, side, C, 15,
                 C, S, n_dev, req_cap]
         ref = tiled.tiled_requests_plain(*args)
+        n = tiled.tiled_requests.launches
         got = tiled.tiled_requests(*[a.to(dev) if isinstance(a, torch.Tensor)
                                      else a for a in args])
-        assert torch.equal(got.send.cpu(), ref.send)
+        assert tiled.tiled_requests.launches == n + 1
+        counts, dropped = tiled.tally_counts(ref.tally.tolist(), n_dev)
+        assert torch.equal(got.tally.cpu(), ref.tally)
+        assert got.send.shape == ref.send.shape
+        for o, c in enumerate(counts):
+            assert torch.equal(got.send[o, :c].cpu(), ref.send[o, :c])
         assert torch.equal(got.where.cpu(), ref.where)
-        assert got.counts == ref.counts and got.dropped == ref.dropped
-        assert (ref.dropped > 0) == (req_cap < 1000)
+        assert (dropped > 0) == (req_cap < 1000)
     tile = torch.from_numpy(rng.integers(-2**62, 2**62, S + C + 128))
     offs = torch.from_numpy(rng.integers(-5, S + 5, 3_000))
     ref = tiled.tiled_serve_plain(tile, S, offs, C, -1)
@@ -2699,30 +2761,39 @@ SPAN_SHAPES = [(15, 15), (15, 33), (15, 512), (15, 520), (21, 21), (21, 33),
                (21, 512), (21, 520), (40, 40), (40, 512), (40, 520)]
 
 
+@pytest.mark.parametrize("owners", [1, 3])
 @pytest.mark.parametrize("side", [0, 1])
 @pytest.mark.parametrize("G", [2, 3, 32, 33])
-def test_tiled_probe_kernel_span_rows_equal_plain(dev, G, side):
+def test_tiled_probe_kernel_span_rows_equal_plain(dev, G, side, owners):
     """K31 against its plain version, bit for bit, on extend_rows'
     span_rows: planted gaps at ballot-word edges and the round's last
     offsets, probe positions leaving their genome, sentinels, absent
     genomes and dropped requests.  G = 32 is the warp route's widest row,
     G = 33 the block route's narrowest; rows outside the block stay as
-    they are; one launch a call."""
+    they are; one launch a call.  With three owners, `where` points into
+    several owners' answers at non-zero offsets (extend_rows.owner_major:
+    owners 0, 1 and 3 answer, the empty owner 2 between them)."""
     from libmems_tpu_torch.ops import tiled
     for seed_len, C in SPAN_SHAPES:
-        resp, where, rows, *state = (torch.from_numpy(x) for x in
-                                     extend_rows.span_rows(
-                                         seed_len, C, G, side,
-                                         seed_len + C + G))
+        resp, where, rows, *state = extend_rows.span_rows(
+            seed_len, C, G, side, seed_len + C + G)
+        off = np.zeros(1, np.int64)     # one owner: where indexes resp
+        if owners > 1:
+            resp, where, off = extend_rows.owner_major(
+                resp, where, np.array([0, 1, 3]), C)
+            assert (off[1:] > 0).all()
+        resp, where, rows, off = (torch.from_numpy(x)
+                                  for x in (resp, where, rows, off))
+        state = [torch.from_numpy(x) for x in state]
         ref = [x.clone() for x in state]
         tiled.tiled_probe_plain(resp, where, rows, ref[0], ref[1], ref[2],
                                 ref[3], ref[4], ref[5], side, C, seed_len,
-                                -1)
+                                -1, off)
         got = [x.to(dev) for x in state]
         n = tiled.tiled_probe.launches
         tiled.tiled_probe(resp.to(dev), where.to(dev), rows.to(dev), got[0],
                           got[1], got[2], got[3], got[4], got[5], side, C,
-                          seed_len, -1)
+                          seed_len, -1, off.to(dev))
         assert tiled.tiled_probe.launches == n + 1
         for g, r, name in zip(got, ref, ("lefts", "lengths", "present",
                                          "is_fwd", "gen_cnt", "active")):
@@ -2759,7 +2830,8 @@ def test_sharded_find_mums_tiled_on_cuda_equals_find_mums(dev, monkeypatch):
         cpu = [x.cpu().clone() for x in (lefts, lengths, active)]
         tiled.tiled_probe_plain(resp.cpu(), where.cpu(), rows.cpu(), cpu[0],
                                 cpu[1], present.cpu(), is_fwd.cpu(),
-                                gen_cnt.cpu(), cpu[2], *rest)
+                                gen_cnt.cpu(), cpu[2], *rest[:-1],
+                                rest[-1].cpu())
         real(resp, where, rows, lefts, lengths, present, is_fwd, gen_cnt,
              active, *rest)
         seen.append(all(torch.equal(a.cpu(), b) for a, b in

@@ -81,6 +81,56 @@ def test_viterbi_path_plain_equals_jax_kernel_function():
     assert not got[~valid].any()
 
 
+def _decode_corpus(rng, p):
+    """Rows of lengths 1, 15-17, 63-65 and longer, a tie-heavy row (a
+    repeating four-symbol unit) and the rows of
+    test_viterbi_long_runs_equal_jax."""
+    seqs = [rng.integers(0, 8, n).astype(np.uint8)
+            for n in (1, 15, 16, 17, 63, 64, 65, 200, 1000)]
+    seqs.append(np.tile(np.array([0, 6, 7, 2], np.uint8), 50))
+    mixed = np.concatenate([rng.integers(0, 2, 150),
+                            rng.choice(8, 120, p=p.emit_unrelated),
+                            rng.integers(0, 2, 90)]).astype(np.uint8)
+    seqs += [np.zeros(200, np.uint8), np.full(200, 7, np.uint8), mixed,
+             mixed[:97]]
+    return seqs
+
+
+@pytest.mark.parametrize("tied", [False, True])
+def test_viterbi_ragged_plain_equals_jax_rows(tied):
+    """viterbi_ragged's plain version over pack_ragged's layout (rows
+    longest first, 16-byte aligned offsets) against _viterbi_path on each
+    row alone: equal on every column of a row, False between rows.  With
+    `tied`, transitions and emissions equal in both states, so every
+    column's candidates tie and the first argmax decides."""
+    rng = np.random.default_rng(12)
+    p = jhmm.adapted_hoxd_params(0.45)
+    seqs = _decode_corpus(rng, p)
+    if tied:
+        p = jhmm.HmmParams(0.5, 0.25, 0.25, 0.5, 0.5, np.full(8, 1 / 8),
+                           np.full(8, 1 / 8))
+    jm = [jnp.asarray(x) for x in jhmm._log_matrices(p)]
+    mats = hmm.log_matrices(p, "cpu")
+    batches = list(hmm.pack_ragged(seqs, list(range(len(seqs)))))
+    assert len(batches) == 1
+    batch = batches[0]
+    obs, offsets, lengths = batch.tensors("cpu")
+    got = hmm.viterbi_ragged(obs, offsets, lengths, mats).numpy()
+    inside = np.zeros(len(got), bool)
+    for i, o in zip(batch.rows, batch.offsets.tolist()):
+        n = len(seqs[i])
+        T = hmm.padded_width(n)
+        row = np.zeros((1, T), np.uint8)
+        row[0, :n] = seqs[i]
+        want = np.asarray(jhmm._viterbi_path(
+            jnp.asarray(row), jnp.asarray([n], jnp.int32), *jm))[0, :n]
+        np.testing.assert_array_equal(got[o:o + n], want)
+        inside[o:o + n] = True
+    assert not got[~inside].any()
+    if tied:
+        assert got[inside].all()
+
+
 @pytest.mark.parametrize("iterations", [1, 6])
 def test_baum_welch_equals_jax(iterations):
     """tests/test_hmm_decode.py's corpus (5 + 3 sequences) and one of 5

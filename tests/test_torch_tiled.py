@@ -8,6 +8,7 @@ equal."""
 import importlib.util
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,6 +18,7 @@ from libmems_tpu import seeds as jseeds
 from libmems_tpu.ops import extend as jextend
 from libmems_tpu.ops.extend import _fetch_spans, make_probe_round
 from libmems_tpu.parallel import shard as jsh
+from jax.sharding import PartitionSpec as P
 from libmems_tpu.sml import SortedMerList as JaxSML
 from libmems_tpu_torch.matchfind import find_mums
 from libmems_tpu_torch.ops import mums as ops_mums
@@ -142,6 +144,110 @@ def test_tiled_serve_equals_jax(monkeypatch, C, n):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def _jax_fetch(monkeypatch, tiles, starts, S, n_dev, req_cap, C):
+    """The JAX package's span fetch (_dist_fetch_factory) of every shard's
+    starts on its virtual CPU mesh: (the spans [n_dev, n, C], the requests
+    past req_cap a shard, the send rows [n_dev, n_dev, req_cap] each shard
+    built, -1 where empty), the send rows taken from the fetch's first
+    all_to_all."""
+    monkeypatch.setattr(jextend, "FETCH", "slice")
+    real = jax.lax.all_to_all
+    sent = []
+
+    def spy(x, *a, **k):
+        sent.append(x)
+        return real(x, *a, **k)
+    monkeypatch.setattr(jax.lax, "all_to_all", spy)
+
+    @jax.jit
+    @jax.shard_map(mesh=jsh.make_mesh(n_dev),
+                   in_specs=(P(jsh.SHARD_AXIS), P(jsh.SHARD_AXIS)),
+                   out_specs=(P(jsh.SHARD_AXIS), P(jsh.SHARD_AXIS),
+                              P(jsh.SHARD_AXIS)))
+    def run(tile, start):
+        fetch = jsh._dist_fetch_factory(tile[0], S, n_dev, req_cap)
+        spans, aux = fetch(start[0], C, jnp.zeros((), jnp.int32))
+        return spans[None], aux[None], sent[0][None]
+
+    out = run(jnp.asarray(tiles), jnp.asarray(starts))
+    return tuple(np.asarray(x) for x in out)
+
+
+@pytest.mark.parametrize("G,n_dev,req_cap", [(2, 4, 4096), (3, 4, 160),
+                                             (5, 3, 2048), (2, 8, 1024)])
+def test_request_layout_equals_jax_fetch(monkeypatch, G, n_dev, req_cap):
+    """K29's plain version on each of n_dev shards' rows against the JAX
+    fetch on the same requests (the present genomes of every row, in
+    (row, genome) order, on a shared presence pattern): each owner's
+    filled send row holds the JAX send row's starts as a sorted multiset
+    (tile-local here, global there; where req_cap drops requests, the
+    same count of them, all among the owner's requests), the same
+    requests past req_cap a shard, and the spans that `where` resolves to
+    through _spans and the tally's offsets equal the JAX fetch's spans on
+    every request both answered (all of them unless req_cap drops; a
+    dropped request reads the sentinel row in both)."""
+    rng = np.random.default_rng(G * n_dev + req_cap)
+    R, S, C, seed_len, fill = 600, 2048, 64, 15, -1
+    big = C
+    halo = C + 128
+    tiles = rng.integers(-2**62, 2**62, (n_dev, S + halo))
+    present = torch.from_numpy(rng.random((R, G)) < 0.85)
+    present[:, 0] = True
+    gen_off = torch.from_numpy((np.arange(G) * (n_dev * S // G)
+                                ).astype(np.int32))
+    rows = torch.arange(R)
+    reqs, starts = [], []
+    side = int(rng.integers(0, 2))
+    for _ in range(n_dev):
+        lefts = torch.from_numpy(rng.integers(
+            0, n_dev * S // G + 300, (R, G)).astype(np.int32))
+        lengths = torch.from_numpy(rng.integers(15, 200, R).astype(np.int32))
+        is_fwd = torch.from_numpy(rng.random((R, G)) < 0.5)
+        args = (rows, lefts, lengths, present, is_fwd, gen_off, side, C,
+                seed_len, big, S, n_dev, req_cap)
+        reqs.append(ops_tiled.tiled_requests_plain(*args))
+        start, asks = ops_tiled._span_starts(*args[:10])
+        starts.append(start[asks].numpy())
+    starts = np.stack(starts).astype(np.int32)
+    spans, over, send = _jax_fetch(monkeypatch, tiles, starts, S, n_dev,
+                                   req_cap, C)
+    tiles_t = [torch.from_numpy(t) for t in tiles]
+    dropped = 0
+    for s, q in enumerate(reqs):
+        counts, past = ops_tiled.tally_counts(q.tally.tolist(), n_dev)
+        assert past == over[s]
+        dropped += past
+        asked = starts[s]
+        owner = np.clip(asked // S, 0, n_dev - 1)
+        answers = []
+        for o in range(n_dev):
+            mine = q.send[o, :counts[o]].numpy() + o * S
+            theirs = send[s, o][send[s, o] != -1]
+            assert len(mine) == len(theirs) == min(req_cap,
+                                                   int((owner == o).sum()))
+            if past == 0:
+                np.testing.assert_array_equal(np.sort(mine), np.sort(theirs))
+            else:
+                pool = np.sort(asked[owner == o])
+                pos = np.searchsorted(pool, np.sort(mine))
+                assert (pool[np.minimum(pos, len(pool) - 1)]
+                        == np.sort(mine)).all()
+            answers.append(ops_tiled.tiled_serve_plain(
+                tiles_t[o], S, q.send[o, :counts[o]], C, fill))
+        got = ops_tiled._spans(torch.cat(answers), q.where, C, fill,
+                               q.offsets)[present].numpy()
+        ours = q.where[present].numpy() >= 0
+        if past == 0:
+            assert ours.all()
+            np.testing.assert_array_equal(got, spans[s])
+        else:
+            both = ours & (spans[s] != fill).any(axis=1)
+            assert both.sum() > 100
+            np.testing.assert_array_equal(got[both], spans[s][both])
+            assert (got[~ours] == fill).all()
+    assert (dropped > 0) == (req_cap < 200)
+
+
 @pytest.mark.parametrize("side", [0, 1])
 def test_probe_round_equals_jax(pair, side):
     """One probe round of every shard's rows through K29-K31's plain
@@ -207,7 +313,7 @@ def test_probe_round_on_span_rows_equals_jax(seed_len, C, G, side):
         torch.from_numpy(resp), torch.from_numpy(where),
         torch.from_numpy(rows), state[0], state[1], torch.from_numpy(present),
         torch.from_numpy(is_fwd), torch.from_numpy(cnt), state[2], side, C,
-        seed_len, -1)
+        seed_len, -1, torch.zeros(1, dtype=torch.int64))
     # the JAX round on the block's rows, its fetch handing each genome's
     # spans in turn (the sentinel row where no span was answered)
     spans = np.where((where >= 0)[..., None], resp[np.maximum(where, 0)],
@@ -232,6 +338,35 @@ def test_probe_round_on_span_rows_equals_jax(seed_len, C, G, side):
     a = np.asarray(a)
     assert a.any() and not a.all()
     assert (np.asarray(n) > lengths[rows]).any()
+
+
+@pytest.mark.parametrize("side", [0, 1])
+@pytest.mark.parametrize("G", [3, 33])
+def test_probe_plain_resolves_owner_offsets(G, side):
+    """K31's plain version on span_rows' spans regrouped by owner
+    (extend_rows.owner_major: three of four owners answer, each owner's
+    rows at a non-zero offset but the first's, the empty owner between
+    two others) gives the same round as on the spans in one owner's
+    answer."""
+    seed_len, C = 15, 512
+    resp, where, rows, lefts, lengths, present, is_fwd, cnt, active = \
+        extend_rows.span_rows(seed_len, C, G, side, seed_len + C + G)
+    resp2, where2, off2 = extend_rows.owner_major(resp, where,
+                                                  np.array([0, 1, 3]), G)
+    assert (off2[1:] > 0).all() and (where2 >> 32).max() == 3
+    out = []
+    for r, w, off in ((resp, where, np.zeros(1, np.int64)),
+                      (resp2, where2, off2)):
+        state = [torch.from_numpy(x.copy()) for x in (lefts, lengths, active)]
+        ops_tiled.tiled_probe_plain(
+            torch.from_numpy(r), torch.from_numpy(w), torch.from_numpy(rows),
+            state[0], state[1], torch.from_numpy(present),
+            torch.from_numpy(is_fwd), torch.from_numpy(cnt), state[2], side,
+            C, seed_len, -1, torch.from_numpy(off))
+        out.append(state)
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+    assert out[0][2].any() and not out[0][2].all()
 
 
 def test_sharded_find_mums_tiled_equals_jax(pair):
